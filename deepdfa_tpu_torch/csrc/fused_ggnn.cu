@@ -130,7 +130,8 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 // batch_np's padding edges are all sink -> sink), that row is loaded once
 // and added 32 times, in order, so the segment is bound by the add chain;
 // otherwise 8 row loads are issued before they are added. Either way every
-// message is added in edge-list order. Needs d % 4 == 0.
+// message is added in edge-list order. Needs d % 4 == 0: the wrapper pads
+// other widths with zero columns.
 __device__ __forceinline__ void aggregate_row_vec4(
     const float* __restrict__ msg, const int* __restrict__ senders, int beg,
     int end, int d, int lane, float* dst) {
@@ -188,28 +189,6 @@ __device__ __forceinline__ void aggregate_row_vec4(
   }
 }
 
-// The same sum for any width: lane keeps columns lane + 32 j of a block.
-__device__ __forceinline__ void aggregate_row(
-    const float* __restrict__ msg, const int* __restrict__ senders, int beg,
-    int end, int d, int lane, float* dst) {
-  for (int cb = 0; cb < d; cb += 128) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    bool live[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) live[j] = cb + lane + 32 * j < d;
-#pragma unroll 4
-    for (int e = beg; e < end; ++e) {
-      const float* src = msg + (size_t)senders[e] * d + cb + lane;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (live[j]) acc[j] += src[32 * j];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (live[j]) dst[cb + lane + 32 * j] = acc[j];
-  }
-}
-
 // One GRU round for kRows rows and kCols columns of h'.
 __global__ void __launch_bounds__(kThreads)
 gru_round_kernel(const float* __restrict__ h, const float* __restrict__ msg,
@@ -236,10 +215,7 @@ gru_round_kernel(const float* __restrict__ h, const float* __restrict__ msg,
     const int row = row0 + rr;
     const int beg = row < n ? row_ptr[row] : 0;
     const int end = row < n ? row_ptr[row + 1] : 0;
-    if ((d & 3) == 0)
-      aggregate_row_vec4(msg, senders, beg, end, d, lane, agg_s + rr * d);
-    else
-      aggregate_row(msg, senders, beg, end, d, lane, agg_s + rr * d);
+    aggregate_row_vec4(msg, senders, beg, end, d, lane, agg_s + rr * d);
   }
 
   // Both 3-gate products: thread (ty, tx) owns rows ty, ty + 8 and columns
@@ -352,6 +328,7 @@ int ggnn_gru_round(const float* h, const float* msg, const int* row_ptr,
                    const int* senders, const float* xw, const float* xb,
                    const float* hw, const float* hb, float* h_out, int n,
                    int d, void* stream) {
+  if (d % 4 != 0) return (int)cudaErrorInvalidValue;  // float4 edge sum
   const size_t smem = round_smem(d);
   cudaError_t err = allow_smem(gru_round_kernel, smem);
   if (err != cudaSuccess) return (int)err;

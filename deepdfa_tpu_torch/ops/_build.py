@@ -4,8 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``deepdfa_tpu_torch/_build/``
 (listed in ``.gitignore``). The library's file name carries a digest of the
 sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. :func:`build` starts one ``nvcc`` per source, all together.
-A failed build raises: there is no fallback.
+never loaded. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -16,10 +15,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load", "build_log"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -27,8 +25,6 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> nvcc's output (ptxas reports registers, shared memory and spills)
-build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -52,33 +48,23 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names) -> dict[str, float]:
-    """Compile every named source whose library is missing, one ``nvcc``
-    process each, all started together. Returns seconds per built source."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists. Returns nvcc's
+    output (ptxas reports registers, shared memory and spills), or "" when
+    the library was already built."""
+    target = _target(name)
+    if target.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, target, time.perf_counter())
-    seconds = {}
-    failed = []
-    for name, (proc, tmp, target, t0) in jobs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        build_log[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
-    return seconds
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -86,7 +72,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib

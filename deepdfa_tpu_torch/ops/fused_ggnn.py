@@ -85,16 +85,30 @@ def _check(code: int, what: str) -> None:
         raise RuntimeError(f"fused_ggnn: {what} launch failed: {msg} ({code})")
 
 
+def _pad_width(ew, eb, xw, xb, hw, hb, d: int, dp: int):
+    """The weights at width ``dp >= d``: zero rows and columns added to every
+    r|z|n block. A node state padded with zero columns keeps them at zero
+    through a round (their gates give ``h' = 0.5 * 0 + 0.5 * 0``)."""
+    p = dp - d
+    ew = torch.nn.functional.pad(ew, (0, p, 0, p))
+    eb = torch.nn.functional.pad(eb, (0, p))
+    gates = lambda w: torch.nn.functional.pad(
+        w.reshape(d, 3, d), (0, p, 0, 0, 0, p)).reshape(dp, 3 * dp)
+    bias = lambda b: torch.nn.functional.pad(b.reshape(3, d), (0, p)).reshape(-1)
+    return ew, eb, gates(xw), bias(xb), gates(hw), bias(hb)
+
+
 def fused_ggnn(h0, senders, receivers, ew, eb, xw, xb, hw, hb, *,
-               n_steps: int, edges_sorted: bool = True) -> torch.Tensor:
+               n_steps: int) -> torch.Tensor:
     """``n_steps`` GGNN rounds from node states ``h0 [N, D]``.
 
     ``senders``/``receivers``: ``[E]`` integer edge endpoints, sorted by
-    receiver (the ``batch_np`` contract); pass ``edges_sorted=False`` for a
-    hand-built list and the CUDA path sorts it stably first, which keeps
-    each receiver's messages in edge-list order. ``ew [D, D]``, ``eb [D]``:
-    the edge linear; ``xw``/``hw [D, 3D]``, ``xb``/``hb [3D]``: the fused
-    r|z|n GRU projections. Computes in float32; returns ``[N, D]``.
+    receiver (the ``batch_np`` contract, which the models check); each
+    receiver's messages are summed in edge-list order. ``ew [D, D]``,
+    ``eb [D]``: the edge linear; ``xw``/``hw [D, 3D]``, ``xb``/``hb [3D]``:
+    the fused r|z|n GRU projections. Computes in float32; returns ``[N, D]``.
+    On CUDA a width that is not a multiple of 4 runs padded with zero
+    columns to the next one (the edge sum reads rows as ``float4``).
     """
     global n_launches
     if h0.device.type == "cpu":
@@ -124,17 +138,18 @@ def fused_ggnn(h0, senders, receivers, ew, eb, xw, xb, hw, hb, *,
     if n_steps == 0 or n == 0 or d == 0:
         return h.clone()
     lib = _kernels()
-    if d > _max_width:
+    dp = -(-d // 4) * 4
+    if dp > _max_width:
         raise ValueError(f"fused_ggnn: width {d} exceeds the kernel's "
                          f"shared-memory limit of {_max_width}")
-    ew, eb, xw, xb, hw, hb = (t.to(torch.float32).contiguous()
+    ew, eb, xw, xb, hw, hb = (t.to(torch.float32)
                               for t in (ew, eb, xw, xb, hw, hb))
-    snd = senders.to(torch.int32)
-    rcv = receivers.to(torch.int32)
-    if not edges_sorted:
-        order = torch.argsort(rcv, stable=True)
-        snd, rcv = snd[order], rcv[order]
-    snd, rcv = snd.contiguous(), rcv.contiguous()
+    if dp != d:
+        ew, eb, xw, xb, hw, hb = _pad_width(ew, eb, xw, xb, hw, hb, d, dp)
+        h = torch.nn.functional.pad(h, (0, dp - d))
+    ew, eb, xw, xb, hw, hb = (t.contiguous() for t in (ew, eb, xw, xb, hw, hb))
+    snd = senders.to(torch.int32).contiguous()
+    rcv = receivers.to(torch.int32).contiguous()
 
     stream = torch.cuda.current_stream(h0.device).cuda_stream
     row_ptr = torch.empty(n + 1, dtype=torch.int32, device=h0.device)
@@ -149,12 +164,12 @@ def fused_ggnn(h0, senders, receivers, ew, eb, xw, xb, hw, hb, *,
         # ping-pong so that the last round writes into `out`
         nxt = out if (n_steps - 1 - t) % 2 == 0 else spare
         _check(lib.ggnn_linear(cur.data_ptr(), ew.data_ptr(), eb.data_ptr(),
-                               msg.data_ptr(), n, d, d, stream), "linear")
+                               msg.data_ptr(), n, dp, dp, stream), "linear")
         n_launches += 1
         _check(lib.ggnn_gru_round(
             cur.data_ptr(), msg.data_ptr(), row_ptr.data_ptr(),
             snd.data_ptr(), xw.data_ptr(), xb.data_ptr(), hw.data_ptr(),
-            hb.data_ptr(), nxt.data_ptr(), n, d, stream), "gru_round")
+            hb.data_ptr(), nxt.data_ptr(), n, dp, stream), "gru_round")
         n_launches += 1
         cur = nxt
-    return out
+    return out if dp == d else out[:, :d].contiguous()

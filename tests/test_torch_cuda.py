@@ -41,7 +41,7 @@ def _problem(rng, n, d, e, scale=0.1):
     (37, 96, 90),       # unpadded odd sizes
     (2048, 128, 8192),  # the first ladder bucket's shape
     (300, 200, 900),    # two column tiles
-    (60, 50, 150),      # width not a multiple of 4: the scalar edge sum
+    (60, 50, 150),      # width not a multiple of 4: padded to 52
 ])
 def test_kernel_matches_plain_version(cuda, n, d, e):
     args = _problem(np.random.default_rng(n + d), n, d, e)
@@ -62,9 +62,14 @@ def test_unsorted_edges_and_zero_steps(cuda):
     perm = torch.randperm(200, generator=torch.Generator().manual_seed(0))
     shuffled = list(args)
     shuffled[1], shuffled[2] = args[1][perm.cuda()], args[2][perm.cuda()]
+    # the kernel takes receiver-sorted edges: a stable sort of a hand-built
+    # list keeps each receiver's messages in their list order
+    order = torch.argsort(shuffled[2], stable=True)
+    resorted = list(shuffled)
+    resorted[1], resorted[2] = shuffled[1][order], shuffled[2][order]
     with torch.inference_mode():
-        got = tfg.fused_ggnn(*shuffled, n_steps=3, edges_sorted=False)
-        want = tfg.fused_ggnn_reference(*args, n_steps=3)
+        got = tfg.fused_ggnn(*resorted, n_steps=3)
+        want = tfg.fused_ggnn_reference(*shuffled, n_steps=3)
         same = tfg.fused_ggnn(*args, n_steps=0)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)

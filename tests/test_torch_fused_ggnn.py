@@ -94,10 +94,30 @@ def test_padding_sink_segment_of_batch_np():
 
 
 def test_unsorted_edges_match_reference():
-    args = _problem(np.random.default_rng(2), 30, 24, 70, sort=False)
-    got = tfg.fused_ggnn(*_torch(args), n_steps=2, edges_sorted=False).numpy()
+    """A hand-built edge list, sorted stably by receiver as the op requires,
+    gives what the JAX reference gives on the unsorted list."""
+    args = list(_problem(np.random.default_rng(2), 30, 24, 70, sort=False))
     ref = np.asarray(jfg._unrolled_reference(*args, 2, False))
+    order = np.argsort(args[2], kind="stable")
+    args[1], args[2] = args[1][order], args[2][order]
+    got = tfg.fused_ggnn(*_torch(args), n_steps=2).numpy()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d,dp", [(50, 52), (7, 8), (8, 12)])
+def test_width_padding_keeps_the_function(d, dp):
+    """The CUDA path pads a width to a multiple of 4 with zero columns and
+    zero weight rows per r|z|n block: the padded rounds, cut back to ``d``
+    columns, equal the unpadded ones, and the padded columns stay zero."""
+    args = _torch(_problem(np.random.default_rng(d), 23, d, 60))
+    want = tfg.fused_ggnn_reference(*args, n_steps=3)
+    h0, snd, rcv, *w = args
+    padded = tfg._pad_width(*w, d, dp)
+    got = tfg.fused_ggnn_reference(torch.nn.functional.pad(h0, (0, dp - d)),
+                                   snd, rcv, *padded, n_steps=3)
+    np.testing.assert_allclose(got[:, :d].numpy(), want.numpy(),
+                               atol=ATOL, rtol=RTOL)
+    assert not got[:, d:].any()
 
 
 def test_cpu_path_never_counts_kernel_launches():
