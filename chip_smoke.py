@@ -22,6 +22,29 @@ Each phase prints one JSON line; any failure exits non-zero.
    reset just before. The same requests scored by the segment layout on the
    card and by the fused layout's plain version on the CPU must agree
    within ``PROB_LIMIT``.
+4. train_kernel — the fused backward kernel (B2) against its plain version
+   at width 128 and 5 rounds at the three bucket shapes ``fit`` derives
+   for the synthetic corpus at 256 graphs per batch, on ``batch_np``
+   batches: max abs difference of dL/dh0 and of every weight gradient from
+   the plain version evaluated in float64, each within ``GRAD_LIMIT`` of
+   that gradient's largest magnitude (the float32 plain version's own
+   difference is reported beside it), bitwise
+   equality of two runs, CUDA-event times of the banked training forward,
+   the backward and the plain backward, the bound and the launches per
+   call.
+5. train — ``train.fit.fit`` of the golden model in the fused layout on the
+   card: the synthetic corpus, no undersampling, 256 graphs per batch,
+   derived buckets, 3 epochs (6 train steps at N = 16,768), with both
+   launch counts reset just before: steps/s, graphs/s, p50 step ms, launch
+   counts (forward launches = (train steps + eval batches) × 11, backward
+   launches = train steps × 32), finite final metrics. Then one train step
+   from one seed and batch, fused on the card against the segment layout on
+   the card and the fused layout on the CPU (loss, gradients and new
+   parameters within stated limits), and ``fit`` for 2 epochs plus
+   ``fit(resume=True)`` to 3 in a spawned process against the
+   uninterrupted run (max abs parameter difference within
+   ``RESUME_LIMIT``; bit-identity reported, and the difference between two
+   uninterrupted runs beside it).
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -32,22 +55,32 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
-from deepdfa_tpu_torch.data.graphs import batch_np
+from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
+                                      ExperimentConfig, GGNNConfig,
+                                      OptimConfig)
+from deepdfa_tpu_torch.data.graphs import batch_np, derive_buckets, to_device
+from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.ops import _build
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
 from deepdfa_tpu_torch.serve import (MicroBatcher, ScoringEngine, mega_bucket,
                                      serve_buckets)
+from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+from deepdfa_tpu_torch.train.fit import fit, load_corpus
+from deepdfa_tpu_torch.train.loop import Trainer
+from deepdfa_tpu_torch.train.metrics import ConfusionState
 
 # H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth (700 W)
 PEAK_FP32 = 67e12
@@ -57,7 +90,29 @@ PEAK_BYTES = 3.35e12
 # index_add_ adds with atomics in a varying order
 KERNEL_LIMIT = 1e-4
 PROB_LIMIT = 1e-4
+# backward kernel against its plain version evaluated in float64 on the same
+# inputs, relative to each gradient's largest magnitude: the kernel's float32
+# sums over five reverse rounds (the float32 plain version, whose cuBLAS sums
+# and index_add_ atomics err as much, is reported beside it)
+GRAD_LIMIT = 1e-4
+# one train step, fused on the card against the segment layout on the card
+# and against the fused layout on the CPU: loss and every gradient (relative
+# to its largest magnitude, see compare_steps) agree to float32 rounding.
+# AdamW's first step moves each parameter by lr times g/(|g| + eps): where
+# |g| is at rounding level (the pooling gate's bias, whose true gradient is
+# 0: softmax is shift-invariant) the two sides may move it by up to lr in
+# opposite directions, so the parameters are held to STEP_PARAM_LIMIT where
+# |g| is above STEP_GRAD_FLOOR, and to 2 lr everywhere
+STEP_LOSS_LIMIT = 1e-5
+STEP_GRAD_LIMIT = 1e-4
+STEP_GRAD_FLOOR = 1e-6
+STEP_PARAM_LIMIT = 1e-6
+# fit for 2 epochs + resume to 3 against 3 epochs on the card: the pooling's
+# index_add_ adds with atomics, so the runs may differ at rounding level,
+# and AdamW can turn a rounding-level gradient into a step of up to lr
+RESUME_LIMIT = 1e-2
 WIDTH, STEPS, MAX_BATCH, INPUT_DIM = 128, 5, 16, 1002
+TRAIN_GRAPHS = 256
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
 
 
@@ -232,20 +287,24 @@ def drive_batcher(engine, reqs, clients: int = 16):
     return probs, lat, wall
 
 
-def profile_window(engine, window) -> dict:
-    """Device time by kernel over one ``score_packed`` of ``window`` (after
-    the main path's counts were read), and the device's busy share of the
-    host's wall time for that call."""
+def profile_call(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (made after the main
+    path's counts were read), and the device's busy share of the host's
+    wall time for that call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.score_packed(window)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = {}
     for ev in prof.key_averages():
+        # device-side events only (kernels, copies): an aten op's own device
+        # time is that of the kernels it launched, which are listed too
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0:
             dev[ev.key] = dev.get(ev.key, 0.0) + us
@@ -294,7 +353,7 @@ def phase_serve() -> dict:
     cpu_probs = cpu.score_packed(reqs[:16])
 
     per_call = fg.launches_per_call(STEPS)
-    busy = profile_window(engine, window)
+    busy = profile_call(lambda: engine.score_packed(window))
     row = {"phase": "serve", "requests": len(reqs),
            "requests_per_s": len(reqs) / wall, "wall_s": wall,
            "p50_ms": float(np.percentile(lat, 50) * 1e3),
@@ -324,6 +383,301 @@ def phase_serve() -> dict:
     return row
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+def train_config(**model) -> ExperimentConfig:
+    """The golden model in the fused layout, trained on the synthetic corpus
+    without undersampling at 256 graphs per batch, derived buckets."""
+    return ExperimentConfig(
+        model=GGNNConfig(hidden_dim=32, n_steps=STEPS, num_output_layers=3,
+                         concat_all_absdf=True, label_style="graph",
+                         layout="fused", **model),
+        data=DataConfig(undersample=None,
+                        batch=BatchConfig(batch_graphs=TRAIN_GRAPHS,
+                                          auto_buckets=True)),
+        optim=OptimConfig(max_epochs=3))
+
+
+def train_buckets(cfg: ExperimentConfig):
+    """The corpus's training split and the buckets ``fit`` derives."""
+    corpus = load_corpus(cfg)
+    buckets = derive_buckets(corpus["train"] + corpus["val"], TRAIN_GRAPHS)
+    return corpus["train"], buckets
+
+
+def pack(graphs, bucket):
+    """As many of ``graphs`` as fit ``bucket``, packed by ``batch_np``."""
+    out, nn_, ne = [], 0, 0
+    for g in graphs:
+        if not bucket.fits(len(out) + 1, nn_ + g.n_nodes, ne + g.n_edges):
+            break
+        out.append(g)
+        nn_ += g.n_nodes
+        ne += g.n_edges
+    return batch_np(out, bucket.max_graphs, bucket.max_nodes, bucket.max_edges)
+
+
+def bwd_bound(n: int, e: int, d: int, steps: int) -> tuple[float, str]:
+    """Least milliseconds for the backward from the banked states and
+    aggregates: per reverse round 40·N·D² FLOPs (both 3-gate products,
+    dagg and dhp·hwᵀ, dmsg·ewᵀ, the three weight gradients) and E·D adds of
+    the transposed edge sum; bytes: the two banks, g and the weights read
+    once, dh0 and the weight gradients written once."""
+    flops = steps * (40 * n * d * d + e * d)
+    weights = d * d + d + 2 * (d * 3 * d + 3 * d)
+    nbytes = 4 * (2 * steps * n * d + 2 * n * d + 2 * e + 2 * weights)
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+GRAD_NAMES = ("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb")
+
+
+def kernel_grads(args, g):
+    """The seven gradients through the public op (forward banked, backward
+    on the kernel)."""
+    leaves = [a.clone().requires_grad_(True) if i not in (1, 2) else a
+              for i, a in enumerate(args)]
+    out = fg.fused_ggnn(*leaves, n_steps=STEPS)
+    return torch.autograd.grad(out, [leaves[i] for i in (0, 3, 4, 5, 6, 7, 8)],
+                               g)
+
+
+def phase_train_kernel() -> list[dict]:
+    rng = np.random.default_rng(4)
+    train, buckets = train_buckets(train_config())
+    d = WIDTH
+    w = lambda *s, std: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
+    weights = (w(d, d, std=d ** -0.5), w(d, std=0.1), w(d, 3 * d, std=d ** -0.5),
+               w(3 * d, std=0.1), w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1))
+    rows = []
+    for bucket in buckets:
+        b = pack(train, bucket)
+        n, e = b.max_nodes, len(b.senders)
+        h0 = w(n, d, std=0.2)
+        # the loss's cotangent is zero on padding nodes, which the pooling
+        # masks out; on the sink, whose padding edges loop back to itself
+        # hundreds of times, a nonzero one would be amplified through
+        # saturated gates until float32 keeps no digit of it
+        mask = torch.from_numpy(b.node_mask).cuda()
+        g = w(n, d, std=1e-3) * mask[:, None]
+        args = (h0, torch.from_numpy(b.senders).cuda(),
+                torch.from_numpy(b.receivers).cuda()) + weights
+        got = kernel_grads(args, g)
+        again = kernel_grads(args, g)
+        exact = fg.fused_ggnn_backward_reference(
+            *(a.double() if a.is_floating_point() else a for a in args),
+            g.double(), n_steps=STEPS)
+        plain = fg.fused_ggnn_backward_reference(*args, g, n_steps=STEPS)
+        torch.cuda.synchronize()
+
+        def rel_to_exact(grads):
+            return {name: float((a.double() - r).abs().max())
+                    / max(float(r.abs().max()), 1e-30)
+                    for name, a, r in zip(GRAD_NAMES, grads, exact)}
+
+        errs = {name: float((a.double() - r).abs().max())
+                for name, a, r in zip(GRAD_NAMES, got, exact)}
+        rel, plain_rel = rel_to_exact(got), rel_to_exact(plain)
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        p = fg._Prepared(h0, args[1], args[2], weights, fg._max_width)
+        _, states, aggs = fg._forward_cuda(p, STEPS, bank=True)
+        fwd_ms = cuda_ms(lambda: fg._forward_cuda(p, STEPS, bank=True), 10)
+        bwd_ms = cuda_ms(lambda: fg._backward_cuda(p, states, aggs, g), 10)
+        plain_ms = cuda_ms(lambda: fg.fused_ggnn_backward_reference(
+            *args, g, n_steps=STEPS), 10)
+        bwd_again = cuda_ms(lambda: fg._backward_cuda(p, states, aggs, g), 10)
+        bound_ms, bound_by = bwd_bound(n, e, d, STEPS)
+        row = {"phase": "train_kernel", "n": n, "e": e, "d": d,
+               "graphs": int(b.graph_mask.sum()),
+               "real_nodes": int(b.node_mask.sum()),
+               "real_edges": int(b.edge_mask.sum()),
+               "sink_segment_edges": int((b.senders == n - 1).sum()),
+               "max_abs_err": errs, "rel_err": rel, "limit": GRAD_LIMIT,
+               "plain_f32_rel_err": plain_rel,
+               "bitwise_repeat": bitwise, "finite": finite,
+               "fwd_banked_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "bwd_ms_repeat": bwd_again, "plain_bwd_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "fwd_launches_per_call": fg.launches_per_call(STEPS),
+               "bwd_launches_per_call": fg.bwd_launches_per_call(STEPS)}
+        emit(row)
+        if not finite or not bitwise:
+            fail(f"backward kernel at n={n}: finite={finite} bitwise={bitwise}")
+        bad = {k: v for k, v in rel.items() if not v <= GRAD_LIMIT}
+        if bad:
+            fail(f"backward kernel disagrees with its plain version at n={n}: "
+                 f"{bad}")
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def one_step(cfg: ExperimentConfig, batch, pos_weight: float, device: str):
+    """One train step of a freshly seeded model: (loss, grads, params)."""
+    model = make_model(cfg.model, INPUT_DIM, device=device, seed=0)
+    trainer = Trainer(model, cfg, pos_weight=pos_weight)
+    state = trainer.init_state()
+    state, _, loss, _ = trainer.train_step(
+        state, to_device(batch, device), ConfusionState.zeros(device))
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    params = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    return float(loss), grads, params
+
+
+def compare_steps(a, b, lr: float) -> dict:
+    (la, ga, pa), (lb, gb, pb) = a, b
+    # each gradient relative to its largest magnitude, floored at a
+    # thousandth of the model's largest gradient: the pooling gate's bias
+    # has a true gradient of 0, and its rounding noise depends on the path
+    floor = 1e-3 * max(float(g.abs().max()) for g in ga.values())
+    grad_rel = max(float((ga[k] - gb[k]).abs().max())
+                   / max(float(ga[k].abs().max()), floor) for k in ga)
+    dp = {k: (pa[k] - pb[k]).abs() for k in pa}
+    large = [dp[k][ga[k].abs() > STEP_GRAD_FLOOR] for k in pa]
+    out = {"loss_diff": abs(la - lb), "grad_rel_diff": grad_rel,
+           "param_diff": max(float(t.max()) for t in dp.values()),
+           "param_diff_where_grad_above_floor": max(
+               float(t.max()) if t.numel() else 0.0 for t in large)}
+    ok = (out["loss_diff"] <= STEP_LOSS_LIMIT
+          and out["grad_rel_diff"] <= STEP_GRAD_LIMIT
+          and out["param_diff_where_grad_above_floor"] <= STEP_PARAM_LIMIT
+          and out["param_diff"] <= 2 * lr)
+    return out | {"ok": ok}
+
+
+def profile_train_step(cfg: ExperimentConfig, batch, pos_weight: float):
+    """The profile of one train step on the card (after a warm-up step)."""
+    model = make_model(cfg.model, INPUT_DIM, device="cuda", seed=0)
+    trainer = Trainer(model, cfg, pos_weight=pos_weight)
+    state = trainer.init_state()
+    on_card = to_device(batch, "cuda")
+    step = lambda: trainer.train_step(state, on_card,
+                                      ConfusionState.zeros("cuda"))
+    step()
+    return profile_call(step)
+
+
+def read_params(run_dir: Path) -> dict:
+    ckpts = CheckpointManager(run_dir / "checkpoints")
+    return ckpts.restore_latest(map_location="cpu")
+
+
+def _resume_fit(cfg: ExperimentConfig, run_dir: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fit(cfg, Path(run_dir), resume=True, device="cuda")
+
+
+def resume_in_fresh_process(cfg: ExperimentConfig, run_dir: Path) -> dict:
+    """``fit(cfg, run_dir, resume=True)`` in a spawned process, which shares
+    nothing with this one but the run directory, as a restarted job would
+    run it; returns its final metrics."""
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_resume_fit, args=(cfg, str(run_dir)))
+    proc.start()
+    proc.join(timeout=600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        fail("the resumed fit did not end within 600 s")
+    if proc.exitcode != 0:
+        fail(f"the resumed fit exited with {proc.exitcode}")
+    return json.loads((run_dir / "final_metrics.json").read_text())
+
+
+def phase_train() -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        return drive_train(Path(tmp))
+
+
+def drive_train(work: Path) -> dict:
+    cfg = train_config()
+
+    # the main path: counts from zero, read right after
+    fg.n_launches = 0
+    fg.n_bwd_launches = 0
+    t0 = time.perf_counter()
+    final = fit(cfg, work / "straight", device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = fg.n_launches, fg.n_bwd_launches
+
+    timing = json.loads((work / "straight" / "journal.json").read_text())["timing"]
+    steps, evals = timing["train_steps"], timing["eval_batches"]
+    train, _ = train_buckets(cfg)
+    graphs = len(train) * cfg.optim.max_epochs
+
+    # one step from one seed and batch: fused on the card against the
+    # segment layout on the card and the fused layout on the CPU
+    batch = pack(train, train_buckets(cfg)[1][-1])
+    labels = np.array([int(g.node_feats["_VULN"].max()) for g in train])
+    pw = positive_weight(labels)
+    fused = one_step(cfg, batch, pw, "cuda")
+    seg_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, layout="segment"))
+    vs_segment = compare_steps(fused, one_step(seg_cfg, batch, pw, "cuda"),
+                               cfg.optim.lr)
+    vs_cpu = compare_steps(fused, one_step(cfg, batch, pw, "cpu"), cfg.optim.lr)
+
+    # resume: 2 epochs, then resume to 3, against the straight run
+    two = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
+                                                             max_epochs=2))
+    fit(two, work / "resumed", device="cuda")
+    resumed = resume_in_fresh_process(cfg, work / "resumed")
+    # and a second uninterrupted run: how far two runs of the same fit
+    # differ on the card without any resume
+    fit(cfg, work / "again", device="cuda")
+    pa, pb = read_params(work / "straight"), read_params(work / "resumed")
+    pc = read_params(work / "again")
+    resume_diff = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    resume_bitwise = all(torch.equal(pa[k], pb[k]) for k in pa)
+    repeat_diff = max(float((pa[k] - pc[k]).abs().max()) for k in pa)
+    repeat_bitwise = all(torch.equal(pa[k], pc[k]) for k in pa)
+    step_profile = profile_train_step(cfg, batch, pw)
+
+    per_step = fg.launches_per_call(STEPS) + fg.bwd_launches_per_call(STEPS)
+    row = {"phase": "train", "epochs": cfg.optim.max_epochs,
+           "train_steps": steps, "eval_batches": evals,
+           "train_graphs": graphs, "train_seconds": timing["train_seconds"],
+           "steps_per_s": steps / timing["train_seconds"],
+           "graphs_per_s": graphs / timing["train_seconds"],
+           "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
+           "step_ms": timing["step_ms"], "fit_seconds": fit_s,
+           "fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
+           "launches_per_train_step": per_step,
+           "final_metrics": final,
+           "first_step_vs_segment": vs_segment, "first_step_vs_cpu": vs_cpu,
+           "resume_max_abs_param_diff": resume_diff,
+           "resume_bit_identical": resume_bitwise,
+           "resume_limit": RESUME_LIMIT,
+           "repeat_max_abs_param_diff": repeat_diff,
+           "repeat_bit_identical": repeat_bitwise,
+           "profile_train_step": step_profile,
+           "resumed_final_metrics": resumed}
+    emit(row)
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"non-finite final metrics: {final}")
+    if steps != 2 * cfg.optim.max_epochs:
+        fail(f"{steps} train steps, expected {2 * cfg.optim.max_epochs}")
+    if (bwd_launches != steps * fg.bwd_launches_per_call(STEPS)
+            or fwd_launches != (steps + evals) * fg.launches_per_call(STEPS)):
+        fail(f"launches: forward {fwd_launches}, backward {bwd_launches} for "
+             f"{steps} train steps and {evals} eval batches")
+    for name, cmp in (("segment", vs_segment), ("cpu", vs_cpu)):
+        if not cmp["ok"]:
+            fail(f"first train step disagrees with the {name} run: {cmp}")
+    if not resume_diff <= RESUME_LIMIT:
+        fail(f"resume differs from the straight run by {resume_diff}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -332,8 +686,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    # the one CUDA source of the main path
-    log = _build.build("fused_ggnn")
+    # the CUDA sources of the main paths, one nvcc each, in parallel
+    log = _build.build("fused_ggnn", "fused_ggnn_bwd")
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -343,19 +697,34 @@ def main() -> int:
 
     shapes = phase_kernel()
     serve = phase_serve()
+    train_rows = phase_train_kernel()
+    train = phase_train()
 
     mega = next(r for r in shapes if r["shape"] == "mega")
+    full = max(train_rows, key=lambda r: r["n"])
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:169",
-        "launches": serve["n_launches"],
+        "launches": serve["n_launches"] + train["fwd_launches"],
+        "launches_by_path": {"serve": serve["n_launches"],
+                             "train": train["fwd_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": mega["ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
         "library_ms": None,
         "shape": f"mega n={mega['n']} e={mega['e']} d={mega['d']} "
-                 f"n_steps={mega['n_steps']}"}]})
+                 f"n_steps={mega['n_steps']}"}, {
+        "name": "fused_ggnn_backward", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/fused_ggnn_bwd.cu",
+        "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
+        "launches": train["bwd_launches"],
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
+        "ms": full["bwd_ms"], "plain_ms": full["plain_bwd_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": None,
+        "shape": f"train n={full['n']} e={full['e']} d={full['d']} "
+                 f"n_steps={STEPS}"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """DeepDFA in PyTorch for one NVIDIA H100.
 
 The port of the JAX package ``deepdfa_tpu`` (which stays the reference).
-This package serves the golden GGNN through the fused layout: every message
-round runs on a hand-written CUDA kernel (``csrc/fused_ggnn.cu``), built
-with ``nvcc`` for ``sm_90a`` at first use. It imports torch and numpy and
-nothing of JAX.
+This package serves and trains (``train.fit``) the golden GGNN through the
+fused layout: every message round runs on hand-written CUDA kernels, the
+forward in ``csrc/fused_ggnn.cu`` and the training backward in
+``csrc/fused_ggnn_bwd.cu``, built with ``nvcc`` for ``sm_90a`` at first
+use. It imports torch and numpy and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 host without a GPU they raise instead of running on the CPU.

@@ -1,9 +1,10 @@
 """Fixed-shape batched graph container and host-side batcher.
 
-A copy of the serving subset of the JAX package's ``deepdfa_tpu/data/graphs.py``
-(host-side numpy, no framework): :class:`Graph`, :class:`BatchedGraphs`,
-:func:`batch_np`, :class:`BucketSpec`, :func:`padding_efficiency`, plus
-:func:`to_device`, which moves a padded batch onto a torch device.
+A copy of the serving and training subset of the JAX package's
+``deepdfa_tpu/data/graphs.py`` (host-side numpy, no framework): :class:`Graph`,
+:class:`BatchedGraphs`, :func:`batch_np`, :class:`BucketSpec`,
+:class:`GraphBatcher`, :func:`derive_buckets`, :func:`padding_efficiency`,
+plus :func:`to_device`, which moves a padded batch onto a torch device.
 
 - :class:`BatchedGraphs` — flat arrays with **static shapes**: every batch in a
   bucket has exactly ``max_nodes`` nodes, ``max_edges`` edges and
@@ -16,7 +17,7 @@ A copy of the serving subset of the JAX package's ``deepdfa_tpu/data/graphs.py``
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +27,8 @@ __all__ = [
     "BatchedGraphs",
     "batch_np",
     "BucketSpec",
+    "GraphBatcher",
+    "derive_buckets",
     "padding_efficiency",
     "to_device",
 ]
@@ -185,8 +188,109 @@ class BucketSpec:
         )
 
 
+class GraphBatcher:
+    """Greedy fixed-shape packer.
+
+    Packs graphs in the given order until the next graph would exceed the
+    largest bucket's budget, then emits a padded :class:`BatchedGraphs` in
+    the smallest bucket that fits. A graph that alone exceeds the largest
+    bucket is collected in ``oversize_graphs`` (``collect_oversize``, the
+    trainer's route through an overflow bucket), dropped and counted in
+    ``n_dropped`` (``drop_oversize``), or raises. Both counters are per
+    pass. ``overflow_bucket`` may be set by the caller to pre-size the
+    overflow bucket (see ``train.fit``).
+    """
+
+    def __init__(self, buckets: Sequence[BucketSpec], drop_oversize: bool = True,
+                 collect_oversize: bool = False):
+        if not buckets:
+            raise ValueError("need at least one bucket")
+        for b in buckets:
+            if b.max_graphs < 2 or b.max_nodes < 2:
+                # the padding-sink reservation makes such a bucket hold zero
+                # real graphs — with drop_oversize it would silently drop ALL
+                raise ValueError(
+                    f"unusable bucket {b}: max_graphs and max_nodes must be "
+                    "≥ 2 (one slot each is reserved as the padding sink)"
+                )
+        self.buckets = sorted(buckets, key=lambda b: (b.max_nodes, b.max_edges, b.max_graphs))
+        self.big = self.buckets[-1]
+        self.drop_oversize = drop_oversize
+        self.collect_oversize = collect_oversize
+        self.n_dropped = 0
+        self.oversize_graphs: list[Graph] = []
+        self.overflow_bucket: BucketSpec | None = None
+
+    def batches(self, graphs: Sequence[Graph]) -> Iterator[BatchedGraphs]:
+        # per-pass counters (batches() is re-run every epoch)
+        self.n_dropped = 0
+        self.oversize_graphs = []
+        pending: list[Graph] = []
+        nn = ne = 0
+        for g in graphs:
+            if not self.big.fits(1, g.n_nodes, g.n_edges):
+                if self.collect_oversize:
+                    self.oversize_graphs.append(g)
+                    continue
+                if self.drop_oversize:
+                    self.n_dropped += 1
+                    continue
+                raise ValueError(
+                    f"graph gid={g.gid} ({g.n_nodes} nodes, {g.n_edges} edges) "
+                    f"exceeds the largest bucket {self.big}"
+                )
+            if pending and not self.big.fits(len(pending) + 1, nn + g.n_nodes, ne + g.n_edges):
+                yield self._emit(pending, nn, ne)
+                pending, nn, ne = [], 0, 0
+            pending.append(g)
+            nn += g.n_nodes
+            ne += g.n_edges
+        if pending:
+            yield self._emit(pending, nn, ne)
+
+    def _emit(self, pending: list[Graph], nn: int, ne: int) -> BatchedGraphs:
+        bucket = next(b for b in self.buckets if b.fits(len(pending), nn, ne))
+        return batch_np(pending, bucket.max_graphs, bucket.max_nodes, bucket.max_edges)
+
+
 def _round_up(x: int, mult: int = 128) -> int:
     return ((int(x) + mult - 1) // mult) * mult
+
+
+def derive_buckets(
+    graphs: Sequence[Graph],
+    batch_graphs: int,
+    headroom: float = 1.08,
+    sub_buckets: Sequence[float] = (0.25, 0.5),
+    round_to: int = 128,
+) -> list[BucketSpec]:
+    """Bucket budgets sized to the corpus instead of a worst-case constant:
+    the main bucket from the mean nodes and edges per graph
+    (``batch_graphs × mean × headroom``, rounded up to ``round_to``), plus
+    scaled-down sub-buckets so tail batches do not pay full-size padding.
+    Every bucket holds at least the largest single graph."""
+    if not graphs:
+        raise ValueError("cannot derive buckets from an empty corpus")
+    mean_nodes = float(np.mean([g.n_nodes for g in graphs]))
+    mean_edges = float(np.mean([g.n_edges for g in graphs]))
+    max_nodes_1 = max(g.n_nodes for g in graphs)
+    max_edges_1 = max(g.n_edges for g in graphs)
+
+    def spec(frac: float) -> BucketSpec:
+        n_g = max(int(round(batch_graphs * frac)), 1)
+        return BucketSpec(
+            max_graphs=n_g + 1,
+            max_nodes=_round_up(max(n_g * mean_nodes * headroom, max_nodes_1 + 1), round_to),
+            max_edges=_round_up(max(n_g * mean_edges * headroom, max_edges_1), round_to),
+        )
+
+    buckets = [spec(f) for f in (*sub_buckets, 1.0)]
+    # drop sub-buckets that collapsed into the same size as a larger one
+    out: list[BucketSpec] = []
+    for b in buckets:
+        if not out or b != out[-1]:
+            out.append(b)
+    return out
 
 
 def padding_efficiency(batches: Sequence[BatchedGraphs]) -> dict[str, float]:

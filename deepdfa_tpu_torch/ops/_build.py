@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``deepdfa_tpu_torch/_build/``
-(listed in ``.gitignore``). The library's file name carries a digest of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. A failed build raises: there is no fallback.
+(listed in ``.gitignore``); the sources share device code through
+``csrc/*.cuh`` headers. The library's file name carries a digest of every
+source, header and flag, so an edited source is rebuilt and a stale
+library is never loaded. Several sources build in parallel, one ``nvcc``
+each, and :func:`build` returns when all have finished. A failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -48,23 +51,33 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns nvcc's
-    output (ptxas reports registers, shared memory and spills), or "" when
-    the library was already built."""
-    target = _target(name)
-    if target.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, target)
-    return proc.stdout
+def build(*names: str) -> str:
+    """Compile ``csrc/<name>.cu`` for each name whose library does not exist
+    yet, one ``nvcc`` per source, all started together, and wait for them.
+    Returns nvcc's output (ptxas reports registers, shared memory and
+    spills), or "" when every library was already built."""
+    jobs = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, tmp, proc))
+    logs, failed = [], []
+    for name, target, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, target)
+        logs.append(out)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return "".join(logs)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -76,9 +76,99 @@ def test_unsorted_edges_and_zero_steps(cuda):
     assert torch.equal(same, args[0])
 
 
+def _grads(args, g, n_steps):
+    """The kernel's gradients of all seven inputs, through autograd."""
+    leaves = [a.clone().requires_grad_(True) if i not in (1, 2) else a
+              for i, a in enumerate(args)]
+    out = tfg.fused_ggnn(*leaves, n_steps=n_steps)
+    diff = [leaves[i] for i in (0, 3, 4, 5, 6, 7, 8)]
+    return torch.autograd.grad(out, diff, g)
+
+
 @pytest.mark.gpu
-def test_gradients_are_refused(cuda):
+@pytest.mark.parametrize("n,d,e", [
+    (37, 96, 90),       # unpadded odd sizes
+    (2048, 128, 8192),  # the first ladder bucket's shape
+    (300, 200, 900),    # two column tiles
+    (60, 50, 150),      # width not a multiple of 4: padded to 52
+])
+def test_backward_kernel_matches_plain_version(cuda, n, d, e):
+    rng = np.random.default_rng(n * 3 + d)
+    args = _problem(rng, n, d, e)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    before = tfg.n_bwd_launches
+    got = _grads(args, g, 5)
+    torch.cuda.synchronize()
+    assert tfg.n_bwd_launches - before == tfg.bwd_launches_per_call(5)
+    want = tfg.fused_ggnn_backward_reference(*args, g, n_steps=5)
+    for name, a, b in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb"),
+                          got, want):
+        assert a.shape == b.shape, name
+        scale = float(b.abs().max())
+        # FFMA sums in the kernel against cuBLAS and index_add_'s atomics
+        assert float((a - b).abs().max()) <= 1e-4 * max(scale, 1.0), name
+
+
+@pytest.mark.gpu
+def test_backward_kernel_is_bitwise_stable_and_empty_cases(cuda):
+    rng = np.random.default_rng(11)
+    args = _problem(rng, 500, 128, 2000)
+    g = torch.from_numpy(rng.standard_normal((500, 128)).astype(np.float32)).cuda()
+    first = _grads(args, g, 3)
+    second = _grads(args, g, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # no rounds: dL/dh0 is g and every weight gradient is zero
+    zero = _grads(args, g, 0)
+    assert torch.equal(zero[0], g)
+    assert not any(t.any() for t in zero[1:])
+    # no edges: the edge weight still gets no gradient from messages
+    none = list(args)
+    none[1], none[2] = args[1][:0], args[2][:0]
+    got = _grads(none, g, 2)
+    want = tfg.fused_ggnn_backward_reference(*none, g, n_steps=2)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_xla_backward_and_unknown_values_raise_on_the_card(cuda):
     args = _problem(np.random.default_rng(8), 20, 32, 40)
     args[3].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tfg.fused_ggnn(*args, n_steps=1)
+    with pytest.raises(ValueError, match="one backward"):
+        tfg.fused_ggnn(*args, n_steps=1, bwd_kernel="xla")
+    with pytest.raises(ValueError, match="bwd_kernel"):
+        tfg.fused_ggnn(*args, n_steps=1, bwd_kernel="bogus")
+    with torch.no_grad():  # scoring does not need the backward
+        tfg.fused_ggnn(*args, n_steps=1, bwd_kernel="xla")
+
+
+@pytest.mark.gpu
+def test_golden_width_trainer_step_is_finite(cuda):
+    from deepdfa_tpu_torch.config import ExperimentConfig, GGNNConfig
+    from deepdfa_tpu_torch.data.graphs import batch_np, to_device
+    from deepdfa_tpu_torch.data.synthetic import random_dataset
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.train.loop import Trainer
+    from deepdfa_tpu_torch.train.metrics import ConfusionState
+
+    cfg = ExperimentConfig(model=GGNNConfig(layout="fused"))  # width 128
+    model = make_model(cfg.model, cfg.input_dim, device="cuda", seed=0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, cfg, pos_weight=2.0)
+    state = trainer.init_state()
+    graphs = random_dataset(64, seed=3, input_dim=cfg.input_dim)
+    batch = to_device(batch_np(graphs, 65, 8192, 16384), "cuda")
+    fwd, bwd = tfg.n_launches, tfg.n_bwd_launches
+    state, metrics, loss, wsum = trainer.train_step(
+        state, batch, ConfusionState.zeros("cuda"))
+    torch.cuda.synchronize()
+    assert tfg.n_launches - fwd == tfg.launches_per_call(cfg.model.n_steps)
+    assert tfg.n_bwd_launches - bwd == tfg.bwd_launches_per_call(
+        cfg.model.n_steps)
+    assert bool(torch.isfinite(loss)) and float(wsum) == 64
+    after = model.state_dict()
+    assert all(bool(torch.isfinite(v).all()) for v in after.values())
+    assert not torch.equal(after["ggnn.gru.x_proj.weight"],
+                           before["ggnn.gru.x_proj.weight"])
+    assert state.step == 1 and float(sum(metrics)) == 64
