@@ -34,20 +34,39 @@ Each phase prints one JSON line; any failure exits non-zero.
    call.
 5. train — ``train.fit.fit`` of the golden model in the fused layout on the
    card: the synthetic corpus, no undersampling, 256 graphs per batch,
-   derived buckets, 3 epochs (6 train steps at N = 16,768), with both
-   launch counts reset just before: steps/s, graphs/s, p50 step ms, launch
+   derived buckets, 3 epochs (6 train steps at N = 16,768), with every
+   launch count reset just before: steps/s, graphs/s, p50 step ms, launch
    counts (forward launches = (train steps + eval batches) × 11, backward
    launches = train steps × 32), finite final metrics. Then one train step
    from one seed and batch, fused on the card against the segment layout on
    the card and the fused layout on the CPU (loss, gradients and new
    parameters within stated limits), and ``fit`` for 2 epochs plus
    ``fit(resume=True)`` to 3 in a spawned process against the
-   uninterrupted run (max abs parameter difference within
-   ``RESUME_LIMIT``; bit-identity reported, and the difference between two
-   uninterrupted runs beside it).
+   uninterrupted run, and a second uninterrupted run: both bitwise equal
+   (the port's reductions on the card have a fixed order). One step runs
+   under ``torch.use_deterministic_algorithms(True, warn_only=True)`` as a
+   diagnostic: the ops that warn are listed.
+6. mega_kernel — the whole-model kernel (B3) against its plain version
+   ``megabatch_reference`` on the card at the golden width, 5 rounds and 3
+   head layers, at the megabatch serving shape and the three training
+   buckets: max abs difference of the logits (limit ``KERNEL_LIMIT``), two
+   calls bitwise equal, CUDA-event times, the bound and launches per call.
+7. packed — the golden model with seeded weights in the megabatch layout
+   scores the serve phase's 256 requests packed by
+   ``pack_megabatches(uniform=True)`` under ``inference_mode``, with the B3
+   count reset just before: graphs/s, packing efficiency, dispatches beside
+   the per-bucket ladder's for the same graphs, B3 launches = batches ×
+   launches per call; probabilities against the segment layout on the card
+   and the megabatch layout's plain version on the CPU within
+   ``PROB_LIMIT``.
+8. train_megabatch — phase 5 in the megabatch layout: B3 launches =
+   (train steps + eval batches) × 14, B1 = train steps × 11 (the backward's
+   banked recompute), B2 = train steps × 32; the first step against the
+   segment layout on the card and the megabatch layout on the CPU; the
+   resumed and the repeated fit bitwise equal to the straight one.
 
-Then the kernel table as one JSON line, the ``nvidia-smi`` name and power
-limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
+Then each phase's wall seconds, the kernel table as one JSON line, the
+``nvidia-smi`` name and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints nothing and exits 2.
 """
 
@@ -56,11 +75,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import warnings
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -69,12 +91,14 @@ import torch
 from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
                                       ExperimentConfig, GGNNConfig,
                                       OptimConfig)
-from deepdfa_tpu_torch.data.graphs import batch_np, derive_buckets, to_device
+from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
+                                           derive_buckets, to_device)
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.ops import _build
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
+from deepdfa_tpu_torch.ops import megabatch as mb
 from deepdfa_tpu_torch.serve import (MicroBatcher, ScoringEngine, mega_bucket,
                                      serve_buckets)
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
@@ -95,8 +119,8 @@ PROB_LIMIT = 1e-4
 # sums over five reverse rounds (the float32 plain version, whose cuBLAS sums
 # and index_add_ atomics err as much, is reported beside it)
 GRAD_LIMIT = 1e-4
-# one train step, fused on the card against the segment layout on the card
-# and against the fused layout on the CPU: loss and every gradient (relative
+# one train step on the card (fused or megabatch layout) against the segment
+# layout on the card and against the same layout on the CPU: loss and every gradient (relative
 # to its largest magnitude, see compare_steps) agree to float32 rounding.
 # AdamW's first step moves each parameter by lr times g/(|g| + eps): where
 # |g| is at rounding level (the pooling gate's bias, whose true gradient is
@@ -107,10 +131,6 @@ STEP_LOSS_LIMIT = 1e-5
 STEP_GRAD_LIMIT = 1e-4
 STEP_GRAD_FLOOR = 1e-6
 STEP_PARAM_LIMIT = 1e-6
-# fit for 2 epochs + resume to 3 against 3 epochs on the card: the pooling's
-# index_add_ adds with atomics, so the runs may differ at rounding level,
-# and AdamW can turn a rounding-level gradient into a step of up to lr
-RESUME_LIMIT = 1e-2
 WIDTH, STEPS, MAX_BATCH, INPUT_DIM = 128, 5, 16, 1002
 TRAIN_GRAPHS = 256
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
@@ -386,13 +406,13 @@ def phase_serve() -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def train_config(**model) -> ExperimentConfig:
-    """The golden model in the fused layout, trained on the synthetic corpus
+def train_config(layout: str = "fused") -> ExperimentConfig:
+    """The golden model in ``layout``, trained on the synthetic corpus
     without undersampling at 256 graphs per batch, derived buckets."""
     return ExperimentConfig(
         model=GGNNConfig(hidden_dim=32, n_steps=STEPS, num_output_layers=3,
                          concat_all_absdf=True, label_style="graph",
-                         layout="fused", **model),
+                         layout=layout),
         data=DataConfig(undersample=None,
                         batch=BatchConfig(batch_graphs=TRAIN_GRAPHS,
                                           auto_buckets=True)),
@@ -592,47 +612,82 @@ def resume_in_fresh_process(cfg: ExperimentConfig, run_dir: Path) -> dict:
     return json.loads((run_dir / "final_metrics.json").read_text())
 
 
-def phase_train() -> dict:
+def _deterministic_step(cfg: ExperimentConfig, batch,
+                        pos_weight: float) -> list[str]:
+    # cuBLAS reads its workspace setting when this process first uses it
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = make_model(cfg.model, INPUT_DIM, device="cuda", seed=0)
+    trainer = Trainer(model, cfg, pos_weight=pos_weight)
+    state = trainer.init_state()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_step(state, to_device(batch, "cuda"),
+                               ConfusionState.zeros("cuda"))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in caught})
+
+
+def deterministic_diagnostic(cfg: ExperimentConfig, batch,
+                             pos_weight: float) -> list[str]:
+    """One train step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` in a spawned process (the fixed cuBLAS workspace it
+    needs would slow this process's other measurements): the messages of
+    the ops with no deterministic implementation on the card. A diagnostic;
+    the check is the bitwise resume."""
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
+        return pool.submit(_deterministic_step, cfg, batch,
+                           pos_weight).result(timeout=600)
+
+
+def phase_train(layout: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        return drive_train(Path(tmp))
+        return drive_train(Path(tmp), layout)
 
 
-def drive_train(work: Path) -> dict:
-    cfg = train_config()
+def drive_train(work: Path, layout: str) -> dict:
+    cfg = train_config(layout)
 
     # the main path: counts from zero, read right after
-    fg.n_launches = 0
-    fg.n_bwd_launches = 0
+    fg.n_launches = fg.n_bwd_launches = mb.n_launches = 0
     t0 = time.perf_counter()
     final = fit(cfg, work / "straight", device="cuda")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fwd_launches, bwd_launches = fg.n_launches, fg.n_bwd_launches
+    mb_launches = mb.n_launches
 
     timing = json.loads((work / "straight" / "journal.json").read_text())["timing"]
     steps, evals = timing["train_steps"], timing["eval_batches"]
-    train, _ = train_buckets(cfg)
+    train, buckets = train_buckets(cfg)
     graphs = len(train) * cfg.optim.max_epochs
 
-    # one step from one seed and batch: fused on the card against the
-    # segment layout on the card and the fused layout on the CPU
-    batch = pack(train, train_buckets(cfg)[1][-1])
+    # one step from one seed and batch: on the card against the segment
+    # layout on the card and the same layout on the CPU
+    batch = pack(train, buckets[-1])
     labels = np.array([int(g.node_feats["_VULN"].max()) for g in train])
     pw = positive_weight(labels)
-    fused = one_step(cfg, batch, pw, "cuda")
+    on_card = one_step(cfg, batch, pw, "cuda")
     seg_cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, layout="segment"))
-    vs_segment = compare_steps(fused, one_step(seg_cfg, batch, pw, "cuda"),
+    vs_segment = compare_steps(on_card, one_step(seg_cfg, batch, pw, "cuda"),
                                cfg.optim.lr)
-    vs_cpu = compare_steps(fused, one_step(cfg, batch, pw, "cpu"), cfg.optim.lr)
+    vs_cpu = compare_steps(on_card, one_step(cfg, batch, pw, "cpu"),
+                           cfg.optim.lr)
+    nondeterministic = deterministic_diagnostic(cfg, batch, pw)
 
     # resume: 2 epochs, then resume to 3, against the straight run
     two = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
                                                              max_epochs=2))
     fit(two, work / "resumed", device="cuda")
     resumed = resume_in_fresh_process(cfg, work / "resumed")
-    # and a second uninterrupted run: how far two runs of the same fit
-    # differ on the card without any resume
+    # and a second uninterrupted run
     fit(cfg, work / "again", device="cuda")
     pa, pb = read_params(work / "straight"), read_params(work / "resumed")
     pc = read_params(work / "again")
@@ -642,8 +697,16 @@ def drive_train(work: Path) -> dict:
     repeat_bitwise = all(torch.equal(pa[k], pc[k]) for k in pa)
     step_profile = profile_train_step(cfg, batch, pw)
 
-    per_step = fg.launches_per_call(STEPS) + fg.bwd_launches_per_call(STEPS)
-    row = {"phase": "train", "epochs": cfg.optim.max_epochs,
+    fwd_per, bwd_per = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
+    if layout == "fused":
+        want = {"fwd": (steps + evals) * fwd_per, "mb": 0}
+    else:
+        want = {"fwd": steps * fwd_per,
+                "mb": (steps + evals) * mb.launches_per_call(STEPS)}
+    want["bwd"] = steps * bwd_per
+    got = {"fwd": fwd_launches, "bwd": bwd_launches, "mb": mb_launches}
+    row = {"phase": "train" if layout == "fused" else "train_megabatch",
+           "layout": layout, "epochs": cfg.optim.max_epochs,
            "train_steps": steps, "eval_batches": evals,
            "train_graphs": graphs, "train_seconds": timing["train_seconds"],
            "steps_per_s": steps / timing["train_seconds"],
@@ -651,12 +714,12 @@ def drive_train(work: Path) -> dict:
            "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
            "step_ms": timing["step_ms"], "fit_seconds": fit_s,
            "fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
-           "launches_per_train_step": per_step,
+           "mb_launches": mb_launches, "expected_launches": want,
            "final_metrics": final,
            "first_step_vs_segment": vs_segment, "first_step_vs_cpu": vs_cpu,
+           "nondeterministic_ops": nondeterministic,
            "resume_max_abs_param_diff": resume_diff,
            "resume_bit_identical": resume_bitwise,
-           "resume_limit": RESUME_LIMIT,
            "repeat_max_abs_param_diff": repeat_diff,
            "repeat_bit_identical": repeat_bitwise,
            "profile_train_step": step_profile,
@@ -666,15 +729,195 @@ def drive_train(work: Path) -> dict:
         fail(f"non-finite final metrics: {final}")
     if steps != 2 * cfg.optim.max_epochs:
         fail(f"{steps} train steps, expected {2 * cfg.optim.max_epochs}")
-    if (bwd_launches != steps * fg.bwd_launches_per_call(STEPS)
-            or fwd_launches != (steps + evals) * fg.launches_per_call(STEPS)):
-        fail(f"launches: forward {fwd_launches}, backward {bwd_launches} for "
-             f"{steps} train steps and {evals} eval batches")
+    if got != want:
+        fail(f"{layout} launches {got}, expected {want} for {steps} train "
+             f"steps and {evals} eval batches")
     for name, cmp in (("segment", vs_segment), ("cpu", vs_cpu)):
         if not cmp["ok"]:
-            fail(f"first train step disagrees with the {name} run: {cmp}")
-    if not resume_diff <= RESUME_LIMIT:
-        fail(f"resume differs from the straight run by {resume_diff}")
+            fail(f"{layout}: first train step disagrees with the {name} run: "
+                 f"{cmp}")
+    if not (resume_bitwise and repeat_bitwise):
+        fail(f"{layout}: resumed / repeated fit not bitwise equal to the "
+             f"straight run: {resume_diff} / {repeat_diff}")
+    return row
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def model_bound(n: int, e: int, d: int, g: int, n_sub: int, rows: int,
+                dims: list[int], steps: int) -> tuple[float, str]:
+    """Least milliseconds for the whole model: the rounds' FLOPs (as
+    :func:`kernel_bound`) plus 2·N·2D for the gate logits, 2·N·2D for the
+    readout and G·Σ 2·in·out for the head, over the FP32 peak; or the
+    bytes (table, ids, edges, gidx, mask and weights read once, the logits
+    written once) over HBM bandwidth; the larger."""
+    head = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    flops = (steps * (2 * n * d * d + 2 * 2 * n * d * 3 * d + e * d)
+             + 2 * 2 * n * 2 * d + g * 2 * head)
+    weights = (d * d + d + 2 * (d * 3 * d + 3 * d) + 2 * d + 1 + head
+               + sum(dims[1:]))
+    nbytes = 4 * (rows * (d // n_sub) + n * n_sub + 2 * e + n + weights
+                  + g) + n
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def model_inputs(b, rng, d: int = WIDTH, n_layers: int = 3):
+    """Seeded table and weights of the golden model's shapes, in the
+    ``[in, out]`` layout, with batch ``b``'s ids, edges and slots, on the
+    card: the positional arguments of ``fused_ggnn_model``."""
+    ed = d // len(ALL_SUBKEYS)
+    w = lambda *s, std: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
+    ids = np.stack([b.node_feats[k] + i * INPUT_DIM for i, k in enumerate(KEYS)],
+                   axis=-1)
+    head = tuple((w(2 * d, o, std=(2 * d) ** -0.5), w(o, std=0.1))
+                 for o in [2 * d] * (n_layers - 1) + [1])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return (w(len(KEYS) * INPUT_DIM, ed, std=ed ** -0.5), put(ids),
+            put(b.senders), put(b.receivers), put(b.node_gidx),
+            put(b.node_mask), w(d, d, std=d ** -0.5), w(d, std=0.1),
+            w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1),
+            w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1),
+            w(2 * d, 1, std=(2 * d) ** -0.5), w(1, std=0.1), head)
+
+
+def phase_mega_kernel() -> list[dict]:
+    rng = np.random.default_rng(5)
+    train, buckets = train_buckets(train_config("megabatch"))
+    shapes = [("mega", fill(mega_bucket(MAX_BATCH), rng, 50))]
+    shapes += [(f"train_{bk.max_nodes}", pack(train, bk)) for bk in buckets]
+    rows = []
+    for name, b in shapes:
+        args = model_inputs(b, rng)
+        kw = dict(n_steps=STEPS, n_graphs=b.max_graphs)
+        n, e, g = b.max_nodes, len(b.senders), b.max_graphs
+        with torch.inference_mode():
+            before = mb.n_launches
+            got = mb.fused_ggnn_model(*args, **kw)
+            torch.cuda.synchronize()
+            per_call = mb.n_launches - before
+            again = mb.fused_ggnn_model(*args, **kw)
+            want = mb.megabatch_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            bitwise = torch.equal(got, again)
+            # the kernels' time: the launches of a prepared call (the
+            # public call adds its host checks, whose device read stalls
+            # the launch queue; it is timed beside)
+            p = mb._Prepared(*args, **kw)
+            ms = cuda_ms(lambda: mb._launch(p), 20)
+            plain_ms = cuda_ms(lambda: mb.megabatch_reference(*args, **kw), 20)
+            ms_again = cuda_ms(lambda: mb._launch(p), 20)
+            call_ms = cuda_ms(lambda: mb.fused_ggnn_model(*args, **kw), 20)
+            profile = profile_call(lambda: mb._launch(p))
+        dims = [2 * WIDTH, 2 * WIDTH, 2 * WIDTH, 1]
+        bound_ms, bound_by = model_bound(n, e, WIDTH, g, len(KEYS),
+                                         len(KEYS) * INPUT_DIM, dims, STEPS)
+        row = {"phase": "mega_kernel", "shape": name, "n": n, "e": e,
+               "graphs": g, "d": WIDTH, "n_steps": STEPS, "head_layers": 3,
+               "real_nodes": int(b.node_mask.sum()),
+               "real_graphs": int(b.graph_mask.sum()),
+               "sink_segment_edges": int((b.receivers == n - 1).sum()),
+               "max_abs_err": err, "limit": KERNEL_LIMIT, "finite": finite,
+               "bitwise_repeat": bitwise, "ms": ms, "ms_repeat": ms_again,
+               "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "launches_per_call": per_call,
+               "profile": profile}
+        emit(row)
+        if per_call != mb.launches_per_call(STEPS):
+            fail(f"B3 made {per_call} launches at {name}, expected "
+                 f"{mb.launches_per_call(STEPS)}")
+        if not (finite and bitwise and err <= KERNEL_LIMIT):
+            fail(f"B3 at {name}: finite={finite} bitwise={bitwise} err={err}")
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def ladder_dispatches(graphs) -> int:
+    """Batches the per-bucket serving ladder makes of ``graphs``: each
+    graph to the smallest bucket that admits it, each bucket packed
+    greedily."""
+    ladder = serve_buckets(MAX_BATCH)
+    per: dict[int, list] = {}
+    for g in graphs:
+        per.setdefault(next(i for i, b in enumerate(ladder) if b.admits(g)),
+                       []).append(g)
+    return sum(len(list(GraphBatcher([ladder[i].spec]).batches(gs)))
+               for i, gs in per.items())
+
+
+def phase_packed() -> dict:
+    cfg = train_config("megabatch").model
+    model = make_model(cfg, INPUT_DIM, device="cuda", seed=0).eval()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    reqs = requests()
+    plan = model.plan_for(0, 0, 0)
+    t0 = time.perf_counter()
+    packed = mb.pack_megabatches(
+        reqs, width=plan.width, n_steps=plan.n_steps,
+        table_rows=plan.table_rows, embed_width=plan.embed_width,
+        n_head_layers=plan.n_head_layers, uniform=True)
+    pack_s = time.perf_counter() - t0
+    if packed.oversize:
+        fail(f"{len(packed.oversize)} requests too large for a megabatch")
+
+    # the main path: counts from zero, read right after
+    mb.n_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        probs = [torch.sigmoid(model(to_device(b, "cuda", KEYS))).cpu()
+                 for b in packed.batches]
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = mb.n_launches
+
+    # references, off the main path, on the same packed batches
+    seg = make_model(dataclasses.replace(cfg, layout="segment"), INPUT_DIM,
+                     device="cuda").eval()
+    seg.load_state_dict(state)
+    cpu = make_model(cfg, INPUT_DIM, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
+    diff_seg = diff_cpu = 0.0
+    with torch.inference_mode():
+        for i, b in enumerate(packed.batches):
+            real = torch.from_numpy(b.graph_mask)
+            want = torch.sigmoid(seg(to_device(b, "cuda", KEYS))).cpu()
+            diff_seg = max(diff_seg, float((probs[i] - want)[real].abs().max()))
+            if i == 0:
+                want = torch.sigmoid(cpu(to_device(b, "cpu", KEYS)))
+                diff_cpu = float((probs[i] - want)[real].abs().max())
+    real_probs = torch.cat([p[torch.from_numpy(b.graph_mask)]
+                            for p, b in zip(probs, packed.batches)])
+    per_call = mb.launches_per_call(STEPS)
+    p0 = packed.plans[0]
+    row = {"phase": "packed", "requests": len(reqs),
+           "batches": len(packed.batches),
+           "shape": {"max_nodes": p0.max_nodes, "max_edges": p0.max_edges,
+                     "max_graphs": p0.max_graphs,
+                     "megabatch_bytes": mb.megabatch_bytes(p0),
+                     "fits": p0.fits},
+           "padding_efficiency": packed.efficiency, "pack_s": pack_s,
+           "score_s": score_s, "graphs_per_s": len(reqs) / score_s,
+           "ladder_dispatches": ladder_dispatches(reqs),
+           "n_launches": launches, "launches_per_call": per_call,
+           "max_abs_prob_diff_vs_segment": diff_seg,
+           "max_abs_prob_diff_vs_cpu": diff_cpu, "limit": PROB_LIMIT}
+    emit(row)
+    if len(real_probs) != len(reqs) or not bool(
+            ((real_probs > 0) & (real_probs < 1)).all()):
+        fail("packed scoring lost requests or gave out-of-range probabilities")
+    if not (diff_seg <= PROB_LIMIT and diff_cpu <= PROB_LIMIT):
+        fail(f"packed probabilities differ: segment {diff_seg}, cpu {diff_cpu}")
+    if launches != len(packed.batches) * per_call:
+        fail(f"{launches} B3 launches for {len(packed.batches)} batches")
     return row
 
 
@@ -687,7 +930,7 @@ def main() -> int:
     smi = nvidia_smi()
     t0 = time.perf_counter()
     # the CUDA sources of the main paths, one nvcc each, in parallel
-    log = _build.build("fused_ggnn", "fused_ggnn_bwd")
+    log = _build.build("fused_ggnn", "fused_ggnn_bwd", "megabatch")
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -695,20 +938,35 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
-    shapes = phase_kernel()
-    serve = phase_serve()
-    train_rows = phase_train_kernel()
-    train = phase_train()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    shapes = timed("kernel", phase_kernel)
+    serve = timed("serve", phase_serve)
+    train_rows = timed("train_kernel", phase_train_kernel)
+    train = timed("train", phase_train, "fused")
+    mega_rows = timed("mega_kernel", phase_mega_kernel)
+    packed = timed("packed", phase_packed)
+    train_mb = timed("train_megabatch", phase_train, "megabatch")
+    emit({"phase": "seconds", **seconds})
 
     mega = next(r for r in shapes if r["shape"] == "mega")
     full = max(train_rows, key=lambda r: r["n"])
+    mega_b3 = next(r for r in mega_rows if r["shape"] == "mega")
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:169",
-        "launches": serve["n_launches"] + train["fwd_launches"],
+        "launches": (serve["n_launches"] + train["fwd_launches"]
+                     + train_mb["fwd_launches"]),
         "launches_by_path": {"serve": serve["n_launches"],
-                             "train": train["fwd_launches"]},
+                             "train": train["fwd_launches"],
+                             "train_megabatch": train_mb["fwd_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": mega["ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
@@ -718,13 +976,28 @@ def main() -> int:
         "name": "fused_ggnn_backward", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn_bwd.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
-        "launches": train["bwd_launches"],
+        "launches": train["bwd_launches"] + train_mb["bwd_launches"],
+        "launches_by_path": {"train": train["bwd_launches"],
+                             "train_megabatch": train_mb["bwd_launches"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "ms": full["bwd_ms"], "plain_ms": full["plain_bwd_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": None,
         "shape": f"train n={full['n']} e={full['e']} d={full['d']} "
-                 f"n_steps={STEPS}"}]})
+                 f"n_steps={STEPS}"}, {
+        "name": "megabatch_model", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/megabatch.cu",
+        "replaces": "deepdfa_tpu/ops/megabatch.py:308",
+        "launches": packed["n_launches"] + train_mb["mb_launches"],
+        "launches_by_path": {"packed": packed["n_launches"],
+                             "train_megabatch": train_mb["mb_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in mega_rows),
+        "ms": mega_b3["ms"], "plain_ms": mega_b3["plain_ms"],
+        "bound_ms": mega_b3["bound_ms"], "bound_by": mega_b3["bound_by"],
+        "library_ms": None,
+        "shape": f"mega n={mega_b3['n']} e={mega_b3['e']} "
+                 f"graphs={mega_b3['graphs']} d={WIDTH} n_steps={STEPS} "
+                 f"head_layers=3"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,9 @@ __all__ = ["ALL_SUBKEYS", "BatchConfig", "CheckpointConfig", "DataConfig",
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
 
 # Layouts this package runs, and the roadmap item that ports each other one.
-LAYOUTS = ("segment", "fused")
+LAYOUTS = ("segment", "fused", "megabatch")
 _LATER_LAYOUTS = {
     "dense": "ROADMAP queue A, item A10 (dense layout)",
-    "megabatch": "ROADMAP queue A, item A7 with kernel B3 (megabatch layout)",
 }
 
 
@@ -65,13 +64,16 @@ class FeatureConfig:
 class GGNNConfig:
     """GGNN architecture (golden values: ``configs/ggnn.yaml``).
 
-    ``layout`` is ``segment`` (gather + segment sum per round, plain torch)
-    or ``fused`` (every message round, forward and backward, on the
-    hand-written CUDA kernels of :mod:`deepdfa_tpu_torch.ops.fused_ggnn`).
-    Both share one parameter set. ``bwd_kernel`` is the fused layout's
-    backward option (``auto`` | ``pallas`` | ``xla``): on the card ``auto``
-    and ``pallas`` run the backward kernel and ``xla`` raises when training
-    (see :func:`~deepdfa_tpu_torch.ops.fused_ggnn.fused_ggnn`).
+    ``layout`` is ``segment`` (gather + segment sum per round, plain torch),
+    ``fused`` (every message round, forward and backward, on the
+    hand-written CUDA kernels of :mod:`deepdfa_tpu_torch.ops.fused_ggnn`) or
+    ``megabatch`` (the whole forward on the CUDA kernel of
+    :mod:`deepdfa_tpu_torch.ops.megabatch`, trained through the fused
+    kernels). All three share one parameter set. ``bwd_kernel`` is the
+    fused layout's backward option (``auto`` | ``pallas`` | ``xla``): on
+    the card ``auto`` and ``pallas`` run the backward kernel and ``xla``
+    raises when training (see
+    :func:`~deepdfa_tpu_torch.ops.fused_ggnn.fused_ggnn`).
     """
 
     hidden_dim: int = 32

@@ -35,8 +35,9 @@
 //      bank of pre-update states the backward reads) and the kernel also
 //      writes the round's aggregate agg_t to a bank.
 // Each launch is checked with cudaGetLastError by the caller. The CSR
-// search, the linear kernel, the edge sum and the gate products live in
-// ggnn_common.cuh, which the backward (fused_ggnn_bwd.cu) shares.
+// search, the linear kernel, the round kernel, the edge sum and the gate
+// products live in ggnn_common.cuh, which the backward (fused_ggnn_bwd.cu)
+// and the whole-model kernel (megabatch.cu) share.
 //
 // Known imbalance, kept on purpose: batch_np points every padding edge at
 // the padding sink node, so one CSR segment can hold thousands of edges,
@@ -46,74 +47,6 @@
 // adds stays serial. Balancing it across warps is later work.
 
 #include "ggnn_common.cuh"
-
-namespace {
-
-// One GRU round for kRows rows and kCols columns of h'. `agg_bank` may be
-// null; otherwise each row's aggregate is written there too (training).
-__global__ void __launch_bounds__(kThreads)
-gru_round_kernel(const float* __restrict__ h, const float* __restrict__ msg,
-                 const int* __restrict__ row_ptr,
-                 const int* __restrict__ senders,
-                 const float* __restrict__ xw, const float* __restrict__ xb,
-                 const float* __restrict__ hw, const float* __restrict__ hb,
-                 float* __restrict__ h_out, float* __restrict__ agg_bank,
-                 int n, int d) {
-  extern __shared__ float smem[];
-  float* agg_s = smem;                   // [kRows][d]
-  float* h_s = agg_s + kRows * d;        // [kRows][d]
-  float* wx_s = h_s + kRows * d;         // [kChunk][3][kCols]
-  float* wh_s = wx_s + kChunk * 3 * kCols;
-  const int row0 = blockIdx.x * kRows;
-  const int col0 = blockIdx.y * kCols;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  load_rows(h, h_s, row0, n, d);
-
-  // Aggregation: warp w owns rows w and w + 8 and sums each row's segment
-  // one edge after the other, in edge-list order. Only the blocks of the
-  // first column tile write the bank.
-  for (int rr = warp; rr < kRows; rr += kThreads / 32) {
-    const int row = row0 + rr;
-    const int beg = row < n ? row_ptr[row] : 0;
-    const int end = row < n ? row_ptr[row + 1] : 0;
-    float* bank = (agg_bank != nullptr && blockIdx.y == 0 && row < n)
-                      ? agg_bank + (size_t)row * d : nullptr;
-    aggregate_row_vec4(msg, senders, beg, end, d, lane, agg_s + rr * d, bank);
-  }
-
-  // Both 3-gate products: thread (ty, tx) owns rows ty, ty + 8 and columns
-  // col0 + tx + 32 q of each of the r, z, n blocks.
-  float ax[2][3][4] = {};
-  float ah[2][3][4] = {};
-  gate_products(agg_s, h_s, xw, hw, wx_s, wh_s, d, col0, ax, ah);
-
-  const int tx = lane;
-  const int ty = warp;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = ty + 8 * r;
-    const int row = row0 + rr;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = col0 + tx + 32 * q;
-      if (row >= n || col >= d) continue;
-      const float xr = ax[r][0][q] + xb[col];
-      const float xz = ax[r][1][q] + xb[d + col];
-      const float xn = ax[r][2][q] + xb[2 * d + col];
-      const float hr = ah[r][0][q] + hb[col];
-      const float hz = ah[r][1][q] + hb[d + col];
-      const float hn = ah[r][2][q] + hb[2 * d + col];
-      const float rg = sigmoid_f(xr + hr);
-      const float zg = sigmoid_f(xz + hz);
-      const float ng = tanhf(xn + rg * hn);
-      h_out[(size_t)row * d + col] = (1.f - zg) * ng + zg * h_s[rr * d + col];
-    }
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -134,14 +67,8 @@ int ggnn_gru_round(const float* h, const float* msg, const int* row_ptr,
                    const int* senders, const float* xw, const float* xb,
                    const float* hw, const float* hb, float* h_out,
                    float* agg_bank, int n, int d, void* stream) {
-  if (d % 4 != 0) return (int)cudaErrorInvalidValue;  // float4 edge sum
-  const size_t smem = round_smem(d);
-  cudaError_t err = allow_smem(gru_round_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kRows - 1) / kRows, (d + kCols - 1) / kCols);
-  gru_round_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      h, msg, row_ptr, senders, xw, xb, hw, hb, h_out, agg_bank, n, d);
-  return (int)cudaGetLastError();
+  return launch_gru_round(h, msg, row_ptr, senders, xw, xb, hw, hb, h_out,
+                          agg_bank, n, d, (cudaStream_t)stream);
 }
 
 // Largest width both per-round kernels can take (shared memory per block).

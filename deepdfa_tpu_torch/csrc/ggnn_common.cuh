@@ -1,8 +1,9 @@
-// Device code shared by the GGNN forward (fused_ggnn.cu) and its training
-// backward (fused_ggnn_bwd.cu): tile sizes, the CSR row-pointer search, the
-// FFMA row-tile linear, the in-order float4 edge sum and the two fused
-// 3-gate GRU products. Each source includes it once and is built into its
-// own library, so everything here has internal linkage.
+// Device code shared by the GGNN forward (fused_ggnn.cu), its training
+// backward (fused_ggnn_bwd.cu) and the whole-model forward (megabatch.cu):
+// tile sizes, the CSR row-pointer search, the FFMA row-tile linear, the
+// in-order float4 edge sum, the two fused 3-gate GRU products and the GRU
+// round kernel built from them. Each source includes it once and is built
+// into its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -217,6 +218,70 @@ __device__ __forceinline__ void gate_products(
   }
 }
 
+// One GRU round for kRows rows and kCols columns of h'. `agg_bank` may be
+// null; otherwise each row's aggregate is written there too (training).
+__global__ void __launch_bounds__(kThreads)
+gru_round_kernel(const float* __restrict__ h, const float* __restrict__ msg,
+                 const int* __restrict__ row_ptr,
+                 const int* __restrict__ senders,
+                 const float* __restrict__ xw, const float* __restrict__ xb,
+                 const float* __restrict__ hw, const float* __restrict__ hb,
+                 float* __restrict__ h_out, float* __restrict__ agg_bank,
+                 int n, int d) {
+  extern __shared__ float smem[];
+  float* agg_s = smem;                   // [kRows][d]
+  float* h_s = agg_s + kRows * d;        // [kRows][d]
+  float* wx_s = h_s + kRows * d;         // [kChunk][3][kCols]
+  float* wh_s = wx_s + kChunk * 3 * kCols;
+  const int row0 = blockIdx.x * kRows;
+  const int col0 = blockIdx.y * kCols;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  load_rows(h, h_s, row0, n, d);
+
+  // Aggregation: warp w owns rows w and w + 8 and sums each row's segment
+  // one edge after the other, in edge-list order. Only the blocks of the
+  // first column tile write the bank.
+  for (int rr = warp; rr < kRows; rr += kThreads / 32) {
+    const int row = row0 + rr;
+    const int beg = row < n ? row_ptr[row] : 0;
+    const int end = row < n ? row_ptr[row + 1] : 0;
+    float* bank = (agg_bank != nullptr && blockIdx.y == 0 && row < n)
+                      ? agg_bank + (size_t)row * d : nullptr;
+    aggregate_row_vec4(msg, senders, beg, end, d, lane, agg_s + rr * d, bank);
+  }
+
+  // Both 3-gate products: thread (ty, tx) owns rows ty, ty + 8 and columns
+  // col0 + tx + 32 q of each of the r, z, n blocks.
+  float ax[2][3][4] = {};
+  float ah[2][3][4] = {};
+  gate_products(agg_s, h_s, xw, hw, wx_s, wh_s, d, col0, ax, ah);
+
+  const int tx = lane;
+  const int ty = warp;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = ty + 8 * r;
+    const int row = row0 + rr;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = col0 + tx + 32 * q;
+      if (row >= n || col >= d) continue;
+      const float xr = ax[r][0][q] + xb[col];
+      const float xz = ax[r][1][q] + xb[d + col];
+      const float xn = ax[r][2][q] + xb[2 * d + col];
+      const float hr = ah[r][0][q] + hb[col];
+      const float hz = ah[r][1][q] + hb[d + col];
+      const float hn = ah[r][2][q] + hb[2 * d + col];
+      const float rg = sigmoid_f(xr + hr);
+      const float zg = sigmoid_f(xz + hz);
+      const float ng = tanhf(xn + rg * hn);
+      h_out[(size_t)row * d + col] = (1.f - zg) * ng + zg * h_s[rr * d + col];
+    }
+  }
+}
+
 size_t linear_smem(int d_in) {
   return sizeof(float) * ((size_t)kRows * d_in + (size_t)kChunk * kCols);
 }
@@ -245,6 +310,20 @@ int launch_linear(const float* a, const float* w, const float* b, float* out,
   dim3 grid((n + kRows - 1) / kRows, (d_out + kCols - 1) / kCols);
   linear_kernel<<<grid, kThreads, smem, stream>>>(a, w, b, out, n, d_in, d_out,
                                                   accumulate);
+  return (int)cudaGetLastError();
+}
+
+int launch_gru_round(const float* h, const float* msg, const int* row_ptr,
+                     const int* senders, const float* xw, const float* xb,
+                     const float* hw, const float* hb, float* h_out,
+                     float* agg_bank, int n, int d, cudaStream_t stream) {
+  if (d % 4 != 0) return (int)cudaErrorInvalidValue;  // float4 edge sum
+  const size_t smem = round_smem(d);
+  cudaError_t err = allow_smem(gru_round_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kRows - 1) / kRows, (d + kCols - 1) / kCols);
+  gru_round_kernel<<<grid, kThreads, smem, stream>>>(
+      h, msg, row_ptr, senders, xw, xb, hw, hb, h_out, agg_bank, n, d);
   return (int)cudaGetLastError();
 }
 

@@ -1,1 +1,2 @@
-"""Message-passing ops: plain segment reductions and the fused GGNN kernel."""
+"""Message-passing ops: plain segment reductions, the fused GGNN kernels
+and the whole-model megabatch kernel."""

@@ -6,10 +6,12 @@ torch ops. ``num_segments`` is always explicit (batches have fixed shapes).
 
 Summation order: on the CPU, ``index_add_`` adds rows in index order, as
 XLA's CPU scatter does, so sums agree with the JAX package bit for bit. On
-CUDA, ``index_add_`` adds with float atomics in an order that changes from
-run to run; callers compare against it with a tolerance (the GGNN tests use
-``atol=2e-5, rtol=1e-4``, and the card's end-to-end check 1e-4 on
-probabilities).
+CUDA, ``index_add_`` would add with float atomics in an order that changes
+from run to run, so :func:`segment_sum` and the backward of :func:`gather`
+reduce in a fixed order instead: the rows are put in segment order by a
+stable sort and reduced by ``torch.segment_reduce`` over contiguous ranges,
+with no float atomics. Two calls on the same inputs are bitwise equal, and
+so are two training runs and a resumed one.
 """
 
 from __future__ import annotations
@@ -19,8 +21,39 @@ import torch
 __all__ = ["gather", "segment_sum", "segment_max", "segment_softmax"]
 
 
+def _ordered_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """CUDA: the per-segment sum in a fixed order. A stable sort puts each
+    segment's rows together in index order (a permutation, so its own
+    backward adds no two rows into one); ``segment_reduce`` then reduces
+    each contiguous range without atomics."""
+    ids, order = torch.sort(segment_ids, stable=True)
+    bounds = torch.arange(num_segments + 1, device=ids.device, dtype=ids.dtype)
+    offsets = torch.searchsorted(ids, bounds)
+    return torch.segment_reduce(data.index_select(0, order), "sum",
+                                offsets=offsets, axis=0, unsafe=True)
+
+
+class _Gather(torch.autograd.Function):
+    """``values[indices]`` whose backward is the ordered segment sum of the
+    cotangent (``index_select``'s own backward adds with atomics on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, values, indices):
+        ctx.save_for_backward(indices)
+        ctx.n = values.shape[0]
+        return values.index_select(0, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        return _ordered_segment_sum(g, indices, ctx.n), None
+
+
 def gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """``values[indices]`` along axis 0 — an edge reads its endpoint."""
+    if values.device.type == "cuda" and values.requires_grad:
+        return _Gather.apply(values, indices)
     return values.index_select(0, indices)
 
 
@@ -28,6 +61,8 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum of the rows of ``data`` that share a segment id; an empty
     segment sums to 0."""
+    if data.device.type == "cuda":
+        return _ordered_segment_sum(data, segment_ids, num_segments)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
 

@@ -19,10 +19,16 @@ def make_scorer(model, label_style: str) -> Callable:
     """``batch -> (fn_prob[max_graphs], gate_weights[max_nodes])`` under
     ``torch.inference_mode()``. Unsupported checkpoints fail here with a
     clear message."""
-    if getattr(model, "cfg", None) is not None and model.cfg.encoder_mode:
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and cfg.encoder_mode:
         raise ValueError(
             "predict needs a classifier head; encoder_mode models return "
             "pooled embeddings")
+    if cfg is not None and cfg.layout == "megabatch":
+        raise ValueError(
+            "a layout='megabatch' model computes no per-node gate weights, "
+            "which scoring reports; serve its state dict with "
+            "layout='fused' (the same parameters and logits)")
     if label_style == "node":
         raise NotImplementedError(
             "node-label scoring is not ported yet (ROADMAP A3/A6)")

@@ -247,7 +247,9 @@ class ScoringEngine:
         ``device`` — ``cuda`` unless the caller names another; without a
         GPU and without an explicit ``"cpu"`` this raises.
         ``megabatch=True`` adds the :func:`mega_bucket` shape for
-        :meth:`score_packed`."""
+        :meth:`score_packed`. A ``layout="megabatch"`` model raises
+        ``ValueError`` here (see :func:`~deepdfa_tpu_torch.predict.
+        make_scorer`)."""
         from deepdfa_tpu_torch.predict import make_scorer
 
         if precision != "f32":

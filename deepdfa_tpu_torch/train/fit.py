@@ -14,9 +14,11 @@ uninterrupted run where the device is deterministic.
 
 The port trains on the synthetic corpus only. Telemetry, TensorBoard,
 preemption and emergency checkpoints, the watchdog, the elastic mesh block,
-divergence rollback, node and dataflow labels and the dense and megabatch
-layouts are not ported yet (ROADMAP A4, A3, A7, A10, A11); a config that
-asks for one raises ``NotImplementedError``.
+divergence rollback, node and dataflow labels and the dense layout are not
+ported yet (ROADMAP A4, A3, A10, A11); a config that asks for one raises
+``NotImplementedError``. All three ported layouts (segment, fused,
+megabatch) train on the same segment batches and buckets; on the card the
+megabatch layout's kernel takes every bucket, with no segment twin.
 """
 
 from __future__ import annotations
@@ -70,8 +72,8 @@ def load_corpus(cfg: ExperimentConfig) -> dict[str, list[Graph]]:
 
 
 def _batcher(cfg: ExperimentConfig, graphs: list[Graph] | None = None):
-    """Fixed-shape batcher for the segment and fused layouts (the fused
-    layout consumes segment batches). With ``auto_buckets`` and a corpus to
+    """Fixed-shape batcher for every ported layout (the fused and megabatch
+    layouts consume segment batches). With ``auto_buckets`` and a corpus to
     measure, budgets come from corpus statistics capped by the configured
     ceilings."""
     b = cfg.data.batch

@@ -182,12 +182,13 @@ def _weighted_mean(losses: list, wsums: list) -> float:
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop over a segment-layout :class:`GGNN` or a fused-layout
-    :class:`GGNNFused` (both fed :class:`BatchedGraphs`), on the device the
-    model's parameters are on.
+    """Epoch loop over a segment-layout :class:`GGNN`, a fused-layout
+    :class:`GGNNFused` or a megabatch-layout :class:`GGNNMegabatch` (all fed
+    :class:`BatchedGraphs`), on the device the model's parameters are on.
 
     There is no segment twin for oversized buckets: on the card the fused
-    kernels take every bucket shape the batcher emits, or raise. After each
+    and whole-model kernels take every bucket shape the batcher emits, or
+    raise. After each
     epoch or evaluation, ``step_ms`` holds the host milliseconds of each
     train step (each ends at the guard's device sync), ``train_seconds`` the
     epoch's wall time and ``n_eval_batches`` counts evaluated batches."""
@@ -227,8 +228,9 @@ class Trainer:
         return self.lr_scale
 
     def steps_for(self, batch) -> tuple[Callable, Callable]:
-        """(train_step, eval_step) for this batch: both layouts take
-        segment-shaped :class:`BatchedGraphs`, every bucket on one route."""
+        """(train_step, eval_step) for this batch: every ported layout
+        takes segment-shaped :class:`BatchedGraphs`, every bucket on one
+        route."""
         if not isinstance(batch, BatchedGraphs):
             raise TypeError(f"expected BatchedGraphs, got {type(batch).__name__}"
                             " (the dense layout is ROADMAP A10)")

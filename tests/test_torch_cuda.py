@@ -172,3 +172,89 @@ def test_golden_width_trainer_step_is_finite(cuda):
     assert not torch.equal(after["ggnn.gru.x_proj.weight"],
                            before["ggnn.gru.x_proj.weight"])
     assert state.step == 1 and float(sum(metrics)) == 64
+
+
+@pytest.mark.gpu
+def test_pooling_backward_is_bitwise_stable(cuda):
+    """Attention pooling's backward (segment softmax, gathers and segment
+    sums over sorted graph slots) reduces in a fixed order on the card:
+    two calls give the same bits."""
+    from deepdfa_tpu_torch.models.ggnn import GlobalAttentionPooling
+
+    rng = np.random.default_rng(12)
+    n, d, g = 5000, 256, 257
+    gidx = torch.from_numpy(np.sort(rng.integers(0, g, n)).astype(np.int32))
+    mask = torch.from_numpy(rng.random(n) < 0.9)
+    h = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((g, d)).astype(np.float32))
+    pool = GlobalAttentionPooling(d).cuda()
+
+    def grads():
+        x = h.cuda().requires_grad_(True)
+        pooled, _ = pool(x, gidx.cuda(), mask.cuda(), g)
+        return torch.autograd.grad(pooled, [x] + list(pool.parameters()),
+                                   cot.cuda())
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _mega_problem(seed, hidden=8, n_steps=3):
+    """A packed batch and a seeded megabatch model at a small width."""
+    from deepdfa_tpu_torch.config import GGNNConfig
+    from deepdfa_tpu_torch.data.graphs import to_device
+    from deepdfa_tpu_torch.data.synthetic import random_dataset
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.ops.megabatch import pack_megabatches
+
+    cfg = GGNNConfig(hidden_dim=hidden, n_steps=n_steps, num_output_layers=3,
+                     layout="megabatch")
+    model = make_model(cfg, 52, device="cuda", seed=seed)
+    graphs = (random_dataset(30, seed=seed, input_dim=52, mean_nodes=8)
+              + random_dataset(6, seed=seed + 1, input_dim=52, mean_nodes=40))
+    pack = pack_megabatches(graphs, width=4 * hidden, n_steps=n_steps,
+                            table_rows=4 * 52, embed_width=hidden,
+                            n_head_layers=3)
+    return model, to_device(pack.batches[0], "cuda")
+
+
+@pytest.mark.gpu
+def test_megabatch_kernel_matches_plain_version(cuda):
+    from deepdfa_tpu_torch.models.ggnn import GGNN
+    from deepdfa_tpu_torch.ops import megabatch as tmb
+
+    model, batch = _mega_problem(3)
+    before = tmb.n_launches
+    with torch.inference_mode():
+        got = model(batch)
+        again = model(batch)
+    torch.cuda.synchronize()
+    assert tmb.n_launches - before == 2 * tmb.launches_per_call(3)
+    assert torch.equal(got, again)
+    with torch.inference_mode():
+        seg = GGNN.forward(model, batch)  # the segment layout, same weights
+    assert bool(torch.isfinite(got).all()) and got.shape == seg.shape
+    # FFMA in the kernel against cuBLAS in the plain segment layout
+    np.testing.assert_allclose(got.cpu().numpy(), seg.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_megabatch_gradients_match_and_repeat_bitwise(cuda):
+    from deepdfa_tpu_torch.models.ggnn import GGNN
+
+    model, batch = _mega_problem(5)
+
+    def grads(forward):
+        model.zero_grad(set_to_none=True)
+        torch.sum(forward(model, batch) ** 2).backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    mega = type(model).forward
+    first, second = grads(mega), grads(mega)
+    assert all(torch.equal(first[k], second[k]) for k in first)
+    plain = grads(GGNN.forward)
+    for k, want in plain.items():
+        scale = float(want.abs().max())
+        # the recompute runs B1/B2, the plain layout cuBLAS and torch ops
+        assert float((first[k] - want).abs().max()) <= 1e-4 * max(scale, 1.0), k

@@ -89,3 +89,25 @@ def test_masked_softmax_rules():
                     torch.tensor(float("-inf"))),
         torch.from_numpy(ids), 3).numpy()
     assert maxes[1] == -np.inf and maxes[2] == -np.inf
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("trailing", [(), (5,)])
+def test_ordered_reductions_of_the_card_equal_index_add(sort, trailing):
+    """The CUDA path's reductions (stable sort, then ``segment_reduce`` over
+    contiguous ranges), run here on CPU tensors: the sum adds each
+    segment's rows in index order, so it equals ``index_add_`` bit for bit,
+    and the gather's backward equals ``index_select``'s."""
+    rng = np.random.default_rng(7 + len(trailing))
+    ids = torch.from_numpy(_ids(rng, 40, sort))
+    data = torch.from_numpy(rng.standard_normal((40,) + trailing)
+                            .astype(np.float32))
+    want = torch.zeros((N_SEG,) + trailing).index_add_(0, ids, data)
+    assert torch.equal(tseg._ordered_segment_sum(data, ids, N_SEG), want)
+    values = torch.from_numpy(rng.standard_normal((N_SEG,) + trailing)
+                              .astype(np.float32)).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((40,) + trailing)
+                         .astype(np.float32))
+    (got,) = torch.autograd.grad(tseg._Gather.apply(values, ids), values, g)
+    (ref,) = torch.autograd.grad(values.index_select(0, ids), values, g)
+    assert torch.equal(got, ref)
