@@ -64,6 +64,39 @@ Each phase prints one JSON line; any failure exits non-zero.
    banked recompute), B2 = train steps × 32; the first step against the
    segment layout on the card and the megabatch layout on the CPU; the
    resumed and the repeated fit bitwise equal to the straight one.
+9. hier_kernel — the level-1 encoder (B4: B3's launches with a head of 0
+   layers) against its plain version ``megabatch_encoder_reference`` at the
+   golden width and 5 rounds, at the megabatch serving shape and at a full
+   hierarchical bin (64 graphs, about 4,094 nodes): max abs difference of
+   the pooled rows (limit ``KERNEL_LIMIT``), two calls bitwise equal,
+   CUDA-event times, the bound and launches per call; and each function's
+   row embedded inside the full bin bitwise equal to its row embedded
+   alone.
+10. hier — the golden model's engine scores 16 seeded units (3-32
+   functions each, the serve phase's request graphs, a seeded call DAG
+   and summaries) through ``ScoringEngine.score_unit`` with a
+   ``FunctionEmbeddingCache`` in a temporary directory, the B3/B4 count
+   reset just before: the cold pass makes B4 launches = level-1
+   dispatches × 14, no fallback and one recompute per function; a warm
+   pass over a fresh cache handle makes no dispatch and no recompute, hits
+   every lookup and gives the same unit scores; unit and function scores
+   against a CPU engine on the same state within ``PROB_LIMIT``, with the
+   same level-2 weights. Units/s and functions/s cold and warm, the cold
+   time per unit split into its two levels, and the device profile of the
+   largest unit scored without the cache.
+11. int8_kernel — the int8 product (B5) against its plain version
+   ``int8_matmul_reference`` at M in {2048, 4096, 5120, 16768}, K = 128,
+   N in {128, 384}: max abs error over the largest output (limit
+   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event and profiler
+   device times of the kernel, the plain version and ``torch.matmul`` on
+   the weight dequantized in advance (TF32 off), and the bound.
+12. serve_int8 — ``ScoringEngine.from_model(golden, precision="int8")``:
+   the calibration gate must accept; the serve phase's 256 requests
+   through ``MicroBatcher`` with the B5 count reset just before: B5
+   launches = dispatches × 3 × rounds; probabilities against the float32
+   engine within ``int8_max_score_delta`` and against ``GGNNInt8`` on the
+   CPU within ``PROB_LIMIT``; requests/s, p50 and p99, and the device
+   profile of one packed 48-request window.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -81,6 +114,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -96,11 +130,17 @@ from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.models import make_model
+from deepdfa_tpu_torch.models.ggnn_hier import (N_SUMMARY_FEATURES,
+                                                UnitCallGraph, UnitFunction,
+                                                unit_call_edges)
 from deepdfa_tpu_torch.ops import _build
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
+from deepdfa_tpu_torch.ops import int8_matmul as i8
 from deepdfa_tpu_torch.ops import megabatch as mb
-from deepdfa_tpu_torch.serve import (MicroBatcher, ScoringEngine, mega_bucket,
+from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
+                                     ScoringEngine, mega_bucket,
                                      serve_buckets)
+from deepdfa_tpu_torch.serve.engine import model_revision
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
@@ -114,6 +154,9 @@ PEAK_BYTES = 3.35e12
 # index_add_ adds with atomics in a varying order
 KERNEL_LIMIT = 1e-4
 PROB_LIMIT = 1e-4
+# the int8 product against its plain version, over the largest output: FFMA
+# over K = 128 in order against cuBLAS's order, both in float32
+INT8_LIMIT = 1e-5
 # backward kernel against its plain version evaluated in float64 on the same
 # inputs, relative to each gradient's largest magnitude: the kernel's float32
 # sums over five reverse rounds (the float32 plain version, whose cuBLAS sums
@@ -163,6 +206,26 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: the time of the kernels and
+    copies it launched, summed by the profiler over ``reps`` calls after one
+    warm-up call. Unlike :func:`cuda_ms` it leaves out the host's time
+    between launches, which bounds a call of a few microseconds of work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0)
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 # ---------------------------------------------------------------- phase 2
@@ -750,15 +813,16 @@ def model_bound(n: int, e: int, d: int, g: int, n_sub: int, rows: int,
     """Least milliseconds for the whole model: the rounds' FLOPs (as
     :func:`kernel_bound`) plus 2·N·2D for the gate logits, 2·N·2D for the
     readout and G·Σ 2·in·out for the head, over the FP32 peak; or the
-    bytes (table, ids, edges, gidx, mask and weights read once, the logits
-    written once) over HBM bandwidth; the larger."""
+    bytes (table, ids, edges, gidx, mask and weights read once, the
+    output, ``dims[-1]`` floats per slot, written once) over HBM bandwidth;
+    the larger. ``dims = [2·D]`` is the encoder (B4), which has no head."""
     head = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     flops = (steps * (2 * n * d * d + 2 * 2 * n * d * 3 * d + e * d)
              + 2 * 2 * n * 2 * d + g * 2 * head)
     weights = (d * d + d + 2 * (d * 3 * d + 3 * d) + 2 * d + 1 + head
                + sum(dims[1:]))
     nbytes = 4 * (rows * (d // n_sub) + n * n_sub + 2 * e + n + weights
-                  + g) + n
+                  + g * dims[-1]) + n
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -921,6 +985,377 @@ def phase_packed() -> dict:
     return row
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def golden_model(device: str, layout: str = "fused"):
+    """The golden model with seeded weights (the serve phase's)."""
+    cfg = GGNNConfig(hidden_dim=32, n_steps=STEPS, num_output_layers=3,
+                     concat_all_absdf=True, label_style="graph",
+                     layout=layout)
+    return make_model(cfg, INPUT_DIM, device=device, seed=0)
+
+
+def full_bin(rng) -> list:
+    """64 DeepDFA-sized graphs of about 4,094 nodes in all: one full
+    hierarchical level-1 bin."""
+    out, total = [], 0
+    while len(out) < 64:
+        g = random_graph(rng, input_dim=INPUT_DIM, mean_nodes=62)
+        if total + g.n_nodes + 3 * (63 - len(out)) <= 4094:
+            out.append(g)
+            total += g.n_nodes
+    return out
+
+
+def phase_hier_kernel() -> list[dict]:
+    rng = np.random.default_rng(6)
+    engine = ScoringEngine.from_model(golden_model("cuda"), None, "graph",
+                                      KEYS, max_batch=MAX_BATCH,
+                                      device="cuda")
+    scorer = engine.hier
+    members = full_bin(rng)
+    (indices, plan), = scorer._pack(members)
+    bin_batch = batch_np([members[i] for i in indices], plan.max_graphs,
+                         plan.max_nodes, plan.max_edges)
+    shapes = [("mega", fill(mega_bucket(MAX_BATCH), rng, 50)),
+              ("hier_bin", bin_batch)]
+    rows = []
+    for name, b in shapes:
+        args = model_inputs(b, rng)[:14]  # the golden shapes, no head
+        kw = dict(n_steps=STEPS, n_graphs=b.max_graphs)
+        n, e, g = b.max_nodes, len(b.senders), b.max_graphs
+        with torch.inference_mode():
+            before = mb.n_launches
+            got = mb.fused_ggnn_encoder(*args, **kw)
+            torch.cuda.synchronize()
+            per_call = mb.n_launches - before
+            again = mb.fused_ggnn_encoder(*args, **kw)
+            want = mb.megabatch_encoder_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            bitwise = torch.equal(got, again)
+            p = mb._Prepared(*args, (), STEPS, b.max_graphs)
+            ms = cuda_ms(lambda: mb._launch(p), 20)
+            plain_ms = cuda_ms(
+                lambda: mb.megabatch_encoder_reference(*args, **kw), 20)
+            ms_again = cuda_ms(lambda: mb._launch(p), 20)
+            call_ms = cuda_ms(lambda: mb.fused_ggnn_encoder(*args, **kw), 20)
+        bound_ms, bound_by = model_bound(n, e, WIDTH, g, len(KEYS),
+                                         len(KEYS) * INPUT_DIM, [2 * WIDTH],
+                                         STEPS)
+        row = {"phase": "hier_kernel", "shape": name, "n": n, "e": e,
+               "graphs": g, "d": WIDTH, "n_steps": STEPS, "head_layers": 0,
+               "real_nodes": int(b.node_mask.sum()),
+               "real_graphs": int(b.graph_mask.sum()),
+               "max_abs_err": err, "limit": KERNEL_LIMIT, "finite": finite,
+               "bitwise_repeat": bitwise, "ms": ms, "ms_repeat": ms_again,
+               "call_ms": call_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launches_per_call": per_call}
+        if name == "hier_bin":
+            # each function's row inside the full bin against its row
+            # embedded alone, through the scorer's own path
+            together = scorer.embed_graphs(members)
+            alone = [scorer.embed_graphs([members[i]])[0]
+                     for i in range(0, len(members), 4)]
+            row["rows_checked_alone"] = len(alone)
+            row["rows_alone_bitwise"] = all(
+                np.array_equal(a, together[i])
+                for a, i in zip(alone, range(0, len(members), 4)))
+            row["rows_alone_max_abs_diff"] = max(
+                float(np.abs(a - together[i]).max())
+                for a, i in zip(alone, range(0, len(members), 4)))
+        emit(row)
+        if per_call != mb.launches_per_call(STEPS):
+            fail(f"B4 made {per_call} launches at {name}, expected "
+                 f"{mb.launches_per_call(STEPS)}")
+        if not (finite and bitwise and err <= KERNEL_LIMIT):
+            fail(f"B4 at {name}: finite={finite} bitwise={bitwise} err={err}")
+        if name == "hier_bin" and not row["rows_alone_bitwise"]:
+            fail("B4: a function's row inside a full bin differs from its "
+                 "row embedded alone")
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------- phase 10
+
+
+def hier_units(reqs, rng) -> list[tuple[list, UnitCallGraph]]:
+    """16 units of 3-32 of ``reqs`` each, every function calling 1-3 later
+    functions of its unit (a seeded DAG), with summaries drawn from a
+    seeded per-node reach and taint inside each feature's range."""
+    sizes = rng.integers(3, 33, size=16)
+    if sizes.sum() > len(reqs):
+        sizes = np.maximum(3, sizes * len(reqs) // sizes.sum())
+    units, at = [], 0
+    for u, n in enumerate(sizes):
+        graphs = reqs[at:at + n]
+        at += n
+        names = [f"unit{u}_fn{i}" for i in range(n)]
+        fns = [UnitFunction(name, f"int {name}(void) {{ return {at + i}; }}",
+                            g) for i, (name, g) in enumerate(zip(names, graphs))]
+        calls = []
+        for i in range(n - 1):
+            k = min(int(rng.integers(1, 4)), n - 1 - i)
+            calls += [(i, int(j)) for j in rng.choice(
+                np.arange(i + 1, n), size=k, replace=False)]
+        sg = types.SimpleNamespace(
+            callgraph=types.SimpleNamespace(edges=calls),
+            method_names=dict(enumerate(names)))
+        snd, rcv = unit_call_edges(sg, names)
+        callers = np.bincount([b for _, b in calls], minlength=n)
+        callees = np.bincount([a for a, _ in calls], minlength=n)
+        summ = np.zeros((n, N_SUMMARY_FEATURES), np.float32)
+        for i, g in enumerate(graphs):
+            ireach = rng.integers(0, 12, size=g.n_nodes)
+            itaint = rng.integers(0, 4, size=g.n_nodes)
+            summ[i] = [np.log1p(g.n_nodes), np.log1p(ireach.sum()),
+                       min(ireach.max(), 8) / 8.0, itaint.max() / 3.0,
+                       float((itaint >= 3).any()), np.log1p(callers[i]),
+                       np.log1p(callees[i])]
+        units.append((fns, UnitCallGraph(snd, rcv, summ, len(calls))))
+    return units
+
+
+def score_units(engine, units) -> tuple[list[dict], float, list[dict]]:
+    """Every unit through ``score_unit``: results, wall seconds and each
+    unit's host seconds per level."""
+    out, split = [], []
+    t0 = time.perf_counter()
+    for fns, unit in units:
+        out.append(engine.score_unit(fns, unit))
+        split.append(engine.hier.last_seconds)
+    return out, time.perf_counter() - t0, split
+
+
+def phase_hier() -> dict:
+    model = golden_model("cuda")
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    engine = ScoringEngine.from_model(model, None, "graph", KEYS,
+                                      max_batch=MAX_BATCH, device="cuda")
+    units = hier_units(requests(), np.random.default_rng(7))
+    n_fns = sum(len(fns) for fns, _ in units)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_emb_") as tmp:
+        salt = dict(model_rev=engine.model_rev, vocab_hash="chip_smoke",
+                    dim=engine.hier.out_dim)
+        engine.hier.cache = FunctionEmbeddingCache(tmp, **salt)
+
+        # the main path, cold: counts from zero, read right after
+        engine.hier.reset_counters()
+        mb.n_launches = 0
+        d0 = engine.n_dispatches
+        cold, cold_s, split = score_units(engine, units)
+        torch.cuda.synchronize()
+        cold_launches = mb.n_launches
+        cold_dispatches = engine.n_dispatches - d0
+        cold_stats = engine.hier.stats()
+
+        # warm: a fresh cache handle on the same root
+        engine.hier.cache = FunctionEmbeddingCache(tmp, **salt)
+        engine.hier.reset_counters()
+        mb.n_launches = 0
+        d0 = engine.n_dispatches
+        warm, warm_s, _ = score_units(engine, units)
+        warm_launches = mb.n_launches
+        warm_dispatches = engine.n_dispatches - d0
+        warm_stats = engine.hier.stats()
+
+        # device time of one unit scored cold, the cache detached (after
+        # the main path's counts were read)
+        engine.hier.cache = None
+        fns, unit = max(units, key=lambda fu: len(fu[0]))
+        busy = profile_call(lambda: engine.score_unit(fns, unit))
+
+    # the CPU engine on the same state dict, off the main path
+    cpu = ScoringEngine.from_model(golden_model("cpu"), state, "graph", KEYS,
+                                   max_batch=MAX_BATCH, device="cpu")
+    cpu_out, _, _ = score_units(cpu, units)
+    same_l2 = all(torch.equal(v.cpu(), cpu.hier.level2.state_dict()[k])
+                  for k, v in engine.hier.level2.state_dict().items())
+    unit_diff = max(abs(a["unit_score"] - b["unit_score"])
+                    for a, b in zip(cold, cpu_out))
+    fn_diff = max(abs(ra["score"] - {r["function"]: r["score"]
+                                     for r in b["attribution"]}[ra["function"]])
+                  for a, b in zip(cold, cpu_out) for ra in a["attribution"])
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "level1"}  # noqa: E731
+                        for r in rs]
+    per = mb.launches_per_call(STEPS)
+    row = {"phase": "hier", "units": len(units), "functions": n_fns,
+           "call_edges": sum(u.n_call_edges for _, u in units),
+           "cold": {"seconds": cold_s, "units_per_s": len(units) / cold_s,
+                    "functions_per_s": n_fns / cold_s,
+                    "dispatches": cold_dispatches, "b4_launches": cold_launches,
+                    "level1": cold_stats,
+                    "ms_per_unit_level1": 1e3 * float(np.mean(
+                        [t["level1"] for t in split])),
+                    "ms_per_unit_level2": 1e3 * float(np.mean(
+                        [t["level2"] for t in split]))},
+           "warm": {"seconds": warm_s, "units_per_s": len(units) / warm_s,
+                    "functions_per_s": n_fns / warm_s,
+                    "dispatches": warm_dispatches,
+                    "b4_launches": warm_launches, "level1": warm_stats},
+           "launches_per_dispatch": per,
+           "warm_equals_cold": strip(warm) == strip(cold),
+           "max_abs_unit_score_diff_vs_cpu": unit_diff,
+           "max_abs_function_score_diff_vs_cpu": fn_diff,
+           "level2_weights_equal_cpu": same_l2, "limit": PROB_LIMIT,
+           "profile_cold_unit": dict(busy, functions=len(fns)),
+           "unit_scores": [r["unit_score"] for r in cold]}
+    emit(row)
+    if not all(0.0 < r["unit_score"] < 1.0 for r in cold):
+        fail("hier: unit scores out of range")
+    if cold_launches <= 0 or cold_launches != cold_dispatches * per:
+        fail(f"hier: {cold_launches} B4 launches for {cold_dispatches} "
+             f"level-1 dispatches (expected {per} each)")
+    if cold_stats["fallback_dispatches"] or cold_stats["recompute"] != n_fns:
+        fail(f"hier: cold pass {cold_stats}, expected no fallback and "
+             f"{n_fns} recomputes")
+    if (warm_dispatches or warm_launches or warm_stats["recompute"]
+            or warm_stats["cache"]["hit_rate"] != 1.0):
+        fail(f"hier: warm pass made {warm_dispatches} dispatches, "
+             f"{warm_launches} launches: {warm_stats}")
+    if not row["warm_equals_cold"]:
+        fail("hier: warm unit scores differ from the cold pass")
+    if not (same_l2 and unit_diff <= PROB_LIMIT and fn_diff <= PROB_LIMIT):
+        fail(f"hier: against the CPU engine: level-2 weights equal "
+             f"{same_l2}, unit {unit_diff}, function {fn_diff}")
+    return row
+
+
+# --------------------------------------------------------------- phase 11
+
+
+def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """Least milliseconds for the product: 2·M·K·N FLOPs over the FP32
+    peak, or the bytes (x, q, scale read once, y written once) over HBM
+    bandwidth, the larger."""
+    flops = 2 * m * k * n
+    nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_int8_kernel() -> list[dict]:
+    rng = np.random.default_rng(8)
+    rows = []
+    for n in (128, 384):
+        w = (rng.standard_normal((WIDTH, n)) * WIDTH ** -0.5).astype(np.float32)
+        q_np, s_np = i8.calibrate_int8(w)
+        q, scale = torch.from_numpy(q_np).cuda(), torch.from_numpy(s_np).cuda()
+        dequant = q.float() * scale  # the library yardstick's weight
+        for m in (2048, 4096, 5120, 16768):
+            x = torch.from_numpy(
+                (rng.standard_normal((m, WIDTH)) * 0.5).astype(np.float32)).cuda()
+            before = i8.n_launches
+            got = i8.int8_matmul(x, q, scale)
+            again = i8.int8_matmul(x, q, scale)
+            want = i8.int8_matmul_reference(x, q, scale)
+            torch.cuda.synchronize()
+            launches = i8.n_launches - before
+            abs_err = float((got - want).abs().max())
+            err = abs_err / float(want.abs().max())
+            bitwise = torch.equal(got, again)
+            ms = cuda_ms(lambda: i8.int8_matmul(x, q, scale), 50)
+            plain_ms = cuda_ms(lambda: i8.int8_matmul_reference(x, q, scale),
+                               50)
+            library_ms = cuda_ms(lambda: torch.matmul(x, dequant), 50)
+            ms_again = cuda_ms(lambda: i8.int8_matmul(x, q, scale), 50)
+            dev = {key: device_ms(f, 20) for key, f in (
+                ("device_ms", lambda: i8.int8_matmul(x, q, scale)),
+                ("plain_device_ms",
+                 lambda: i8.int8_matmul_reference(x, q, scale)),
+                ("library_device_ms", lambda: torch.matmul(x, dequant)))}
+            bound_ms, bound_by = int8_bound(m, WIDTH, n)
+            row = {"phase": "int8_kernel", "m": m, "k": WIDTH, "n": n,
+                   "max_abs_err": abs_err, "max_rel_err": err,
+                   "limit": INT8_LIMIT,
+                   "bitwise_repeat": bitwise, "launches_per_call": launches // 2,
+                   "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library": "torch.matmul(x, q·scale dequantized in "
+                              "advance), TF32 off",
+                   **dev, "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            if launches != 2 or not (bitwise and err <= INT8_LIMIT):
+                fail(f"B5 at m={m} n={n}: launches={launches} "
+                     f"bitwise={bitwise} err={err}")
+            rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------- phase 12
+
+
+def phase_serve_int8() -> dict:
+    model = golden_model("cuda")
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    engine = ScoringEngine.from_model(model, None, "graph", KEYS,
+                                      max_batch=MAX_BATCH, megabatch=True,
+                                      device="cuda", precision="int8")
+    if engine.precision != "int8":
+        fail(f"serve_int8: the int8 gate refused (delta "
+             f"{engine.int8_score_delta})")
+    engine.warmup()
+    reqs = requests()
+
+    # the main path: counts from zero, read right after
+    i8.n_launches = 0
+    d0 = engine.n_dispatches
+    probs, lat, wall = drive_batcher(engine, reqs)
+    torch.cuda.synchronize()
+    launches = i8.n_launches
+    dispatches = engine.n_dispatches - d0
+
+    # references, off the main path: the float32 engine on the card and
+    # GGNNInt8's plain version on the CPU, over the same weights
+    f32 = ScoringEngine.from_model(golden_model("cuda"), state, "graph", KEYS,
+                                   max_batch=MAX_BATCH, megabatch=True,
+                                   device="cuda")
+    f32_probs = f32.score_packed(reqs)
+    cpu = ScoringEngine.from_model(golden_model("cpu"), state, "graph", KEYS,
+                                   max_batch=MAX_BATCH, megabatch=True,
+                                   device="cpu", precision="int8")
+    cpu_probs = cpu.score_packed(reqs[:16])
+    busy = profile_call(lambda: engine.score_packed(reqs[:48]))
+    per = 3 * STEPS
+    row = {"phase": "serve_int8", "requests": len(reqs),
+           # the seeded weights' device-free revision: the delta depends on
+           # the weights, which a seeded init may draw differently under
+           # another torch version
+           "model_rev_cpu": model_revision(state, "cpu"),
+           "int8_score_delta": engine.int8_score_delta,
+           "cpu_int8_score_delta": cpu.int8_score_delta,
+           "precision": engine.precision, "cpu_precision": cpu.precision,
+           "requests_per_s": len(reqs) / wall, "wall_s": wall,
+           "p50_ms": float(np.percentile(lat, 50) * 1e3),
+           "p99_ms": float(np.percentile(lat, 99) * 1e3),
+           "n_dispatches": dispatches, "n_launches": launches,
+           "launches_per_forward": per,
+           "max_abs_prob_diff_vs_f32": float(np.abs(probs - f32_probs).max()),
+           "f32_limit": 0.01,
+           "max_abs_prob_diff_vs_cpu_int8": float(
+               np.abs(probs[:16] - cpu_probs).max()),
+           "limit": PROB_LIMIT, "profile_score_packed": busy}
+    emit(row)
+    if not (np.all(np.isfinite(probs)) and np.all((probs > 0) & (probs < 1))):
+        fail("serve_int8: non-finite or out-of-range probabilities")
+    if cpu.precision != "int8":
+        fail("serve_int8: the CPU engine's int8 gate refused")
+    if not row["max_abs_prob_diff_vs_f32"] <= 0.01:
+        fail(f"serve_int8: {row['max_abs_prob_diff_vs_f32']} from float32")
+    if not row["max_abs_prob_diff_vs_cpu_int8"] <= PROB_LIMIT:
+        fail(f"serve_int8: {row['max_abs_prob_diff_vs_cpu_int8']} from the "
+             f"CPU")
+    if launches <= 0 or launches != dispatches * per:
+        fail(f"serve_int8: {launches} B5 launches for {dispatches} "
+             f"dispatches (expected {per} each)")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -930,7 +1365,8 @@ def main() -> int:
     smi = nvidia_smi()
     t0 = time.perf_counter()
     # the CUDA sources of the main paths, one nvcc each, in parallel
-    log = _build.build("fused_ggnn", "fused_ggnn_bwd", "megabatch")
+    log = _build.build("fused_ggnn", "fused_ggnn_bwd", "megabatch",
+                       "int8_matmul")
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -953,11 +1389,17 @@ def main() -> int:
     mega_rows = timed("mega_kernel", phase_mega_kernel)
     packed = timed("packed", phase_packed)
     train_mb = timed("train_megabatch", phase_train, "megabatch")
+    hier_rows = timed("hier_kernel", phase_hier_kernel)
+    hier = timed("hier", phase_hier)
+    int8_rows = timed("int8_kernel", phase_int8_kernel)
+    serve8 = timed("serve_int8", phase_serve_int8)
     emit({"phase": "seconds", **seconds})
 
     mega = next(r for r in shapes if r["shape"] == "mega")
     full = max(train_rows, key=lambda r: r["n"])
     mega_b3 = next(r for r in mega_rows if r["shape"] == "mega")
+    b4 = next(r for r in hier_rows if r["shape"] == "hier_bin")
+    b5 = next(r for r in int8_rows if (r["m"], r["n"]) == (5120, 384))
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -997,7 +1439,33 @@ def main() -> int:
         "library_ms": None,
         "shape": f"mega n={mega_b3['n']} e={mega_b3['e']} "
                  f"graphs={mega_b3['graphs']} d={WIDTH} n_steps={STEPS} "
-                 f"head_layers=3"}]})
+                 f"head_layers=3"}, {
+        "name": "megabatch_encoder", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/megabatch.cu",
+        "replaces": "deepdfa_tpu/ops/megabatch.py:569",
+        "launches": hier["cold"]["b4_launches"],
+        "launches_by_path": {"hier": hier["cold"]["b4_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in hier_rows),
+        "ms": b4["ms"], "plain_ms": b4["plain_ms"],
+        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": None,
+        "shape": f"hier_bin n={b4['n']} e={b4['e']} graphs={b4['graphs']} "
+                 f"d={WIDTH} n_steps={STEPS} head_layers=0"}, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "deepdfa_tpu/ops/int8_matmul.py:44",
+        "launches": serve8["n_launches"],
+        "launches_by_path": {"serve_int8": serve8["n_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in int8_rows),
+        # device times: CUDA-event times of a call this short measure the
+        # host's per-call cost (the row's "ms", "plain_ms", "library_ms")
+        "ms": b5["device_ms"], "plain_ms": b5["plain_device_ms"],
+        "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+        "library_ms": b5["library_device_ms"], "library": b5["library"],
+        "call_ms": b5["ms"], "plain_call_ms": b5["plain_ms"],
+        "library_call_ms": b5["library_ms"],
+        "shape": f"m={b5['m']} k={b5['k']} n={b5['n']}"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

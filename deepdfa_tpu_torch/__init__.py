@@ -5,7 +5,9 @@ This package serves and trains (``train.fit``) the golden GGNN through the
 fused layout: every message round runs on hand-written CUDA kernels, the
 forward in ``csrc/fused_ggnn.cu`` and the training backward in
 ``csrc/fused_ggnn_bwd.cu``, built with ``nvcc`` for ``sm_90a`` at first
-use. It imports torch and numpy and nothing of JAX.
+use. The megabatch layout and the hierarchical scorer's level 1 run the
+whole model on ``csrc/megabatch.cu``; int8 serving runs the conv products
+on ``csrc/int8_matmul.cu``. It imports torch and numpy and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 host without a GPU they raise instead of running on the CPU.

@@ -7,6 +7,11 @@ The Flax tree is given as nested dicts of numpy arrays (``params`` of
 ``kernel`` is ``[in, out]`` and becomes ``nn.Linear.weight`` transposed; the
 GRU's fused r|z|n columns become rows in the same order. Both directions
 copy values exactly, so a round trip is bit for bit.
+
+:func:`level2_flax_to_torch` / :func:`level2_torch_to_flax` do the same for
+the hierarchical scorer's call-graph GGNN (``in_proj``, ``edge_linear``,
+``gru/{x_proj,h_proj}``, ``gate``, ``out``, ``attr``), whose weights the JAX
+package draws from its own PRNG.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 
 from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
 
-__all__ = ["flax_to_torch", "torch_to_flax"]
+__all__ = ["flax_to_torch", "level2_flax_to_torch",
+           "level2_torch_to_flax", "torch_to_flax"]
 
 
 def _linear_names(cfg: GGNNConfig) -> dict[tuple[str, ...], str]:
@@ -81,4 +87,44 @@ def torch_to_flax(state_dict: dict, cfg: GGNNConfig, input_dim: int) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = {"kernel": np.ascontiguousarray(get(f"{prefix}.weight").T),
                           "bias": get(f"{prefix}.bias")}
+    return params
+
+
+_LEVEL2_NAMES = {
+    ("in_proj",): "in_proj",
+    ("edge_linear",): "edge_linear",
+    ("gru", "x_proj"): "gru.x_proj",
+    ("gru", "h_proj"): "gru.h_proj",
+    ("gate",): "gate",
+    ("out",): "out",
+    ("attr",): "attr",
+}
+
+
+def level2_flax_to_torch(params_np: dict) -> dict:
+    """A state dict for :class:`~deepdfa_tpu_torch.models.ggnn_hier.
+    CallGraphGGNN` from the JAX package's level-2 Flax tree."""
+    state: dict[str, torch.Tensor] = {}
+    for path, prefix in _LEVEL2_NAMES.items():
+        leaf = _at(params_np, path)
+        state[f"{prefix}.weight"] = torch.from_numpy(
+            np.array(np.asarray(leaf["kernel"]).T, dtype=np.float32))
+        state[f"{prefix}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], dtype=np.float32))
+    return state
+
+
+def level2_torch_to_flax(state_dict: dict) -> dict:
+    """The level-2 Flax tree (nested dicts of numpy) from a
+    :class:`~deepdfa_tpu_torch.models.ggnn_hier.CallGraphGGNN` state
+    dict."""
+    params: dict = {}
+    for path, prefix in _LEVEL2_NAMES.items():
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        w = state_dict[f"{prefix}.weight"].detach().cpu().numpy()
+        node[path[-1]] = {
+            "kernel": np.ascontiguousarray(w.T),
+            "bias": state_dict[f"{prefix}.bias"].detach().cpu().numpy().copy()}
     return params

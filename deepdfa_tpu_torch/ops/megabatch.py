@@ -16,6 +16,11 @@ The port of ``deepdfa_tpu/ops/megabatch.py``:
   CPU tensors it runs :func:`megabatch_reference`, the same math in plain
   torch. ``n_launches`` counts the CUDA launches
   (:func:`launches_per_call` per call).
+- :func:`fused_ggnn_encoder` is the same model stopped at the pooled
+  embedding (kernel B4, the hierarchical scorer's level 1): on CUDA tensors
+  B3's launches with a head of 0 layers, whose pooling launch then writes
+  the pooled ``[h | h0]`` row of each slot; on CPU tensors
+  :func:`megabatch_encoder_reference`. Inference only.
 
 Gradients: on the CPU autograd differentiates :func:`megabatch_reference`.
 On the card a ``torch.autograd.Function`` runs B3 forward, and its backward
@@ -41,7 +46,8 @@ from deepdfa_tpu_torch.ops.fused_ggnn import fused_ggnn, fused_ggnn_reference
 from deepdfa_tpu_torch.ops.segment import segment_softmax, segment_sum
 
 __all__ = ["MEGABATCH_CAP_BYTES", "MegabatchPlan", "PackResult",
-           "fused_ggnn_model", "launches_per_call", "megabatch_bytes",
+           "fused_ggnn_encoder", "fused_ggnn_model", "launches_per_call",
+           "megabatch_bytes", "megabatch_encoder_reference",
            "megabatch_reference", "n_launches", "pack_megabatches"]
 
 # The packer's admission limit on megabatch_bytes: the H100's 50 MB L2
@@ -50,7 +56,8 @@ __all__ = ["MEGABATCH_CAP_BYTES", "MegabatchPlan", "PackResult",
 # kernel itself takes larger shapes, which only the packer refuses.
 MEGABATCH_CAP_BYTES = 50 * 2**20
 
-# CUDA kernel launches made by fused_ggnn_model (B3) since the last reset.
+# CUDA kernel launches made by fused_ggnn_model (B3) and fused_ggnn_encoder
+# (B4, the same launches) since the last reset.
 n_launches = 0
 
 _P = ctypes.c_void_p
@@ -84,9 +91,10 @@ def _kernels() -> ctypes.CDLL:
 
 
 def launches_per_call(n_steps: int) -> int:
-    """CUDA launches one :func:`fused_ggnn_model` forward makes: the
-    embedding gather, the two row-pointer builds, two per round and the
-    pooling + head (whatever the head's depth)."""
+    """CUDA launches one :func:`fused_ggnn_model` or
+    :func:`fused_ggnn_encoder` forward makes: the embedding gather, the two
+    row-pointer builds, two per round and the pooling + head (whatever the
+    head's depth, none for the encoder)."""
     return 4 + 2 * n_steps
 
 
@@ -267,15 +275,23 @@ def pack_megabatches(
 # ----------------------------------------------------------------- model
 
 
-def _model_math(conv, table, ids, senders, receivers, gidx, mask, ew, eb, xw,
-                xb, hw, hb, gw, gb, head, n_steps: int, n_graphs: int):
-    """The whole model with the message rounds run by ``conv``."""
+def _pooled(conv, table, ids, senders, receivers, gidx, mask, ew, eb, xw, xb,
+            hw, hb, gw, gb, n_steps: int, n_graphs: int):
+    """The model up to the pooled ``[h | h0]`` row of each graph slot, with
+    the message rounds run by ``conv``."""
     h0 = torch.nn.functional.embedding(ids, table).reshape(ids.shape[0], -1)
     h = conv(h0, senders, receivers, ew, eb, xw, xb, hw, hb, n_steps=n_steps)
     hcat = torch.cat([h, h0], dim=-1)
     gate_logit = (hcat @ gw + gb)[:, 0]
     gate = segment_softmax(gate_logit, gidx, n_graphs, mask=mask)
-    a = segment_sum(gate[:, None] * hcat, gidx, n_graphs)
+    return segment_sum(gate[:, None] * hcat, gidx, n_graphs)
+
+
+def _model_math(conv, table, ids, senders, receivers, gidx, mask, ew, eb, xw,
+                xb, hw, hb, gw, gb, head, n_steps: int, n_graphs: int):
+    """The whole model with the message rounds run by ``conv``."""
+    a = _pooled(conv, table, ids, senders, receivers, gidx, mask, ew, eb, xw,
+                xb, hw, hb, gw, gb, n_steps, n_graphs)
     for i, (w, b) in enumerate(head):
         a = a @ w + b
         if i != len(head) - 1:
@@ -293,6 +309,17 @@ def megabatch_reference(table, ids, senders, receivers, gidx, mask, ew, eb,
     return _model_math(fused_ggnn_reference, table, ids, senders, receivers,
                        gidx, mask, ew, eb, xw, xb, hw, hb, gw, gb, head,
                        n_steps, n_graphs)
+
+
+def megabatch_encoder_reference(table, ids, senders, receivers, gidx, mask,
+                                ew, eb, xw, xb, hw, hb, gw, gb, *,
+                                n_steps: int, n_graphs: int) -> torch.Tensor:
+    """:func:`megabatch_reference` stopped at the pooled embedding: the
+    ``[n_graphs, 2·D]`` float32 rows ``Σ gate · [h | h0]`` of each slot, in
+    plain torch."""
+    return _pooled(fused_ggnn_reference, table, ids, senders, receivers, gidx,
+                   mask, ew, eb, xw, xb, hw, hb, gw, gb, n_steps,
+                   n_graphs).to(torch.float32)
 
 
 def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -448,6 +475,21 @@ def _unflatten(args, n_head: int):
                           for i in range(n_head))]
 
 
+def _check_args(name: str, tensors) -> torch.device:
+    """The one device every argument lies on, after the width check."""
+    table, ids, ew = tensors[0], tensors[1], tensors[6]
+    n_sub, ed, d = ids.shape[1], table.shape[1], ew.shape[0]
+    if n_sub * ed != d:
+        raise ValueError(
+            f"embed width {n_sub}·{ed} != conv width {d} — the whole-model "
+            "kernel requires the concat-subkey config (embed == hidden)")
+    if any(t.device != table.device for t in tensors):
+        raise ValueError(f"{name}: every argument must be on one device")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {table.device}")
+    return table.device
+
+
 def fused_ggnn_model(table, ids, senders, receivers, gidx, mask, ew, eb, xw,
                      xb, hw, hb, gw, gb, head: tuple, *, n_steps: int,
                      n_graphs: int) -> torch.Tensor:
@@ -467,24 +509,42 @@ def fused_ggnn_model(table, ids, senders, receivers, gidx, mask, ew, eb, xw,
     on the host) or raise; CPU tensors run :func:`megabatch_reference`.
     Differentiable with respect to the table and every weight.
     """
-    n_sub, ed, d = ids.shape[1], table.shape[1], ew.shape[0]
-    if n_sub * ed != d:
-        raise ValueError(
-            f"embed width {n_sub}·{ed} != conv width {d} — the whole-model "
-            "kernel requires the concat-subkey config (embed == hidden)")
     tensors = (table, ids, senders, receivers, gidx, mask, ew, eb, xw, xb,
                hw, hb, gw, gb) + tuple(t for wb in head for t in wb)
-    if any(t.device != table.device for t in tensors):
-        raise ValueError("fused_ggnn_model: every argument must be on one "
-                         "device")
-    if table.device.type == "cpu":
+    if _check_args("fused_ggnn_model", tensors).type == "cpu":
         return megabatch_reference(table, ids, senders, receivers, gidx, mask,
                                    ew, eb, xw, xb, hw, hb, gw, gb, head,
                                    n_steps=n_steps, n_graphs=n_graphs)
-    if table.device.type != "cuda":
-        raise ValueError(f"fused_ggnn_model runs on cuda or cpu, not "
-                         f"{table.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _MegabatchModel.apply(n_steps, n_graphs, len(head), *tensors)
     return _forward_cuda(table, ids, senders, receivers, gidx, mask, ew, eb,
                          xw, xb, hw, hb, gw, gb, head, n_steps, n_graphs)
+
+
+def fused_ggnn_encoder(table, ids, senders, receivers, gidx, mask, ew, eb, xw,
+                       xb, hw, hb, gw, gb, *, n_steps: int,
+                       n_graphs: int) -> torch.Tensor:
+    """The whole model without the classifier head: embed → ``n_steps``
+    message rounds → attention pooling, one pooled ``[h | h0]`` row per
+    graph slot (``[n_graphs, 2·D]`` float32). The arguments are
+    :func:`fused_ggnn_model`'s without ``head``.
+
+    CUDA tensors launch B3's kernels with a head of 0 layers (kernel B4:
+    the same launches, so a pooled row is bit for bit the one the whole
+    model pools) or raise; CPU tensors run
+    :func:`megabatch_encoder_reference`. Inference only, as the JAX
+    package's encoder, which has no VJP: a call that would need a gradient
+    raises.
+    """
+    tensors = (table, ids, senders, receivers, gidx, mask, ew, eb, xw, xb,
+               hw, hb, gw, gb)
+    dev = _check_args("fused_ggnn_encoder", tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("fused_ggnn_encoder is inference only (no "
+                         "gradient); call it under torch.no_grad() or with "
+                         "detached weights")
+    if dev.type == "cpu":
+        return megabatch_encoder_reference(*tensors, n_steps=n_steps,
+                                           n_graphs=n_graphs)
+    out = _launch(_Prepared(*tensors, (), n_steps, n_graphs))
+    return out.reshape(n_graphs, 2 * ew.shape[0])

@@ -5,7 +5,9 @@ The journal is the trainer's crash-recovery record: one small JSON file
 holding the last completed epoch, global step, sampler identity and best
 metric. It is written sideways, fsynced and moved into place with
 ``os.replace``, so a reader sees either the old record or the new one. The
-checkpoint manager reuses :func:`fsync_dir` so a rename survives a crash.
+checkpoint manager reuses :func:`fsync_dir` so a rename survives a crash,
+and the embedding cache commits its entries with :func:`atomic_write_bytes`
+and :func:`atomic_write_text`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import os
 from pathlib import Path
 from typing import Any
 
-__all__ = ["RunJournal", "atomic_write_text", "fsync_dir"]
+__all__ = ["RunJournal", "atomic_write_bytes", "atomic_write_text",
+           "fsync_dir"]
 
 
 def fsync_dir(path: str | Path) -> None:
@@ -40,6 +43,19 @@ def atomic_write_text(path: str | Path, text: str,
     tmp = path.with_name(path.name + ".tmp")
     with open(tmp, "wb") as f:
         f.write(text.encode(encoding))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(path.parent)
+    return path
+
+
+def atomic_write_bytes(path: str | Path, data: bytes) -> Path:
+    """Crash-safe byte write: sideways file + fsync + ``os.replace``."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(data)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)

@@ -10,9 +10,13 @@ route to the smallest size class that fits their graph
 wider megabatch shape. :meth:`ScoringEngine.warmup` runs every bucket once,
 which also builds the CUDA kernel of the fused layout.
 
-int8 serving, mesh replication, latency-mode ``submit``, the warm store,
-artifact export and ``score_unit`` are not ported yet (ROADMAP A6, A8, A9,
-A11).
+``from_model(..., precision="int8")`` serves the conv products on int8
+weights (kernel B5) once a calibration gate has compared its scores with the
+float32 model's; :meth:`ScoringEngine.score_unit` scores a multi-function
+unit through the hierarchical scorer (kernel B4).
+
+Mesh replication, latency-mode ``submit``, the warm store and artifact
+export are not ported yet (ROADMAP A6, A11).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 import hashlib
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -82,6 +87,27 @@ def mega_bucket(max_batch: int, graph_nodes: int = 1022) -> ServeBucket:
                        graph_nodes=graph_nodes)
 
 
+def _calibration_graphs(feat_keys, buckets, n_per_bucket: int = 4,
+                        seed: int = 0) -> list[Graph]:
+    """The int8 gate's inputs when the caller gives none: a few random
+    graphs per bucket size class (feature ids in {0, 1}, valid rows of
+    every embedding table), from the JAX package's seeded numpy draws, so
+    both packages gate on the same graphs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in buckets:
+        cap = min(b.graph_nodes, 48)
+        for _ in range(n_per_bucket):
+            n = int(rng.integers(max(2, cap // 2), cap + 1))
+            feats = {k: rng.integers(0, 2, size=n).astype(np.int32)
+                     for k in feat_keys}
+            out.append(Graph(
+                senders=rng.integers(0, n, size=2 * n).astype(np.int32),
+                receivers=rng.integers(0, n, size=2 * n).astype(np.int32),
+                node_feats=feats).with_self_loops())
+    return out
+
+
 def model_revision(state_dict, device) -> str:
     """Model revision: a content address of the state dict (names, dtypes,
     shapes, bytes), with the framework and the device kind folded in, so a
@@ -105,7 +131,8 @@ class ScoringEngine:
     def __init__(self, score_fn, buckets, label_style: str = "graph",
                  feat_keys=(), vocab_hash: str | None = None,
                  model_rev: str | None = None,
-                 mega: ServeBucket | None = None):
+                 mega: ServeBucket | None = None, precision: str = "f32",
+                 int8_score_delta: float | None = None, hier_factory=None):
         if not buckets:
             raise ValueError("need at least one serving bucket")
         self._score_fn = score_fn
@@ -116,7 +143,11 @@ class ScoringEngine:
         self.vocab_hash = vocab_hash
         self.model_rev = model_rev
         self.mega_bucket = mega
-        self.precision = "f32"
+        self.precision = precision
+        # the int8 gate's max probability difference, when it ran
+        self.int8_score_delta = int8_score_delta
+        self._hier_factory = hier_factory
+        self._hier = None
         # nodes/edges/graphs fractions of the last score_packed call
         self.last_padding_efficiency: dict[str, float] | None = None
         self.n_dispatches = 0
@@ -204,6 +235,39 @@ class ScoringEngine:
             }
         return out
 
+    # -- hierarchical whole-unit scoring ------------------------------------
+
+    @property
+    def hier(self):
+        """The lazy :class:`~deepdfa_tpu_torch.models.ggnn_hier.HierScorer`
+        of a live megabatch-compatible engine. Attach an embedding cache
+        with ``engine.hier.cache = FunctionEmbeddingCache(...)``."""
+        with self._lock:
+            if self._hier is None:
+                if self._hier_factory is None:
+                    raise RuntimeError(
+                        "score_unit needs a live megabatch-compatible "
+                        "engine (graph labels, concat-subkey embeddings) — "
+                        "engines without a model and excluded model "
+                        "variants have no hierarchical path")
+                self._hier = self._hier_factory()
+            return self._hier
+
+    def score_unit(self, functions, unit) -> dict:
+        """Score a multi-function unit as one request through the
+        hierarchical path: per-function level-1 embeddings on B4
+        (cache-fronted), composed over the call graph ``unit`` (a
+        :class:`~deepdfa_tpu_torch.models.ggnn_hier.UnitCallGraph`) into a
+        unit score and a per-function attribution. Never touches the bucket
+        ladder; level-1 dispatches count in ``n_dispatches``."""
+        hier = self.hier
+        with self._lock:
+            before = hier.n_level1_dispatches + hier.n_fallback_dispatches
+            out = hier.score_unit(functions, unit)
+            self.n_dispatches += (hier.n_level1_dispatches
+                                  + hier.n_fallback_dispatches - before)
+        return out
+
     # -- warmup -------------------------------------------------------------
 
     def _dummy_graph(self) -> Graph:
@@ -241,7 +305,9 @@ class ScoringEngine:
                    feat_keys=(), max_batch: int = 16, buckets=None,
                    megabatch: bool = False, device=None,
                    vocab_hash: str | None = None, precision: str = "f32",
-                   mesh=None) -> "ScoringEngine":
+                   mesh=None, int8_max_score_delta: float = 0.01,
+                   calibration_graphs=None,
+                   journal=None) -> "ScoringEngine":
         """Live-model engine. ``state`` (a state dict, or None to keep the
         model's own weights) is loaded into ``model``, which moves to
         ``device`` — ``cuda`` unless the caller names another; without a
@@ -249,13 +315,29 @@ class ScoringEngine:
         ``megabatch=True`` adds the :func:`mega_bucket` shape for
         :meth:`score_packed`. A ``layout="megabatch"`` model raises
         ``ValueError`` here (see :func:`~deepdfa_tpu_torch.predict.
-        make_scorer`)."""
+        make_scorer`).
+
+        ``precision="int8"`` quantizes the conv products
+        (:func:`~deepdfa_tpu_torch.models.ggnn_int8.quantize_conv_params`)
+        and gates the result: the float32 and int8 models score a
+        calibration batch per bucket (``calibration_graphs`` or the seeded
+        :func:`_calibration_graphs`), and int8 is served only if the largest
+        probability difference is within ``int8_max_score_delta``.
+        Otherwise — or when calibration refuses a non-finite checkpoint —
+        the engine warns, writes an ``int8_gate_refused`` event to
+        ``journal`` (a :class:`~deepdfa_tpu_torch.resilience.journal.
+        RunJournal`) when one is given, and serves float32. A kernel that
+        fails to build or launch raises ``RuntimeError`` out of this call.
+
+        A megabatch-compatible model also gets the hierarchical path
+        (:meth:`score_unit`), always over the float32 weights."""
+        from deepdfa_tpu_torch.models.ggnn_hier import (HierScorer,
+                                                        megabatch_compatible)
         from deepdfa_tpu_torch.predict import make_scorer
 
-        if precision != "f32":
-            raise NotImplementedError(
-                f"precision={precision!r}: int8 serving is not ported yet "
-                "(ROADMAP A9, kernel B5)")
+        if precision not in ("f32", "int8"):
+            raise ValueError(
+                f"precision must be 'f32' or 'int8', got {precision!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh replication is not ported yet (ROADMAP A11)")
@@ -264,14 +346,82 @@ class ScoringEngine:
             model.load_state_dict(state)
         model = model.to(dev).eval()
         keys = tuple(feat_keys)
-        scorer = make_scorer(model, label_style)
+        buckets = tuple(buckets or serve_buckets(max_batch))
+        model_rev = model_revision(model.state_dict(), dev)
 
-        def score_fn(batch):
-            probs, _ = scorer(to_device(batch, dev, keys))
-            return probs.cpu().numpy()
+        def make_score_fn(m):
+            scorer = make_scorer(m, label_style)
 
-        return cls(score_fn, tuple(buckets or serve_buckets(max_batch)),
-                   label_style=label_style, feat_keys=keys,
-                   vocab_hash=vocab_hash,
-                   model_rev=model_revision(model.state_dict(), dev),
-                   mega=mega_bucket(max_batch) if megabatch else None)
+            def score_fn(batch):
+                probs, _ = scorer(to_device(batch, dev, keys))
+                return probs.cpu().numpy()
+
+            return score_fn
+
+        score_fn = make_score_fn(model)
+        int8_delta = None
+        if precision == "int8":
+            score8, int8_delta, reason = _int8_gate(
+                model, score_fn, make_score_fn, keys, buckets, dev,
+                calibration_graphs, int8_max_score_delta)
+            if score8 is not None:
+                score_fn = score8
+            else:
+                warnings.warn(
+                    f"int8 serving path refused — {reason}; serving f32",
+                    stacklevel=2)
+                if journal is not None:
+                    journal.write(event="int8_gate_refused", reason=reason,
+                                  int8_max_score_delta=int8_max_score_delta,
+                                  int8_score_delta=int8_delta)
+                precision = "f32"
+
+        # the hierarchical path: always the float32 weights
+        hier_factory = None
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and megabatch_compatible(cfg):
+            f32_state = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+            hier_factory = (lambda: HierScorer(
+                cfg, model.input_dim, f32_state, model_rev=model_rev,
+                device=dev))
+
+        return cls(score_fn, buckets, label_style=label_style, feat_keys=keys,
+                   vocab_hash=vocab_hash, model_rev=model_rev,
+                   mega=mega_bucket(max_batch) if megabatch else None,
+                   precision=precision, int8_score_delta=int8_delta,
+                   hier_factory=hier_factory)
+
+
+def _int8_gate(model, score_fn, make_score_fn, keys, buckets, dev,
+               calibration_graphs, max_delta: float):
+    """Quantize ``model``'s conv and compare the int8 model's scores with
+    ``score_fn``'s on a calibration batch per bucket. Returns ``(score
+    function of the int8 model or None, max probability difference,
+    reason for a refusal)``. Only calibration's ``ValueError`` (a non-finite
+    checkpoint) is a refusal; anything the scoring raises propagates."""
+    from deepdfa_tpu_torch.models.ggnn_int8 import (GGNNInt8,
+                                                    quantize_conv_params)
+
+    try:
+        qstate = quantize_conv_params(model.state_dict())
+    except ValueError as exc:
+        return None, None, f"calibration refused: {exc}"
+    model8 = GGNNInt8(model.cfg, model.input_dim)
+    model8.load_state_dict(qstate)
+    score8 = make_score_fn(model8.to(dev).eval())
+    cal = list(calibration_graphs or _calibration_graphs(keys, buckets))
+    delta = 0.0
+    for b in buckets:
+        gs = [g for g in cal if b.admits(g)][: b.capacity]
+        if not gs:
+            continue
+        batch = batch_np(gs, b.spec.max_graphs, b.spec.max_nodes,
+                         b.spec.max_edges)
+        p32 = np.asarray(score_fn(batch), np.float32)[: len(gs)]
+        p8 = np.asarray(score8(batch), np.float32)[: len(gs)]
+        delta = max(delta, float(np.max(np.abs(p32 - p8))))
+    if delta <= max_delta:
+        return score8, delta, None
+    return None, delta, (f"max score delta {delta:.2e} exceeds "
+                         f"serve.int8_max_score_delta {max_delta:.2e}")

@@ -258,3 +258,163 @@ def test_megabatch_gradients_match_and_repeat_bitwise(cuda):
         scale = float(want.abs().max())
         # the recompute runs B1/B2, the plain layout cuBLAS and torch ops
         assert float((first[k] - want).abs().max()) <= 1e-4 * max(scale, 1.0), k
+
+
+
+def _hier_problem(seed, device="cuda", hidden=8, n_steps=3):
+    """A seeded golden-shaped model at a small width, its hierarchical
+    scorer on ``device``, and graphs of mixed sizes."""
+    from deepdfa_tpu_torch.config import GGNNConfig
+    from deepdfa_tpu_torch.data.synthetic import random_dataset
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.models.ggnn_hier import HierScorer
+
+    cfg = GGNNConfig(hidden_dim=hidden, n_steps=n_steps, layout="fused")
+    state = make_model(cfg, 52, device="cpu", seed=seed).state_dict()
+    scorer = HierScorer(cfg, 52, state, device=device)
+    graphs = (random_dataset(40, seed=seed, input_dim=52, mean_nodes=12)
+              + random_dataset(3, seed=seed + 1, input_dim=52, mean_nodes=300))
+    return scorer, graphs
+
+
+@pytest.mark.gpu
+def test_encoder_kernel_matches_plain_version_and_rows_stand_alone(cuda):
+    from deepdfa_tpu_torch.config import ALL_SUBKEYS
+    from deepdfa_tpu_torch.data.graphs import batch_np
+    from deepdfa_tpu_torch.ops import megabatch as tmb
+
+    scorer, graphs = _hier_problem(7)
+    (indices, plan), = scorer._pack(graphs)
+    batch = batch_np([graphs[i] for i in indices], plan.max_graphs,
+                     plan.max_nodes, plan.max_edges)
+    before = tmb.n_launches
+    together = scorer.embed_graphs(graphs)
+    torch.cuda.synchronize()
+    assert tmb.n_launches - before == tmb.launches_per_call(3)
+    assert scorer.n_fallback_dispatches == 0
+    ids = np.stack([batch.node_feats[f"_ABS_DATAFLOW_{sk}"] + i * 52
+                    for i, sk in enumerate(ALL_SUBKEYS)], axis=-1)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    args = (scorer._table, put(ids), put(batch.senders),
+            put(batch.receivers), put(batch.node_gidx),
+            put(batch.node_mask)) + scorer._weights
+    kw = dict(n_steps=3, n_graphs=batch.max_graphs)
+    with torch.inference_mode():
+        got = tmb.fused_ggnn_encoder(*args, **kw)
+        again = tmb.fused_ggnn_encoder(*args, **kw)
+        want = tmb.megabatch_encoder_reference(*args, **kw)
+    assert got.shape == (batch.max_graphs, 64) and torch.equal(got, again)
+    # FFMA in the kernel against cuBLAS in the plain version
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    # each row is its graph's alone: every kernel works per node, per
+    # receiver or per graph slot
+    for i in (0, 17, 41):
+        assert np.array_equal(scorer.embed_graphs([graphs[i]])[0],
+                              together[i])
+
+
+@pytest.mark.gpu
+def test_hier_scorer_on_the_card_matches_the_cpu(cuda):
+    from deepdfa_tpu_torch.models.ggnn_hier import UnitCallGraph, UnitFunction
+
+    card, graphs = _hier_problem(9)
+    cpu, _ = _hier_problem(9, device="cpu")
+    for k, v in cpu.level2.state_dict().items():
+        assert torch.equal(v, card.level2.state_dict()[k].cpu()), k
+    fns = [UnitFunction(f"f{i}", f"int f{i};", g) for i, g in enumerate(graphs)]
+    n = len(fns)
+    unit = UnitCallGraph(
+        np.concatenate([np.arange(n), np.arange(n - 1)]).astype(np.int32),
+        np.concatenate([np.arange(n), np.arange(1, n)]).astype(np.int32),
+        np.full((n, 7), 0.25, np.float32), n - 1)
+    got, want = card.score_unit(fns, unit), cpu.score_unit(fns, unit)
+    assert abs(got["unit_score"] - want["unit_score"]) <= 1e-4
+    for a, b in zip(got["attribution"], want["attribution"]):
+        assert abs(a["score"] - b["score"]) <= 1e-4
+    assert card.score_unit(fns, unit) == got | {"level1": card.stats()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (2048, 128, 128),   # the first ladder bucket's edge linear
+    (5120, 128, 384),   # the megabatch shape's GRU products
+    (37, 100, 130),     # nothing aligned
+    (1, 256, 127),      # one row, odd N
+])
+def test_int8_kernel_matches_plain_version(cuda, m, k, n):
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    rng = np.random.default_rng(m + n)
+    q, scale = tmm.calibrate_int8(rng.normal(size=(k, n)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    q, scale = torch.from_numpy(q).cuda(), torch.from_numpy(scale).cuda()
+    before = tmm.n_launches
+    got = tmm.int8_matmul(x, q, scale)
+    again = tmm.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert tmm.n_launches - before == 2
+    assert torch.equal(got, again)
+    want = tmm.int8_matmul_reference(x, q, scale)
+    # FFMA over K in order against cuBLAS's order
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * top
+
+
+class _FailingInt8Lib:
+    """Stands in for the built library: every launch reports an error."""
+
+    @staticmethod
+    def i8_matmul(*args):
+        return 700  # cudaErrorIllegalAddress
+
+    @staticmethod
+    def i8_error_string(code):
+        return b"an illegal memory access was encountered"
+
+
+@pytest.mark.gpu
+def test_int8_launch_failure_propagates_out_of_from_model(cuda, monkeypatch):
+    """The int8 gate refuses a poisoned checkpoint only; a failed launch
+    raises out of the engine's constructor instead of serving float32."""
+    from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+    from deepdfa_tpu_torch.serve import ScoringEngine
+
+    cfg = GGNNConfig(hidden_dim=8, n_steps=2, num_output_layers=2,
+                     layout="fused")
+    keys = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
+    monkeypatch.setattr(tmm, "_lib", _FailingInt8Lib())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ScoringEngine.from_model(make_model(cfg, 40, device="cuda"), None,
+                                 "graph", keys, max_batch=4, device="cuda",
+                                 precision="int8")
+
+
+@pytest.mark.gpu
+def test_int8_engine_on_the_card_matches_the_cpu(cuda):
+    from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
+    from deepdfa_tpu_torch.data.synthetic import random_dataset
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+    from deepdfa_tpu_torch.serve import ScoringEngine
+
+    cfg = GGNNConfig(hidden_dim=8, n_steps=2, num_output_layers=2,
+                     layout="fused")
+    keys = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
+    state = make_model(cfg, 40, device="cpu", seed=4).state_dict()
+    engines = [ScoringEngine.from_model(make_model(cfg, 40, device=dev),
+                                        state, "graph", keys, max_batch=4,
+                                        device=dev, precision="int8")
+               for dev in ("cuda", "cpu")]
+    assert [e.precision for e in engines] == ["int8", "int8"]
+    reqs = random_dataset(4, seed=5, input_dim=40, mean_nodes=20)
+    before = tmm.n_launches
+    got = engines[0].score(reqs, engines[0].buckets[0])
+    assert tmm.n_launches - before == 3 * cfg.n_steps
+    want = engines[1].score(reqs, engines[1].buckets[0])
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

@@ -174,11 +174,13 @@ def test_model_rev_names_framework_and_state(engines):
     assert len(a.model_rev) == 16
 
 
-@pytest.mark.parametrize("kw,match", [(dict(precision="int8"), "A9"),
-                                      (dict(mesh=object()), "A11")])
-def test_unported_engine_options_raise(kw, match):
+@pytest.mark.parametrize("kw,exc,match", [
+    # an unknown precision is refused, as the JAX engine refuses it
+    (dict(precision="fp8"), ValueError, "'f32' or 'int8'"),
+    (dict(mesh=object()), NotImplementedError, "A11")])
+def test_unported_engine_options_raise(kw, exc, match):
     cfg = GGNNConfig(**SMALL, layout="fused")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         ScoringEngine.from_model(make_model(cfg, INPUT_DIM, device="cpu"),
                                  None, feat_keys=KEYS, device="cpu", **kw)
 
