@@ -87,9 +87,13 @@ Each phase prints one JSON line; any failure exits non-zero.
 11. int8_kernel — the int8 product (B5) against its plain version
    ``int8_matmul_reference`` at M in {2048, 4096, 5120, 16768}, K = 128,
    N in {128, 384}: max abs error over the largest output (limit
-   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event and profiler
-   device times of the kernel, the plain version and ``torch.matmul`` on
-   the weight dequantized in advance (TF32 off), and the bound.
+   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event, CUDA-graph and
+   profiler device times of the kernel, the plain version and
+   ``torch.matmul`` on the weight dequantized in advance (TF32 off), and
+   the bound. Then the
+   LLM's projections with bf16 activations and output: M = 1024, K × N in
+   {4096 × 4096, 4096 × 11008, 11008 × 4096} (limit ``INT8_BF16_LIMIT``;
+   the library on the bf16 tensor cores).
 12. serve_int8 — ``ScoringEngine.from_model(golden, precision="int8")``:
    the calibration gate must accept; the serve phase's 256 requests
    through ``MicroBatcher`` with the B5 count reset just before: B5
@@ -97,6 +101,34 @@ Each phase prints one JSON line; any failure exits non-zero.
    engine within ``int8_max_score_delta`` and against ``GGNNInt8`` on the
    CPU within ``PROB_LIMIT``; requests/s, p50 and p99, and the device
    profile of one packed 48-request window.
+13. flash_kernel — causal segment-masked attention (B6) against its plain
+   version ``flash_attention_reference`` at the 7B serving shape (b 4, h 32,
+   s 256, d 128, bf16, left pads as ``HashTokenizer`` makes them), the 13B
+   ``pb_ft_pb_noexpl`` shape (b 6, h 40, s 1024), h 40 at s 2048 (b 4) and
+   ``tiny_llama`` in float32 (b 2, h 4, 2 kv heads, s 128, d 16): max abs
+   error over the largest output, all rows (limits ``FLASH_BF16_LIMIT`` and
+   ``FLASH_F32_LIMIT``), two calls bitwise equal, CUDA-event, CUDA-graph
+   and profiler device times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` with the same boolean mask, the bound
+   and the launches per call.
+14. joint — ``JointEngine`` over ``LlamaModel(codellama_7b(attn_impl=
+   "flash"))`` at full width and depth (32 layers, hidden 4096, bf16,
+   weights drawn on the card from a seed), the golden GGNN in encoder mode
+   (segment layout) and a seeded fusion head, ``HashTokenizer(32016)``,
+   block 256, ``max_batch`` 4: 64 seeded C-like functions of 20-600
+   subtokens paired with the serve phase's request graphs, one ``score``
+   call per batch, the B6 count reset just before: functions/s, real and
+   padded tokens/s, p50 batch ms, B6 launches = batches × 32, the device
+   profile of one batch, the weight GB. Probabilities against the same
+   engine with ``attn_impl="full"`` on the card (``ROUNDING_PROB_LIMIT``),
+   the weights cut to 2 layers on the card against the CPU
+   (``JOINT_PROB_LIMIT``), and the fused GGNN layout (B1) against segment
+   (``PROB_LIMIT``).
+15. joint_int8 — the joint model with ``int8_runtime=True`` from
+   ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
+   32 × 7 with bf16 activations, probabilities against every projection on
+   B5's plain version on the card (``ROUNDING_PROB_LIMIT``), the difference
+   from the bf16 engine, functions/s.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -129,11 +161,19 @@ from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
                                            derive_buckets, to_device)
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
+from deepdfa_tpu_torch.llm import llama as llama_mod
+from deepdfa_tpu_torch.llm.dataset import HashTokenizer
+from deepdfa_tpu_torch.llm.fusion import build_fusion
+from deepdfa_tpu_torch.llm.joint import JointConfig
+from deepdfa_tpu_torch.llm.joint_engine import JointEngine
+from deepdfa_tpu_torch.llm.llama import LlamaModel, build_llama, codellama_7b
+from deepdfa_tpu_torch.llm.quant import to_int8_runtime_params
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.models.ggnn_hier import (N_SUMMARY_FEATURES,
                                                 UnitCallGraph, UnitFunction,
                                                 unit_call_edges)
 from deepdfa_tpu_torch.ops import _build
+from deepdfa_tpu_torch.ops import flash_attention as fa
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
 from deepdfa_tpu_torch.ops import int8_matmul as i8
 from deepdfa_tpu_torch.ops import megabatch as mb
@@ -146,8 +186,10 @@ from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
 from deepdfa_tpu_torch.train.metrics import ConfusionState
 
-# H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth (700 W)
+# H100 SXM data sheet: FP32 outside the tensor cores, dense bf16 on the
+# tensor cores, HBM3 bandwidth (700 W)
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # FFMA in the kernel against cuBLAS in the plain version: the 128-wide dots
 # and the GRU products are summed in other orders, and the plain version's
@@ -174,6 +216,31 @@ STEP_LOSS_LIMIT = 1e-5
 STEP_GRAD_LIMIT = 1e-4
 STEP_GRAD_FLOOR = 1e-6
 STEP_PARAM_LIMIT = 1e-6
+# B5 with bf16 activations and a bf16 output against its plain version
+# (cuBLAS float32 sums, the same rounding to bf16), over the largest output:
+# the float32 sums differ in order, so an output near a rounding boundary
+# may round to the neighbouring bf16 value, one ulp, at most 2^-7 of it
+INT8_BF16_LIMIT = 1e-2
+# B6 against its plain version over the largest output. bf16: the JAX
+# package's own bar for its flash path (tests/test_llama.py:239); the kernel
+# rounds P to bf16 against a running maximum over 64-key tiles, the plain
+# version against the row's maximum. float32: the same sums in other orders
+FLASH_BF16_LIMIT = 2e-2
+FLASH_F32_LIMIT = 1e-5
+# probabilities of the 7B joint engine (bf16, seeded random weights). The
+# same weights cut to 2 layers on the card against the CPU (cuBLAS against
+# the CPU's bf16 products, B6 against its plain version): two layers of bf16
+# roundings in other places; a probability moves by ~0.25 of its logit's
+# change, a logit by ~0.6 of the final hidden state's relative change
+JOINT_PROB_LIMIT = 5e-3
+# at 32 layers, two paths that differ only in where they round to bf16: B6
+# against attn_impl="full" (B6 rounds the unnormalised weights at a running
+# maximum, full the normalised ones) and B5 against its plain version in
+# the int8 engine (a projection's bf16 output may round one ulp apart). The
+# bf16 residual stream carries such an ulp through the next layers: with
+# the seeded weights B6 and full differ by 1.07e-2 on an H100 (5e-3 is too
+# tight); held to about three times that
+ROUNDING_PROB_LIMIT = 3e-2
 WIDTH, STEPS, MAX_BATCH, INPUT_DIM = 128, 5, 16, 1002
 TRAIN_GRAPHS = 256
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
@@ -208,24 +275,67 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int) -> float | None:
     """Device milliseconds per call of ``fn``: the time of the kernels and
     copies it launched, summed by the profiler over ``reps`` calls after one
     warm-up call. Unlike :func:`cuda_ms` it leaves out the host's time
-    between launches, which bounds a call of a few microseconds of work."""
+    between launches, which bounds a call of a few microseconds of work.
+    The profiler now and then records no device event: three tries, then
+    None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total", 0.0)
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def graph_ms(fn, reps: int) -> float | None:
+    """Device milliseconds per call of ``fn`` with the host left out: one
+    call captured in a CUDA graph, replayed ``reps`` times between two CUDA
+    events (a replay adds a few microseconds of its own). The profiler's
+    sums (:func:`device_ms`) have come out short of the event times for
+    calls of a millisecond, when it dropped events; this does not depend on
+    it. None where the call cannot be captured."""
+    try:
+        fn()
         torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total", 0.0)
-             for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print(f"chip_smoke: graph capture failed: {exc}", file=sys.stderr)
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
+
+
+def table_ms(row: dict, key: str) -> float:
+    """A kernel-table time: the row's CUDA-graph time ``key`` where the
+    call was captured, else its CUDA-event time of the same call
+    (``graph_ms`` → ``ms``, ``plain_graph_ms`` → ``plain_ms``)."""
+    dev = row[key]
+    return dev if dev is not None else row[key.replace("graph_ms", "ms")]
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1228,13 +1338,19 @@ def phase_hier() -> dict:
 # --------------------------------------------------------------- phase 11
 
 
-def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
-    """Least milliseconds for the product: 2·M·K·N FLOPs over the FP32
-    peak, or the bytes (x, q, scale read once, y written once) over HBM
-    bandwidth, the larger."""
+def int8_bound(m: int, k: int, n: int,
+               bf16: bool = False) -> tuple[float, str]:
+    """Least milliseconds for the product: 2·M·K·N FLOPs over the peak of
+    the inputs' type, or the bytes (x, q, scale read once, y written once)
+    over HBM bandwidth, the larger. float32 activations: the FP32 peak.
+    bf16 activations: the bf16 tensor-core peak (an int8 weight is exact in
+    bf16, and bf16 products are exact in float32, so the tensor cores could
+    compute the same sums), two bytes per activation and output."""
     flops = 2 * m * k * n
-    nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    elt = 2 if bf16 else 4
+    nbytes = elt * m * k + k * n + 4 * n + elt * m * n
+    peak = PEAK_BF16 if bf16 else PEAK_FP32
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1264,11 +1380,11 @@ def phase_int8_kernel() -> list[dict]:
                                50)
             library_ms = cuda_ms(lambda: torch.matmul(x, dequant), 50)
             ms_again = cuda_ms(lambda: i8.int8_matmul(x, q, scale), 50)
-            dev = {key: device_ms(f, 20) for key, f in (
-                ("device_ms", lambda: i8.int8_matmul(x, q, scale)),
-                ("plain_device_ms",
-                 lambda: i8.int8_matmul_reference(x, q, scale)),
-                ("library_device_ms", lambda: torch.matmul(x, dequant)))}
+            fns = (("", lambda: i8.int8_matmul(x, q, scale)),
+                   ("plain_", lambda: i8.int8_matmul_reference(x, q, scale)),
+                   ("library_", lambda: torch.matmul(x, dequant)))
+            dev = {f"{key}device_ms": device_ms(f, 20) for key, f in fns}
+            dev |= {f"{key}graph_ms": graph_ms(f, 50) for key, f in fns}
             bound_ms, bound_by = int8_bound(m, WIDTH, n)
             row = {"phase": "int8_kernel", "m": m, "k": WIDTH, "n": n,
                    "max_abs_err": abs_err, "max_rel_err": err,
@@ -1284,6 +1400,56 @@ def phase_int8_kernel() -> list[dict]:
                 fail(f"B5 at m={m} n={n}: launches={launches} "
                      f"bitwise={bitwise} err={err}")
             rows.append(row)
+    # the LLM's projections: 4 x 256 tokens, bf16 activations and outputs
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    m = 4 * 256
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        q, scale = i8.calibrate_int8(w)
+        dequant = (q.float() * scale).to(torch.bfloat16)  # the library's
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        bf = torch.bfloat16
+
+        def kernel():
+            return i8.int8_matmul(x, q, scale, out_dtype=bf)
+
+        def plain():
+            return i8.int8_matmul_reference(x, q, scale, bf)
+
+        before = i8.n_launches
+        got, again = kernel(), kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        launches = i8.n_launches - before
+        abs_err = float((got.float() - want.float()).abs().max())
+        err = abs_err / float(want.float().abs().max())
+        bitwise = torch.equal(got, again)
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 10)
+        library_ms = cuda_ms(lambda: torch.matmul(x, dequant), 10)
+        ms_again = cuda_ms(kernel, 10)
+        fns = (("", kernel), ("plain_", plain),
+               ("library_", lambda: torch.matmul(x, dequant)))
+        dev = {f"{key}device_ms": device_ms(f, 5) for key, f in fns}
+        dev |= {f"{key}graph_ms": graph_ms(f, 10) for key, f in fns}
+        bound_ms, bound_by = int8_bound(m, k, n, bf16=True)
+        row = {"phase": "int8_kernel", "m": m, "k": k, "n": n,
+               "x_dtype": "bf16", "out_dtype": "bf16",
+               "max_abs_err": abs_err, "max_rel_err": err,
+               "limit": INT8_BF16_LIMIT, "bitwise_repeat": bitwise,
+               "launches_per_call": launches // 2, "ms": ms,
+               "ms_repeat": ms_again, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "torch.matmul(x, (q·scale) in bf16), bf16 tensor "
+                          "cores",
+               **dev, "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": 2 * m * k * n / (table_ms(dev | {"ms": ms},
+                                                   "graph_ms") * 1e9)}
+        emit(row)
+        if launches != 2 or not (bitwise and err <= INT8_BF16_LIMIT):
+            fail(f"B5 bf16 at m={m} k={k} n={n}: launches={launches} "
+                 f"bitwise={bitwise} err={err}")
+        rows.append(row)
     return rows
 
 
@@ -1356,6 +1522,326 @@ def phase_serve_int8() -> dict:
     return row
 
 
+# --------------------------------------------------------------- phase 13
+
+# one-subtoken words, so a function's subtoken count is its word count
+_C_WORDS = ("int", "char", "unsigned", "buf", "len", "ptr", "idx", "count",
+            "memcpy", "strncpy", "malloc", "free", "if", "else", "while",
+            "for", "return", "struct", "node", "sockfd", "recv", "sizeof",
+            "NULL", "errno", "goto", "cleanup", "out", "tmp", "flags")
+
+
+def c_functions(n: int, seed: int, lo: int = 20, hi: int = 600) -> list[str]:
+    """``n`` seeded C-like functions of ``lo``-``hi`` subtokens, log-uniform
+    (short functions are the common case): at block 256 about a quarter are
+    truncated and the rest left-padded."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        k = int(round(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+        body = " ".join(rng.choice(_C_WORDS, size=k - 6))
+        out.append(f"int fn{i}(char *buf, int len) {{\n  {body};\n}}\n")
+    return out
+
+
+FLASH_SHAPES = [  # name, b, s, h, h_kv, d, dtype
+    ("7b_serve", 4, 256, 32, 32, 128, torch.bfloat16),
+    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16),
+    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16),
+    ("tiny_llama", 2, 128, 4, 2, 16, torch.float32)]
+
+
+def flash_bound(b: int, s: int, h: int, h_kv: int, d: int,
+                bf16: bool) -> tuple[float, str]:
+    """Least milliseconds for causal attention: 4·b·h·d·s(s+1)/2 FLOPs over
+    the peak of the inputs' type (bf16 tensor cores, or FP32), or the bytes
+    of q, k, v and o over HBM bandwidth, the larger."""
+    flops = 4 * b * h * d * s * (s + 1) / 2
+    nbytes = (2 if bf16 else 4) * (2 * b * s * h * d + 2 * b * s * h_kv * d)
+    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_flash_kernel() -> list[dict]:
+    """B6 against its plain version at the LLM tier's shapes."""
+    tok = HashTokenizer(32016)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for name, b, s, h, h_kv, d, dt in FLASH_SHAPES:
+        mask = torch.from_numpy(np.stack(
+            [tok.encode_block(t, s)[1] for t in c_functions(b, seed=s)])).cuda()
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt)
+                   for n in (h, h_kv, h_kv))
+        # the library yardstick: SDPA on its own layout with the same mask
+        seg = mask.to(torch.int32)
+        keep = torch.tril(torch.ones(s, s, dtype=torch.bool, device="cuda"))
+        keep = keep[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
+        sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention(q, k, v, mask)
+
+        def plain():
+            return fa.flash_attention_reference(q, k, v, mask)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=keep, enable_gqa=h != h_kv)
+
+        with torch.inference_mode():
+            before = fa.n_launches
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            launches = fa.n_launches - before
+            want = plain().float()
+            abs_err = float((got.float() - want).abs().max())
+            err = abs_err / float(want.abs().max())
+            lib_err = float((library().transpose(1, 2).float() - want).abs()
+                            .max())
+            bitwise = torch.equal(got, again)
+            finite = bool(torch.isfinite(got).all())
+            del want
+            ms = cuda_ms(kernel, 20)
+            plain_ms = cuda_ms(plain, 3)
+            library_ms = cuda_ms(library, 20)
+            ms_again = cuda_ms(kernel, 20)
+            fns = (("", kernel, 10), ("plain_", plain, 2),
+                   ("library_", library, 10))
+            dev = {f"{key}device_ms": device_ms(f, n) for key, f, n in fns}
+            dev |= {f"{key}graph_ms": graph_ms(f, 2 * n)
+                    for key, f, n in fns}
+        bf16 = dt == torch.bfloat16
+        limit = FLASH_BF16_LIMIT if bf16 else FLASH_F32_LIMIT
+        bound_ms, bound_by = flash_bound(b, s, h, h_kv, d, bf16)
+        row = {"phase": "flash_kernel", "shape": name, "b": b, "s": s,
+               "h": h, "h_kv": h_kv, "d": d, "dtype": str(dt).split(".")[-1],
+               "real_tokens": int(mask.sum()), "max_abs_err": abs_err,
+               "max_rel_err": err, "limit": limit, "finite": finite,
+               "bitwise_repeat": bitwise, "launches_per_call": launches // 2,
+               "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "scaled_dot_product_attention, boolean mask",
+               "library_max_abs_diff": lib_err, **dev, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "tflops": 4 * b * h * d * s * (s + 1) / 2
+               / (table_ms(dev | {"ms": ms}, "graph_ms") * 1e9)}
+        emit(row)
+        if launches != 2 or not (finite and bitwise and err <= limit):
+            fail(f"B6 at {name}: launches={launches} finite={finite} "
+                 f"bitwise={bitwise} err={err} (limit {limit})")
+        rows.append(row)
+    return rows
+
+
+# ------------------------------------------------------------ phase 14, 15
+
+JOINT_FUNCTIONS = 64
+
+
+def shared_llama(cfg, state: dict) -> LlamaModel:
+    """A ``LlamaModel`` of ``cfg`` over the tensors of ``state``, no copy."""
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    model.load_state_dict(state, assign=True)
+    return model.eval()
+
+
+def score_batches(engine, items) -> tuple[np.ndarray, float, list[float]]:
+    """``items`` through ``JointEngine.score``, one call per batch:
+    probabilities, wall seconds and each batch's seconds."""
+    probs, lat = [], []
+    t0 = time.perf_counter()
+    for i in range(0, len(items), engine.max_batch):
+        t = time.perf_counter()
+        probs.append(engine.score(items[i:i + engine.max_batch]))
+        lat.append(time.perf_counter() - t)
+    return np.concatenate(probs), time.perf_counter() - t0, lat
+
+
+def weight_gb(model) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values()) / 1e9
+
+
+def check_probs(name: str, probs: np.ndarray) -> None:
+    if not (np.all(np.isfinite(probs)) and np.all((probs > 0) & (probs < 1))):
+        fail(f"{name}: non-finite or out-of-range probabilities")
+
+
+def phase_joint() -> tuple[dict, dict]:
+    """JointEngine over CodeLlama-7B (random weights, B6 attention) and the
+    golden GGNN encoder."""
+    cfg = codellama_7b(attn_impl="flash")
+    t0 = time.perf_counter()
+    llm = build_llama(cfg, "cuda", seed=0)
+    fusion = build_fusion(GGNNConfig(), INPUT_DIM, cfg.hidden_size,
+                          dropout_rate=0.1, device="cuda", seed=1)
+    tok = HashTokenizer(cfg.vocab_size)
+    jcfg = JointConfig(block_size=256)
+    engine = JointEngine(llm, fusion, tok, jcfg, max_batch=4, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    items = list(zip(c_functions(JOINT_FUNCTIONS, seed=17),
+                     requests()[:JOINT_FUNCTIONS]))
+
+    # the main path: counts from zero, read right after
+    fa.n_launches = 0
+    engine.n_batches = 0
+    probs, wall, lat = score_batches(engine, items)
+    torch.cuda.synchronize()
+    launches, batches = fa.n_launches, engine.n_batches
+
+    # off the main path
+    busy = profile_call(lambda: engine.score(items[:4]))
+    real = int(sum(tok.encode_block(t, jcfg.block_size)[1].sum()
+                   for t, _ in items))
+    full = JointEngine(shared_llama(dataclasses.replace(cfg, attn_impl="full"),
+                                    llm.state_dict()),
+                       fusion, tok, jcfg, max_batch=4, device="cuda")
+    full_probs, full_wall, _ = score_batches(full, items)
+    fused = build_fusion(GGNNConfig(layout="fused"), INPUT_DIM,
+                         cfg.hidden_size, dropout_rate=0.1, device="cuda")
+    fused.load_state_dict(fusion.state_dict())
+    fg.n_launches = 0
+    fused_probs = JointEngine(llm, fused, tok, jcfg, max_batch=4,
+                              device="cuda").score(items)
+    b1_launches = fg.n_launches
+    # the same weights cut to 2 decoder layers, one batch of 2 functions:
+    # the card against the port's plain path on the CPU
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    state2 = {k: v for k, v in llm.state_dict().items()
+              if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+    card2 = JointEngine(shared_llama(cfg2, state2), fusion, tok, jcfg,
+                        max_batch=2, device="cuda")
+    cpu_llm = build_llama(cfg2, "cpu", seed=None)
+    cpu_llm.load_state_dict({k: v.cpu() for k, v in state2.items()})
+    cpu_fusion = build_fusion(GGNNConfig(), INPUT_DIM, cfg.hidden_size,
+                              dropout_rate=0.1, device="cpu")
+    cpu_fusion.load_state_dict({k: v.cpu()
+                                for k, v in fusion.state_dict().items()})
+    cpu2 = JointEngine(cpu_llm, cpu_fusion, tok, jcfg, max_batch=2,
+                       device="cpu")
+    t0 = time.perf_counter()
+    p_cpu2 = cpu2.score(items[:2])
+    cpu_s = time.perf_counter() - t0
+    p_card2 = card2.score(items[:2])
+
+    tokens = batches * engine.max_batch * jcfg.block_size
+    row = {"phase": "joint", "model": "codellama_7b(attn_impl='flash'), "
+                                      "seeded random weights",
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+           "block": jcfg.block_size, "max_batch": engine.max_batch,
+           "functions": len(items), "batches": batches,
+           "weight_gb": weight_gb(llm), "build_s": build_s,
+           "warmup_s": warmup_s, "wall_s": wall,
+           "functions_per_s": len(items) / wall,
+           "real_tokens_per_s": real / wall,
+           "padded_tokens_per_s": tokens / wall, "real_tokens": real,
+           "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
+           "max_batch_ms": float(max(lat) * 1e3),
+           "b6_launches": launches, "b6_launches_per_batch":
+               cfg.num_hidden_layers,
+           "max_abs_prob_diff_vs_full": float(np.abs(probs - full_probs).max()),
+           "full_functions_per_s": len(items) / full_wall,
+           "max_abs_prob_diff_fused_vs_segment": float(
+               np.abs(fused_probs - probs).max()),
+           "fused_b1_launches": b1_launches,
+           "max_abs_prob_diff_2_layers_vs_cpu": float(
+               np.abs(p_card2 - p_cpu2).max()),
+           "cpu_2_layers_s": cpu_s, "full_limit": ROUNDING_PROB_LIMIT,
+           "cpu_limit": JOINT_PROB_LIMIT, "fused_limit": PROB_LIMIT,
+           "model_rev": engine.model_rev,
+           "probs": [round(float(p), 6) for p in probs[:8]],
+           "profile_batch": busy}
+    emit(row)
+    check_probs("joint", probs)
+    if launches <= 0 or launches != batches * cfg.num_hidden_layers:
+        fail(f"joint: {launches} B6 launches for {batches} batches "
+             f"(expected {cfg.num_hidden_layers} each)")
+    for key, limit in (("max_abs_prob_diff_vs_full", ROUNDING_PROB_LIMIT),
+                       ("max_abs_prob_diff_2_layers_vs_cpu",
+                        JOINT_PROB_LIMIT)):
+        if not row[key] <= limit:
+            fail(f"joint: {key} = {row[key]} over {limit}")
+    if b1_launches <= 0 or not row["max_abs_prob_diff_fused_vs_segment"] \
+            <= PROB_LIMIT:
+        fail(f"joint: the fused encoder ({b1_launches} B1 launches) is "
+             f"{row['max_abs_prob_diff_fused_vs_segment']} from segment")
+    ctx = dict(cfg=cfg, llm=llm, fusion=fusion, tok=tok, jcfg=jcfg,
+               items=items, probs=probs)
+    return row, ctx
+
+
+def phase_joint_int8(ctx: dict) -> dict:
+    """The joint model with int8-resident projections (B5, bf16
+    activations), quantized from the same seeded weights."""
+    cfg, fusion, tok, jcfg, items = (ctx[k] for k in (
+        "cfg", "fusion", "tok", "jcfg", "items"))
+    t0 = time.perf_counter()
+    state8 = to_int8_runtime_params(ctx.pop("llm").state_dict())
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the bf16 projections are gone
+    llm8 = shared_llama(dataclasses.replace(cfg, int8_runtime=True), state8)
+    del state8
+    engine = JointEngine(llm8, fusion, tok, jcfg, max_batch=4, device="cuda")
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: counts from zero, read right after
+    i8.n_launches = 0
+    fa.n_launches = 0
+    engine.n_batches = 0
+    probs, wall, lat = score_batches(engine, items)
+    torch.cuda.synchronize()
+    launches, b6, batches = i8.n_launches, fa.n_launches, engine.n_batches
+
+    # off the main path: every Int8Dense on B5's plain version on the card
+    saved = llama_mod.int8_matmul
+    llama_mod.int8_matmul = (lambda x, q, s, out_dtype:
+                             i8.int8_matmul_reference(x, q, s, out_dtype))
+    try:
+        plain = engine.score(items)
+    finally:
+        llama_mod.int8_matmul = saved
+    busy = profile_call(lambda: engine.score(items[:4]))
+    per = cfg.num_hidden_layers * 7
+    row = {"phase": "joint_int8", "functions": len(items),
+           "batches": batches, "weight_gb": weight_gb(llm8),
+           "quantize_s": quant_s, "warmup_s": warmup_s, "wall_s": wall,
+           "functions_per_s": len(items) / wall,
+           "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
+           "b5_launches": launches, "b5_launches_per_batch": per,
+           "b6_launches": b6,
+           "max_abs_prob_diff_vs_plain_int8": float(np.abs(probs - plain)
+                                                    .max()),
+           "limit": ROUNDING_PROB_LIMIT,
+           "max_abs_prob_diff_vs_bf16": float(np.abs(probs - ctx["probs"])
+                                              .max()),
+           "mean_abs_prob_diff_vs_bf16": float(np.abs(probs - ctx["probs"])
+                                               .mean()),
+           "probs": [round(float(p), 6) for p in probs[:8]],
+           "profile_batch": busy}
+    emit(row)
+    check_probs("joint_int8", probs)
+    if launches <= 0 or launches != batches * per:
+        fail(f"joint_int8: {launches} B5 launches for {batches} batches "
+             f"(expected {per} each)")
+    if b6 != batches * cfg.num_hidden_layers:
+        fail(f"joint_int8: {b6} B6 launches for {batches} batches")
+    if not row["max_abs_prob_diff_vs_plain_int8"] <= ROUNDING_PROB_LIMIT:
+        fail(f"joint_int8: {row['max_abs_prob_diff_vs_plain_int8']} from the "
+             f"plain int8 path")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1366,7 +1852,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the CUDA sources of the main paths, one nvcc each, in parallel
     log = _build.build("fused_ggnn", "fused_ggnn_bwd", "megabatch",
-                       "int8_matmul")
+                       "int8_matmul", "flash_attention")
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -1393,6 +1879,9 @@ def main() -> int:
     hier = timed("hier", phase_hier)
     int8_rows = timed("int8_kernel", phase_int8_kernel)
     serve8 = timed("serve_int8", phase_serve_int8)
+    flash_rows = timed("flash_kernel", phase_flash_kernel)
+    joint, ctx = timed("joint", phase_joint)
+    joint8 = timed("joint_int8", phase_joint_int8, ctx)
     emit({"phase": "seconds", **seconds})
 
     mega = next(r for r in shapes if r["shape"] == "mega")
@@ -1400,6 +1889,8 @@ def main() -> int:
     mega_b3 = next(r for r in mega_rows if r["shape"] == "mega")
     b4 = next(r for r in hier_rows if r["shape"] == "hier_bin")
     b5 = next(r for r in int8_rows if (r["m"], r["n"]) == (5120, 384))
+    b5_llm = next(r for r in int8_rows if (r["k"], r["n"]) == (4096, 11008))
+    b6 = next(r for r in flash_rows if r["shape"] == "7b_serve")
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -1454,18 +1945,57 @@ def main() -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deepdfa_tpu/ops/int8_matmul.py:44",
-        "launches": serve8["n_launches"],
-        "launches_by_path": {"serve_int8": serve8["n_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
-        "max_rel_err": max(r["max_rel_err"] for r in int8_rows),
-        # device times: CUDA-event times of a call this short measure the
-        # host's per-call cost (the row's "ms", "plain_ms", "library_ms")
-        "ms": b5["device_ms"], "plain_ms": b5["plain_device_ms"],
+        "launches": serve8["n_launches"] + joint8["b5_launches"],
+        "launches_by_path": {"serve_int8": serve8["n_launches"],
+                             "joint_int8": joint8["b5_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows
+                           if "x_dtype" not in r),
+        "max_rel_err": max(r["max_rel_err"] for r in int8_rows
+                           if "x_dtype" not in r),
+        # CUDA-graph replay times: CUDA-event times of a call this short
+        # measure the host's per-call cost (the row's "ms", "plain_ms",
+        # "library_ms", kept as call_ms and the like)
+        "ms": table_ms(b5, "graph_ms"),
+        "plain_ms": table_ms(b5, "plain_graph_ms"),
         "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-        "library_ms": b5["library_device_ms"], "library": b5["library"],
+        "library_ms": table_ms(b5, "library_graph_ms"),
+        "library": b5["library"],
         "call_ms": b5["ms"], "plain_call_ms": b5["plain_ms"],
         "library_call_ms": b5["library_ms"],
-        "shape": f"m={b5['m']} k={b5['k']} n={b5['n']}"}]})
+        "shape": f"m={b5['m']} k={b5['k']} n={b5['n']}",
+        "bf16": {  # the LLM's projections: bf16 activations and output
+            "shape": f"m={b5_llm['m']} k={b5_llm['k']} n={b5_llm['n']} "
+                     f"bf16",
+            "max_abs_err": max(r["max_abs_err"] for r in int8_rows
+                               if "x_dtype" in r),
+            "max_rel_err": max(r["max_rel_err"] for r in int8_rows
+                               if "x_dtype" in r),
+            "ms": table_ms(b5_llm, "graph_ms"),
+            "plain_ms": table_ms(b5_llm, "plain_graph_ms"),
+            "bound_ms": b5_llm["bound_ms"], "bound_by": b5_llm["bound_by"],
+            "library_ms": table_ms(b5_llm, "library_graph_ms"),
+            "library": b5_llm["library"]}}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "deepdfa_tpu/llm/llama.py:222",
+        "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py"
+                        ":758 (body :342-481)",
+        "launches": joint["b6_launches"] + joint8["b6_launches"],
+        "launches_by_path": {"joint": joint["b6_launches"],
+                             "joint_int8": joint8["b6_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
+        # CUDA-graph replay times, as for B5: a call at the serving shape is
+        # tens of microseconds
+        "ms": table_ms(b6, "graph_ms"),
+        "plain_ms": table_ms(b6, "plain_graph_ms"),
+        "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
+        "library_ms": table_ms(b6, "library_graph_ms"),
+        "library": b6["library"],
+        "call_ms": b6["ms"], "plain_call_ms": b6["plain_ms"],
+        "library_call_ms": b6["library_ms"],
+        "shape": f"7b_serve b={b6['b']} s={b6['s']} h={b6['h']} "
+                 f"d={b6['d']} bf16"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,17 +12,31 @@ copy values exactly, so a round trip is bit for bit.
 the hierarchical scorer's call-graph GGNN (``in_proj``, ``edge_linear``,
 ``gru/{x_proj,h_proj}``, ``gate``, ``out``, ``attr``), whose weights the JAX
 package draws from its own PRNG.
+
+:func:`llama_flax_to_torch` / :func:`llama_torch_to_flax` carry a
+``LlamaModel`` or ``LlamaForCausalLM`` tree (``layers_{i}`` ↔ ``layers.{i}``,
+``embed_tokens.embedding`` ↔ ``embed_tokens.weight``, Dense ``kernel`` ↔
+``weight`` transposed; the int8 runtime's ``q``/``scale`` and the LoRA
+adapters' ``lora_a``/``lora_b`` keep the Flax layout), and
+:func:`fusion_flax_to_torch` / :func:`fusion_torch_to_flax` the fusion
+model's ``flowgnn_encoder`` (the GGNN in encoder mode) + ``classifier``
+tree. Values are copied exactly (a bf16 tensor goes to float32 numpy, which
+holds it exactly), so round trips are bit for bit.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import re
 
 import numpy as np
 import torch
 
 from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
 
-__all__ = ["flax_to_torch", "level2_flax_to_torch",
-           "level2_torch_to_flax", "torch_to_flax"]
+__all__ = ["flax_to_torch", "fusion_flax_to_torch", "fusion_torch_to_flax",
+           "level2_flax_to_torch", "level2_torch_to_flax",
+           "llama_flax_to_torch", "llama_torch_to_flax", "torch_to_flax"]
 
 
 def _linear_names(cfg: GGNNConfig) -> dict[tuple[str, ...], str]:
@@ -33,7 +47,7 @@ def _linear_names(cfg: GGNNConfig) -> dict[tuple[str, ...], str]:
         ("ggnn", "gru", "h_proj"): "ggnn.gru.h_proj",
         ("pooling", "gate"): "pooling.gate",
     }
-    for i in range(cfg.num_output_layers):
+    for i in range(0 if cfg.encoder_mode else cfg.num_output_layers):
         names[(f"out_{i}",)] = f"head.{i}"
     return names
 
@@ -127,4 +141,102 @@ def level2_torch_to_flax(state_dict: dict) -> dict:
         node[path[-1]] = {
             "kernel": np.ascontiguousarray(w.T),
             "bias": state_dict[f"{prefix}.bias"].detach().cpu().numpy().copy()}
+    return params
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()
+
+
+def _put(node: dict, path, value) -> None:
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def llama_flax_to_torch(params_np: dict) -> dict:
+    """A state dict for :class:`~deepdfa_tpu_torch.llm.llama.LlamaModel`
+    (or ``LlamaForCausalLM`` from a tree with ``model``/``lm_head``) from
+    the JAX package's llama tree (nested dicts of numpy arrays)."""
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, path: list[str]) -> None:
+        for key, val in node.items():
+            if isinstance(val, dict):
+                m = re.fullmatch(r"layers_(\d+)", key)
+                walk(val, path + ([f"layers.{m.group(1)}"] if m else [key]))
+                continue
+            arr = np.asarray(val)
+            prefix = ".".join(path)
+            if key == "embedding":
+                name = f"{prefix}.weight"
+            elif key == "kernel":
+                name, arr = f"{prefix}.weight", arr.T
+            else:  # RMSNorm weight, int8 q/scale, LoRA lora_a/lora_b
+                name = f"{prefix}.{key}"
+            state[name] = torch.from_numpy(np.array(arr, copy=True))
+
+    walk(params_np, [])
+    return state
+
+
+def llama_torch_to_flax(state_dict: dict) -> dict:
+    """The JAX package's llama tree (nested dicts of numpy) from a
+    ``LlamaModel``/``LlamaForCausalLM`` state dict."""
+    params: dict = {}
+    for name, t in state_dict.items():
+        *path, leaf = re.sub(r"(^|\.)layers\.(\d+)\.", r"\1layers_\2.",
+                             name).split(".")
+        arr = _numpy(t)
+        if leaf == "weight" and path[-1] == "embed_tokens":
+            _put(params, path + ["embedding"], arr)
+        elif leaf == "weight" and arr.ndim == 2:
+            _put(params, path + ["kernel"], np.ascontiguousarray(arr.T))
+        else:
+            _put(params, path + [leaf], arr)
+    return params
+
+
+def _fusion_cfg(gnn_cfg: GGNNConfig) -> GGNNConfig:
+    return dataclasses.replace(gnn_cfg, encoder_mode=True,
+                               label_style="graph")
+
+
+def fusion_flax_to_torch(params_np: dict, gnn_cfg: GGNNConfig,
+                         input_dim: int) -> dict:
+    """A state dict for :class:`~deepdfa_tpu_torch.llm.fusion.FusionModel`
+    from the JAX package's fusion tree (``flowgnn_encoder`` when the model
+    uses the GGNN, and ``classifier/{dense,out_proj}``)."""
+    state: dict[str, torch.Tensor] = {}
+    if "flowgnn_encoder" in params_np:
+        enc = flax_to_torch(params_np["flowgnn_encoder"],
+                            _fusion_cfg(gnn_cfg), input_dim)
+        state.update({f"flowgnn_encoder.{k}": v for k, v in enc.items()})
+    for layer in ("dense", "out_proj"):
+        leaf = params_np["classifier"][layer]
+        state[f"classifier.{layer}.weight"] = torch.from_numpy(
+            np.array(np.asarray(leaf["kernel"]).T, dtype=np.float32))
+        state[f"classifier.{layer}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], dtype=np.float32))
+    return state
+
+
+def fusion_torch_to_flax(state_dict: dict, gnn_cfg: GGNNConfig,
+                         input_dim: int) -> dict:
+    """The JAX package's fusion tree (nested dicts of numpy) from a
+    :class:`~deepdfa_tpu_torch.llm.fusion.FusionModel` state dict."""
+    params: dict = {"classifier": {}}
+    enc = {k[len("flowgnn_encoder."):]: v for k, v in state_dict.items()
+           if k.startswith("flowgnn_encoder.")}
+    if enc:
+        params["flowgnn_encoder"] = torch_to_flax(enc, _fusion_cfg(gnn_cfg),
+                                                  input_dim)
+    for layer in ("dense", "out_proj"):
+        w = _numpy(state_dict[f"classifier.{layer}.weight"])
+        params["classifier"][layer] = {
+            "kernel": np.ascontiguousarray(w.T),
+            "bias": _numpy(state_dict[f"classifier.{layer}.bias"])}
     return params

@@ -6,9 +6,10 @@ receivers → GRU) → gated attention pooling → MLP classifier. Parameters
 carry the JAX package's values through :mod:`deepdfa_tpu_torch.bridge`.
 
 This slice covers the concatenated-subkey and single-table embeddings,
-``label_style="graph"`` and the classifier head. The static-analysis feature
-families, union aggregation, ``encoder_mode``, node labels and per-step
-``taps`` raise ``NotImplementedError``: later slices port them.
+``label_style="graph"``, the classifier head and ``encoder_mode`` (no head:
+the pooled ``[max_graphs, out_dim]`` rows, what the LLM fusion head reads).
+The static-analysis feature families, union aggregation, node labels and
+per-step ``taps`` raise ``NotImplementedError``: later slices port them.
 """
 
 from __future__ import annotations
@@ -108,8 +109,6 @@ def _unsupported(cfg: GGNNConfig) -> str | None:
         return "the static-analysis feature families (ROADMAP A3)"
     if cfg.aggregation != "sum":
         return f"aggregation={cfg.aggregation!r} (union aggregators, ROADMAP A2/A3)"
-    if cfg.encoder_mode:
-        return "encoder_mode (ROADMAP A3, A8)"
     if cfg.label_style != "graph":
         return f"label_style={cfg.label_style!r} (ROADMAP A3)"
     if cfg.dtype != "float32":
@@ -121,7 +120,8 @@ class GGNN(nn.Module):
     """The flagship DeepDFA model: abstract-dataflow embeddings → GGNN →
     attention pooling → MLP classifier. ``forward`` takes a
     :class:`BatchedGraphs` of tensors and returns one logit per graph slot
-    (and the gate weights when ``return_gate``)."""
+    (and the gate weights when ``return_gate``); in ``encoder_mode`` there
+    is no head and it returns the pooled ``[max_graphs, out_dim]`` rows."""
 
     def __init__(self, cfg: GGNNConfig, input_dim: int):
         super().__init__()
@@ -142,9 +142,10 @@ class GGNN(nn.Module):
         self.ggnn = self._conv(hidden_dim)
         out_in = embed_dim + hidden_dim
         self.pooling = GlobalAttentionPooling(out_in)
+        n_head = 0 if cfg.encoder_mode else cfg.num_output_layers
         self.head = nn.ModuleList(
             nn.Linear(out_in, 1 if i == cfg.num_output_layers - 1 else out_in)
-            for i in range(cfg.num_output_layers))
+            for i in range(n_head))
 
     def _conv(self, hidden_dim: int) -> nn.Module:
         """Build the message-passing conv (overridden by ``GGNNFused``)."""
@@ -163,6 +164,8 @@ class GGNN(nn.Module):
         out = torch.cat([ggnn_out, feat_embed], dim=-1)
         out, gate = self.pooling(out, batch.node_gidx, batch.node_mask,
                                  batch.max_graphs)
+        if self.cfg.encoder_mode:
+            return (out, gate) if return_gate else out
         for i, layer in enumerate(self.head):
             out = layer(out)
             if i != len(self.head) - 1:

@@ -11,14 +11,17 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
   the int8 weight tile dequantized in registers, FFMA over K in a fixed
   order, the scale in the epilogue) or raises ``RuntimeError`` when it does
   not build or launch; on CPU tensors it runs
-  :func:`int8_matmul_reference`. Activations are float32 (the JAX kernel
-  also takes bf16 for the LLM, which comes with that slice); the output is
-  float32. ``n_launches`` counts the kernel's launches.
+  :func:`int8_matmul_reference`. Activations are float32 (the GGNN's conv)
+  or bf16 (the LLM's projections, converted to float32 on their way into
+  the kernel, as the JAX kernel does); the output is float32 unless
+  ``out_dtype`` asks for bf16, rounded once from the scaled float32 sum.
+  ``n_launches`` counts the kernel's launches.
 - Differentiable with respect to ``x`` only, as the JAX ``custom_vjp``:
   ``dx = (g · scale) @ qᵀ`` with both factors rounded to bf16 and summed in
   float32. The weight and scale are a frozen base and get no gradient.
-- :func:`calibrate_int8` is the host-side symmetric absmax calibration, in
-  numpy, bit for bit the JAX package's.
+- :func:`calibrate_int8` is the symmetric absmax calibration, bit for bit
+  the JAX package's: in numpy on the host, or in torch on a tensor's own
+  device.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def _kernels() -> ctypes.CDLL:
         lib = _build.load("int8_matmul")
         lib.i8_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.i8_matmul.restype = _I
+        lib.i8_matmul_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.i8_matmul_bf16.restype = _I
         lib.i8_error_string.argtypes = [_I]
         lib.i8_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -65,16 +70,18 @@ def calibrate_int8(w) -> tuple[np.ndarray, np.ndarray]:
       would otherwise clamp to ±127 and serve garbage scores.
 
     The float32 division and round-half-to-even of ``jnp.round`` make ``q``
-    and ``scale`` bit for bit the JAX package's."""
+    and ``scale`` bit for bit the JAX package's. A torch tensor is
+    calibrated by the same float32 operations on its own device (the LLM's
+    weights need not leave the card) and gives torch tensors; anything else
+    gives numpy arrays."""
+    if isinstance(w, torch.Tensor):
+        return _calibrate_tensor(w)
     w = np.asarray(w, dtype=np.float32)
     if w.ndim != 2:
         raise ValueError(
             f"calibrate_int8 expects a [K, N] weight, got shape {w.shape}")
     if not bool(np.all(np.isfinite(w))):
-        raise ValueError(
-            "calibrate_int8: non-finite values in calibration weights — "
-            "refusing to quantize a NaN/inf-poisoned source (clamping would "
-            "silently corrupt every score through this matmul)")
+        raise ValueError(_NON_FINITE)
     absmax = np.max(np.abs(w), axis=0)
     scale = np.where(absmax > 0, absmax / np.float32(127.0),
                      np.float32(1.0)).astype(np.float32)
@@ -82,19 +89,47 @@ def calibrate_int8(w) -> tuple[np.ndarray, np.ndarray]:
     return q, scale
 
 
+_NON_FINITE = ("calibrate_int8: non-finite values in calibration weights — "
+               "refusing to quantize a NaN/inf-poisoned source (clamping "
+               "would silently corrupt every score through this matmul)")
+
+
+def _calibrate_tensor(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    w = w.detach().to(torch.float32).contiguous()
+    if w.dim() != 2:
+        raise ValueError(
+            f"calibrate_int8 expects a [K, N] weight, got shape "
+            f"{tuple(w.shape)}")
+    if not bool(torch.isfinite(w).all()):
+        raise ValueError(_NON_FINITE)
+    absmax = w.abs().amax(dim=0)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
-    """``(x @ q) · scale`` in plain torch, float32."""
-    return (x.to(torch.float32) @ q.to(torch.float32)) * scale.to(
-        torch.float32)
+                          scale: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """``(x @ q) · scale`` in plain torch: summed in float32, rounded to
+    ``out_dtype`` once."""
+    y = (x.to(torch.float32) @ q.to(torch.float32)) * scale.to(torch.float32)
+    return y.to(out_dtype)
 
 
-def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+           out_dtype: torch.dtype) -> None:
     if q.dtype != torch.int8:
         raise TypeError(f"q must be int8, got {q.dtype}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"int8_matmul takes float32 activations, got "
-                        f"{x.dtype}")
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES or (
+            x.dtype == torch.float32 and out_dtype != torch.float32):
+        raise TypeError(f"int8_matmul takes float32 activations to a float32 "
+                        f"output or bfloat16 ones to either, got {x.dtype} -> "
+                        f"{out_dtype}")
     if q.dim() != 2 or x.shape[-1] != q.shape[0]:
         raise ValueError(f"contraction mismatch: x[..., {x.shape[-1]}] vs "
                          f"q{list(q.shape)}")
@@ -107,23 +142,29 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
 
 
-def _forward(x: torch.Tensor, q: torch.Tensor,
-             scale: torch.Tensor) -> torch.Tensor:
+def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B5 on CUDA tensors, the plain version on CPU tensors."""
     global n_launches
     if x.device.type == "cpu":
-        return int8_matmul_reference(x, q, scale)
+        return int8_matmul_reference(x, q, scale, out_dtype)
     k, n = q.shape
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
         lib = _kernels()
         q = q.contiguous()
         scale = scale.to(torch.float32).contiguous()
-        code = lib.i8_matmul(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                             out.data_ptr(), m, k, n,
-                             torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if x.dtype == torch.float32:
+            code = lib.i8_matmul(x2.data_ptr(), q.data_ptr(),
+                                 scale.data_ptr(), out.data_ptr(), m, k, n,
+                                 stream)
+        else:
+            code = lib.i8_matmul_bf16(
+                x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                m, k, n, int(out_dtype == torch.bfloat16), stream)
         if code != 0:
             msg = lib.i8_error_string(code).decode()
             raise RuntimeError(f"int8_matmul: launch failed: {msg} ({code})")
@@ -135,9 +176,10 @@ class _Int8Matmul(torch.autograd.Function):
     """The product, differentiable with respect to ``x`` only."""
 
     @staticmethod
-    def forward(ctx, x, q, scale):
+    def forward(ctx, x, q, scale, out_dtype):
         ctx.save_for_backward(q, scale)
-        return _forward(x, q, scale)
+        ctx.x_dtype = x.dtype
+        return _forward(x, q, scale, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -145,19 +187,20 @@ class _Int8Matmul(torch.autograd.Function):
         # the JAX package's VJP: both factors in bf16, summed in float32
         gs = (g.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
         dx = gs @ q.t().to(torch.bfloat16).to(torch.float32)
-        return dx, None, None
+        return dx.to(ctx.x_dtype), None, None, None
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """``x[..., K] @ (q[K, N] · scale[N])`` as float32 ``[..., N]``.
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x[..., K] @ (q[K, N] · scale[N])`` as ``[..., N]`` in ``out_dtype``.
 
-    ``x`` float32 activations (leading dims flattened to M), ``q`` int8
-    weights, ``scale`` per-output-channel float32 (the layout
-    :func:`calibrate_int8` returns). CUDA tensors launch B5 or raise
+    ``x`` float32 or bf16 activations (leading dims flattened to M), ``q``
+    int8 weights, ``scale`` per-output-channel float32 (the layout
+    :func:`calibrate_int8` returns); float32 activations give a float32
+    output, bf16 ones either. CUDA tensors launch B5 or raise
     ``RuntimeError``; CPU tensors run :func:`int8_matmul_reference`.
     Differentiable with respect to ``x``."""
-    _check(x, q, scale)
+    _check(x, q, scale, out_dtype)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Int8Matmul.apply(x, q, scale)
-    return _forward(x, q, scale)
+        return _Int8Matmul.apply(x, q, scale, out_dtype)
+    return _forward(x, q, scale, out_dtype)

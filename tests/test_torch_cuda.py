@@ -7,7 +7,8 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
 Tolerance: atol=rtol=1e-4 — FFMA in the kernel against cuBLAS, and float
-atomics in the plain version's ``index_add_``.
+atomics in the plain version's ``index_add_``; the attention and bf16 int8
+tests state their own.
 """
 
 import numpy as np
@@ -418,3 +419,134 @@ def test_int8_engine_on_the_card_matches_the_cpu(cuda):
     assert tmm.n_launches - before == 3 * cfg.n_steps
     want = engines[1].score(reqs, engines[1].buckets[0])
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _attention_inputs(b, s, h, h_kv, d, dtype, seed):
+    """q, k, v on the card and a left-padded pad mask: row 0 unpadded, the
+    last row all padding, the others padded by a seeded amount."""
+    gen = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dt).cuda()
+               for n in (h, h_kv, h_kv))
+    mask = torch.ones(b, s, dtype=torch.bool)
+    for i in range(1, b):
+        pads = s if i == b - 1 else int(torch.randint(1, s, (1,),
+                                                      generator=gen))
+        mask[i, :pads] = False
+    return q, k, v, mask.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal", [
+    (2, 256, 4, 4, 128, "bfloat16", True),   # the 7B head width
+    (3, 200, 8, 2, 64, "bfloat16", True),    # ragged s, grouped kv heads
+    (2, 128, 2, 1, 32, "bfloat16", False),   # not causal
+    (2, 128, 4, 2, 16, "float32", True),     # tiny_llama
+    (2, 100, 2, 2, 128, "float32", True),    # ragged, the FFMA kernel at 128
+])
+def test_flash_kernel_matches_plain_version(cuda, b, s, h, h_kv, d, dtype,
+                                            causal):
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, mask = _attention_inputs(b, s, h, h_kv, d, dtype, s + d)
+    for m in (mask, None):
+        before = tfa.n_launches
+        with torch.inference_mode():
+            got = tfa.flash_attention(q, k, v, m, causal=causal)
+            again = tfa.flash_attention(q, k, v, m, causal=causal)
+            want = tfa.flash_attention_reference(q, k, v, m, causal=causal)
+        torch.cuda.synchronize()
+        assert tfa.n_launches - before == 2
+        assert got.dtype == q.dtype and torch.equal(got, again)
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        # bf16: P rounded at a running maximum against the row's maximum
+        # (the JAX package's 2e-2 bar); float32: sums in other orders
+        assert err <= (2e-2 if dtype == "bfloat16" else 1e-5) * top
+
+
+class _FailingFlashLib:
+    """Stands in for the built library: every launch reports an error."""
+
+    @staticmethod
+    def fa_forward(*args):
+        return 1  # cudaErrorInvalidValue
+
+    @staticmethod
+    def fa_error_string(code):
+        return b"invalid argument"
+
+
+@pytest.mark.gpu
+def test_flash_kernel_raises_for_gradients_and_failed_launches(cuda,
+                                                                monkeypatch):
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, mask = _attention_inputs(1, 128, 2, 2, 64, "bfloat16", 0)
+    with pytest.raises(RuntimeError, match="backward"):
+        tfa.flash_attention(q.requires_grad_(True), k, v, mask)
+    monkeypatch.setattr(tfa, "_lib", _FailingFlashLib())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfa.flash_attention(q.detach(), k, v, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,out", [
+    (1024, 4096, 11008, "bfloat16"),  # the 7B up projection
+    (37, 100, 130, "bfloat16"),       # nothing aligned
+    (5, 256, 127, "float32"),         # bf16 activations, float32 output
+])
+def test_int8_kernel_with_bf16_activations_matches_plain_version(cuda, m, k,
+                                                                 n, out):
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    gen = torch.Generator().manual_seed(m + n)
+    q, scale = tmm.calibrate_int8((torch.randn(k, n, generator=gen)
+                                   * k ** -0.5).cuda())
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+    dt = getattr(torch, out)
+    before = tmm.n_launches
+    got = tmm.int8_matmul(x, q, scale, out_dtype=dt)
+    again = tmm.int8_matmul(x, q, scale, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert tmm.n_launches - before == 2 and got.dtype == dt
+    assert torch.equal(got, again)
+    want = tmm.int8_matmul_reference(x, q, scale, dt)
+    top = float(want.float().abs().max())
+    # float32 sums in another order; a bf16 output may round one ulp apart
+    limit = 1e-2 if out == "bfloat16" else 1e-5
+    assert float((got.float() - want.float()).abs().max()) <= limit * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(attn_impl="flash"),
+                                dict(attn_impl="flash", int8_runtime=True)])
+def test_tiny_llama_on_the_card_matches_the_cpu(cuda, kw):
+    from deepdfa_tpu_torch.llm import llama as tl
+    from deepdfa_tpu_torch.llm.quant import to_int8_runtime_params
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    cfg = tl.tiny_llama(**kw)
+    state = tl.build_llama(tl.tiny_llama(), "cpu", seed=5).state_dict()
+    if cfg.int8_runtime:
+        state = to_int8_runtime_params(state)
+    models = []
+    for dev in ("cpu", "cuda"):
+        model = tl.build_llama(cfg, dev, seed=None)
+        model.load_state_dict(state)
+        models.append(model)
+    ids = torch.randint(3, cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 128, dtype=torch.bool)
+    mask[1, :40] = False
+    fa0, i80 = tfa.n_launches, tmm.n_launches
+    with torch.inference_mode():
+        want = models[0](ids, mask)
+        got = models[1](ids.cuda(), mask.cuda()).cpu()
+    assert tfa.n_launches - fa0 == cfg.num_hidden_layers
+    assert tmm.n_launches - i80 == (7 * cfg.num_hidden_layers
+                                    if cfg.int8_runtime else 0)
+    # FFMA in the kernels against the CPU's sums, every row
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)

@@ -183,7 +183,9 @@ def test_int8_matmul_checks_its_arguments():
     with pytest.raises(TypeError, match="int8"):
         tmm.int8_matmul(x, torch.ones(8, 8), torch.ones(8))
     with pytest.raises(TypeError, match="float32"):
-        tmm.int8_matmul(x.to(torch.bfloat16), q, torch.ones(8))
+        tmm.int8_matmul(x.to(torch.float16), q, torch.ones(8))
+    with pytest.raises(TypeError, match="float32"):
+        tmm.int8_matmul(x, q, torch.ones(8), out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="scale"):
         tmm.int8_matmul(x, q, torch.ones(4))
     with pytest.raises(ValueError, match="contraction"):

@@ -152,7 +152,7 @@ def test_megabatch_layout_is_ported():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(encoder_mode=True), dict(label_style="node"),
+    dict(interproc_families=True), dict(label_style="node"),
     dict(aggregation="union_simple"), dict(dataflow_families=True),
 ])
 def test_unported_model_options_raise(kw):
