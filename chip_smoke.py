@@ -87,10 +87,9 @@ Each phase prints one JSON line; any failure exits non-zero.
 11. int8_kernel — the int8 product (B5) against its plain version
    ``int8_matmul_reference`` at M in {2048, 4096, 5120, 16768}, K = 128,
    N in {128, 384}: max abs error over the largest output (limit
-   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event, CUDA-graph and
-   profiler device times of the kernel, the plain version and
-   ``torch.matmul`` on the weight dequantized in advance (TF32 off), and
-   the bound. Then the
+   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event and CUDA-graph
+   times of the kernel, the plain version and ``torch.matmul`` on the
+   weight dequantized in advance (TF32 off), and the bound. Then the
    LLM's projections with bf16 activations and output: M = 1024, K × N in
    {4096 × 4096, 4096 × 11008, 11008 × 4096} (limit ``INT8_BF16_LIMIT``;
    the library on the bf16 tensor cores).
@@ -105,12 +104,13 @@ Each phase prints one JSON line; any failure exits non-zero.
    version ``flash_attention_reference`` at the 7B serving shape (b 4, h 32,
    s 256, d 128, bf16, left pads as ``HashTokenizer`` makes them), the 13B
    ``pb_ft_pb_noexpl`` shape (b 6, h 40, s 1024), h 40 at s 2048 (b 4) and
-   ``tiny_llama`` in float32 (b 2, h 4, 2 kv heads, s 128, d 16): max abs
-   error over the largest output, all rows (limits ``FLASH_BF16_LIMIT`` and
-   ``FLASH_F32_LIMIT``), two calls bitwise equal, CUDA-event, CUDA-graph
-   and profiler device times of the kernel, the plain version and
-   ``scaled_dot_product_attention`` with the same boolean mask, the bound
-   and the launches per call.
+   ``tiny_llama`` in float32 (b 2, h 4, 2 kv heads, s 128, d 16): the
+   largest error of an output row over that row's largest value, every
+   row (limits ``FLASH_BF16_LIMIT`` and ``FLASH_F32_LIMIT``; the max abs
+   error over the whole output's largest value is printed beside it), two
+   calls bitwise equal, CUDA-event and CUDA-graph times of the kernel, the
+   plain version and ``scaled_dot_product_attention`` with the same
+   boolean mask, the bound and the launches per call.
 14. joint — ``JointEngine`` over ``LlamaModel(codellama_7b(attn_impl=
    "flash"))`` at full width and depth (32 layers, hidden 4096, bf16,
    weights drawn on the card from a seed), the golden GGNN in encoder mode
@@ -120,14 +120,16 @@ Each phase prints one JSON line; any failure exits non-zero.
    call per batch, the B6 count reset just before: functions/s, real and
    padded tokens/s, p50 batch ms, B6 launches = batches × 32, the device
    profile of one batch, the weight GB. Probabilities against the same
-   engine with ``attn_impl="full"`` on the card (``ROUNDING_PROB_LIMIT``),
-   the weights cut to 2 layers on the card against the CPU
+   engine with B6 replaced by its plain version on the card
+   (``FLASH_PROB_LIMIT``), against the same weights with
+   ``attn_impl="full"`` on the card (``FULL_PROB_LIMIT``), the weights cut
+   to 2 layers on the card against the CPU
    (``JOINT_PROB_LIMIT``), and the fused GGNN layout (B1) against segment
    (``PROB_LIMIT``).
 15. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
    32 × 7 with bf16 activations, probabilities against every projection on
-   B5's plain version on the card (``ROUNDING_PROB_LIMIT``), the difference
+   B5's plain version on the card (``INT8_PROB_LIMIT``), the difference
    from the bf16 engine, functions/s.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
@@ -221,10 +223,11 @@ STEP_PARAM_LIMIT = 1e-6
 # the float32 sums differ in order, so an output near a rounding boundary
 # may round to the neighbouring bf16 value, one ulp, at most 2^-7 of it
 INT8_BF16_LIMIT = 1e-2
-# B6 against its plain version over the largest output. bf16: the JAX
-# package's own bar for its flash path (tests/test_llama.py:239); the kernel
-# rounds P to bf16 against a running maximum over 64-key tiles, the plain
-# version against the row's maximum. float32: the same sums in other orders
+# B6 against its plain version, each output row over that row's largest
+# value (see row_rel_err). bf16: the JAX package's own bar for its flash
+# path (tests/test_llama.py:239); the kernel rounds P to bf16 against a
+# running maximum over 64-key tiles, the plain version against the row's
+# maximum. float32: the same sums in other orders
 FLASH_BF16_LIMIT = 2e-2
 FLASH_F32_LIMIT = 1e-5
 # probabilities of the 7B joint engine (bf16, seeded random weights). The
@@ -233,14 +236,20 @@ FLASH_F32_LIMIT = 1e-5
 # roundings in other places; a probability moves by ~0.25 of its logit's
 # change, a logit by ~0.6 of the final hidden state's relative change
 JOINT_PROB_LIMIT = 5e-3
-# at 32 layers, two paths that differ only in where they round to bf16: B6
-# against attn_impl="full" (B6 rounds the unnormalised weights at a running
-# maximum, full the normalised ones) and B5 against its plain version in
-# the int8 engine (a projection's bf16 output may round one ulp apart). The
-# bf16 residual stream carries such an ulp through the next layers: with
-# the seeded weights B6 and full differ by 1.07e-2 on an H100 (5e-3 is too
-# tight); held to about three times that
-ROUNDING_PROB_LIMIT = 3e-2
+# probabilities of the 32-layer engines against a path of the same
+# semantics that rounds to bf16 in other places; the bf16 residual stream
+# carries a one-ulp difference through the layers that follow. Each limit
+# is twice the larger of its own readings on an H100 at weight seeds 0 and
+# 1 (PERF.md): two such paths differ by up to 2x between seeds.
+# B6 against its plain version (P rounded at a running maximum against the
+# row's maximum): 8.0e-3 and 8.0e-3
+FLASH_PROB_LIMIT = 1.6e-2
+# B6 against attn_impl="full" (the normalised weights rounded, not P):
+# 1.07e-2 and 9.4e-3 (B6's plain version against full: 1.58e-2 and 8.4e-3)
+FULL_PROB_LIMIT = 2.2e-2
+# B5 against its plain version in the int8 engine (a projection's bf16
+# output may round one ulp apart): 9.0e-3 and 5.5e-3
+INT8_PROB_LIMIT = 1.8e-2
 WIDTH, STEPS, MAX_BATCH, INPUT_DIM = 128, 5, 16, 1002
 TRAIN_GRAPHS = 256
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
@@ -275,38 +284,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """Device milliseconds per call of ``fn``: the time of the kernels and
-    copies it launched, summed by the profiler over ``reps`` calls after one
-    warm-up call. Unlike :func:`cuda_ms` it leaves out the host's time
-    between launches, which bounds a call of a few microseconds of work.
-    The profiler now and then records no device event: three tries, then
-    None (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(ev, "self_device_time_total", 0.0)
-                 for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / reps / 1e3
-    return None
-
-
-def graph_ms(fn, reps: int) -> float | None:
+def graph_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn`` with the host left out: one
     call captured in a CUDA graph, replayed ``reps`` times between two CUDA
-    events (a replay adds a few microseconds of its own). The profiler's
-    sums (:func:`device_ms`) have come out short of the event times for
-    calls of a millisecond, when it dropped events; this does not depend on
-    it. None where the call cannot be captured."""
+    events (a replay adds a few microseconds of its own). Unlike
+    :func:`cuda_ms` it leaves out the host's time between launches, which
+    bounds a call of a few microseconds of work. The profiler's device sums
+    came out short of the event times for calls of a millisecond, when it
+    dropped events; this does not depend on it. A call that cannot be
+    captured fails the run."""
     try:
         fn()
         torch.cuda.synchronize()
@@ -316,8 +302,7 @@ def graph_ms(fn, reps: int) -> float | None:
         graph.replay()
         torch.cuda.synchronize()
     except RuntimeError as exc:
-        print(f"chip_smoke: graph capture failed: {exc}", file=sys.stderr)
-        return None
+        fail(f"graph capture failed: {exc}")
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -330,12 +315,15 @@ def graph_ms(fn, reps: int) -> float | None:
     return ms
 
 
-def table_ms(row: dict, key: str) -> float:
-    """A kernel-table time: the row's CUDA-graph time ``key`` where the
-    call was captured, else its CUDA-event time of the same call
-    (``graph_ms`` → ``ms``, ``plain_graph_ms`` → ``plain_ms``)."""
-    dev = row[key]
-    return dev if dev is not None else row[key.replace("graph_ms", "ms")]
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of a row (the last axis) over that row's largest
+    magnitude, across every row. An attention row that sees one key has
+    outputs of ~4, one that sees hundreds of ~0.1: over the whole output's
+    largest value, an error confined to long rows would pass."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(dim=-1)
+    top = want.abs().amax(dim=-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((err / top).max())
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1383,8 +1371,7 @@ def phase_int8_kernel() -> list[dict]:
             fns = (("", lambda: i8.int8_matmul(x, q, scale)),
                    ("plain_", lambda: i8.int8_matmul_reference(x, q, scale)),
                    ("library_", lambda: torch.matmul(x, dequant)))
-            dev = {f"{key}device_ms": device_ms(f, 20) for key, f in fns}
-            dev |= {f"{key}graph_ms": graph_ms(f, 50) for key, f in fns}
+            dev = {f"{key}graph_ms": graph_ms(f, 50) for key, f in fns}
             bound_ms, bound_by = int8_bound(m, WIDTH, n)
             row = {"phase": "int8_kernel", "m": m, "k": WIDTH, "n": n,
                    "max_abs_err": abs_err, "max_rel_err": err,
@@ -1430,8 +1417,7 @@ def phase_int8_kernel() -> list[dict]:
         ms_again = cuda_ms(kernel, 10)
         fns = (("", kernel), ("plain_", plain),
                ("library_", lambda: torch.matmul(x, dequant)))
-        dev = {f"{key}device_ms": device_ms(f, 5) for key, f in fns}
-        dev |= {f"{key}graph_ms": graph_ms(f, 10) for key, f in fns}
+        dev = {f"{key}graph_ms": graph_ms(f, 10) for key, f in fns}
         bound_ms, bound_by = int8_bound(m, k, n, bf16=True)
         row = {"phase": "int8_kernel", "m": m, "k": k, "n": n,
                "x_dtype": "bf16", "out_dtype": "bf16",
@@ -1443,8 +1429,7 @@ def phase_int8_kernel() -> list[dict]:
                "library": "torch.matmul(x, (q·scale) in bf16), bf16 tensor "
                           "cores",
                **dev, "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": 2 * m * k * n / (table_ms(dev | {"ms": ms},
-                                                   "graph_ms") * 1e9)}
+               "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9)}
         emit(row)
         if launches != 2 or not (bitwise and err <= INT8_BF16_LIMIT):
             fail(f"B5 bf16 at m={m} k={k} n={n}: launches={launches} "
@@ -1597,7 +1582,8 @@ def phase_flash_kernel() -> list[dict]:
             launches = fa.n_launches - before
             want = plain().float()
             abs_err = float((got.float() - want).abs().max())
-            err = abs_err / float(want.abs().max())
+            rel_err = abs_err / float(want.abs().max())
+            err = row_rel_err(got, want)
             lib_err = float((library().transpose(1, 2).float() - want).abs()
                             .max())
             bitwise = torch.equal(got, again)
@@ -1609,16 +1595,15 @@ def phase_flash_kernel() -> list[dict]:
             ms_again = cuda_ms(kernel, 20)
             fns = (("", kernel, 10), ("plain_", plain, 2),
                    ("library_", library, 10))
-            dev = {f"{key}device_ms": device_ms(f, n) for key, f, n in fns}
-            dev |= {f"{key}graph_ms": graph_ms(f, 2 * n)
-                    for key, f, n in fns}
+            dev = {f"{key}graph_ms": graph_ms(f, 2 * n) for key, f, n in fns}
         bf16 = dt == torch.bfloat16
         limit = FLASH_BF16_LIMIT if bf16 else FLASH_F32_LIMIT
         bound_ms, bound_by = flash_bound(b, s, h, h_kv, d, bf16)
         row = {"phase": "flash_kernel", "shape": name, "b": b, "s": s,
                "h": h, "h_kv": h_kv, "d": d, "dtype": str(dt).split(".")[-1],
                "real_tokens": int(mask.sum()), "max_abs_err": abs_err,
-               "max_rel_err": err, "limit": limit, "finite": finite,
+               "max_rel_err": rel_err, "max_row_rel_err": err,
+               "limit": limit, "finite": finite,
                "bitwise_repeat": bitwise, "launches_per_call": launches // 2,
                "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
                "library_ms": library_ms,
@@ -1626,7 +1611,7 @@ def phase_flash_kernel() -> list[dict]:
                "library_max_abs_diff": lib_err, **dev, "bound_ms": bound_ms,
                "bound_by": bound_by,
                "tflops": 4 * b * h * d * s * (s + 1) / 2
-               / (table_ms(dev | {"ms": ms}, "graph_ms") * 1e9)}
+               / (dev["graph_ms"] * 1e9)}
         emit(row)
         if launches != 2 or not (finite and bitwise and err <= limit):
             fail(f"B6 at {name}: launches={launches} finite={finite} "
@@ -1670,14 +1655,14 @@ def check_probs(name: str, probs: np.ndarray) -> None:
         fail(f"{name}: non-finite or out-of-range probabilities")
 
 
-def phase_joint() -> tuple[dict, dict]:
-    """JointEngine over CodeLlama-7B (random weights, B6 attention) and the
-    golden GGNN encoder."""
+def phase_joint(seed: int = 0) -> tuple[dict, dict]:
+    """JointEngine over CodeLlama-7B (random weights from ``seed``, B6
+    attention) and the golden GGNN encoder."""
     cfg = codellama_7b(attn_impl="flash")
     t0 = time.perf_counter()
-    llm = build_llama(cfg, "cuda", seed=0)
+    llm = build_llama(cfg, "cuda", seed=seed)
     fusion = build_fusion(GGNNConfig(), INPUT_DIM, cfg.hidden_size,
-                          dropout_rate=0.1, device="cuda", seed=1)
+                          dropout_rate=0.1, device="cuda", seed=seed + 1)
     tok = HashTokenizer(cfg.vocab_size)
     jcfg = JointConfig(block_size=256)
     engine = JointEngine(llm, fusion, tok, jcfg, max_batch=4, device="cuda")
@@ -1696,7 +1681,13 @@ def phase_joint() -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches, batches = fa.n_launches, engine.n_batches
 
-    # off the main path
+    # off the main path: the same engine with B6 on its plain version
+    saved = llama_mod.flash_attention
+    llama_mod.flash_attention = fa.flash_attention_reference
+    try:
+        plain_probs = engine.score(items)
+    finally:
+        llama_mod.flash_attention = saved
     busy = profile_call(lambda: engine.score(items[:4]))
     real = int(sum(tok.encode_block(t, jcfg.block_size)[1].sum()
                    for t, _ in items))
@@ -1733,7 +1724,7 @@ def phase_joint() -> tuple[dict, dict]:
 
     tokens = batches * engine.max_batch * jcfg.block_size
     row = {"phase": "joint", "model": "codellama_7b(attn_impl='flash'), "
-                                      "seeded random weights",
+                                      "seeded random weights", "seed": seed,
            "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
            "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
            "block": jcfg.block_size, "max_batch": engine.max_batch,
@@ -1747,15 +1738,20 @@ def phase_joint() -> tuple[dict, dict]:
            "max_batch_ms": float(max(lat) * 1e3),
            "b6_launches": launches, "b6_launches_per_batch":
                cfg.num_hidden_layers,
+           "max_abs_prob_diff_vs_plain_b6": float(
+               np.abs(probs - plain_probs).max()),
            "max_abs_prob_diff_vs_full": float(np.abs(probs - full_probs).max()),
+           "max_abs_prob_diff_plain_b6_vs_full": float(
+               np.abs(plain_probs - full_probs).max()),
            "full_functions_per_s": len(items) / full_wall,
            "max_abs_prob_diff_fused_vs_segment": float(
                np.abs(fused_probs - probs).max()),
            "fused_b1_launches": b1_launches,
            "max_abs_prob_diff_2_layers_vs_cpu": float(
                np.abs(p_card2 - p_cpu2).max()),
-           "cpu_2_layers_s": cpu_s, "full_limit": ROUNDING_PROB_LIMIT,
-           "cpu_limit": JOINT_PROB_LIMIT, "fused_limit": PROB_LIMIT,
+           "cpu_2_layers_s": cpu_s, "plain_b6_limit": FLASH_PROB_LIMIT,
+           "full_limit": FULL_PROB_LIMIT, "cpu_limit": JOINT_PROB_LIMIT,
+           "fused_limit": PROB_LIMIT,
            "model_rev": engine.model_rev,
            "probs": [round(float(p), 6) for p in probs[:8]],
            "profile_batch": busy}
@@ -1764,7 +1760,8 @@ def phase_joint() -> tuple[dict, dict]:
     if launches <= 0 or launches != batches * cfg.num_hidden_layers:
         fail(f"joint: {launches} B6 launches for {batches} batches "
              f"(expected {cfg.num_hidden_layers} each)")
-    for key, limit in (("max_abs_prob_diff_vs_full", ROUNDING_PROB_LIMIT),
+    for key, limit in (("max_abs_prob_diff_vs_plain_b6", FLASH_PROB_LIMIT),
+                       ("max_abs_prob_diff_vs_full", FULL_PROB_LIMIT),
                        ("max_abs_prob_diff_2_layers_vs_cpu",
                         JOINT_PROB_LIMIT)):
         if not row[key] <= limit:
@@ -1822,7 +1819,7 @@ def phase_joint_int8(ctx: dict) -> dict:
            "b6_launches": b6,
            "max_abs_prob_diff_vs_plain_int8": float(np.abs(probs - plain)
                                                     .max()),
-           "limit": ROUNDING_PROB_LIMIT,
+           "limit": INT8_PROB_LIMIT,
            "max_abs_prob_diff_vs_bf16": float(np.abs(probs - ctx["probs"])
                                               .max()),
            "mean_abs_prob_diff_vs_bf16": float(np.abs(probs - ctx["probs"])
@@ -1836,7 +1833,7 @@ def phase_joint_int8(ctx: dict) -> dict:
              f"(expected {per} each)")
     if b6 != batches * cfg.num_hidden_layers:
         fail(f"joint_int8: {b6} B6 launches for {batches} batches")
-    if not row["max_abs_prob_diff_vs_plain_int8"] <= ROUNDING_PROB_LIMIT:
+    if not row["max_abs_prob_diff_vs_plain_int8"] <= INT8_PROB_LIMIT:
         fail(f"joint_int8: {row['max_abs_prob_diff_vs_plain_int8']} from the "
              f"plain int8 path")
     return row
@@ -1955,10 +1952,9 @@ def main() -> int:
         # CUDA-graph replay times: CUDA-event times of a call this short
         # measure the host's per-call cost (the row's "ms", "plain_ms",
         # "library_ms", kept as call_ms and the like)
-        "ms": table_ms(b5, "graph_ms"),
-        "plain_ms": table_ms(b5, "plain_graph_ms"),
+        "ms": b5["graph_ms"], "plain_ms": b5["plain_graph_ms"],
         "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-        "library_ms": table_ms(b5, "library_graph_ms"),
+        "library_ms": b5["library_graph_ms"],
         "library": b5["library"],
         "call_ms": b5["ms"], "plain_call_ms": b5["plain_ms"],
         "library_call_ms": b5["library_ms"],
@@ -1970,10 +1966,9 @@ def main() -> int:
                                if "x_dtype" in r),
             "max_rel_err": max(r["max_rel_err"] for r in int8_rows
                                if "x_dtype" in r),
-            "ms": table_ms(b5_llm, "graph_ms"),
-            "plain_ms": table_ms(b5_llm, "plain_graph_ms"),
+            "ms": b5_llm["graph_ms"], "plain_ms": b5_llm["plain_graph_ms"],
             "bound_ms": b5_llm["bound_ms"], "bound_by": b5_llm["bound_by"],
-            "library_ms": table_ms(b5_llm, "library_graph_ms"),
+            "library_ms": b5_llm["library_graph_ms"],
             "library": b5_llm["library"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/flash_attention.cu",
@@ -1985,12 +1980,12 @@ def main() -> int:
                              "joint_int8": joint8["b6_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
+        "max_row_rel_err": max(r["max_row_rel_err"] for r in flash_rows),
         # CUDA-graph replay times, as for B5: a call at the serving shape is
         # tens of microseconds
-        "ms": table_ms(b6, "graph_ms"),
-        "plain_ms": table_ms(b6, "plain_graph_ms"),
+        "ms": b6["graph_ms"], "plain_ms": b6["plain_graph_ms"],
         "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
-        "library_ms": table_ms(b6, "library_graph_ms"),
+        "library_ms": b6["library_graph_ms"],
         "library": b6["library"],
         "call_ms": b6["ms"], "plain_call_ms": b6["plain_ms"],
         "library_call_ms": b6["library_ms"],

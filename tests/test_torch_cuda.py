@@ -458,11 +458,14 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, h_kv, d, dtype,
         torch.cuda.synchronize()
         assert tfa.n_launches - before == 2
         assert got.dtype == q.dtype and torch.equal(got, again)
-        err = float((got.float() - want.float()).abs().max())
-        top = float(want.float().abs().max())
-        # bf16: P rounded at a running maximum against the row's maximum
-        # (the JAX package's 2e-2 bar); float32: sums in other orders
-        assert err <= (2e-2 if dtype == "bfloat16" else 1e-5) * top
+        # each row over its own largest value: a row that sees one key has
+        # outputs of ~4, one that sees hundreds of ~0.1. bf16: P rounded at
+        # a running maximum against the row's maximum (the JAX package's
+        # 2e-2 bar); float32: sums in other orders
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        top = want.float().abs().amax(dim=-1)
+        limit = 2e-2 if dtype == "bfloat16" else 1e-5
+        assert bool((err <= limit * top).all())
 
 
 class _FailingFlashLib:
