@@ -111,7 +111,19 @@ Each phase prints one JSON line; any failure exits non-zero.
    calls bitwise equal, CUDA-event and CUDA-graph times of the kernel, the
    plain version and ``scaled_dot_product_attention`` with the same
    boolean mask, the bound and the launches per call.
-14. joint — ``JointEngine`` over ``LlamaModel(codellama_7b(attn_impl=
+14. flash_bwd_kernel — the attention backward (B6b: the dk/dv kernel and
+   the dq kernel) against its plain version
+   ``flash_attention_backward_reference`` on the same forward output and
+   logsumexp, at 7B training (b 4, h 32, s 256, d 128, bf16, left pads),
+   13B ``pb_ft_pb_noexpl`` (b 6, h 40, s 1024), h 40 at s 2048 (b 4) and a
+   grouped-query float32 shape (b 4, h 4, 2 kv heads, s 256, d 16): each
+   row of dq, dk and dv over that row's largest value (limits
+   ``FLASH_BF16_LIMIT`` and ``FLASH_F32_LIMIT``; rows whose exact gradient
+   is 0 — a query that sees one key — over the tensor's largest), two calls
+   bitwise equal, CUDA-event and CUDA-graph times of the kernels, the plain
+   version and the autograd of ``scaled_dot_product_attention`` with the
+   same boolean mask, the bound and the launches per call.
+15. joint — ``JointEngine`` over ``LlamaModel(codellama_7b(attn_impl=
    "flash"))`` at full width and depth (32 layers, hidden 4096, bf16,
    weights drawn on the card from a seed), the golden GGNN in encoder mode
    (segment layout) and a seeded fusion head, ``HashTokenizer(32016)``,
@@ -126,7 +138,23 @@ Each phase prints one JSON line; any failure exits non-zero.
    to 2 layers on the card against the CPU
    (``JOINT_PROB_LIMIT``), and the fused GGNN layout (B1) against segment
    (``PROB_LIMIT``).
-15. joint_int8 — the joint model with ``int8_runtime=True`` from
+16. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
+   attn_impl="flash", lora_rank=16, lora_alpha=16))`` over the joint
+   phase's seeded weights and a seeded LM head: one epoch over 32 seeded
+   C-like functions, block 256, batch 4 (8 steps), the counts reset just
+   before: steps/s, real and padded tokens/s, p50 step ms, peak memory, B6
+   launches = steps × 32 and B6b launches = steps × 64; the first step's
+   adapter gradients against the same step with B6 and B6b on their plain
+   versions (``LORA_GRAD_LIMIT``); the saved adapters loaded onto a fresh
+   base bitwise, and merged into it, against the unmerged model's hidden
+   states (``MERGE_LIMIT``); the device profile of one step.
+17. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
+   ``no_grad``) with a fresh fusion model (the golden GGNN encoder): one
+   epoch over the same 32 functions with their eval points over 16 more,
+   B6 launches = (steps + eval batches) × 32 and no B6b launch, steps/s;
+   ``JointEngine.from_run_dir`` on the ``epoch_0`` it wrote scores the
+   eval functions within 1e-5 of the trainer's own evaluation.
+18. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
    32 × 7 with bf16 activations, probabilities against every projection on
    B5's plain version on the card (``INT8_PROB_LIMIT``), the difference
@@ -164,11 +192,15 @@ from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.llm import llama as llama_mod
-from deepdfa_tpu_torch.llm.dataset import HashTokenizer
+from deepdfa_tpu_torch.llm.dataset import (GraphJoin, HashTokenizer,
+                                           encode_functions)
+from deepdfa_tpu_torch.llm.finetune import (FinetuneConfig, LoraFinetuner,
+                                            _lm_batches, lm_loss)
 from deepdfa_tpu_torch.llm.fusion import build_fusion
-from deepdfa_tpu_torch.llm.joint import JointConfig
+from deepdfa_tpu_torch.llm.joint import JointConfig, JointTrainer
 from deepdfa_tpu_torch.llm.joint_engine import JointEngine
 from deepdfa_tpu_torch.llm.llama import LlamaModel, build_llama, codellama_7b
+from deepdfa_tpu_torch.llm.lora import freeze_base, is_lora_name, merge_lora
 from deepdfa_tpu_torch.llm.quant import to_int8_runtime_params
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.models.ggnn_hier import (N_SUMMARY_FEATURES,
@@ -250,6 +282,23 @@ FULL_PROB_LIMIT = 2.2e-2
 # B5 against its plain version in the int8 engine (a projection's bf16
 # output may round one ulp apart): 9.0e-3 and 5.5e-3
 INT8_PROB_LIMIT = 1.8e-2
+# the first LoRA step's adapter gradients at CodeLlama-7B width (bf16, 32
+# layers) with B6 and B6b against the same step with both on their plain
+# versions, over each adapter's largest gradient: bf16 roundings at other
+# places (P and dS against running maxima, the outputs) carried back
+# through 32 layers. Twice the larger of its readings on an H100 at weight
+# seeds 0 and 1 (PERF.md): 2.41e-2 and 2.75e-2. At a fixed seed the
+# reading repeats bitwise from call to call; an earlier lm_loss that took
+# the softmax across a transposed [v, b·s] layout read 2.85e-2 at seed 1
+# (its float32 loss gradient rounds otherwise). The per-row check of B6b
+# against its plain version (flash_bwd_kernel) is the tight one.
+LORA_GRAD_LIMIT = 5.5e-2
+# hidden states of the model with the trained adapters merged into its
+# projections against the unmerged model, over the largest value: the
+# merged weight rounds W + A·B·scale to bf16 once, the unmerged path adds
+# the adapter's bf16 output; 32 layers carry each rounding. Twice the
+# larger reading at seeds 0 and 1: 2.90e-2 and 2.53e-2
+MERGE_LIMIT = 5.8e-2
 WIDTH, STEPS, MAX_BATCH, INPUT_DIM = 128, 5, 16, 1002
 TRAIN_GRAPHS = 256
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
@@ -1620,7 +1669,7 @@ def phase_flash_kernel() -> list[dict]:
     return rows
 
 
-# ------------------------------------------------------------ phase 14, 15
+# ------------------------------------------------------------ phase 15, 18
 
 JOINT_FUNCTIONS = 64
 
@@ -1839,6 +1888,418 @@ def phase_joint_int8(ctx: dict) -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 14
+
+FLASH_BWD_SHAPES = [  # name, b, s, h, h_kv, d, dtype
+    ("7b_train", 4, 256, 32, 32, 128, torch.bfloat16),
+    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16),
+    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16),
+    ("gqa_f32", 4, 256, 4, 2, 16, torch.float32)]
+
+
+def flash_bwd_bound(b: int, s: int, h: int, h_kv: int, d: int,
+                    bf16: bool) -> tuple[float, str]:
+    """Least milliseconds for the causal attention backward: five products
+    of b·h·d·s(s+1)/2 multiply-adds (S recomputed, dV, dP, dK, dQ) over the
+    peak of the inputs' type, or the bytes of q, k, v, o, do, the
+    logsumexp and dq, dk, dv over HBM bandwidth, the larger."""
+    flops = 10 * b * h * d * s * (s + 1) / 2
+    e = 2 if bf16 else 4
+    nbytes = e * (4 * b * s * h * d + 4 * b * s * h_kv * d) + 4 * b * h * s
+    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def zero_gradient_rows(mask: torch.Tensor, s: int) -> tuple[torch.Tensor,
+                                                            torch.Tensor]:
+    """([b, s] queries, [b, s] keys) whose causal attention gradient is 0 in
+    exact arithmetic: a query that sees one key (the softmax of one score
+    does not depend on it) and a key seen only by such queries. Both the
+    kernel and the plain version return rounding noise there."""
+    seg = mask.int()
+    keep = torch.tril(torch.ones(s, s, dtype=torch.bool, device=mask.device))
+    keep = keep[None] & (seg[:, :, None] == seg[:, None, :])
+    q_one = keep.sum(-1) == 1
+    return q_one, ~(keep & ~q_one[..., None]).any(dim=1)
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor,
+                 zero_rows: torch.Tensor) -> float:
+    """:func:`row_rel_err` for a gradient: rows whose exact value is 0
+    (``zero_rows``, [b, s]) are taken over the tensor's largest value."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(dim=-1)
+    top = want.abs().amax(dim=-1)
+    top = torch.where(zero_rows[..., None], want.abs().max(), top)
+    return float((err / top.clamp_min(torch.finfo(torch.float32).tiny))
+                 .max())
+
+
+def phase_flash_bwd_kernel() -> list[dict]:
+    """B6b against its plain version at the training shapes."""
+    tok = HashTokenizer(32016)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for name, b, s, h, h_kv, d, dt in FLASH_BWD_SHAPES:
+        mask = torch.from_numpy(np.stack(
+            [tok.encode_block(t, s)[1] for t in c_functions(b, seed=s + 1)])
+        ).cuda()
+        q, k, v, do = (torch.randn(b, s, n, d, generator=gen,
+                                   device="cuda").to(dt)
+                       for n in (h, h_kv, h_kv, h))
+        with torch.no_grad():
+            o, lse = fa.flash_attention_forward(q, k, v, mask)
+        # the library yardstick: the backward of SDPA with the same mask
+        seg = mask.to(torch.int32)
+        keep = torch.tril(torch.ones(s, s, dtype=torch.bool, device="cuda"))
+        keep = keep[None, None] & (seg[:, None, :, None]
+                                   == seg[:, None, None, :])
+        sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        sdo = do.transpose(1, 2).contiguous()
+
+        def kernel():
+            return fa.flash_attention_backward(q, k, v, o, do, lse, mask)
+
+        def plain():
+            return fa.flash_attention_backward_reference(q, k, v, o, do, lse,
+                                                         mask)
+
+        def library_forward():
+            return torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=keep, enable_gqa=h != h_kv)
+
+        # autograd runs a backward on its forward's stream, so a CUDA graph
+        # can hold SDPA's backward only with its forward: the library's
+        # backward is timed as forward + backward less the forward (which
+        # saves its logsumexp, as under training)
+        def library():
+            return torch.autograd.grad(library_forward(), (sq, sk, sv), sdo)
+
+        before = fa.n_bwd_launches
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        launches = fa.n_bwd_launches - before
+        want = plain()
+        q_one, k_zero = zero_gradient_rows(mask, s)
+        zero = {"dq": q_one, "dk": k_zero, "dv": torch.zeros_like(k_zero)}
+        errs, abs_errs, lib_errs = {}, {}, {}
+        for i, key in enumerate(("dq", "dk", "dv")):
+            errs[key] = grad_row_err(got[i], want[i], zero[key])
+            abs_errs[key] = float((got[i].float() - want[i].float()).abs()
+                                  .max())
+        lib = library()
+        for i, key in enumerate(("dq", "dk", "dv")):
+            lib_errs[key] = float((lib[i].transpose(1, 2).float()
+                                   - want[i].float()).abs().max())
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        del want, lib
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        library_fwd_bwd_ms = cuda_ms(library, 20)
+        library_fwd_ms = cuda_ms(library_forward, 20)
+        fns = (("", kernel, 10), ("plain_", plain, 2),
+               ("library_fwd_bwd_", library, 10),
+               ("library_fwd_", library_forward, 10))
+        dev = {f"{key}graph_ms": graph_ms(f, 2 * n) for key, f, n in fns}
+        dev["library_graph_ms"] = (dev["library_fwd_bwd_graph_ms"]
+                                   - dev["library_fwd_graph_ms"])
+        library_ms = library_fwd_bwd_ms - library_fwd_ms
+        bf16 = dt == torch.bfloat16
+        limit = FLASH_BF16_LIMIT if bf16 else FLASH_F32_LIMIT
+        bound_ms, bound_by = flash_bwd_bound(b, s, h, h_kv, d, bf16)
+        err = max(errs.values())
+        row = {"phase": "flash_bwd_kernel", "shape": name, "b": b, "s": s,
+               "h": h, "h_kv": h_kv, "d": d, "dtype": str(dt).split(".")[-1],
+               "real_tokens": int(mask.sum()),
+               "max_row_rel_err": errs, "max_abs_err": abs_errs,
+               "limit": limit, "finite": finite, "bitwise_repeat": bitwise,
+               "launches_per_call": launches // 2, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_fwd_bwd_ms": library_fwd_bwd_ms,
+               "library_fwd_ms": library_fwd_ms,
+               "library": "autograd of scaled_dot_product_attention, "
+                          "boolean mask (forward + backward less forward)",
+               "library_max_abs_diff": lib_errs, **dev, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "tflops": 10 * b * h * d * s * (s + 1) / 2
+               / (dev["graph_ms"] * 1e9)}
+        emit(row)
+        if launches != 4 or not (finite and bitwise and err <= limit):
+            fail(f"B6b at {name}: launches={launches} finite={finite} "
+                 f"bitwise={bitwise} err={errs} (limit {limit})")
+        rows.append(row)
+        del sq, sk, sv
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase 16
+
+FINETUNE_FUNCTIONS = 32
+LORA_RANK = 16  # the fine-tuned preset's (deepdfa_tpu/llm/presets.py:70)
+
+
+def lora_llm(cfg, base: dict, lm_head: torch.Tensor, seed: int):
+    """A ``LlamaForCausalLM`` of ``cfg`` over the tensors of ``base`` (a
+    ``LlamaModel`` state dict) and ``lm_head``, no copy, with fresh LoRA
+    adapters drawn on the card from ``seed`` (``A`` N(0, 1/rank), ``B``
+    zero: peft's start)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = {f"model.{k}": v for k, v in base.items()}
+    state["lm_head.weight"] = lm_head
+    with torch.device("meta"):
+        model = llama_mod.LlamaForCausalLM(cfg)
+    for name, t in model.named_parameters():
+        if name.endswith("lora_a"):
+            state[name] = torch.randn(t.shape, generator=gen, device="cuda"
+                                      ) * cfg.lora_rank ** -0.5
+        elif name.endswith("lora_b"):
+            state[name] = torch.zeros(t.shape, device="cuda")
+    model.load_state_dict(state, assign=True)
+    return model.eval()
+
+
+class PlainFlash(torch.autograd.Function):
+    """B6's plain version forward with its logsumexp saved, B6b's plain
+    version (``flash_attention_backward_reference``) backward: the witness
+    the kernels' path is held against."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, causal):
+        out, lse = fa._reference_forward(q, k, v, pad_mask, causal)
+        ctx.save_for_backward(q, k, v, out, lse, pad_mask)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, pad_mask = ctx.saved_tensors
+        grads = fa.flash_attention_backward_reference(
+            q, k, v, out, do, lse, pad_mask, causal=ctx.causal)
+        return (*grads, None, None)
+
+
+def plain_flash_attention(q, k, v, pad_mask, *, causal=True):
+    """``fa.flash_attention`` with both kernels on their plain versions."""
+    return PlainFlash.apply(q, k, v, pad_mask, causal)
+
+
+def adapter_grads(model, ids, pad, plain: bool) -> dict:
+    """The adapters' gradients of one LM loss, with B6/B6b or (``plain``)
+    both on their plain versions."""
+    saved = llama_mod.flash_attention
+    if plain:
+        llama_mod.flash_attention = plain_flash_attention
+    try:
+        freeze_base(model)
+        loss = lm_loss(model(ids, pad), ids, pad)
+        loss.backward()
+    finally:
+        llama_mod.flash_attention = saved
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def phase_finetune(ctx: dict, seed: int = 0) -> dict:
+    """LoRA fine-tuning of CodeLlama-7B width and depth (the joint phase's
+    seeded weights, a seeded LM head) through ``attn_impl="flash"``: B6
+    forward and B6b backward on every step."""
+    cfg = codellama_7b(attn_impl="flash", lora_rank=LORA_RANK,
+                       lora_alpha=16.0)
+    base = ctx["llm"].state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    lm_head = (torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen,
+                           device="cuda") * cfg.hidden_size ** -0.5).to(
+        cfg.torch_dtype)
+    model = lora_llm(cfg, base, lm_head, seed + 8)
+    tok = ctx["tok"]
+    examples = encode_functions(c_functions(FINETUNE_FUNCTIONS, seed=23),
+                                [0] * FINETUNE_FUNCTIONS, tok, 256)
+    fcfg = FinetuneConfig(epochs=1, batch_size=4, seed=seed)
+
+    # witness: the first step's adapter gradients, kernels against plain
+    ids, pad, _ = next(_lm_batches(examples, fcfg.batch_size, seed=fcfg.seed))
+    ids, pad = torch.from_numpy(ids).cuda(), torch.from_numpy(pad).cuda()
+    g_kernel = adapter_grads(model, ids, pad, plain=False)
+    g_plain = adapter_grads(model, ids, pad, plain=True)
+    witness = 0.0
+    for name, want in g_plain.items():
+        top = float(want.abs().max())
+        err = float((g_kernel[name] - want).abs().max())
+        if top == 0.0:  # lora_a: B = 0 at the start, so dL/dA = 0 exactly
+            witness = max(witness, float("inf") if err else 0.0)
+        else:
+            witness = max(witness, err / top)
+    n_zero = sum(float(g.abs().max()) == 0.0 for g in g_plain.values())
+    del g_kernel, g_plain
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lora_") as tmp:
+        tuner = LoraFinetuner(model, fcfg, run_dir=Path(tmp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from zero, read right after
+        fa.n_launches = 0
+        fa.n_bwd_launches = 0
+        t0 = time.perf_counter()
+        model, losses = tuner.train(examples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b6, b6b = fa.n_launches, fa.n_bwd_launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(tuner.step_seconds)
+
+        # the saved adapters on a fresh base, then merged into it
+        fresh = lora_llm(cfg, base, lm_head, seed + 9)
+        tuner.load_adapters(fresh, "adapters_epoch_0")
+        trained = {n: p for n, p in model.named_parameters()
+                   if is_lora_name(n)}
+        loaded_equal = all(torch.equal(p, trained[n])
+                           for n, p in fresh.named_parameters()
+                           if is_lora_name(n))
+    moved = max(float((trained[n] - p).detach().abs().max()) for n, p in
+                lora_llm(cfg, base, lm_head, seed + 8).named_parameters()
+                if is_lora_name(n))
+    with torch.inference_mode():
+        unmerged = fresh.model(ids, pad).float()
+        merged_state = merge_lora({k: v for k, v in fresh.state_dict().items()
+                                   if k.startswith("model.")},
+                                  alpha=cfg.lora_alpha)
+        merged = shared_llama(dataclasses.replace(cfg, lora_rank=0),
+                              {k[len("model."):]: v
+                               for k, v in merged_state.items()})
+        merged_h = merged(ids, pad).float()
+        merge_err = float((merged_h - unmerged).abs().max()
+                          / unmerged.abs().max())
+    del merged, merged_state, merged_h, unmerged, fresh
+    busy = profile_call(lambda: adapter_grads(model, ids, pad, plain=False))
+    real = int(examples.pad_mask.sum())
+    padded = steps * fcfg.batch_size * 256
+    row = {"phase": "finetune",
+           "model": "LlamaForCausalLM(codellama_7b(attn_impl='flash', "
+                    "lora_rank=16, lora_alpha=16)), seeded random weights",
+           "seed": seed, "layers": cfg.num_hidden_layers,
+           "hidden": cfg.hidden_size, "block": 256,
+           "batch": fcfg.batch_size, "functions": FINETUNE_FUNCTIONS,
+           "steps": steps, "wall_s": wall, "steps_per_s": steps / wall,
+           "real_tokens_per_s": real / wall,
+           "padded_tokens_per_s": padded / wall, "real_tokens": real,
+           "p50_step_ms": float(np.percentile(tuner.step_seconds, 50) * 1e3),
+           "max_step_ms": float(max(tuner.step_seconds) * 1e3),
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "b6_launches": b6, "b6b_launches": b6b,
+           "b6_launches_per_step": cfg.num_hidden_layers,
+           "b6b_launches_per_step": 2 * cfg.num_hidden_layers,
+           "adapters": len(trained), "zero_first_step_grads": n_zero,
+           "first_step_grad_rel_err_vs_plain": witness,
+           "grad_limit": LORA_GRAD_LIMIT,
+           "adapter_max_change": moved, "loaded_adapters_equal":
+               loaded_equal,
+           "merged_hidden_rel_err": merge_err, "merge_limit": MERGE_LIMIT,
+           "profile_step": busy}
+    emit(row)
+    if not all(np.isfinite(losses)):
+        fail(f"finetune: non-finite loss {losses}")
+    if steps <= 0 or b6 != steps * cfg.num_hidden_layers \
+            or b6b != steps * 2 * cfg.num_hidden_layers:
+        fail(f"finetune: {b6} B6 and {b6b} B6b launches for {steps} steps "
+             f"(expected {cfg.num_hidden_layers} and "
+             f"{2 * cfg.num_hidden_layers} each)")
+    if not witness <= LORA_GRAD_LIMIT:
+        fail(f"finetune: first-step adapter gradients {witness} from the "
+             f"plain path (limit {LORA_GRAD_LIMIT})")
+    if not (loaded_equal and moved > 0 and merge_err <= MERGE_LIMIT):
+        fail(f"finetune: adapters loaded equal {loaded_equal}, moved "
+             f"{moved}, merged hidden states {merge_err} (limit "
+             f"{MERGE_LIMIT})")
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+# ------------------------------------------------------------ phase 17
+
+JOINT_TRAIN_EVAL = 16
+
+
+def phase_joint_train(ctx: dict, seed: int = 0) -> dict:
+    """JointTrainer (MSIVD mode) over the joint phase's CodeLlama-7B and a
+    fresh fusion model with the golden GGNN encoder: one epoch, its eval
+    points, ``epoch_0`` restored by ``JointEngine.from_run_dir``."""
+    cfg, llm, tok = ctx["cfg"], ctx["llm"], ctx["tok"]
+    n = FINETUNE_FUNCTIONS + JOINT_TRAIN_EVAL
+    texts = c_functions(n, seed=23)
+    labels = np.random.default_rng(seed + 29).integers(0, 2, n).tolist()
+    graphs = requests()[:n]
+    jcfg = JointConfig(block_size=256, epochs=1, seed=seed)
+    train = encode_functions(texts[:FINETUNE_FUNCTIONS],
+                             labels[:FINETUNE_FUNCTIONS], tok, 256)
+    evals = encode_functions(texts[FINETUNE_FUNCTIONS:],
+                             labels[FINETUNE_FUNCTIONS:], tok, 256,
+                             indices=range(FINETUNE_FUNCTIONS, n))
+    join = GraphJoin(graphs=dict(enumerate(graphs)), max_nodes=4096,
+                     max_edges=8192)
+    fusion = build_fusion(GGNNConfig(), INPUT_DIM, cfg.hidden_size,
+                          dropout_rate=0.1, device="cuda", seed=seed + 31)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
+        trainer = JointTrainer(llm, fusion, jcfg, join, run_dir=Path(tmp))
+        # the main path: counts from zero, read right after
+        fa.n_launches = 0
+        fa.n_bwd_launches = 0
+        t0 = time.perf_counter()
+        state = trainer.train(train, evals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b6, b6b = fa.n_launches, fa.n_bwd_launches
+        evals_run = sum("eval_loss" in h for h in trainer.history)
+        _, probs, _ = trainer._run_eval(state.params, evals)
+        engine = JointEngine.from_run_dir(
+            tmp, jcfg=jcfg, llm_cfg=cfg, llm_state=llm.state_dict(),
+            max_nodes=4096, max_edges=8192, device="cuda")
+        items = list(zip(texts[FINETUNE_FUNCTIONS:],
+                         graphs[FINETUNE_FUNCTIONS:]))
+        restored = engine.score(items)
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    del engine
+    torch.cuda.empty_cache()
+    steps = state.step
+    eval_batches = evals_run * -(-JOINT_TRAIN_EVAL // jcfg.eval_batch_size)
+    restore_err = float(np.abs(restored - probs[:, 1]).max())
+    train_loss = [h["train_loss"] for h in trainer.history
+                  if "train_loss" in h]
+    row = {"phase": "joint_train", "seed": seed,
+           "model": "codellama_7b(attn_impl='flash') frozen + fusion "
+                    "(golden GGNN encoder, segment layout), seeded weights",
+           "train_functions": FINETUNE_FUNCTIONS,
+           "eval_functions": JOINT_TRAIN_EVAL, "steps": steps,
+           "evals": evals_run, "wall_s": wall,
+           "steps_per_s": steps / wall, "train_loss": train_loss,
+           "last_eval": next(h for h in reversed(trainer.history)
+                             if "eval_loss" in h),
+           "b6_launches": b6, "b6b_launches": b6b,
+           "b6_launches_expected": (steps + eval_batches)
+           * cfg.num_hidden_layers,
+           "written": written, "restored_max_abs_diff": restore_err,
+           "restore_limit": 1e-5, "updates": state.opt_state.count}
+    emit(row)
+    if not all(np.isfinite(train_loss)) \
+            or steps != -(-FINETUNE_FUNCTIONS // jcfg.train_batch_size):
+        fail(f"joint_train: {steps} steps, losses {train_loss}")
+    if b6 != row["b6_launches_expected"] or b6b != 0:
+        fail(f"joint_train: {b6} B6 launches (expected "
+             f"{row['b6_launches_expected']}) and {b6b} B6b launches "
+             f"(expected 0: the frozen LLM builds no backward)")
+    if written != ["epoch_0"] or not restore_err <= 1e-5:
+        fail(f"joint_train: wrote {written}; from_run_dir scores "
+             f"{restore_err} from the trainer's own evaluation")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1849,7 +2310,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the CUDA sources of the main paths, one nvcc each, in parallel
     log = _build.build("fused_ggnn", "fused_ggnn_bwd", "megabatch",
-                       "int8_matmul", "flash_attention")
+                       "int8_matmul", "flash_attention", "flash_attention_bwd")
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -1877,7 +2338,10 @@ def main() -> int:
     int8_rows = timed("int8_kernel", phase_int8_kernel)
     serve8 = timed("serve_int8", phase_serve_int8)
     flash_rows = timed("flash_kernel", phase_flash_kernel)
+    bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
     joint, ctx = timed("joint", phase_joint)
+    finetune = timed("finetune", phase_finetune, ctx)
+    joint_train = timed("joint_train", phase_joint_train, ctx)
     joint8 = timed("joint_int8", phase_joint_int8, ctx)
     emit({"phase": "seconds", **seconds})
 
@@ -1888,6 +2352,7 @@ def main() -> int:
     b5 = next(r for r in int8_rows if (r["m"], r["n"]) == (5120, 384))
     b5_llm = next(r for r in int8_rows if (r["k"], r["n"]) == (4096, 11008))
     b6 = next(r for r in flash_rows if r["shape"] == "7b_serve")
+    b6b = next(r for r in bwd_rows if r["shape"] == "7b_train")
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -1975,9 +2440,12 @@ def main() -> int:
         "replaces": "deepdfa_tpu/llm/llama.py:222",
         "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                         ":758 (body :342-481)",
-        "launches": joint["b6_launches"] + joint8["b6_launches"],
+        "launches": (joint["b6_launches"] + joint8["b6_launches"]
+                     + finetune["b6_launches"] + joint_train["b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
-                             "joint_int8": joint8["b6_launches"]},
+                             "joint_int8": joint8["b6_launches"],
+                             "finetune": finetune["b6_launches"],
+                             "joint_train": joint_train["b6_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
         "max_row_rel_err": max(r["max_row_rel_err"] for r in flash_rows),
@@ -1990,7 +2458,29 @@ def main() -> int:
         "call_ms": b6["ms"], "plain_call_ms": b6["plain_ms"],
         "library_call_ms": b6["library_ms"],
         "shape": f"7b_serve b={b6['b']} s={b6['s']} h={b6['h']} "
-                 f"d={b6['d']} bf16"}]})
+                 f"d={b6['d']} bf16"}, {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
+                    ":1121,1456",
+        "stock_kernel": "_flash_attention_bwd (:254): dkv body :796, dq "
+                        "body :1146; reached by jax.grad through "
+                        "deepdfa_tpu/llm/llama.py:222",
+        "launches": finetune["b6b_launches"],
+        "launches_by_path": {"finetune": finetune["b6b_launches"],
+                             "joint_train": joint_train["b6b_launches"]},
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_rows),
+        "max_row_rel_err": max(max(r["max_row_rel_err"].values())
+                               for r in bwd_rows),
+        # CUDA-graph replay times, as for B6
+        "ms": b6b["graph_ms"], "plain_ms": b6b["plain_graph_ms"],
+        "bound_ms": b6b["bound_ms"], "bound_by": b6b["bound_by"],
+        "library_ms": b6b["library_graph_ms"],
+        "library": b6b["library"],
+        "call_ms": b6b["ms"], "plain_call_ms": b6b["plain_ms"],
+        "library_call_ms": b6b["library_ms"],
+        "shape": f"7b_train b={b6b['b']} s={b6b['s']} h={b6b['h']} "
+                 f"d={b6b['d']} bf16"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,11 @@ forward in ``csrc/fused_ggnn.cu`` and the training backward in
 ``csrc/fused_ggnn_bwd.cu``, built with ``nvcc`` for ``sm_90a`` at first
 use. The megabatch layout and the hierarchical scorer's level 1 run the
 whole model on ``csrc/megabatch.cu``; int8 serving runs the conv products
-on ``csrc/int8_matmul.cu``. The LLM tier (``llm/``: CodeLlama, the fusion
-head and ``JointEngine``) runs attention on ``csrc/flash_attention.cu`` and
-int8 projections on ``csrc/int8_matmul.cu``. It imports torch and numpy and
-nothing of JAX.
+on ``csrc/int8_matmul.cu``. The LLM tier (``llm/``: CodeLlama, LoRA
+fine-tuning, the fusion head, ``JointTrainer`` and ``JointEngine``) runs
+attention on ``csrc/flash_attention.cu``, its backward on
+``csrc/flash_attention_bwd.cu`` and int8 projections on
+``csrc/int8_matmul.cu``. It imports torch and numpy and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 host without a GPU they raise instead of running on the CPU.

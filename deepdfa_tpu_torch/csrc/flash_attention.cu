@@ -14,6 +14,9 @@
 // product summed in float32 and o written in q's type. The segment ids are
 // 1 for real tokens and 0 for padding, so a padding query row attends to the
 // padding keys at or before it, as on the TPU. A masked entry adds exactly 0.
+// When asked (a gradient will be taken), it also writes each row's
+// logsumexp m + log(l) in float32, the residual that the backward
+// (flash_attention_bwd.cu) recomputes P from.
 //
 // What bounds it on this card. At the LLM's shapes (d = 128, s 256-2048)
 // causal attention does 4*b*h*d*s*(s+1)/2 FLOPs against 2*4*b*h*s*d bytes
@@ -53,6 +56,7 @@ struct Params {
   const void* v;
   const int* seg;  // [b, s] segment ids, or null: one segment
   void* o;
+  float* lse;  // [b, h, s] row logsumexp for the backward, or null
   int b, s, h, h_kv;
   float scale;
   int causal;
@@ -259,6 +263,12 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(Params p) {
           pack_bf16(l_b > 0.f ? acc[nd][2] / l_b : 0.f,
                     l_b > 0.f ? acc[nd][3] / l_b : 0.f);
   }
+  // m + log(l) of the row, from the four threads that share it (t == 0)
+  if (p.lse && t == 0) {
+    float* lb = p.lse + ((size_t)bi * p.h + hi) * p.s;
+    if (row_a < p.s) lb[row_a] = m_a + logf(l_a);
+    if (row_b < p.s) lb[row_b] = m_b + logf(l_b);
+  }
 }
 
 // ------------------------------------------------------------- float32
@@ -357,6 +367,8 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(Params p) {
 #pragma unroll
     for (int dd = 0; dd < D / 4; ++dd)
       ob[(size_t)qrow * q_stride + dd * 4 + part] = l > 0.f ? acc[dd] / l : 0.f;
+    if (p.lse && part == 0)
+      p.lse[((size_t)bi * p.h + hi) * p.s + qrow] = m + logf(l);
   }
 }
 
@@ -381,16 +393,18 @@ int launch_d(const Params& p, int is_bf16, cudaStream_t stream) {
 extern "C" {
 
 // Launches the forward on `stream` and returns cudaGetLastError() as an int:
+// `lse`, when not null, receives each row's logsumexp m + log(l) in float32,
+// [b, h, s], the residual the backward (flash_attention_bwd.cu) reads.
 // 0 when the launch was accepted, cudaErrorInvalidValue for a head width
 // outside {16, 32, 64, 128}, a head count that is not a multiple of the kv
 // head count, or a grid the card cannot hold. Launches nothing when s == 0.
 int fa_forward(const void* q, const void* k, const void* v, const int* seg,
-               void* o, int b, int s, int h, int h_kv, int d, float scale,
-               int causal, int is_bf16, void* stream) {
+               void* o, float* lse, int b, int s, int h, int h_kv, int d,
+               float scale, int causal, int is_bf16, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
   if (h_kv <= 0 || h % h_kv != 0 || h > 65535 || b > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, seg, o, b, s, h, h_kv, scale, causal};
+  const Params p{q, k, v, seg, o, lse, b, s, h, h_kv, scale, causal};
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 16: return launch_d<16>(p, is_bf16, st);

@@ -1,11 +1,13 @@
-"""The LLM tier: CodeLlama, the fusion head and the joint rescorer.
+"""The LLM tier: CodeLlama, LoRA fine-tuning, the fusion head, the joint
+trainer and the joint rescorer.
 
-The port of the serving half of ``deepdfa_tpu/llm/``: ``llama.py`` (the
-decoder with ``attn_impl`` ``"full"`` or ``"flash"`` — the latter on kernel
-B6 — and int8-resident projections on kernel B5), ``lora.py``, ``quant.py``,
+The port of ``deepdfa_tpu/llm/``: ``llama.py`` (the decoder with
+``attn_impl`` ``"full"`` or ``"flash"`` — the latter on kernels B6 forward
+and B6b backward — and int8-resident projections on kernel B5),
+``lora.py``, ``finetune.py`` (``LoraFinetuner``), ``quant.py``,
 ``convert.py`` (HF checkpoints from a local directory), ``fusion.py``,
-``dataset.py``, ``joint.py`` (the evaluation step), ``joint_engine.py``
-(``JointEngine``, the cascade's tier 2) and ``presets.py``. Training the
-fusion head, LoRA fine-tuning, generation, RoBERTa and the ring attention
-are not ported yet (ROADMAP A12).
+``dataset.py``, ``joint.py`` (``JointTrainer`` and the evaluation step),
+``joint_engine.py`` (``JointEngine``, the cascade's tier 2) and
+``presets.py``. Generation, self-instruct data, RoBERTa and the ring
+attention are not ported yet (ROADMAP A12's rest, A11).
 """

@@ -102,11 +102,12 @@ class JointEngine:
                      use_gnn: bool = True, max_batch: int = 4,
                      max_nodes: int = 4096, max_edges: int = 8192,
                      hf_checkpoint: str | None = None,
-                     llm_state: dict | None = None, mesh=None, device=None,
-                     seed: int = 0) -> "JointEngine":
+                     llm_state: dict | None = None, llm_cfg=None, mesh=None,
+                     device=None, seed: int = 0) -> "JointEngine":
         """Restore the newest ``epoch_N`` fusion checkpoint of ``run_dir``.
 
-        Hermetic by default: ``tiny_llama(vocab_size)`` +
+        Hermetic by default: ``tiny_llama(vocab_size)`` (or ``llm_cfg``, a
+        :class:`~deepdfa_tpu_torch.llm.llama.LlamaConfig`) +
         :class:`HashTokenizer`, its weights ``llm_state`` when given (for
         example the JAX package's, through ``bridge.llama_flax_to_torch``),
         else drawn from ``seed``. ``hf_checkpoint`` switches to an HF
@@ -137,7 +138,7 @@ class JointEngine:
                                                       local_files_only=True)
             llm_state = load_hf_checkpoint(hf_checkpoint, bare=True)
         else:
-            llm_cfg = tiny_llama(vocab_size=vocab_size)
+            llm_cfg = llm_cfg or tiny_llama(vocab_size=vocab_size)
             tokenizer = HashTokenizer(vocab_size=llm_cfg.vocab_size)
         llm = build_llama(llm_cfg, dev, seed=None if llm_state else seed)
         if llm_state is not None:

@@ -177,12 +177,18 @@ class RMSNorm(nn.Module):
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotary tables for integer ``positions`` [..., s] -> cos/sin
-    [..., s, d/2], float32."""
+    [..., s, d/2], float32: the float32 angles of the JAX package, their
+    cos and sin taken in float64 and rounded once. (torch's float32 cos on
+    the CPU returned values up to 1.5e-4 off on one worker thread's share
+    of the table in about 1 process in 60, which moved every LoRA gradient
+    by 1e-4 to 5e-4 of its largest; the float64 functions are exact to
+    float32's last bit on every device.)"""
     inv_freq = 1.0 / (theta ** (torch.arange(
         0, head_dim, 2, dtype=torch.float32, device=positions.device)
         / head_dim))
-    angles = positions.to(torch.float32)[..., None] * inv_freq
-    return torch.cos(angles), torch.sin(angles)
+    angles = (positions.to(torch.float32)[..., None] * inv_freq).double()
+    return (torch.cos(angles).to(torch.float32),
+            torch.sin(angles).to(torch.float32))
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

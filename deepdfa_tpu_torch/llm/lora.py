@@ -1,9 +1,15 @@
 """LoRA adapters for the LLM.
 
-The port of ``deepdfa_tpu/llm/lora.py``'s inference half: the adapter
-module (``lora_q``/``lora_v`` inside ``Attention``) and :func:`merge_lora`,
-which folds trained adapters into their projections. Selecting and training
-adapters (``lora_mask``, ``split_lora``) comes with the training slice.
+The port of ``deepdfa_tpu/llm/lora.py``:
+
+- :class:`LoRAAdapter`, the adapter module (``lora_q``/``lora_v`` inside
+  ``Attention``);
+- :func:`lora_mask` and :func:`split_lora`, by the JAX rule that any name
+  segment starting ``lora`` marks an adapter parameter;
+- :func:`freeze_base`, which leaves only the adapters trainable, so a
+  backward computes no gradient of the frozen base (at CodeLlama-7B width
+  that gradient would take 13 GB and a product per weight);
+- :func:`merge_lora`, which folds trained adapters into their projections.
 """
 
 from __future__ import annotations
@@ -11,7 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["LoRAAdapter", "merge_lora"]
+__all__ = ["LoRAAdapter", "freeze_base", "is_lora_name", "lora_mask",
+           "merge_lora", "split_lora"]
 
 
 class LoRAAdapter(nn.Module):
@@ -35,6 +42,38 @@ class LoRAAdapter(nn.Module):
         y = (x.to(self.dtype) @ self.lora_a.to(self.dtype)) @ self.lora_b.to(
             self.dtype)
         return y * (self.alpha / self.rank)
+
+
+def is_lora_name(name: str) -> bool:
+    """True for a parameter name with a segment starting ``lora``."""
+    return any(part.startswith("lora") for part in name.split("."))
+
+
+def lora_mask(model_or_state) -> dict[str, bool]:
+    """Parameter name → True for a LoRA adapter (trainable), False for the
+    base, over a module's parameters or a state dict's entries."""
+    names = (model_or_state.keys() if isinstance(model_or_state, dict)
+             else (n for n, _ in model_or_state.named_parameters()))
+    return {n: is_lora_name(n) for n in names}
+
+
+def split_lora(state: dict) -> tuple[dict, dict]:
+    """(adapters only, base only): a state dict split by :func:`lora_mask`;
+    the adapters are the checkpointable artifact (the base is never
+    written)."""
+    lora = {k: v for k, v in state.items() if is_lora_name(k)}
+    return lora, {k: v for k, v in state.items() if k not in lora}
+
+
+def freeze_base(model: nn.Module) -> list[nn.Parameter]:
+    """Set ``requires_grad=False`` on every parameter but the adapters; the
+    adapters' ``requires_grad`` is set True. Returns the adapters."""
+    trainable = []
+    for name, param in model.named_parameters():
+        param.requires_grad_(is_lora_name(name))
+        if param.requires_grad:
+            trainable.append(param)
+    return trainable
 
 
 def merge_lora(state: dict, alpha: float = 16.0) -> dict:

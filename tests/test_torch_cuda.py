@@ -469,7 +469,7 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, h_kv, d, dtype,
 
 
 class _FailingFlashLib:
-    """Stands in for the built library: every launch reports an error."""
+    """Stands in for a built library: every launch reports an error."""
 
     @staticmethod
     def fa_forward(*args):
@@ -479,18 +479,177 @@ class _FailingFlashLib:
     def fa_error_string(code):
         return b"invalid argument"
 
+    fa_backward_dkv = fa_backward_dq = fa_forward
+    fa_bwd_error_string = fa_error_string
+
 
 @pytest.mark.gpu
 def test_flash_kernel_raises_for_gradients_and_failed_launches(cuda,
                                                                 monkeypatch):
+    """A gradient through B6 runs B6b; a failed launch of either raises, and
+    a head width the kernels are not built for raises before any launch,
+    with or without a gradient: nothing falls back to the plain version."""
     from deepdfa_tpu_torch.ops import flash_attention as tfa
 
     q, k, v, mask = _attention_inputs(1, 128, 2, 2, 64, "bfloat16", 0)
-    with pytest.raises(RuntimeError, match="backward"):
-        tfa.flash_attention(q.requires_grad_(True), k, v, mask)
+    before = tfa.n_bwd_launches
+    tfa.flash_attention(q.requires_grad_(True), k, v, mask).sum().backward()
+    assert tfa.n_bwd_launches - before == 2 and q.grad is not None
+    bad = torch.zeros(1, 128, 2, 24, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="head width"):
+        tfa.flash_attention(bad, bad, bad)
+    out = tfa.flash_attention(q, k, v, mask)  # forward on the real library
+    monkeypatch.setattr(tfa, "_bwd_lib", _FailingFlashLib())
+    with pytest.raises(RuntimeError, match="backward.*launch failed"):
+        out.sum().backward()
     monkeypatch.setattr(tfa, "_lib", _FailingFlashLib())
     with pytest.raises(RuntimeError, match="launch failed"):
         tfa.flash_attention(q.detach(), k, v, mask)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfa.flash_attention(q, k, v, mask)
+
+
+def _single_key_rows(mask, s, causal):
+    """Rows whose gradient is 0 in exact arithmetic: queries that see one
+    key (the softmax of one score does not depend on it), and keys seen
+    only by such queries. Both sides return rounding noise there."""
+    keep = torch.ones(s, s, dtype=torch.bool, device=mask.device)
+    keep = torch.tril(keep) if causal else keep
+    seg = mask.int()
+    keep = keep[None] & (seg[:, :, None] == seg[:, None, :])  # [b, q, k]
+    q_one = keep.sum(-1) == 1
+    k_zero = ~(keep & ~q_one[..., None]).any(dim=1)
+    return q_one, k_zero
+
+
+def _grad_row_err(got, want, zero_rows):
+    """The largest error of a row (the last axis) over that row's largest
+    value; rows in ``zero_rows`` ([b, s]) over the tensor's largest."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(dim=-1)
+    top = want.abs().amax(dim=-1)
+    top = torch.where(zero_rows[..., None], want.abs().max(), top)
+    return float((err / top.clamp_min(1e-30)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal", [
+    (2, 256, 4, 4, 128, "bfloat16", True),   # the 7B head width
+    (3, 200, 8, 2, 64, "bfloat16", True),    # ragged s, grouped kv heads
+    (2, 128, 2, 1, 32, "bfloat16", False),   # not causal
+    (2, 128, 4, 2, 16, "float32", True),     # tiny_llama
+    (2, 100, 2, 2, 128, "float32", True),    # ragged, the FFMA kernels at 128
+])
+def test_flash_backward_kernel_matches_plain_version(cuda, b, s, h, h_kv, d,
+                                                     dtype, causal):
+    """B6b against ``flash_attention_backward_reference`` on the same
+    forward output and logsumexp, each row of dq, dk and dv over that row's
+    largest value: bf16 2e-2 (the JAX package's bar for its flash path;
+    p and ds rounded to bf16 from float32 values that differ in their last
+    bits), float32 1e-5 (sums in other orders); two calls bitwise equal."""
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, mask = _attention_inputs(b, s, h, h_kv, d, dtype, s + d + 1)
+    gen = torch.Generator().manual_seed(s)
+    do = torch.randn(q.shape, generator=gen).to(q.dtype).cuda()
+    limit = 2e-2 if dtype == "bfloat16" else 1e-5
+    for m in (mask, None):
+        out, lse = tfa.flash_attention_forward(q, k, v, m, causal=causal)
+        _, lse_ref = tfa._reference_forward(q, k, v, m, causal)
+        assert float((lse - lse_ref).abs().max()) <= 1e-4
+        before = tfa.n_bwd_launches
+        got = tfa.flash_attention_backward(q, k, v, out, do, lse, m,
+                                           causal=causal)
+        again = tfa.flash_attention_backward(q, k, v, out, do, lse, m,
+                                             causal=causal)
+        torch.cuda.synchronize()
+        assert tfa.n_bwd_launches - before == 4
+        want = tfa.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                      m, causal=causal)
+        mm = torch.ones(b, s, dtype=torch.bool, device="cuda") if m is None \
+            else m
+        q_one, k_zero = _single_key_rows(mm, s, causal)
+        for name, x, y, again_x in zip(("dq", "dk", "dv"), got, want, again):
+            assert x.dtype == q.dtype and x.shape == y.shape
+            assert torch.equal(x, again_x), name
+            zero = q_one if name == "dq" else (k_zero if name == "dk"
+                                               else torch.zeros_like(k_zero))
+            assert _grad_row_err(x, y, zero) <= limit, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cotangent", ["sum", "mean", "transposed"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_gradients_for_reduced_and_transposed_cotangents(cuda, dtype,
+                                                              cotangent):
+    """A loss that reduces the attention output directly (autograd hands
+    B6b an expanded cotangent) or reads it transposed: the gradients of the
+    kernels' autograd path against ``flash_attention_backward_reference``
+    on the same forward and the dense cotangent, per row as above (bf16
+    2e-2, float32 1e-5)."""
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+
+    b, s, h, h_kv, d = 2, 256, 4, 2, 64
+    q, k, v, mask = _attention_inputs(b, s, h, h_kv, d, dtype, 7)
+    gen = torch.Generator().manual_seed(8)
+    weight = torch.randn((b, h, s, d), generator=gen).to(q.dtype).cuda()
+    loss = {"sum": lambda o: o.sum(), "mean": lambda o: o.mean(),
+            "transposed": lambda o: (o.transpose(1, 2) * weight).sum()
+            }[cotangent]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    loss(tfa.flash_attention(*leaves, mask)).backward()
+    out, lse = tfa.flash_attention_forward(q, k, v, mask)
+    probe = out.clone().requires_grad_(True)
+    do = torch.autograd.grad(loss(probe), probe)[0].contiguous()
+    want = tfa.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                  mask)
+    q_one, k_zero = _single_key_rows(mask, s, True)
+    limit = 2e-2 if dtype == "bfloat16" else 1e-5
+    for name, leaf, y in zip(("dq", "dk", "dv"), leaves, want):
+        zero = q_one if name == "dq" else (k_zero if name == "dk"
+                                           else torch.zeros_like(k_zero))
+        assert _grad_row_err(leaf.grad, y, zero) <= limit, name
+
+
+@pytest.mark.gpu
+def test_lora_gradients_through_flash_on_the_card_match_the_cpu(cuda):
+    """One LoRA loss and its adapter gradients on ``tiny_llama(attn_impl=
+    "flash")``: B6 and B6b on the card against autograd of the plain
+    version on the CPU, float32, ≤ 1e-4 of each gradient's largest value
+    (FFMA against the CPU's sums)."""
+    from deepdfa_tpu_torch.llm import finetune as tft
+    from deepdfa_tpu_torch.llm import llama as tl
+    from deepdfa_tpu_torch.llm.lora import freeze_base
+    from deepdfa_tpu_torch.ops import flash_attention as tfa
+
+    cfg = tl.tiny_llama(attn_impl="flash", lora_rank=4)
+    state = tl.build_llama(cfg, "cpu", seed=5,
+                           cls=tl.LlamaForCausalLM).state_dict()
+    gen = torch.Generator().manual_seed(2)
+    for key in state:
+        if key.endswith("lora_b"):
+            state[key] = torch.randn(state[key].shape, generator=gen) * 0.05
+    ids = torch.randint(3, cfg.vocab_size, (2, 128), generator=gen)
+    mask = torch.ones(2, 128, dtype=torch.bool)
+    mask[1, :40] = False
+    grads = []
+    for dev in ("cpu", "cuda"):
+        model = tl.build_llama(cfg, dev, seed=None, cls=tl.LlamaForCausalLM)
+        model.load_state_dict(state)
+        freeze_base(model)
+        fb = tfa.n_bwd_launches
+        loss = tft.lm_loss(model(ids.to(dev), mask.to(dev)), ids.to(dev),
+                           mask.to(dev))
+        loss.backward()
+        assert tfa.n_bwd_launches - fb == (2 * cfg.num_hidden_layers
+                                           if dev == "cuda" else 0)
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.requires_grad})
+    assert set(grads[0]) == set(grads[1]) and len(grads[0]) == 4 * \
+        cfg.num_hidden_layers
+    for name, want in grads[0].items():
+        err = float((grads[1][name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), name
 
 
 @pytest.mark.gpu

@@ -45,10 +45,10 @@ from deepdfa_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from deepdfa_tpu_torch.ops import int8_matmul as tmm  # noqa: E402
 from deepdfa_tpu_torch.ops import ring_attention as tring  # noqa: E402
 
-# bf16 model, JAX (XLA CPU) against torch (CPU): both round every matmul
-# output, the residual stream and the norms to bf16, but XLA rounds
-# elementwise chains (silu = x * sigmoid(x), the rotary products) after
-# each op and torch once per op; a flipped rounding of one ulp (2^-8
+# bf16 model, JAX (XLA CPU, one jitted computation) against torch (CPU):
+# both round every matmul output, the residual stream and the norms to
+# bf16, but the two round elementwise chains (silu = x * sigmoid(x), the
+# rotary products) at other places; a flipped rounding of one ulp (2^-8
 # relative) in a residual of size ~4 moves a hidden value by ~0.016, and two
 # layers compound a few such flips. Held to 2 % of the largest value.
 BF16_LIMIT = 2e-2
@@ -76,8 +76,13 @@ def _jax_params(cfg):
 
 
 def _jax_hidden(cfg, params, ids, mask):
+    # one jitted computation: TPU interpret mode runs JAX ops inside its
+    # callbacks, and eager ops dispatched around a running pallas_call
+    # deadlocked with them on a loaded host (a full parallel test run)
+    apply = jax.jit(lambda p, i, m: jl.LlamaModel(cfg).apply({"params": p},
+                                                             i, m))
     with pltpu.force_tpu_interpret_mode():
-        out = jl.LlamaModel(cfg).apply({"params": params}, ids, mask)
+        out = apply(params, ids, mask)
     return np.asarray(out.astype(jnp.float32))
 
 
@@ -273,9 +278,10 @@ def test_flash_reference_matches_the_stock_pallas_kernel(dtype, d):
     v = rng.normal(size=(b, s, h_kv, d)).astype(np.float32)
     mask = np.ones((b, s), bool)
     mask[1, :100] = False
-    with pltpu.force_tpu_interpret_mode():
-        want = jl._flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
-                                   jnp.asarray(v, jdt), jnp.asarray(mask))
+    with pltpu.force_tpu_interpret_mode():  # jitted, as in _jax_hidden
+        want = jax.jit(jl._flash_attention)(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            jnp.asarray(mask))
     want = np.asarray(want.astype(jnp.float32))
     tdt = getattr(torch, dtype)
     got = tfa.flash_attention(torch.from_numpy(q).to(tdt),
@@ -326,6 +332,29 @@ def test_flash_attention_checks_its_arguments_and_counts_no_cpu_launch():
     before = tfa.n_launches
     out = tfa.flash_attention(q, kv, kv, torch.ones(1, 128, dtype=torch.bool))
     assert out.shape == q.shape and tfa.n_launches == before
+
+
+@pytest.mark.parametrize("head_dim,theta", [(16, 1e6), (128, 1e4)])
+def test_rope_tables_are_the_float64_functions_rounded_once(head_dim, theta):
+    """The rotary tables: the JAX package's float32 angles, cos and sin
+    taken in float64 and rounded to float32 once, so every element is the
+    correctly rounded value whichever thread computes it (torch's float32
+    cos on the CPU returned values up to 1.5e-4 off on one worker thread's
+    share of a table in some processes); within two float32 ulps of 1
+    (1.2e-7) of the JAX package's float32 tables, which read one ulp
+    (6.0e-8) here. 3 × 2048 positions: many threads' shares."""
+    pos = np.tile(np.arange(2048), (3, 1))
+    cos, sin = tl.rope_cos_sin(torch.from_numpy(pos), head_dim, theta)
+    inv_freq = (1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                               dtype=torch.float32)
+                                 / head_dim))).numpy()
+    angles = (pos.astype(np.float32)[..., None] * inv_freq).astype(
+        np.float64)
+    assert np.array_equal(cos.numpy(), np.cos(angles).astype(np.float32))
+    assert np.array_equal(sin.numpy(), np.sin(angles).astype(np.float32))
+    jcos, jsin = jl.rope_cos_sin(jnp.asarray(pos), head_dim, theta)
+    for got, want in ((cos, jcos), (sin, jsin)):
+        assert np.abs(got.numpy() - np.asarray(want)).max() <= 1.2e-7
 
 
 @pytest.mark.parametrize("kw,exc,match", [
