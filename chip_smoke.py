@@ -86,17 +86,22 @@ Each phase prints one JSON line; any failure exits non-zero.
    largest unit scored without the cache.
 11. int8_kernel — the int8 product (B5) against its plain version
    ``int8_matmul_reference`` at M in {2048, 4096, 5120, 16768}, K = 128,
-   N in {128, 384}: max abs error over the largest output (limit
-   ``INT8_LIMIT``), two calls bitwise equal, CUDA-event and CUDA-graph
-   times of the kernel, the plain version and ``torch.matmul`` on the
-   weight dequantized in advance (TF32 off), and the bound. Then the
-   LLM's projections with bf16 activations and output: M = 1024, K × N in
-   {4096 × 4096, 4096 × 11008, 11008 × 4096} (limit ``INT8_BF16_LIMIT``;
-   the library on the bf16 tensor cores).
+   N in {128, 384} (float32 activations, limit ``INT8_LIMIT``) and at the
+   LLM's projections with bf16 activations and output, M = 1024, K × N in
+   {4096 × 4096, 4096 × 11008, 11008 × 4096} (limit ``INT8_BF16_LIMIT``):
+   max abs error over the largest output, two calls bitwise equal, the
+   variant both took (every one of these shapes must take the tensor-core
+   variant ``wgmma``), CUDA-event and CUDA-graph times of the kernel, the
+   plain version and ``torch.matmul`` on the weight dequantized in advance
+   in the activations' type (TF32 off), the host's microseconds to enqueue
+   a call (a bf16 call encodes two TMA descriptors), TFLOP/s and the bound.
+   Then the FFMA variant, off the main paths, at a shape TMA cannot
+   describe (37 × 100 × 130), float32 and bf16.
 12. serve_int8 — ``ScoringEngine.from_model(golden, precision="int8")``:
    the calibration gate must accept; the serve phase's 256 requests
    through ``MicroBatcher`` with the B5 count reset just before: B5
-   launches = dispatches × 3 × rounds; probabilities against the float32
+   launches = dispatches × 3 × rounds, all on the ``wgmma`` variant;
+   probabilities against the float32
    engine within ``int8_max_score_delta`` and against ``GGNNInt8`` on the
    CPU within ``PROB_LIMIT``; requests/s, p50 and p99, and the device
    profile of one packed 48-request window.
@@ -156,9 +161,10 @@ Each phase prints one JSON line; any failure exits non-zero.
    eval functions within 1e-5 of the trainer's own evaluation.
 18. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
-   32 × 7 with bf16 activations, probabilities against every projection on
-   B5's plain version on the card (``INT8_PROB_LIMIT``), the difference
-   from the bf16 engine, functions/s.
+   32 × 7 with bf16 activations, all on the ``wgmma`` variant,
+   probabilities against every projection on B5's plain version on the
+   card (``INT8_PROB_LIMIT``), the difference from the bf16 engine,
+   functions/s, and B5's share of one batch's profiled device time.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -517,10 +523,11 @@ def drive_batcher(engine, reqs, clients: int = 16):
     return probs, lat, wall
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, match: str | None = None) -> dict:
     """Device time by kernel over one call of ``fn`` (made after the main
     path's counts were read), and the device's busy share of the host's
-    wall time for that call."""
+    wall time for that call; with ``match``, the device time of the kernels
+    whose name holds it and their share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -540,9 +547,14 @@ def profile_call(fn) -> dict:
             dev[ev.key] = dev.get(ev.key, 0.0) + us
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_us": wall_us, "device_us": total,
-            "busy_share": total / wall_us if total else None,
-            "top_kernels_us": [[k[:60], v] for k, v in top]}
+    out = {"wall_us": wall_us, "device_us": total,
+           "busy_share": total / wall_us if total else None,
+           "top_kernels_us": [[k[:60], v] for k, v in top]}
+    if match is not None:
+        us = sum(v for k, v in dev.items() if match in k)
+        out[f"{match}_us"] = us
+        out[f"{match}_share"] = us / total if total else None
+    return out
 
 
 def phase_serve() -> dict:
@@ -1377,112 +1389,116 @@ def phase_hier() -> dict:
 
 def int8_bound(m: int, k: int, n: int,
                bf16: bool = False) -> tuple[float, str]:
-    """Least milliseconds for the product: 2·M·K·N FLOPs over the peak of
-    the inputs' type, or the bytes (x, q, scale read once, y written once)
-    over HBM bandwidth, the larger. float32 activations: the FP32 peak.
-    bf16 activations: the bf16 tensor-core peak (an int8 weight is exact in
-    bf16, and bf16 products are exact in float32, so the tensor cores could
-    compute the same sums), two bytes per activation and output."""
-    flops = 2 * m * k * n
+    """Least milliseconds for the product on this card, the port's own
+    yardstick: the bytes (x, q, scale read once, y written once) over HBM
+    bandwidth, or the tensor-core operations over the bf16 peak, the
+    larger. An int8 weight is exact in bf16 and a bf16 product is exact in
+    float32, so the bf16 tensor cores can compute the same sums: 2·M·K·N
+    operations for bf16 activations. A float32 activation is exactly three
+    bf16 terms, so float32 activations take three bf16 passes, 3·2·M·K·N
+    (at the GGNN's shapes the bytes bound then holds)."""
+    flops = (1 if bf16 else 3) * 2 * m * k * n
     elt = 2 if bf16 else 4
     nbytes = elt * m * k + k * n + 4 * n + elt * m * n
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
+              main: bool) -> dict:
+    """One B5 shape against its plain version: the error over the largest
+    output, two calls bitwise equal, the variant both calls took, CUDA-event
+    and CUDA-graph times of the kernel, the plain version and the library
+    (``torch.matmul`` on the weight dequantized in advance, in x's type),
+    the host's microseconds to enqueue a call, and the bound."""
+    (m, k), n = x.shape, q.shape[1]
+    dequant = (q.float() * scale).to(x.dtype)
+
+    def kernel():
+        return i8.int8_matmul(x, q, scale, out_dtype=out_dtype)
+
+    def plain():
+        return i8.int8_matmul_reference(x, q, scale, out_dtype)
+
+    def library():
+        return torch.matmul(x, dequant)
+
+    before = dict(i8.n_variant_launches)
+    got, again = kernel(), kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    took = {v: i8.n_variant_launches[v] - before[v] for v in i8.VARIANTS}
+    variant = next((v for v, c in took.items() if c), None)
+    abs_err = float((got.float() - want.float()).abs().max())
+    err = abs_err / float(want.float().abs().max())
+    bitwise = torch.equal(got, again)
+    ms = cuda_ms(kernel, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernel()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(plain, reps)
+    library_ms = cuda_ms(library, reps)
+    ms_again = cuda_ms(kernel, reps)
+    fns = (("", kernel), ("plain_", plain), ("library_", library))
+    dev = {f"{key}graph_ms": graph_ms(f, reps) for key, f in fns}
+    bf16 = x.dtype == torch.bfloat16
+    bound_ms, bound_by = int8_bound(m, k, n, bf16=bf16)
+    row = {"phase": "int8_kernel", "m": m, "k": k, "n": n,
+           "x_dtype": "bf16" if bf16 else "float32",
+           "out_dtype": "bf16" if out_dtype == torch.bfloat16 else "float32",
+           "main_path": main, "variant": variant, "launches": took,
+           "max_abs_err": abs_err, "max_rel_err": err, "limit": limit,
+           "bitwise_repeat": bitwise, "ms": ms, "ms_repeat": ms_again,
+           "host_us_per_call": host_us, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": f"torch.matmul(x, (q·scale) dequantized in advance to "
+                      f"{'bf16' if bf16 else 'float32'}), TF32 off",
+           **dev, "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9)}
+    emit(row)
+    if sum(took.values()) != 2 or not (bitwise and err <= limit):
+        fail(f"B5 at m={m} k={k} n={n}: launches={took} bitwise={bitwise} "
+             f"err={err}")
+    if main and variant != "wgmma":
+        fail(f"B5 at m={m} k={k} n={n}: a main-path shape took the "
+             f"{variant} variant")
+    return row
 
 
 def phase_int8_kernel() -> list[dict]:
     rng = np.random.default_rng(8)
     rows = []
+    # the GGNN's conv products: float32 activations, K = 128
     for n in (128, 384):
         w = (rng.standard_normal((WIDTH, n)) * WIDTH ** -0.5).astype(np.float32)
         q_np, s_np = i8.calibrate_int8(w)
         q, scale = torch.from_numpy(q_np).cuda(), torch.from_numpy(s_np).cuda()
-        dequant = q.float() * scale  # the library yardstick's weight
         for m in (2048, 4096, 5120, 16768):
             x = torch.from_numpy(
                 (rng.standard_normal((m, WIDTH)) * 0.5).astype(np.float32)).cuda()
-            before = i8.n_launches
-            got = i8.int8_matmul(x, q, scale)
-            again = i8.int8_matmul(x, q, scale)
-            want = i8.int8_matmul_reference(x, q, scale)
-            torch.cuda.synchronize()
-            launches = i8.n_launches - before
-            abs_err = float((got - want).abs().max())
-            err = abs_err / float(want.abs().max())
-            bitwise = torch.equal(got, again)
-            ms = cuda_ms(lambda: i8.int8_matmul(x, q, scale), 50)
-            plain_ms = cuda_ms(lambda: i8.int8_matmul_reference(x, q, scale),
-                               50)
-            library_ms = cuda_ms(lambda: torch.matmul(x, dequant), 50)
-            ms_again = cuda_ms(lambda: i8.int8_matmul(x, q, scale), 50)
-            fns = (("", lambda: i8.int8_matmul(x, q, scale)),
-                   ("plain_", lambda: i8.int8_matmul_reference(x, q, scale)),
-                   ("library_", lambda: torch.matmul(x, dequant)))
-            dev = {f"{key}graph_ms": graph_ms(f, 50) for key, f in fns}
-            bound_ms, bound_by = int8_bound(m, WIDTH, n)
-            row = {"phase": "int8_kernel", "m": m, "k": WIDTH, "n": n,
-                   "max_abs_err": abs_err, "max_rel_err": err,
-                   "limit": INT8_LIMIT,
-                   "bitwise_repeat": bitwise, "launches_per_call": launches // 2,
-                   "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                   "library_ms": library_ms,
-                   "library": "torch.matmul(x, q·scale dequantized in "
-                              "advance), TF32 off",
-                   **dev, "bound_ms": bound_ms, "bound_by": bound_by}
-            emit(row)
-            if launches != 2 or not (bitwise and err <= INT8_LIMIT):
-                fail(f"B5 at m={m} n={n}: launches={launches} "
-                     f"bitwise={bitwise} err={err}")
-            rows.append(row)
+            rows.append(int8_case(x, q, scale, torch.float32, 50, INT8_LIMIT,
+                                  main=True))
     # the LLM's projections: 4 x 256 tokens, bf16 activations and outputs
     gen = torch.Generator(device="cuda").manual_seed(8)
     m = 4 * 256
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         q, scale = i8.calibrate_int8(w)
-        dequant = (q.float() * scale).to(torch.bfloat16)  # the library's
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        bf = torch.bfloat16
-
-        def kernel():
-            return i8.int8_matmul(x, q, scale, out_dtype=bf)
-
-        def plain():
-            return i8.int8_matmul_reference(x, q, scale, bf)
-
-        before = i8.n_launches
-        got, again = kernel(), kernel()
-        want = plain()
-        torch.cuda.synchronize()
-        launches = i8.n_launches - before
-        abs_err = float((got.float() - want.float()).abs().max())
-        err = abs_err / float(want.float().abs().max())
-        bitwise = torch.equal(got, again)
-        ms = cuda_ms(kernel, 10)
-        plain_ms = cuda_ms(plain, 10)
-        library_ms = cuda_ms(lambda: torch.matmul(x, dequant), 10)
-        ms_again = cuda_ms(kernel, 10)
-        fns = (("", kernel), ("plain_", plain),
-               ("library_", lambda: torch.matmul(x, dequant)))
-        dev = {f"{key}graph_ms": graph_ms(f, 10) for key, f in fns}
-        bound_ms, bound_by = int8_bound(m, k, n, bf16=True)
-        row = {"phase": "int8_kernel", "m": m, "k": k, "n": n,
-               "x_dtype": "bf16", "out_dtype": "bf16",
-               "max_abs_err": abs_err, "max_rel_err": err,
-               "limit": INT8_BF16_LIMIT, "bitwise_repeat": bitwise,
-               "launches_per_call": launches // 2, "ms": ms,
-               "ms_repeat": ms_again, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "library": "torch.matmul(x, (q·scale) in bf16), bf16 tensor "
-                          "cores",
-               **dev, "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9)}
-        emit(row)
-        if launches != 2 or not (bitwise and err <= INT8_BF16_LIMIT):
-            fail(f"B5 bf16 at m={m} k={k} n={n}: launches={launches} "
-                 f"bitwise={bitwise} err={err}")
+        rows.append(int8_case(x, q, scale, torch.bfloat16, 10,
+                              INT8_BF16_LIMIT, main=True))
+    # off the main paths: the FFMA variant, at a shape TMA cannot describe
+    for dt, limit in ((torch.float32, INT8_LIMIT),
+                      (torch.bfloat16, INT8_BF16_LIMIT)):
+        q, scale = i8.calibrate_int8(
+            torch.randn(100, 130, generator=gen, device="cuda") * 0.1)
+        x = torch.randn(37, 100, generator=gen, device="cuda").to(dt)
+        row = int8_case(x, q, scale, dt, 50, limit, main=False)
+        if row["variant"] != "ffma":
+            fail(f"B5 at m=37 k=100 n=130: took {row['variant']}, not ffma")
         rows.append(row)
     return rows
 
@@ -1504,10 +1520,12 @@ def phase_serve_int8() -> dict:
 
     # the main path: counts from zero, read right after
     i8.n_launches = 0
+    i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
     d0 = engine.n_dispatches
     probs, lat, wall = drive_batcher(engine, reqs)
     torch.cuda.synchronize()
     launches = i8.n_launches
+    variants = dict(i8.n_variant_launches)
     dispatches = engine.n_dispatches - d0
 
     # references, off the main path: the float32 engine on the card and
@@ -1520,7 +1538,8 @@ def phase_serve_int8() -> dict:
                                    max_batch=MAX_BATCH, megabatch=True,
                                    device="cpu", precision="int8")
     cpu_probs = cpu.score_packed(reqs[:16])
-    busy = profile_call(lambda: engine.score_packed(reqs[:48]))
+    busy = profile_call(lambda: engine.score_packed(reqs[:48]),
+                        match="int8_matmul")
     per = 3 * STEPS
     row = {"phase": "serve_int8", "requests": len(reqs),
            # the seeded weights' device-free revision: the delta depends on
@@ -1534,7 +1553,7 @@ def phase_serve_int8() -> dict:
            "p50_ms": float(np.percentile(lat, 50) * 1e3),
            "p99_ms": float(np.percentile(lat, 99) * 1e3),
            "n_dispatches": dispatches, "n_launches": launches,
-           "launches_per_forward": per,
+           "variant_launches": variants, "launches_per_forward": per,
            "max_abs_prob_diff_vs_f32": float(np.abs(probs - f32_probs).max()),
            "f32_limit": 0.01,
            "max_abs_prob_diff_vs_cpu_int8": float(
@@ -1553,6 +1572,9 @@ def phase_serve_int8() -> dict:
     if launches <= 0 or launches != dispatches * per:
         fail(f"serve_int8: {launches} B5 launches for {dispatches} "
              f"dispatches (expected {per} each)")
+    if variants["wgmma"] != launches:
+        fail(f"serve_int8: B5 launches by variant {variants}: a main-path "
+             f"shape missed the tensor cores")
     return row
 
 
@@ -1843,11 +1865,13 @@ def phase_joint_int8(ctx: dict) -> dict:
 
     # the main path: counts from zero, read right after
     i8.n_launches = 0
+    i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
     fa.n_launches = 0
     engine.n_batches = 0
     probs, wall, lat = score_batches(engine, items)
     torch.cuda.synchronize()
     launches, b6, batches = i8.n_launches, fa.n_launches, engine.n_batches
+    variants = dict(i8.n_variant_launches)
 
     # off the main path: every Int8Dense on B5's plain version on the card
     saved = llama_mod.int8_matmul
@@ -1857,7 +1881,7 @@ def phase_joint_int8(ctx: dict) -> dict:
         plain = engine.score(items)
     finally:
         llama_mod.int8_matmul = saved
-    busy = profile_call(lambda: engine.score(items[:4]))
+    busy = profile_call(lambda: engine.score(items[:4]), match="int8_matmul")
     per = cfg.num_hidden_layers * 7
     row = {"phase": "joint_int8", "functions": len(items),
            "batches": batches, "weight_gb": weight_gb(llm8),
@@ -1865,6 +1889,8 @@ def phase_joint_int8(ctx: dict) -> dict:
            "functions_per_s": len(items) / wall,
            "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
            "b5_launches": launches, "b5_launches_per_batch": per,
+           "b5_variant_launches": variants,
+           "b5_device_share": busy["int8_matmul_share"],
            "b6_launches": b6,
            "max_abs_prob_diff_vs_plain_int8": float(np.abs(probs - plain)
                                                     .max()),
@@ -1880,6 +1906,9 @@ def phase_joint_int8(ctx: dict) -> dict:
     if launches <= 0 or launches != batches * per:
         fail(f"joint_int8: {launches} B5 launches for {batches} batches "
              f"(expected {per} each)")
+    if variants["wgmma"] != launches:
+        fail(f"joint_int8: B5 launches by variant {variants}: a main-path "
+             f"shape missed the tensor cores")
     if b6 != batches * cfg.num_hidden_layers:
         fail(f"joint_int8: {b6} B6 launches for {batches} batches")
     if not row["max_abs_prob_diff_vs_plain_int8"] <= INT8_PROB_LIMIT:
@@ -2411,9 +2440,13 @@ def main() -> int:
         "launches_by_path": {"serve_int8": serve8["n_launches"],
                              "joint_int8": joint8["b5_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows
-                           if "x_dtype" not in r),
+                           if r["x_dtype"] == "float32"),
         "max_rel_err": max(r["max_rel_err"] for r in int8_rows
-                           if "x_dtype" not in r),
+                           if r["x_dtype"] == "float32"),
+        "variant": b5["variant"],
+        "launches_by_variant": {
+            v: serve8["variant_launches"][v] + joint8["b5_variant_launches"][v]
+            for v in i8.VARIANTS},
         # CUDA-graph replay times: CUDA-event times of a call this short
         # measure the host's per-call cost (the row's "ms", "plain_ms",
         # "library_ms", kept as call_ms and the like)
@@ -2428,9 +2461,10 @@ def main() -> int:
             "shape": f"m={b5_llm['m']} k={b5_llm['k']} n={b5_llm['n']} "
                      f"bf16",
             "max_abs_err": max(r["max_abs_err"] for r in int8_rows
-                               if "x_dtype" in r),
+                               if r["x_dtype"] == "bf16"),
             "max_rel_err": max(r["max_rel_err"] for r in int8_rows
-                               if "x_dtype" in r),
+                               if r["x_dtype"] == "bf16"),
+            "variant": b5_llm["variant"],
             "ms": b5_llm["graph_ms"], "plain_ms": b5_llm["plain_graph_ms"],
             "bound_ms": b5_llm["bound_ms"], "bound_by": b5_llm["bound_by"],
             "library_ms": b5_llm["library_graph_ms"],

@@ -5,42 +5,76 @@
 //     y[M, N] = (x[M, K] @ q[K, N]) * scale[N]
 // with x float32 or bf16, q int8 (symmetric per-output-channel weights),
 // scale float32 and y float32 or bf16: the per-column scale distributes out
-// of the contraction, so it is applied once per output, in the epilogue. As
-// in the TPU kernel, bf16 activations are converted to float32 (here on
-// their way into shared memory), summed in float32 and the scaled sum is
-// rounded to the output type once.
+// of the contraction, so it is applied once per output, in the epilogue, to
+// the float32 sum, which is rounded to the output type once.
 //
-// What bounds it on this card. For the GGNN's conv products (K = 128,
-// N = 128 or 384, M = the padded node count) the work is 2*M*K*N FFMA
-// FLOPs against 4*M*(K + N) bytes of activations; at K = 128 that is 32 to
-// 48 FLOPs per byte, above the FP32 ridge of 67e12 / 3.35e12 = 20, so it is
-// bound by FP32 operations. The int8 weight is at most 48 KB and stays in
-// L2. The LLM's projections (M = 1024 tokens, K and N 4096 or 11008, bf16
-// activations) do 2*M FLOPs per weight byte, 2048: bound by operations too.
+// The arithmetic lets the tensor cores take the product with no loss: every
+// int8 weight is exact in bf16, and a bf16 x bf16 product is exact in the
+// float32 accumulator. A float32 activation is exactly the sum of three bf16
+// terms, x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1), for
+// 2^-100 <= |x| <= 2^100 (below, bf16 subnormals drop bits; near float32's
+// largest, bf16(x) rounds to inf), so x @ q = x0 @ q + x1 @ q + x2 @ q with
+// every product exact: only the order of the float32 sums differs from the
+// plain version's. (The three-term bf16 split was taken over a two-term TF32
+// one: it keeps both kernels on the bf16 instruction and the converted tile.)
 //
-// What the design does about that. The TPU kernel walked a sequential grid
-// with K innermost and accumulated each output tile in place across K steps.
-// Here one block owns one 64 x 128 output tile and loops over K itself, so
-// nothing carries between blocks and there are no atomics. Per 32-deep K
-// step the block stages the x tile (float32) and the q tile in shared
-// memory: q is read from global memory as int8 and dequantized to float32
-// in registers on the way in (each weight once per block; the values are
-// exact integers, the scale waits for the epilogue), which keeps the
-// int-to-float conversions, far slower per clock than FFMA, out of the
-// inner loop (there each weight would be converted once per thread row).
-// Each of the 256 threads then accumulates a 4 x 8 tile with FFMA in a
-// fixed order over K (k = 0, 1, ..., K - 1 for every output), so two calls
-// on the same inputs are bitwise equal. No TF32 and no tensor
-// cores: the port's parity bar is float32. Any M, K and N are taken; the
-// ragged edges are masked in the kernel, nothing is padded in memory. The
-// bf16 instantiation differs only in the x load and the output store, so
-// the float32 path is the same code as before.
+// What bounds it on this card. The LLM's projections (M = 1024 tokens, K and
+// N 4096 to 13824, bf16 activations) do 2*M = 2048 FLOPs per weight byte,
+// far above the bf16 tensor-core ridge of 989e12 / 3.35e12 = 295: bound by
+// tensor-core operations (0.093 ms at 1024 x 4096 x 11008). The GGNN's conv
+// products (K = 128, N = 128 or 384, M = the padded node count, float32)
+// move 4*M*(K + N) bytes for 3 * 2*M*K*N tensor-core FLOPs: bound by bytes.
+//
+// What the design does about that.
+// - `int8_matmul_wgmma_bf16` (bf16 activations) computes y^T = q^T x^T:
+//   the int8 weight is `wgmma`'s A operand, converted to bf16 in registers,
+//   and x is its B operand in shared memory (design (b), the swap of
+//   operands). A block of three warpgroups owns 128 weight columns by 256
+//   tokens and loops over K in 64-deep steps. One producer thread fills a
+//   ring of four shared-memory stages by TMA (the x tile and the int8 q
+//   tile, both 128-byte swizzled), with a `full` mbarrier per stage for the
+//   bytes and an `empty` one for the two consumer warpgroups' release. Each
+//   consumer warpgroup owns 64 weight columns and runs one m64n256k16
+//   `wgmma` per 16 of K with float32 sums in registers (128 a thread); while
+//   it runs, the warpgroup loads the next step's int8 fragment (one 16-bit
+//   load per K row) and converts it with integer byte moves and one bf16x2
+//   subtraction per two weights, no int-to-float instruction. The scale and
+//   the one rounding to bf16 come in the epilogue, which undoes the
+//   fragment's column permutation.
+//   Design (a), the q tile converted into a bf16 tile in shared memory and
+//   read as B, came first. On the card its load-and-convert pipeline alone,
+//   with the `wgmma`s taken out, was slower than cuBLAS's whole bf16
+//   product at 1024 x 4096 x 11008: the converter set the pace, and its
+//   shared-memory round trip per weight went with it. The producer
+//   warpgroup drops to 40 registers and the consumers rise to 232
+//   (`setmaxnreg`): without it the kernel ran slower. A persistent grid,
+//   and wgmmas committed two to a group, each ran slower too.
+// - `int8_matmul_wgmma_f32` (float32 activations): one warpgroup owns a
+//   64 x 128 tile; each thread loads its float32 A fragment from device
+//   memory, splits it into three bf16 fragments and issues three m64n128k16
+//   `wgmma`s with A from registers against one q tile, converted to bf16 in
+//   shared memory (transposed into the K-major swizzled layout B is read
+//   in): at these shapes the bytes bound it, and the conversion is cheap.
+// - `int8_matmul_ffma` (the second variant): for operands TMA cannot
+//   describe (a global stride that is not a multiple of 16 bytes, an address
+//   that is not 16-byte aligned), the earlier kernel: one block of 256
+//   threads owns a 64 x 128 tile, dequantizes q in registers on its way into
+//   shared memory and sums with FFMA. The wrapper chooses by a rule in
+//   Python (deepdfa_tpu_torch/ops/int8_matmul.py `variant`).
+// Every sum runs in a fixed order and nothing is split over K, so two calls
+// on the same inputs are bitwise equal; there are no atomics. Ragged edges
+// are masked in the kernels or zero-filled by TMA; nothing is padded in
+// memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
+
+// ------------------------------------------------ the FFMA variant
 
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBM = 64;        // output rows per block
@@ -61,9 +95,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 template <typename TX, typename TY>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, TY* __restrict__ y,
-                   int m, int k, int n) {
+int8_matmul_ffma(const TX* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, TY* __restrict__ y,
+                 int m, int k, int n) {
   __shared__ float xs[kBM][kBK + 1];          // x tile, padded rows
   __shared__ __align__(16) float ws[kBK][kBN];  // dequantized q tile
   const int row0 = blockIdx.x * kBM;
@@ -121,13 +155,610 @@ int8_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
+
 template <typename TX, typename TY>
-int launch(const TX* x, const int8_t* q, const float* scale, TY* y, int m,
-           int k, int n, void* stream) {
+int launch_ffma(const TX* x, const int8_t* q, const float* scale, TY* y,
+                int m, int k, int n, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  int8_matmul_kernel<TX, TY><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  int8_matmul_ffma<TX, TY><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, q, scale, y, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ tensor-core helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A `wgmma` shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (the
+// stride byte offset); the leading byte offset is unused in this layout.
+// The tile starts on a 1024-byte boundary; a k16 slice inside it is the
+// descriptor plus 2 (32 bytes, in the 16-byte units of the address field).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching a register that an in-flight `wgmma`
+// reads or writes before wgmma_wait_all (reads of the sums moved up, or an
+// A fragment's register reused).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// generic-proxy writes to shared memory (the converted tile) made visible
+// to the async proxy that `wgmma` reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete. A load that
+// never lands traps (a launch error the wrapper raises) after ~2^28 tries
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) asm volatile("trap;");
+  }
+}
+// one 2-D TMA load of a box at (c0 innermost, c1) into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// Two int8 weights as a bf16 pair: the byte of word a that `sel` picks into
+// byte 0 (the low half) and the byte of word b it picks into byte 2. With
+// b the byte of v, 0x4300 | (b & 0x7F) is the bf16 128 + (v mod 128) and
+// 0x4300 | (b & 0x80) is 128, or 256 where v < 0: their difference is v,
+// exact (integer operations and one bf16x2 subtraction, no int-to-float).
+__device__ __forceinline__ uint32_t i8_pair_to_bf16x2(uint32_t a, uint32_t b,
+                                                      uint32_t sel) {
+  const uint32_t t = __byte_perm(a, b, sel);
+  const uint32_t hi = (t & 0x007F007Fu) | 0x43004300u;
+  const uint32_t lo = (t & 0x00800080u) | 0x43004300u;
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(hi), "r"(lo));
+  return r;
+}
+
+// Converts a block of int8 weights, 8 K rows by 4 N columns (word kk holds
+// q[k0 + kk][n0 .. n0 + 3]), to bf16 and stores it transposed into a
+// K-major 128-byte-swizzled B tile (row n: 64 K values, 16-byte chunk kq of
+// the 8 values k0 .. k0 + 7 at chunk position kq ^ (n % 8)). Neighbouring
+// lanes hold neighbouring column groups; each lane stores its four columns
+// in a rotated order, so the eight lanes of a 16-byte store phase hit eight
+// distinct chunk positions (no bank conflict).
+__device__ __forceinline__ void convert_store(const uint32_t (&w)[8],
+                                              uint8_t* tile, int n0, int kq,
+                                              int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int jj = (j + (lane >> 1)) & 3;
+    const uint32_t sel = jj | ((4 + jj) << 8);  // byte jj of two K rows
+    uint32_t out[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      out[p] = i8_pair_to_bf16x2(w[2 * p], w[2 * p + 1], sel);
+    const int nn = n0 + jj;
+    *reinterpret_cast<uint4*>(tile + nn * 128 + ((kq ^ (nn & 7)) << 4)) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The epilogue of a warpgroup's m64 x (8 * G) tile of sums: sum d[4i + 2h
+// + e] is row 16 * warp + lane / 4 + 8h, column 8i + 2 * (lane % 4) + e.
+// Each pair is scaled per column and rounded to the output type once. n is
+// even, so a pair lies wholly inside or outside the output.
+template <int G, typename TY>
+__device__ __forceinline__ void store_tile(const float (&d)[4 * G],
+                                           const float* __restrict__ scale,
+                                           TY* __restrict__ y, int row0,
+                                           int col0, int m, int n) {
+  const int lane = threadIdx.x & 31;
+  const int r = row0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int c = col0 + (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int col = c + 8 * i;
+    if (col >= n) continue;
+    const float s0 = scale[col], s1 = scale[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row < m)
+        store2(y + (size_t)row * n + col, d[4 * i + 2 * h] * s0,
+               d[4 * i + 2 * h + 1] * s1);
+    }
+  }
+}
+
+// d[0..127] += A (64 x 16, registers) . B (16 x 256, shared memory)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..63] += A (64 x 16, registers) . B (16 x 128, shared memory)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------ bf16 activations
+
+constexpr int kTcBN = 128;  // weight columns per block: 64 a warpgroup
+constexpr int kTcBM = 256;  // tokens (rows of x) per block: wgmma's n
+constexpr int kTcBK = 64;   // K depth per stage: 128 bytes of bf16
+constexpr int kStages = 4;
+constexpr int kXBytes = kTcBM * kTcBK * 2;  // bf16 x tile, swizzled
+constexpr int kQBytes = kTcBK * kTcBN;      // int8 q tile, swizzled
+constexpr int kTcThreads = 384;  // two consumer warpgroups, a producer one
+constexpr int kTcSmem = kStages * (kXBytes + kQBytes) + 2 * kStages * 8 + 1024;
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+// A thread's A fragment of one k16 step: wgmma's register layout puts rows
+// g and g + 8 of a warp's 16, K columns 2t, 2t + 1 and 2t + 8, 2t + 9, in
+// a[0..3]. Fragment row g is weight column 2g of the warp's 16 and row g + 8
+// is column 2g + 1 (a permutation the epilogue undoes), so each K row gives
+// one 16-bit load of two neighbouring weights. The q tile's rows are 128
+// bytes, 128-byte swizzled: chunk c of row r lies at c ^ (r % 8), so the four
+// rows a warp reads at once fall in distinct banks.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* qs,
+                                       int k16, int chunk, int g, int t) {
+  uint32_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 16 * k16 + 2 * t + (i & 1) + 8 * (i >> 1);
+    h[i] = *reinterpret_cast<const uint16_t*>(
+        qs + r * 128 + ((chunk ^ (r & 7)) << 4) + 2 * g);
+  }
+  a[0] = i8_pair_to_bf16x2(h[0], h[1], 0x0400);  // row g: k 2t, 2t + 1
+  a[1] = i8_pair_to_bf16x2(h[0], h[1], 0x0501);  // row g + 8
+  a[2] = i8_pair_to_bf16x2(h[2], h[3], 0x0400);  // row g: k 2t + 8, 2t + 9
+  a[3] = i8_pair_to_bf16x2(h[2], h[3], 0x0501);  // row g + 8
+}
+
+struct TcTiles {
+  uint8_t* xs;
+  uint8_t* qs;
+  uint64_t* full;
+  uint64_t* empty;
+  int nk, chunk, g, t;
+};
+
+// One k16 step j = 4 kt + k16 of a consumer warpgroup: the wgmma of its A
+// fragment `cur` against the x tile of stage kt, then, once step j - 1's
+// wgmma (which read `nxt`) has finished, step j + 1's fragment into `nxt`
+// while this one runs. Four steps a tile keep the buffers' roles fixed.
+template <int K16>
+__device__ __forceinline__ void tc_step(const TcTiles& tl, int kt,
+                                        float (&acc)[128],
+                                        uint32_t (&cur)[4],
+                                        uint32_t (&nxt)[4]) {
+  wgmma_fence();
+  wgmma_rs_n256(acc, cur,
+                sw128_desc(tl.xs + (kt % kStages) * kXBytes) + 2 * K16);
+  wgmma_commit();
+  wgmma_wait_one();
+  fence_regs(nxt);
+  // step j - 1 has finished: at K16 = 0 that was tile kt - 1's last, so
+  // that tile is spent in this warpgroup (its x tile read by the wgmmas,
+  // its q tile by the fragment loads before them)
+  if (K16 == 0 && kt >= 1 && (threadIdx.x & 127) == 0)
+    mbar_arrive(&tl.empty[(kt - 1) % kStages]);
+  if (K16 < 3) {
+    load_a(nxt, tl.qs + (kt % kStages) * kQBytes, K16 + 1, tl.chunk, tl.g,
+           tl.t);
+  } else if (kt + 1 < tl.nk) {
+    const int s1 = (kt + 1) % kStages;
+    mbar_wait(&tl.full[s1], ((kt + 1) / kStages) & 1);
+    load_a(nxt, tl.qs + s1 * kQBytes, 0, tl.chunk, tl.g, tl.t);
+  }
+}
+
+template <typename TY>
+__global__ void __launch_bounds__(kTcThreads, 1)
+int8_matmul_wgmma_bf16(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tq,
+                       const float* __restrict__ scale, TY* __restrict__ y,
+                       int m, int k, int n) {
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  TcTiles tl;
+  tl.xs = smem;
+  tl.qs = tl.xs + kStages * kXBytes;
+  tl.full = reinterpret_cast<uint64_t*>(tl.qs + kStages * kQBytes);
+  tl.empty = tl.full + kStages;
+  tl.nk = (k + kTcBK - 1) / kTcBK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tok0 = blockIdx.x * kTcBM;
+  const int col0 = blockIdx.y * kTcBN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&tl.full[s], 1);
+      mbar_init(&tl.empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // the producer warpgroup hands its registers to the consumers (40 + 2 x
+    // 232 a thread fill the SM's 64K); one thread keeps the ring full.
+    // Stage kt % kStages, K step kt: the x box at (K kt*64, tok0) and the
+    // q box at (col0, K kt*64); rows and columns past the tensor's edge
+    // arrive as 0
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < tl.nk; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&tl.empty[s], (kt / kStages - 1) & 1);
+        mbar_expect_tx(&tl.full[s], kXBytes + kQBytes);
+        tma_load(tl.xs + s * kXBytes, &tx, &tl.full[s], kt * kTcBK, tok0);
+        tma_load(tl.qs + s * kQBytes, &tq, &tl.full[s], col0, kt * kTcBK);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns weight columns col0 + 64 wg .. + 63,
+  // warp w of it the 16-byte chunk 4 wg + w of each q row
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2;
+  tl.chunk = 4 * wg + (warp & 3);
+  tl.g = lane >> 2;
+  tl.t = lane & 3;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t a0[4], a1[4];
+  mbar_wait(&tl.full[0], 0);
+  load_a(a0, tl.qs, 0, tl.chunk, tl.g, tl.t);
+  for (int kt = 0; kt < tl.nk; ++kt) {
+    tc_step<0>(tl, kt, acc, a0, a1);
+    tc_step<1>(tl, kt, acc, a1, a0);
+    tc_step<2>(tl, kt, acc, a0, a1);
+    tc_step<3>(tl, kt, acc, a1, a0);
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  fence_regs(a0);
+  fence_regs(a1);
+
+  // epilogue: sum 4i + e is fragment row g (weight column c) for e = 0, 1
+  // and row g + 8 (column c + 1) for e = 2, 3, at token 8i + 2t + (e & 1);
+  // n is even, so the pair c, c + 1 lies wholly inside or outside
+  const int c = col0 + 64 * wg + 16 * (warp & 3) + 2 * tl.g;
+  if (c >= n) return;
+  const float s0 = scale[c], s1 = scale[c + 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int tok = tok0 + 8 * i + 2 * tl.t;
+    if (tok < m)
+      store2(y + (size_t)tok * n + c, acc[4 * i] * s0, acc[4 * i + 2] * s1);
+    if (tok + 1 < m)
+      store2(y + (size_t)(tok + 1) * n + c, acc[4 * i + 1] * s0,
+             acc[4 * i + 3] * s1);
+  }
+}
+
+// ------------------------------------------------ float32 activations
+
+constexpr int kF32BM = 64;   // output rows per block: one warpgroup
+constexpr int kF32BN = 128;  // output columns per block: one m64n128
+constexpr int kF32BK = 64;   // K depth per converted tile
+
+__global__ void __launch_bounds__(128)
+int8_matmul_wgmma_f32(const float* __restrict__ x,
+                      const int8_t* __restrict__ q,
+                      const float* __restrict__ scale, float* __restrict__ y,
+                      int m, int k, int n) {
+  __shared__ __align__(1024) uint8_t bs[kF32BN * kF32BK * 2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kF32BM;
+  const int col0 = blockIdx.y * kF32BN;
+  // this thread's A fragment rows and first K column (wgmma's register
+  // layout: register h holds row g + 8 (h & 1), columns 2t + 8 (h >> 1)
+  // and the next)
+  const int ra = row0 + (tid >> 5) * 16 + (lane >> 2);
+  const int t2 = (lane & 3) * 2;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += kF32BK) {
+    float2 xa[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int row = ra + 8 * (h & 1);
+        const int kk = k0 + 16 * s + t2 + 8 * (h >> 1);
+        // k is a multiple of 8, so a pair lies wholly inside or outside
+        xa[s][h] = (row < m && kk < k)
+            ? __ldg(reinterpret_cast<const float2*>(x + (size_t)row * k + kk))
+            : make_float2(0.f, 0.f);
+      }
+    uint32_t w[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid + 128 * i;
+      const int col = col0 + (u & 31) * 4;
+      const int kq = u >> 5;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int kr = k0 + kq * 8 + kk;
+        w[i][kk] = (kr < k && col < n)
+            ? __ldg(reinterpret_cast<const unsigned int*>(
+                  q + (size_t)kr * n + col))
+            : 0u;
+      }
+    }
+    __syncthreads();  // every warp's wgmmas of the last tile have finished
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid + 128 * i;
+      convert_store(w[i], bs, (u & 31) * 4, u >> 5, lane);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    // x = x0 + x1 + x2 exactly, each term bf16
+    uint32_t a[4][3][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float2 r = xa[s][h];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const __nv_bfloat162 t = __floats2bfloat162_rn(r.x, r.y);
+          a[s][p][h] = *reinterpret_cast<const uint32_t*>(&t);
+          const float2 tf = __bfloat1622float2(t);
+          r = make_float2(r.x - tf.x, r.y - tf.y);
+        }
+      }
+    const uint64_t db = sw128_desc(bs);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int p = 0; p < 3; ++p) wgmma_rs_n128(acc, a[s][p], db + 2 * s);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int p = 0; p < 3; ++p) fence_regs(a[s][p]);
+  }
+  store_tile<16>(acc, scale, y, row0, col0, m, n);
+}
+
+// ------------------------------------------------ host side
+
+// Error codes of the tensor-core entry points beyond cudaError_t's range.
+constexpr int kNoEncoder = 10000;  // cuTensorMapEncodeTiled not found
+constexpr int kEncodeFailed = 10001;  // + CUresult
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's descriptor encoder, through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of `elt`-byte values, read in boxes of
+// box_rows x box_cols.
+int encode(CUtensorMap* map, CUtensorMapDataType type, int elt,
+           const void* base, int rows, int cols, int box_rows, int box_cols,
+           CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims, strides,
+                         box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+template <typename TY>
+int launch_wgmma_bf16(const void* x, const int8_t* q, const float* scale,
+                      TY* y, int m, int k, int n, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || k % 8 || n % 16) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + kTcBM - 1) / kTcBM, (n + kTcBN - 1) / kTcBN);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tq;
+  int code = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, kTcBM,
+                    kTcBK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (code) return code;
+  code = encode(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, k, n, kTcBK, kTcBN,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (code) return code;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int8_matmul_wgmma_bf16<TY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  int8_matmul_wgmma_bf16<TY>
+      <<<grid, kTcThreads, kTcSmem, (cudaStream_t)stream>>>(tx, tq, scale, y,
+                                                             m, k, n);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_f32(const float* x, const int8_t* q, const float* scale,
+                     float* y, int m, int k, int n, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k % 8 || n % 16) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + kF32BM - 1) / kF32BM, (n + kF32BN - 1) / kF32BN);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  int8_matmul_wgmma_f32<<<grid, 128, 0, (cudaStream_t)stream>>>(
       x, q, scale, y, m, k, n);
   return (int)cudaGetLastError();
 }
@@ -136,25 +767,55 @@ int launch(const TX* x, const int8_t* q, const float* scale, TY* y, int m,
 
 extern "C" {
 
-// Launches the product on `stream` and returns cudaGetLastError() as an
-// int: 0 when the launch was accepted. Launches nothing for an empty output.
+// Every entry point launches on `stream` and returns cudaGetLastError() as
+// an int (0 when the launch was accepted), or a code of its own that
+// i8_error_string names. None launches for an empty output.
+
+// The FFMA variant, float32 activations and output.
 int i8_matmul(const float* x, const int8_t* q, const float* scale, float* y,
               int m, int k, int n, void* stream) {
-  return launch(x, q, scale, y, m, k, n, stream);
+  return launch_ffma(x, q, scale, y, m, k, n, stream);
 }
 
-// The same with bf16 activations; `y` is bf16 when `out_bf16` is non-zero,
-// float32 otherwise.
+// The FFMA variant with bf16 activations; `y` is bf16 when `out_bf16` is
+// non-zero, float32 otherwise.
 int i8_matmul_bf16(const void* x, const int8_t* q, const float* scale,
                    void* y, int m, int k, int n, int out_bf16, void* stream) {
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   if (out_bf16)
-    return launch(xb, q, scale, static_cast<__nv_bfloat16*>(y), m, k, n,
-                  stream);
-  return launch(xb, q, scale, static_cast<float*>(y), m, k, n, stream);
+    return launch_ffma(xb, q, scale, static_cast<__nv_bfloat16*>(y), m, k, n,
+                       stream);
+  return launch_ffma(xb, q, scale, static_cast<float*>(y), m, k, n, stream);
+}
+
+// The tensor-core variant, float32 activations and output: k a multiple of
+// 8, n of 16, x 8-byte and q 4-byte aligned.
+int i8_matmul_tc(const float* x, const int8_t* q, const float* scale,
+                 float* y, int m, int k, int n, void* stream) {
+  return launch_wgmma_f32(x, q, scale, y, m, k, n, stream);
+}
+
+// The tensor-core variant with bf16 activations (TMA: k a multiple of 8, n
+// of 16, x and q 16-byte aligned); `y` as for i8_matmul_bf16.
+int i8_matmul_tc_bf16(const void* x, const int8_t* q, const float* scale,
+                      void* y, int m, int k, int n, int out_bf16,
+                      void* stream) {
+  if (out_bf16)
+    return launch_wgmma_bf16(x, q, scale, static_cast<__nv_bfloat16*>(y), m,
+                             k, n, stream);
+  return launch_wgmma_bf16(x, q, scale, static_cast<float*>(y), m, k, n,
+                           stream);
 }
 
 const char* i8_error_string(int code) {
+  static char buf[96];
+  if (code == kNoEncoder)
+    return "cuTensorMapEncodeTiled not found through the CUDA runtime";
+  if (code >= kEncodeFailed) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - kEncodeFailed);
+    return buf;
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -6,16 +6,19 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
 
 (the per-output-channel scale distributes out of the contraction).
 
-- :func:`int8_matmul` on CUDA tensors launches the hand-written kernel of
-  ``csrc/int8_matmul.cu`` (kernel B5, built for ``sm_90a`` at first use:
-  the int8 weight tile dequantized in registers, FFMA over K in a fixed
-  order, the scale in the epilogue) or raises ``RuntimeError`` when it does
-  not build or launch; on CPU tensors it runs
+- :func:`int8_matmul` on CUDA tensors launches kernel B5 of
+  ``csrc/int8_matmul.cu`` (built for ``sm_90a`` at first use) or raises
+  ``RuntimeError`` when it does not build or launch; on CPU tensors it runs
   :func:`int8_matmul_reference`. Activations are float32 (the GGNN's conv)
-  or bf16 (the LLM's projections, converted to float32 on their way into
-  the kernel, as the JAX kernel does); the output is float32 unless
+  or bf16 (the LLM's projections); the output is float32 unless
   ``out_dtype`` asks for bf16, rounded once from the scaled float32 sum.
-  ``n_launches`` counts the kernel's launches.
+  B5 has two variants, chosen by :func:`variant`: ``"wgmma"`` on the
+  tensor cores (bf16 activations fed by TMA, the int8 weight converted to
+  bf16 in registers as the A operand; float32 activations split exactly
+  into three bf16 terms) wherever TMA can describe the operands, and
+  ``"ffma"`` (the int8 tile dequantized in registers, FFMA over K) for the
+  strides and addresses it cannot. ``n_launches`` counts the kernel's launches,
+  ``n_variant_launches`` each variant's.
 - Differentiable with respect to ``x`` only, as the JAX ``custom_vjp``:
   ``dx = (g · scale) @ qᵀ`` with both factors rounded to bf16 and summed in
   float32. The weight and scale are a frozen base and get no gradient.
@@ -33,11 +36,15 @@ import torch
 
 from deepdfa_tpu_torch.ops import _build
 
-__all__ = ["calibrate_int8", "int8_matmul", "int8_matmul_reference",
-           "n_launches"]
+__all__ = ["VARIANTS", "calibrate_int8", "int8_matmul",
+           "int8_matmul_reference", "n_launches", "n_variant_launches",
+           "variant"]
 
-# CUDA kernel launches made by int8_matmul (B5) since the last reset.
+VARIANTS = ("wgmma", "ffma")
+# CUDA kernel launches made by int8_matmul (B5) since the last reset, in
+# all and by variant
 n_launches = 0
+n_variant_launches = dict.fromkeys(VARIANTS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +59,10 @@ def _kernels() -> ctypes.CDLL:
         lib.i8_matmul.restype = _I
         lib.i8_matmul_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.i8_matmul_bf16.restype = _I
+        lib.i8_matmul_tc.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.i8_matmul_tc.restype = _I
+        lib.i8_matmul_tc_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.i8_matmul_tc_bf16.restype = _I
         lib.i8_error_string.argtypes = [_I]
         lib.i8_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -142,10 +153,51 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
 
 
+def variant(x: torch.Tensor, q: torch.Tensor) -> str:
+    """The variant of B5 that takes ``x [M, K] @ q [K, N]`` on the card.
+
+    ``"wgmma"`` when every global stride is a multiple of 16 bytes (K a
+    multiple of 8, which also covers a float32 row; N a multiple of 16),
+    both base addresses are 16-byte aligned (a view with a storage offset
+    may not be) and K > 0: what TMA needs to describe the bf16 path's
+    operands, and more than the float32 path's vector loads need.
+    ``"ffma"`` otherwise. Every shape of the GGNN's conv and the LLM's
+    projections takes ``"wgmma"``."""
+    k, n = q.shape
+    if k == 0 or k % 8 or n % 16:
+        return "ffma"
+    if x.data_ptr() % 16 or q.data_ptr() % 16:
+        return "ffma"
+    return "wgmma"
+
+
+def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """Launch B5's variant for the dense ``x2 [M, K] @ q [K, N]`` into
+    ``out`` on the current stream; raises ``RuntimeError`` when the launch
+    fails."""
+    global n_launches
+    (m, k), n = x2.shape, q.shape[1]
+    kind = variant(x2, q)
+    lib = _kernels()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    ptrs = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr())
+    if x2.dtype == torch.float32:
+        fn = lib.i8_matmul_tc if kind == "wgmma" else lib.i8_matmul
+        code = fn(*ptrs, m, k, n, stream)
+    else:
+        fn = lib.i8_matmul_tc_bf16 if kind == "wgmma" else lib.i8_matmul_bf16
+        code = fn(*ptrs, m, k, n, int(out.dtype == torch.bfloat16), stream)
+    if code != 0:
+        msg = lib.i8_error_string(code).decode()
+        raise RuntimeError(f"int8_matmul: launch failed: {msg} ({code})")
+    n_launches += 1
+    n_variant_launches[kind] += 1
+
+
 def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B5 on CUDA tensors, the plain version on CPU tensors."""
-    global n_launches
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale, out_dtype)
     k, n = q.shape
@@ -153,22 +205,7 @@ def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
-        lib = _kernels()
-        q = q.contiguous()
-        scale = scale.to(torch.float32).contiguous()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.float32:
-            code = lib.i8_matmul(x2.data_ptr(), q.data_ptr(),
-                                 scale.data_ptr(), out.data_ptr(), m, k, n,
-                                 stream)
-        else:
-            code = lib.i8_matmul_bf16(
-                x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                m, k, n, int(out_dtype == torch.bfloat16), stream)
-        if code != 0:
-            msg = lib.i8_error_string(code).decode()
-            raise RuntimeError(f"int8_matmul: launch failed: {msg} ({code})")
-        n_launches += 1
+        _launch(x2, q.contiguous(), scale.to(torch.float32).contiguous(), out)
     return out.reshape(*x.shape[:-1], n)
 
 

@@ -340,29 +340,54 @@ def test_hier_scorer_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [
-    (2048, 128, 128),   # the first ladder bucket's edge linear
-    (5120, 128, 384),   # the megabatch shape's GRU products
-    (37, 100, 130),     # nothing aligned
-    (1, 256, 127),      # one row, odd N
+@pytest.mark.parametrize("m,k,n,variant", [
+    (2048, 128, 128, "wgmma"),   # the first ladder bucket's edge linear
+    (5120, 128, 384, "wgmma"),   # the megabatch shape's GRU products
+    (16768, 128, 384, "wgmma"),  # the largest training bucket's
+    (37, 100, 130, "ffma"),      # nothing aligned
+    (1, 256, 127, "ffma"),       # one row, odd N
 ])
-def test_int8_kernel_matches_plain_version(cuda, m, k, n):
+def test_int8_kernel_matches_plain_version(cuda, m, k, n, variant):
     from deepdfa_tpu_torch.ops import int8_matmul as tmm
 
     rng = np.random.default_rng(m + n)
     q, scale = tmm.calibrate_int8(rng.normal(size=(k, n)).astype(np.float32))
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
     q, scale = torch.from_numpy(q).cuda(), torch.from_numpy(scale).cuda()
-    before = tmm.n_launches
+    before = tmm.n_launches, tmm.n_variant_launches[variant]
     got = tmm.int8_matmul(x, q, scale)
     again = tmm.int8_matmul(x, q, scale)
     torch.cuda.synchronize()
-    assert tmm.n_launches - before == 2
+    assert tmm.n_launches - before[0] == 2
+    assert tmm.n_variant_launches[variant] - before[1] == 2
     assert torch.equal(got, again)
     want = tmm.int8_matmul_reference(x, q, scale)
-    # FFMA over K in order against cuBLAS's order
+    # float32 sums in another order than cuBLAS's (the tensor cores' over
+    # three exact bf16 terms of x, or FFMA over K)
     top = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_takes_ffma_for_a_misaligned_view(cuda, dtype):
+    """A view whose storage offset leaves its address off a 16-byte
+    boundary cannot be described to TMA: the FFMA variant takes it."""
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    gen = torch.Generator().manual_seed(3)
+    q, scale = tmm.calibrate_int8(torch.randn(128, 256, generator=gen).cuda())
+    dt = getattr(torch, dtype)
+    flat = torch.randn(1 + 64 * 128, generator=gen).to(dt).cuda()
+    x = flat[1:].view(64, 128)
+    before = tmm.n_variant_launches["ffma"]
+    got = tmm.int8_matmul(x, q, scale, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert tmm.n_variant_launches["ffma"] - before == 1
+    want = tmm.int8_matmul_reference(x, q, scale, dt)
+    limit = 1e-2 if dtype == "bfloat16" else 1e-5
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= limit * top
 
 
 class _FailingInt8Lib:
@@ -371,6 +396,8 @@ class _FailingInt8Lib:
     @staticmethod
     def i8_matmul(*args):
         return 700  # cudaErrorIllegalAddress
+
+    i8_matmul_bf16 = i8_matmul_tc = i8_matmul_tc_bf16 = i8_matmul
 
     @staticmethod
     def i8_error_string(code):
@@ -653,13 +680,17 @@ def test_lora_gradients_through_flash_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n,out", [
-    (1024, 4096, 11008, "bfloat16"),  # the 7B up projection
-    (37, 100, 130, "bfloat16"),       # nothing aligned
-    (5, 256, 127, "float32"),         # bf16 activations, float32 output
+@pytest.mark.parametrize("m,k,n,out,variant", [
+    (1024, 4096, 4096, "bfloat16", "wgmma"),    # the 7B q, k, v, o
+    (1024, 4096, 11008, "bfloat16", "wgmma"),   # the 7B gate and up
+    (1024, 11008, 4096, "bfloat16", "wgmma"),   # the 7B down
+    (1024, 5120, 13824, "bfloat16", "wgmma"),   # the 13B gate and up
+    (300, 200, 272, "bfloat16", "wgmma"),       # ragged M and K tiles
+    (37, 100, 130, "bfloat16", "ffma"),         # nothing aligned
+    (5, 256, 127, "float32", "ffma"),           # float32 output, odd N
 ])
-def test_int8_kernel_with_bf16_activations_matches_plain_version(cuda, m, k,
-                                                                 n, out):
+def test_int8_kernel_with_bf16_activations_matches_plain_version(
+        cuda, m, k, n, out, variant):
     from deepdfa_tpu_torch.ops import int8_matmul as tmm
 
     gen = torch.Generator().manual_seed(m + n)
@@ -667,11 +698,12 @@ def test_int8_kernel_with_bf16_activations_matches_plain_version(cuda, m, k,
                                    * k ** -0.5).cuda())
     x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
     dt = getattr(torch, out)
-    before = tmm.n_launches
+    before = tmm.n_launches, tmm.n_variant_launches[variant]
     got = tmm.int8_matmul(x, q, scale, out_dtype=dt)
     again = tmm.int8_matmul(x, q, scale, out_dtype=dt)
     torch.cuda.synchronize()
-    assert tmm.n_launches - before == 2 and got.dtype == dt
+    assert tmm.n_launches - before[0] == 2 and got.dtype == dt
+    assert tmm.n_variant_launches[variant] - before[1] == 2
     assert torch.equal(got, again)
     want = tmm.int8_matmul_reference(x, q, scale, dt)
     top = float(want.float().abs().max())
