@@ -115,7 +115,12 @@ Each phase prints one JSON line; any failure exits non-zero.
    error over the whole output's largest value is printed beside it), two
    calls bitwise equal, CUDA-event and CUDA-graph times of the kernel, the
    plain version and ``scaled_dot_product_attention`` with the same
-   boolean mask, the bound and the launches per call.
+   boolean mask, the bound, TFLOP/s and the launches per call by variant:
+   every bf16 d-128 shape must take ``wgmma``, float32 ``ffma``; at those
+   shapes also the graph time of the ``mma`` variant (the kernel before
+   ``wgmma``). Then,
+   off the main paths, the ``mma`` variant at the 7B serving shape with
+   d 64.
 14. flash_bwd_kernel — the attention backward (B6b: the dk/dv kernel and
    the dq kernel) against its plain version
    ``flash_attention_backward_reference`` on the same forward output and
@@ -127,7 +132,11 @@ Each phase prints one JSON line; any failure exits non-zero.
    is 0 — a query that sees one key — over the tensor's largest), two calls
    bitwise equal, CUDA-event and CUDA-graph times of the kernels, the plain
    version and the autograd of ``scaled_dot_product_attention`` with the
-   same boolean mask, the bound and the launches per call.
+   same boolean mask, the bound, TFLOP/s and the launches per call by
+   variant (``wgmma`` at bf16 d 128, beside the ``mma`` variants' graph
+   time, ``ffma`` in float32); then, off the
+   main paths, the ``mma`` variants at b 4, s 256, 8 heads over 2 kv
+   heads, d 64.
 15. joint — ``JointEngine`` over ``LlamaModel(codellama_7b(attn_impl=
    "flash"))`` at full width and depth (32 layers, hidden 4096, bf16,
    weights drawn on the card from a seed), the golden GGNN in encoder mode
@@ -135,7 +144,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    block 256, ``max_batch`` 4: 64 seeded C-like functions of 20-600
    subtokens paired with the serve phase's request graphs, one ``score``
    call per batch, the B6 count reset just before: functions/s, real and
-   padded tokens/s, p50 batch ms, B6 launches = batches × 32, the device
+   padded tokens/s, p50 batch ms, B6 launches = batches × 32 (every one
+   on ``wgmma``, as in phases 16-18), the device
    profile of one batch, the weight GB. Probabilities against the same
    engine with B6 replaced by its plain version on the card
    (``FLASH_PROB_LIMIT``), against the same weights with
@@ -148,7 +158,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    phase's seeded weights and a seeded LM head: one epoch over 32 seeded
    C-like functions, block 256, batch 4 (8 steps), the counts reset just
    before: steps/s, real and padded tokens/s, p50 step ms, peak memory, B6
-   launches = steps × 32 and B6b launches = steps × 64; the first step's
+   launches = steps × 32 and B6b launches = steps × 64, all ``wgmma``;
+   the first step's
    adapter gradients against the same step with B6 and B6b on their plain
    versions (``LORA_GRAD_LIMIT``); the saved adapters loaded onto a fresh
    base bitwise, and merged into it, against the unmerged model's hidden
@@ -1600,11 +1611,14 @@ def c_functions(n: int, seed: int, lo: int = 20, hi: int = 600) -> list[str]:
     return out
 
 
-FLASH_SHAPES = [  # name, b, s, h, h_kv, d, dtype
-    ("7b_serve", 4, 256, 32, 32, 128, torch.bfloat16),
-    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16),
-    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16),
-    ("tiny_llama", 2, 128, 4, 2, 16, torch.float32)]
+FLASH_SHAPES = [  # name, b, s, h, h_kv, d, dtype, the variant it must take
+    ("7b_serve", 4, 256, 32, 32, 128, torch.bfloat16, "wgmma"),
+    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16, "wgmma"),
+    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16, "wgmma"),
+    ("tiny_llama", 2, 128, 4, 2, 16, torch.float32, "ffma"),
+    # off the main paths: the mma.sync variant, kept for the bf16 head
+    # widths the wgmma one does not take
+    ("mma_d64", 4, 256, 32, 32, 64, torch.bfloat16, "mma")]
 
 
 def flash_bound(b: int, s: int, h: int, h_kv: int, d: int,
@@ -1625,7 +1639,7 @@ def phase_flash_kernel() -> list[dict]:
     tok = HashTokenizer(32016)
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
-    for name, b, s, h, h_kv, d, dt in FLASH_SHAPES:
+    for name, b, s, h, h_kv, d, dt, expect in FLASH_SHAPES:
         mask = torch.from_numpy(np.stack(
             [tok.encode_block(t, s)[1] for t in c_functions(b, seed=s)])).cuda()
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt)
@@ -1648,9 +1662,13 @@ def phase_flash_kernel() -> list[dict]:
 
         with torch.inference_mode():
             before = fa.n_launches
+            by_variant = dict(fa.n_variant_launches)
             got, again = kernel(), kernel()
             torch.cuda.synchronize()
             launches = fa.n_launches - before
+            took = {x: fa.n_variant_launches[x] - by_variant[x]
+                    for x in fa.VARIANTS}
+            variant = next((x for x, c in took.items() if c), None)
             want = plain().float()
             abs_err = float((got.float() - want).abs().max())
             rel_err = abs_err / float(want.abs().max())
@@ -1666,12 +1684,19 @@ def phase_flash_kernel() -> list[dict]:
             ms_again = cuda_ms(kernel, 20)
             fns = (("", kernel, 10), ("plain_", plain, 2),
                    ("library_", library, 10))
+            if expect == "wgmma":
+                # the mma variant (the kernel before wgmma) at the same
+                # shape, on the same path, for the time it took before
+                fns += (("mma_", lambda: fa._launch_forward(
+                    q, k, v, fa._seg(mask), True, with_lse=False,
+                    kind="mma"), 10),)
             dev = {f"{key}graph_ms": graph_ms(f, 2 * n) for key, f, n in fns}
         bf16 = dt == torch.bfloat16
         limit = FLASH_BF16_LIMIT if bf16 else FLASH_F32_LIMIT
         bound_ms, bound_by = flash_bound(b, s, h, h_kv, d, bf16)
         row = {"phase": "flash_kernel", "shape": name, "b": b, "s": s,
                "h": h, "h_kv": h_kv, "d": d, "dtype": str(dt).split(".")[-1],
+               "variant": variant, "launches_by_variant": took,
                "real_tokens": int(mask.sum()), "max_abs_err": abs_err,
                "max_rel_err": rel_err, "max_row_rel_err": err,
                "limit": limit, "finite": finite,
@@ -1687,6 +1712,8 @@ def phase_flash_kernel() -> list[dict]:
         if launches != 2 or not (finite and bitwise and err <= limit):
             fail(f"B6 at {name}: launches={launches} finite={finite} "
                  f"bitwise={bitwise} err={err} (limit {limit})")
+        if took[expect] != 2:
+            fail(f"B6 at {name}: took {took}, not two {expect} launches")
         rows.append(row)
     return rows
 
@@ -1726,6 +1753,21 @@ def check_probs(name: str, probs: np.ndarray) -> None:
         fail(f"{name}: non-finite or out-of-range probabilities")
 
 
+def reset_flash_counts() -> None:
+    """B6's and B6b's launch counts, in all and by variant, to 0."""
+    fa.n_launches = fa.n_bwd_launches = 0
+    fa.n_variant_launches = dict.fromkeys(fa.VARIANTS, 0)
+    fa.n_bwd_variant_launches = dict.fromkeys(fa.VARIANTS, 0)
+
+
+def check_wgmma(phase: str, by_variant: dict, launches: int) -> None:
+    """Every B6 or B6b launch of a main path (bf16 at d 128) on the
+    ``wgmma`` variant."""
+    if by_variant["wgmma"] != launches:
+        fail(f"{phase}: flash launches by variant {by_variant}: a main-path "
+             f"shape missed the wgmma variant")
+
+
 def phase_joint(seed: int = 0) -> tuple[dict, dict]:
     """JointEngine over CodeLlama-7B (random weights from ``seed``, B6
     attention) and the golden GGNN encoder."""
@@ -1747,10 +1789,12 @@ def phase_joint(seed: int = 0) -> tuple[dict, dict]:
 
     # the main path: counts from zero, read right after
     fa.n_launches = 0
+    fa.n_variant_launches = dict.fromkeys(fa.VARIANTS, 0)
     engine.n_batches = 0
     probs, wall, lat = score_batches(engine, items)
     torch.cuda.synchronize()
     launches, batches = fa.n_launches, engine.n_batches
+    b6_variants = dict(fa.n_variant_launches)
 
     # off the main path: the same engine with B6 on its plain version
     saved = llama_mod.flash_attention
@@ -1808,7 +1852,7 @@ def phase_joint(seed: int = 0) -> tuple[dict, dict]:
            "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
            "max_batch_ms": float(max(lat) * 1e3),
            "b6_launches": launches, "b6_launches_per_batch":
-               cfg.num_hidden_layers,
+               cfg.num_hidden_layers, "b6_variant_launches": b6_variants,
            "max_abs_prob_diff_vs_plain_b6": float(
                np.abs(probs - plain_probs).max()),
            "max_abs_prob_diff_vs_full": float(np.abs(probs - full_probs).max()),
@@ -1831,6 +1875,7 @@ def phase_joint(seed: int = 0) -> tuple[dict, dict]:
     if launches <= 0 or launches != batches * cfg.num_hidden_layers:
         fail(f"joint: {launches} B6 launches for {batches} batches "
              f"(expected {cfg.num_hidden_layers} each)")
+    check_wgmma("joint", b6_variants, launches)
     for key, limit in (("max_abs_prob_diff_vs_plain_b6", FLASH_PROB_LIMIT),
                        ("max_abs_prob_diff_vs_full", FULL_PROB_LIMIT),
                        ("max_abs_prob_diff_2_layers_vs_cpu",
@@ -1867,11 +1912,13 @@ def phase_joint_int8(ctx: dict) -> dict:
     i8.n_launches = 0
     i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
     fa.n_launches = 0
+    fa.n_variant_launches = dict.fromkeys(fa.VARIANTS, 0)
     engine.n_batches = 0
     probs, wall, lat = score_batches(engine, items)
     torch.cuda.synchronize()
     launches, b6, batches = i8.n_launches, fa.n_launches, engine.n_batches
     variants = dict(i8.n_variant_launches)
+    b6_variants = dict(fa.n_variant_launches)
 
     # off the main path: every Int8Dense on B5's plain version on the card
     saved = llama_mod.int8_matmul
@@ -1891,7 +1938,7 @@ def phase_joint_int8(ctx: dict) -> dict:
            "b5_launches": launches, "b5_launches_per_batch": per,
            "b5_variant_launches": variants,
            "b5_device_share": busy["int8_matmul_share"],
-           "b6_launches": b6,
+           "b6_launches": b6, "b6_variant_launches": b6_variants,
            "max_abs_prob_diff_vs_plain_int8": float(np.abs(probs - plain)
                                                     .max()),
            "limit": INT8_PROB_LIMIT,
@@ -1911,6 +1958,7 @@ def phase_joint_int8(ctx: dict) -> dict:
              f"shape missed the tensor cores")
     if b6 != batches * cfg.num_hidden_layers:
         fail(f"joint_int8: {b6} B6 launches for {batches} batches")
+    check_wgmma("joint_int8", b6_variants, b6)
     if not row["max_abs_prob_diff_vs_plain_int8"] <= INT8_PROB_LIMIT:
         fail(f"joint_int8: {row['max_abs_prob_diff_vs_plain_int8']} from the "
              f"plain int8 path")
@@ -1919,11 +1967,13 @@ def phase_joint_int8(ctx: dict) -> dict:
 
 # ------------------------------------------------------------ phase 14
 
-FLASH_BWD_SHAPES = [  # name, b, s, h, h_kv, d, dtype
-    ("7b_train", 4, 256, 32, 32, 128, torch.bfloat16),
-    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16),
-    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16),
-    ("gqa_f32", 4, 256, 4, 2, 16, torch.float32)]
+FLASH_BWD_SHAPES = [  # name, b, s, h, h_kv, d, dtype, the variant
+    ("7b_train", 4, 256, 32, 32, 128, torch.bfloat16, "wgmma"),
+    ("13b_pb_ft_pb_noexpl", 6, 1024, 40, 40, 128, torch.bfloat16, "wgmma"),
+    ("13b_s2048", 4, 2048, 40, 40, 128, torch.bfloat16, "wgmma"),
+    ("gqa_f32", 4, 256, 4, 2, 16, torch.float32, "ffma"),
+    # off the main paths: the mma.sync variants, grouped-query heads
+    ("mma_gqa_d64", 4, 256, 8, 2, 64, torch.bfloat16, "mma")]
 
 
 def flash_bwd_bound(b: int, s: int, h: int, h_kv: int, d: int,
@@ -1971,7 +2021,7 @@ def phase_flash_bwd_kernel() -> list[dict]:
     tok = HashTokenizer(32016)
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows = []
-    for name, b, s, h, h_kv, d, dt in FLASH_BWD_SHAPES:
+    for name, b, s, h, h_kv, d, dt, expect in FLASH_BWD_SHAPES:
         mask = torch.from_numpy(np.stack(
             [tok.encode_block(t, s)[1] for t in c_functions(b, seed=s + 1)])
         ).cuda()
@@ -2008,9 +2058,13 @@ def phase_flash_bwd_kernel() -> list[dict]:
             return torch.autograd.grad(library_forward(), (sq, sk, sv), sdo)
 
         before = fa.n_bwd_launches
+        by_variant = dict(fa.n_bwd_variant_launches)
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
         launches = fa.n_bwd_launches - before
+        took = {x: fa.n_bwd_variant_launches[x] - by_variant[x]
+                for x in fa.VARIANTS}
+        variant = next((x for x, c in took.items() if c), None)
         want = plain()
         q_one, k_zero = zero_gradient_rows(mask, s)
         zero = {"dq": q_one, "dk": k_zero, "dv": torch.zeros_like(k_zero)}
@@ -2033,6 +2087,11 @@ def phase_flash_bwd_kernel() -> list[dict]:
         fns = (("", kernel, 10), ("plain_", plain, 2),
                ("library_fwd_bwd_", library, 10),
                ("library_fwd_", library_forward, 10))
+        if expect == "wgmma":
+            # the mma variants (the kernels before wgmma) at the same
+            # shape, on the same path, for the time they took before
+            fns += (("mma_", lambda: fa._launch_backward(
+                q, k, v, o, do, lse, fa._seg(mask), True, kind="mma"), 10),)
         dev = {f"{key}graph_ms": graph_ms(f, 2 * n) for key, f, n in fns}
         dev["library_graph_ms"] = (dev["library_fwd_bwd_graph_ms"]
                                    - dev["library_fwd_graph_ms"])
@@ -2043,6 +2102,7 @@ def phase_flash_bwd_kernel() -> list[dict]:
         err = max(errs.values())
         row = {"phase": "flash_bwd_kernel", "shape": name, "b": b, "s": s,
                "h": h, "h_kv": h_kv, "d": d, "dtype": str(dt).split(".")[-1],
+               "variant": variant, "launches_by_variant": took,
                "real_tokens": int(mask.sum()),
                "max_row_rel_err": errs, "max_abs_err": abs_errs,
                "limit": limit, "finite": finite, "bitwise_repeat": bitwise,
@@ -2060,6 +2120,8 @@ def phase_flash_bwd_kernel() -> list[dict]:
         if launches != 4 or not (finite and bitwise and err <= limit):
             fail(f"B6b at {name}: launches={launches} finite={finite} "
                  f"bitwise={bitwise} err={errs} (limit {limit})")
+        if took[expect] != 4:
+            fail(f"B6b at {name}: took {took}, not four {expect} launches")
         rows.append(row)
         del sq, sk, sv
         torch.cuda.empty_cache()
@@ -2173,13 +2235,14 @@ def phase_finetune(ctx: dict, seed: int = 0) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # the main path: counts from zero, read right after
-        fa.n_launches = 0
-        fa.n_bwd_launches = 0
+        reset_flash_counts()
         t0 = time.perf_counter()
         model, losses = tuner.train(examples)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         b6, b6b = fa.n_launches, fa.n_bwd_launches
+        b6_variants = dict(fa.n_variant_launches)
+        b6b_variants = dict(fa.n_bwd_variant_launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = len(tuner.step_seconds)
 
@@ -2222,6 +2285,8 @@ def phase_finetune(ctx: dict, seed: int = 0) -> dict:
            "max_step_ms": float(max(tuner.step_seconds) * 1e3),
            "peak_memory_gb": peak_gb, "losses": losses,
            "b6_launches": b6, "b6b_launches": b6b,
+           "b6_variant_launches": b6_variants,
+           "b6b_variant_launches": b6b_variants,
            "b6_launches_per_step": cfg.num_hidden_layers,
            "b6b_launches_per_step": 2 * cfg.num_hidden_layers,
            "adapters": len(trained), "zero_first_step_grads": n_zero,
@@ -2239,6 +2304,8 @@ def phase_finetune(ctx: dict, seed: int = 0) -> dict:
         fail(f"finetune: {b6} B6 and {b6b} B6b launches for {steps} steps "
              f"(expected {cfg.num_hidden_layers} and "
              f"{2 * cfg.num_hidden_layers} each)")
+    check_wgmma("finetune", b6_variants, b6)
+    check_wgmma("finetune (B6b)", b6b_variants, b6b)
     if not witness <= LORA_GRAD_LIMIT:
         fail(f"finetune: first-step adapter gradients {witness} from the "
              f"plain path (limit {LORA_GRAD_LIMIT})")
@@ -2278,13 +2345,13 @@ def phase_joint_train(ctx: dict, seed: int = 0) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
         trainer = JointTrainer(llm, fusion, jcfg, join, run_dir=Path(tmp))
         # the main path: counts from zero, read right after
-        fa.n_launches = 0
-        fa.n_bwd_launches = 0
+        reset_flash_counts()
         t0 = time.perf_counter()
         state = trainer.train(train, evals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         b6, b6b = fa.n_launches, fa.n_bwd_launches
+        b6_variants = dict(fa.n_variant_launches)
         evals_run = sum("eval_loss" in h for h in trainer.history)
         _, probs, _ = trainer._run_eval(state.params, evals)
         engine = JointEngine.from_run_dir(
@@ -2311,6 +2378,7 @@ def phase_joint_train(ctx: dict, seed: int = 0) -> dict:
            "last_eval": next(h for h in reversed(trainer.history)
                              if "eval_loss" in h),
            "b6_launches": b6, "b6b_launches": b6b,
+           "b6_variant_launches": b6_variants,
            "b6_launches_expected": (steps + eval_batches)
            * cfg.num_hidden_layers,
            "written": written, "restored_max_abs_diff": restore_err,
@@ -2323,6 +2391,7 @@ def phase_joint_train(ctx: dict, seed: int = 0) -> dict:
         fail(f"joint_train: {b6} B6 launches (expected "
              f"{row['b6_launches_expected']}) and {b6b} B6b launches "
              f"(expected 0: the frozen LLM builds no backward)")
+    check_wgmma("joint_train", b6_variants, b6)
     if written != ["epoch_0"] or not restore_err <= 1e-5:
         fail(f"joint_train: wrote {written}; from_run_dir scores "
              f"{restore_err} from the trainer's own evaluation")
@@ -2480,6 +2549,11 @@ def main() -> int:
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
                              "joint_train": joint_train["b6_launches"]},
+        "variant": b6["variant"],
+        "launches_by_variant": {
+            v: sum(r["b6_variant_launches"][v]
+                   for r in (joint, joint8, finetune, joint_train))
+            for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
         "max_row_rel_err": max(r["max_row_rel_err"] for r in flash_rows),
@@ -2489,6 +2563,7 @@ def main() -> int:
         "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
         "library_ms": b6["library_graph_ms"],
         "library": b6["library"],
+        "mma_ms": b6["mma_graph_ms"],  # the kept mma variant, same shape
         "call_ms": b6["ms"], "plain_call_ms": b6["plain_ms"],
         "library_call_ms": b6["library_ms"],
         "shape": f"7b_serve b={b6['b']} s={b6['s']} h={b6['h']} "
@@ -2503,6 +2578,8 @@ def main() -> int:
         "launches": finetune["b6b_launches"],
         "launches_by_path": {"finetune": finetune["b6b_launches"],
                              "joint_train": joint_train["b6b_launches"]},
+        "variant": b6b["variant"],
+        "launches_by_variant": finetune["b6b_variant_launches"],
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_rows),
         "max_row_rel_err": max(max(r["max_row_rel_err"].values())
                                for r in bwd_rows),
@@ -2511,6 +2588,7 @@ def main() -> int:
         "bound_ms": b6b["bound_ms"], "bound_by": b6b["bound_by"],
         "library_ms": b6b["library_graph_ms"],
         "library": b6b["library"],
+        "mma_ms": b6b["mma_graph_ms"],  # the kept mma variants, same shape
         "call_ms": b6b["ms"], "plain_call_ms": b6b["plain_ms"],
         "library_call_ms": b6b["library_ms"],
         "shape": f"7b_train b={b6b['b']} s={b6b['s']} h={b6b['h']} "

@@ -9,7 +9,9 @@
 //     s_ij = (q_i . k_j) * d^-0.5          summed in float32
 //     s_ij masked out unless seg_i == seg_j and (j <= i when causal)
 //     o_i  = sum_j P_ij v_j / sum_j p_ij,  p_ij = exp(s_ij - m_i)
-// with an online softmax in float32 over 64-key tiles, P rounded to v's
+// with an online softmax in float32 over key tiles (64 keys, or 128 in
+// base-2 units on `wgmma`, the logsumexp converted back to natural log on
+// the way out; m_i is then a running maximum over 128 keys), P rounded to v's
 // type before the product P.V (the TPU kernel's `p.astype(v.dtype)`), the
 // product summed in float32 and o written in q's type. The segment ids are
 // 1 for real tokens and 0 for padding, so a padding query row attends to the
@@ -27,9 +29,19 @@
 //
 // What the design does about that. The TPU kernel walked a sequential grid
 // over key blocks with the running max, sum and accumulator in scratch.
-// Here one block of 4 warps owns 64 query rows of one (batch, head) and
-// loops over the key tiles itself; tiles wholly above the diagonal are
-// skipped. Each warp owns 16 query rows: its Q fragments stay in registers,
+// Here a block owns a tile of query rows of one (batch, head) and loops
+// over the key tiles itself; tiles wholly above the diagonal are skipped.
+// Three variants, chosen in Python (deepdfa_tpu_torch/ops/flash_attention.py
+// `variant`) from the shapes, the type and the addresses:
+// - `flash_wgmma_kernel` (bf16, d = 128, s a multiple of 128: every shape
+//   of the LLM tier): 128 query rows a block, TMA loads of 128-byte-swizzled
+//   tiles into a three-stage ring, Hopper's `wgmma` with S = Q K^T read
+//   from shared memory and P rounded to bf16 in registers as the A operand
+//   of O += P V, V read transposed from the same tile (below);
+// - `flash_bf16_kernel` (variant "mma", the other bf16 head widths) and
+//   `flash_f32_kernel` (variant "ffma", float32), described next.
+// In the "mma" variant one block of 4 warps owns 64 query rows. Each warp
+// owns 16 of them: its Q fragments stay in registers,
 // Q.K^T and P.V run on `mma.sync.m16n8k16` bf16 tensor-core instructions
 // with float32 accumulators, and the score fragments become the A operand
 // of P.V in registers (the layouts match), so P never touches shared
@@ -37,13 +49,14 @@
 // B fragment is one 32-bit shared load. Float32 inputs (the test-size
 // model) take a separate FFMA kernel of the same structure: four threads per
 // query row, P through shared memory. Every sum runs in a fixed order, so two
-// calls on the same inputs are bitwise equal. `wgmma`, TMA and warp
-// specialisation are later work.
+// calls on the same inputs are bitwise equal, in every variant.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -372,6 +385,253 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------ bf16 on wgmma
+
+constexpr int kTcRows = 128;  // query rows per block: 64 a consumer warpgroup
+constexpr int kTcKeys = 128;  // keys per K or V tile (kTcRows: see n_tiles)
+constexpr int kTcStages = 3;
+constexpr int kTcBox = 128 * 128;   // one TMA box: 128 rows of 64 bf16
+constexpr int kTcTile = 2 * kTcBox;  // a 128-row tile at d = 128, 32 KB
+// Two consumer warpgroups; thread 0 also keeps the ring full. 256 threads
+// leave ptxas 255 registers a thread: the dk/dv kernel's consumers need
+// 250 (two 64 x 128 float32 sums, two 64 x 64 score tiles). With a
+// producer warpgroup (384 threads) ptxas held every thread to 168, which
+// `setmaxnreg` did not raise, and that kernel spilled.
+constexpr int kTcThreads = 256;
+// Q, the ring of (K, V) stages, each stage's key segment ids, the
+// barriers, and the slack to align the tiles to 1024 bytes
+constexpr int kTcSmem = kTcTile + kTcStages * 2 * kTcTile
+    + kTcStages * kTcKeys * 4 + (2 * kTcStages + 1) * 8 + 1024;
+static_assert(kTcSmem <= 232448, "more shared memory than a block has");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct TcParams {
+  const int* seg;  // [b, s] segment ids, or null: one segment
+  void* o;
+  float* lse;      // [b, h, s], or null
+  int s, h, h_kv;
+  float scale_log2;  // d^-0.5 * log2(e): the scores in base-2 units
+  int causal;
+};
+
+// One block per (128 query rows, head, batch row). Thread 0 loads Q once
+// and streams the 128-key K and V tiles (and their segment ids) through a
+// ring of kTcStages stages. Warpgroup wg owns query rows 64 wg .. 64 wg +
+// 63 of the block: per tile,
+// S = Q K^T (m64n128k16 from shared memory, K read K-major), the mask and
+// the online softmax on the accumulator in base-2 units, P rounded to bf16
+// in registers as the A operand of O += P V (V read MN-major from the same
+// swizzled tile), then the stage is released.
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, TcParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* kvs = qs + kTcTile;  // stage st: K at kvs + 2 st kTcTile, V after
+  int* segk = reinterpret_cast<int*>(kvs + kTcStages * 2 * kTcTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segk + kTcStages * kTcKeys);
+  uint64_t* qbar = full + kTcStages;
+  int* taken = reinterpret_cast<int*>(qbar + 1);  // releases, per stage
+
+  // the longest causal rows first: the last blocks to start are short
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * kTcRows;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int hk = hi / (p.h / p.h_kv);
+  // causal: the key tiles up to the diagonal one (kTcKeys == kTcRows)
+  const int n_tiles = p.causal ? qt + 1 : p.s / kTcKeys;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(&full[st], 1);
+      taken[st] = 0;
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // thread 0 loads the resident tiles and the first kTcStages tiles; each
+  // later tile is loaded by the warpgroup that releases its stage second,
+  // so neither waits for the other
+  auto load_tile = [&](int t) {
+    const int st = t % kTcStages;
+    uint8_t* ks = kvs + st * 2 * kTcTile;
+    const int kv0 = t * kTcKeys;
+    mbar_expect_tx(&full[st], 2 * kTcTile + (p.seg ? kTcKeys * 4 : 0));
+    tma_load_4d(ks, &tk, &full[st], 0, hk, kv0, bi);
+    tma_load_4d(ks + kTcBox, &tk, &full[st], 64, hk, kv0, bi);
+    tma_load_4d(ks + kTcTile, &tv, &full[st], 0, hk, kv0, bi);
+    tma_load_4d(ks + kTcTile + kTcBox, &tv, &full[st], 64, hk, kv0, bi);
+    if (p.seg)
+      bulk_load(segk + st * kTcKeys, p.seg + (size_t)bi * p.s + kv0,
+                kTcKeys * 4, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, kTcTile);
+    tma_load_4d(qs, &tq, qbar, 0, hi, q0, bi);
+    tma_load_4d(qs + kTcBox, &tq, qbar, 64, hi, q0, bi);
+    for (int t = 0; t < n_tiles && t < kTcStages; ++t) load_tile(t);
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_a = q0 + 64 * wg + 16 * (warp & 3) + g, row_b = row_a + 8;
+  const int seg_a = p.seg ? p.seg[(size_t)bi * p.s + row_a] : 1;
+  const int seg_b = p.seg ? p.seg[(size_t)bi * p.s + row_b] : 1;
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  // this warpgroup's 64 rows of Q: box 0 holds d 0-63, box 1 d 64-127
+  const uint64_t dq0 = sw128_desc(qs + wg * 64 * 128);
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages;
+    uint8_t* ks = kvs + st * 2 * kTcTile;
+    const int* sk = segk + st * kTcKeys;
+    const int kv0 = t * kTcKeys;
+    mbar_wait(&full[st], (t / kTcStages) & 1);
+
+    // S = Q K^T over d = 128: k16 slice kk lies in box kk / 4, 32 bytes
+    // per slice along the swizzled rows
+    float sc[64];
+    const uint64_t dq = opaque(dq0), dk = sw128_desc(ks);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off = (kk >> 2) * (kTcBox >> 4) + (kk & 3) * 2;
+      wgmma_ss_n128(sc, dq + off, dk + off, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // sum 4i + 2h + e is row (h ? row_b : row_a), key kv0 + 8i + 2 t4 + e;
+    // only the diagonal tile needs the causal test
+    const bool diag = p.causal && t == n_tiles - 1;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * i + 2 * t4 + e;
+        const int sg = p.seg ? sk[c] : 1;
+        const bool ok_a = sg == seg_a && (!diag || kv0 + c <= row_a);
+        const bool ok_b = sg == seg_b && (!diag || kv0 + c <= row_b);
+        sc[4 * i + e] = ok_a ? sc[4 * i + e] * p.scale_log2 : -INFINITY;
+        sc[4 * i + 2 + e] =
+            ok_b ? sc[4 * i + 2 + e] * p.scale_log2 : -INFINITY;
+        mx_a = fmaxf(mx_a, sc[4 * i + e]);
+        mx_b = fmaxf(mx_b, sc[4 * i + 2 + e]);
+      }
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    // a row with no unmasked key yet keeps a base of 0: 2^-inf = 0
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float alpha_a = ex2(m_a - base_a), alpha_b = ex2(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+
+    // P in float32 for the row sums, rounded to bf16 as the A fragments of
+    // the k16 slices of keys 16j .. 16j + 15 (sums 8j .. 8j + 7)
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t pf[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float pr[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        pr[u] = ex2(sc[8 * j + u] - ((u & 2) ? base_b : base_a));
+      sum_a += (pr[0] + pr[1]) + (pr[4] + pr[5]);
+      sum_b += (pr[2] + pr[3]) + (pr[6] + pr[7]);
+      pf[j][0] = pack_bf16(pr[0], pr[1]);  // row a, keys 2 t4, 2 t4 + 1
+      pf[j][1] = pack_bf16(pr[2], pr[3]);  // row b
+      pf[j][2] = pack_bf16(pr[4], pr[5]);  // row a, keys 8 + 2 t4, ...
+      pf[j][3] = pack_bf16(pr[6], pr[7]);  // row b
+    }
+    l_a = l_a * alpha_a + quad_sum(sum_a);
+    l_b = l_b * alpha_b + quad_sum(sum_b);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      o[4 * i] *= alpha_a;
+      o[4 * i + 1] *= alpha_a;
+      o[4 * i + 2] *= alpha_b;
+      o[4 * i + 3] *= alpha_b;
+    }
+
+    // O += P V: V's rows are the contracted keys, d runs along them (box 0
+    // d 0-63, box 1 d 64-127), read MN-major; 16 keys are 2048 bytes
+    const uint64_t dv = sw128_mn_desc(ks + kTcTile, kTcBox);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wgmma_rs_n128<1>(o, pf[j], dv + j * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) fence_regs(pf[j]);
+    // this warpgroup is done with the stage (its wgmmas have finished and
+    // every thread read its segment ids before issuing them)
+    if ((threadIdx.x & 127) == 0) release<kTcStages>(taken, st, t, n_tiles,
+                                                  load_tile);
+  }
+
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o)
+      + ((size_t)bi * p.s * p.h + hi) * 128;
+  const size_t stride = (size_t)p.h * 128;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = 8 * i + 2 * t4;
+    *reinterpret_cast<uint32_t*>(ob + (size_t)row_a * stride + c) =
+        pack_bf16(l_a > 0.f ? o[4 * i] / l_a : 0.f,
+                  l_a > 0.f ? o[4 * i + 1] / l_a : 0.f);
+    *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * stride + c) =
+        pack_bf16(l_b > 0.f ? o[4 * i + 2] / l_b : 0.f,
+                  l_b > 0.f ? o[4 * i + 3] / l_b : 0.f);
+  }
+  // the natural-log logsumexp (m + log2 l) ln 2, from the four threads
+  // that share the row (t4 == 0)
+  if (p.lse && t4 == 0) {
+    float* lb = p.lse + ((size_t)bi * p.h + hi) * p.s;
+    lb[row_a] = (m_a + log2f(l_a)) * kLn2;
+    lb[row_b] = (m_b + log2f(l_b)) * kLn2;
+  }
+}
+
+int launch_tc(const void* q, const void* k, const void* v, const int* seg,
+              void* o, float* lse, int b, int s, int h, int h_kv,
+              float scale, int causal, cudaStream_t stream) {
+  if (s % kTcRows) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int code = encode_bshd(&tq, q, b, s, h, 128, kTcRows);
+  if (!code) code = encode_bshd(&tk, k, b, s, h_kv, 128, kTcKeys);
+  if (!code) code = encode_bshd(&tv, v, b, s, h_kv, 128, kTcKeys);
+  if (code) return code;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTcSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const TcParams p{seg, o, lse, s, h, h_kv, scale * kLog2e, causal};
+  const dim3 grid(s / kTcRows, h, b);
+  flash_wgmma_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int threads, int smem, const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -415,8 +675,20 @@ int fa_forward(const void* q, const void* k, const void* v, const int* seg,
   }
 }
 
-const char* fa_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// The `wgmma` variant: bf16, d = 128, s a multiple of 128, every pointer
+// 16-byte aligned (TMA reads q, k, v; the segment ids are copied in bulk).
+// Returns the codes of fa_forward, or a descriptor-encoding code that
+// fa_error_string names.
+int fa_forward_tc(const void* q, const void* k, const void* v, const int* seg,
+                  void* o, float* lse, int b, int s, int h, int h_kv, int d,
+                  float scale, int causal, void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0) return 0;
+  if (h_kv <= 0 || h % h_kv != 0 || h > 65535 || b > 65535 || d != 128)
+    return (int)cudaErrorInvalidValue;
+  return launch_tc(q, k, v, seg, o, lse, b, s, h, h_kv, scale, causal,
+                   (cudaStream_t)stream);
 }
+
+const char* fa_error_string(int code) { return hopper_error_string(code); }
 
 }  // extern "C"

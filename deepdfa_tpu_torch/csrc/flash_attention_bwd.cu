@@ -38,21 +38,29 @@
 //   - dq: one block of 4 warps per (batch, query head, 64-query tile); each
 //     warp owns 16 queries. It walks the 32-key tiles up to the diagonal in
 //     order, dq in float32 registers.
-// bf16 runs on `mma.sync.m16n8k16` with float32 accumulators, as the
-// forward: the score fragments of one product are laid out as the A operand
+// bf16 at d = 128 with s a multiple of 128 (every shape of the LLM tier)
+// takes the `wgmma` variant (`dkv_wgmma_kernel`, `dq_wgmma_kernel`, below):
+// 128 keys (dk, dv) or 128 queries (dq) a block, TMA loads of
+// 128-byte-swizzled tiles into a three-stage ring, the score products read
+// from shared memory, P and dS rounded to bf16 in registers as the A
+// operands of the next products, Q, dO or K read transposed from the same
+// tiles. Other bf16 (variant "mma") runs on `mma.sync.m16n8k16` with
+// float32 accumulators, as the forward's: the score fragments of one product are laid out as the A operand
 // of the next, so P and dS are rounded to bf16 in registers and never
 // stored; every B operand is a 32-bit shared load from a tile stored
 // row-major or transposed as that product needs it. The inner tile is 32
 // wide so that at d = 128 the two 16 x 128 float32 accumulators (128
 // registers) and the score fragments fit a thread's 255 registers without
 // spilling. Float32 (the test-size model) takes FFMA kernels of the same
-// structure: four threads per row, P and dS through shared memory.
-// `wgmma`, TMA and warp specialisation are later work.
+// structure: four threads per row, P and dS through shared memory (variant
+// "ffma"). Python chooses the variant (ops/flash_attention.py `variant`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -611,6 +619,428 @@ __global__ void __launch_bounds__(256) dq_f32_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------ bf16 on wgmma
+
+// Two consumer warpgroups; thread 0 also keeps the ring full. 256 threads
+// leave ptxas 255 registers a thread: the dk/dv kernel's consumers need
+// 250 (two 64 x 128 float32 sums, two 64 x 64 score tiles). With a
+// producer warpgroup (384 threads) ptxas held every thread to 168, which
+// `setmaxnreg` did not raise, and that kernel spilled.
+constexpr int kTcThreads = 256;
+constexpr int kTcStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcParams {
+  const float* lse;  // [b, h, s]
+  const float* di;   // [b, h, s]
+  const int* seg;    // [b, s] segment ids, or null: one segment
+  void* out0;        // dq, or dk
+  void* out1;        // dv
+  int s, h, h_kv;
+  float scale;
+  int causal;
+};
+
+// k16 slice kk of a K-major 128-wide (d) tile whose two 64-wide boxes lie
+// `box` bytes apart, as a descriptor offset in 16-byte units
+__device__ __forceinline__ int kslice(int kk, int box) {
+  return (kk >> 2) * (box >> 4) + (kk & 3) * 2;
+}
+
+// Writes a warpgroup's m64 x 128 float32 sums as bf16 rows of a [.., d]
+// tensor: sum 4i + 2h + e is row (h ? row_b : row_a), column 8i + 2 t4 + e.
+__device__ __forceinline__ void store_rows(const float (&acc)[64],
+                                           __nv_bfloat16* base, size_t stride,
+                                           int row_a, int t4) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = 8 * i + 2 * t4;
+    *reinterpret_cast<uint32_t*>(base + (size_t)row_a * stride + c) =
+        pack_bf16(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<uint32_t*>(base + (size_t)(row_a + 8) * stride + c) =
+        pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+// ---- dq: one block per (128 queries, query head, batch row)
+
+constexpr int kDqRows = 128;  // queries per block: 64 a consumer warpgroup
+constexpr int kDqKeys = 64;   // keys per K or V tile
+constexpr int kDqBox = kDqRows * 128;   // a TMA box of Q or dO: 16 KB
+constexpr int kDqKBox = kDqKeys * 128;  // a TMA box of K or V: 8 KB
+constexpr int kDqStage = 4 * kDqKBox;   // K then V, two boxes each
+constexpr int kDqSmem = 4 * kDqBox + kTcStages * kDqStage
+    + kTcStages * kDqKeys * 4 + (2 * kTcStages + 1) * 8 + 1024;
+static_assert(kDqSmem <= 232448, "more shared memory than a block has");
+
+// Thread 0 loads Q and dO once and streams the 64-key K and V tiles (and
+// their segment ids) through the ring. Warpgroup wg owns queries 64 wg ..
+// 64 wg + 63 of the block. Per tile:
+// S = Q K^T and dP = dO V^T (m64n64k16 from shared memory, K-major), then
+// P = 2^(S scale log2 e - lse log2 e) and dS = (dP - di) P scale in
+// registers, dS rounded to bf16 as the A operand of dQ += dS K (K read
+// MN-major from the same swizzled tile).
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, TcParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + 2 * kDqBox;
+  uint8_t* kvs = dos + 2 * kDqBox;  // stage st: K, then V at + 2 kDqKBox
+  int* segk = reinterpret_cast<int*>(kvs + kTcStages * kDqStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segk + kTcStages * kDqKeys);
+  uint64_t* qbar = full + kTcStages;
+  int* taken = reinterpret_cast<int*>(qbar + 1);  // releases, per stage
+
+  // the longest causal rows first: the last blocks to start are short
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * kDqRows;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int hk = hi / (p.h / p.h_kv);
+  const int n_tiles = (p.causal ? q0 + kDqRows : p.s) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(&full[st], 1);
+      taken[st] = 0;
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // thread 0 loads the resident tiles and the first kTcStages tiles; each
+  // later tile is loaded by the warpgroup that releases its stage second,
+  // so neither waits for the other
+  auto load_tile = [&](int t) {
+    const int st = t % kTcStages;
+    uint8_t* ks = kvs + st * kDqStage;
+    const int kv0 = t * kDqKeys;
+    mbar_expect_tx(&full[st], kDqStage + (p.seg ? kDqKeys * 4 : 0));
+    tma_load_4d(ks, &tk, &full[st], 0, hk, kv0, bi);
+    tma_load_4d(ks + kDqKBox, &tk, &full[st], 64, hk, kv0, bi);
+    tma_load_4d(ks + 2 * kDqKBox, &tv, &full[st], 0, hk, kv0, bi);
+    tma_load_4d(ks + 3 * kDqKBox, &tv, &full[st], 64, hk, kv0, bi);
+    if (p.seg)
+      bulk_load(segk + st * kDqKeys, p.seg + (size_t)bi * p.s + kv0,
+                kDqKeys * 4, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, 4 * kDqBox);
+    tma_load_4d(qs, &tq, qbar, 0, hi, q0, bi);
+    tma_load_4d(qs + kDqBox, &tq, qbar, 64, hi, q0, bi);
+    tma_load_4d(dos, &tdo, qbar, 0, hi, q0, bi);
+    tma_load_4d(dos + kDqBox, &tdo, qbar, 64, hi, q0, bi);
+    for (int t = 0; t < n_tiles && t < kTcStages; ++t) load_tile(t);
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_a = q0 + 64 * wg + 16 * (warp & 3) + g, row_b = row_a + 8;
+  const int seg_a = p.seg ? p.seg[(size_t)bi * p.s + row_a] : 1;
+  const int seg_b = p.seg ? p.seg[(size_t)bi * p.s + row_b] : 1;
+  const float* lse_h = p.lse + ((size_t)bi * p.h + hi) * p.s;
+  const float* di_h = p.di + ((size_t)bi * p.h + hi) * p.s;
+  const float lse_a = lse_h[row_a] * kLog2e, lse_b = lse_h[row_b] * kLog2e;
+  const float di_a = di_h[row_a], di_b = di_h[row_b];
+  const float scale_log2 = p.scale * kLog2e;
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  const uint64_t dqd0 = sw128_desc(qs + wg * 64 * 128);
+  const uint64_t ddo0 = sw128_desc(dos + wg * 64 * 128);
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages;
+    uint8_t* ks = kvs + st * kDqStage;
+    const int* sk = segk + st * kDqKeys;
+    const int kv0 = t * kDqKeys;
+    mbar_wait(&full[st], (t / kTcStages) & 1);
+
+    float sc[32], dp[32];
+    const uint64_t dqd = opaque(dqd0), ddo = opaque(ddo0);
+    const uint64_t dk = sw128_desc(ks), dv = sw128_desc(ks + 2 * kDqKBox);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_ss_n64(sc, dqd + kslice(kk, kDqBox), dk + kslice(kk, kDqKBox),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_ss_n64(dp, ddo + kslice(kk, kDqBox), dv + kslice(kk, kDqKBox),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // sum 8j + u: row (u & 2 ? b : a), key kv0 + 16j + 8 (u >> 2) + 2 t4 +
+    // (u & 1); the causal test only where the tile reaches the diagonal
+    const bool diag = p.causal && kv0 + kDqKeys > q0;
+    uint32_t sf[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float ds[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = 16 * j + 8 * (u >> 2) + 2 * t4 + (u & 1);
+        const bool b_row = u & 2;
+        const int sg = p.seg ? sk[c] : 1;
+        const bool ok = sg == (b_row ? seg_b : seg_a)
+            && (!diag || kv0 + c <= (b_row ? row_b : row_a));
+        const float pv = ok ? ex2(sc[8 * j + u] * scale_log2
+                                  - (b_row ? lse_b : lse_a)) : 0.f;
+        ds[u] = (dp[8 * j + u] - (b_row ? di_b : di_a)) * pv * p.scale;
+      }
+      sf[j][0] = pack_bf16(ds[0], ds[1]);
+      sf[j][1] = pack_bf16(ds[2], ds[3]);
+      sf[j][2] = pack_bf16(ds[4], ds[5]);
+      sf[j][3] = pack_bf16(ds[6], ds[7]);
+    }
+
+    // dQ += dS K: K's rows are the contracted keys (2048 bytes per 16),
+    // d runs along them, read MN-major (box 1, d 64-127, 8 KB on)
+    const uint64_t dkt = sw128_mn_desc(ks, kDqKBox);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs_n128<1>(dq, sf[j], dkt + j * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fence_regs(sf[j]);
+    if ((threadIdx.x & 127) == 0) release<kTcStages>(taken, st, t, n_tiles,
+                                                  load_tile);
+  }
+
+  store_rows(dq, static_cast<__nv_bfloat16*>(p.out0)
+                     + ((size_t)bi * p.s * p.h + hi) * 128,
+             (size_t)p.h * 128, row_a, t4);
+}
+
+// ---- dk, dv: one block per (128 keys, kv head, batch row)
+
+constexpr int kKvRows = 128;  // keys per block: 64 a consumer warpgroup
+constexpr int kKvStep = 64;   // queries per Q or dO tile
+constexpr int kKvBox = kKvRows * 128;   // a TMA box of K or V: 16 KB
+constexpr int kKvQBox = kKvStep * 128;  // a TMA box of Q or dO: 8 KB
+constexpr int kKvStage = 4 * kKvQBox;      // Q then dO, two boxes each
+constexpr int kKvVecs = 3 * kKvStep * 4;   // lse, di, the segment ids
+constexpr int kKvSmem = 4 * kKvBox + kTcStages * (kKvStage + kKvVecs)
+    + (2 * kTcStages + 1) * 8 + 1024;
+static_assert(kKvSmem <= 232448, "more shared memory than a block has");
+
+// Thread 0 loads K and V once, then walks the kv group's query heads in
+// order and, for each, the 64-query tiles from the causal diagonal to the
+// end, streaming Q, dO and the tile's lse,
+// di and segment ids through the ring. Warpgroup wg owns keys 64 wg ..
+// 64 wg + 63 of the block. Per tile: S^T = K Q^T and dP^T = V dO^T
+// (m64n64k16 from shared memory, K-major), P^T and dS^T in registers,
+// rounded to bf16 as the A operands of dV += P^T dO and dK += dS^T Q (dO
+// and Q read MN-major from the same swizzled tiles); dk and dv stay in
+// float32 registers and are written once.
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, TcParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + 2 * kKvBox;
+  uint8_t* qd = vs + 2 * kKvBox;  // stage st at qd + st kKvStage
+  // stage st's lse, di and query segment ids at vecs + st kKvVecs
+  uint8_t* vecs = qd + kTcStages * kKvStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vecs + kTcStages * kKvVecs);
+  uint64_t* kvbar = full + kTcStages;
+  int* taken = reinterpret_cast<int*>(kvbar + 1);  // releases, per stage
+
+  const int k0 = blockIdx.x * kKvRows;
+  const int hk = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int rep = p.h / p.h_kv;
+  const int q_begin = p.causal ? k0 : 0;
+  const int per_head = (p.s - q_begin) / kKvStep;
+  const int n_tiles = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(&full[st], 1);
+      taken[st] = 0;
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // thread 0 loads the resident tiles and the first kTcStages tiles; each
+  // later tile is loaded by the warpgroup that releases its stage second,
+  // so neither waits for the other
+  auto load_tile = [&](int t) {
+    const int st = t % kTcStages;
+    const int hq = hk * rep + t / per_head;
+    const int q0 = q_begin + (t % per_head) * kKvStep;
+    uint8_t* qt = qd + st * kKvStage;
+    float* lse_s = reinterpret_cast<float*>(vecs + st * kKvVecs);
+    const size_t row = ((size_t)bi * p.h + hq) * p.s + q0;
+    mbar_expect_tx(&full[st], 4 * kKvQBox + (p.seg ? 3 : 2) * kKvStep * 4);
+    tma_load_4d(qt, &tq, &full[st], 0, hq, q0, bi);
+    tma_load_4d(qt + kKvQBox, &tq, &full[st], 64, hq, q0, bi);
+    tma_load_4d(qt + 2 * kKvQBox, &tdo, &full[st], 0, hq, q0, bi);
+    tma_load_4d(qt + 3 * kKvQBox, &tdo, &full[st], 64, hq, q0, bi);
+    bulk_load(lse_s, p.lse + row, kKvStep * 4, &full[st]);
+    bulk_load(lse_s + kKvStep, p.di + row, kKvStep * 4, &full[st]);
+    if (p.seg)
+      bulk_load(lse_s + 2 * kKvStep, p.seg + (size_t)bi * p.s + q0,
+                kKvStep * 4, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kvbar, 4 * kKvBox);
+    tma_load_4d(ks, &tk, kvbar, 0, hk, k0, bi);
+    tma_load_4d(ks + kKvBox, &tk, kvbar, 64, hk, k0, bi);
+    tma_load_4d(vs, &tv, kvbar, 0, hk, k0, bi);
+    tma_load_4d(vs + kKvBox, &tv, kvbar, 64, hk, k0, bi);
+    for (int t = 0; t < n_tiles && t < kTcStages; ++t) load_tile(t);
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int key_a = k0 + 64 * wg + 16 * (warp & 3) + g, key_b = key_a + 8;
+  const int seg_a = p.seg ? p.seg[(size_t)bi * p.s + key_a] : 1;
+  const int seg_b = p.seg ? p.seg[(size_t)bi * p.s + key_b] : 1;
+  const float scale_log2 = p.scale * kLog2e;
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  const uint64_t dkd0 = sw128_desc(ks + wg * 64 * 128);
+  const uint64_t dvd0 = sw128_desc(vs + wg * 64 * 128);
+  mbar_wait(kvbar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages;
+    const int q0 = q_begin + (t % per_head) * kKvStep;
+    uint8_t* qt = qd + st * kKvStage;
+    const float* lse_s =
+        reinterpret_cast<const float*>(vecs + st * kKvVecs);
+    const float* di_s = lse_s + kKvStep;
+    const int* segq = reinterpret_cast<const int*>(lse_s + 2 * kKvStep);
+    mbar_wait(&full[st], (t / kTcStages) & 1);
+
+    float sc[32], dp[32];
+    const uint64_t dkd = opaque(dkd0), dvd = opaque(dvd0);
+    const uint64_t dq = sw128_desc(qt), ddo = sw128_desc(qt + 2 * kKvQBox);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_ss_n64(sc, dkd + kslice(kk, kKvBox), dq + kslice(kk, kKvQBox),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_ss_n64(dp, dvd + kslice(kk, kKvBox), ddo + kslice(kk, kKvQBox),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // sum 8j + u: key (u & 2 ? key_b : key_a), query q0 + 16j + 8 (u >> 2)
+    // + 2 t4 + (u & 1); the causal test only where the tile reaches the
+    // diagonal
+    const bool diag = p.causal && q0 < k0 + kKvRows;
+    uint32_t pf[4][4], sf[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float pv[8], ds[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = 16 * j + 8 * (u >> 2) + 2 * t4 + (u & 1);
+        const bool b_row = u & 2;
+        const int sg = p.seg ? segq[c] : 1;
+        const bool ok = sg == (b_row ? seg_b : seg_a)
+            && (!diag || (b_row ? key_b : key_a) <= q0 + c);
+        pv[u] = ok ? ex2(sc[8 * j + u] * scale_log2 - lse_s[c] * kLog2e)
+                   : 0.f;
+        ds[u] = (dp[8 * j + u] - di_s[c]) * pv[u] * p.scale;
+      }
+      pf[j][0] = pack_bf16(pv[0], pv[1]);
+      pf[j][1] = pack_bf16(pv[2], pv[3]);
+      pf[j][2] = pack_bf16(pv[4], pv[5]);
+      pf[j][3] = pack_bf16(pv[6], pv[7]);
+      sf[j][0] = pack_bf16(ds[0], ds[1]);
+      sf[j][1] = pack_bf16(ds[2], ds[3]);
+      sf[j][2] = pack_bf16(ds[4], ds[5]);
+      sf[j][3] = pack_bf16(ds[6], ds[7]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: the rows of dO and Q are the
+    // contracted queries (2048 bytes per 16), d runs along them, read
+    // MN-major (box 1, d 64-127, 8 KB on)
+    const uint64_t dot = sw128_mn_desc(qt + 2 * kKvQBox, kKvQBox);
+    const uint64_t qtt = sw128_mn_desc(qt, kKvQBox);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs_n128<1>(dv, pf[j], dot + j * 128);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs_n128<1>(dk, sf[j], qtt + j * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      fence_regs(pf[j]);
+      fence_regs(sf[j]);
+    }
+    if ((threadIdx.x & 127) == 0) release<kTcStages>(taken, st, t, n_tiles,
+                                                  load_tile);
+  }
+
+  const size_t off = ((size_t)bi * p.s * p.h_kv + hk) * 128;
+  const size_t stride = (size_t)p.h_kv * 128;
+  store_rows(dk, static_cast<__nv_bfloat16*>(p.out0) + off, stride, key_a,
+             t4);
+  store_rows(dv, static_cast<__nv_bfloat16*>(p.out1) + off, stride, key_a,
+             t4);
+}
+
+// The four tensor maps of q, dout (boxes of `q_rows` tokens) and k, v
+// (boxes of `kv_rows`).
+int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
+                const void* v, const void* dout, int b, int s, int h,
+                int h_kv, int q_rows, int kv_rows) {
+  int code = encode_bshd(&maps[0], q, b, s, h, 128, q_rows);
+  if (!code) code = encode_bshd(&maps[1], dout, b, s, h, 128, q_rows);
+  if (!code) code = encode_bshd(&maps[2], k, b, s, h_kv, 128, kv_rows);
+  if (!code) code = encode_bshd(&maps[3], v, b, s, h_kv, 128, kv_rows);
+  return code;
+}
+
+template <typename Kernel>
+int launch_tc(Kernel kernel, bool& sized, int smem, dim3 grid,
+              const CUtensorMap (&maps)[4], const TcParams& p,
+              cudaStream_t stream) {
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  kernel<<<grid, kTcThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                             maps[3], p);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
            cudaStream_t stream) {
@@ -694,8 +1124,47 @@ int fa_backward_dq(const void* q, const void* k, const void* v,
   }
 }
 
-const char* fa_bwd_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// The `wgmma` variants: bf16, d = 128, s a multiple of 128, every pointer
+// 16-byte aligned (TMA reads q, k, v, dout; lse, di and the segment ids
+// are copied in bulk). The same arguments and codes as fa_backward_dkv and
+// fa_backward_dq, less is_bf16, or a descriptor-encoding code that
+// fa_bwd_error_string names.
+int fa_backward_dkv_tc(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       const int* seg, void* dk, void* dv, int b, int s,
+                       int h, int h_kv, int d, float scale, int causal,
+                       void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0) return 0;
+  if (int err = check(b, s, h, h_kv)) return err;
+  if (d != 128 || s % kKvRows) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (int code = encode_maps(maps, q, k, v, dout, b, s, h, h_kv, kKvStep,
+                             kKvRows))
+    return code;
+  static bool sized = false;
+  const TcParams p{lse, di, seg, dk, dv, s, h, h_kv, scale, causal};
+  return launch_tc(dkv_wgmma_kernel, sized, kKvSmem,
+                   dim3(s / kKvRows, h_kv, b), maps, p, (cudaStream_t)stream);
 }
+
+int fa_backward_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di,
+                      const int* seg, void* dq, int b, int s, int h,
+                      int h_kv, int d, float scale, int causal,
+                      void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0) return 0;
+  if (int err = check(b, s, h, h_kv)) return err;
+  if (d != 128 || s % kDqRows) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (int code = encode_maps(maps, q, k, v, dout, b, s, h, h_kv, kDqRows,
+                             kDqKeys))
+    return code;
+  static bool sized = false;
+  const TcParams p{lse, di, seg, dq, nullptr, s, h, h_kv, scale, causal};
+  return launch_tc(dq_wgmma_kernel, sized, kDqSmem, dim3(s / kDqRows, h, b),
+                   maps, p, (cudaStream_t)stream);
+}
+
+const char* fa_bwd_error_string(int code) { return hopper_error_string(code); }
 
 }  // extern "C"

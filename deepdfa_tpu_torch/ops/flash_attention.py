@@ -26,16 +26,24 @@ custom VJP (``_flash_attention_bwd``: the dk/dv and dq Pallas kernels):
 
 :func:`flash_attention` on CUDA tensors launches the hand-written kernels of
 ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (built for
-``sm_90a`` at first use; bf16 on ``mma.sync`` tensor-core instructions,
-float32 on FFMA) or raises ``RuntimeError`` when they do not build or
-launch. When a gradient is needed, B6 also writes each row's logsumexp and
-the call's backward launches B6b (two kernels: dk/dv, then dq); under
-``no_grad`` or ``inference_mode`` it writes none. On CPU tensors it runs
+``sm_90a`` at first use; the variants below) or raises ``RuntimeError``
+when they do not build or launch. When a gradient is needed, B6 also
+writes each row's logsumexp and the call's backward launches B6b (two
+kernels: dk/dv, then dq); under ``no_grad`` or ``inference_mode`` it
+writes none. On CPU tensors it runs
 :func:`flash_attention_reference`, and autograd differentiates that. Head
 widths other than 16, 32, 64 and 128 raise ``ValueError`` on both.
-``n_launches`` counts B6's launches (one per call), ``n_bwd_launches``
-B6b's (two per backward). :func:`flash_attention_backward_reference` is
-B6b's plain version.
+
+B6 and B6b have three variants each, chosen by :func:`variant` before the
+launch (a call's forward and backward take the same one): ``"wgmma"``
+(bf16 at d 128 with s a multiple of 128, the shapes of CodeLlama-7B and
+13B: TMA loads into a shared-memory ring and Hopper's ``wgmma`` tensor-core
+products), ``"mma"`` (other bf16: ``mma.sync`` tensor-core instructions)
+and ``"ffma"`` (float32). A failed launch raises; no variant falls back to
+another. ``n_launches`` counts B6's launches (one per call),
+``n_bwd_launches`` B6b's (two per backward), ``n_variant_launches`` and
+``n_bwd_variant_launches`` each by variant.
+:func:`flash_attention_backward_reference` is B6b's plain version.
 """
 
 from __future__ import annotations
@@ -46,18 +54,24 @@ import torch
 
 from deepdfa_tpu_torch.ops import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_backward",
-           "flash_attention_backward_reference", "flash_attention_forward",
-           "flash_attention_reference",
-           "n_bwd_launches", "n_launches"]
+__all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "flash_attention_forward", "flash_attention_reference",
+           "n_bwd_launches", "n_bwd_variant_launches", "n_launches",
+           "n_variant_launches", "variant"]
 
 # head widths the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
+VARIANTS = ("wgmma", "mma", "ffma")
+# the multiple of s the wgmma variant takes: its query and key tiles
+TC_TILE = 128
 
 # CUDA kernel launches made by flash_attention since the last reset: B6
-# (forward) and B6b (backward, dk/dv and dq).
+# (forward) and B6b (backward, dk/dv and dq), in all and by variant.
 n_launches = 0
 n_bwd_launches = 0
+n_variant_launches = dict.fromkeys(VARIANTS, 0)
+n_bwd_variant_launches = dict.fromkeys(VARIANTS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +87,9 @@ def _kernels() -> ctypes.CDLL:
         lib.fa_forward.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _P]
         lib.fa_forward.restype = _I
+        lib.fa_forward_tc.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _F, _I, _P]
+        lib.fa_forward_tc.restype = _I
         lib.fa_error_string.argtypes = [_I]
         lib.fa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -87,6 +104,10 @@ def _bwd_kernels() -> ctypes.CDLL:
         lib.fa_backward_dkv.restype = _I
         lib.fa_backward_dq.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]
         lib.fa_backward_dq.restype = _I
+        lib.fa_backward_dkv_tc.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _P]
+        lib.fa_backward_dkv_tc.restype = _I
+        lib.fa_backward_dq_tc.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
+        lib.fa_backward_dq_tc.restype = _I
         lib.fa_bwd_error_string.argtypes = [_I]
         lib.fa_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
@@ -187,7 +208,8 @@ def flash_attention_backward_reference(
 
 def _row_dot(o, do) -> torch.Tensor:
     """``di = rowsum(o·do)`` ``[b, h, s]`` in float32."""
-    di = (o.to(torch.float32) * do.to(torch.float32)).sum(dim=-1)
+    # do is promoted inside the product: no float32 copy of it is made
+    di = (o.to(torch.float32) * do).sum(dim=-1)
     return di.transpose(1, 2)
 
 
@@ -233,6 +255,28 @@ def _check_residuals(q, o, do, lse) -> None:
                          "on one device")
 
 
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The variant of B6 and B6b that takes ``q``, ``k``, ``v`` as the
+    caller hands them over.
+
+    ``"ffma"`` for float32. For bf16, ``"wgmma"`` when d is 128, s is a
+    multiple of 128 (the kernels' tiles) and TMA can describe each operand:
+    a 16-byte aligned base address, the last axis dense and every other
+    stride a multiple of 16 bytes (a view with a storage offset may not
+    be); ``"mma"`` otherwise. Every shape of the LLM tier (CodeLlama-7B
+    and 13B: d 128, s 256-2048) takes ``"wgmma"``."""
+    if q.dtype != torch.bfloat16:
+        return "ffma"
+    s, d = q.shape[1], q.shape[3]
+    if d != 128 or s % TC_TILE:
+        return "mma"
+    for x in (q, k, v):
+        if x.data_ptr() % 16 or x.stride(-1) != 1 \
+                or any(st % 8 for st in x.stride()[:-1]):
+            return "mma"
+    return "wgmma"
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` dense (strides of its own shape: an expanded or transposed
     view is copied) at a 16-byte aligned address, as the kernels index it."""
@@ -240,38 +284,47 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_forward(q, k, v, seg, causal: bool, with_lse: bool):
-    """B6 on CUDA tensors: the output and, when asked, the row logsumexp
-    ``[b, h, s]`` float32 (else None)."""
+def _launch_forward(q, k, v, seg, causal: bool, with_lse: bool,
+                    kind: str | None = None):
+    """B6's variant ``kind`` (by default :func:`variant`'s) on CUDA
+    tensors: the output and, when asked, the row logsumexp ``[b, h, s]``
+    float32 (else None)."""
     global n_launches
+    kind = kind or variant(q, k, v)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel():
         lib = _kernels()
-        code = lib.fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if seg is None else seg.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, s, h, k.shape[2], d, d ** -0.5, int(causal),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if seg is None else seg.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                b, s, h, k.shape[2], d, d ** -0.5, int(causal))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "wgmma":
+            code = lib.fa_forward_tc(*args, stream)
+        else:
+            code = lib.fa_forward(*args, int(kind == "mma"), stream)
         if code != 0:
             msg = lib.fa_error_string(code).decode()
-            raise RuntimeError(f"flash_attention: launch failed: {msg} "
-                               f"({code})")
+            raise RuntimeError(f"flash_attention: {kind} launch failed: "
+                               f"{msg} ({code})")
         n_launches += 1
+        n_variant_launches[kind] += 1
     return out, lse
 
 
-def _launch_backward(q, k, v, o, do, lse, seg, causal: bool):
-    """B6b on CUDA tensors: ``(dq, dk, dv)``, two launches (dk/dv, then
-    dq); ``di = rowsum(o·do)`` in float32 is a torch op, as the JAX wrapper
+def _launch_backward(q, k, v, o, do, lse, seg, causal: bool,
+                     kind: str | None = None):
+    """B6b's variant ``kind`` (by default :func:`variant`'s) on CUDA
+    tensors: ``(dq, dk, dv)``, two launches (dk/dv, then dq);
+    ``di = rowsum(o·do)`` in float32 is a torch op, as the JAX wrapper
     computes it outside its kernels. The kernels read every tensor dense:
     a cotangent that autograd hands over expanded (``out.sum()``) or
     transposed is copied first."""
     global n_bwd_launches
+    kind = kind or variant(q, k, v)
     b, s, h, d = q.shape
     q, k, v, do, lse = (_aligned(x) for x in (q, k, v, do, lse))
     di = _row_dot(o, do).contiguous()
@@ -281,23 +334,27 @@ def _launch_backward(q, k, v, o, do, lse, seg, causal: bool):
     lib = _bwd_kernels()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     seg_ptr = None if seg is None else seg.data_ptr()
-    args = (b, s, h, k.shape[2], d, d ** -0.5, int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+    args = (b, s, h, k.shape[2], d, d ** -0.5, int(causal))
+    args += (stream,) if kind == "wgmma" else (int(kind == "mma"), stream)
+    suffix = "_tc" if kind == "wgmma" else ""
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), di.data_ptr(), seg_ptr)
     for name, outs in (("fa_backward_dkv", (dk.data_ptr(), dv.data_ptr())),
                        ("fa_backward_dq", (dq.data_ptr(),))):
-        code = getattr(lib, name)(*inputs, *outs, *args)
+        code = getattr(lib, name + suffix)(*inputs, *outs, *args)
         if code != 0:
             msg = lib.fa_bwd_error_string(code).decode()
-            raise RuntimeError(f"flash_attention backward: {name} launch "
-                               f"failed: {msg} ({code})")
+            raise RuntimeError(f"flash_attention backward: {name}{suffix} "
+                               f"({kind}) launch failed: {msg} ({code})")
         n_bwd_launches += 1
+        n_bwd_variant_launches[kind] += 1
     return dq, dk, dv
 
 
 def _seg(pad_mask):
-    return None if pad_mask is None else pad_mask.to(torch.int32).contiguous()
+    """The segment ids ``[b, s]`` int32, dense and 16-byte aligned (the
+    wgmma kernels copy them in bulk), or None."""
+    return None if pad_mask is None else _aligned(pad_mask.to(torch.int32))
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -311,8 +368,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v, pad_mask)
     if q.device.type == "cpu":
         return _reference_forward(q, k, v, pad_mask, causal)
+    kind = variant(q, k, v)
     return _launch_forward(_aligned(q), _aligned(k), _aligned(v),
-                           _seg(pad_mask), causal, with_lse=True)
+                           _seg(pad_mask), causal, with_lse=True, kind=kind)
 
 
 def flash_attention_backward(
@@ -329,15 +387,19 @@ def flash_attention_backward(
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse,
                                                   pad_mask, causal=causal)
-    return _launch_backward(q, k, v, o, do, lse, _seg(pad_mask), causal)
+    return _launch_backward(q, k, v, o, do, lse, _seg(pad_mask), causal,
+                            kind=variant(q, k, v))
 
 
 class _Flash(torch.autograd.Function):
-    """B6 forward with its logsumexp saved, B6b backward."""
+    """B6 forward with its logsumexp saved, B6b backward, both of variant
+    ``kind`` (by default :func:`variant`'s)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, causal):
-        out, lse = _launch_forward(q, k, v, seg, causal, with_lse=True)
+    def forward(ctx, q, k, v, seg, causal, kind=None):
+        ctx.kind = kind or variant(q, k, v)
+        out, lse = _launch_forward(q, k, v, seg, causal, with_lse=True,
+                                   kind=ctx.kind)
         ctx.save_for_backward(q, k, v, out, lse,
                               *(() if seg is None else (seg,)))
         ctx.causal = causal
@@ -347,8 +409,9 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse, *seg = ctx.saved_tensors
         seg = seg[0] if seg else None
-        grads = _launch_backward(q, k, v, out, do, lse, seg, ctx.causal)
-        return (*grads, None, None)
+        grads = _launch_backward(q, k, v, out, do, lse, seg, ctx.causal,
+                                 ctx.kind)
+        return (*grads, None, None, None)
 
 
 def _needs_grad(*xs) -> bool:
@@ -364,12 +427,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``d`` in :data:`HEAD_DIMS`), ``pad_mask`` ``[b, s]`` bool (True = real
     token) or None for one segment. CUDA tensors launch B6, and B6b in the
     backward when a gradient is needed, or raise ``RuntimeError``; CPU
-    tensors run :func:`flash_attention_reference`."""
+    tensors run :func:`flash_attention_reference`. The variant is
+    :func:`variant` of the tensors as handed over."""
     _check(q, k, v, pad_mask)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, pad_mask, causal=causal)
+    kind = variant(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     seg = _seg(pad_mask)
     if _needs_grad(q, k, v):
-        return _Flash.apply(q, k, v, seg, causal)
-    return _launch_forward(q, k, v, seg, causal, with_lse=False)[0]
+        return _Flash.apply(q, k, v, seg, causal, kind)
+    return _launch_forward(q, k, v, seg, causal, with_lse=False,
+                           kind=kind)[0]

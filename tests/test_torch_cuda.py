@@ -463,27 +463,37 @@ def _attention_inputs(b, s, h, h_kv, d, dtype, seed):
     return q, k, v, mask.cuda()
 
 
+# (b, s, h, h_kv, d, dtype, causal, the variant the shape takes)
+ATTENTION_CASES = [
+    (2, 256, 4, 4, 128, "bfloat16", True, "wgmma"),   # the 7B head width
+    (3, 384, 8, 2, 128, "bfloat16", True, "wgmma"),   # grouped kv heads
+    (2, 256, 4, 2, 128, "bfloat16", False, "wgmma"),  # not causal
+    (3, 200, 8, 2, 64, "bfloat16", True, "mma"),     # ragged s, grouped
+    (2, 128, 2, 1, 32, "bfloat16", False, "mma"),    # not causal
+    (2, 200, 2, 2, 128, "bfloat16", True, "mma"),    # s off the wgmma tile
+    (2, 128, 4, 2, 16, "float32", True, "ffma"),     # tiny_llama
+    (2, 100, 2, 2, 128, "float32", True, "ffma"),    # ragged, FFMA at 128
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal", [
-    (2, 256, 4, 4, 128, "bfloat16", True),   # the 7B head width
-    (3, 200, 8, 2, 64, "bfloat16", True),    # ragged s, grouped kv heads
-    (2, 128, 2, 1, 32, "bfloat16", False),   # not causal
-    (2, 128, 4, 2, 16, "float32", True),     # tiny_llama
-    (2, 100, 2, 2, 128, "float32", True),    # ragged, the FFMA kernel at 128
-])
+@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal,variant",
+                         ATTENTION_CASES)
 def test_flash_kernel_matches_plain_version(cuda, b, s, h, h_kv, d, dtype,
-                                            causal):
+                                            causal, variant):
     from deepdfa_tpu_torch.ops import flash_attention as tfa
 
     q, k, v, mask = _attention_inputs(b, s, h, h_kv, d, dtype, s + d)
+    assert tfa.variant(q, k, v) == variant
     for m in (mask, None):
-        before = tfa.n_launches
+        before = tfa.n_launches, tfa.n_variant_launches[variant]
         with torch.inference_mode():
             got = tfa.flash_attention(q, k, v, m, causal=causal)
             again = tfa.flash_attention(q, k, v, m, causal=causal)
             want = tfa.flash_attention_reference(q, k, v, m, causal=causal)
         torch.cuda.synchronize()
-        assert tfa.n_launches - before == 2
+        assert tfa.n_launches - before[0] == 2
+        assert tfa.n_variant_launches[variant] - before[1] == 2
         assert got.dtype == q.dtype and torch.equal(got, again)
         # each row over its own largest value: a row that sees one key has
         # outputs of ~4, one that sees hundreds of ~0.1. bf16: P rounded at
@@ -506,7 +516,8 @@ class _FailingFlashLib:
     def fa_error_string(code):
         return b"invalid argument"
 
-    fa_backward_dkv = fa_backward_dq = fa_forward
+    fa_forward_tc = fa_backward_dkv = fa_backward_dq = fa_forward
+    fa_backward_dkv_tc = fa_backward_dq_tc = fa_forward
     fa_bwd_error_string = fa_error_string
 
 
@@ -560,15 +571,10 @@ def _grad_row_err(got, want, zero_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal", [
-    (2, 256, 4, 4, 128, "bfloat16", True),   # the 7B head width
-    (3, 200, 8, 2, 64, "bfloat16", True),    # ragged s, grouped kv heads
-    (2, 128, 2, 1, 32, "bfloat16", False),   # not causal
-    (2, 128, 4, 2, 16, "float32", True),     # tiny_llama
-    (2, 100, 2, 2, 128, "float32", True),    # ragged, the FFMA kernels at 128
-])
+@pytest.mark.parametrize("b,s,h,h_kv,d,dtype,causal,variant",
+                         ATTENTION_CASES)
 def test_flash_backward_kernel_matches_plain_version(cuda, b, s, h, h_kv, d,
-                                                     dtype, causal):
+                                                     dtype, causal, variant):
     """B6b against ``flash_attention_backward_reference`` on the same
     forward output and logsumexp, each row of dq, dk and dv over that row's
     largest value: bf16 2e-2 (the JAX package's bar for its flash path;
@@ -584,13 +590,14 @@ def test_flash_backward_kernel_matches_plain_version(cuda, b, s, h, h_kv, d,
         out, lse = tfa.flash_attention_forward(q, k, v, m, causal=causal)
         _, lse_ref = tfa._reference_forward(q, k, v, m, causal)
         assert float((lse - lse_ref).abs().max()) <= 1e-4
-        before = tfa.n_bwd_launches
+        before = tfa.n_bwd_launches, tfa.n_bwd_variant_launches[variant]
         got = tfa.flash_attention_backward(q, k, v, out, do, lse, m,
                                            causal=causal)
         again = tfa.flash_attention_backward(q, k, v, out, do, lse, m,
                                              causal=causal)
         torch.cuda.synchronize()
-        assert tfa.n_bwd_launches - before == 4
+        assert tfa.n_bwd_launches - before[0] == 4
+        assert tfa.n_bwd_variant_launches[variant] - before[1] == 4
         want = tfa.flash_attention_backward_reference(q, k, v, out, do, lse,
                                                       m, causal=causal)
         mm = torch.ones(b, s, dtype=torch.bool, device="cuda") if m is None \
