@@ -1,8 +1,18 @@
 // Device code shared by the GGNN forward (fused_ggnn.cu), its training
 // backward (fused_ggnn_bwd.cu) and the whole-model forward (megabatch.cu):
-// tile sizes, the CSR row-pointer search, the FFMA row-tile linear, the
-// in-order float4 edge sum, the two fused 3-gate GRU products and the GRU
-// round kernel built from them. Each source includes it once and is built
+// the FFMA variant's tile sizes, the CSR row-pointer search, the FFMA
+// row-tile linear, the in-order float4 edge sum, the two fused 3-gate GRU
+// products and the GRU round kernel built from them, and gru_cell, the
+// FFMA arithmetic of one GRU column that the tensor-core variant
+// (ggnn_tc.cuh) also takes for the padding sink's rows.
+//
+// What bounds the FFMA variant: its products run on the FP32 units from
+// shared memory (each thread keeps 2 rows x 4 columns: shared-memory
+// bandwidth sets the pace, ~12 TFLOP/s at width 128), and one warp adds
+// the padding sink's segment serially (17k adds at the megabatch shape,
+// a row loaded once per 32 equal senders). It is kept for widths the
+// tensor-core kernels are not written for, and as the yardstick the smoke
+// times beside them. Each source includes this header once and is built
 // into its own library, so everything here has internal linkage.
 
 #pragma once
@@ -97,6 +107,26 @@ linear_kernel(const float* __restrict__ a, const float* __restrict__ w,
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The GRU update of one column from the gate products without their biases
+// (ax = agg @ xw, ah = h @ hw, r|z|n): one function, so every kernel that
+// computes a row in the FFMA arithmetic rounds it alike.
+__device__ __forceinline__ float gru_cell(float ax_r, float ax_z, float ax_n,
+                                          float ah_r, float ah_z, float ah_n,
+                                          const float* __restrict__ xb,
+                                          const float* __restrict__ hb,
+                                          int col, int d, float h) {
+  const float xr = ax_r + xb[col];
+  const float xz = ax_z + xb[d + col];
+  const float xn = ax_n + xb[2 * d + col];
+  const float hr = ah_r + hb[col];
+  const float hz = ah_z + hb[d + col];
+  const float hn = ah_n + hb[2 * d + col];
+  const float rg = sigmoid_f(xr + hr);
+  const float zg = sigmoid_f(xz + hz);
+  const float ng = tanhf(xn + rg * hn);
+  return (1.f - zg) * ng + zg * h;
 }
 
 // Sum of src[idx[e]] over entries [beg, end) of an index list, in list
@@ -268,16 +298,9 @@ gru_round_kernel(const float* __restrict__ h, const float* __restrict__ msg,
     for (int q = 0; q < 4; ++q) {
       const int col = col0 + tx + 32 * q;
       if (row >= n || col >= d) continue;
-      const float xr = ax[r][0][q] + xb[col];
-      const float xz = ax[r][1][q] + xb[d + col];
-      const float xn = ax[r][2][q] + xb[2 * d + col];
-      const float hr = ah[r][0][q] + hb[col];
-      const float hz = ah[r][1][q] + hb[d + col];
-      const float hn = ah[r][2][q] + hb[2 * d + col];
-      const float rg = sigmoid_f(xr + hr);
-      const float zg = sigmoid_f(xz + hz);
-      const float ng = tanhf(xn + rg * hn);
-      h_out[(size_t)row * d + col] = (1.f - zg) * ng + zg * h_s[rr * d + col];
+      h_out[(size_t)row * d + col] = gru_cell(
+          ax[r][0][q], ax[r][1][q], ax[r][2][q], ah[r][0][q], ah[r][1][q],
+          ah[r][2][q], xb, hb, col, d, h_s[rr * d + col]);
     }
   }
 }

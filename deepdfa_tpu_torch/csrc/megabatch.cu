@@ -9,11 +9,14 @@
 //     gate = masked softmax of s within each graph slot
 //     pooled[g] = sum over the slot's rows of gate_i * [h_i | h0_i]
 //     logits = head(pooled): linear layers with relu between them
-// in float32 on the FFMA units (no TF32, no tensor cores).
+// in float32.
 //
 // What bounds it on this card. The rounds dominate: 2*N*D*D + 12*N*D*D
 // FLOPs per round at D = 128 against a few MB of state that stays in the
-// 50 MB L2, so it is bound by FP32 operations. The epilogue adds 4*N*D for
+// 50 MB L2. At width 128 they run on B1's tensor-core variant (3xTF32
+// `wgmma`, ggnn_tc.cuh), where the edge sum's latency and the launches
+// set the pace; at other widths on B1's FFMA kernels, bound by FP32
+// operations. The epilogue adds 4*N*D for
 // the gate logits and the readout and G * sum(2*in*out) for the head, which
 // is small beside the rounds.
 //
@@ -24,12 +27,14 @@
 // launch on the caller's stream, none synchronising:
 //   1. embed_kernel: the prologue gather of every sub-table row into h0,
 //      which stays as the bank for the [h | h0] concat;
-//   2. csr_kernel (twice): the receivers' CSR row pointer, and the graph row
-//      pointer of the sorted node_gidx (nodes are contiguous per graph slot,
-//      and all padding nodes sit in the last one: the batch_np contract);
-//   3. per round, B1's two kernels from ggnn_common.cuh, unchanged: the FFMA
-//      edge linear, then the in-order aggregate and both GRU products, into
-//      a ping-pong pair of buffers;
+//   2. the receivers' CSR row pointer (with B1's tensor-core variant also
+//      the bitmask of where the sender changes: tc_prep_kernel), and the
+//      graph row pointer of the sorted node_gidx (csr_kernel; nodes are
+//      contiguous per graph slot, and all padding nodes sit in the last
+//      one: the batch_np contract);
+//   3. per round, B1's two kernels, unchanged: the edge linear, then the
+//      in-order aggregate and both GRU products, into a ping-pong pair of
+//      buffers (ggnn_tc.cuh at width 128, ggnn_common.cuh otherwise);
 //   4. pool_head_kernel: one block per graph slot walks the slot's rows:
 //      gate logits one warp per row (no concat is materialised), the masked
 //      max, the exponentials and their sum, the readout summed in row order
@@ -44,6 +49,7 @@
 #include <math.h>
 
 #include "ggnn_common.cuh"
+#include "ggnn_tc.cuh"
 
 namespace {
 
@@ -206,6 +212,32 @@ int mb_gru_round(const float* h, const float* msg, const int* row_ptr,
                  void* stream) {
   return launch_gru_round(h, msg, row_ptr, senders, xw, xb, hw, hb, h_out,
                           nullptr, n, d, (cudaStream_t)stream);
+}
+
+// B1's tensor-core variant (width 128): the receivers' row pointer and the
+// senders' change bitmask, the edge linear (which also writes the
+// padding-sink flags [n]) and the round.
+int mb_tc_prep(const int* receivers, const int* senders, int n_edges,
+               int n_nodes, int* row_ptr, unsigned int* heads, void* stream) {
+  return launch_tc_prep(receivers, senders, n_edges, n_nodes, row_ptr, heads,
+                        (cudaStream_t)stream);
+}
+
+int mb_tc_linear(const float* a, const float* w, const float* b,
+                 const int* row_ptr, const int* senders,
+                 const unsigned int* heads, int* flags, float* out, int n,
+                 void* stream) {
+  return launch_tc_linear(a, w, b, row_ptr, senders, heads, flags, out, n,
+                          (cudaStream_t)stream);
+}
+
+int mb_tc_round(const float* h, const float* msg, const int* row_ptr,
+                const int* senders, const unsigned int* heads,
+                const int* flags, const float* xw, const float* xb,
+                const float* hw, const float* hb, float* h_out, int n,
+                void* stream) {
+  return launch_tc_round(h, msg, row_ptr, senders, heads, flags, xw, xb, hw,
+                         hb, h_out, nullptr, n, (cudaStream_t)stream);
 }
 
 // `dims` is a host array of n_layers + 1 widths (dims[0] = 2d).

@@ -9,20 +9,29 @@ GRU) and keeps the JAX package's public signature and ``[in, out]`` weight
 layout:
 
 - on CUDA tensors it launches the kernels of ``csrc/fused_ggnn.cu`` (built
-  for ``sm_90a`` at first use): one CSR build per call, then two launches
-  per round. When a gradient is needed, the call goes through a
+  for ``sm_90a`` at first use): one row-pointer build per call, then two
+  launches per round. When a gradient is needed, the call goes through a
   ``torch.autograd.Function`` whose forward banks each round's pre-update
   state and aggregate, and whose backward launches the kernels of
-  ``csrc/fused_ggnn_bwd.cu``: one CSC build, six launches per reverse round
-  and one final reduction. A failed build or launch raises; nothing falls
-  back;
+  ``csrc/fused_ggnn_bwd.cu``: one CSC build, then three launches per
+  reverse round (six with the ``"ffma"`` variant) and one final reduction.
+  A failed
+  build or launch raises; nothing falls back;
 - on CPU tensors it runs :func:`fused_ggnn_reference` forward and
   :func:`fused_ggnn_backward_reference` backward, the same math in plain
   torch.
 
+Both directions have two variants, chosen by :func:`variant` from the
+width: ``"wgmma"`` (width 128 after padding to a multiple of 4, the golden
+width and every bucket of the main paths: 3xTF32 products on the tensor
+cores, the edge sum with runs of one sender in closed form) and ``"ffma"``
+(any other width: float32 FFMA products, the serial edge sum). Both sum
+every edge segment in edge-list order, bit for bit the serial float32 sum.
+
 ``n_launches`` counts the forward's CUDA kernel launches
 (:func:`launches_per_call` per call) and ``n_bwd_launches`` the backward's
-(:func:`bwd_launches_per_call` per call), one per launch.
+(:func:`bwd_launches_per_call` per call), one per launch;
+``n_variant_launches`` and ``n_bwd_variant_launches`` count them by variant.
 """
 
 from __future__ import annotations
@@ -33,14 +42,21 @@ import torch
 
 from deepdfa_tpu_torch.ops import _build
 
-__all__ = ["BWD_KERNELS", "bwd_launches_per_call", "fused_ggnn",
-           "fused_ggnn_backward_reference", "fused_ggnn_reference",
-           "launches_per_call", "n_bwd_launches", "n_launches"]
+__all__ = ["BWD_KERNELS", "TC_WIDTH", "VARIANTS", "bwd_launches_per_call",
+           "fused_ggnn", "fused_ggnn_backward_reference",
+           "fused_ggnn_reference", "heads_words", "launches_per_call",
+           "n_bwd_launches", "n_bwd_variant_launches", "n_launches",
+           "n_variant_launches", "variant"]
 
+VARIANTS = ("wgmma", "ffma")
 # CUDA kernel launches made by fused_ggnn's forward (B1) and backward (B2)
-# since the last reset.
+# since the last reset, in all and by variant
 n_launches = 0
 n_bwd_launches = 0
+n_variant_launches = dict.fromkeys(VARIANTS, 0)
+n_bwd_variant_launches = dict.fromkeys(VARIANTS, 0)
+# the one width the tensor-core variant takes (csrc/ggnn_tc.cuh kTcD)
+TC_WIDTH = 128
 
 # Values of the ``bwd_kernel`` option (the JAX package's backward tiers).
 # On the card "auto" and "pallas" select the backward kernel and "xla"
@@ -62,7 +78,11 @@ def _kernels() -> ctypes.CDLL:
         lib.ggnn_csr.argtypes = [_P, _I, _I, _P, _P]
         lib.ggnn_linear.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.ggnn_gru_round.argtypes = [_P] * 10 + [_I, _I, _P]
-        for fn in (lib.ggnn_csr, lib.ggnn_linear, lib.ggnn_gru_round):
+        lib.ggnn_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
+        lib.ggnn_tc_linear.argtypes = [_P] * 8 + [_I, _P]
+        lib.ggnn_tc_round.argtypes = [_P] * 12 + [_I, _P]
+        for fn in (lib.ggnn_csr, lib.ggnn_linear, lib.ggnn_gru_round,
+                   lib.ggnn_tc_prep, lib.ggnn_tc_linear, lib.ggnn_tc_round):
             fn.restype = _I
         lib.ggnn_max_width.argtypes = []
         lib.ggnn_max_width.restype = _I
@@ -83,9 +103,15 @@ def _bwd_kernels() -> ctypes.CDLL:
         lib.ggnn_bwd_transpose_sum.argtypes = [_P, _P, _P, _P, _I, _I, _P]
         lib.ggnn_bwd_wgrad.argtypes = [_P] * 6 + [_I, _I, _I, _P]
         lib.ggnn_bwd_reduce.argtypes = [_P, _I, _I, _P, _P]
+        lib.ggnn_bwd_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
+        lib.ggnn_bwd_tc_gate.argtypes = [_P] * 11 + [_I, _P]
+        lib.ggnn_bwd_tc_tsum.argtypes = [_P] * 7 + [_I, _P]
+        lib.ggnn_bwd_tc_wgrad.argtypes = [_P] * 6 + [_I, _I, _P]
         for fn in (lib.ggnn_bwd_csc, lib.ggnn_bwd_gate, lib.ggnn_bwd_linear,
                    lib.ggnn_bwd_transpose_sum, lib.ggnn_bwd_wgrad,
-                   lib.ggnn_bwd_reduce):
+                   lib.ggnn_bwd_reduce, lib.ggnn_bwd_tc_prep,
+                   lib.ggnn_bwd_tc_gate, lib.ggnn_bwd_tc_tsum,
+                   lib.ggnn_bwd_tc_wgrad):
             fn.restype = _I
         for fn in (lib.ggnn_bwd_partial_width, lib.ggnn_bwd_chunks):
             fn.argtypes = [_I]
@@ -99,16 +125,35 @@ def _bwd_kernels() -> ctypes.CDLL:
     return _bwd
 
 
+def variant(width: int) -> str:
+    """The variant of B1 and B2 that takes a call of node width ``width``:
+    ``"wgmma"`` when the width padded to a multiple of 4 is
+    :data:`TC_WIDTH` (the tensor-core kernels are written for it), else
+    ``"ffma"``."""
+    return "wgmma" if -(-width // 4) * 4 == TC_WIDTH else "ffma"
+
+
 def launches_per_call(n_steps: int) -> int:
-    """CUDA launches one :func:`fused_ggnn` forward makes."""
+    """CUDA launches one :func:`fused_ggnn` forward makes: the row-pointer
+    build and two per round, on either variant."""
     return 1 + 2 * n_steps if n_steps > 0 else 0
 
 
-def bwd_launches_per_call(n_steps: int) -> int:
+def bwd_launches_per_call(n_steps: int, kind: str = "wgmma") -> int:
     """CUDA launches one backward of :func:`fused_ggnn` makes: the CSC
-    build, six per reverse round, and the reduction of the weight
-    gradients."""
-    return 2 + 6 * n_steps if n_steps > 0 else 0
+    build, three per reverse round (``"wgmma"``: the gate products with the
+    two products with the transposed gate weights, the transposed edge sum
+    with the edge weight's product, the weight gradients) or six
+    (``"ffma"``), and the reduction of the weight gradients."""
+    per_round = {"wgmma": 3, "ffma": 6}[kind]
+    return 2 + per_round * n_steps if n_steps > 0 else 0
+
+
+def heads_words(n_edges: int) -> int:
+    """32-bit words of the change bitmask the tensor-core variant's edge
+    sum reads: one bit per 32 edges, at least one word
+    (``csrc/ggnn_tc.cuh`` ``heads_words``)."""
+    return max(1, -(-n_edges // 1024))
 
 
 def _gru(agg, h, xw, xb, hw, hb):
@@ -238,15 +283,23 @@ def _validate(h0, senders, receivers, ew, eb, xw, xb, hw, hb, bwd_kernel):
                              f"{tuple(t.shape)}, expected {want}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the tensor-core
+    kernels read rows as float4 and copy weight rows in bulk)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _Prepared:
     """The CUDA call's inputs at the padded width ``dp`` (a multiple of 4),
-    in float32 / int32 and contiguous."""
+    in float32 / int32 and contiguous, and the variant that takes them."""
 
     def __init__(self, h0, senders, receivers, weights, limit: int):
         n, d = h0.shape
         self.n, self.d, self.e = n, d, senders.shape[0]
         self.dp = dp = -(-d // 4) * 4
-        if dp > limit:
+        self.variant = variant(d)
+        if self.variant == "ffma" and dp > limit:
             raise ValueError(f"fused_ggnn: width {d} exceeds the kernels' "
                              f"shared-memory limit of {limit}")
         h = h0.to(torch.float32)
@@ -254,66 +307,108 @@ class _Prepared:
         if dp != d:
             w = _pad_width(*w, d, dp)
             h = torch.nn.functional.pad(h, (0, dp - d))
-        self.h = h.contiguous()
+        self.h = _aligned(h)
         self.ew, self.eb, self.xw, self.xb, self.hw, self.hb = (
-            t.contiguous() for t in w)
+            _aligned(t) for t in w)
         self.snd = senders.to(torch.int32).contiguous()
         self.rcv = receivers.to(torch.int32).contiguous()
-        self.stream = torch.cuda.current_stream(h0.device).cuda_stream
 
 
-def _forward_cuda(p: _Prepared, n_steps: int, bank: bool):
-    """B1's rounds on the card. With ``bank`` every round writes a buffer of
-    its own, so ``states[t]`` is round t's pre-update state, and
-    ``aggs[t]`` its aggregate; otherwise two buffers alternate. Returns
-    ``(out [n, dp], states, aggs)``."""
-    global n_launches
+def _run(lib: ctypes.CDLL, kind: str, bwd: bool, what: str, fn, *args):
+    """Launch one kernel through ``fn``, raise if it was refused, and count
+    it for its direction and variant."""
+    global n_launches, n_bwd_launches
+    _check(lib, fn(*args), what)
+    if bwd:
+        n_bwd_launches += 1
+        n_bwd_variant_launches[kind] += 1
+    else:
+        n_launches += 1
+        n_variant_launches[kind] += 1
+
+
+def _check_kind(p: _Prepared, kind: str | None) -> str:
+    kind = kind or p.variant
+    if kind not in VARIANTS:
+        raise ValueError(f"unknown variant {kind!r}")
+    if kind == "wgmma" and p.dp != TC_WIDTH:
+        raise ValueError(f"fused_ggnn: the wgmma variant takes width "
+                         f"{TC_WIDTH}, not {p.dp}")
+    return kind
+
+
+def _forward_cuda(p: _Prepared, n_steps: int, bank: bool,
+                  kind: str | None = None):
+    """B1's rounds on the card, on ``p.variant`` unless ``kind`` names the
+    other. With ``bank`` every round writes a buffer of its own, so
+    ``states[t]`` is round t's pre-update state, and ``aggs[t]`` its
+    aggregate; otherwise two buffers alternate. Returns ``(out [n, dp],
+    states, aggs)``."""
+    kind = _check_kind(p, kind)
     lib = _kernels()
-    n, dp = p.n, p.dp
-    row_ptr = torch.empty(n + 1, dtype=torch.int32, device=p.h.device)
+    n, dp, dev = p.n, p.dp, p.h.device
+    # the stream current at the call (a backward may run on another one
+    # than its forward, a captured call on the capture's)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    run = lambda what, fn, *args: _run(lib, kind, False, what, fn, *args,
+                                       stream)
+    row_ptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
     msg = torch.empty_like(p.h)
     out = torch.empty_like(p.h)
     if bank:
-        later = torch.empty((n_steps - 1, n, dp), device=p.h.device)
-        aggs = torch.empty((n_steps, n, dp), device=p.h.device)
+        later = torch.empty((n_steps - 1, n, dp), device=dev)
+        aggs = torch.empty((n_steps, n, dp), device=dev)
         targets = list(later) + [out]
     else:
         # ping-pong so that the last round writes into `out`
         spare = torch.empty_like(p.h)
         targets = [out if (n_steps - 1 - t) % 2 == 0 else spare
                    for t in range(n_steps)]
-    _check(lib, lib.ggnn_csr(p.rcv.data_ptr(), p.e, n, row_ptr.data_ptr(),
-                             p.stream), "csr")
-    n_launches += 1
+    w = [t.data_ptr() for t in (p.ew, p.eb, p.xw, p.xb, p.hw, p.hb)]
+    if kind == "wgmma":
+        heads = torch.empty(heads_words(p.e), dtype=torch.int32, device=dev)
+        # the padding sink's row, found by each round's edge linear
+        flags = torch.empty(n, dtype=torch.int32, device=dev)
+        run("tc_prep", lib.ggnn_tc_prep, p.rcv.data_ptr(), p.snd.data_ptr(),
+            p.e, n, row_ptr.data_ptr(), heads.data_ptr())
+    else:
+        run("csr", lib.ggnn_csr, p.rcv.data_ptr(), p.e, n, row_ptr.data_ptr())
     cur = p.h
     for t in range(n_steps):
         nxt = targets[t]
-        _check(lib, lib.ggnn_linear(cur.data_ptr(), p.ew.data_ptr(),
-                                    p.eb.data_ptr(), msg.data_ptr(), n, dp, dp,
-                                    p.stream), "linear")
-        n_launches += 1
-        _check(lib, lib.ggnn_gru_round(
-            cur.data_ptr(), msg.data_ptr(), row_ptr.data_ptr(),
-            p.snd.data_ptr(), p.xw.data_ptr(), p.xb.data_ptr(),
-            p.hw.data_ptr(), p.hb.data_ptr(), nxt.data_ptr(),
-            aggs[t].data_ptr() if bank else None, n, dp, p.stream),
-            "gru_round")
-        n_launches += 1
+        agg = aggs[t].data_ptr() if bank else None
+        if kind == "wgmma":
+            run("tc_linear", lib.ggnn_tc_linear, cur.data_ptr(), w[0], w[1],
+                row_ptr.data_ptr(), p.snd.data_ptr(), heads.data_ptr(),
+                flags.data_ptr(), msg.data_ptr(), n)
+            run("tc_round", lib.ggnn_tc_round, cur.data_ptr(), msg.data_ptr(),
+                row_ptr.data_ptr(), p.snd.data_ptr(), heads.data_ptr(),
+                flags.data_ptr(), *w[2:], nxt.data_ptr(), agg, n)
+        else:
+            run("linear", lib.ggnn_linear, cur.data_ptr(), w[0], w[1],
+                msg.data_ptr(), n, dp, dp)
+            run("gru_round", lib.ggnn_gru_round, cur.data_ptr(),
+                msg.data_ptr(), row_ptr.data_ptr(), p.snd.data_ptr(), *w[2:],
+                nxt.data_ptr(), agg, n, dp)
         cur = nxt
     if not bank:
         return out, None, None
     return out, [p.h] + list(later), list(aggs)
 
 
-def _backward_cuda(p: _Prepared, states, aggs, g: torch.Tensor):
+def _backward_cuda(p: _Prepared, states, aggs, g: torch.Tensor,
+                   kind: str | None = None):
     """B2's reverse rounds on the card from the banked states and
-    aggregates. Returns the unpadded ``(dh0, dew, deb, dxw, dxb, dhw,
-    dhb)``."""
-    global n_bwd_launches
+    aggregates, on ``p.variant`` unless ``kind`` names the other. Returns
+    the unpadded ``(dh0, dew, deb, dxw, dxb, dhw, dhb)``."""
+    kind = _check_kind(p, kind)
     lib = _bwd_kernels()
     n, d, dp, e = p.n, p.d, p.dp, p.e
     n_steps = len(states)
     dev = p.h.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    run = lambda what, fn, *args: _run(lib, kind, True, what, fn, *args,
+                                       stream)
     # the running cotangent, in buffers of its own (the rounds write them)
     dh = torch.zeros((n, dp), device=dev)
     dh[:, :d] = g
@@ -322,47 +417,54 @@ def _backward_cuda(p: _Prepared, states, aggs, g: torch.Tensor):
     csc_snd, order = torch.sort(p.snd, stable=True)
     csc_rcv = p.rcv[order].contiguous()
     csc_ptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    _check(lib, lib.ggnn_bwd_csc(csc_snd.data_ptr(), e, n, csc_ptr.data_ptr(),
-                                 p.stream), "csc")
-    n_bwd_launches += 1
-    xw_t, hw_t, ew_t = (w.t().contiguous() for w in (p.xw, p.hw, p.ew))
     dxp = torch.empty((n, 3 * dp), device=dev)
-    dhp = torch.empty_like(dxp)
+    # dhp = [dpre_r | dpre_z | dpre_n r]: the FFMA kernels write all of it,
+    # the tensor-core ones its last block (dhn) beside dxp
+    dhp = torch.empty((n, (3 if kind == "ffma" else 1) * dp), device=dev)
     dagg = torch.empty((n, dp), device=dev)
     dmsg = torch.empty_like(dagg)
     dh_next = torch.empty_like(dagg)
     chunks = lib.ggnn_bwd_chunks(n)
     ld = lib.ggnn_bwd_partial_width(dp)
     part = torch.empty((chunks, ld), device=dev)
+    ew, xw, xb, hw, hb = (t.data_ptr() for t in (p.ew, p.xw, p.xb, p.hw, p.hb))
+    if kind == "wgmma":
+        heads = torch.empty(heads_words(e), dtype=torch.int32, device=dev)
+        run("tc_prep", lib.ggnn_bwd_tc_prep, csc_snd.data_ptr(),
+            csc_rcv.data_ptr(), e, n, csc_ptr.data_ptr(), heads.data_ptr())
+    else:
+        run("csc", lib.ggnn_bwd_csc, csc_snd.data_ptr(), e, n,
+            csc_ptr.data_ptr())
+        xw_t, hw_t, ew_t = (w.t().contiguous() for w in (p.xw, p.hw, p.ew))
     for i, t in enumerate(reversed(range(n_steps))):
-        h, agg = states[t], aggs[t]
-        _check(lib, lib.ggnn_bwd_gate(
-            h.data_ptr(), agg.data_ptr(), dh.data_ptr(), p.xw.data_ptr(),
-            p.xb.data_ptr(), p.hw.data_ptr(), p.hb.data_ptr(),
-            dxp.data_ptr(), dhp.data_ptr(), dh_next.data_ptr(), n, dp,
-            p.stream), "gate_bwd")
-        _check(lib, lib.ggnn_bwd_linear(dxp.data_ptr(), xw_t.data_ptr(),
-                                        dagg.data_ptr(), n, 3 * dp, dp, 0,
-                                        p.stream), "linear (dagg)")
-        _check(lib, lib.ggnn_bwd_linear(dhp.data_ptr(), hw_t.data_ptr(),
-                                        dh_next.data_ptr(), n, 3 * dp, dp, 1,
-                                        p.stream), "linear (dh)")
-        _check(lib, lib.ggnn_bwd_transpose_sum(
-            dagg.data_ptr(), csc_ptr.data_ptr(), csc_rcv.data_ptr(),
-            dmsg.data_ptr(), n, dp, p.stream), "transpose_sum")
-        _check(lib, lib.ggnn_bwd_linear(dmsg.data_ptr(), ew_t.data_ptr(),
-                                        dh_next.data_ptr(), n, dp, dp, 1,
-                                        p.stream), "linear (dmsg)")
-        _check(lib, lib.ggnn_bwd_wgrad(
-            agg.data_ptr(), dxp.data_ptr(), h.data_ptr(), dhp.data_ptr(),
-            dmsg.data_ptr(), part.data_ptr(), n, dp, int(i > 0), p.stream),
-            "wgrad")
-        n_bwd_launches += 6
+        h, agg = states[t].data_ptr(), aggs[t].data_ptr()
+        gate = (h, agg, dh.data_ptr(), xw, xb, hw, hb, dxp.data_ptr(),
+                dhp.data_ptr())
+        wgrad = (agg, dxp.data_ptr(), h, dhp.data_ptr(), dmsg.data_ptr(),
+                 part.data_ptr(), n)
+        if kind == "wgmma":
+            run("tc_gate", lib.ggnn_bwd_tc_gate, *gate, dagg.data_ptr(),
+                dh_next.data_ptr(), n)
+            run("tc_tsum", lib.ggnn_bwd_tc_tsum, dagg.data_ptr(),
+                csc_ptr.data_ptr(), csc_rcv.data_ptr(), heads.data_ptr(), ew,
+                dmsg.data_ptr(), dh_next.data_ptr(), n)
+            run("tc_wgrad", lib.ggnn_bwd_tc_wgrad, *wgrad, int(i > 0))
+        else:
+            run("gate_bwd", lib.ggnn_bwd_gate, *gate, dh_next.data_ptr(), n,
+                dp)
+            run("linear (dagg)", lib.ggnn_bwd_linear, dxp.data_ptr(),
+                xw_t.data_ptr(), dagg.data_ptr(), n, 3 * dp, dp, 0)
+            run("linear (dh)", lib.ggnn_bwd_linear, dhp.data_ptr(),
+                hw_t.data_ptr(), dh_next.data_ptr(), n, 3 * dp, dp, 1)
+            run("transpose_sum", lib.ggnn_bwd_transpose_sum, dagg.data_ptr(),
+                csc_ptr.data_ptr(), csc_rcv.data_ptr(), dmsg.data_ptr(), n, dp)
+            run("linear (dmsg)", lib.ggnn_bwd_linear, dmsg.data_ptr(),
+                ew_t.data_ptr(), dh_next.data_ptr(), n, dp, dp, 1)
+            run("wgrad", lib.ggnn_bwd_wgrad, *wgrad, dp, int(i > 0))
         dh, dh_next = dh_next, dh
     flat = torch.empty(ld, device=dev)
-    _check(lib, lib.ggnn_bwd_reduce(part.data_ptr(), chunks, ld,
-                                    flat.data_ptr(), p.stream), "reduce")
-    n_bwd_launches += 1
+    run("reduce", lib.ggnn_bwd_reduce, part.data_ptr(), chunks, ld,
+        flat.data_ptr())
     sizes = [dp * 3 * dp, 3 * dp, dp * 3 * dp, 3 * dp, dp * dp, dp]
     dxw, dxb, dhw, dhb, dew, deb = flat.split(sizes)
     grads = _unpad_grads(dew.view(dp, dp), deb, dxw.view(dp, 3 * dp), dxb,

@@ -11,11 +11,13 @@ The port of ``deepdfa_tpu/ops/megabatch.py``:
 - :func:`fused_ggnn_model` runs embed → ``n_steps`` message rounds →
   attention pooling → head, one logit per graph slot. On CUDA tensors it
   launches the hand-written kernels of ``csrc/megabatch.cu`` (kernel B3,
-  built for ``sm_90a`` at first use: an embedding gather, two CSR builds,
-  B1's two launches per round and one pooling + head launch) or raises; on
-  CPU tensors it runs :func:`megabatch_reference`, the same math in plain
-  torch. ``n_launches`` counts the CUDA launches
-  (:func:`launches_per_call` per call).
+  built for ``sm_90a`` at first use: an embedding gather, two row-pointer
+  builds, B1's two launches per round on B1's variant for the width (the
+  tensor-core ``"wgmma"`` one at width 128) and one pooling + head launch)
+  or raises; on CPU tensors it runs :func:`megabatch_reference`, the same
+  math in plain torch. ``n_launches`` counts the CUDA launches
+  (:func:`launches_per_call` per call), ``n_variant_launches`` them by
+  the variant of the call's rounds.
 - :func:`fused_ggnn_encoder` is the same model stopped at the pooled
   embedding (kernel B4, the hierarchical scorer's level 1): on CUDA tensors
   B3's launches with a head of 0 layers, whose pooling launch then writes
@@ -42,13 +44,16 @@ import torch
 from deepdfa_tpu_torch.data.graphs import (BatchedGraphs, Graph, _round_up,
                                            batch_np, padding_efficiency)
 from deepdfa_tpu_torch.ops import _build
-from deepdfa_tpu_torch.ops.fused_ggnn import fused_ggnn, fused_ggnn_reference
+from deepdfa_tpu_torch.ops.fused_ggnn import (VARIANTS, fused_ggnn,
+                                              fused_ggnn_reference,
+                                              heads_words, variant)
 from deepdfa_tpu_torch.ops.segment import segment_softmax, segment_sum
 
 __all__ = ["MEGABATCH_CAP_BYTES", "MegabatchPlan", "PackResult",
            "fused_ggnn_encoder", "fused_ggnn_model", "launches_per_call",
            "megabatch_bytes", "megabatch_encoder_reference",
-           "megabatch_reference", "n_launches", "pack_megabatches"]
+           "megabatch_reference", "n_launches", "n_variant_launches",
+           "pack_megabatches"]
 
 # The packer's admission limit on megabatch_bytes: the H100's 50 MB L2
 # cache. A bin whose working buffers fit stays L2-resident across its
@@ -57,8 +62,10 @@ __all__ = ["MEGABATCH_CAP_BYTES", "MegabatchPlan", "PackResult",
 MEGABATCH_CAP_BYTES = 50 * 2**20
 
 # CUDA kernel launches made by fused_ggnn_model (B3) and fused_ggnn_encoder
-# (B4, the same launches) since the last reset.
+# (B4, the same launches) since the last reset, in all and by the variant
+# of B1's rounds the call took (fused_ggnn.variant of the width)
 n_launches = 0
+n_variant_launches = dict.fromkeys(VARIANTS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,8 +83,12 @@ def _kernels() -> ctypes.CDLL:
         lib.mb_linear.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.mb_gru_round.argtypes = [_P] * 9 + [_I, _I, _P]
         lib.mb_pool_head.argtypes = [_P] * 7 + [_I, _P, _P, _P, _I, _I, _P]
+        lib.mb_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
+        lib.mb_tc_linear.argtypes = [_P] * 8 + [_I, _P]
+        lib.mb_tc_round.argtypes = [_P] * 11 + [_I, _P]
         for fn in (lib.mb_embed, lib.mb_csr, lib.mb_linear, lib.mb_gru_round,
-                   lib.mb_pool_head):
+                   lib.mb_pool_head, lib.mb_tc_prep, lib.mb_tc_linear,
+                   lib.mb_tc_round):
             fn.restype = _I
         for fn in (lib.mb_max_width, lib.mb_max_layers):
             fn.argtypes = []
@@ -119,6 +130,7 @@ def _buffers(n: int, e: int, d: int, g: int, n_sub: int,
         "h_a": (f32, n * d), "h_b": (f32, n * d),
         "gate": (f32, n), "out": (f32, g * dims[-1]),
         "row_ptr": (i32, n + 1), "graph_ptr": (i32, g + 1),
+        "heads": (i32, heads_words(e)), "flags": (i32, n),
         "ids": (i32, n * n_sub), "senders": (i32, e), "receivers": (i32, e),
         "gidx": (i32, n), "mask": (torch.uint8, n),
         "weights": (f32, d * d + d + 2 * (3 * d * d + 3 * d) + 2 * d + 1
@@ -396,43 +408,62 @@ class _Prepared:
         self.table = table.to(torch.float32).contiguous()
         self.n, self.n_sub, self.e, self.d = n, n_sub, e, d
         self.ed, self.g, self.n_steps = table.shape[1], n_graphs, n_steps
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch(p: _Prepared) -> torch.Tensor:
+def _launch(p: _Prepared, kind: str | None = None) -> torch.Tensor:
     """B3's launches for a prepared call: ``[n_graphs]`` logits (the
-    buffer's rows of the last layer's width in general)."""
-    global n_launches
+    buffer's rows of the last layer's width in general). The rounds take
+    B1's variant for the width (``fused_ggnn.variant``) unless ``kind``
+    names the other; ``"wgmma"`` takes width 128 only."""
     lib = _kernels()
-    buf, n, d, stream = p.buf, p.n, p.d, p.stream
+    buf, n, d = p.buf, p.n, p.d
+    kind = kind or variant(d)
+    if kind not in VARIANTS or (kind == "wgmma" and variant(d) != kind):
+        raise ValueError(f"fused_ggnn_model: no {kind!r} rounds at width {d}")
+    # the stream current at the call (a captured call's is the capture's)
+    stream = torch.cuda.current_stream(p.table.device).cuda_stream
+
+    def run(what, fn, *args):
+        global n_launches
+        _check(lib, fn(*args, stream), what)
+        n_launches += 1
+        n_variant_launches[kind] += 1
+
     ew, eb, xw, xb, hw, hb, gw, gb, head_w = (t.data_ptr() for t in p.weights)
     h0, row_ptr, graph_ptr = buf["h0"], buf["row_ptr"], buf["graph_ptr"]
-    _check(lib, lib.mb_embed(p.table.data_ptr(), buf["ids"].data_ptr(),
-                             h0.data_ptr(), n, p.n_sub, p.ed, stream), "embed")
-    _check(lib, lib.mb_csr(buf["receivers"].data_ptr(), p.e, n,
-                           row_ptr.data_ptr(), stream), "csr")
-    _check(lib, lib.mb_csr(buf["gidx"].data_ptr(), n, p.g,
-                           graph_ptr.data_ptr(), stream), "graph csr")
-    n_launches += 3
+    senders, heads = buf["senders"].data_ptr(), buf["heads"].data_ptr()
+    run("embed", lib.mb_embed, p.table.data_ptr(), buf["ids"].data_ptr(),
+        h0.data_ptr(), n, p.n_sub, p.ed)
+    flags = buf["flags"].data_ptr()
+    if kind == "wgmma":
+        run("tc_prep", lib.mb_tc_prep, buf["receivers"].data_ptr(), senders,
+            p.e, n, row_ptr.data_ptr(), heads)
+    else:
+        run("csr", lib.mb_csr, buf["receivers"].data_ptr(), p.e, n,
+            row_ptr.data_ptr())
+    run("graph csr", lib.mb_csr, buf["gidx"].data_ptr(), n, p.g,
+        graph_ptr.data_ptr())
     cur, spare = h0, (buf["h_a"], buf["h_b"])
+    msg = buf["msg"].data_ptr()
     for t in range(p.n_steps):
         nxt = spare[t % 2]
-        _check(lib, lib.mb_linear(cur.data_ptr(), ew, eb,
-                                  buf["msg"].data_ptr(), n, d, d, stream),
-               "linear")
-        _check(lib, lib.mb_gru_round(
-            cur.data_ptr(), buf["msg"].data_ptr(), row_ptr.data_ptr(),
-            buf["senders"].data_ptr(), xw, xb, hw, hb, nxt.data_ptr(), n, d,
-            stream), "gru_round")
-        n_launches += 2
+        if kind == "wgmma":
+            run("tc_linear", lib.mb_tc_linear, cur.data_ptr(), ew, eb,
+                row_ptr.data_ptr(), senders, heads, flags, msg, n)
+            run("tc_round", lib.mb_tc_round, cur.data_ptr(), msg,
+                row_ptr.data_ptr(), senders, heads, flags, xw, xb, hw, hb,
+                nxt.data_ptr(), n)
+        else:
+            run("linear", lib.mb_linear, cur.data_ptr(), ew, eb, msg, n, d, d)
+            run("gru_round", lib.mb_gru_round, cur.data_ptr(), msg,
+                row_ptr.data_ptr(), senders, xw, xb, hw, hb, nxt.data_ptr(),
+                n, d)
         cur = nxt
     dims = (ctypes.c_int * len(p.dims))(*p.dims)
-    _check(lib, lib.mb_pool_head(
-        cur.data_ptr(), h0.data_ptr(), graph_ptr.data_ptr(),
-        buf["mask"].data_ptr(), gw, gb, head_w, len(p.dims) - 1, dims,
-        buf["gate"].data_ptr(), buf["out"].data_ptr(), p.g, d, stream),
-        "pool_head")
-    n_launches += 1
+    run("pool_head", lib.mb_pool_head, cur.data_ptr(), h0.data_ptr(),
+        graph_ptr.data_ptr(), buf["mask"].data_ptr(), gw, gb, head_w,
+        len(p.dims) - 1, dims, buf["gate"].data_ptr(), buf["out"].data_ptr(),
+        p.g, d)
     return buf["out"]
 
 

@@ -6,7 +6,8 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
-Tolerance: atol=rtol=1e-4 — FFMA in the kernel against cuBLAS, and float
+Tolerance: atol=rtol=1e-4 — the kernels' float32 sums (3xTF32 on the
+tensor cores at width 128, FFMA elsewhere) against cuBLAS, and float
 atomics in the plain version's ``index_add_``; the attention and bf16 int8
 tests state their own.
 """
@@ -52,7 +53,8 @@ def test_kernel_matches_plain_version(cuda, n, d, e):
         want = tfg.fused_ggnn_reference(*args, n_steps=5)
     torch.cuda.synchronize()
     assert tfg.n_launches - before == tfg.launches_per_call(5)
-    # FFMA in the kernel against cuBLAS and atomics in the plain version
+    # the kernel's float32 sums against cuBLAS and atomics in the plain
+    # version
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
 
@@ -100,13 +102,14 @@ def test_backward_kernel_matches_plain_version(cuda, n, d, e):
     before = tfg.n_bwd_launches
     got = _grads(args, g, 5)
     torch.cuda.synchronize()
-    assert tfg.n_bwd_launches - before == tfg.bwd_launches_per_call(5)
+    assert tfg.n_bwd_launches - before == tfg.bwd_launches_per_call(
+        5, tfg.variant(d))
     want = tfg.fused_ggnn_backward_reference(*args, g, n_steps=5)
     for name, a, b in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb"),
                           got, want):
         assert a.shape == b.shape, name
         scale = float(b.abs().max())
-        # FFMA sums in the kernel against cuBLAS and index_add_'s atomics
+        # the kernel's float32 sums against cuBLAS and index_add_'s atomics
         assert float((a - b).abs().max()) <= 1e-4 * max(scale, 1.0), name
 
 
@@ -142,6 +145,142 @@ def test_xla_backward_and_unknown_values_raise_on_the_card(cuda):
         tfg.fused_ggnn(*args, n_steps=1, bwd_kernel="bogus")
     with torch.no_grad():  # scoring does not need the backward
         tfg.fused_ggnn(*args, n_steps=1, bwd_kernel="xla")
+
+
+def _padded_problem(rng, n, e, sink_loops, d=128):
+    """A batch_np-shaped problem: random receiver-sorted edges among the
+    first nodes, then ``sink_loops`` padding edges sink -> sink (the last
+    node), seeded weights of the golden model's scale."""
+    snd = rng.integers(0, n - 1, e)
+    rcv = np.sort(rng.integers(0, n - 1, e))
+    snd = np.concatenate([snd, np.full(sink_loops, n - 1)]).astype(np.int32)
+    rcv = np.concatenate([rcv, np.full(sink_loops, n - 1)]).astype(np.int32)
+    w = lambda *s, std: (rng.standard_normal(s) * std).astype(np.float32)
+    args = (w(n, d, std=0.2), snd, rcv, w(d, d, std=d ** -0.5),
+            w(d, std=0.1), w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1),
+            w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1))
+    return [torch.from_numpy(a).cuda() for a in args]
+
+
+# the kernel phase's shapes (serving ladder, megabatch) and the largest
+# training bucket, each with its padding sink's run of self-loops
+TC_SHAPES = [(2048, 1200, 6388), (4096, 3000, 5000), (5120, 3200, 17114),
+             (16768, 30000, 5000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,sink", TC_SHAPES)
+def test_tensor_core_kernel_matches_plain_version(cuda, n, e, sink):
+    args = _padded_problem(np.random.default_rng(n), n, e, sink)
+    before = dict(tfg.n_variant_launches)
+    with torch.inference_mode():
+        got = tfg.fused_ggnn(*args, n_steps=5)
+        again = tfg.fused_ggnn(*args, n_steps=5)
+        want = tfg.fused_ggnn_reference(*args, n_steps=5)
+        p = tfg._Prepared(args[0], args[1], args[2], args[3:], 1024)
+        ffma = tfg._forward_cuda(p, 5, bank=False, kind="ffma")[0]
+        ffma_again = tfg._forward_cuda(p, 5, bank=False, kind="ffma")[0]
+    torch.cuda.synchronize()
+    assert {k: tfg.n_variant_launches[k] - before[k]
+            for k in tfg.VARIANTS} == {"wgmma": 2 * tfg.launches_per_call(5),
+                                       "ffma": 2 * tfg.launches_per_call(5)}
+    assert torch.equal(got, again) and torch.equal(ffma, ffma_again)
+    # every row, the sink's included, against the plain version: float32
+    # sums in other orders (the sink's row, whose aggregate is thousands of
+    # times its message, is computed in the FFMA variant's arithmetic)
+    for out in (got, ffma):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert torch.equal(got[n - 1], ffma[n - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,sink", TC_SHAPES[:1] + TC_SHAPES[2:3])
+def test_tensor_core_edge_sum_is_the_serial_sum(cuda, n, e, sink):
+    """Both round kernels bank the aggregates of one round's messages: the
+    tensor-core variant's (runs in closed form, the sink's segment summed
+    by the whole block) equal the FFMA variant's serial sums bitwise."""
+    args = _padded_problem(np.random.default_rng(n + 1), n, e, sink)
+    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 1024)
+    msg = p.h @ p.ew + p.eb
+    want = torch.zeros_like(msg).index_add_(0, p.rcv.long(),
+                                            msg[p.snd.long()])
+    lib = tfg._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    banks = []
+    for kind in tfg.VARIANTS:
+        row_ptr = torch.empty(n + 1, dtype=torch.int32, device="cuda")
+        agg, out = torch.empty_like(p.h), torch.empty_like(p.h)
+        w = [t.data_ptr() for t in (p.xw, p.xb, p.hw, p.hb)]
+        if kind == "wgmma":
+            heads = torch.empty(tfg.heads_words(p.e), dtype=torch.int32,
+                                device="cuda")
+            flags = torch.empty(n, dtype=torch.int32, device="cuda")
+            assert lib.ggnn_tc_prep(p.rcv.data_ptr(), p.snd.data_ptr(), p.e,
+                                    n, row_ptr.data_ptr(), heads.data_ptr(),
+                                    stream) == 0
+            # the edge linear flags the padding sink's row, and only it
+            assert lib.ggnn_tc_linear(p.h.data_ptr(), p.ew.data_ptr(),
+                                      p.eb.data_ptr(), row_ptr.data_ptr(),
+                                      p.snd.data_ptr(), heads.data_ptr(),
+                                      flags.data_ptr(), out.data_ptr(), n,
+                                      stream) == 0
+            torch.cuda.synchronize()
+            assert torch.nonzero(flags).flatten().tolist() == [n - 1]
+            assert lib.ggnn_tc_round(p.h.data_ptr(), msg.data_ptr(),
+                                     row_ptr.data_ptr(), p.snd.data_ptr(),
+                                     heads.data_ptr(), flags.data_ptr(), *w,
+                                     out.data_ptr(), agg.data_ptr(), n,
+                                     stream) == 0
+        else:
+            assert lib.ggnn_csr(p.rcv.data_ptr(), p.e, n,
+                                row_ptr.data_ptr(), stream) == 0
+            assert lib.ggnn_gru_round(p.h.data_ptr(), msg.data_ptr(),
+                                      row_ptr.data_ptr(), p.snd.data_ptr(),
+                                      *w, out.data_ptr(), agg.data_ptr(), n,
+                                      128, stream) == 0
+        banks.append(agg)
+    torch.cuda.synchronize()
+    assert torch.equal(banks[0], banks[1])
+    # and the serial sum is the plain version's up to index_add_'s atomics
+    np.testing.assert_allclose(banks[0].cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,sink", [(4224, 6000, 2000),
+                                      (16768, 30000, 5000)])
+def test_tensor_core_backward_matches_float64(cuda, n, e, sink):
+    """B2's gradients against the plain backward evaluated in float64,
+    over each gradient's largest magnitude (the smoke's GRAD_LIMIT), with a
+    cotangent that is zero on the padding sink (as the pooling's is), on
+    both variants; each variant bitwise repeatable."""
+    rng = np.random.default_rng(n + 2)
+    args = _padded_problem(rng, n, e, sink)
+    g = rng.standard_normal((n, 128)).astype(np.float32) * 1e-3
+    g[n - 1] = 0.0
+    g = torch.from_numpy(g).cuda()
+    exact = tfg.fused_ggnn_backward_reference(
+        *(a.double() if a.is_floating_point() else a for a in args),
+        g.double(), n_steps=5)
+    before = dict(tfg.n_bwd_variant_launches)
+    got = _grads(args, g, 5)
+    again = _grads(args, g, 5)
+    torch.cuda.synchronize()
+    assert {k: tfg.n_bwd_variant_launches[k] - before[k]
+            for k in tfg.VARIANTS} == {
+        "wgmma": 2 * tfg.bwd_launches_per_call(5), "ffma": 0}
+    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 1024)
+    _, states, aggs = tfg._forward_cuda(p, 5, bank=True)
+    ffma = tfg._backward_cuda(p, states, aggs, g, kind="ffma")
+    ffma_again = tfg._backward_cuda(p, states, aggs, g, kind="ffma")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(ffma, ffma_again))
+    for grads in (got, ffma):
+        for name, a, r in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw",
+                               "dhb"), grads, exact):
+            rel = float((a.double() - r).abs().max()) / float(r.abs().max())
+            assert rel <= 1e-4, (name, rel)
 
 
 @pytest.mark.gpu

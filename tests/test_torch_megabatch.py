@@ -173,8 +173,10 @@ def test_plan_bytes_count_what_the_wrapper_allocates():
     n, e, d, g = 5120, 20480, 128, 33
     head = 2 * (256 * 256 + 256) + 256 + 1
     weights = d * d + d + 2 * (3 * d * d + 3 * d) + 2 * d + 1 + head
-    want = (4 * (4 * n * d + n + g + (n + 1) + (g + 1) + 4 * n + 2 * e + n
-                 + weights) + n)
+    # the tensor-core variant's change bitmask and repeated-edge flags
+    heads, flags = -(-e // 1024), n
+    want = (4 * (4 * n * d + n + g + (n + 1) + (g + 1) + heads + flags + 4 * n
+                 + 2 * e + n + weights) + n)
     assert mb.megabatch_bytes(base) == want
     assert base.fits
     # the largest training bucket of the synthetic corpus also fits the L2
