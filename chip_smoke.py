@@ -159,7 +159,7 @@ Each phase prints one JSON line; any failure exits non-zero.
    subtokens paired with the serve phase's request graphs, one ``score``
    call per batch, the B6 count reset just before: functions/s, real and
    padded tokens/s, p50 batch ms, B6 launches = batches × 32 (every one
-   on ``wgmma``, as in phases 16-18), the device
+   on ``wgmma``, as in phases 17-19), the device
    profile of one batch, the weight GB. Probabilities against the same
    engine with B6 replaced by its plain version on the card
    (``FLASH_PROB_LIMIT``), against the same weights with
@@ -167,7 +167,29 @@ Each phase prints one JSON line; any failure exits non-zero.
    to 2 layers on the card against the CPU
    (``JOINT_PROB_LIMIT``), and the fused GGNN layout (B1) against segment
    (``PROB_LIMIT``).
-16. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
+16. scan — ``scan_paths`` from C source on the card. Vocabularies built
+   with the port's ``build_vocab`` from a seeded training corpus of 2,000
+   ``codegen`` functions; the golden model (the serve phase's seeded
+   weights) behind ``ScoringEngine`` and the joint phase's 7B
+   ``JointEngine`` as tier 2. The corpus: 256 seeded ``codegen`` files of 4
+   functions each (1,024 functions, half vulnerable, the easy and the
+   dataflow-hard templates) plus the ten ``tests/fixtures/realworld`` files
+   and ``interproc/cross_taint.c``. With every count reset just before:
+   a cold scan into a cache directory, a warm scan (every file a hit, the
+   rows the cold scan's), an interprocedural scan of ``cross_taint.c`` and
+   32 generated files cold then warm (the warm one makes no level-1
+   dispatch and no fallback), and a cascade scan whose band holds 64 of the
+   cold scan's tier-1 scores, taken from their quantiles: B1 launches =
+   tier-1 calls × 11, B4 = level-1 dispatches × 14, B6 = tier-2 batches ×
+   32, every one on ``wgmma``. Off the main path: the three solver
+   backends give identical graphs (and dependence edges and dataflow
+   families) on every fixture and on 64 generated functions, the native one
+   built; ``goldens.json``'s line facts hold on all ten fixtures; tier-1
+   probabilities and the unit score against the same scans on a CPU engine
+   (``PROB_LIMIT``). Files/s and functions/s of encode and of scoring, the
+   device's busy share of the scoring and of a warm scan, the cache hit
+   rates and the pycparser version.
+17. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
    attn_impl="flash", lora_rank=16, lora_alpha=16))`` over the joint
    phase's seeded weights and a seeded LM head: one epoch over 32 seeded
    C-like functions, block 256, batch 4 (8 steps), the counts reset just
@@ -178,13 +200,13 @@ Each phase prints one JSON line; any failure exits non-zero.
    versions (``LORA_GRAD_LIMIT``); the saved adapters loaded onto a fresh
    base bitwise, and merged into it, against the unmerged model's hidden
    states (``MERGE_LIMIT``); the device profile of one step.
-17. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
+18. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
    ``no_grad``) with a fresh fusion model (the golden GGNN encoder): one
    epoch over the same 32 functions with their eval points over 16 more,
    B6 launches = (steps + eval batches) × 32 and no B6b launch, steps/s;
    ``JointEngine.from_run_dir`` on the ``epoch_0`` it wrote scores the
    eval functions within 1e-5 of the trainer's own evaluation.
-18. joint_int8 — the joint model with ``int8_runtime=True`` from
+19. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
    32 × 7 with bf16 activations, all on the ``wgmma`` variant,
    probabilities against every projection on B5's plain version on the
@@ -216,10 +238,20 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
-                                      ExperimentConfig, GGNNConfig,
-                                      OptimConfig)
+                                      ExperimentConfig, FeatureConfig,
+                                      GGNNConfig, OptimConfig)
+from deepdfa_tpu_torch.cpg import analyses as cpg_analyses
+from deepdfa_tpu_torch.cpg.dataflow import ReachingDefinitions
+from deepdfa_tpu_torch.cpg.features import (SOLVER_BACKENDS,
+                                            add_dependence_edges,
+                                            dataflow_node_features)
+from deepdfa_tpu_torch.cpg.frontend import parse_functions, parse_source
+from deepdfa_tpu_torch.data.codegen import (generate_function,
+                                            generate_hard_function)
+from deepdfa_tpu_torch.data.extract_cache import ExtractCache
 from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
                                            derive_buckets, to_device)
+from deepdfa_tpu_torch.data.materialize import corpus_hashes, corpus_vocabs
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.llm import llama as llama_mod
@@ -242,6 +274,8 @@ from deepdfa_tpu_torch.ops import flash_attention as fa
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
 from deepdfa_tpu_torch.ops import int8_matmul as i8
 from deepdfa_tpu_torch.ops import megabatch as mb
+from deepdfa_tpu_torch.pipeline import encode_source, vocab_content_hash
+from deepdfa_tpu_torch.scan import _score_functions, scan_paths
 from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
                                      ScoringEngine, mega_bucket,
                                      serve_buckets)
@@ -2573,6 +2607,338 @@ def phase_joint_train(ctx: dict, seed: int = 0) -> dict:
     return row
 
 
+# --------------------------------------------------------------- phase 16
+
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+SCAN_VOCAB_FUNCTIONS = 2000
+SCAN_FILES, SCAN_FNS_PER_FILE = 256, 4
+SCAN_INTERPROC_FILES = 32
+SCAN_BAND = 64
+SCAN_CHECK_FUNCTIONS = 64
+
+
+def codegen_rows(n: int, seed: int, first_id: int) -> list[dict]:
+    """``n`` seeded ``codegen`` rows: the easy and the dataflow-hard
+    templates in turn, half of them vulnerable."""
+    rng = np.random.default_rng(seed)
+    gens = (generate_function, generate_hard_function)
+    return [gens[i % 2](first_id + i, (i // 2) % 2 == 0, rng)
+            for i in range(n)]
+
+
+def scan_vocabs(seed: int) -> tuple[dict, float]:
+    """The vocabularies of a seeded training corpus of 2,000 generated
+    functions, built by the port (``corpus_hashes`` + ``build_vocab``), and
+    the host seconds it took."""
+    t0 = time.perf_counter()
+    rows = codegen_rows(SCAN_VOCAB_FUNCTIONS, seed, 100_000)
+    cpgs = {r["id"]: add_dependence_edges(parse_source(r["before"]))
+            for r in rows}
+    hashes = corpus_hashes(cpgs, FeatureConfig().subkeys)
+    return corpus_vocabs(hashes, list(cpgs)), time.perf_counter() - t0
+
+
+def write_scan_trees(root: Path, seed: int) -> tuple[Path, Path]:
+    """The scan corpus (256 generated files of 4 functions, the realworld
+    fixtures, ``cross_taint.c``) and the interprocedural one
+    (``cross_taint.c`` + the first 32 generated files)."""
+    tree, ip_tree = root / "tree", root / "interproc"
+    for d in (tree / "gen", tree / "fixtures", tree / "interproc", ip_tree):
+        d.mkdir(parents=True)
+    rows = codegen_rows(SCAN_FILES * SCAN_FNS_PER_FILE, seed, 0)
+    for i in range(SCAN_FILES):
+        chunk = rows[i * SCAN_FNS_PER_FILE:(i + 1) * SCAN_FNS_PER_FILE]
+        text = "\n\n".join(r["before"] for r in chunk) + "\n"
+        (tree / "gen" / f"gen_{i:03d}.c").write_text(text)
+        if i < SCAN_INTERPROC_FILES:
+            (ip_tree / f"gen_{i:03d}.c").write_text(text)
+    for p in sorted((FIXTURES / "realworld").glob("*.c")):
+        (tree / "fixtures" / p.name).write_text(p.read_text())
+    cross = (FIXTURES / "interproc" / "cross_taint.c").read_text()
+    (tree / "interproc" / "cross_taint.c").write_text(cross)
+    (ip_tree / "cross_taint.c").write_text(cross)
+    return tree, ip_tree
+
+
+def golden_line_facts(cpg) -> tuple[list, list, list]:
+    """``goldens.json``'s facts of one dependence-edged CPG: the
+    (definition line, variable, use line) triples reaching, and the data
+    and control dependence line pairs."""
+    in_sets, _ = ReachingDefinitions(cpg).solve()
+    line = lambda n: cpg.nodes[n].line  # noqa: E731
+    reaches = sorted({(line(d.node), d.var, line(n))
+                      for n, defs in in_sets.items() for d in defs
+                      if line(d.node) is not None and line(n) is not None})
+
+    def pairs(etype):
+        return sorted({(line(s), line(t)) for s, t, e in cpg.edges
+                       if e == etype and line(s) is not None
+                       and line(t) is not None})
+
+    return reaches, pairs("REACHING_DEF"), pairs("CDG")
+
+
+def check_front_end(vocabs: dict, seed: int) -> dict:
+    """Off the main path: the three solver backends against each other on
+    every fixture and 64 generated functions (graphs, dependence edges,
+    dataflow families), and the golden line facts of the ten fixtures."""
+    if not cpg_analyses.native_available():
+        fail("scan: the native dataflow solver did not build")
+    sources = [p.read_text() for p in sorted((FIXTURES / "realworld")
+                                             .glob("*.c"))]
+    sources.append((FIXTURES / "interproc" / "cross_taint.c").read_text())
+    sources += [r["before"] for r in
+                codegen_rows(SCAN_CHECK_FUNCTIONS, seed + 1, 200_000)]
+    n_fns, mismatches = 0, []
+    for k, code in enumerate(sources):
+        runs = {b: encode_source(code, vocabs, backend=b)
+                for b in SOLVER_BACKENDS}
+        fams = {b: [dataflow_node_features(c, backend=b)
+                    for _, c in parse_functions(code)]
+                for b in SOLVER_BACKENDS}
+        ref = runs["native"]
+        n_fns += len(ref)
+        for b in SOLVER_BACKENDS:
+            same = (fams[b] == fams["native"] and len(runs[b]) == len(ref))
+            for x, y in zip(runs[b], ref):
+                same = same and (
+                    x.name == y.name and x.node_ids == y.node_ids
+                    and sorted(x.cpg.edges) == sorted(y.cpg.edges)
+                    and np.array_equal(x.graph.senders, y.graph.senders)
+                    and np.array_equal(x.graph.receivers, y.graph.receivers)
+                    and x.graph.gid == y.graph.gid
+                    and list(x.graph.node_feats) == list(y.graph.node_feats)
+                    and all(np.array_equal(v, y.graph.node_feats[f])
+                            for f, v in x.graph.node_feats.items()))
+            if not same:
+                mismatches.append((k, b))
+    goldens = json.loads((FIXTURES / "realworld" / "goldens.json").read_text())
+    golden_fail = []
+    for name, gold in sorted(goldens.items()):
+        cpg = add_dependence_edges(parse_source(
+            (FIXTURES / "realworld" / f"{name}.c").read_text()))
+        reaches, dd, cd = golden_line_facts(cpg)
+        if (reaches != [tuple(r) for r in gold["reaches"]]
+                or dd != [tuple(p) for p in gold["data_dep_lines"]]
+                or cd != [tuple(p) for p in gold["control_dep_lines"]]
+                or len(cpg.nodes) != gold["n_nodes"]):
+            golden_fail.append(name)
+    return {"sources": len(sources), "functions": n_fns,
+            "backends": list(SOLVER_BACKENDS), "native_built": True,
+            "backend_mismatches": mismatches, "goldens": len(goldens),
+            "golden_failures": golden_fail}
+
+
+def band_of(probs: list[float], n: int) -> tuple[float, float]:
+    """The band ``[lo, hi]`` between two quantiles of ``probs`` that holds
+    ``n`` of them, the one nearest the median (ties can make a window hold
+    more: the nearest that holds exactly ``n`` wins when there is one)."""
+    p = sorted(probs)
+    mid = max(0, len(p) // 2 - n // 2)
+    starts = sorted(range(len(p) - n + 1), key=lambda k: abs(k - mid))
+    for k in starts:
+        lo, hi = p[k], p[k + n - 1]
+        if sum(lo <= x <= hi for x in p) == n:
+            return lo, hi
+    return p[mid], p[mid + n - 1]
+
+
+def scan_rows(report: dict) -> list[tuple]:
+    """A scan's rows without their cache flag: file, function, error and
+    the probability."""
+    return [(r["file"], r.get("function"), r.get("error"),
+             r.get("vulnerable_probability")) for r in report["results"]]
+
+
+def timed_scan(*args, **kw) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    report = scan_paths(*args, **kw)
+    return report, time.perf_counter() - t0
+
+
+def phase_scan(ctx: dict, seed: int = 0) -> dict:
+    """C source → CPG → features → graphs → scores on the card: the port's
+    ``scan_paths`` over the golden model, its hierarchical scorer and the
+    joint phase's 7B ``JointEngine`` as tier 2."""
+    import pycparser
+
+    vocabs, vocab_s = scan_vocabs(seed)
+    front = check_front_end(vocabs, seed)
+    model = golden_model("cuda")
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    engine = ScoringEngine.from_model(model, None, "graph", KEYS,
+                                      max_batch=MAX_BATCH, device="cuda")
+    engine.warmup()
+    hier = engine.hier
+    tier2 = JointEngine(ctx["llm"], ctx["fusion"], ctx["tok"], ctx["jcfg"],
+                        max_batch=4, device="cuda")
+    tier2.warmup()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as tmp:
+        tree, ip_tree = write_scan_trees(Path(tmp), seed)
+        cache = Path(tmp) / "cache"
+        kw = dict(vocabs=vocabs, engine=engine, n_workers=4)
+
+        # the main path: counts from zero, read right after
+        fg.n_launches = mb.n_launches = 0
+        reset_variant_counts()
+        reset_flash_counts()
+        tier2.n_batches = 0
+        hier.reset_counters()
+        d0 = engine.n_dispatches
+        cold, cold_s = timed_scan([tree], cache_dir=cache / "scan", **kw)
+        warm, warm_s = timed_scan([tree], cache_dir=cache / "scan", **kw)
+        ip_cold, ip_cold_s = timed_scan([ip_tree], cache_dir=cache / "ip",
+                                        interproc=True, **kw)
+        ip_cold_stats = hier.stats()
+        hier.cache = None  # the warm scan attaches a fresh handle
+        h0 = (hier.n_level1_dispatches, hier.n_fallback_dispatches)
+        ip_warm, ip_warm_s = timed_scan([ip_tree], cache_dir=cache / "ip",
+                                        interproc=True, **kw)
+        ip_warm_dispatches = hier.n_level1_dispatches - h0[0]
+        ip_warm_fallback = hier.n_fallback_dispatches - h0[1]
+        tier1 = [r["vulnerable_probability"] for r in cold["results"]
+                 if "vulnerable_probability" in r]
+        band = band_of(tier1, SCAN_BAND)
+        casc, casc_s = timed_scan([tree], cache_dir=cache / "scan",
+                                  tier2=tier2, tier2_band=band, **kw)
+        torch.cuda.synchronize()
+        b1, b4, b6 = fg.n_launches, mb.n_launches, fa.n_launches
+        b1_var = dict(fg.n_variant_launches)
+        b4_var = dict(mb.n_variant_launches)
+        b6_var = dict(fa.n_variant_launches)
+        level1 = hier.n_level1_dispatches
+        tier1_calls = engine.n_dispatches - d0 - level1
+        tier2_batches = tier2.n_batches
+
+        # off the main path: the scoring's device profile on the cold
+        # scan's graphs (read back from the cache), and a warm scan's
+        xcache = ExtractCache(cache / "scan", salt=vocab_content_hash(vocabs))
+        graphs = [fn.graph for f in sorted(tree.rglob("*.c"))
+                  for fn in xcache.get(xcache.key(f.read_text()))
+                  if fn.graph is not None]
+        rows = [{} for _ in graphs]
+        prof_score = profile_call(lambda: _score_functions(engine, rows,
+                                                           graphs))
+        prof_warm = profile_call(lambda: scan_paths(
+            [tree], cache_dir=cache / "scan", **kw))
+
+        # the CPU engine on the same state dict, the same scans uncached
+        cpu = ScoringEngine.from_model(golden_model("cpu"), state, "graph",
+                                       KEYS, max_batch=MAX_BATCH,
+                                       device="cpu")
+        cpu_scan = scan_paths([tree], vocabs, engine=cpu, n_workers=4)
+        cpu_ip = scan_paths([ip_tree], vocabs, engine=cpu, n_workers=4,
+                            interproc=True)
+
+    got, want = scan_rows(cold), scan_rows(cpu_scan)
+    prob_diff = max((abs(a[3] - b[3]) for a, b in zip(got, want)
+                     if a[3] is not None and b[3] is not None), default=None)
+    same_rows = [a[:3] for a in got] == [b[:3] for b in want]
+    unit = ip_cold["interproc"].get("unit", {})
+    cpu_unit = cpu_ip["interproc"].get("unit", {})
+    unit_diff = (abs(unit["unit_score"] - cpu_unit["unit_score"])
+                 if "unit_score" in unit and "unit_score" in cpu_unit
+                 else None)
+    n_fns = cold["n_functions"]
+    casc_rows = [r for r in casc["results"] if r.get("tier") == 2]
+    in_band = sum(band[0] <= p <= band[1] for p in tier1)
+    per1, per4 = fg.launches_per_call(STEPS), mb.launches_per_call(STEPS)
+    per6 = ctx["cfg"].num_hidden_layers
+    row = {
+        "phase": "scan", "card": nvidia_smi(),
+        "pycparser": pycparser.__version__,
+        "vocab": {"functions": SCAN_VOCAB_FUNCTIONS, "seconds": vocab_s,
+                  "all_vocab": len(vocabs["_ABS_DATAFLOW"].all_vocab),
+                  "hash": vocab_content_hash(vocabs)},
+        "front_end": front,
+        "files": cold["n_files"], "functions": n_fns,
+        "scored": cold["n_scored"], "errors": cold["n_errors"],
+        "cold": {"wall_s": cold_s, "encode_s": cold["elapsed_s"],
+                 "score_s": cold["score_s"],
+                 "encode_files_per_s": cold["n_files"] / cold["elapsed_s"],
+                 "encode_functions_per_s": n_fns / cold["elapsed_s"],
+                 "score_functions_per_s": cold["n_scored"] / cold["score_s"],
+                 "functions_per_s": n_fns / cold_s,
+                 "cache": cold["cache"], "pool": cold["pool"]},
+        "warm": {"wall_s": warm_s, "encode_s": warm["elapsed_s"],
+                 "score_s": warm["score_s"],
+                 "files_per_s": warm["n_files"] / warm_s,
+                 "functions_per_s": n_fns / warm_s,
+                 "cache": warm["cache"],
+                 "rows_equal_cold": scan_rows(warm) == scan_rows(cold)},
+        "interproc": {
+            "files": ip_cold["n_files"], "functions": ip_cold["n_functions"],
+            "cold_wall_s": ip_cold_s, "warm_wall_s": ip_warm_s,
+            "cold_pass_s": ip_cold_s - ip_cold["elapsed_s"]
+            - ip_cold["score_s"],
+            "call_edges": ip_cold["interproc"]["call_edges"],
+            "findings": len(ip_cold["interproc"]["findings"]),
+            "unit_score": unit.get("unit_score"),
+            "unit_error": unit.get("unit_error"),
+            "cold_level1": ip_cold_stats,
+            "warm_level1_dispatches": ip_warm_dispatches,
+            "warm_fallback_dispatches": ip_warm_fallback,
+            "warm_unit_score": ip_warm["interproc"].get("unit", {}).get(
+                "unit_score"),
+            "warm_cache": ip_warm["cache"]},
+        "cascade": {"band": list(band), "scores_in_band": in_band,
+                    "wall_s": casc_s, **casc["cascade"],
+                    "tier2_batches": tier2_batches},
+        "tier1_calls": tier1_calls, "level1_dispatches": level1,
+        "b1_launches": b1, "b1_launches_by_variant": b1_var,
+        "b4_launches": b4, "b4_launches_by_variant": b4_var,
+        "b6_launches": b6, "b6_launches_by_variant": b6_var,
+        "launches_per_call": {"b1": per1, "b4": per4, "b6": per6},
+        "max_abs_prob_diff_vs_cpu": prob_diff,
+        "rows_equal_cpu": same_rows,
+        "unit_score_diff_vs_cpu": unit_diff, "limit": PROB_LIMIT,
+        "profile_scoring": prof_score, "profile_warm_scan": prof_warm,
+        "device_busy_share": prof_score["busy_share"]}
+    emit(row)
+    if front["backend_mismatches"] or front["golden_failures"]:
+        fail(f"scan: solver backends disagree on {front['backend_mismatches']}"
+             f", golden facts fail on {front['golden_failures']}")
+    expected = SCAN_FILES * SCAN_FNS_PER_FILE + 12
+    if cold["n_errors"] or n_fns != expected or cold["n_scored"] != n_fns:
+        fail(f"scan: cold scan {n_fns} functions ({expected} expected), "
+             f"{cold['n_scored']} scored, {cold['n_errors']} errors")
+    check_probs("scan", np.asarray(tier1))
+    if (warm["cache"]["hits"] != warm["n_files"] or warm["cache"]["misses"]
+            or not row["warm"]["rows_equal_cold"]
+            or not all(r["cache_hit"] for r in warm["results"])):
+        fail(f"scan: warm scan {warm['cache']}, rows equal "
+             f"{row['warm']['rows_equal_cold']}")
+    if not (same_rows and prob_diff is not None and prob_diff <= PROB_LIMIT):
+        fail(f"scan: against the CPU engine: rows equal {same_rows}, "
+             f"probabilities {prob_diff}")
+    if (unit_diff is None or unit_diff > PROB_LIMIT
+            or row["interproc"]["warm_unit_score"] != unit.get("unit_score")
+            or not row["interproc"]["findings"]):
+        fail(f"scan: interproc unit {unit}, CPU {cpu_unit}, warm "
+             f"{row['interproc']['warm_unit_score']}")
+    if ip_warm_dispatches or ip_warm_fallback or \
+            ip_cold_stats["fallback_dispatches"]:
+        fail(f"scan: warm interproc made {ip_warm_dispatches} level-1 "
+             f"dispatches, {ip_warm_fallback} fallback ones")
+    if in_band != SCAN_BAND or casc["cascade"]["n_tier2"] != in_band \
+            or casc["cascade"]["n_degraded"]:
+        fail(f"scan: cascade band {band} holds {in_band} scores, "
+             f"{casc['cascade']} rescored")
+    check_probs("scan cascade", np.asarray(
+        [r["vulnerable_probability"] for r in casc_rows]))
+    for name, launches, calls, per in (("B1", b1, tier1_calls, per1),
+                                       ("B4", b4, level1, per4),
+                                       ("B6", b6, tier2_batches, per6)):
+        if launches <= 0 or launches != calls * per:
+            fail(f"scan: {launches} {name} launches for {calls} calls "
+                 f"(expected {per} each)")
+    check_ggnn_wgmma("scan", "B1", b1_var, b1)
+    check_ggnn_wgmma("scan", "B4", b4_var, b4)
+    check_wgmma("scan_cascade", b6_var, b6)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2613,6 +2979,7 @@ def main() -> int:
     flash_rows = timed("flash_kernel", phase_flash_kernel)
     bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
     joint, ctx = timed("joint", phase_joint)
+    scan = timed("scan", phase_scan, ctx)
     finetune = timed("finetune", phase_finetune, ctx)
     joint_train = timed("joint_train", phase_joint_train, ctx)
     joint8 = timed("joint_int8", phase_joint_int8, ctx)
@@ -2632,15 +2999,17 @@ def main() -> int:
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:169",
         "launches": (serve["n_launches"] + train["fwd_launches"]
-                     + train_mb["fwd_launches"]),
+                     + train_mb["fwd_launches"] + scan["b1_launches"]),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
-                             "train_megabatch": train_mb["fwd_launches"]},
+                             "train_megabatch": train_mb["fwd_launches"],
+                             "scan": scan["b1_launches"]},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
             train["launches_by_variant"]["fwd"],
-            train_mb["launches_by_variant"]["fwd"]),
+            train_mb["launches_by_variant"]["fwd"],
+            scan["b1_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -2696,9 +3065,12 @@ def main() -> int:
         "name": "megabatch_encoder", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/megabatch.cu",
         "replaces": "deepdfa_tpu/ops/megabatch.py:569",
-        "launches": hier["cold"]["b4_launches"],
-        "launches_by_path": {"hier": hier["cold"]["b4_launches"]},
-        "launches_by_variant": hier["cold"]["b4_launches_by_variant"],
+        "launches": hier["cold"]["b4_launches"] + scan["b4_launches"],
+        "launches_by_path": {"hier": hier["cold"]["b4_launches"],
+                             "scan": scan["b4_launches"]},
+        "launches_by_variant": sum_variants(
+            hier["cold"]["b4_launches_by_variant"],
+            scan["b4_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in hier_rows),
         "ms": b4["graph_ms"], "plain_ms": b4["plain_graph_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
@@ -2749,15 +3121,18 @@ def main() -> int:
         "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                         ":758 (body :342-481)",
         "launches": (joint["b6_launches"] + joint8["b6_launches"]
-                     + finetune["b6_launches"] + joint_train["b6_launches"]),
+                     + finetune["b6_launches"] + joint_train["b6_launches"]
+                     + scan["b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
-                             "joint_train": joint_train["b6_launches"]},
+                             "joint_train": joint_train["b6_launches"],
+                             "scan_cascade": scan["b6_launches"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
                    for r in (joint, joint8, finetune, joint_train))
+            + scan["b6_launches_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),

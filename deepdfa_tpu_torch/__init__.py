@@ -11,7 +11,12 @@ on ``csrc/int8_matmul.cu``. The LLM tier (``llm/``: CodeLlama, LoRA
 fine-tuning, the fusion head, ``JointTrainer`` and ``JointEngine``) runs
 attention on ``csrc/flash_attention.cu``, its backward on
 ``csrc/flash_attention_bwd.cu`` and int8 projections on
-``csrc/int8_matmul.cu``. It imports torch and numpy and nothing of JAX.
+``csrc/int8_matmul.cu``. ``scan.scan_paths`` takes C source: the front
+end (``cpg/``: pycparser, the dataflow solvers, with the C++ solver of
+``native/dfa_solver.cpp`` built by the host compiler) and the encode
+pipeline (``pipeline.py``, ``data/vocab.py``) run on the host, and the
+functions and units are scored on the kernels above. It imports torch,
+numpy and pycparser, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 host without a GPU they raise instead of running on the CPU.

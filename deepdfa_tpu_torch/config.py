@@ -18,10 +18,29 @@ from pathlib import Path
 from typing import Any
 
 __all__ = ["ALL_SUBKEYS", "BatchConfig", "CheckpointConfig", "DataConfig",
-           "ExperimentConfig", "FeatureConfig", "GGNNConfig", "LAYOUTS",
-           "OptimConfig", "ResilienceConfig", "load_config"]
+           "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP", "ExperimentConfig",
+           "FeatureConfig", "GGNNConfig", "IDFA_REACH_CLIP", "LAYOUTS",
+           "OptimConfig", "ResilienceConfig", "SINGLE_SUBKEYS", "load_config"]
 
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
+
+# Subkeys whose per-definition value is single-valued: datatype has exactly
+# one value per definition.
+SINGLE_SUBKEYS = {"api": False, "datatype": True, "literal": False, "operator": False}
+
+# The static-analysis feature families (cpg/analyses.py) and the
+# interprocedural ones (cpg/interproc.py): small closed value sets, each
+# clipped into a fixed-size embedding table. live_out counts live
+# variables (clipped), uninit flags a possibly-uninitialized read, taint is
+# 0 untouched / 1 uses / 2 introduces; ireach counts reaching definitions
+# owned by another method (clipped), itaint is the interprocedural taint
+# code, 3 where only a cross-call flow taints the node.
+DFA_LIVE_OUT_CLIP = 16
+IDFA_REACH_CLIP = 8
+DFA_FEATURE_DIMS = {
+    "live_out": DFA_LIVE_OUT_CLIP + 1, "uninit": 2, "taint": 3,
+    "ireach": IDFA_REACH_CLIP + 1, "itaint": 4,
+}
 
 # Layouts this package runs, and the roadmap item that ports each other one.
 LAYOUTS = ("segment", "fused", "megabatch")

@@ -22,11 +22,11 @@ per-function embeddings instead:
 
 What differs from the JAX package:
 
-- The JAX scorer builds the call edges and summaries from a supergraph
-  (``unit_summaries`` runs the interprocedural dataflow solvers over
-  pycparser CPGs). Until that front end is ported, :meth:`HierScorer.
-  score_unit` takes them as a :class:`UnitCallGraph`; :func:`unit_call_edges`
-  is ported and maps a supergraph's call edges the same way.
+- :meth:`HierScorer.score_unit` takes the unit's call graph either as a
+  :class:`~deepdfa_tpu_torch.cpg.interproc.Supergraph`, as the JAX
+  scorer does (:func:`unit_graph` maps it with :func:`unit_call_edges`
+  and :func:`unit_summaries`), or already mapped, as a
+  :class:`UnitCallGraph` (level 2's input type).
 - Level-2 weights are drawn by the port's :func:`~deepdfa_tpu_torch.models.
   ggnn.init_params` from a seed derived, by the JAX package's formula, from a
   device-free content hash of the level-1 state dict: the same checkpoint
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import time
 from typing import Sequence
 
@@ -58,7 +59,7 @@ from deepdfa_tpu_torch.ops.segment import gather, segment_sum
 
 __all__ = ["CallGraphGGNN", "HierScorer", "N_SUMMARY_FEATURES",
            "UnitCallGraph", "UnitFunction", "megabatch_compatible",
-           "unit_call_edges"]
+           "unit_call_edges", "unit_graph", "unit_summaries"]
 
 # per-function interprocedural summary width fed to level 2 beside the
 # level-1 embedding: [log1p(n_nodes), log1p(Σ ireach), clip(max ireach)/8,
@@ -125,6 +126,54 @@ def unit_call_edges(sg, names: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
     senders = np.asarray([a for a, _ in ordered], np.int32)
     receivers = np.asarray([b for _, b in ordered], np.int32)
     return senders, receivers
+
+
+def unit_summaries(sg, names: Sequence[str]) -> np.ndarray:
+    """``[len(names), N_SUMMARY_FEATURES]`` per-function interprocedural
+    summaries of the supergraph ``sg`` — the ``ireach``/``itaint`` node
+    features of :func:`~deepdfa_tpu_torch.cpg.interproc.
+    interproc_node_features` folded to one row per function, with its
+    caller and callee counts; the JAX package's rows exactly."""
+    from deepdfa_tpu_torch.cpg.interproc import interproc_node_features
+
+    feats = interproc_node_features(sg.base, sg=sg)
+    mid_of = {name: mid for mid, name in sg.method_names.items()}
+    by_owner: dict[int, list[int]] = {}
+    for nid in sg.base.nodes:
+        mid = sg.owner.get(nid)
+        if mid is not None:
+            by_owner.setdefault(mid, []).append(nid)
+    callers: dict[int, int] = {}
+    callees: dict[int, int] = {}
+    for a, b in sg.callgraph.edges:
+        callees[a] = callees.get(a, 0) + 1
+        callers[b] = callers.get(b, 0) + 1
+    out = np.zeros((len(names), N_SUMMARY_FEATURES), np.float32)
+    for i, name in enumerate(names):
+        mid = mid_of.get(name)
+        if mid is None:
+            continue
+        nodes = by_owner.get(mid, [])
+        ireach = [feats["ireach"].get(n, 0) for n in nodes]
+        itaint = [feats["itaint"].get(n, 0) for n in nodes]
+        out[i] = [
+            math.log1p(len(nodes)),
+            math.log1p(float(sum(ireach))),
+            min(max(ireach, default=0), 8) / 8.0,
+            max(itaint, default=0) / 3.0,
+            1.0 if any(c >= 3 for c in itaint) else 0.0,
+            math.log1p(float(callers.get(mid, 0))),
+            math.log1p(float(callees.get(mid, 0))),
+        ]
+    return out
+
+
+def unit_graph(sg, names: Sequence[str]) -> UnitCallGraph:
+    """Level 2's input for the functions ``names`` of the supergraph
+    ``sg``: its call edges, summaries and call-edge count."""
+    senders, receivers = unit_call_edges(sg, names)
+    return UnitCallGraph(senders, receivers, unit_summaries(sg, names),
+                         int(sg.n_call_edges))
 
 
 class CallGraphGGNN(nn.Module):
@@ -338,23 +387,26 @@ class HierScorer:
 
     # -- level 2: the unit score ---------------------------------------------
 
-    def score_unit(self, fns: Sequence[UnitFunction],
-                   unit: UnitCallGraph) -> dict:
+    def score_unit(self, fns: Sequence[UnitFunction], unit) -> dict:
         """Score one unit as one request: level-1 embeddings (cache-fronted,
         on B4) composed by the call-graph GGNN into a unit score and a
-        per-function attribution. ``unit`` holds the call edges and
+        per-function attribution. ``unit`` is the unit's
+        :class:`~deepdfa_tpu_torch.cpg.interproc.Supergraph` (mapped onto
+        ``fns`` by :func:`unit_graph` after level 1, as the JAX scorer
+        does) or a :class:`UnitCallGraph` holding the call edges and
         summaries of ``fns``, in their order."""
         if not fns:
             raise ValueError("score_unit needs at least one function")
         n = len(fns)
-        summaries = np.asarray(unit.summaries, np.float32)
-        if summaries.shape != (n, N_SUMMARY_FEATURES):
-            raise ValueError(f"unit summaries of shape {summaries.shape}, "
-                             f"expected ({n}, {N_SUMMARY_FEATURES})")
         names = [fn.name for fn in fns]
+        if isinstance(unit, UnitCallGraph):
+            self._check_summaries(unit, n)
         t0 = time.perf_counter()
         embs = self.embed_functions(fns)
         t1 = time.perf_counter()
+        if not isinstance(unit, UnitCallGraph):
+            unit = unit_graph(unit, names)
+        summaries = np.asarray(unit.summaries, np.float32)
 
         def put(a, dtype):
             return torch.from_numpy(np.asarray(a, dtype)).to(self.device)
@@ -381,6 +433,13 @@ class HierScorer:
             "call_edges": int(unit.n_call_edges),
             "level1": self.stats(),
         }
+
+    @staticmethod
+    def _check_summaries(unit: UnitCallGraph, n: int) -> None:
+        shape = np.shape(unit.summaries)
+        if shape != (n, N_SUMMARY_FEATURES):
+            raise ValueError(f"unit summaries of shape {shape}, "
+                             f"expected ({n}, {N_SUMMARY_FEATURES})")
 
     # -- accounting -----------------------------------------------------------
 

@@ -8,6 +8,10 @@ source, header and flag, so an edited source is rebuilt and a stale
 library is never loaded. Several sources build in parallel, one ``nvcc``
 each, and :func:`build` returns when all have finished. A failed build
 raises: there is no fallback.
+
+:func:`load_host` builds a plain C++ source (the dataflow solver of
+``native/dfa_solver.cpp``) with the host's C++ compiler into the same
+directory, under the same digest rule.
 """
 
 from __future__ import annotations
@@ -20,13 +24,18 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "CXX_FLAGS", "NVCC_FLAGS", "build", "load",
+           "load_host"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the flags of native/Makefile: no -march=native, the library must run on
+# whatever host loads it
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -88,4 +97,39 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
+        return lib
+
+
+def _host_target(name: str, source: Path) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{name}-host-{h.hexdigest()[:12]}.so"
+
+
+def load_host(name: str, source: Path) -> ctypes.CDLL:
+    """The loaded library of the C++ ``source``, compiled first with the
+    host's C++ compiler (``c++`` or ``g++``) if its digest-named library
+    does not exist yet. Raises when there is no compiler or the build
+    fails."""
+    source = Path(source)
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        target = _host_target(name, source)
+        if not target.exists():
+            cxx = shutil.which("c++") or shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError(f"no C++ compiler to build {source.name}")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"C++ build of {source.name} failed "
+                                   f"(exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, target)
+        lib = ctypes.CDLL(str(target))
+        _libs[key] = lib
         return lib

@@ -256,7 +256,8 @@ class ScoringEngine:
     def score_unit(self, functions, unit) -> dict:
         """Score a multi-function unit as one request through the
         hierarchical path: per-function level-1 embeddings on B4
-        (cache-fronted), composed over the call graph ``unit`` (a
+        (cache-fronted), composed over the call graph ``unit`` (the unit's
+        :class:`~deepdfa_tpu_torch.cpg.interproc.Supergraph`, or a
         :class:`~deepdfa_tpu_torch.models.ggnn_hier.UnitCallGraph`) into a
         unit score and a per-function attribution. Never touches the bucket
         ladder; level-1 dispatches count in ``n_dispatches``."""

@@ -1,8 +1,8 @@
-"""The PyTorch port and chip_smoke.py import nothing of JAX and nothing of the
-JAX package: every module imports in a fresh interpreter where ``jax``,
-``flax`` and ``optax`` are poisoned and ``deepdfa_tpu`` is blocked, and no
-port file names them in an import statement. (A subprocess, because this
-pytest process has already imported JAX.)"""
+"""The PyTorch port and chip_smoke.py import nothing of JAX, nothing of the
+JAX package and no pandas: every module imports in a fresh interpreter where
+``jax``, ``flax``, ``optax`` and ``pandas`` are poisoned and ``deepdfa_tpu``
+is blocked, and no port file names them in an import statement. (A
+subprocess, because this pytest process has already imported JAX.)"""
 
 import ast
 import subprocess
@@ -16,7 +16,10 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "deepdfa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepdfa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "deepdfa_tpu")
+# every module of the port (the C front end, the encode pipeline and scan
+# included) and chip_smoke.py
+N_MODULES = 64
 
 
 def _port_files():
@@ -30,7 +33,7 @@ def _forbidden(name: str) -> bool:
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax"):
+        for name in ("jax", "jaxlib", "flax", "optax", "pandas"):
             sys.modules[name] = None
 
         class Block(importlib.abc.MetaPathFinder):
@@ -49,14 +52,14 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             importlib.import_module(name)
         bad = sorted(n for n in sys.modules if sys.modules[n] is not None and
                      (n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                          "deepdfa_tpu")))
+                                          "pandas", "deepdfa_tpu")))
         assert not bad, bad
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= N_MODULES
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -77,5 +80,6 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 def test_prefix_check_tells_the_port_from_the_jax_package():
     assert _forbidden("deepdfa_tpu") and _forbidden("deepdfa_tpu.ops.segment")
+    assert _forbidden("pandas") and _forbidden("pandas.core.frame")
     assert not _forbidden("deepdfa_tpu_torch")
     assert not _forbidden("deepdfa_tpu_torch.ops.fused_ggnn")
