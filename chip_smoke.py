@@ -159,7 +159,7 @@ Each phase prints one JSON line; any failure exits non-zero.
    subtokens paired with the serve phase's request graphs, one ``score``
    call per batch, the B6 count reset just before: functions/s, real and
    padded tokens/s, p50 batch ms, B6 launches = batches × 32 (every one
-   on ``wgmma``, as in phases 17-19), the device
+   on ``wgmma``, as in phases 18-20), the device
    profile of one batch, the weight GB. Probabilities against the same
    engine with B6 replaced by its plain version on the card
    (``FLASH_PROB_LIMIT``), against the same weights with
@@ -189,7 +189,30 @@ Each phase prints one JSON line; any failure exits non-zero.
    (``PROB_LIMIT``). Files/s and functions/s of encode and of scoring, the
    device's busy share of the scoring and of a warm scan, the cache hit
    rates and the pycparser version.
-17. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
+17. corpus — C source → shards → ``fit`` → ``predict_paths`` through the
+   port's entry points, in the run's own storage root
+   (``DEEPDFA_STORAGE``, a temporary directory for the whole run, so the
+   train phases find no shards). Build: ``deepdfa_tpu_torch.preprocess``
+   over ``demo_corpus(2000, seed=0)`` with 4 thread workers and the random
+   split (extraction, labelling and build functions/s, shards, vulnerable
+   graphs); rebuild into a fresh directory with the extraction cache warm
+   (every function a hit): every shard file, ``manifest.json``,
+   ``splits.json``, ``split.txt`` and ``vocab.json`` byte for byte equal.
+   Fit: the golden model in the fused layout for 3 epochs at 256 graphs a
+   batch on those shards, the counts reset just before: the corpus ``fit``
+   logs and ``load_corpus`` equal ``splits.json`` per split, B1 launches =
+   (train steps + eval batches) × 11 and B2 = train steps × 17, all on
+   ``wgmma``, finite final metrics; steps/s, graphs/s, p50 step ms, the
+   busy share of a profiled step. Predict: ``predict_paths`` with the
+   restored best checkpoint over the test split's sources (one ``.c`` file
+   each) and ``tests/fixtures/realworld``, every statement ranked by
+   occlusion, the B1 count reset just before: B1 launches = scorer calls ×
+   11, all on ``wgmma``; every probability and every ranked saliency, and
+   the gate mode's, within ``PROB_LIMIT`` of the same weights on the CPU
+   (B1's plain version); functions/s, statements/s, the largest batch
+   scored, the busy share of predict over the fixtures, and the top-1
+   localization rate over the vulnerable test functions (reported only).
+18. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
    attn_impl="flash", lora_rank=16, lora_alpha=16))`` over the joint
    phase's seeded weights and a seeded LM head: one epoch over 32 seeded
    C-like functions, block 256, batch 4 (8 steps), the counts reset just
@@ -200,13 +223,13 @@ Each phase prints one JSON line; any failure exits non-zero.
    versions (``LORA_GRAD_LIMIT``); the saved adapters loaded onto a fresh
    base bitwise, and merged into it, against the unmerged model's hidden
    states (``MERGE_LIMIT``); the device profile of one step.
-18. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
+19. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
    ``no_grad``) with a fresh fusion model (the golden GGNN encoder): one
    epoch over the same 32 functions with their eval points over 16 more,
    B6 launches = (steps + eval batches) × 32 and no B6b launch, steps/s;
    ``JointEngine.from_run_dir`` on the ``epoch_0`` it wrote scores the
    eval functions within 1e-5 of the trainer's own evaluation.
-19. joint_int8 — the joint model with ``int8_runtime=True`` from
+20. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
    32 × 7 with bf16 activations, all on the ``wgmma`` variant,
    probabilities against every projection on B5's plain version on the
@@ -221,9 +244,13 @@ device it prints nothing and exits 2.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import logging
 import multiprocessing
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -237,6 +264,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from deepdfa_tpu_torch import preprocess
+from deepdfa_tpu_torch import utils as port_utils
 from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
                                       ExperimentConfig, FeatureConfig,
                                       GGNNConfig, OptimConfig)
@@ -246,7 +275,7 @@ from deepdfa_tpu_torch.cpg.features import (SOLVER_BACKENDS,
                                             add_dependence_edges,
                                             dataflow_node_features)
 from deepdfa_tpu_torch.cpg.frontend import parse_functions, parse_source
-from deepdfa_tpu_torch.data.codegen import (generate_function,
+from deepdfa_tpu_torch.data.codegen import (demo_corpus, generate_function,
                                             generate_hard_function)
 from deepdfa_tpu_torch.data.extract_cache import ExtractCache
 from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
@@ -275,6 +304,8 @@ from deepdfa_tpu_torch.ops import fused_ggnn as fg
 from deepdfa_tpu_torch.ops import int8_matmul as i8
 from deepdfa_tpu_torch.ops import megabatch as mb
 from deepdfa_tpu_torch.pipeline import encode_source, vocab_content_hash
+from deepdfa_tpu_torch.predict import (Scorer, collect_sources, load_vocabs,
+                                       predict_paths)
 from deepdfa_tpu_torch.scan import _score_functions, scan_paths
 from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
                                      ScoringEngine, mega_bucket,
@@ -2939,12 +2970,299 @@ def phase_scan(ctx: dict, seed: int = 0) -> dict:
     return row
 
 
+# --------------------------------------------------------------- phase 17
+
+
+CORPUS_FUNCTIONS = 2000
+CORPUS_WORKERS = 4
+CORPUS_ARGS = ["--dataset", "demo", "--n", str(CORPUS_FUNCTIONS), "--seed",
+               "0", "--workers", str(CORPUS_WORKERS), "--split", "random"]
+# every statement is ranked, so every saliency is compared with the CPU's
+ALL_STATEMENTS = 1 << 30
+
+
+def corpus_config() -> ExperimentConfig:
+    """The golden model in the fused layout, trained on the ``demo`` shards
+    without undersampling at 256 graphs per batch, derived buckets."""
+    return dataclasses.replace(
+        train_config("fused"),
+        data=DataConfig(dsname="demo", split="random", undersample=None,
+                        batch=BatchConfig(batch_graphs=TRAIN_GRAPHS,
+                                          auto_buckets=True)))
+
+
+class _Records(logging.Handler):
+    """Keeps the messages logged through it."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages: list[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def shard_bytes(shard_dir: Path) -> dict[str, str]:
+    """sha256 of every shard file, the manifest, ``splits.json`` and
+    ``vocab.json`` of a shard directory."""
+    names = sorted(p.name for p in shard_dir.glob("shard_*.npz"))
+    names += ["manifest.json", "splits.json", "split.txt", "vocab.json"]
+    return {n: hashlib.sha256((shard_dir / n).read_bytes()).hexdigest()
+            for n in names}
+
+
+class SizedScorer(Scorer):
+    """:class:`Scorer` that keeps the largest batch it scored."""
+
+    max_nodes = 0
+
+    def __call__(self, batch):
+        self.max_nodes = max(self.max_nodes, batch.max_nodes)
+        return super().__call__(batch)
+
+
+def predict_rows(report: dict) -> list[tuple]:
+    """A predict report's rows: file, function, error, probability and the
+    ranked (line, weight) pairs."""
+    return [(r["file"], r.get("function"), r.get("error"),
+             r.get("vulnerable_probability"),
+             [(s["line"], s["weight"]) for s in r.get("top_statements", [])])
+            for r in report["results"]]
+
+
+def compare_predictions(got: dict, want: dict) -> dict:
+    """The largest probability and saliency differences of two reports over
+    the same files (saliencies by rank: the k-th largest of one against the
+    k-th largest of the other), and whether their rows line up."""
+    a, b = predict_rows(got), predict_rows(want)
+    same_rows = ([r[:3] for r in a] == [r[:3] for r in b]
+                 and all(len(x[4]) == len(y[4]) for x, y in zip(a, b)))
+    prob = max((abs(x[3] - y[3]) for x, y in zip(a, b)
+                if x[3] is not None and y[3] is not None), default=None)
+    sal = max((abs(s[1] - t[1]) for x, y in zip(a, b)
+               for s, t in zip(x[4], y[4])), default=None)
+    return {"rows_equal": same_rows, "max_abs_prob_diff": prob,
+            "max_abs_saliency_diff": sal}
+
+
+def localization(report: dict, labels: dict, vul_ids: set) -> dict:
+    """Top-1 localization over the vulnerable test functions: the share
+    whose highest-ranked statement is on one of its labeled lines (removed
+    or dependent-added)."""
+    hits = total = 0
+    for r in report["results"]:
+        fid = Path(r["file"]).stem
+        if "error" in r or not fid.isdigit() or int(fid) not in vul_ids:
+            continue
+        lab = labels.get(int(fid), {})
+        lines = set(lab.get("removed", [])) | set(lab.get("depadd", []))
+        total += 1
+        hits += bool(r["top_statements"]) and \
+            r["top_statements"][0]["line"] in lines
+    return {"functions": total, "top1_hits": hits,
+            "top1_rate": hits / total if total else None}
+
+
+def phase_corpus() -> dict:
+    """C source → shards → ``fit`` on the card → ``predict_paths`` with
+    ranked statements on the card, through the port's own entry points."""
+    out_dir = port_utils.processed_dir() / "demo" / "shards"
+
+    # build, then rebuild into a fresh directory with the cache warm
+    t0 = time.perf_counter()
+    first = preprocess.main(CORPUS_ARGS)
+    build_s = time.perf_counter() - t0
+    first_bytes = shard_bytes(out_dir)
+    out_dir.rename(out_dir.with_name("shards_first"))
+    t0 = time.perf_counter()
+    again = preprocess.main(CORPUS_ARGS)
+    rebuild_s = time.perf_counter() - t0
+    again_bytes = shard_bytes(out_dir)
+    splits = json.loads((out_dir / "splits.json").read_text())
+    labels = pickle.loads(next(out_dir.glob("statement_labels_*.pkl"))
+                          .read_bytes())
+
+    # fit on the shards: counts from zero, read right after
+    cfg = corpus_config()
+    records = _Records()
+    port_logger = logging.getLogger("deepdfa_tpu_torch")
+    port_logger.addHandler(records)
+    level = port_logger.level
+    port_logger.setLevel(logging.INFO)
+    fg.n_launches = fg.n_bwd_launches = mb.n_launches = 0
+    reset_variant_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        work = Path(tmp)
+        try:
+            t0 = time.perf_counter()
+            final = fit(cfg, work / "run", device="cuda")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            port_logger.removeHandler(records)
+            port_logger.setLevel(level)
+        fit_fwd, fit_bwd = fg.n_launches, fg.n_bwd_launches
+        fit_var = {"fwd": dict(fg.n_variant_launches),
+                   "bwd": dict(fg.n_bwd_variant_launches)}
+        timing = json.loads((work / "run" / "journal.json")
+                            .read_text())["timing"]
+        steps, evals = timing["train_steps"], timing["eval_batches"]
+        seen = next((m for m in records.messages if m.startswith("corpus:")),
+                    "")
+        corpus = load_corpus(cfg)
+        per_split = {k: len(v) for k, v in corpus.items()}
+        train = corpus["train"]
+        pw = positive_weight(np.array([int(g.node_feats["_VULN"].max())
+                                       for g in train]))
+        bucket = derive_buckets(train + corpus["val"], TRAIN_GRAPHS)[-1]
+        step_profile = profile_train_step(cfg, pack(train, bucket), pw)
+
+        # predict with the restored best checkpoint over the test split's
+        # sources and the realworld fixtures
+        ckpts = CheckpointManager(work / "run" / "checkpoints", cfg.checkpoint)
+        best = ckpts.best_step()
+        state = ckpts.restore(best, map_location="cpu")
+        rows = {r["id"]: r for r in demo_corpus(CORPUS_FUNCTIONS, seed=0)}
+        src = work / "test_sources"
+        src.mkdir()
+        for fid in splits["test"]:
+            (src / f"{fid}.c").write_text(rows[fid]["before"])
+        paths = [src, FIXTURES / "realworld"]
+        vocabs = load_vocabs(out_dir)
+        model = make_model(cfg.model, cfg.input_dim, device="cuda")
+        model.load_state_dict(state)
+        scorer = SizedScorer(model)
+        fg.n_launches = 0
+        reset_variant_counts()
+        t0 = time.perf_counter()
+        report = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
+                               top_k=ALL_STATEMENTS, scorer=scorer)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
+        n_files = len(collect_sources(paths))
+        gate = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
+                             top_k=ALL_STATEMENTS, saliency="gate")
+
+        # off the main path: the same model and weights on the CPU (plain
+        # B1), and the device profile of predict over the fixtures
+        cpu_model = make_model(cfg.model, cfg.input_dim, device="cpu")
+        cpu_model.load_state_dict(state)
+        cpu = predict_paths(paths, cfg=cfg, model=cpu_model, vocabs=vocabs,
+                            top_k=ALL_STATEMENTS)
+        cpu_gate = predict_paths(paths, cfg=cfg, model=cpu_model,
+                                 vocabs=vocabs, top_k=ALL_STATEMENTS,
+                                 saliency="gate")
+        prof = profile_call(lambda: predict_paths(
+            [FIXTURES / "realworld"], cfg=cfg, model=model, vocabs=vocabs))
+
+    vs_cpu = compare_predictions(report, cpu)
+    gate_vs_cpu = compare_predictions(gate, cpu_gate)
+    statements = sum(len(r.get("top_statements", []))
+                     for r in report["results"])
+    vul_test = {fid for fid in splits["test"] if rows[fid]["vul"] == 1}
+    loc = localization(report, labels, vul_test)
+    per1, per2 = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
+    want_fit = {"fwd": (steps + evals) * per1, "bwd": steps * per2}
+    seconds = first["seconds"]
+    row = {
+        "phase": "corpus", "card": nvidia_smi(),
+        "build": {"functions": first["functions"], "graphs": first["graphs"],
+                  "shards": first["shards"], "vul_graphs": first["vul_graphs"],
+                  "failed": first["failed"], "wall_s": build_s,
+                  "seconds": seconds,
+                  "functions_per_s": {k: first["functions"] / v
+                                      for k, v in seconds.items()},
+                  "extraction": first["extraction"]},
+        "rebuild": {"wall_s": rebuild_s, "seconds": again["seconds"],
+                    "extraction": again["extraction"],
+                    "identical": first_bytes == again_bytes,
+                    "files": len(first_bytes)},
+        "splits": {k: len(v) for k, v in splits.items()},
+        "fit": {"corpus_logged": seen, "per_split": per_split,
+                "epochs": cfg.optim.max_epochs, "train_steps": steps,
+                "eval_batches": evals, "train_seconds": timing["train_seconds"],
+                "steps_per_s": steps / timing["train_seconds"],
+                "graphs_per_s": len(train) * cfg.optim.max_epochs
+                / timing["train_seconds"],
+                "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
+                "fit_seconds": fit_s, "final_metrics": final,
+                "b1_launches": fit_fwd, "b2_launches": fit_bwd,
+                "expected_launches": want_fit,
+                "launches_by_variant": fit_var,
+                "profile_train_step": step_profile,
+                "device_busy_share": step_profile["busy_share"]},
+        "predict": {"files": n_files,
+                    "functions": report["n_scored"] + report["n_errors"],
+                    "scored": report["n_scored"], "errors": report["n_errors"],
+                    "statements": statements, "wall_s": predict_s,
+                    "functions_per_s": report["n_scored"] / predict_s,
+                    "statements_per_s": statements / predict_s,
+                    "scorer_calls": scorer.n_calls,
+                    "largest_batch_nodes": scorer.max_nodes,
+                    "b1_launches": pred_b1,
+                    "b1_launches_by_variant": pred_var,
+                    "vs_cpu": vs_cpu, "gate_vs_cpu": gate_vs_cpu,
+                    "limit": PROB_LIMIT, "localization": loc,
+                    "profile_fixtures": prof,
+                    "device_busy_share": prof["busy_share"]}}
+    emit(row)
+    if not row["rebuild"]["identical"] or \
+            again["extraction"]["cache_hits"] != CORPUS_FUNCTIONS:
+        fail(f"corpus: the rebuild differs ({row['rebuild']}) or missed the "
+             f"cache")
+    if first["failed"] or first["graphs"] != CORPUS_FUNCTIONS:
+        fail(f"corpus: {first['failed']} failures, {first['graphs']} graphs "
+             f"of {CORPUS_FUNCTIONS}")
+    want_split = {k: len(v) for k, v in splits.items()}
+    logged = f"corpus: train={want_split['train']} val={want_split['val']} " \
+             f"test={want_split['test']}"
+    if per_split != want_split or not seen.startswith(logged):
+        fail(f"corpus: fit read {seen!r} / {per_split}, splits.json holds "
+             f"{want_split}")
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"corpus: non-finite final metrics {final}")
+    if {"fwd": fit_fwd, "bwd": fit_bwd} != want_fit or not steps:
+        fail(f"corpus: fit launches B1 {fit_fwd}, B2 {fit_bwd}, expected "
+             f"{want_fit} for {steps} steps and {evals} eval batches")
+    check_ggnn_wgmma("corpus_fit", "B1", fit_var["fwd"], fit_fwd)
+    check_ggnn_wgmma("corpus_fit", "B2", fit_var["bwd"], fit_bwd)
+    n_fixture_fns = sum(len(parse_functions(p.read_text())) for p in
+                        sorted((FIXTURES / "realworld").glob("*.c")))
+    if report["n_errors"] or report["n_scored"] != len(splits["test"]) + \
+            n_fixture_fns:
+        fail(f"corpus: predict scored {report['n_scored']}, "
+             f"{report['n_errors']} errors")
+    check_probs("corpus predict", np.asarray(
+        [r["vulnerable_probability"] for r in report["results"]]))
+    for name, cmp in (("occlusion", vs_cpu), ("gate", gate_vs_cpu)):
+        if not (cmp["rows_equal"] and cmp["max_abs_prob_diff"] <= PROB_LIMIT
+                and cmp["max_abs_saliency_diff"] <= PROB_LIMIT):
+            fail(f"corpus: predict ({name}) against the CPU: {cmp}")
+    if pred_b1 <= 0 or pred_b1 != scorer.n_calls * per1:
+        fail(f"corpus: predict made {pred_b1} B1 launches for "
+             f"{scorer.n_calls} scorer calls (expected {per1} each)")
+    check_ggnn_wgmma("predict", "B1", pred_var, pred_b1)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a storage root of this run's own: the train phases find no shards
+    # (the synthetic corpus), the corpus phase builds and reads its own
+    storage = tempfile.mkdtemp(prefix="chip_smoke_storage_")
+    os.environ["DEEPDFA_STORAGE"] = storage
+    try:
+        return drive()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+
+def drive() -> int:
     smi = nvidia_smi()
     t0 = time.perf_counter()
     # the CUDA sources of the main paths, one nvcc each, in parallel
@@ -2980,6 +3298,7 @@ def main() -> int:
     bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
     joint, ctx = timed("joint", phase_joint)
     scan = timed("scan", phase_scan, ctx)
+    corpus = timed("corpus", phase_corpus)
     finetune = timed("finetune", phase_finetune, ctx)
     joint_train = timed("joint_train", phase_joint_train, ctx)
     joint8 = timed("joint_int8", phase_joint_int8, ctx)
@@ -2999,17 +3318,23 @@ def main() -> int:
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:169",
         "launches": (serve["n_launches"] + train["fwd_launches"]
-                     + train_mb["fwd_launches"] + scan["b1_launches"]),
+                     + train_mb["fwd_launches"] + scan["b1_launches"]
+                     + corpus["fit"]["b1_launches"]
+                     + corpus["predict"]["b1_launches"]),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
-                             "scan": scan["b1_launches"]},
+                             "scan": scan["b1_launches"],
+                             "corpus_fit": corpus["fit"]["b1_launches"],
+                             "predict": corpus["predict"]["b1_launches"]},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
             train["launches_by_variant"]["fwd"],
             train_mb["launches_by_variant"]["fwd"],
-            scan["b1_launches_by_variant"]),
+            scan["b1_launches_by_variant"],
+            corpus["fit"]["launches_by_variant"]["fwd"],
+            corpus["predict"]["b1_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -3026,13 +3351,16 @@ def main() -> int:
         "name": "fused_ggnn_backward", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn_bwd.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
-        "launches": train["bwd_launches"] + train_mb["bwd_launches"],
+        "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
+                     + corpus["fit"]["b2_launches"]),
         "launches_by_path": {"train": train["bwd_launches"],
-                             "train_megabatch": train_mb["bwd_launches"]},
+                             "train_megabatch": train_mb["bwd_launches"],
+                             "corpus_fit": corpus["fit"]["b2_launches"]},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
-            train_mb["launches_by_variant"]["bwd"]),
+            train_mb["launches_by_variant"]["bwd"],
+            corpus["fit"]["launches_by_variant"]["bwd"]),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],

@@ -15,8 +15,11 @@ attention on ``csrc/flash_attention.cu``, its backward on
 end (``cpg/``: pycparser, the dataflow solvers, with the C++ solver of
 ``native/dfa_solver.cpp`` built by the host compiler) and the encode
 pipeline (``pipeline.py``, ``data/vocab.py``) run on the host, and the
-functions and units are scored on the kernels above. It imports torch,
-numpy and pycparser, and nothing of JAX.
+functions and units are scored on the kernels above. ``preprocess``
+builds training shards from generated C (byte for byte the JAX package's),
+``train.fit`` trains on them, and ``predict.predict_paths`` scores C files
+with statements ranked by occlusion saliency, every forward on the fused
+kernels. It imports torch, numpy and pycparser, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 host without a GPU they raise instead of running on the CPU.

@@ -14,10 +14,14 @@ pipeline and ``scan`` run (standard library, numpy and pycparser):
   the dependence-edge pass;
 - :mod:`~deepdfa_tpu_torch.cpg.callgraph` and
   :mod:`~deepdfa_tpu_torch.cpg.interproc` — the call graph, the
-  interprocedural supergraph and its taint analyses.
+  interprocedural supergraph and its taint analyses;
+- :mod:`~deepdfa_tpu_torch.cpg.validate` — the structural validator;
+- :mod:`~deepdfa_tpu_torch.cpg.ivdetect` — per-statement features and the
+  statement labels;
+- :mod:`~deepdfa_tpu_torch.cpg.plot` — DOT text.
 
-``validate.py``, ``joern.py`` and the live Joern session are not ported
-yet.
+``joern.py`` and the live Joern session are not ported yet (ROADMAP queue
+A, "A14's rest (b)").
 """
 
 from deepdfa_tpu_torch.cpg.schema import CPG  # noqa: F401

@@ -29,9 +29,9 @@ operators (a Joern quirk) leak into the ``api`` family; we treat both
 spellings as operators.
 
 Also here: the dependence-edge pass (:func:`add_dependence_edges`) and the
-static-analysis families (:func:`dataflow_node_features`). The JAX
-package's line-level dependency labeling (``line_dependencies``,
-``dep_add_lines``) waits for the ingest slice.
+static-analysis families (:func:`dataflow_node_features`), and the
+line-level dependency labeling the statement labels build on
+(:func:`line_dependencies`, :func:`dep_add_lines`).
 """
 
 from __future__ import annotations
@@ -257,6 +257,43 @@ def dataflow_node_features(cpg: CPG, backend: str = "native") -> dict[str, dict[
     taint = analyses.taint_node_codes(cpg, solver=solve)
     return {"live_out": live_out, "uninit": uninit, "taint": taint}
 
+
+
+# ---------------------------------------------------------------------------
+# line-level dependency labeling
+
+
+def line_dependencies(cpg: CPG) -> dict[int, set[int]]:
+    """Undirected line-level data+control dependency map: REACHING_DEF and
+    CDG edges projected onto line numbers, symmetrised, self-loops dropped
+    (the reference's per-line ``data``/``control`` context,
+    ``helpers/evaluate.py:124-171``, merged into one set per line)."""
+    line_of = {i: n.line for i, n in cpg.nodes.items() if n.line is not None}
+    deps: dict[int, set[int]] = {}
+    for s, d, e in cpg.edges:
+        if e not in ("REACHING_DEF", "CDG"):
+            continue
+        ls, ld = line_of.get(s), line_of.get(d)
+        if ls is None or ld is None or ls == ld:
+            continue
+        deps.setdefault(ls, set()).add(ld)
+        deps.setdefault(ld, set()).add(ls)
+    return deps
+
+
+def dep_add_lines(
+    before_cpg: CPG, after_cpg: CPG, added_lines: Iterable[int]
+) -> list[int]:
+    """Lines of the *before* function that are data/control-dependent on
+    patch-added lines (computed in the *after* graph)
+    (``helpers/evaluate.py:194-218``)."""
+    added = set(added_lines)
+    deps = line_dependencies(after_cpg)
+    dependent: set[int] = set()
+    for line in added:
+        dependent |= deps.get(line, set())
+    before_lines = {n.line for n in before_cpg.nodes.values() if n.line is not None}
+    return sorted(dependent & before_lines)
 
 def add_dependence_edges(cpg: CPG, backend: str = "native") -> CPG:
     """Augment a CPG with REACHING_DEF (data) and CDG (control) edges.

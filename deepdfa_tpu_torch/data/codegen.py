@@ -1,20 +1,21 @@
 """Synthetic C source corpus with known vulnerable lines.
 
-A copy of ``generate_function`` and ``generate_hard_function`` of
-``deepdfa_tpu/data/codegen.py``: template-based C functions whose
-vulnerable variants hold a memory-safety defect on a known line (an
-unbounded ``strcpy``/``memcpy`` bound), the fixed variants bound it. The
-same ``numpy`` generator state gives the JAX package's rows, text for
-text. Each row is a plain dict ``{id, before, after, vul, removed,
-added}``; the JAX package's ``demo_corpus`` DataFrame waits for the ingest
-slice.
+A copy of ``deepdfa_tpu/data/codegen.py`` without pandas: template-based
+C functions whose vulnerable variants hold a memory-safety defect on a
+known line (an unbounded ``strcpy``/``memcpy`` bound), the fixed variants
+bound it. The same ``numpy`` generator state gives the JAX package's rows,
+text for text. Each row is a plain dict ``{id, before, after, vul,
+removed, added}``; :func:`demo_corpus` adds the ``dataset`` name, as the
+JAX package's DataFrame column.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
-__all__ = ["generate_function", "generate_hard_function"]
+__all__ = ["generate_function", "generate_hard_function", "demo_corpus"]
 
 
 def _names(rng: np.random.Generator, n: int) -> list[str]:
@@ -75,7 +76,9 @@ def generate_function(fid: int, vul: bool, rng: np.random.Generator) -> dict:
     }
 
 
-def generate_hard_function(fid: int, vul: bool, rng: np.random.Generator) -> dict:
+def generate_hard_function(
+    fid: int, vul: bool, rng: np.random.Generator, chain_depth: int | None = None
+) -> dict:
     """A *dataflow-hard* (before, after) pair: both classes are built from the
     SAME statement multiset — identical per-node abstract-dataflow features,
     identical token histogram — and differ ONLY in the CFG order of two
@@ -89,14 +92,27 @@ def generate_hard_function(fid: int, vul: bool, rng: np.random.Generator) -> dic
                           IN(memcpy) = {taint def} only
 
     So the class is a function of *which definition reaches the copy* — pure
-    reaching-definitions reasoning; any bag-of-features classifier is at
-    chance by construction. A random 0-8 statement gap between the
-    clamp/taint block and the copy stretches the def→use chains past a fixed
-    message-passing depth for some functions.
+    reaching-definitions reasoning (the reference's learned-DFA thesis,
+    ``clipper.py:50-77``); any bag-of-features classifier is at chance by
+    construction. A random 0-8 statement gap between the clamp/taint block
+    and the copy stretches the def→use chains past a fixed message-passing
+    depth for some functions, keeping the task nontrivial for the GGNN too.
 
     The patch (``after``) restores the safe order, so ``removed``/``added``
-    line labels mirror a real reordering fix. (The JAX package's
-    ``chain_depth`` variant waits for a caller.)
+    line labels mirror a real reordering fix.
+
+    ``chain_depth=L`` switches to the **depth-controlled** variant (the
+    union-vs-sum separation corpus, round-3): the two defs are separated by
+    exactly ``L`` branch-merge statements over unrelated variables, and the
+    copy follows immediately after the second def. Around every statement the
+    two classes are locally identical (same taint, same clamp, same gap
+    multiset); telling WHICH def comes last — i.e. which one reaches the
+    ``memcpy`` — requires integrating order information across ≥ L CFG hops.
+    Each gap ``if`` is a reconvergent diamond, so defs re-arrive along
+    multiple paths: a sum aggregator accumulates path-multiplicity counts
+    while an idempotent union (a∪a=a, the RD lattice meet) does not — the
+    regime where the reference's differentiable-DFA aggregator
+    (``clipper.py:50-77``) should earn its keep.
     """
     a, b, c = _names(rng, 3)
     k1 = int(rng.integers(2, 9))
@@ -105,34 +121,51 @@ def generate_hard_function(fid: int, vul: bool, rng: np.random.Generator) -> dic
 
     taint = f"    {cap} = (int)strlen({c});"
     clamp = f"    if ({cap} >= {k2}) {{ {cap} = {k2} - 1; }}"
-    gap_pool = [
-        f"    int {a} = {k1};",
-        f"    int {b} = {a} + {k1};" if rng.random() < 0.5 else f"    int {b} = {k1} * 2;",
-        f"    if ({a} > {k1}) {{ {a} = {a} - 1; }}",
-        f"    for (int i = 0; i < {k1}; i++) {{ {b} += i; }}",
-        f"    {b} = {b} ^ {a};",
-        f"    while ({a} > 0) {{ {a} -= 1; }}",
-        f"    {a} = {a} + {b};",
-        f"    if ({b} > {a}) {{ {b} = {a}; }}",
-    ]
-    n_gap = int(rng.integers(0, 9))
-    gap = [gap_pool[i] for i in sorted(rng.choice(len(gap_pool), min(n_gap, len(gap_pool)), replace=False))]
+
+    if chain_depth is None:
+        gap_pool = [
+            f"    int {a} = {k1};",
+            f"    int {b} = {a} + {k1};" if rng.random() < 0.5 else f"    int {b} = {k1} * 2;",
+            f"    if ({a} > {k1}) {{ {a} = {a} - 1; }}",
+            f"    for (int i = 0; i < {k1}; i++) {{ {b} += i; }}",
+            f"    {b} = {b} ^ {a};",
+            f"    while ({a} > 0) {{ {a} -= 1; }}",
+            f"    {a} = {a} + {b};",
+            f"    if ({b} > {a}) {{ {b} = {a}; }}",
+        ]
+        n_gap = int(rng.integers(0, 9))
+        gap = [gap_pool[i] for i in sorted(rng.choice(len(gap_pool), min(n_gap, len(gap_pool)), replace=False))]
+        between: list[str] = []
+    else:
+        # L branch-merge diamonds BETWEEN the defs; nothing after the second
+        # def, so receptive-field distance to the copy is exactly the chain.
+        between = [
+            f"    if ({a} > {int(rng.integers(0, 99))}) {{ {b} = {b} + {i}; }}"
+            for i in range(chain_depth)
+        ]
+        gap = []
 
     head = f"int f{fid}(char *{c}, int n)"
-    decl = [f"    char dst{fid}[{k2}];", f"    int {cap} = 0;"]
+    decl = [f"    char dst{fid}[{k2}];", f"    int {cap} = 0;",
+            f"    int {a} = n; int {b} = {k1};"] if chain_depth is not None else [
+            f"    char dst{fid}[{k2}];", f"    int {cap} = 0;"]
     copy = f"    memcpy(dst{fid}, {c}, {cap});"
     tail = f"    return {cap};"
 
     def render(first: str, second: str) -> str:
-        return "\n".join([head, "{", *decl, first, second, *gap, copy, tail, "}"])
+        return "\n".join(
+            [head, "{", *decl, first, *between, second, *gap, copy, tail, "}"]
+        )
 
     before = render(clamp, taint) if vul else render(taint, clamp)
     after = render(taint, clamp)
+    n_decl = len(decl)
     if vul:
-        # 1-based: head, "{", decls, first def, second def (taint)
-        taint_line_before = 2 + len(decl) + 2
-        removed = [taint_line_before, taint_line_before + len(gap) + 1]
-        added = [2 + len(decl) + 1]  # taint moved before the clamp in `after`
+        # 1-based: head, "{", decls, first def, between..., second def (taint)
+        taint_line_before = 2 + n_decl + 1 + len(between) + 1
+        copy_line = taint_line_before + len(gap) + 1
+        removed = [taint_line_before, copy_line]
+        added = [2 + n_decl + 1]  # taint moved before the clamp in `after`
     else:
         removed, added = [], []
     return {
@@ -143,3 +176,28 @@ def generate_hard_function(fid: int, vul: bool, rng: np.random.Generator) -> dic
         "removed": removed,
         "added": added,
     }
+
+
+def demo_corpus(
+    n: int = 200,
+    vul_ratio: float = 0.5,
+    seed: int = 0,
+    style: str = "easy",
+    chain_depth: int | None = None,
+) -> list[dict]:
+    """A balanced-ish labeled corpus: ``n`` rows of :func:`generate_function`
+    (``style="easy"``, dataset ``demo``), :func:`generate_hard_function`
+    (``style="hard"``, ``demo_hard``) or its depth-controlled variant
+    (``chain_depth=L``, ``demo_order{L}``), each row carrying its
+    ``dataset`` name. The JAX package's DataFrame's ``to_dict("records")``,
+    row for row."""
+    rng = np.random.default_rng(seed)
+    if chain_depth is not None:
+        gen = functools.partial(generate_hard_function, chain_depth=chain_depth)
+        dataset = f"demo_order{chain_depth}"
+    elif style == "hard":
+        gen, dataset = generate_hard_function, "demo_hard"
+    else:
+        gen, dataset = generate_function, "demo"
+    rows = [gen(fid, bool(rng.random() < vul_ratio), rng) for fid in range(n)]
+    return [{**row, "dataset": dataset} for row in rows]

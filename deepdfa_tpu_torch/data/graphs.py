@@ -4,7 +4,10 @@ A copy of the serving and training subset of the JAX package's
 ``deepdfa_tpu/data/graphs.py`` (host-side numpy, no framework): :class:`Graph`,
 :class:`BatchedGraphs`, :func:`batch_np`, :class:`BucketSpec`,
 :class:`GraphBatcher`, :func:`derive_buckets`, :func:`padding_efficiency`,
-plus :func:`to_device`, which moves a padded batch onto a torch device.
+the shard files (:func:`save_shards`, :func:`load_shards`,
+:class:`ShardIntegrityError`: the same ``.npz`` keys in the same order and
+the same ``manifest.json``, so each package loads the other's shards), plus
+:func:`to_device`, which moves a padded batch onto a torch device.
 
 - :class:`BatchedGraphs` — flat arrays with **static shapes**: every batch in a
   bucket has exactly ``max_nodes`` nodes, ``max_edges`` edges and
@@ -17,6 +20,10 @@ plus :func:`to_device`, which moves a padded batch onto a torch device.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import logging
+from pathlib import Path
 from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
@@ -30,6 +37,9 @@ __all__ = [
     "GraphBatcher",
     "derive_buckets",
     "padding_efficiency",
+    "save_shards",
+    "load_shards",
+    "ShardIntegrityError",
     "to_device",
 ]
 
@@ -307,6 +317,115 @@ def padding_efficiency(batches: Sequence[BatchedGraphs]) -> dict[str, float]:
         "graphs": real_g / pad_g if pad_g else 0.0,
     }
 
+
+
+class ShardIntegrityError(RuntimeError):
+    """A materialised shard failed its sha256 manifest check; the message
+    names the shard so it can be re-materialised."""
+
+
+def _sha256_file(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def save_shards(graphs: Sequence[Graph], out_dir, shard_size: int = 4096) -> int:
+    """Write graphs to ``shard_{i:05d}.npz`` files (per graph ``s{i}``,
+    ``r{i}`` and ``f{i}:{feature}``, after the ``gids`` array) plus a
+    ``manifest.json`` recording each shard's sha256 and graph count, which
+    :func:`load_shards` verifies before decoding anything. Returns the
+    number of shards."""
+    from deepdfa_tpu_torch.resilience.journal import atomic_write_text
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    n_shards = 0
+    manifest: dict[str, dict] = {}
+    for si in range(0, len(graphs), shard_size):
+        chunk = graphs[si : si + shard_size]
+        payload: dict[str, np.ndarray] = {
+            "gids": np.array([g.gid for g in chunk], dtype=np.int64)
+        }
+        for i, g in enumerate(chunk):
+            payload[f"s{i}"] = g.senders.astype(np.int32)
+            payload[f"r{i}"] = g.receivers.astype(np.int32)
+            for key, val in g.node_feats.items():
+                payload[f"f{i}:{key}"] = val
+        name = f"shard_{n_shards:05d}.npz"
+        np.savez_compressed(out / name, **payload)
+        manifest[name] = {"sha256": _sha256_file(out / name), "graphs": len(chunk)}
+        n_shards += 1
+    # atomic: a crash mid-write must not leave a torn manifest
+    atomic_write_text(
+        out / "manifest.json",
+        json.dumps({"schema": 1, "shards": manifest}, indent=2),
+    )
+    return n_shards
+
+
+def _verify(shard_files: list[Path], manifest_file: Path) -> None:
+    entries = json.loads(manifest_file.read_text()).get("shards", {})
+    on_disk = {p.name for p in shard_files}
+    missing = sorted(set(entries) - on_disk)
+    if missing:
+        raise ShardIntegrityError(
+            f"shard(s) listed in {manifest_file} but missing on disk: "
+            f"{', '.join(missing)}"
+        )
+    for shard in shard_files:
+        entry = entries.get(shard.name)
+        if entry is None:
+            raise ShardIntegrityError(
+                f"shard {shard.name} present on disk but not in "
+                f"{manifest_file} — stale or foreign file in the shard dir"
+            )
+        digest = _sha256_file(shard)
+        if digest != entry["sha256"]:
+            logging.getLogger(__name__).error(
+                "shard integrity failure: %s sha256 %s != recorded %s",
+                shard, digest, entry["sha256"],
+            )
+            raise ShardIntegrityError(
+                f"shard {shard.name} is corrupt: sha256 {digest[:12]}… does "
+                f"not match the manifest ({entry['sha256'][:12]}…) — "
+                "re-materialise the corpus"
+            )
+
+
+def load_shards(in_dir) -> list[Graph]:
+    """Load materialised shards. With a ``manifest.json`` every shard's
+    sha256 is verified first: a flipped bit, a missing shard or a shard
+    the manifest does not list raises :class:`ShardIntegrityError`.
+    Directories without a manifest load unverified."""
+    shard_files = sorted(Path(in_dir).glob("shard_*.npz"))
+    manifest_file = Path(in_dir) / "manifest.json"
+    if manifest_file.exists():
+        _verify(shard_files, manifest_file)
+
+    graphs: list[Graph] = []
+    for shard in shard_files:
+        # allow_pickle stays off: a shard holds numeric arrays only
+        with np.load(shard) as z:
+            gids = z["gids"]
+            # feature keys per graph, in file order (one pass over the keys)
+            keys: dict[str, list[str]] = {}
+            for k in z.files:
+                if k.startswith("f") and ":" in k:
+                    keys.setdefault(k[1:].split(":", 1)[0], []).append(k)
+            for i, gid in enumerate(gids):
+                feats = {k.split(":", 1)[1]: z[k] for k in keys.get(str(i), [])}
+                graphs.append(
+                    Graph(
+                        senders=z[f"s{i}"],
+                        receivers=z[f"r{i}"],
+                        node_feats=feats,
+                        gid=int(gid),
+                    )
+                )
+    return graphs
 
 def to_device(batch: BatchedGraphs, device, feat_keys=None) -> BatchedGraphs:
     """The batch as torch tensors on ``device``. ``feat_keys`` keeps only

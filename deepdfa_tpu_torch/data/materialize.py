@@ -10,10 +10,12 @@ A copy of ``deepdfa_tpu/data/materialize.py`` without pandas:
   edge direction, so ``Graph(senders=innode, receivers=outnode)``, and a
   self-loop per node is appended;
 - the corpus vocabulary's two halves (:func:`corpus_hashes`,
-  :func:`corpus_vocabs`): ``CorpusBuilder.extract`` and
-  ``CorpusBuilder.vocabs`` of the JAX package, row for row and dict for
-  dict. ``CorpusBuilder`` itself (label materialisation, the feature
-  families, shard emission) waits for the ingest slice.
+  :func:`corpus_vocabs`), row for row and dict for dict the JAX package's;
+- :class:`CorpusBuilder`: extraction → train-split vocabularies →
+  per-node encoding (with the static-analysis and interprocedural
+  families when the feature config asks for them) → labeled graphs, the
+  JAX package's graphs bit for bit. ``data/graphs.py``'s ``save_shards``
+  writes them.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ from typing import Iterable, Mapping
 
 import numpy as np
 
-from deepdfa_tpu_torch.config import ALL_SUBKEYS, FeatureConfig
+from deepdfa_tpu_torch.config import (ALL_SUBKEYS, DFA_FEATURE_DIMS,
+                                      FeatureConfig)
 from deepdfa_tpu_torch.cpg.schema import CPG, rdg
 from deepdfa_tpu_torch.data.graphs import Graph
 from deepdfa_tpu_torch.data.vocab import Vocabulary, build_vocab
 
 __all__ = ["select_cfg_nodes", "graph_from_cpg", "corpus_hashes",
-           "corpus_vocabs"]
+           "corpus_vocabs", "CorpusBuilder"]
 
 
 def select_cfg_nodes(
@@ -136,3 +139,82 @@ def corpus_vocabs(hash_rows: list[dict], train_ids: Iterable[int],
             cfg = dataclasses.replace(feature, subkeys=(sk,))
             out[f"_ABS_DATAFLOW_{sk}"] = build_vocab(hash_rows, train_ids, cfg)
     return out
+
+
+def _clipped(values: Mapping[int, int], fam: str) -> dict[int, int]:
+    """A family's raw per-node values clipped into its fixed embedding
+    table (``config.DFA_FEATURE_DIMS``)."""
+    dim = DFA_FEATURE_DIMS[fam]
+    return {n: min(max(int(v), 0), dim - 1) for n, v in values.items()}
+
+
+@dataclasses.dataclass
+class CorpusBuilder:
+    """The feature pipeline over an in-memory corpus ``{graph id: CPG}``:
+    stage-1/2 extraction → train-split vocabularies → per-node encoding →
+    graphs. One instance per :class:`FeatureConfig`. After :meth:`build`,
+    ``hash_rows`` holds the stage-2 rows (the coverage table
+    ``hashes.csv.gz``)."""
+
+    feature: FeatureConfig = dataclasses.field(default_factory=FeatureConfig)
+    concat_all_absdf: bool = True
+    hash_rows: list[dict] = dataclasses.field(default_factory=list, repr=False)
+
+    def extract(self, cpgs: Mapping[int, CPG], raise_all: bool = False) -> list[dict]:
+        """Stage 1+2: per-definition hash rows for the whole corpus."""
+        return corpus_hashes(cpgs, self.feature.subkeys, raise_all=raise_all)
+
+    def vocabs(self, hash_rows: list[dict],
+               train_ids: Iterable[int]) -> dict[str, Vocabulary]:
+        """The combined vocabulary plus one per subkey when
+        ``concat_all_absdf``."""
+        return corpus_vocabs(hash_rows, train_ids, self.feature,
+                             self.concat_all_absdf)
+
+    def build(
+        self,
+        cpgs: Mapping[int, CPG],
+        train_ids: Iterable[int],
+        vuln_lines: Mapping[int, set[int]] | None = None,
+        graph_labels: Mapping[int, int] | None = None,
+        raise_all: bool = False,
+        dataflow_labels: bool = False,
+    ) -> tuple[list[Graph], dict[str, Vocabulary]]:
+        """The whole pipeline; returns (graphs, vocabs). Graphs with no CFG
+        are dropped."""
+        self.hash_rows = self.extract(cpgs, raise_all=raise_all)
+        vocabs = self.vocabs(self.hash_rows, train_ids)
+        by_graph: dict[int, dict[int, str]] = {}
+        for row in self.hash_rows:
+            by_graph.setdefault(int(row["graph_id"]), {})[int(row["node_id"])] = row["hash"]
+
+        graphs: list[Graph] = []
+        for gid, cpg in cpgs.items():
+            hashes = by_graph.get(int(gid), {})
+            feat_ids = {
+                name: {n: voc.feature_id(h) for n, h in hashes.items()}
+                for name, voc in vocabs.items()
+            }
+            if self.feature.dataflow_families:
+                from deepdfa_tpu_torch.cpg.features import dataflow_node_features
+
+                for fam, values in dataflow_node_features(cpg).items():
+                    feat_ids[f"_DFA_{fam}"] = _clipped(values, fam)
+            if self.feature.interproc_families:
+                # per graph: a corpus graph is one parse unit, so the
+                # supergraph spans that unit only
+                from deepdfa_tpu_torch.cpg.interproc import interproc_node_features
+
+                for fam, values in interproc_node_features(cpg).items():
+                    feat_ids[f"_DFA_{fam}"] = _clipped(values, fam)
+            g = graph_from_cpg(
+                cpg,
+                gid,
+                feat_ids,
+                vuln_lines=set(vuln_lines[gid]) if vuln_lines is not None else None,
+                graph_label=graph_labels[gid] if graph_labels is not None else None,
+                dataflow_labels=dataflow_labels,
+            )
+            if g is not None:
+                graphs.append(g)
+        return graphs, vocabs

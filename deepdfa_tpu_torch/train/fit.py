@@ -12,7 +12,12 @@ checkpoint is restored and re-validated into ``final_metrics.json``.
 ``resume=True`` restarts after the last committed epoch, bit-identical to an
 uninterrupted run where the device is deterministic.
 
-The port trains on the synthetic corpus only. Telemetry, TensorBoard,
+Data: the materialised shards and ``splits.json`` under
+``processed_dir()/{dsname}/shards[_sample]`` (written by
+``python -m deepdfa_tpu_torch.preprocess`` or the JAX package's
+``scripts/preprocess.py``), re-partitioned at load time by a named split
+when ``data.split`` names one; without shards, a deterministic synthetic
+corpus (with a warning). Telemetry, TensorBoard,
 preemption and emergency checkpoints, the watchdog, the elastic mesh block,
 divergence rollback, node and dataflow labels and the dense layout are not
 ported yet (ROADMAP A4, A3, A10, A11); a config that asks for one raises
@@ -30,10 +35,11 @@ from typing import Sequence
 
 import numpy as np
 
-from deepdfa_tpu_torch import resolve_device
+from deepdfa_tpu_torch import resolve_device, utils
 from deepdfa_tpu_torch.config import ExperimentConfig
 from deepdfa_tpu_torch.data.graphs import (BucketSpec, Graph, GraphBatcher,
-                                           _round_up, derive_buckets)
+                                           _round_up, derive_buckets,
+                                           load_shards)
 from deepdfa_tpu_torch.data.sampler import epoch_indices, positive_weight
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.resilience.journal import RunJournal, atomic_write_text
@@ -62,13 +68,59 @@ def _synthetic_corpus(cfg: ExperimentConfig) -> dict[str, list[Graph]]:
     return out
 
 
+def _named_split_corpus(graphs: list[Graph], split: str) -> dict[str, list[Graph]]:
+    """The shards re-partitioned by a named split file (the reference's
+    cross-project folds): the shards and their vocabulary stay as
+    preprocessed, only the partition changes."""
+    from deepdfa_tpu_torch.data import ingest
+
+    smap = ingest.named_splits(split)
+    by_gid = {g.gid: g for g in graphs}
+    id_splits, missing = ingest.partition_ids(sorted(by_gid), smap)
+    if sum(len(v) for v in id_splits.values()) == 0:
+        raise ValueError(
+            f"named split {split!r} matched NONE of the {len(by_gid)} shard "
+            "graph ids — wrong split file for this corpus?")
+    if missing:
+        logger.warning("%d graphs not in named split %r dropped", missing,
+                       split)
+    return {part: [by_gid[i] for i in ids_] for part, ids_ in id_splits.items()}
+
+
 def load_corpus(cfg: ExperimentConfig) -> dict[str, list[Graph]]:
-    """{split: [Graph]}: the deterministic synthetic corpus (the JAX
-    package's fallback when no materialised shards exist)."""
-    logger.warning(
-        "the port reads no materialised shards yet (ROADMAP A4): training "
-        "on the synthetic corpus (seed %d)", cfg.data.seed)
-    return _synthetic_corpus(cfg)
+    """{split: [Graph]} from the materialised shards of ``cfg.data.dsname``,
+    or the deterministic synthetic corpus when there are none."""
+    sample_text = "_sample" if cfg.data.sample else ""
+    shard_dir = utils.processed_dir() / cfg.data.dsname / f"shards{sample_text}"
+    splits_file = shard_dir / "splits.json"
+    if not splits_file.exists():
+        logger.warning("no materialised shards at %s — using the synthetic "
+                       "corpus (seed %d)", shard_dir, cfg.data.seed)
+        return _synthetic_corpus(cfg)
+    graphs = load_shards(shard_dir)
+    if cfg.data.split not in ("fixed", "random"):
+        return _named_split_corpus(graphs, cfg.data.split)
+    splits = {k: set(v) for k, v in json.loads(splits_file.read_text()).items()}
+    # split-leakage guard: train/val/test id sets must be pairwise disjoint
+    for a in ("train", "val", "test"):
+        for b in ("train", "val", "test"):
+            if a < b and splits.get(a, set()) & splits.get(b, set()):
+                overlap = sorted(splits[a] & splits[b])[:5]
+                raise ValueError(
+                    f"split leakage: {a}∩{b} non-empty (e.g. {overlap}) in "
+                    f"{splits_file}")
+    out: dict[str, list[Graph]] = {"train": [], "val": [], "test": []}
+    missing = 0
+    for g in graphs:
+        for part in out:
+            if g.gid in splits.get(part, ()):
+                out[part].append(g)
+                break
+        else:
+            missing += 1
+    if missing:
+        logger.warning("%d graphs without split assignment dropped", missing)
+    return out
 
 
 def _batcher(cfg: ExperimentConfig, graphs: list[Graph] | None = None):

@@ -30,6 +30,14 @@ from deepdfa_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from deepdfa_tpu_torch.train.fit import fit  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _own_storage(tmp_path_factory, monkeypatch):
+    """``load_corpus`` reads ``processed_dir()``: point the storage root at
+    an empty directory, so ``fit`` takes the synthetic corpus whatever a
+    checkout's ``storage/`` holds."""
+    monkeypatch.setenv("DEEPDFA_STORAGE", str(tmp_path_factory.mktemp("storage")))
+
+
 def _state(v: float) -> dict:
     return {"w": torch.full((3,), v), "b": torch.tensor([v])}
 

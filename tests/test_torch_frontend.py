@@ -13,7 +13,11 @@ CPU: the same C source goes through both packages' modules.
 - the interprocedural layer on ``cross_taint.c``: the supergraph, the
   cross-function taint findings, ``interproc_node_features`` and
   ``unit_summaries``;
-- the synthetic C generators text for text.
+- the synthetic C generators text for text;
+- every case of ``scripts/frontend_torture.py`` (the same CPGs and
+  dependence edges, or the same front-end error) and the depth-controlled
+  ``chain_depth`` functions of ``demo_corpus``, before and after the
+  patch.
 
 Everything here is host code with no arithmetic in floating point beyond
 ``unit_summaries`` (float32 ``log1p`` of the same integers): all equal
@@ -21,6 +25,7 @@ exactly.
 """
 
 import dataclasses
+import importlib.util
 import json
 from pathlib import Path
 
@@ -245,3 +250,55 @@ def test_generators_equal_jax_text_for_text(kind):
         assert fn[0](fid, vul, rng_a) == fn[1](fid, vul, rng_b)
     row = fn[0](0, True, np.random.default_rng(1))
     assert parse_functions(row["before"]) and row["removed"]
+
+
+# ------------------------------------------- the wider differential
+
+
+def _torture_cases():
+    spec = importlib.util.spec_from_file_location(
+        "_frontend_torture", Path(__file__).resolve().parent.parent
+        / "scripts" / "frontend_torture.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.CASES
+
+
+TORTURE = _torture_cases()
+
+
+def _assert_front_ends_agree(code: str) -> None:
+    """Both front ends on ``code``: the same function names, CPGs node for
+    node and edge for edge, the same dependence edges in the same order;
+    or the same front-end error."""
+    try:
+        want = jparse_functions(code)
+    except Exception as exc:  # noqa: BLE001 — the port must fail alike
+        with pytest.raises(FrontendError) as got:
+            parse_functions(code)
+        assert (type(exc).__name__, str(exc)) == ("FrontendError",
+                                                  str(got.value))
+        return
+    got = parse_functions(code)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert _nodes(a) == _nodes(b)
+        assert a.edges == b.edges
+        assert feat.add_dependence_edges(a).edges == \
+            jfeat.add_dependence_edges(b).edges
+
+
+@pytest.mark.parametrize("case", TORTURE,
+                         ids=[f"{c}-{n}" for c, n, _ in TORTURE])
+def test_torture_case_equals_jax(case):
+    _assert_front_ends_agree(case[2])
+
+
+@pytest.mark.parametrize("depth", range(1, 7))
+def test_chain_depth_functions_equal_jax(depth):
+    rows = codegen.demo_corpus(10, seed=depth, chain_depth=depth)
+    assert rows == jcodegen.demo_corpus(10, seed=depth,
+                                        chain_depth=depth).to_dict("records")
+    for row in rows:
+        _assert_front_ends_agree(row["before"])
+        _assert_front_ends_agree(row["after"])
