@@ -159,7 +159,7 @@ Each phase prints one JSON line; any failure exits non-zero.
    subtokens paired with the serve phase's request graphs, one ``score``
    call per batch, the B6 count reset just before: functions/s, real and
    padded tokens/s, p50 batch ms, B6 launches = batches × 32 (every one
-   on ``wgmma``, as in phases 18-20), the device
+   on ``wgmma``, as in phases 19-21), the device
    profile of one batch, the weight GB. Probabilities against the same
    engine with B6 replaced by its plain version on the card
    (``FLASH_PROB_LIMIT``), against the same weights with
@@ -212,7 +212,32 @@ Each phase prints one JSON line; any failure exits non-zero.
    (B1's plain version); functions/s, statements/s, the largest batch
    scored, the busy share of predict over the fixtures, and the top-1
    localization rate over the vulnerable test functions (reported only).
-18. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
+18. bigvul — the real-dataset readers and Joern ingestion, in the run's
+   storage root, with inputs written in the published schemas without
+   pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
+   leading unnamed index and every typed column of the reference reader)
+   of 2,000 ``codegen`` pairs, half vulnerable, every 40th a
+   dataflow-hard one of chain depth 30-120, and an
+   ``external/linevul_splits.csv`` assigning every id; then
+   ``preprocess --dataset bigvul --split fixed --workers 4`` (rows read and
+   kept by each quality filter equal to a serial in-process read of the
+   same file, no front-end failure, positive graphs), and a warm rebuild
+   into a fresh directory (the reader's cache and every extraction a hit)
+   whose shards, manifest, ``splits.json``, ``split.txt`` and
+   ``vocab.json`` are byte for byte the first build's. Fit: the golden
+   model in the fused layout for 3 epochs on those shards, the counts reset
+   just before: ``fit`` reads as many graphs per split as ``splits.json``
+   lists, B1 launches = (train steps + eval batches) × 11, B2 = train steps
+   × 17, all on ``wgmma``; p50 step ms, graphs/s, the busy share of a
+   profiled step, the largest graph. Devign: a 400-function
+   ``external/function.json`` with ``external/codexglue_splits.csv``,
+   ``preprocess --dataset devign --split fixed``, and one epoch of ``fit``
+   on its graph labels with the same launch checks. Joern:
+   ``tests/fixtures/sample.c``'s exported artifacts through
+   ``cpg.joern.load_cpg``, encoded against the Big-Vul vocabulary and
+   scored by ``ScoringEngine`` with the Big-Vul model's best checkpoint on
+   B1 (11 launches, ``wgmma``), within ``PROB_LIMIT`` of a CPU engine.
+19. finetune — ``LoraFinetuner`` on ``LlamaForCausalLM(codellama_7b(
    attn_impl="flash", lora_rank=16, lora_alpha=16))`` over the joint
    phase's seeded weights and a seeded LM head: one epoch over 32 seeded
    C-like functions, block 256, batch 4 (8 steps), the counts reset just
@@ -223,13 +248,13 @@ Each phase prints one JSON line; any failure exits non-zero.
    versions (``LORA_GRAD_LIMIT``); the saved adapters loaded onto a fresh
    base bitwise, and merged into it, against the unmerged model's hidden
    states (``MERGE_LIMIT``); the device profile of one step.
-19. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
+20. joint_train — ``JointTrainer`` (MSIVD mode: the 7B LLM frozen under
    ``no_grad``) with a fresh fusion model (the golden GGNN encoder): one
    epoch over the same 32 functions with their eval points over 16 more,
    B6 launches = (steps + eval batches) × 32 and no B6b launch, steps/s;
    ``JointEngine.from_run_dir`` on the ``epoch_0`` it wrote scores the
    eval functions within 1e-5 of the trainer's own evaluation.
-20. joint_int8 — the joint model with ``int8_runtime=True`` from
+21. joint_int8 — the joint model with ``int8_runtime=True`` from
    ``to_int8_runtime_params`` of the same weights: B5 launches = batches ×
    32 × 7 with bf16 activations, all on the ``wgmma`` variant,
    probabilities against every projection on B5's plain version on the
@@ -266,6 +291,7 @@ import torch
 
 from deepdfa_tpu_torch import preprocess
 from deepdfa_tpu_torch import utils as port_utils
+from deepdfa_tpu_torch.data import ingest
 from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
                                       ExperimentConfig, FeatureConfig,
                                       GGNNConfig, OptimConfig)
@@ -275,6 +301,7 @@ from deepdfa_tpu_torch.cpg.features import (SOLVER_BACKENDS,
                                             add_dependence_edges,
                                             dataflow_node_features)
 from deepdfa_tpu_torch.cpg.frontend import parse_functions, parse_source
+from deepdfa_tpu_torch.cpg.joern import load_cpg
 from deepdfa_tpu_torch.data.codegen import (demo_corpus, generate_function,
                                             generate_hard_function)
 from deepdfa_tpu_torch.data.extract_cache import ExtractCache
@@ -303,7 +330,8 @@ from deepdfa_tpu_torch.ops import flash_attention as fa
 from deepdfa_tpu_torch.ops import fused_ggnn as fg
 from deepdfa_tpu_torch.ops import int8_matmul as i8
 from deepdfa_tpu_torch.ops import megabatch as mb
-from deepdfa_tpu_torch.pipeline import encode_source, vocab_content_hash
+from deepdfa_tpu_torch.pipeline import (encode_cpg, encode_source,
+                                        vocab_content_hash)
 from deepdfa_tpu_torch.predict import (Scorer, collect_sources, load_vocabs,
                                        predict_paths)
 from deepdfa_tpu_torch.scan import _score_functions, scan_paths
@@ -3063,6 +3091,83 @@ def localization(report: dict, labels: dict, vul_ids: set) -> dict:
             "top1_rate": hits / total if total else None}
 
 
+def fit_on_shards(cfg: ExperimentConfig, run_dir: Path) -> tuple[dict, dict]:
+    """``fit`` on the card with every count from zero, read right after,
+    then (off the main path) the profile of one step on its largest
+    bucket. Returns the row (the ``corpus:`` log line, the graphs per split
+    ``load_corpus`` reads, the launch counts by variant, the timing) and
+    the corpus."""
+    records = _Records()
+    port_logger = logging.getLogger("deepdfa_tpu_torch")
+    port_logger.addHandler(records)
+    level = port_logger.level
+    port_logger.setLevel(logging.INFO)
+    fg.n_launches = fg.n_bwd_launches = mb.n_launches = 0
+    reset_variant_counts()
+    try:
+        t0 = time.perf_counter()
+        final = fit(cfg, run_dir, device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        port_logger.removeHandler(records)
+        port_logger.setLevel(level)
+    b1, b2 = fg.n_launches, fg.n_bwd_launches
+    by_variant = {"fwd": dict(fg.n_variant_launches),
+                  "bwd": dict(fg.n_bwd_variant_launches)}
+    timing = json.loads((run_dir / "journal.json").read_text())["timing"]
+    steps, evals = timing["train_steps"], timing["eval_batches"]
+    per1, per2 = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
+    corpus = load_corpus(cfg)
+    train = corpus["train"]
+    pw = positive_weight(np.array([int(g.node_feats["_VULN"].max())
+                                   for g in train]))
+    bucket = derive_buckets(train + corpus["val"], TRAIN_GRAPHS)[-1]
+    step_profile = profile_train_step(cfg, pack(train, bucket), pw)
+    return {
+        "corpus_logged": next((m for m in records.messages
+                               if m.startswith("corpus:")), ""),
+        "per_split": {k: len(v) for k, v in corpus.items()},
+        "epochs": cfg.optim.max_epochs, "train_steps": steps,
+        "eval_batches": evals, "train_seconds": timing["train_seconds"],
+        "steps_per_s": steps / timing["train_seconds"],
+        "graphs_per_s": len(train) * cfg.optim.max_epochs
+        / timing["train_seconds"],
+        "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
+        "fit_seconds": fit_s, "final_metrics": final,
+        "b1_launches": b1, "b2_launches": b2,
+        "expected_launches": {"fwd": (steps + evals) * per1,
+                              "bwd": steps * per2},
+        "launches_by_variant": by_variant,
+        "profile_train_step": step_profile,
+        "device_busy_share": step_profile["busy_share"]}, corpus
+
+
+def check_fit(name: str, run: dict, splits: dict) -> None:
+    """Fail unless ``fit`` read every split as ``splits.json`` lists it,
+    made calls × launches per call of B1 and B2, all on ``wgmma``, and
+    ended with finite metrics."""
+    want = {k: len(v) for k, v in splits.items()}
+    logged = f"corpus: train={want['train']} val={want['val']} " \
+             f"test={want['test']}"
+    if run["per_split"] != want or \
+            not run["corpus_logged"].startswith(logged):
+        fail(f"{name}: fit read {run['corpus_logged']!r} / "
+             f"{run['per_split']}, splits.json holds {want}")
+    if not all(np.isfinite(v) for v in run["final_metrics"].values()):
+        fail(f"{name}: non-finite final metrics {run['final_metrics']}")
+    got = {"fwd": run["b1_launches"], "bwd": run["b2_launches"]}
+    if got != run["expected_launches"] or not run["train_steps"]:
+        fail(f"{name}: fit launches B1 {got['fwd']}, B2 {got['bwd']}, "
+             f"expected {run['expected_launches']} for "
+             f"{run['train_steps']} steps and {run['eval_batches']} eval "
+             f"batches")
+    check_ggnn_wgmma(name, "B1", run["launches_by_variant"]["fwd"],
+                     run["b1_launches"])
+    check_ggnn_wgmma(name, "B2", run["launches_by_variant"]["bwd"],
+                     run["b2_launches"])
+
+
 def phase_corpus() -> dict:
     """C source → shards → ``fit`` on the card → ``predict_paths`` with
     ranked statements on the card, through the port's own entry points."""
@@ -3084,38 +3189,9 @@ def phase_corpus() -> dict:
 
     # fit on the shards: counts from zero, read right after
     cfg = corpus_config()
-    records = _Records()
-    port_logger = logging.getLogger("deepdfa_tpu_torch")
-    port_logger.addHandler(records)
-    level = port_logger.level
-    port_logger.setLevel(logging.INFO)
-    fg.n_launches = fg.n_bwd_launches = mb.n_launches = 0
-    reset_variant_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
         work = Path(tmp)
-        try:
-            t0 = time.perf_counter()
-            final = fit(cfg, work / "run", device="cuda")
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        finally:
-            port_logger.removeHandler(records)
-            port_logger.setLevel(level)
-        fit_fwd, fit_bwd = fg.n_launches, fg.n_bwd_launches
-        fit_var = {"fwd": dict(fg.n_variant_launches),
-                   "bwd": dict(fg.n_bwd_variant_launches)}
-        timing = json.loads((work / "run" / "journal.json")
-                            .read_text())["timing"]
-        steps, evals = timing["train_steps"], timing["eval_batches"]
-        seen = next((m for m in records.messages if m.startswith("corpus:")),
-                    "")
-        corpus = load_corpus(cfg)
-        per_split = {k: len(v) for k, v in corpus.items()}
-        train = corpus["train"]
-        pw = positive_weight(np.array([int(g.node_feats["_VULN"].max())
-                                       for g in train]))
-        bucket = derive_buckets(train + corpus["val"], TRAIN_GRAPHS)[-1]
-        step_profile = profile_train_step(cfg, pack(train, bucket), pw)
+        run, _ = fit_on_shards(cfg, work / "run")
 
         # predict with the restored best checkpoint over the test split's
         # sources and the realworld fixtures
@@ -3162,8 +3238,7 @@ def phase_corpus() -> dict:
                      for r in report["results"])
     vul_test = {fid for fid in splits["test"] if rows[fid]["vul"] == 1}
     loc = localization(report, labels, vul_test)
-    per1, per2 = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
-    want_fit = {"fwd": (steps + evals) * per1, "bwd": steps * per2}
+    per1 = fg.launches_per_call(STEPS)
     seconds = first["seconds"]
     row = {
         "phase": "corpus", "card": nvidia_smi(),
@@ -3179,19 +3254,7 @@ def phase_corpus() -> dict:
                     "identical": first_bytes == again_bytes,
                     "files": len(first_bytes)},
         "splits": {k: len(v) for k, v in splits.items()},
-        "fit": {"corpus_logged": seen, "per_split": per_split,
-                "epochs": cfg.optim.max_epochs, "train_steps": steps,
-                "eval_batches": evals, "train_seconds": timing["train_seconds"],
-                "steps_per_s": steps / timing["train_seconds"],
-                "graphs_per_s": len(train) * cfg.optim.max_epochs
-                / timing["train_seconds"],
-                "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
-                "fit_seconds": fit_s, "final_metrics": final,
-                "b1_launches": fit_fwd, "b2_launches": fit_bwd,
-                "expected_launches": want_fit,
-                "launches_by_variant": fit_var,
-                "profile_train_step": step_profile,
-                "device_busy_share": step_profile["busy_share"]},
+        "fit": run,
         "predict": {"files": n_files,
                     "functions": report["n_scored"] + report["n_errors"],
                     "scored": report["n_scored"], "errors": report["n_errors"],
@@ -3214,19 +3277,7 @@ def phase_corpus() -> dict:
     if first["failed"] or first["graphs"] != CORPUS_FUNCTIONS:
         fail(f"corpus: {first['failed']} failures, {first['graphs']} graphs "
              f"of {CORPUS_FUNCTIONS}")
-    want_split = {k: len(v) for k, v in splits.items()}
-    logged = f"corpus: train={want_split['train']} val={want_split['val']} " \
-             f"test={want_split['test']}"
-    if per_split != want_split or not seen.startswith(logged):
-        fail(f"corpus: fit read {seen!r} / {per_split}, splits.json holds "
-             f"{want_split}")
-    if not all(np.isfinite(v) for v in final.values()):
-        fail(f"corpus: non-finite final metrics {final}")
-    if {"fwd": fit_fwd, "bwd": fit_bwd} != want_fit or not steps:
-        fail(f"corpus: fit launches B1 {fit_fwd}, B2 {fit_bwd}, expected "
-             f"{want_fit} for {steps} steps and {evals} eval batches")
-    check_ggnn_wgmma("corpus_fit", "B1", fit_var["fwd"], fit_fwd)
-    check_ggnn_wgmma("corpus_fit", "B2", fit_var["bwd"], fit_bwd)
+    check_fit("corpus_fit", run, splits)
     n_fixture_fns = sum(len(parse_functions(p.read_text())) for p in
                         sorted((FIXTURES / "realworld").glob("*.c")))
     if report["n_errors"] or report["n_scored"] != len(splits["test"]) + \
@@ -3243,6 +3294,229 @@ def phase_corpus() -> dict:
         fail(f"corpus: predict made {pred_b1} B1 launches for "
              f"{scorer.n_calls} scorer calls (expected {per1} each)")
     check_ggnn_wgmma("predict", "B1", pred_var, pred_b1)
+    return row
+
+
+# --------------------------------------------------------------- phase 18
+
+
+BIGVUL_FUNCTIONS = 2000
+BIGVUL_TAIL = 40  # every 40th function dataflow-hard: Big-Vul's heavy tail
+DEVIGN_FUNCTIONS = 400
+BIGVUL_WORKERS = 4
+BIGVUL_ARGS = ["--dataset", "bigvul", "--split", "fixed", "--workers",
+               str(BIGVUL_WORKERS)]
+DEVIGN_ARGS = ["--dataset", "devign", "--split", "fixed", "--workers",
+               str(BIGVUL_WORKERS)]
+# the reference reader's typed columns (DDFA/sastvd/helpers/datasets.py:
+# 161-196), in the order of scripts/rehearse_bigvul.py
+MSR_COLUMNS = [
+    "commit_id", "del_lines", "file_name", "lang", "lines_before",
+    "lines_after", "Access Gained", "Attack Origin",
+    "Authentication Required", "Availability", "CVE ID", "CVE Page",
+    "CWE ID", "Complexity", "Confidentiality", "Integrity",
+    "Known Exploits", "Score", "Summary", "Vulnerability Classification",
+    "add_lines", "codeLink", "commit_message", "files_changed", "parentID",
+    "patch", "project", "project_after", "project_before",
+    "vul_func_with_fix", "Publish Date", "Update Date", "func_before",
+    "func_after", "vul"]
+SPLIT_OF = ["train"] * 7 + ["valid", "test", "test"]
+
+
+def write_msr_csv(path: Path, n: int, seed: int) -> None:
+    """A full-schema ``MSR_data_cleaned.csv`` of ``n`` generated pairs (half
+    vulnerable; every ``BIGVUL_TAIL``-th a dataflow-hard function of chain
+    depth 30-120) in ``DataFrame.to_csv``'s layout: a leading unnamed index
+    column, quoted fields across lines."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow([""] + MSR_COLUMNS)
+        for i in range(n):
+            vul = i % 2 == 0
+            if i % BIGVUL_TAIL == BIGVUL_TAIL - 1:
+                r = generate_hard_function(
+                    i, vul, rng, chain_depth=int(rng.integers(30, 120)))
+            else:
+                r = generate_function(i, vul, rng)
+            removed, added = r["removed"], r["added"]
+            row = {
+                "commit_id": f"c{i:010x}", "del_lines": len(removed),
+                "file_name": f"src/mod_{i % 17}.c", "lang": "C",
+                "lines_before": ",".join(map(str, removed)),
+                "lines_after": ",".join(map(str, added)),
+                "Access Gained": "None", "Attack Origin": "Remote",
+                "Authentication Required": "Not required",
+                "Availability": "Partial", "CVE ID": f"CVE-2020-{100000 + i}",
+                "CVE Page": "https://example/cve", "CWE ID": "CWE-787",
+                "Complexity": "Low", "Confidentiality": "Partial",
+                "Integrity": "Partial", "Known Exploits": "",
+                "Score": float(rng.uniform(2, 9)), "Summary": "generated",
+                "Vulnerability Classification": "Overflow",
+                "add_lines": len(added), "codeLink": "https://example/commit",
+                "commit_message": "fix", "files_changed": f"src/mod_{i % 17}.c",
+                "parentID": f"p{i:010x}", "patch": "@@",
+                "project": f"proj{i % 5}", "project_after": f"proj{i % 5}",
+                "project_before": f"proj{i % 5}",
+                "vul_func_with_fix": r["after"], "Publish Date": "2020-01-01",
+                "Update Date": "2020-06-01", "func_before": r["before"],
+                "func_after": r["after"], "vul": int(vul)}
+            writer.writerow([i] + [row[c] for c in MSR_COLUMNS])
+
+
+def write_split_csv(path: Path, key: str, ids) -> None:
+    """A split file (``key,split``) assigning every id 70/10/20, each
+    pair ``2k, 2k + 1`` (one vulnerable, one not) to the same split."""
+    path.write_text(f"{key},split\n" + "".join(
+        f"{i},{SPLIT_OF[(i // 2) % 10]}\n" for i in ids))
+
+
+def write_devign_json(path: Path, n: int, seed: int) -> None:
+    """A Devign ``function.json``: ``project``, ``commit_id``, ``target``,
+    ``func`` for ``n`` generated functions (a third vulnerable)."""
+    rng = np.random.default_rng(seed)
+    objs = []
+    for i in range(n):
+        r = generate_function(i, i % 3 == 0, rng)
+        objs.append({"project": "qemu" if i % 2 else "FFmpeg",
+                     "commit_id": f"{i:040x}", "target": r["vul"],
+                     "func": r["before"]})
+    path.write_text(json.dumps(objs))
+
+
+def phase_bigvul() -> dict:
+    """Big-Vul and Devign files → the port's readers → shards → ``fit`` on
+    the card, and a Joern export scored on the card."""
+    external = port_utils.external_dir()
+    out_dir = port_utils.processed_dir() / "bigvul" / "shards"
+    csv_path = external / "MSR_data_cleaned.csv"
+    write_msr_csv(csv_path, BIGVUL_FUNCTIONS, seed=0)
+    write_split_csv(external / "linevul_splits.csv", "index",
+                    range(BIGVUL_FUNCTIONS))
+    # the counts a serial in-process read of the same file gives
+    ref_stats: dict = {}
+    ref_rows = ingest.bigvul(csv_path, cache=False, workers=1,
+                             stats=ref_stats)
+
+    t0 = time.perf_counter()
+    first = preprocess.main(BIGVUL_ARGS)
+    build_s = time.perf_counter() - t0
+    first_bytes = shard_bytes(out_dir)
+    out_dir.rename(out_dir.with_name("shards_first"))
+    t0 = time.perf_counter()
+    again = preprocess.main(BIGVUL_ARGS)
+    rebuild_s = time.perf_counter() - t0
+    again_bytes = shard_bytes(out_dir)
+    splits = json.loads((out_dir / "splits.json").read_text())
+
+    cfg = dataclasses.replace(
+        corpus_config(),
+        data=DataConfig(dsname="bigvul", split="fixed", undersample=None,
+                        batch=BatchConfig(batch_graphs=TRAIN_GRAPHS,
+                                          auto_buckets=True)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bigvul_") as tmp:
+        work = Path(tmp)
+        run, corpus = fit_on_shards(cfg, work / "run")
+        largest = max(g.n_nodes for part in corpus.values() for g in part)
+        ckpts = CheckpointManager(work / "run" / "checkpoints",
+                                  cfg.checkpoint)
+        state = ckpts.restore(ckpts.best_step(), map_location="cpu")
+
+        # Devign: graph labels, one epoch
+        write_devign_json(external / "function.json", DEVIGN_FUNCTIONS, 1)
+        write_split_csv(external / "codexglue_splits.csv", "example_index",
+                        range(DEVIGN_FUNCTIONS))
+        t0 = time.perf_counter()
+        devign = preprocess.main(DEVIGN_ARGS)
+        devign_build_s = time.perf_counter() - t0
+        dcfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, dsname="devign"),
+            optim=dataclasses.replace(cfg.optim, max_epochs=1))
+        dsplits = json.loads((Path(devign["out"]) / "splits.json")
+                             .read_text())
+        drun, _ = fit_on_shards(dcfg, work / "devign")
+
+    # Joern: an exported artifact set, encoded against the Big-Vul
+    # vocabulary, scored with the trained weights on B1 and on the CPU
+    jcpg = load_cpg(FIXTURES / "sample.c")
+    graph, _ = encode_cpg(jcpg, 0, load_vocabs(out_dir))
+    engines = {}
+    for device in ("cuda", "cpu"):
+        model = make_model(cfg.model, cfg.input_dim, device=device)
+        engines[device] = ScoringEngine.from_model(
+            model, state, "graph", KEYS, max_batch=MAX_BATCH, device=device)
+    fg.n_launches = 0
+    reset_variant_counts()
+    engine = engines["cuda"]
+    p_card = engine.score([graph], engine.assign_bucket(graph))
+    torch.cuda.synchronize()
+    joern_b1, joern_var = fg.n_launches, dict(fg.n_variant_launches)
+    cpu = engines["cpu"]
+    p_cpu = cpu.score([graph], cpu.assign_bucket(graph))
+    joern_diff = float(np.abs(p_card - p_cpu).max())
+
+    seconds = first["seconds"]
+    n_read = first["functions"]
+    row = {
+        "phase": "bigvul", "card": nvidia_smi(),
+        "reader": {"csv_bytes": csv_path.stat().st_size, **first["ingest"],
+                   "serial_reference": ref_stats},
+        "build": {"functions": n_read, "cpgs": first["cpgs"],
+                  "graphs": first["graphs"], "shards": first["shards"],
+                  "vul_graphs": first["vul_graphs"], "failed": first["failed"],
+                  "wall_s": build_s, "seconds": seconds,
+                  "functions_per_s": {
+                      "read_and_label": first["ingest"]["rows"]
+                      / seconds["ingest"],
+                      **{k: n_read / v for k, v in seconds.items()
+                         if k != "ingest"}},
+                  "extraction": first["extraction"]},
+        "rebuild": {"wall_s": rebuild_s, "seconds": again["seconds"],
+                    "extraction": again["extraction"],
+                    "identical": first_bytes == again_bytes,
+                    "files": len(first_bytes)},
+        "splits": {k: len(v) for k, v in splits.items()},
+        "fit": {**run, "largest_graph_nodes": largest},
+        "devign": {"functions": devign["functions"], "graphs": devign["graphs"],
+                   "vul_graphs": devign["vul_graphs"],
+                   "failed": devign["failed"], "wall_s": devign_build_s,
+                   "splits": {k: len(v) for k, v in dsplits.items()},
+                   "fit": drun},
+        "joern": {"cpg_nodes": len(jcpg), "cpg_edges": len(jcpg.edges),
+                  "graph_nodes": graph.n_nodes,
+                  "probability": float(p_card[0]),
+                  "max_abs_diff_vs_cpu": joern_diff, "limit": PROB_LIMIT,
+                  "b1_launches": joern_b1, "b1_launches_by_variant": joern_var}}
+    emit(row)
+    check_fit("bigvul_fit", run, splits)
+    check_fit("devign_fit", drun, dsplits)
+    counts = ("functions", "cpgs", "graphs", "failed", "vul_graphs", "shards")
+    if first["ingest"] != ref_stats or n_read != len(ref_rows) or \
+            {k: again[k] for k in counts} != {k: first[k] for k in counts}:
+        fail(f"bigvul: stage counts {first['ingest']} / {n_read} rows, the "
+             f"serial read {ref_stats} / {len(ref_rows)}, the rebuild's "
+             f"{ {k: again[k] for k in counts} }")
+    if first["failed"] or first["graphs"] != n_read or \
+            first["vul_graphs"] <= 0:
+        fail(f"bigvul: {first['failed']} failures, {first['graphs']} graphs "
+             f"of {n_read}, {first['vul_graphs']} vulnerable")
+    if not row["rebuild"]["identical"] or \
+            again["extraction"]["cache_hits"] != n_read:
+        fail(f"bigvul: the rebuild differs ({row['rebuild']}) or missed the "
+             f"cache")
+    if devign["failed"] or devign["graphs"] != DEVIGN_FUNCTIONS or \
+            devign["vul_graphs"] <= 0:
+        fail(f"bigvul: devign built {devign}")
+    per1 = fg.launches_per_call(STEPS)
+    if joern_b1 != per1:
+        fail(f"bigvul: the Joern graph's score made {joern_b1} B1 launches, "
+             f"expected {per1}")
+    check_ggnn_wgmma("joern_score", "B1", joern_var, joern_b1)
+    if not (joern_diff <= PROB_LIMIT and 0.0 <= p_card[0] <= 1.0):
+        fail(f"bigvul: the Joern graph scored {p_card} on the card, "
+             f"{p_cpu} on the CPU")
     return row
 
 
@@ -3299,6 +3573,7 @@ def drive() -> int:
     joint, ctx = timed("joint", phase_joint)
     scan = timed("scan", phase_scan, ctx)
     corpus = timed("corpus", phase_corpus)
+    bigvul = timed("bigvul", phase_bigvul)
     finetune = timed("finetune", phase_finetune, ctx)
     joint_train = timed("joint_train", phase_joint_train, ctx)
     joint8 = timed("joint_int8", phase_joint_int8, ctx)
@@ -3313,6 +3588,12 @@ def drive() -> int:
     b6 = next(r for r in flash_rows if r["shape"] == "7b_serve")
     b6b = next(r for r in bwd_rows if r["shape"] == "7b_train")
     sum_variants = lambda *cs: {v: sum(c[v] for c in cs) for v in fg.VARIANTS}
+    # the bigvul path: the Big-Vul and Devign fits and the Joern score
+    bigvul_b1 = (bigvul["fit"]["b1_launches"]
+                 + bigvul["devign"]["fit"]["b1_launches"]
+                 + bigvul["joern"]["b1_launches"])
+    bigvul_b2 = (bigvul["fit"]["b2_launches"]
+                 + bigvul["devign"]["fit"]["b2_launches"])
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -3320,13 +3601,14 @@ def drive() -> int:
         "launches": (serve["n_launches"] + train["fwd_launches"]
                      + train_mb["fwd_launches"] + scan["b1_launches"]
                      + corpus["fit"]["b1_launches"]
-                     + corpus["predict"]["b1_launches"]),
+                     + corpus["predict"]["b1_launches"] + bigvul_b1),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
                              "scan": scan["b1_launches"],
                              "corpus_fit": corpus["fit"]["b1_launches"],
-                             "predict": corpus["predict"]["b1_launches"]},
+                             "predict": corpus["predict"]["b1_launches"],
+                             "bigvul": bigvul_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -3334,7 +3616,10 @@ def drive() -> int:
             train_mb["launches_by_variant"]["fwd"],
             scan["b1_launches_by_variant"],
             corpus["fit"]["launches_by_variant"]["fwd"],
-            corpus["predict"]["b1_launches_by_variant"]),
+            corpus["predict"]["b1_launches_by_variant"],
+            bigvul["fit"]["launches_by_variant"]["fwd"],
+            bigvul["devign"]["fit"]["launches_by_variant"]["fwd"],
+            bigvul["joern"]["b1_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -3352,15 +3637,18 @@ def drive() -> int:
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn_bwd.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
-                     + corpus["fit"]["b2_launches"]),
+                     + corpus["fit"]["b2_launches"] + bigvul_b2),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
-                             "corpus_fit": corpus["fit"]["b2_launches"]},
+                             "corpus_fit": corpus["fit"]["b2_launches"],
+                             "bigvul": bigvul_b2},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
             train_mb["launches_by_variant"]["bwd"],
-            corpus["fit"]["launches_by_variant"]["bwd"]),
+            corpus["fit"]["launches_by_variant"]["bwd"],
+            bigvul["fit"]["launches_by_variant"]["bwd"],
+            bigvul["devign"]["fit"]["launches_by_variant"]["bwd"]),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],

@@ -27,14 +27,16 @@ host without a GPU they raise instead of running on the CPU.
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another. A CUDA request on a host without a GPU raises."""
+    another. A CUDA request on a host without a GPU raises. (torch is
+    imported here, not with the package, so host-only modules such as the
+    dataset readers' worker processes start without it.)"""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -18,10 +18,11 @@ pipeline and ``scan`` run (standard library, numpy and pycparser):
 - :mod:`~deepdfa_tpu_torch.cpg.validate` — the structural validator;
 - :mod:`~deepdfa_tpu_torch.cpg.ivdetect` — per-statement features and the
   statement labels;
-- :mod:`~deepdfa_tpu_torch.cpg.plot` — DOT text.
-
-``joern.py`` and the live Joern session are not ported yet (ROADMAP queue
-A, "A14's rest (b)").
+- :mod:`~deepdfa_tpu_torch.cpg.plot` — DOT text;
+- :mod:`~deepdfa_tpu_torch.cpg.joern` and
+  :mod:`~deepdfa_tpu_torch.cpg.joern_session` — Joern's exported
+  artifacts read into a CPG, and the interactive Joern REPL driver (with
+  the query scripts of ``cpg/queries/``).
 """
 
 from deepdfa_tpu_torch.cpg.schema import CPG  # noqa: F401

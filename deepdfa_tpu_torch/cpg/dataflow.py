@@ -54,6 +54,18 @@ class ReachingDefinitions:
             else:
                 self.gen[nid] = set()
 
+    @property
+    def domain(self) -> set[VariableDefinition]:
+        return set().union(*self.gen.values()) if self.gen else set()
+
+    def kill(self, nid: int, defs: set[VariableDefinition]) -> set[VariableDefinition]:
+        """The definitions of ``defs`` that node ``nid`` kills: every other
+        definition of the variable it assigns."""
+        var = self.assigned_variable(nid)
+        if var is None:
+            return set()
+        return {d for d in defs if d.var == var and d.node != nid}
+
     def assigned_variable(self, nid: int) -> str | None:
         """The defined variable's source text, or None (first ARGUMENT child
         by ``order`` of a mod-op call; textual, handles ``*p``, ``a[i]``)."""

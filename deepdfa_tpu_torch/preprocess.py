@@ -1,23 +1,37 @@
-"""Offline preprocessing: a generated C corpus → training-ready graph shards.
+"""Offline preprocessing: a C corpus → training-ready graph shards.
 
-``python -m deepdfa_tpu_torch.preprocess --dataset demo [--n 200]``
+``python -m deepdfa_tpu_torch.preprocess --dataset bigvul --split fixed``
 
-The port of ``scripts/preprocess.py`` for the generated corpora (``demo``,
-``demo_hard``, ``demo_order{L}``). Stages:
+The port of ``scripts/preprocess.py``. Stages:
 
-1. **ingest** — :func:`~deepdfa_tpu_torch.data.codegen.demo_corpus`.
+1. **ingest** — the generated corpora (``demo``, ``demo_hard``,
+   ``demo_order{L}``: :func:`~deepdfa_tpu_torch.data.codegen.demo_corpus`)
+   or a real dataset through :func:`~deepdfa_tpu_torch.data.ingest.ds`:
+   ``bigvul`` (``external/MSR_data_cleaned.csv``), ``devign``
+   (``external/function.json``, graph-level labels), ``diversevul``
+   (``external/diversevul.json``) and ``mutated_<name>``
+   (``external/mutated/c_<name>.jsonl`` over Big-Vul), ``--sample`` for the
+   sample files.
 2. **extract** — the C front end and the dependence-edge pass per
-   function, through the work-stealing
-   :class:`~deepdfa_tpu_torch.data.extraction.ExtractionPool` (``--workers
-   N`` thread sessions) with the content-addressed
+   function (``--frontend native``), or Joern (``--frontend joern``: each
+   function written to ``processed/{ds}/before/{id}_{digest}.c``, exported
+   by a :class:`~deepdfa_tpu_torch.cpg.joern_session.JoernSession` per
+   worker through ``cpg/queries/export_func_graph.sc`` and read back with
+   :func:`~deepdfa_tpu_torch.cpg.joern.load_cpg`), through the
+   work-stealing :class:`~deepdfa_tpu_torch.data.extraction.ExtractionPool`
+   (``--workers N`` thread sessions) with the content-addressed
    :class:`~deepdfa_tpu_torch.data.extract_cache.ExtractCache` in front and
    per-shard progress journaled to ``build_journal.json``: a killed build
    resumes at the first unjournaled shard. Failures land in
    ``failed_frontend.txt``; quarantined functions in ``quarantine.json``.
 3. **validate** (``--validate``) — graphs with structural errors dropped.
 4. **label** — vulnerable lines = removed ∪ dependent-added, through the
-   corpus-wide ``statement_labels*.pkl`` cache.
-5. **split** — seeded random 70/10/20, or a named split file
+   corpus-wide ``statement_labels*.pkl`` cache (the after-patch versions
+   go through a supervised Joern session on the Joern path, closed after
+   labelling); Devign's graph labels are its ``vul`` column.
+5. **split** — seeded random 70/10/20, the dataset's fixed protocol split
+   (``--split fixed``: LineVul for Big-Vul and the mutated sets,
+   CodeXGLUE for Devign), or a named split file
    (``external/splits/<name>.csv``).
 6. **materialize** — :class:`~deepdfa_tpu_torch.data.materialize.
    CorpusBuilder`: train-split vocabularies, encoded graphs, ``.npz``
@@ -26,15 +40,15 @@ The port of ``scripts/preprocess.py`` for the generated corpora (``demo``,
    ``processed_dir()/{dataset}/shards[_sample]``, where ``train.fit``
    reads them.
 
-Given the same corpus, seed and options the shard files, ``manifest.json``,
-``splits.json``, ``split.txt`` and ``vocab.json`` are byte for byte those of
-the JAX package's script, and each package loads the other's shards.
-Idempotent: an existing shard directory is left alone unless
-``--overwrite``, and one built under another ``--split`` is refused.
+Given the same input files, seed and options the shard files,
+``manifest.json``, ``splits.json``, ``split.txt`` and ``vocab.json`` are
+byte for byte those of the JAX package's script, and each package loads
+the other's shards. Idempotent: an existing shard directory is left alone
+unless ``--overwrite``, and one built under another ``--split`` is
+refused. Preprocess runs on the host: it launches no kernel.
 
-Not ported yet (ROADMAP queue A, "A14's rest (b)"): the real-dataset
-readers (``--dataset bigvul|devign|diversevul|mutated*``), ``--frontend
-joern``, and process-backed extraction sessions (ROADMAP A6).
+Not ported yet: process-backed extraction sessions (ROADMAP A6); the
+port's workers are threads, with the same output.
 """
 
 from __future__ import annotations
@@ -69,13 +83,65 @@ class _ExtractSession:
         pass
 
 
+def _native_extract(session, row):
+    return session.extract(str(row["before"]))
+
+
+def _joern_setup(dataset: str):
+    """``(session_factory, extract_fn, parse_after, supervisor)`` of the
+    Joern path: each function's source lands under ``processed/{ds}/before``
+    named by its id and content digest (a changed text never reuses stale
+    artifacts), each pool worker drives its own REPL exporting
+    ``.nodes/.edges/.dataflow.json`` through ``export_func_graph.sc``, read
+    back with :func:`~deepdfa_tpu_torch.cpg.joern.load_cpg`.
+    ``parse_after`` extracts after-patch versions for the statement labels
+    through a lazily spawned supervised session; the caller closes the
+    returned supervisor after labelling (a JVM must never leak)."""
+    from deepdfa_tpu_torch import utils
+    from deepdfa_tpu_torch.cpg.joern import load_cpg
+    from deepdfa_tpu_torch.cpg.joern_session import JoernSession
+    from deepdfa_tpu_torch.resilience.supervisor import ExtractionSupervisor
+
+    src_dir = utils.get_dir(utils.processed_dir() / dataset / "before")
+    after_dir = utils.get_dir(utils.processed_dir() / dataset / "after")
+
+    def export_and_load(session, c_path: Path):
+        stem = str(c_path)
+        if not (Path(stem + ".nodes.json").exists()
+                and Path(stem + ".edges.json").exists()):
+            session.run_script("export_func_graph", {"filename": stem})
+        return load_cpg(stem)
+
+    def extract_fn(session, row):
+        digest = hashlib.sha1(str(row["before"]).encode()).hexdigest()[:16]
+        c_path = src_dir / f"{row['id']}_{digest}.c"
+        if not c_path.exists():
+            atomic_write_text(c_path, str(row["before"]))
+        return export_and_load(session, c_path)
+
+    supervisor = ExtractionSupervisor(lambda: JoernSession(worker_id=99))
+
+    def parse_after(source: str):
+        digest = hashlib.sha1(source.encode()).hexdigest()[:16]
+        c_path = after_dir / f"{digest}.c"
+        if not c_path.exists():
+            atomic_write_text(c_path, source)
+        return supervisor.run(f"after:{digest}",
+                              lambda s: export_and_load(s, c_path))
+
+    return (lambda wid: JoernSession(worker_id=wid)), extract_fn, \
+        parse_after, supervisor
+
+
 def extract_streaming(records: list[dict], out_dir: Path, *, workers: int,
                       dataset: str, use_cache: bool = True,
-                      shard_size: int = 64, salt: str = "native"):
+                      shard_size: int = 64, salt: str = "native",
+                      session_factory=None, extract_fn=None):
     """Shard-chunked extraction of ``records``' ``before`` texts through the
     pool, with the cache in front and per-shard progress journaled to
     ``out_dir/build_journal.json``. Journaled shards read straight from
-    the cache (a journaled entry missing from it re-extracts).
+    the cache (a journaled entry missing from it re-extracts). The sessions
+    and the per-item call default to the native front end.
 
     Returns ``(cpgs, failures, report)``: ``failures`` are
     ``failed_frontend.txt`` lines; quarantined functions are failure rows,
@@ -86,6 +152,8 @@ def extract_streaming(records: list[dict], out_dir: Path, *, workers: int,
     from deepdfa_tpu_torch.pipeline import source_key
     from deepdfa_tpu_torch.resilience.journal import RunJournal
 
+    session_factory = session_factory or (lambda wid: _ExtractSession())
+    extract_fn = extract_fn or _native_extract
     cache = None
     if use_cache:
         cache = ExtractCache(
@@ -130,10 +198,9 @@ def extract_streaming(records: list[dict], out_dir: Path, *, workers: int,
             if not shard:
                 continue
         pool = ExtractionPool(
-            lambda wid: _ExtractSession(), n_workers=max(1, workers),
+            session_factory, n_workers=max(1, workers),
             cache=cache, cache_code=lambda row: str(row["before"]))
-        for res in pool.run([(row["id"], row) for row in shard],
-                            lambda session, row: session.extract(str(row["before"]))):
+        for res in pool.run([(row["id"], row) for row in shard], extract_fn):
             if res.error is not None:
                 failures.append(f"{res.key}\t{res.error}")
             else:
@@ -156,24 +223,27 @@ def extract_streaming(records: list[dict], out_dir: Path, *, workers: int,
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deepdfa_tpu_torch.preprocess",
-        description="generated C corpus → training-ready graph shards")
+        description="C corpus → training-ready graph shards")
     parser.add_argument("--dataset", default="demo",
-                        help="demo | demo_hard | demo_order{L}")
+                        help="demo | demo_hard | demo_order{L} | bigvul | "
+                        "devign | diversevul | mutated_<name>")
     parser.add_argument("--frontend", default="native",
                         choices=["native", "joern"])
     parser.add_argument("--n", type=int, default=200, help="demo corpus size")
     parser.add_argument("--sample", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--workers", type=int, default=6,
-                        help="extraction thread sessions")
+                        help="extraction thread sessions (and the Big-Vul "
+                        "reader's diff processes)")
     parser.add_argument("--overwrite", action="store_true")
     parser.add_argument("--limit-all", type=int, default=1000)
     parser.add_argument("--limit-subkeys", type=int, default=1000)
     parser.add_argument("--split", default="random",
-                        help="random: seeded 70/10/20 (default); any other "
-                        "value but 'fixed': a named split csv under "
-                        "external/splits/<name>.csv. The split decides the "
-                        "train-only vocabulary.")
+                        help="random: seeded 70/10/20 (default); fixed: the "
+                        "dataset's protocol split (LineVul for Big-Vul, "
+                        "CodeXGLUE for Devign); any other value: a named "
+                        "split csv under external/splits/<name>.csv. The "
+                        "split decides the train-only vocabulary.")
     parser.add_argument("--dataflow-labels", action="store_true",
                         help="attach _DF_IN/_DF_OUT solver-solution node labels")
     parser.add_argument("--dataflow-families", action="store_true",
@@ -218,29 +288,35 @@ def _split(ids: list, args) -> dict[str, list]:
     return splits
 
 
-def _check_supported(args) -> None:
-    from deepdfa_tpu_torch.data.ingest import READERS_ITEM
+def _ingest(args, stats: dict) -> tuple[list[dict], bool]:
+    """The corpus as row dicts, and whether its labels are graph-level
+    (Devign). ``stats`` receives the Big-Vul reader's filter counts."""
+    if args.dataset in ("demo", "demo_hard") or args.dataset.startswith("demo_order"):
+        from deepdfa_tpu_torch.data.codegen import demo_corpus
 
-    if args.frontend == "joern":
-        raise NotImplementedError(
-            f"--frontend joern is not ported yet: {READERS_ITEM}")
-    if not (args.dataset in ("demo", "demo_hard")
-            or args.dataset.startswith("demo_order")):
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: the real-dataset readers are not "
-            f"ported yet ({READERS_ITEM}); the port builds demo, demo_hard "
-            "and demo_order{L}")
+        chain_depth = (int(args.dataset[len("demo_order"):])
+                       if args.dataset.startswith("demo_order") else None)
+        records = demo_corpus(
+            args.n if not args.sample else min(args.n, 60), seed=args.seed,
+            style="hard" if args.dataset != "demo" else "easy",
+            chain_depth=chain_depth,
+        )
+        return records, False
+    from deepdfa_tpu_torch.data import ingest
+
+    kw = {"stats": stats} if args.dataset == "bigvul" else {}
+    rows = ingest.ds(args.dataset, sample=args.sample, workers=args.workers,
+                     **kw)
+    return list(rows), args.dataset == "devign"
 
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    _check_supported(args)
 
     from deepdfa_tpu_torch import utils
     from deepdfa_tpu_torch.config import FeatureConfig
     from deepdfa_tpu_torch.cpg.frontend import parse_source
     from deepdfa_tpu_torch.cpg.ivdetect import statement_labels
-    from deepdfa_tpu_torch.data.codegen import demo_corpus
     from deepdfa_tpu_torch.data.graphs import save_shards
     from deepdfa_tpu_torch.data.materialize import CorpusBuilder
 
@@ -260,22 +336,25 @@ def main(argv=None) -> dict:
         return {"status": "exists", "out": str(out_dir)}
 
     # 1. ingest
-    chain_depth = (int(args.dataset[len("demo_order"):])
-                   if args.dataset.startswith("demo_order") else None)
-    records = demo_corpus(
-        args.n if not args.sample else min(args.n, 60), seed=args.seed,
-        style="hard" if args.dataset != "demo" else "easy",
-        chain_depth=chain_depth,
-    )
+    seconds: dict[str, float] = {}
+    ingest_stats: dict = {}
+    t0 = time.perf_counter()
+    records, graph_level = _ingest(args, ingest_stats)
+    seconds["ingest"] = time.perf_counter() - t0
 
     # 2. extract
-    seconds: dict[str, float] = {}
     t0 = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
+    parse_after, supervisor = parse_source, None
+    session_factory = extract_fn = None
+    if args.frontend == "joern":
+        session_factory, extract_fn, parse_after, supervisor = _joern_setup(
+            args.dataset)
     cpgs, failures, extraction = extract_streaming(
         records, out_dir, workers=args.workers, dataset=args.dataset,
         use_cache=not args.no_cache, shard_size=args.shard_size,
-        salt=args.frontend)
+        salt=args.frontend, session_factory=session_factory,
+        extract_fn=extract_fn)
     seconds["extract"] = time.perf_counter() - t0
     failed_rate = len(failures) / max(len(records), 1)
     if failures:
@@ -293,26 +372,35 @@ def main(argv=None) -> dict:
         validation.pop("error_graph_ids", None)
         _log(f"validator: {json.dumps(validation)}")
 
-    # 4. labels: removed ∪ dependent-added lines, through the corpus-wide
+    # 4. labels: removed ∪ dependent-added lines through the corpus-wide
     # cache named by its content (a stale cache of another corpus never
-    # matches). The after-patch CPG is parsed without dependence edges, as
-    # the JAX script parses it, so its labels (and shards) stay equal
-    # (ROADMAP queue C)
+    # matches), or Devign's graph labels. The native after-patch CPG is
+    # parsed without dependence edges, as the JAX script parses it, so the
+    # labels (and shards) stay equal (ROADMAP queue C)
     t0 = time.perf_counter()
-    label_key = hashlib.sha1(json.dumps(
-        [[r["id"], int(r.get("vul", 1)), list(r.get("removed") or []),
-          list(r.get("added") or [])] for r in records]
-    ).encode()).hexdigest()[:16]
-    stmt = statement_labels(
-        records, cpgs, parse_source,
-        cache_path=out_dir / f"statement_labels{suffix}_{label_key}.pkl",
-        cache=not args.overwrite,
-    )
-    vuln_lines = {
-        fid: set(stmt.get(fid, {}).get("removed", []))
-        | set(stmt.get(fid, {}).get("depadd", []))
-        for fid in cpgs
-    }
+    vuln_lines = graph_labels = None
+    try:
+        if graph_level:
+            row_of = {r["id"]: r for r in records}
+            graph_labels = {fid: int(row_of[fid].get("vul", 0)) for fid in cpgs}
+        else:
+            label_key = hashlib.sha1(json.dumps(
+                [[r["id"], int(r.get("vul", 1)), list(r.get("removed") or []),
+                  list(r.get("added") or [])] for r in records]
+            ).encode()).hexdigest()[:16]
+            stmt = statement_labels(
+                records, cpgs, parse_after,
+                cache_path=out_dir / f"statement_labels{suffix}_{label_key}.pkl",
+                cache=not args.overwrite,
+            )
+            vuln_lines = {
+                fid: set(stmt.get(fid, {}).get("removed", []))
+                | set(stmt.get(fid, {}).get("depadd", []))
+                for fid in cpgs
+            }
+    finally:  # a Joern session is a JVM: never leak it past labelling
+        if supervisor is not None:
+            supervisor.close()
     seconds["label"] = time.perf_counter() - t0
 
     # 5. split: decides the train-only vocabulary below
@@ -326,7 +414,7 @@ def main(argv=None) -> dict:
     )
     graphs, vocabs = builder.build(
         cpgs, splits["train"], vuln_lines=vuln_lines,
-        dataflow_labels=args.dataflow_labels,
+        graph_labels=graph_labels, dataflow_labels=args.dataflow_labels,
     )
     n_shards = save_shards(graphs, out_dir)
     atomic_write_text(out_dir / "splits.json", json.dumps(splits))
@@ -352,6 +440,11 @@ def main(argv=None) -> dict:
     }
     if validation is not None:
         summary["validation"] = validation
+    if ingest_stats:
+        summary["ingest"] = ingest_stats
+    if supervisor is not None:  # the labelling session's own restarts
+        extraction["restarts"] += supervisor.report()["restarts"]
+        extraction["quarantined"].extend(supervisor.report()["quarantined"])
     summary["extraction"] = {
         "workers": extraction["workers"],
         "restarts": extraction["restarts"],
@@ -379,16 +472,19 @@ def main(argv=None) -> dict:
 
 def _write_hashes(path: Path, rows: list[dict]) -> None:
     """The stage-2 hash table as gzip CSV (columns ``graph_id, node_id,
-    hash``): the JAX package's fallback when it has no parquet engine."""
+    hash``): the JAX package's fallback when it has no parquet engine.
+    Written sideways and moved into place."""
     import csv
     import gzip
+    import io
 
-    tmp = path.with_name(path.name + ".tmp")
-    with gzip.open(tmp, "wt", encoding="utf-8", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(["graph_id", "node_id", "hash"])
-        writer.writerows([r["graph_id"], r["node_id"], r["hash"]] for r in rows)
-    tmp.replace(path)
+    from deepdfa_tpu_torch.resilience.journal import atomic_write_bytes
+
+    buf = io.StringIO()
+    writer = csv.writer(buf, lineterminator="\n")
+    writer.writerow(["graph_id", "node_id", "hash"])
+    writer.writerows([r["graph_id"], r["node_id"], r["hash"]] for r in rows)
+    atomic_write_bytes(path, gzip.compress(buf.getvalue().encode("utf-8")))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Extraction supervisor: session restart + per-item retry + quarantine.
 
 A copy of ``deepdfa_tpu/resilience/supervisor.py``. It wraps a session
-that can fail (an encode session here) so that a scan survives it:
+that can fail (an encode session, a Joern REPL) so that a scan or a build
+survives it:
 
 - session spawn goes through :func:`deepdfa_tpu_torch.resilience.retry.
   retry_call`, with backoff;
@@ -9,9 +10,10 @@ that can fail (an encode session here) so that a scan survives it:
   session / broken pipe) tears the session down and retries the item on a
   fresh session;
 - an item that keeps killing sessions is a *poison* item: after
-  ``attempts_per_item`` tries it is recorded on the quarantine list and
-  :class:`QuarantinedError` is raised so the caller logs one failure row
-  and moves on.
+  ``attempts_per_item`` tries it is recorded on the quarantine list (with
+  the partial REPL buffer when the failure was a hang, ``JoernTimeout.
+  partial``) and :class:`QuarantinedError` is raised so the caller logs
+  one failure row and moves on.
 
 Item-level errors that do not implicate the session (e.g. ``ValueError``)
 propagate unchanged — they are the caller's failure rows.
@@ -102,17 +104,25 @@ class ExtractionSupervisor:
         if sess is not None:
             sess.close()
 
+    def __enter__(self) -> "ExtractionSupervisor":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     # -- supervised execution ----------------------------------------------
     def run(self, key: Any, fn: Callable[[Any], T]) -> T:
         """Run ``fn(session)``; restart the session and retry on
         session-level failures; quarantine ``key`` (and raise
         :class:`QuarantinedError`) when attempts run out."""
         last: BaseException | None = None
+        partial = None  # the most recent REPL buffer any attempt produced
         for _attempt in range(1, self.attempts_per_item + 1):
             try:
                 return fn(self.session)
             except SESSION_ERRORS as exc:
                 last = exc
+                partial = getattr(exc, "partial", None) or partial
                 if isinstance(exc, RetryExhausted):
                     # the session would not even spawn — no point retrying
                     # the item against a session that cannot exist
@@ -123,5 +133,11 @@ class ExtractionSupervisor:
             "attempts": self.attempts_per_item,
             "error": f"{type(last).__name__}: {last}",
         }
+        if partial:
+            entry["partial"] = str(partial)[-500:]
         self.quarantine.append(entry)
         raise QuarantinedError(key, self.attempts_per_item, entry["error"]) from last
+
+    def report(self) -> dict:
+        """Summary for the ingest report: restart count + quarantine list."""
+        return {"restarts": self.restarts, "quarantined": list(self.quarantine)}

@@ -19,9 +19,16 @@ inputs through both packages.
   ``vocab.json``, statement labels, summary counts, hash rows), with a
   random and a named cross-project split; the split-marker guard and a
   journal resume after a crash mid-build;
+- the same over the real-dataset readers on files written in the
+  published schemas: Big-Vul with the fixed (LineVul) and the random
+  split, Devign with its fixed (CodeXGLUE) split and graph labels,
+  DiverseVul, a mutated set, and Big-Vul through ``--frontend joern``
+  under a fake ``joern`` REPL that answers each export with
+  ``tests/fixtures/sample.c``'s artifacts;
 - ``load_corpus`` per split against the JAX package's on the same
   directory (random split, the named split's repartition, the leakage
-  guard), and one ``fit`` step on a shard batch against the JAX trainer's.
+  guard), and one ``fit`` step on a shard batch (demo, Big-Vul and the
+  graph-level Devign shards) against the JAX trainer's.
 
 All host-side outputs are compared exactly. The train step uses
 ``tests/test_torch_train_loop.py``'s tolerances (loss and gradients atol
@@ -35,6 +42,7 @@ import gzip
 import hashlib
 import importlib.util
 import json
+import os
 import pickle
 import shutil
 from pathlib import Path
@@ -451,17 +459,67 @@ def _fold_csvs(root: Path, n: int) -> Path:
     return splits_dir
 
 
+N_REAL = 40
+
+
+def _write_datasets(root: Path) -> None:
+    """The real-dataset files in their published schemas under
+    ``root/external``: a full-schema MSR CSV of generated pairs (every
+    tenth a dataflow-hard one) plus rows the quality filters drop, the
+    LineVul split (one id unassigned), Devign's ``function.json`` with the
+    CodeXGLUE split, a DiverseVul JSONL and a mutated JSONL over the
+    Big-Vul ids (one repeated)."""
+    import pandas as pd
+
+    from test_torch_ingest import (SIX, _msr_base, devign_objs,
+                                   diversevul_objs, write_json)
+
+    ext = root / "external"
+    (ext / "mutated").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    pairs = []
+    for i in range(N_REAL):
+        r = (codegen.generate_hard_function(i, i % 2 == 0, rng, chain_depth=6)
+             if i % 10 == 9 else codegen.generate_function(i, i % 2 == 0, rng))
+        pairs.append((r["before"], r["after"], r["vul"]))
+    pairs += [(SIX, SIX, 1), (SIX + "foo(x);", SIX + "foo(y);", 1)]
+    pd.DataFrame([dict(_msr_base(i), func_before=b, func_after=a, vul=v)
+                  for i, (b, a, v) in enumerate(pairs)]).to_csv(
+        ext / "MSR_data_cleaned.csv")
+    parts = ["train"] * 7 + ["valid", "test", "test"]
+    (ext / "linevul_splits.csv").write_text("index,split\n" + "".join(
+        f"{i},{parts[i % 10]}\n" for i in range(len(pairs)) if i != 5))
+    objs = devign_objs(N_REAL)
+    write_json(ext / "function.json", objs, False)
+    (ext / "codexglue_splits.csv").write_text("example_index,split\n" + "".join(
+        f"{i},{parts[i % 10]}\n" for i in range(len(objs))))
+    write_json(ext / "diversevul.json", diversevul_objs(), True)
+    mrng = np.random.default_rng(12)
+    write_json(ext / "mutated" / "c_rename.jsonl", [
+        {"idx": i, "source": codegen.generate_function(i, True, mrng)["before"],
+         "target": codegen.generate_function(i, False, mrng)["before"]}
+        for i in [0, 1, 2, 3, 3, 4, 6, 8, 10, 12, 14, 17, 20, 23, 27, 31]],
+        True)
+
+
 def _run_both(root: Path, argv: list[str]):
-    """The JAX script and the port's entry over the same arguments, each in
-    its own storage tree; returns their summaries."""
+    """The JAX script and the port's entry over the same arguments and input
+    files, each in its own storage tree (and working directory, where a
+    Joern session stages its scripts); returns their summaries."""
+    from test_torch_joern import install_fake_joern
+
     jpre = _load_script("preprocess")
+    install_fake_joern(root / "bin")
     out = {}
     with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PATH", f"{root / 'bin'}{os.pathsep}{os.environ['PATH']}")
         for side, main in (("jax", lambda: jpre.main(argv + ["--workers", "1"])),
                            ("port", lambda: preprocess.main(
                                argv + ["--workers", "3"]))):
             _fold_csvs(root / side, N_DEMO)
+            _write_datasets(root / side)
             mp.setenv("DEEPDFA_STORAGE", str(root / side))
+            mp.chdir(root / side)
             out[side] = main()
     return out["jax"], out["port"]
 
@@ -491,8 +549,9 @@ COUNTS = ("status", "functions", "cpgs", "graphs", "failed", "failed_rate",
           "shards", "vul_graphs")
 
 
-def test_preprocess_writes_the_jax_script_files(preprocessed):
-    _, want, got = preprocessed
+def assert_same_outputs(want: dict, got: dict, labels: bool = True):
+    """Equal summary counts, the same files byte for byte (the stage-2
+    hash table as rows: pandas may write it as parquet)."""
     jdir, tdir = Path(want["out"]), Path(got["out"])
     assert {k: got[k] for k in COUNTS} == {k: want[k] for k in COUNTS}
     assert got["extraction"]["extracted"] == want["extraction"]["extracted"]
@@ -500,7 +559,7 @@ def test_preprocess_writes_the_jax_script_files(preprocessed):
                    if not p.name.startswith("hashes."))
     assert names == sorted(p.name for p in tdir.iterdir()
                            if not p.name.startswith("hashes."))
-    assert any(n.startswith("statement_labels") for n in names)
+    assert any(n.startswith("statement_labels") for n in names) == labels
     for name in names:
         a, b = (jdir / name).read_bytes(), (tdir / name).read_bytes()
         assert hashlib.sha256(a).digest() == hashlib.sha256(b).digest(), name
@@ -508,6 +567,74 @@ def test_preprocess_writes_the_jax_script_files(preprocessed):
         rows = [{"graph_id": int(r["graph_id"]), "node_id": int(r["node_id"]),
                  "hash": r["hash"]} for r in csv.DictReader(f)]
     assert rows == _hash_rows(jdir) and rows
+
+
+def test_preprocess_writes_the_jax_script_files(preprocessed):
+    _, want, got = preprocessed
+    assert_same_outputs(want, got)
+
+
+REAL = {
+    "bigvul-fixed": ["--dataset", "bigvul", "--split", "fixed"],
+    "bigvul-random": ["--dataset", "bigvul"],
+    "devign-fixed": ["--dataset", "devign", "--split", "fixed"],
+    "diversevul": ["--dataset", "diversevul"],
+    "mutated-fixed": ["--dataset", "mutated_rename", "--split", "fixed"],
+    "bigvul-joern": ["--dataset", "bigvul", "--split", "fixed",
+                     "--frontend", "joern"],
+}
+_REAL_BUILT: dict = {}
+
+
+def _real(name: str, tmp_path_factory):
+    """Both packages' preprocess over the real-dataset files, built once a
+    module."""
+    if name not in _REAL_BUILT:
+        root = tmp_path_factory.mktemp(name)
+        _REAL_BUILT[name] = (root, *_run_both(root, REAL[name]))
+    return _REAL_BUILT[name]
+
+
+@pytest.fixture(scope="module", params=list(REAL))
+def real_preprocessed(request, tmp_path_factory):
+    return request.param, *_real(request.param, tmp_path_factory)
+
+
+def test_real_dataset_preprocess_writes_the_jax_script_files(real_preprocessed):
+    name, _, want, got = real_preprocessed
+    assert_same_outputs(want, got, labels=not name.startswith("devign"))
+    assert got["ingest"] if name.startswith("bigvul") else "ingest" not in got
+    if name == "bigvul-joern":
+        # every export answers with sample.c's graph, whose lines are not
+        # the generated functions' removed lines
+        assert got["graphs"] > 20 and got["vul_graphs"] == 0
+    elif name.startswith(("bigvul", "devign")):
+        assert got["vul_graphs"] > 0 and got["graphs"] > 20
+    else:
+        # DiverseVul and the mutated sets carry no removed lines and are not
+        # graph-level: no positive graph in either package (ROADMAP queue C)
+        assert got["vul_graphs"] == want["vul_graphs"] == 0 < got["graphs"]
+    splits = json.loads((Path(got["out"]) / "splits.json").read_text())
+    if "fixed" in name:
+        assert sum(map(len, splits.values())) <= got["graphs"]
+    assert_graphs_equal(graphs.load_shards(want["out"]),
+                        jgraphs.load_shards(got["out"]))
+
+
+def test_joern_path_writes_content_addressed_sources(tmp_path_factory):
+    root, want, got = _real("bigvul-joern", tmp_path_factory)
+    for side in ("jax", "port"):
+        before = root / side / "processed" / "bigvul" / "before"
+        names = sorted(p.name for p in before.glob("*.c"))
+        assert names and all("_" in n for n in names)
+        assert (root / side / "deepdfa_joern_scripts"
+                / "export_func_graph.sc").exists()
+        assert sorted(p.name for p in (before.parent / "after").glob("*.c"))
+    assert sorted(p.name for p in (root / "port" / "processed" / "bigvul"
+                                   / "before").iterdir()) == \
+        sorted(p.name for p in (root / "jax" / "processed" / "bigvul"
+                                / "before").iterdir())
+    assert got["extraction"]["restarts"] == want["extraction"]["restarts"] == 0
 
 
 def test_each_package_loads_the_others_shards(preprocessed):
@@ -608,11 +735,25 @@ def test_journal_resumes_after_a_crash_mid_build(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--dataset", "bigvul"],
                                   ["--dataset", "devign"],
-                                  ["--dataset", "mutated_x"],
-                                  ["--frontend", "joern"]])
-def test_unported_datasets_raise(argv):
-    with pytest.raises(NotImplementedError, match=r"A14's rest \(b\)"):
-        preprocess.main(argv)
+                                  ["--dataset", "mutated_rename"],
+                                  ["--frontend", "joern", "--n", "24"]])
+def test_the_real_dataset_argvs_build_shards(argv, tmp_path, monkeypatch):
+    """The argvs that raised NotImplementedError before the readers were
+    ported now build shards."""
+    from test_torch_joern import install_fake_joern
+
+    install_fake_joern(tmp_path / "bin")
+    monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}{os.pathsep}"
+                       f"{os.environ['PATH']}")
+    monkeypatch.setenv("DEEPDFA_STORAGE", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    _write_datasets(tmp_path)
+    out = preprocess.main(argv + ["--workers", "2"])
+    assert out["status"] == "ok" and out["graphs"] > 10
+    # truncated Devign functions are failure rows, never a build abort; a
+    # mutated set's repeated idx yields one graph
+    assert out["cpgs"] + out["failed"] <= out["functions"]
+    assert len(graphs.load_shards(out["out"])) == out["graphs"] == out["cpgs"]
 
 
 # ----------------------------------------------------------- a fit step
@@ -621,11 +762,27 @@ def test_unported_datasets_raise(argv):
 @pytest.mark.parametrize("layout", ["segment", "fused"])
 def test_one_fit_step_on_a_shard_batch_matches_jax(preprocessed, layout):
     _, _, got = preprocessed
+    assert_fit_step_matches_jax(got["out"], layout)
+
+
+@pytest.mark.parametrize("layout", ["segment", "fused"])
+@pytest.mark.parametrize("name", ["bigvul-fixed", "devign-fixed"])
+def test_one_fit_step_on_a_shard_batch_matches_jax_on_real_data(
+        name, layout, tmp_path_factory):
+    """The Big-Vul shards (line labels) and the Devign shards (graph labels
+    broadcast to every node)."""
+    _, _, got = _real(name, tmp_path_factory)
+    assert_fit_step_matches_jax(got["out"], layout)
+
+
+def assert_fit_step_matches_jax(shard_dir, layout: str):
     small = dict(hidden_dim=8, n_steps=3, num_output_layers=2)
     jcfg = JExp(model=JCfg(**small, layout=layout))
     cfg = ExperimentConfig(model=GGNNConfig(**small, layout=layout))
     input_dim = cfg.input_dim
-    train = graphs.load_shards(got["out"])[:4]
+    train = graphs.load_shards(shard_dir)[:4]
+    assert {int(g.node_feats["_VULN"].max()) for g in
+            graphs.load_shards(shard_dir)} == {0, 1}
     batch = batch_np(train, 6, 256, 640)
     jmodel = jmake_model(jcfg.model, input_dim)
     jb = jax.tree.map(jnp.asarray, batch)
