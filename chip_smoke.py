@@ -175,7 +175,10 @@ Each phase prints one JSON line; any failure exits non-zero.
    functions each (1,024 functions, half vulnerable, the easy and the
    dataflow-hard templates) plus the ten ``tests/fixtures/realworld`` files
    and ``interproc/cross_taint.c``. With every count reset just before:
-   a cold scan into a cache directory, a warm scan (every file a hit, the
+   a cold scan into a cache directory, the same cold scan encoded by 4
+   spawned frontend processes (``FrontendConfig(mode="process")``: its
+   report equal to the thread mode's in every key but the timings and the
+   pool's steals), a warm scan (every file a hit, the
    rows the cold scan's), an interprocedural scan of ``cross_taint.c`` and
    32 generated files cold then warm (the warm one makes no level-1
    dispatch and no fallback), and a cascade scan whose band holds 64 of the
@@ -212,6 +215,30 @@ Each phase prints one JSON line; any failure exits non-zero.
    (B1's plain version); functions/s, statements/s, the largest batch
    scored, the busy share of predict over the fixtures, and the top-1
    localization rate over the vulnerable test functions (reported only).
+   The run directory and the test sources stay for serve_http.
+17b. serve_http — the HTTP service on the corpus run: ``build_server``
+   restores its best checkpoint into the fused layout (tier 1 on B1) with
+   the joint phase's 7B ``JointEngine`` as the cascade's tier 2 (B6), a
+   band from the quantiles of the tier-1 scores that holds 64 of them, a
+   process-mode frontend pool of 4 workers. With every count reset just
+   before, 16 closed-loop HTTP clients post the 400 test sources and the
+   realworld fixtures twice (the second pass all result-cache hits):
+   requests/s, functions/s, p50/p99 ms per pass, tier-1 and tier-2 p50,
+   escalations, tier-2 answers, degradations (0), the pool's spawn seconds
+   and encode rates, the cache hit rate; B1 launches = tier-1 dispatches ×
+   11 and B6 = tier-2 batches × 32, all ``wgmma``. Off the main path:
+   every tier-1 answer within 1e-6 of ``ScoringEngine.score`` (an engine
+   restored the same way) and within ``PROB_LIMIT`` of a CPU engine, every
+   tier-2 answer within ``JOINT_PROB_LIMIT`` of ``JointEngine.score`` on
+   its function; ``/metrics``, ``/slo`` and ``/healthz`` (the JAX
+   package's keys); the device's busy share of a profiled cold pass;
+   SIGTERM with requests in flight (every request not refused for the
+   drain answered 200, the listener closed). Then ``python -m
+   deepdfa_tpu_torch.serve.server`` as a subprocess (its ``serving`` line,
+   8 requests, SIGTERM, its ``drained`` line, rc 0) and ``python -m
+   deepdfa_tpu_torch.scan --interproc`` over the fixtures (its
+   ``scan.json`` rows and unit score equal to ``scan_paths`` in this
+   process on B1 and B4).
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
@@ -270,12 +297,14 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import http.client
 import json
 import logging
 import multiprocessing
 import os
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -292,9 +321,11 @@ import torch
 from deepdfa_tpu_torch import preprocess
 from deepdfa_tpu_torch import utils as port_utils
 from deepdfa_tpu_torch.data import ingest
-from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig, DataConfig,
+from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig,
+                                      CascadeConfig, DataConfig,
                                       ExperimentConfig, FeatureConfig,
-                                      GGNNConfig, OptimConfig)
+                                      FrontendConfig, GGNNConfig, OptimConfig,
+                                      ServeConfig)
 from deepdfa_tpu_torch.cpg import analyses as cpg_analyses
 from deepdfa_tpu_torch.cpg.dataflow import ReachingDefinitions
 from deepdfa_tpu_torch.cpg.features import (SOLVER_BACKENDS,
@@ -338,7 +369,10 @@ from deepdfa_tpu_torch.scan import _score_functions, scan_paths
 from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
                                      ScoringEngine, mega_bucket,
                                      serve_buckets)
+from deepdfa_tpu_torch.serve.cache import ScanCache
 from deepdfa_tpu_torch.serve.engine import model_revision
+from deepdfa_tpu_torch.serve.frontend import encode_session_factory
+from deepdfa_tpu_torch.serve.server import build_server
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
@@ -2810,6 +2844,16 @@ def scan_rows(report: dict) -> list[tuple]:
              r.get("vulnerable_probability")) for r in report["results"]]
 
 
+def scan_core(report: dict) -> dict:
+    """A scan report without its timings: the rows, the counts, the cache
+    and the pool's accounting (less its steals, which follow the
+    workers' timing)."""
+    out = {k: report[k] for k in ("results", "n_files", "n_functions",
+                                  "n_scored", "n_errors", "cache")}
+    out["pool"] = {k: v for k, v in report["pool"].items() if k != "steals"}
+    return out
+
+
 def timed_scan(*args, **kw) -> tuple[dict, float]:
     t0 = time.perf_counter()
     report = scan_paths(*args, **kw)
@@ -2846,6 +2890,10 @@ def phase_scan(ctx: dict, seed: int = 0) -> dict:
         hier.reset_counters()
         d0 = engine.n_dispatches
         cold, cold_s = timed_scan([tree], cache_dir=cache / "scan", **kw)
+        # the same cold scan encoded by 4 spawned frontend processes
+        proc, proc_s = timed_scan([tree], cache_dir=cache / "proc",
+                                  frontend=FrontendConfig(mode="process",
+                                                          workers=4), **kw)
         warm, warm_s = timed_scan([tree], cache_dir=cache / "scan", **kw)
         ip_cold, ip_cold_s = timed_scan([ip_tree], cache_dir=cache / "ip",
                                         interproc=True, **kw)
@@ -2881,6 +2929,12 @@ def phase_scan(ctx: dict, seed: int = 0) -> dict:
                                                            graphs))
         prof_warm = profile_call(lambda: scan_paths(
             [tree], cache_dir=cache / "scan", **kw))
+        # what one frontend child costs to spawn (imports, vocabularies,
+        # the hash handshake) from this process
+        t0 = time.perf_counter()
+        encode_session_factory(vocabs, FrontendConfig(mode="process"))(
+            0).close()
+        spawn_s = time.perf_counter() - t0
 
         # the CPU engine on the same state dict, the same scans uncached
         cpu = ScoringEngine.from_model(golden_model("cpu"), state, "graph",
@@ -2920,6 +2974,14 @@ def phase_scan(ctx: dict, seed: int = 0) -> dict:
                  "score_functions_per_s": cold["n_scored"] / cold["score_s"],
                  "functions_per_s": n_fns / cold_s,
                  "cache": cold["cache"], "pool": cold["pool"]},
+        "process": {"workers": 4, "wall_s": proc_s,
+                    "encode_s": proc["elapsed_s"], "score_s": proc["score_s"],
+                    "encode_functions_per_s": n_fns / proc["elapsed_s"],
+                    "functions_per_s": n_fns / proc_s,
+                    "thread_encode_functions_per_s":
+                        n_fns / cold["elapsed_s"],
+                    "spawn_s_one_child": spawn_s,
+                    "equal_thread": scan_core(proc) == scan_core(cold)},
         "warm": {"wall_s": warm_s, "encode_s": warm["elapsed_s"],
                  "score_s": warm["score_s"],
                  "files_per_s": warm["n_files"] / warm_s,
@@ -2963,6 +3025,9 @@ def phase_scan(ctx: dict, seed: int = 0) -> dict:
         fail(f"scan: cold scan {n_fns} functions ({expected} expected), "
              f"{cold['n_scored']} scored, {cold['n_errors']} errors")
     check_probs("scan", np.asarray(tier1))
+    if not row["process"]["equal_thread"]:
+        fail("scan: the process-mode cold scan's report differs from the "
+             "thread mode's")
     if (warm["cache"]["hits"] != warm["n_files"] or warm["cache"]["misses"]
             or not row["warm"]["rows_equal_cold"]
             or not all(r["cache_hit"] for r in warm["results"])):
@@ -3168,9 +3233,11 @@ def check_fit(name: str, run: dict, splits: dict) -> None:
                      run["b2_launches"])
 
 
-def phase_corpus() -> dict:
+def phase_corpus(work: Path) -> dict:
     """C source → shards → ``fit`` on the card → ``predict_paths`` with
-    ranked statements on the card, through the port's own entry points."""
+    ranked statements on the card, through the port's own entry points.
+    The run (``work/run``) and the test split's sources
+    (``work/test_sources``) stay for the serve_http phase."""
     out_dir = port_utils.processed_dir() / "demo" / "shards"
 
     # build, then rebuild into a fresh directory with the cache warm
@@ -3189,48 +3256,46 @@ def phase_corpus() -> dict:
 
     # fit on the shards: counts from zero, read right after
     cfg = corpus_config()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
-        work = Path(tmp)
-        run, _ = fit_on_shards(cfg, work / "run")
+    run, _ = fit_on_shards(cfg, work / "run")
 
-        # predict with the restored best checkpoint over the test split's
-        # sources and the realworld fixtures
-        ckpts = CheckpointManager(work / "run" / "checkpoints", cfg.checkpoint)
-        best = ckpts.best_step()
-        state = ckpts.restore(best, map_location="cpu")
-        rows = {r["id"]: r for r in demo_corpus(CORPUS_FUNCTIONS, seed=0)}
-        src = work / "test_sources"
-        src.mkdir()
-        for fid in splits["test"]:
-            (src / f"{fid}.c").write_text(rows[fid]["before"])
-        paths = [src, FIXTURES / "realworld"]
-        vocabs = load_vocabs(out_dir)
-        model = make_model(cfg.model, cfg.input_dim, device="cuda")
-        model.load_state_dict(state)
-        scorer = SizedScorer(model)
-        fg.n_launches = 0
-        reset_variant_counts()
-        t0 = time.perf_counter()
-        report = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
-                               top_k=ALL_STATEMENTS, scorer=scorer)
-        torch.cuda.synchronize()
-        predict_s = time.perf_counter() - t0
-        pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
-        n_files = len(collect_sources(paths))
-        gate = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
-                             top_k=ALL_STATEMENTS, saliency="gate")
+    # predict with the restored best checkpoint over the test split's
+    # sources and the realworld fixtures
+    ckpts = CheckpointManager(work / "run" / "checkpoints", cfg.checkpoint)
+    best = ckpts.best_step()
+    state = ckpts.restore(best, map_location="cpu")
+    rows = {r["id"]: r for r in demo_corpus(CORPUS_FUNCTIONS, seed=0)}
+    src = work / "test_sources"
+    src.mkdir()
+    for fid in splits["test"]:
+        (src / f"{fid}.c").write_text(rows[fid]["before"])
+    paths = [src, FIXTURES / "realworld"]
+    vocabs = load_vocabs(out_dir)
+    model = make_model(cfg.model, cfg.input_dim, device="cuda")
+    model.load_state_dict(state)
+    scorer = SizedScorer(model)
+    fg.n_launches = 0
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    report = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
+                           top_k=ALL_STATEMENTS, scorer=scorer)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
+    n_files = len(collect_sources(paths))
+    gate = predict_paths(paths, cfg=cfg, model=model, vocabs=vocabs,
+                         top_k=ALL_STATEMENTS, saliency="gate")
 
-        # off the main path: the same model and weights on the CPU (plain
-        # B1), and the device profile of predict over the fixtures
-        cpu_model = make_model(cfg.model, cfg.input_dim, device="cpu")
-        cpu_model.load_state_dict(state)
-        cpu = predict_paths(paths, cfg=cfg, model=cpu_model, vocabs=vocabs,
-                            top_k=ALL_STATEMENTS)
-        cpu_gate = predict_paths(paths, cfg=cfg, model=cpu_model,
-                                 vocabs=vocabs, top_k=ALL_STATEMENTS,
-                                 saliency="gate")
-        prof = profile_call(lambda: predict_paths(
-            [FIXTURES / "realworld"], cfg=cfg, model=model, vocabs=vocabs))
+    # off the main path: the same model and weights on the CPU (plain
+    # B1), and the device profile of predict over the fixtures
+    cpu_model = make_model(cfg.model, cfg.input_dim, device="cpu")
+    cpu_model.load_state_dict(state)
+    cpu = predict_paths(paths, cfg=cfg, model=cpu_model, vocabs=vocabs,
+                        top_k=ALL_STATEMENTS)
+    cpu_gate = predict_paths(paths, cfg=cfg, model=cpu_model,
+                             vocabs=vocabs, top_k=ALL_STATEMENTS,
+                             saliency="gate")
+    prof = profile_call(lambda: predict_paths(
+        [FIXTURES / "realworld"], cfg=cfg, model=model, vocabs=vocabs))
 
     vs_cpu = compare_predictions(report, cpu)
     gate_vs_cpu = compare_predictions(gate, cpu_gate)
@@ -3295,6 +3360,495 @@ def phase_corpus() -> dict:
              f"{scorer.n_calls} scorer calls (expected {per1} each)")
     check_ggnn_wgmma("predict", "B1", pred_var, pred_b1)
     return row
+
+
+# ------------------------------------------------------------ serve_http
+
+
+REPO_ROOT = Path(__file__).resolve().parent
+SERVE_HTTP_CLIENTS = 16
+SERVE_HTTP_BAND = 64
+SERVE_HTTP_WORKERS = 4
+SERVE_HTTP_DRAIN = 64
+# /healthz's keys in the JAX package's server (deepdfa_tpu/serve/server.py)
+HEALTHZ_KEYS = {"status", "draining", "replica_id", "warm", "warm_buckets",
+                "vocab_hash", "model_rev", "precision", "n_replicas",
+                "label_style", "cascade", "tier2_model_rev", "frontend",
+                "frontend_queue_wait_p99_ms", "admission", "brownout_level",
+                "brownout"}
+SERVE_FAMILIES = ("requests_total", "responses_total", "batches_total",
+                  "batch_occupancy_mean", "queue_depth", "latency_ms",
+                  "queue_wait_ms", "dispatch_ms", "padding_efficiency",
+                  "cache_hits_total", "cache_hit_rate",
+                  "frontend_queue_depth", "frontend_encode_ms",
+                  "frontend_inline_total", "score_drift", "score",
+                  "trace_spans_total", "obs_dropped_total",
+                  "warmup_compile_seconds")
+CASCADE_FAMILIES = ("cascade_escalated_total", "cascade_degraded_total",
+                    "cascade_answered_total", "tier2_queue_depth",
+                    "tier1_latency_ms", "tier2_latency_ms",
+                    "tier2_queue_wait_ms", "tier2_dispatch_ms")
+SLO_NAMES = ("availability", "error_rate", "latency_p99", "score_drift",
+             "tier2_latency_p99", "tier2_success")
+
+
+def http_call(port: int, method: str, path: str, payload=None,
+              timeout: float = 300.0) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=None if payload is None else json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def http_pass(port: int, sources: list[str],
+              clients: int = SERVE_HTTP_CLIENTS):
+    """Closed-loop HTTP clients: each posts its share of ``sources`` to
+    ``/score`` one at a time. Returns the (status, body) answers in source
+    order, each request's seconds and the pass's wall seconds."""
+    answers: list = [None] * len(sources)
+    lat = np.zeros(len(sources))
+
+    def client(k):
+        for i in range(k, len(sources), clients):
+            t0 = time.perf_counter()
+            try:
+                status, data = http_call(port, "POST", "/score",
+                                         {"source": sources[i]})
+                answers[i] = (status, json.loads(data))
+            except OSError as exc:
+                answers[i] = (None, {"error": repr(exc)})
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, lat, time.perf_counter() - t0
+
+
+def raw_scores(engine, graphs: list) -> list[float]:
+    """``engine``'s unrounded probability of every graph, the graphs
+    grouped by serve bucket."""
+    by_bucket: dict = {}
+    for i, g in enumerate(graphs):
+        by_bucket.setdefault(engine.assign_bucket(g), []).append(i)
+    out = [0.0] * len(graphs)
+    for bucket, idx in by_bucket.items():
+        cap = max(int(bucket.capacity), 1)
+        for k in range(0, len(idx), cap):
+            chunk = idx[k:k + cap]
+            for i, p in zip(chunk, engine.score([graphs[i] for i in chunk],
+                                                bucket)):
+                out[i] = float(p)
+    return out
+
+
+def pass_row(answers, lat, wall: float, n_functions: int) -> dict:
+    return {"requests": len(answers), "wall_s": wall,
+            "requests_per_s": len(answers) / wall,
+            "functions_per_s": n_functions / wall,
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "status": sorted({a[0] for a in answers if a is not None},
+                             key=str),
+            "errors": [a[1].get("error") for a in answers
+                       if a is not None and a[0] != 200][:3]}
+
+
+def families(text: str) -> set[str]:
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ")}
+
+
+def read_json_line(stream, status: str, timeout: float) -> dict:
+    """The first line of ``stream`` that parses as a JSON object with this
+    ``status``, read on a thread so a silent child cannot hang the smoke."""
+    found: dict = {}
+
+    def reader():
+        for line in stream:
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(obj, dict) and obj.get("status") == status:
+                found.update(obj)
+                return
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    t.join(timeout)
+    return found
+
+
+def serve_entry_point(run_dir: Path, shard_dir: Path, sources: list[str],
+                      want: list[list[float | None]], log: Path) -> dict:
+    """``python -m deepdfa_tpu_torch.serve.server`` on the corpus run: the
+    ``serving`` line, 8 requests, SIGTERM, the ``drained`` line, rc 0."""
+    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.serve.server",
+           "--run-dir", str(run_dir), "--shard-dir", str(shard_dir),
+           "--set", "serve.port=0"]
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        try:
+            serving = read_json_line(proc.stdout, "serving", 300)
+            start_s = time.perf_counter() - t0
+            answers = []
+            if serving:
+                answers = [(lambda r: (r[0], json.loads(r[1])))(
+                    http_call(serving["port"], "POST", "/score",
+                              {"source": src})) for src in sources[:8]]
+            proc.send_signal(signal.SIGTERM)
+            drained = read_json_line(proc.stdout, "drained", 120)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    diff = max((abs(r["vulnerable_probability"] - w)
+                for (status, body), ws in zip(answers, want)
+                if status == 200
+                for r, w in zip(body["results"], ws) if w is not None),
+               default=None)
+    return {"cmd": " ".join(cmd[1:]), "start_s": start_s,
+            "serving": bool(serving), "buckets_warmed":
+                serving.get("buckets_warmed"),
+            "answers": [a[0] for a in answers], "drained": drained,
+            "rc": rc, "max_abs_prob_diff_vs_engine": diff,
+            "log_tail": log.read_text()[-400:] if rc else ""}
+
+
+def drain_on_sigterm(server, sources: list[str]) -> dict:
+    """SIGTERM with requests in flight: clients post cold sources until
+    refused; every answer that is not a drain refusal must be a 200, and
+    the listener must be closed afterwards."""
+    results: list = [None] * len(sources)
+    inflight_at_signal = 0
+
+    def client(k):
+        for i in range(k, len(sources), SERVE_HTTP_CLIENTS):
+            try:
+                status, data = http_call(server.port, "POST", "/score",
+                                         {"source": sources[i]})
+                results[i] = (status, json.loads(data).get("error", ""))
+            except OSError as exc:
+                results[i] = ("refused", repr(exc))
+
+    prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    server.install_signal_handlers()
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while server.metrics.inflight < 4 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        inflight_at_signal = server.metrics.inflight
+        t0 = time.perf_counter()
+        signal.raise_signal(signal.SIGTERM)
+        summary = server.wait()
+        drain_s = time.perf_counter() - t0
+        for t in threads:
+            t.join()
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+    try:
+        http_call(server.port, "GET", "/healthz", timeout=2)
+        closed = False
+    except OSError:
+        closed = True
+    codes = [r[0] for r in results]
+    refused = [r for r in results
+               if r[0] == "refused" or (r[0] == 503 and "draining" in r[1])]
+    admitted = [r for r in results if r not in refused]
+    return {"requests": len(sources), "inflight_at_signal":
+                inflight_at_signal, "drain_s": drain_s,
+            "answered_200": codes.count(200), "refused": len(refused),
+            "admitted_not_200": [r for r in admitted if r[0] != 200],
+            "listener_closed": closed,
+            "requests_total": summary.get("requests_total")}
+
+
+def phase_serve_http(ctx: dict, work: Path) -> dict:
+    """The HTTP service on the card: the corpus phase's fit run restored
+    by ``build_server`` (tier 1, B1) with the joint phase's 7B
+    ``JointEngine`` as the cascade's tier 2 (B6), a process-mode frontend
+    pool, 16 closed-loop clients; SIGTERM with requests in flight; the
+    ``serve.server`` and ``scan`` entry points as subprocesses."""
+    shard_dir = port_utils.processed_dir() / "demo" / "shards"
+    run_dir = work / "run"
+    vocabs = load_vocabs(shard_dir)
+    sources = [p.read_text() for p in sorted((work / "test_sources")
+                                             .glob("*.c"))]
+    sources += [p.read_text() for p in sorted((FIXTURES / "realworld")
+                                              .glob("*.c"))]
+    cfg = corpus_config()
+
+    # off the main path: every function's tier-1 score by an engine
+    # restored from the same checkpoint, and the band that holds 64 of them
+    ref = ScoringEngine.from_checkpoint(cfg, run_dir / "checkpoints", vocabs,
+                                        device="cuda")
+    encoded = [encode_source(src, vocabs) for src in sources]
+    graphs = [fn.graph for enc in encoded for fn in enc
+              if fn.graph is not None]
+    raw = raw_scores(ref, graphs)  # the server bands on unrounded scores
+    ref_probs = [round(p, 6) for p in raw]
+    band = band_of(raw, SERVE_HTTP_BAND)
+    n_fns = sum(len(enc) for enc in encoded)
+
+    cfg = dataclasses.replace(cfg, serve=ServeConfig(
+        port=0, max_batch=MAX_BATCH, max_queue=1024,
+        frontend=FrontendConfig(mode="process", workers=SERVE_HTTP_WORKERS),
+        cascade=CascadeConfig(enabled=True, band_lo=band[0], band_hi=band[1],
+                              tier2_max_batch=4, tier2_max_queue=1024,
+                              tier2_deadline_ms=120_000.0)))
+    tier2 = JointEngine(ctx["llm"], ctx["fusion"], ctx["tok"], ctx["jcfg"],
+                        max_batch=4, device="cuda")
+    t0 = time.perf_counter()
+    server = build_server(cfg, run_dir=run_dir, shard_dir=shard_dir,
+                          tier2_engine=tier2)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server.warmup()
+    warmup_s = time.perf_counter() - t0
+    server.start()
+    port = server.port
+
+    # the main path: counts from zero, read right after
+    fg.n_launches = 0
+    reset_variant_counts()
+    reset_flash_counts()
+    tier2.n_batches = 0
+    d0 = server.engine.n_dispatches
+    cold, cold_lat, cold_wall = http_pass(port, sources)
+    snap_cold = server.metrics.snapshot()
+    warm, warm_lat, warm_wall = http_pass(port, sources)
+    torch.cuda.synchronize()
+    b1, b1_var = fg.n_launches, dict(fg.n_variant_launches)
+    b6, b6_var = fa.n_launches, dict(fa.n_variant_launches)
+    tier1_calls = server.engine.n_dispatches - d0
+    tier2_batches = tier2.n_batches
+    snap = server.metrics.snapshot()
+    pool = server.frontend.report()
+    intervals = server.frontend.encode_intervals()
+    cache = server.cache.stats()
+    _, metrics_text = http_call(port, "GET", "/metrics")
+    _, slo_text = http_call(port, "GET", "/slo")
+    _, health = http_call(port, "GET", "/healthz")
+    metrics_text, slo_text = metrics_text.decode(), slo_text.decode()
+    health = json.loads(health)
+
+    # off the main path: the answers against the engines, tier 2 against
+    # JointEngine.score on each escalated function, a profiled cold pass
+    rows = [r for status, body in cold if status == 200
+            for r in body["results"]]
+    scored = [r for r in rows if "tier1_score" in r]
+    tier1_diff = max((abs(r["tier1_score"] - p)
+                      for r, p in zip(scored, ref_probs)), default=None)
+    cpu = ScoringEngine.from_checkpoint(cfg, run_dir / "checkpoints", vocabs,
+                                        device="cpu")
+    cpu_diff = max((abs(r["tier1_score"] - c) for r, c in
+                    zip(scored, raw_scores(cpu, graphs))), default=None)
+    items, served2 = [], []
+    for src, enc, (status, body) in zip(sources, encoded, cold):
+        for fn, r in zip(enc, body.get("results", [])):
+            if fn.graph is not None and r.get("tier") == 2:
+                items.append((src, fn.graph))
+                served2.append(r["vulnerable_probability"])
+    direct2 = tier2.score(items) if items else np.zeros(0)
+    tier2_diff = float(np.abs(np.round(direct2, 6)
+                              - np.asarray(served2)).max()) if items else None
+    server.cache = ScanCache(cfg.serve.cache_entries)  # cold once more
+    prof = profile_call(lambda: http_pass(port, sources))
+    drained = drain_on_sigterm(
+        server, [src + f"\n// drain {i}\n"
+                 for i, src in enumerate(sources[:SERVE_HTTP_DRAIN])])
+
+    # the entry points, each in a process of its own
+    want8, j = [], 0
+    for enc in encoded[:8]:
+        want8.append([])
+        for fn in enc:
+            if fn.graph is None:
+                want8[-1].append(None)
+            else:
+                want8[-1].append(ref_probs[j])
+                j += 1
+    entry = serve_entry_point(run_dir, shard_dir, sources, want8,
+                              work / "serve_entry.log")
+    scan_cli = scan_entry_point(cfg, run_dir, shard_dir, vocabs, work)
+
+    encode_busy_s = sum(b - a for a, b in intervals)
+    n_cold_fns = sum(len(body.get("results", [])) for _, body in cold)
+    per1 = fg.launches_per_call(STEPS)
+    per6 = ctx["cfg"].num_hidden_layers
+    row = {
+        "phase": "serve_http", "card": nvidia_smi(),
+        "model": "golden GGNN (hidden 32 x 4, 5 rounds, 3 head layers) "
+                 "from the corpus fit; tier 2 codellama_7b(flash) bf16",
+        "sources": len(sources), "functions": n_fns,
+        "band": list(band), "scores_in_band": sum(
+            band[0] <= p <= band[1] for p in raw),
+        "build_s": build_s, "warmup_s": warmup_s,
+        "frontend": {"mode": "process", "workers": SERVE_HTTP_WORKERS,
+                     "spawn_s": pool["spawn_seconds"],
+                     "encoded": pool["encoded"], "steals": pool["steals"],
+                     "encode_busy_s": encode_busy_s,
+                     "encode_functions_per_worker_s":
+                         n_cold_fns / encode_busy_s if encode_busy_s else None,
+                     "encode_functions_per_s_cold_wall":
+                         n_cold_fns / cold_wall,
+                     "inline_total": snap["frontend_inline_total"]},
+        "cold": pass_row(cold, cold_lat, cold_wall, n_cold_fns),
+        "warm": pass_row(warm, warm_lat, warm_wall, n_cold_fns),
+        "tier1_latency_p50_ms": snap_cold["tier1_latency_p50_ms"],
+        "tier2_latency_p50_ms": snap_cold["tier2_latency_p50_ms"],
+        "tier2_latency_p99_ms": snap_cold["tier2_latency_p99_ms"],
+        "escalations": snap["cascade_escalated_total"],
+        "tier2_answers": snap["cascade_answered"].get(2, 0),
+        "tier1_answers": snap["cascade_answered"].get(1, 0),
+        "degradations": snap["cascade_degraded_total"],
+        "cache": cache, "mean_batch_occupancy": snap["mean_batch_occupancy"],
+        "tier1_calls": tier1_calls, "tier2_batches": tier2_batches,
+        "b1_launches": b1, "b1_launches_by_variant": b1_var,
+        "b6_launches": b6, "b6_launches_by_variant": b6_var,
+        "launches_per_call": {"b1": per1, "b6": per6},
+        "max_abs_tier1_diff_vs_engine": tier1_diff,
+        "max_abs_tier1_diff_vs_cpu": cpu_diff,
+        "max_abs_tier2_diff_vs_joint_engine": tier2_diff,
+        "tier2_limit": JOINT_PROB_LIMIT,
+        "healthz": health, "metrics_families": len(families(metrics_text)),
+        "profile_cold_pass": {k: prof[k] for k in ("wall_us", "device_us",
+                                                   "busy_share",
+                                                   "top_kernels_us")},
+        "device_busy_share": prof["busy_share"],
+        "sigterm": drained, "entry_point": entry, "scan_cli": scan_cli}
+    emit(row)
+    if any(a[0] != 200 or a[1]["cached"] for a in cold) or any(
+            a[0] != 200 or not a[1]["cached"] for a in warm):
+        fail(f"serve_http: cold {row['cold']['status']}, warm "
+             f"{row['warm']['status']}, or a warm miss")
+    if [a[1]["results"] for a in warm] != [a[1]["results"] for a in cold]:
+        fail("serve_http: the warm pass answers differ from the cold one")
+    if len(scored) != len(ref_probs) or tier1_diff is None or \
+            tier1_diff > 1e-6 or cpu_diff is None or cpu_diff > PROB_LIMIT:
+        fail(f"serve_http: tier 1 against the engine {tier1_diff}, the CPU "
+             f"{cpu_diff} ({len(scored)} rows, {len(ref_probs)} scores)")
+    check_probs("serve_http tier 2", np.asarray(served2))
+    if not items or tier2_diff > JOINT_PROB_LIMIT:
+        fail(f"serve_http: tier 2 against JointEngine.score {tier2_diff}")
+    if (row["scores_in_band"] != SERVE_HTTP_BAND
+            or row["escalations"] != SERVE_HTTP_BAND
+            or row["tier2_answers"] != SERVE_HTTP_BAND
+            or row["degradations"] != 0 or snap["frontend_inline_total"]):
+        fail(f"serve_http: band holds {row['scores_in_band']}, "
+             f"{row['escalations']} escalated, {row['tier2_answers']} "
+             f"answered by tier 2, {row['degradations']} degraded, "
+             f"{snap['frontend_inline_total']} encoded inline")
+    missing = [f for f in SERVE_FAMILIES + CASCADE_FAMILIES
+               if f"deepdfa_serve_{f}" not in families(metrics_text)]
+    missing += [n for n in SLO_NAMES if f'slo="{n}"' not in slo_text]
+    if missing or set(health) != HEALTHZ_KEYS:
+        fail(f"serve_http: /metrics or /slo lack {missing}; /healthz keys "
+             f"{sorted(set(health) ^ HEALTHZ_KEYS)} differ")
+    for name, launches, calls, per in (("B1", b1, tier1_calls, per1),
+                                       ("B6", b6, tier2_batches, per6)):
+        if launches <= 0 or launches != calls * per:
+            fail(f"serve_http: {launches} {name} launches for {calls} calls "
+                 f"(expected {per} each)")
+    check_ggnn_wgmma("serve_http", "B1", b1_var, b1)
+    check_wgmma("serve_http", b6_var, b6)
+    if (drained["admitted_not_200"] or not drained["answered_200"]
+            or not drained["listener_closed"]
+            or drained["inflight_at_signal"] < 1):
+        fail(f"serve_http: SIGTERM drain {drained}")
+    if not (entry["serving"] and entry["answers"] == [200] * 8
+            and entry["drained"] and entry["rc"] == 0
+            and entry["max_abs_prob_diff_vs_engine"] is not None
+            and entry["max_abs_prob_diff_vs_engine"] <= 1e-6):
+        fail(f"serve_http: the serve.server entry point {entry}")
+    if not scan_cli["rows_equal"] or scan_cli["rc"] != 0 or \
+            not scan_cli["unit_equal"]:
+        fail(f"serve_http: the scan entry point {scan_cli}")
+    for name, launches, calls, per in (
+            ("B1", scan_cli["b1_launches"], scan_cli["tier1_calls"], per1),
+            ("B4", scan_cli["b4_launches"], scan_cli["level1_dispatches"],
+             mb.launches_per_call(STEPS))):
+        if launches <= 0 or launches != calls * per:
+            fail(f"serve_http scan: {launches} {name} launches for {calls} "
+                 f"calls (expected {per} each)")
+    check_ggnn_wgmma("serve_http scan", "B1",
+                     scan_cli["b1_launches_by_variant"],
+                     scan_cli["b1_launches"])
+    check_ggnn_wgmma("serve_http scan", "B4",
+                     scan_cli["b4_launches_by_variant"],
+                     scan_cli["b4_launches"])
+    return row
+
+
+def scan_entry_point(cfg: ExperimentConfig, run_dir: Path, shard_dir: Path,
+                     vocabs: dict, work: Path) -> dict:
+    """``python -m deepdfa_tpu_torch.scan <dir> --interproc`` on the
+    corpus run against ``scan_paths`` in this process on an engine restored
+    the same way (B1 and B4 counted here)."""
+    tree = work / "scan_tree"
+    tree.mkdir()
+    for p in sorted((FIXTURES / "realworld").glob("*.c")):
+        shutil.copy(p, tree / p.name)
+    shutil.copy(FIXTURES / "interproc" / "cross_taint.c",
+                tree / "cross_taint.c")
+    out = work / "scan_run"
+    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.scan", str(tree),
+           "--run-dir", str(out), "--ckpt-dir", str(run_dir / "checkpoints"),
+           "--shard-dir", str(shard_dir), "--interproc"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    cli = (json.loads((out / "scan.json").read_text())
+           if proc.returncode == 0 else {"results": [], "interproc": {}})
+
+    engine = ScoringEngine.from_checkpoint(cfg, run_dir / "checkpoints",
+                                           vocabs, device="cuda")
+    engine.warmup()
+    hier = engine.hier
+    fg.n_launches = mb.n_launches = 0
+    reset_variant_counts()
+    hier.reset_counters()
+    d0 = engine.n_dispatches
+    local = scan_paths([tree], vocabs, engine=engine, n_workers=4,
+                       interproc=True)
+    torch.cuda.synchronize()
+    level1 = hier.n_level1_dispatches
+    unit = local["interproc"].get("unit", {})
+    cli_unit = cli["interproc"].get("unit", {})
+    return {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+            "seconds": cli_s, "functions": local["n_functions"],
+            "rows_equal": scan_rows(cli) == scan_rows(local),
+            "unit_score": unit.get("unit_score"),
+            "unit_equal": ("unit_score" in unit
+                           and cli_unit.get("unit_score")
+                           == unit["unit_score"]),
+            "findings": len(local["interproc"]["findings"]),
+            "tier1_calls": engine.n_dispatches - d0 - level1,
+            "level1_dispatches": level1,
+            "b1_launches": fg.n_launches,
+            "b1_launches_by_variant": dict(fg.n_variant_launches),
+            "b4_launches": mb.n_launches,
+            "b4_launches_by_variant": dict(mb.n_variant_launches),
+            "stderr_tail": proc.stderr[-400:] if proc.returncode else ""}
 
 
 # --------------------------------------------------------------- phase 18
@@ -3572,7 +4126,12 @@ def drive() -> int:
     bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
     joint, ctx = timed("joint", phase_joint)
     scan = timed("scan", phase_scan, ctx)
-    corpus = timed("corpus", phase_corpus)
+    corpus_work = Path(tempfile.mkdtemp(prefix="chip_smoke_corpus_"))
+    try:
+        corpus = timed("corpus", phase_corpus, corpus_work)
+        serve_http = timed("serve_http", phase_serve_http, ctx, corpus_work)
+    finally:
+        shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
     finetune = timed("finetune", phase_finetune, ctx)
     joint_train = timed("joint_train", phase_joint_train, ctx)
@@ -3594,6 +4153,9 @@ def drive() -> int:
                  + bigvul["joern"]["b1_launches"])
     bigvul_b2 = (bigvul["fit"]["b2_launches"]
                  + bigvul["devign"]["fit"]["b2_launches"])
+    # the HTTP service's tier 1 and the scan entry point's check
+    http_b1 = (serve_http["b1_launches"]
+               + serve_http["scan_cli"]["b1_launches"])
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -3601,14 +4163,18 @@ def drive() -> int:
         "launches": (serve["n_launches"] + train["fwd_launches"]
                      + train_mb["fwd_launches"] + scan["b1_launches"]
                      + corpus["fit"]["b1_launches"]
-                     + corpus["predict"]["b1_launches"] + bigvul_b1),
+                     + corpus["predict"]["b1_launches"] + bigvul_b1
+                     + http_b1),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
                              "scan": scan["b1_launches"],
                              "corpus_fit": corpus["fit"]["b1_launches"],
                              "predict": corpus["predict"]["b1_launches"],
-                             "bigvul": bigvul_b1},
+                             "bigvul": bigvul_b1,
+                             "serve_http": serve_http["b1_launches"],
+                             "serve_http_scan":
+                                 serve_http["scan_cli"]["b1_launches"]},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -3619,7 +4185,9 @@ def drive() -> int:
             corpus["predict"]["b1_launches_by_variant"],
             bigvul["fit"]["launches_by_variant"]["fwd"],
             bigvul["devign"]["fit"]["launches_by_variant"]["fwd"],
-            bigvul["joern"]["b1_launches_by_variant"]),
+            bigvul["joern"]["b1_launches_by_variant"],
+            serve_http["b1_launches_by_variant"],
+            serve_http["scan_cli"]["b1_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -3681,12 +4249,16 @@ def drive() -> int:
         "name": "megabatch_encoder", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/megabatch.cu",
         "replaces": "deepdfa_tpu/ops/megabatch.py:569",
-        "launches": hier["cold"]["b4_launches"] + scan["b4_launches"],
+        "launches": (hier["cold"]["b4_launches"] + scan["b4_launches"]
+                     + serve_http["scan_cli"]["b4_launches"]),
         "launches_by_path": {"hier": hier["cold"]["b4_launches"],
-                             "scan": scan["b4_launches"]},
+                             "scan": scan["b4_launches"],
+                             "serve_http_scan":
+                                 serve_http["scan_cli"]["b4_launches"]},
         "launches_by_variant": sum_variants(
             hier["cold"]["b4_launches_by_variant"],
-            scan["b4_launches_by_variant"]),
+            scan["b4_launches_by_variant"],
+            serve_http["scan_cli"]["b4_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in hier_rows),
         "ms": b4["graph_ms"], "plain_ms": b4["plain_graph_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
@@ -3738,17 +4310,19 @@ def drive() -> int:
                         ":758 (body :342-481)",
         "launches": (joint["b6_launches"] + joint8["b6_launches"]
                      + finetune["b6_launches"] + joint_train["b6_launches"]
-                     + scan["b6_launches"]),
+                     + scan["b6_launches"] + serve_http["b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
                              "joint_train": joint_train["b6_launches"],
-                             "scan_cascade": scan["b6_launches"]},
+                             "scan_cascade": scan["b6_launches"],
+                             "serve_http": serve_http["b6_launches"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
                    for r in (joint, joint8, finetune, joint_train))
             + scan["b6_launches_by_variant"][v]
+            + serve_http["b6_launches_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),

@@ -1,11 +1,12 @@
 """Typed configuration for the PyTorch port.
 
 A trimmed copy of the JAX package's ``deepdfa_tpu/config.py``: the fields
-the fused-layout scoring path and the trainer (``train.fit``) read. Field
-names, defaults and derived properties are unchanged, so a config written
-for the JAX package builds the same model and run here. A config that asks
-for a part of the JAX package this port does not have yet (a mesh, the
-serving shell, telemetry, preemption, divergence rollback, ...) raises
+the fused-layout scoring path, the trainer (``train.fit``) and the HTTP
+service (``serve.server``) read. Field names, defaults and derived
+properties are unchanged, so a config written for the JAX package builds
+the same model, run and server here. A config that asks for a part of the
+JAX package this port does not have yet (a mesh, telemetry, preemption,
+divergence rollback, admission control, the warm store, ...) raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -17,10 +18,12 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
 
-__all__ = ["ALL_SUBKEYS", "BatchConfig", "CheckpointConfig", "DataConfig",
-           "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP", "ExperimentConfig",
-           "FeatureConfig", "GGNNConfig", "IDFA_REACH_CLIP", "LAYOUTS",
-           "OptimConfig", "ResilienceConfig", "SINGLE_SUBKEYS", "load_config"]
+__all__ = ["ALL_SUBKEYS", "BatchConfig", "CascadeConfig", "CheckpointConfig",
+           "DataConfig", "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP",
+           "ExperimentConfig", "FeatureConfig", "FrontendConfig",
+           "GGNNConfig", "IDFA_REACH_CLIP", "LAYOUTS", "ObsConfig",
+           "OptimConfig", "ResilienceConfig", "SINGLE_SUBKEYS", "ServeConfig",
+           "load_config", "to_json"]
 
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
 
@@ -191,12 +194,326 @@ class ResilienceConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """Observability knobs (``deepdfa_tpu_torch/obs``; CLI: ``--set
+    serve.obs.*``): request tracing, slow-trace exemplars, the score-drift
+    sentinel, the flight recorder and the SLO burn-rate engine.
+    ``train_port`` (the trainer's telemetry endpoint) waits for ROADMAP A4
+    and raises when set."""
+
+    trace: bool = True  # record spans on the serve path
+    trace_buffer: int = 4096  # bounded in-memory span buffer per process
+    # root spans slower than this journal their whole trace as an
+    # event=trace exemplar (None/<=0 disables)
+    slow_trace_ms: float = 1000.0
+    trace_dir: str | None = None  # exemplar directory; None = no journaling
+    max_exemplars: int = 16  # exemplar files kept per process
+    # score-drift sentinel: per-model_rev PSI of the sliding score window
+    # against the rev's frozen first window
+    drift_window: int = 512
+    drift_bins: int = 10
+    drift_threshold: float = 0.2
+    drift_min_samples: int = 64
+    drift_max_revs: int = 64
+    train_port: int = -1  # -1 disables (ROADMAP A4)
+    # flight recorder: bounded ring of the last N events, dumped atomically
+    # as flight-<ts>.json on a crash or SIGUSR2
+    flight_events: int = 256
+    flight_dir: str | None = None  # None = the system temp directory
+    # SLO burn-rate engine (/slo): multi-window alerting over the metrics
+    slo_availability: float = 0.99  # non-5xx floor
+    slo_error_rate: float = 0.95  # non-error (2xx) floor
+    slo_p99_ms: float = 2000.0  # p99 latency ceiling
+    slo_step_ms: float = 0.0  # train mean-step ceiling (ROADMAP A4)
+    slo_mfu_floor: float = 0.0  # train MFU floor (ROADMAP A4)
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
+    slo_burn_threshold: float = 2.0
+    alerts_path: str | None = None  # alerts.json veto artifact; None = off
+
+    def __post_init__(self):
+        if self.trace_buffer < 1:
+            raise ValueError("trace_buffer must be >= 1")
+        if self.max_exemplars < 0:
+            raise ValueError("max_exemplars must be >= 0")
+        if self.drift_window < 2:
+            raise ValueError("drift_window must be >= 2")
+        if self.drift_bins < 2:
+            raise ValueError("drift_bins must be >= 2")
+        if self.drift_threshold <= 0:
+            raise ValueError("drift_threshold must be > 0")
+        if self.drift_min_samples < 1:
+            raise ValueError("drift_min_samples must be >= 1")
+        if self.drift_max_revs < 1:
+            raise ValueError("drift_max_revs must be >= 1")
+        if self.train_port < -1:
+            raise ValueError("train_port must be >= -1 (-1 disables)")
+        if self.flight_events < 1:
+            raise ValueError("flight_events must be >= 1")
+        if not 0.0 < self.slo_availability < 1.0:
+            raise ValueError("slo_availability must be in (0, 1)")
+        if not 0.0 < self.slo_error_rate < 1.0:
+            raise ValueError("slo_error_rate must be in (0, 1)")
+        if self.slo_p99_ms <= 0:
+            raise ValueError("slo_p99_ms must be > 0")
+        if self.slo_step_ms < 0:
+            raise ValueError("slo_step_ms must be >= 0 (0 disables)")
+        if self.slo_mfu_floor < 0:
+            raise ValueError("slo_mfu_floor must be >= 0 (0 disables)")
+        if not 0 < self.slo_fast_window_s <= self.slo_slow_window_s:
+            raise ValueError(
+                "need 0 < slo_fast_window_s <= slo_slow_window_s")
+        if self.slo_burn_threshold <= 0:
+            raise ValueError("slo_burn_threshold must be > 0")
+        for name in ("train_port", "slo_step_ms", "slo_mfu_floor"):
+            if getattr(self, name) != _default(type(self), name):
+                raise NotImplementedError(
+                    f"ObsConfig.{name} is not ported yet: ROADMAP A4 "
+                    "(training telemetry)")
+
+
+@dataclass(frozen=True)
+class CascadeConfig:
+    """Two-tier scoring cascade knobs (``serve/cascade.py``; CLI: ``--set
+    serve.cascade.*``): tier 1 (the GGNN engine) answers every request;
+    scores inside ``[band_lo, band_hi]`` escalate to a second bounded
+    micro-batch queue feeding the joint LLM+GNN ``JointEngine``. Tier-2
+    failure (queue full, deadline blown, engine error) degrades to the
+    tier-1 answer with ``tier2_degraded: true``, never a failed request."""
+
+    enabled: bool = False
+    band_lo: float = 0.35
+    band_hi: float = 0.65
+    tier2_max_batch: int = 4
+    tier2_max_wait_ms: float = 10.0
+    tier2_max_queue: int = 64
+    tier2_deadline_ms: float = 2000.0
+    # a JointTrainer run dir holding epoch_N fusion checkpoints; restored
+    # over the hermetic tiny LLM when the server gets no tier2_engine=
+    joint_dir: str | None = None
+
+    def __post_init__(self):
+        if not 0.0 <= self.band_lo < self.band_hi <= 1.0:
+            raise ValueError("need 0 <= band_lo < band_hi <= 1")
+        if self.tier2_max_batch < 1:
+            raise ValueError("tier2_max_batch must be >= 1")
+        if self.tier2_max_wait_ms < 0:
+            raise ValueError("tier2_max_wait_ms must be >= 0")
+        if self.tier2_max_queue < 1:
+            raise ValueError("tier2_max_queue must be >= 1")
+        if self.tier2_deadline_ms <= 0:
+            raise ValueError("tier2_deadline_ms must be > 0")
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Frontend encode pool knobs (``serve/frontend.py``; CLI: ``--set
+    serve.frontend.*``): cold-request ``encode_source`` runs on a pool of
+    encode workers instead of on the request-handler thread.
+    ``mode="process"`` spawns vocab-warm child processes (the spawn
+    handshake carries the vocabulary content hash; a mismatch fails fast),
+    ``"thread"`` keeps the sessions in-process, ``"inline"`` disables the
+    pool. Pool trouble always degrades to inline encode, never a 5xx."""
+
+    mode: str = "inline"  # process | thread | inline
+    workers: int = 2
+    max_queue: int = 256
+    spawn_timeout_s: float = 120.0
+    encode_timeout_s: float = 120.0
+
+    def __post_init__(self):
+        if self.mode not in ("process", "thread", "inline"):
+            raise ValueError("mode must be 'process', 'thread' or 'inline'")
+        if self.workers < 1:
+            raise ValueError("workers must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if self.spawn_timeout_s <= 0:
+            raise ValueError("spawn_timeout_s must be > 0")
+        if self.encode_timeout_s <= 0:
+            raise ValueError("encode_timeout_s must be > 0")
+
+
+@dataclass(frozen=True)
+class AutoscaleConfig:
+    """The fleet autoscaler's knobs, with the JAX package's names and
+    defaults. Not ported yet: any other value raises (ROADMAP A15)."""
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    poll_interval_s: float = 2.0
+    burn_high: float = 2.0
+    burn_low: float = 0.5
+    up_consecutive: int = 2
+    down_consecutive: int = 5
+    cooldown_s: float = 30.0
+    replace_deadline_s: float = 30.0
+    spawn_attempts: int = 3
+    spawn_backoff_s: float = 0.5
+
+    def __post_init__(self):
+        _refuse_non_default(self, "ROADMAP A15 (the fleet autoscaler)")
+
+
+@dataclass(frozen=True)
+class AdmissionConfig:
+    """Admission control, QoS classes and brownout, with the JAX package's
+    names and defaults. Not ported yet: any other value raises (ROADMAP
+    A15)."""
+
+    enabled: bool = False
+    interactive_rate: float = 200.0
+    interactive_burst: float = 200.0
+    batch_rate: float = 50.0
+    batch_burst: float = 50.0
+    interactive_deadline_ms: float = 2000.0
+    batch_deadline_ms: float = 10000.0
+    depth_shed_factor: float = 4.0
+    brownout: bool = True
+    burn_high: float = 2.0
+    burn_low: float = 0.5
+    up_consecutive: int = 2
+    down_consecutive: int = 5
+    cooldown_s: float = 5.0
+    poll_interval_s: float = 0.5
+    max_level: int = 3
+
+    def __post_init__(self):
+        _refuse_non_default(self, "ROADMAP A15 (admission control)")
+
+
+@dataclass(frozen=True)
+class ContinualConfig:
+    """The continuous-learning loop (request capture, shadow replay,
+    promotion), with the JAX package's names and defaults. Not ported yet:
+    any other value raises (ROADMAP A15)."""
+
+    enabled: bool = False
+    capture_path: str | None = None
+    capture_sample_every: int = 1
+    capture_max_records: int = 10000
+    shadow_bins: int = 10
+    shadow_max_psi: float = 0.25
+    veto_max_age_s: float = 3600.0
+    drift_settle_polls: int = 3
+    poll_interval_s: float = 0.5
+    join_timeout_s: float = 120.0
+
+    def __post_init__(self):
+        _refuse_non_default(self, "ROADMAP A15 (the continuous-learning "
+                                  "loop)")
+
+
+@dataclass(frozen=True)
+class FederationConfig:
+    """Multi-cell federation, with the JAX package's names and defaults.
+    Not ported yet: any other value raises (ROADMAP A15)."""
+
+    enabled: bool = False
+    cells: tuple[str, ...] = ()
+    vnodes: int = 16
+    probe_interval_s: float = 1.0
+    spill_brownout_level: int = 1
+    spill_queue_wait_p99_ms: float = 5000.0
+    spill_burn_high: float = 2.0
+    drain_deadline_s: float = 30.0
+    retry_after_floor_s: int = 1
+
+    def __post_init__(self):
+        object.__setattr__(self, "cells", tuple(self.cells))
+        _refuse_non_default(self, "ROADMAP A15 (federation)")
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Online scoring service knobs (``deepdfa_tpu_torch/serve``; CLI:
+    ``--set serve.*``): the micro-batching window, the bounded queue, the
+    content-addressed scan cache, the HTTP endpoint, the cascade and the
+    frontend pool. The JAX package's fleet parts keep their defaults here
+    and raise when set: ``warm_store_dir`` (ROADMAP A6b),
+    ``mesh_replicas > 1`` (A11), ``admission``, ``continual``,
+    ``federation`` and ``autoscale`` (A15)."""
+
+    host: str = "127.0.0.1"
+    port: int = 8341  # 0 = ephemeral (the bound port is reported at start)
+    max_batch: int = 16  # real graphs per dispatched micro-batch
+    max_wait_ms: float = 5.0  # batching window after the first request
+    max_queue: int = 128  # bounded request queue: beyond it, 503
+    cache_entries: int = 4096  # scan-cache capacity (content-addressed LRU)
+    drain_timeout_s: float = 10.0  # graceful-shutdown budget
+    latency_window: int = 2048  # ring buffer behind the p50/p99 gauges
+    # "f32" or "int8" (int8 conv products on kernel B5, gated against the
+    # float32 scores at engine build; see ScoringEngine.from_model)
+    precision: str = "f32"
+    int8_max_score_delta: float = 0.01
+    # every dispatch goes through ScoringEngine.submit: upload and launch
+    # under the engine lock, the scores read back by PendingScore.result
+    latency_mode: bool = False
+    replica_id: str | None = None  # default: host:port at serve time
+    warm_store_dir: str | None = None  # ROADMAP A6b
+    probe_interval_s: float = 2.0
+    mesh_replicas: int = 0  # > 1: ROADMAP A11
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
+    cascade: CascadeConfig = field(default_factory=CascadeConfig)
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+    continual: ContinualConfig = field(default_factory=ContinualConfig)
+    federation: FederationConfig = field(default_factory=FederationConfig)
+
+    def __post_init__(self):
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_wait_ms < 0:
+            raise ValueError("max_wait_ms must be >= 0")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if self.cache_entries < 0:
+            raise ValueError("cache_entries must be >= 0")
+        if self.latency_window < 1:
+            raise ValueError("latency_window must be >= 1")
+        if self.precision not in ("f32", "int8"):
+            raise ValueError("precision must be 'f32' or 'int8'")
+        if self.int8_max_score_delta <= 0:
+            raise ValueError("int8_max_score_delta must be > 0")
+        if self.probe_interval_s <= 0:
+            raise ValueError("probe_interval_s must be > 0")
+        if self.mesh_replicas < 0:
+            raise ValueError("mesh_replicas must be >= 0")
+        if self.warm_store_dir is not None:
+            raise NotImplementedError(
+                "ServeConfig.warm_store_dir is not ported yet: ROADMAP A6b "
+                "(the warm store and artifact export)")
+        if self.mesh_replicas > 1:
+            raise NotImplementedError(
+                "ServeConfig.mesh_replicas > 1 is not ported yet: ROADMAP "
+                "A11 (mesh replication)")
+
+
+def _default(cls: type, name: str) -> Any:
+    f = cls.__dataclass_fields__[name]
+    return f.default_factory() if f.default is dataclasses.MISSING \
+        else f.default
+
+
+def _refuse_non_default(cfg: Any, later: str) -> None:
+    """Raise ``NotImplementedError`` naming ``later`` unless every field of
+    ``cfg`` keeps its default: the block parses, and is not ported yet."""
+    for f in dataclasses.fields(cfg):
+        if getattr(cfg, f.name) != _default(type(cfg), f.name):
+            raise NotImplementedError(
+                f"{type(cfg).__name__}.{f.name} is not ported yet: {later}")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: GGNNConfig = field(default_factory=GGNNConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
     seed: int = 0
     run_name: str | None = None
 
@@ -222,13 +539,19 @@ _NESTED: dict[tuple[str, str], type] = {
     ("ExperimentConfig", "optim"): OptimConfig,
     ("ExperimentConfig", "checkpoint"): CheckpointConfig,
     ("ExperimentConfig", "resilience"): ResilienceConfig,
+    ("ExperimentConfig", "serve"): ServeConfig,
+    ("ServeConfig", "obs"): ObsConfig,
+    ("ServeConfig", "autoscale"): AutoscaleConfig,
+    ("ServeConfig", "cascade"): CascadeConfig,
+    ("ServeConfig", "frontend"): FrontendConfig,
+    ("ServeConfig", "admission"): AdmissionConfig,
+    ("ServeConfig", "continual"): ContinualConfig,
+    ("ServeConfig", "federation"): FederationConfig,
 }
 
 # Fields of the JAX package's config that name parts not ported yet.
 _NOT_PORTED: dict[tuple[str, str], str] = {
     ("ExperimentConfig", "mesh"): "ROADMAP A11 (data parallelism)",
-    ("ExperimentConfig", "serve"): "ROADMAP A6 (the serving shell) and A4 "
-                                   "(training telemetry)",
     ("ExperimentConfig", "profile"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "time"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "trace"): "ROADMAP A13 (profiling)",
@@ -243,6 +566,20 @@ _NOT_PORTED: dict[tuple[str, str], str] = {
                                                 "emergency checkpoints)",
     ("ResilienceConfig", "step_deadline_s"): "ROADMAP A4 (watchdog)",
 }
+
+
+def _to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: _to_dict(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [_to_dict(v) for v in cfg]
+    return cfg
+
+
+def to_json(cfg: Any) -> str:
+    """A config as the JAX package writes it (``config.json`` of a run)."""
+    return json.dumps(_to_dict(cfg), indent=2, sort_keys=True)
 
 
 def _from_dict(cls: type, data: dict[str, Any]) -> Any:

@@ -6,8 +6,10 @@ shared library with a plain C interface, under ``deepdfa_tpu_torch/_build/``
 ``csrc/*.cuh`` headers. The library's file name carries a digest of every
 source, header and flag, so an edited source is rebuilt and a stale
 library is never loaded. Several sources build in parallel, one ``nvcc``
-each, and :func:`build` returns when all have finished. A failed build
-raises: there is no fallback.
+each, and :func:`build` returns when all have finished. Builds and loads
+hold one lock, so threads that reach a kernel together (the server's
+dispatchers) never compile the same source twice. A failed build raises:
+there is no fallback.
 
 :func:`load_host` builds a plain C++ source (the dataflow solver of
 ``native/dfa_solver.cpp``) with the host's C++ compiler into the same
@@ -38,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -65,6 +67,11 @@ def build(*names: str) -> str:
     yet, one ``nvcc`` per source, all started together, and wait for them.
     Returns nvcc's output (ptxas reports registers, shared memory and
     spills), or "" when every library was already built."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> str:
     jobs = []
     for name in names:
         target = _target(name)

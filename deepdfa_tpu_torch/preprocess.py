@@ -47,8 +47,10 @@ the other's shards. Idempotent: an existing shard directory is left alone
 unless ``--overwrite``, and one built under another ``--split`` is
 refused. Preprocess runs on the host: it launches no kernel.
 
-Not ported yet: process-backed extraction sessions (ROADMAP A6); the
-port's workers are threads, with the same output.
+The extraction workers are threads, with the same output as the JAX
+script's process-backed sessions; the port's
+:class:`~deepdfa_tpu_torch.data.extraction.ProcessSession` is not wired in
+here yet.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Deterministic, named fault-injection points.
 
 A copy of ``deepdfa_tpu/resilience/faults.py`` that declares only the
-points the port fires: ``joern.die`` and ``joern.hang``
-(``cpg/joern_session.py``). The other points of the JAX registry come with
-their fire sites (ROADMAP A15).
+points the port fires: the Joern session's (``cpg/joern_session.py``), the
+HTTP service's, the tracer's and flight recorder's, the extraction pool's,
+the cascade's and the frontend pool's. The other points of the JAX
+registry come with their fire sites (ROADMAP A15).
 
 Faults are (a) reachable from outside the process — a subprocess under
 test arms them through the ``DEEPDFA_FAULTS`` environment variable — (b)
@@ -50,6 +51,15 @@ ENV_VAR = "DEEPDFA_FAULTS"
 KNOWN_POINTS = (
     "joern.hang",
     "joern.die",
+    "serve.drop_request",
+    "serve.engine_raises",
+    "obs.trace_drop",
+    "obs.flight_drop",
+    "extract.worker_crash",
+    "cascade.tier2_timeout",
+    "cascade.escalation_drop",
+    "frontend.worker_crash",
+    "frontend.spawn_fail",
 )
 
 # One line per point; keys equal KNOWN_POINTS.
@@ -59,6 +69,39 @@ POINT_DOCS = {
         "(cpg/joern_session.py)"),
     "joern.die": (
         "kill the joern subprocess before a command (cpg/joern_session.py)"),
+    "serve.drop_request": (
+        "drop one /score request at admission — the client gets a 503, the "
+        "server keeps serving (serve/server.py)"),
+    "serve.engine_raises": (
+        "raise inside the scoring engine — that batch's requests get 500s, "
+        "the dispatcher survives (serve/server.py)"),
+    "obs.trace_drop": (
+        "lose one span at export — counted in dropped_total; the request it "
+        "annotates must still succeed (obs/tracing.py)"),
+    "obs.flight_drop": (
+        "lose one flight-recorder event at record — counted in "
+        "obs_dropped_total; the request/step it annotates must still "
+        "succeed (obs/flightrec.py)"),
+    "extract.worker_crash": (
+        "kill one extraction-pool worker thread mid-task — its in-flight "
+        "item is re-queued and survivors steal its backlog "
+        "(data/extraction.py)"),
+    "cascade.tier2_timeout": (
+        "blow one tier-2 batch's deadline inside the cascade dispatcher — "
+        "the requests keep their tier-1 answers with tier2_degraded: true "
+        "(serve/cascade.py)"),
+    "cascade.escalation_drop": (
+        "drop one borderline escalation at enqueue — the request keeps its "
+        "tier-1 answer with tier2_degraded: true, never a 5xx "
+        "(serve/cascade.py)"),
+    "frontend.worker_crash": (
+        "kill one frontend encode worker mid-task — its in-flight source "
+        "is re-queued and completed exactly once by a survivor; total pool "
+        "death degrades requests to inline encode (serve/frontend.py)"),
+    "frontend.spawn_fail": (
+        "fail one frontend encode-session spawn — the supervisor retries "
+        "with backoff; a pool that cannot spawn at all degrades to inline "
+        "encode, never a 5xx (serve/frontend.py)"),
 }
 
 

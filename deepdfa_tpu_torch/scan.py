@@ -1,9 +1,10 @@
 """Scan C sources: the streaming end-to-end surface, scoring on the card.
 
-The port of ``deepdfa_tpu/scan.py``'s ``scan_paths``. Every C source under
-the given paths streams through the work-stealing
-:class:`~deepdfa_tpu_torch.data.extraction.ExtractionPool` (thread encode
-sessions: C source → CPG → dependence edges → features → ``Graph``) with the
+The port of ``deepdfa_tpu/scan.py``. Every C source under the given paths
+streams through the work-stealing
+:class:`~deepdfa_tpu_torch.data.extraction.ExtractionPool` (encode
+sessions from the frontend pool's factory, threads or spawned processes:
+C source → CPG → dependence edges → features → ``Graph``) with the
 content-addressed :class:`~deepdfa_tpu_torch.data.extract_cache.ExtractCache`
 in front; with an ``engine`` the encoded functions are scored through the
 port's :class:`~deepdfa_tpu_torch.serve.engine.ScoringEngine`, grouped by
@@ -20,12 +21,18 @@ A re-scan of a mostly-unchanged tree re-encodes only changed files (the
 cache key is the whitespace-normalized content hash salted with the
 vocabulary hash), an unparseable file is one error row (never a dead
 scan). The engines run on the card unless they were built for another
-device. ``scan_command`` (the CLI entry, which loads a checkpoint or an
-exported artifact) waits for ROADMAP A6.
+device.
+
+:func:`scan_command` is the command-line entry (``python -m
+deepdfa_tpu_torch.scan <dir> --run-dir ... --ckpt-dir ...``): it restores
+a ``train.fit`` checkpoint into the fused layout
+(:meth:`~deepdfa_tpu_torch.serve.engine.ScoringEngine.from_checkpoint`),
+scans and writes ``scan.json`` into the run directory.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from pathlib import Path
@@ -35,7 +42,7 @@ from deepdfa_tpu_torch.data.extract_cache import ExtractCache
 from deepdfa_tpu_torch.data.extraction import ExtractionPool
 from deepdfa_tpu_torch.pipeline import vocab_content_hash
 
-__all__ = ["collect_c_files", "scan_paths"]
+__all__ = ["collect_c_files", "main", "scan_command", "scan_paths"]
 
 logger = logging.getLogger("deepdfa_tpu_torch")
 
@@ -54,6 +61,20 @@ def collect_c_files(paths: Sequence[str | Path]) -> list[Path]:
         else:
             raise FileNotFoundError(p)
     return out
+
+
+def _session_factory(vocabs, frontend, keep_cpg: bool = False):
+    """The scan's encode sessions come from the factory the online
+    :class:`~deepdfa_tpu_torch.serve.frontend.FrontendPool` uses, so mode
+    (process or thread), the vocabulary-hash spawn handshake and timeouts
+    are one implementation. ``"inline"`` (or no ``frontend``) means thread
+    sessions: the encode still runs on the pool's workers."""
+    from deepdfa_tpu_torch.config import FrontendConfig
+    from deepdfa_tpu_torch.serve.frontend import encode_session_factory
+
+    if frontend is None or frontend.mode == "inline":
+        frontend = FrontendConfig(mode="thread")
+    return encode_session_factory(vocabs, frontend, keep_cpg=keep_cpg)
 
 
 def _score_functions(engine, rows: list[dict], graphs: list) -> None:
@@ -223,15 +244,17 @@ def scan_paths(
     n_workers: int = 4,
     cache_dir: str | Path | None = None,
     attempts_per_item: int = 2,
+    frontend=None,
     interproc: bool = False,
 ) -> dict:
     """Scan ``paths``; returns the report dict: the JAX package's keys, plus
     ``score_s`` (host seconds of the tier-1 scoring). Per-file failures are
     error rows; nothing aborts the scan. The encode runs on ``n_workers``
-    thread sessions (the JAX package's ``frontend`` option and its process
-    sessions wait for ROADMAP A6)."""
+    sessions of ``frontend``'s mode (a :class:`~deepdfa_tpu_torch.config.
+    FrontendConfig`; thread sessions by default, spawned children with
+    ``mode="process"`` — those return no CPGs, so the interprocedural pass
+    parses their files again)."""
     from deepdfa_tpu_torch.models.ggnn_hier import UnitFunction
-    from deepdfa_tpu_torch.serve.frontend import encode_session_factory
 
     files = collect_c_files(paths)
     sources: list[tuple[str, str]] = [
@@ -242,7 +265,7 @@ def scan_paths(
         # so a re-vocabed corpus misses rather than serving stale encodings
         cache = ExtractCache(cache_dir, salt=vocab_content_hash(vocabs))
     pool = ExtractionPool(
-        encode_session_factory(vocabs, keep_cpg=interproc),
+        _session_factory(vocabs, frontend, keep_cpg=interproc),
         n_workers=max(1, min(n_workers, max(len(sources), 1))),
         attempts_per_item=attempts_per_item,
         cache=cache,
@@ -268,8 +291,9 @@ def scan_paths(
             continue
         if interproc and res.value and all(
                 fn.cpg is not None for fn in res.value):
-            # the encode kept the per-function CPGs: the interproc pass
-            # reuses them; cache entries written without them re-parse
+            # thread-mode encode kept the per-function CPGs: the interproc
+            # pass reuses them; process-mode results and cache entries
+            # written without them re-parse
             parsed_cpgs[res.key] = [fn.cpg for fn in res.value]
         for fn in res.value:
             row = {"file": res.key, "function": fn.name,
@@ -328,3 +352,145 @@ def scan_paths(
         f"hit_rate={report['cache']['hit_rate']:.2f}" if cache else "off",
     )
     return report
+
+
+def scan_command(cfg, run_dir: Path, targets: Sequence[str], *,
+                 ckpt_dir: Path | None = None, artifact: str | None = None,
+                 workers: int = 4, cache_dir: Path | None = None,
+                 cascade: bool = False, interproc: bool = False,
+                 shard_dir: Path | None = None, device=None) -> dict:
+    """The CLI entry: vocabularies from ``shard_dir`` (default: the
+    config's processed dataset dir), a scoring engine restored from
+    ``ckpt_dir`` when one is given (the scan still encodes without one),
+    tier 2 restored from ``serve.cascade.joint_dir`` with ``cascade``;
+    ``scan.json`` written atomically into ``run_dir``. ``artifact`` raises:
+    exported artifacts are ROADMAP A6b. The engines run on ``device``
+    (``cuda`` unless the caller names another)."""
+    from deepdfa_tpu_torch import utils
+    from deepdfa_tpu_torch.pipeline import load_vocabs
+    from deepdfa_tpu_torch.resilience.journal import atomic_write_text
+
+    ccfg = cfg.serve.cascade
+    if cascade:
+        # fail fast, before shard/vocab resolution touches the filesystem
+        if artifact is None and ckpt_dir is None:
+            raise ValueError(
+                "scan --cascade needs tier-1 scores: pass --ckpt-dir or "
+                "--artifact")
+        if ccfg.joint_dir is None:
+            raise ValueError(
+                "scan --cascade needs a tier-2 checkpoint: set "
+                "serve.cascade.joint_dir (a JointTrainer run dir)")
+    if artifact is not None:
+        raise NotImplementedError(
+            "scanning with an exported artifact is not ported yet: ROADMAP "
+            "A6b (the warm store and artifact export)")
+
+    if shard_dir is None:
+        sample_text = "_sample" if cfg.data.sample else ""
+        shard_dir = (utils.processed_dir() / cfg.data.dsname
+                     / f"shards{sample_text}")
+    vocabs = load_vocabs(shard_dir)
+
+    engine = None
+    if ckpt_dir is not None:
+        from deepdfa_tpu_torch.serve.engine import ScoringEngine
+
+        engine = ScoringEngine.from_checkpoint(cfg, ckpt_dir, vocabs,
+                                               device=device)
+    else:
+        logger.info("scan: no --ckpt-dir — encoding without scores")
+
+    tier2 = None
+    if cascade:
+        from deepdfa_tpu_torch.llm.joint_engine import JointEngine
+
+        tier2 = JointEngine.from_run_dir(
+            ccfg.joint_dir, max_batch=ccfg.tier2_max_batch, device=device)
+
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    report = scan_paths(
+        targets, vocabs, engine=engine, tier2=tier2,
+        tier2_band=(ccfg.band_lo, ccfg.band_hi), n_workers=workers,
+        cache_dir=cache_dir if cache_dir is not None
+        else run_dir / "extract_cache",
+        frontend=cfg.serve.frontend, interproc=interproc)
+    atomic_write_text(run_dir / "scan.json", json.dumps(report, indent=2))
+    print(json.dumps({k: v for k, v in report.items() if k != "results"},
+                     sort_keys=True), flush=True)
+    return report
+
+
+def main(argv=None) -> dict:
+    """``python -m deepdfa_tpu_torch.scan <target> ...``: the scan rows of
+    the JAX package's ``deepdfa-tpu scan`` (a positional target and/or
+    ``--source``, ``--config``/``--set``, ``--run-dir``, ``--ckpt-dir``,
+    ``--workers``, ``--cache-dir``, ``--artifact``, ``--cascade``,
+    ``--interproc``), plus ``--shard-dir`` and ``--device``. A run dir's
+    ``config.json``, when it has one, is the base config layer."""
+    import argparse
+
+    from deepdfa_tpu_torch import utils
+    from deepdfa_tpu_torch.config import load_config
+    from deepdfa_tpu_torch.serve.server import parse_overrides
+
+    parser = argparse.ArgumentParser(prog="deepdfa-tpu-torch-scan")
+    parser.add_argument("target", nargs="?", default=None,
+                        help="the repo/dir/file to walk (or use --source)")
+    parser.add_argument("--source", action="append", default=[],
+                        help="C file or directory (repeatable)")
+    parser.add_argument("--config", action="append", default=[],
+                        help="layered config files (later files win)")
+    parser.add_argument("--set", action="append", default=[], dest="overrides",
+                        help="dotted overrides, e.g. --set serve.max_batch=32")
+    parser.add_argument("--run-dir", default=None,
+                        help="where scan.json goes (default: a new "
+                             "<storage>/runs/scan-<time> dir)")
+    parser.add_argument("--ckpt-dir", default=None,
+                        help="checkpoint dir of a fit run (scores the scan)")
+    parser.add_argument("--workers", type=int, default=4,
+                        help="extraction-pool worker count")
+    parser.add_argument("--cache-dir", default=None,
+                        help="extraction-cache dir (default: "
+                             "<run-dir>/extract_cache)")
+    parser.add_argument("--artifact", default=None,
+                        help="an exported artifact dir (ROADMAP A6b: raises)")
+    parser.add_argument("--cascade", action="store_true",
+                        help="rescore borderline-band functions through the "
+                             "tier-2 joint engine (needs "
+                             "serve.cascade.joint_dir)")
+    parser.add_argument("--interproc", action="store_true",
+                        help="also score the target as one unit: merged "
+                             "CPGs, the call-graph supergraph, cross-"
+                             "function taint flows and the hierarchical "
+                             "unit score in scan.json['interproc']")
+    parser.add_argument("--shard-dir", default=None,
+                        help="shard dir holding vocab.json (default: the "
+                             "config's processed dataset dir)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    targets = ([args.target] if args.target else []) + list(args.source)
+    if not targets:
+        parser.error("scan requires a target path (positional or --source)")
+
+    layers = list(args.config)
+    if args.run_dir and (Path(args.run_dir) / "config.json").exists():
+        layers.insert(0, Path(args.run_dir) / "config.json")
+    cfg = load_config(*layers, overrides=parse_overrides(args.overrides))
+    run_dir = (Path(args.run_dir) if args.run_dir else utils.get_dir(
+        utils.storage_dir() / "runs" / time.strftime("scan-%Y%m%d-%H%M%S")))
+    logging.basicConfig(level=logging.INFO)
+    return scan_command(
+        cfg, run_dir, targets,
+        ckpt_dir=Path(args.ckpt_dir) if args.ckpt_dir else None,
+        artifact=args.artifact, workers=args.workers,
+        cache_dir=Path(args.cache_dir) if args.cache_dir else None,
+        cascade=args.cascade, interproc=args.interproc,
+        shard_dir=Path(args.shard_dir) if args.shard_dir else None,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,35 @@
-"""Online scoring: the bucketed engine, the request micro-batcher and the
-hierarchical scorer's embedding cache."""
+"""Online scoring: the bucketed engine, the request micro-batcher, the scan
+cache, the serving metrics, the two-tier cascade, the frontend encode pool
+and the hierarchical scorer's embedding cache. The HTTP service is
+:mod:`deepdfa_tpu_torch.serve.server` (``python -m
+deepdfa_tpu_torch.serve.server``; not imported here, so that ``-m`` runs
+it as a fresh module)."""
 
 from deepdfa_tpu_torch.serve.batcher import MicroBatcher, QueueFullError
+from deepdfa_tpu_torch.serve.cache import ScanCache, ScanEntry
+from deepdfa_tpu_torch.serve.cascade import (CascadeRouter,
+                                             EscalationDropped,
+                                             Tier2Batcher,
+                                             Tier2DeadlineError,
+                                             Tier2QueueFull)
 from deepdfa_tpu_torch.serve.embcache import (EMBCACHE_VERSION,
                                               FunctionEmbeddingCache)
-from deepdfa_tpu_torch.serve.engine import (OversizeGraphError, ScoringEngine,
-                                            ServeBucket, mega_bucket,
-                                            serve_buckets)
+from deepdfa_tpu_torch.serve.engine import (OversizeGraphError, PendingScore,
+                                            ScoringEngine, ServeBucket,
+                                            mega_bucket, serve_buckets)
+from deepdfa_tpu_torch.serve.frontend import (ENCODE_ITEM_ERRORS,
+                                              FrontendPool,
+                                              FrontendProcessSession,
+                                              ThreadEncodeSession,
+                                              VocabHashMismatch,
+                                              encode_session_factory)
+from deepdfa_tpu_torch.serve.metrics import LatencyReservoir, ServeMetrics
 
-__all__ = ["EMBCACHE_VERSION", "FunctionEmbeddingCache", "MicroBatcher",
-           "QueueFullError", "OversizeGraphError", "ScoringEngine",
-           "ServeBucket", "mega_bucket", "serve_buckets"]
+__all__ = ["CascadeRouter", "ENCODE_ITEM_ERRORS", "EMBCACHE_VERSION",
+           "EscalationDropped", "FrontendPool", "FrontendProcessSession",
+           "FunctionEmbeddingCache", "LatencyReservoir", "MicroBatcher",
+           "OversizeGraphError", "PendingScore", "QueueFullError",
+           "ScanCache", "ScanEntry", "ScoringEngine", "ServeBucket",
+           "ServeMetrics", "ThreadEncodeSession", "Tier2Batcher",
+           "Tier2DeadlineError", "Tier2QueueFull", "VocabHashMismatch",
+           "encode_session_factory", "mega_bucket", "serve_buckets"]

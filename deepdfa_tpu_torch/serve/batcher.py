@@ -1,20 +1,30 @@
 """Dynamic micro-batching over the scoring engine.
 
-A copy of ``deepdfa_tpu/serve/batcher.py`` without the tracing and metrics
-hooks. A ~50-node CFG nowhere near saturates the card, so concurrent
-requests are coalesced into one padded dispatch:
+The port of ``deepdfa_tpu/serve/batcher.py``. A ~50-node CFG nowhere near
+saturates the card, so concurrent requests are coalesced into one padded
+dispatch:
 
 - requests enter a **bounded** queue (``max_queue``) — beyond it,
-  :class:`QueueFullError` (backpressure instead of unbounded latency);
+  :class:`QueueFullError` (the server's 503 backpressure);
 - a single dispatcher thread wakes on the first queued request, then waits
   until ``max_batch`` requests are pending or ``max_wait_ms`` has elapsed
   since that first request (size-or-deadline window);
 - the drained window is grouped by the engine's size buckets and each group
   greedy-packed into batches within the bucket's budgets.
 
-Engine failures fail the requests *of that batch* via their futures and the
-loop continues. ``stop(drain=True)`` refuses new work and drains what is
-queued.
+Each packed batch is one ``engine.score`` call (the JAX package's engine
+may stack one batch per mesh replica; the port's has one replica, ROADMAP
+A11); an engine built with ``latency_mode`` dispatches it through
+:meth:`~deepdfa_tpu_torch.serve.engine.ScoringEngine.submit` (upload and
+launch under the engine lock, read back on ``result()``). With ``metrics`` and ``tracer`` attached the
+batcher feeds the queue-depth gauge, the queue-wait and dispatch
+reservoirs, batch occupancy and padding, and the ``queue.wait``,
+``batch.assembly``, ``engine.dispatch`` and ``host.reduce`` spans.
+
+Engine failures (the injected ``serve.engine_raises`` included) fail the
+requests *of that batch* via their futures and the loop continues.
+``stop(drain=True)`` refuses new work and drains what is queued, which is
+what SIGTERM maps to.
 """
 
 from __future__ import annotations
@@ -24,7 +34,10 @@ import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
-from .engine import ScoringEngine, ServeBucket
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:  # the engine imports torch; the frontend pool needs none
+    from .engine import ScoringEngine, ServeBucket
 
 __all__ = ["QueueFullError", "MicroBatcher"]
 
@@ -36,17 +49,25 @@ class QueueFullError(RuntimeError):
 @dataclass
 class _Pending:
     graph: object
-    bucket: ServeBucket
+    bucket: "ServeBucket"
     future: Future = field(default_factory=Future)
+    # tracing handoff: the submitting request's span context and enqueue
+    # wall time, so the dispatcher thread can close the queue.wait span
+    # against the right trace
+    ctx: object = None
+    enqueued_s: float = 0.0
 
 
 class MicroBatcher:
-    def __init__(self, engine: ScoringEngine, max_batch: int = 16,
-                 max_wait_ms: float = 5.0, max_queue: int = 128):
+    def __init__(self, engine: "ScoringEngine", max_batch: int = 16,
+                 max_wait_ms: float = 5.0, max_queue: int = 128,
+                 metrics=None, tracer=None):
         self.engine = engine
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self.max_queue = int(max_queue)
+        self.metrics = metrics
+        self.tracer = tracer
         self._pending: list[_Pending] = []
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -69,7 +90,10 @@ class MicroBatcher:
         :class:`~.engine.OversizeGraphError` (no bucket), or RuntimeError
         once draining."""
         bucket = self.engine.assign_bucket(graph)  # raises OversizeGraphError
-        item = _Pending(graph=graph, bucket=bucket)
+        item = _Pending(graph=graph, bucket=bucket,
+                        ctx=(self.tracer.current()
+                             if self.tracer is not None else None),
+                        enqueued_s=time.time())
         with self._wake:
             if self._stopping:
                 raise RuntimeError("batcher is draining — not accepting work")
@@ -77,6 +101,8 @@ class MicroBatcher:
                 raise QueueFullError(
                     f"request queue at capacity ({self.max_queue})")
             self._pending.append(item)
+            if self.metrics is not None:
+                self.metrics.set_gauge("queue_depth", len(self._pending))
             self._wake.notify_all()
         return item.future
 
@@ -117,17 +143,27 @@ class MicroBatcher:
                         break
                     self._wake.wait(timeout=remain)
                 window, self._pending = self._pending, []
+                if self.metrics is not None:
+                    self.metrics.set_gauge("queue_depth", 0)
             self._dispatch_window(window)
 
     def _dispatch_window(self, window: list[_Pending]) -> None:
-        by_bucket: dict[ServeBucket, list[_Pending]] = {}
+        assembled_s = time.time()
+        by_bucket: dict["ServeBucket", list[_Pending]] = {}
         for item in window:
             by_bucket.setdefault(item.bucket, []).append(item)
-        for bucket, items in by_bucket.items():
-            for batch in self._pack(bucket, items):
+        plans = [(bucket, self._pack(bucket, items))
+                 for bucket, items in by_bucket.items()]
+        if self.tracer is not None and window:
+            parent = next((i.ctx for i in window if i.ctx is not None), None)
+            self.tracer.record("batch.assembly", assembled_s, parent=parent,
+                               n_graphs=len(window),
+                               n_buckets=len(by_bucket))
+        for bucket, packed in plans:
+            for batch in packed:
                 self._dispatch(bucket, batch)
 
-    def _pack(self, bucket: ServeBucket, items: list[_Pending]):
+    def _pack(self, bucket: "ServeBucket", items: list[_Pending]):
         """Greedy-fill within the bucket's graph/node/edge budgets."""
         out, nn, ne = [], 0, 0
         cur: list[_Pending] = []
@@ -146,12 +182,46 @@ class MicroBatcher:
             out.append(cur)
         return out
 
-    def _dispatch(self, bucket: ServeBucket, batch: list[_Pending]) -> None:
+    def _dispatch(self, bucket: "ServeBucket",
+                  batch: list[_Pending]) -> None:
+        tracer, now = self.tracer, time.time()
+        first_ctx = next((i.ctx for i in batch if i.ctx is not None), None)
+        for item in batch:
+            if item.enqueued_s:
+                if self.metrics is not None:
+                    self.metrics.queue_wait.observe(
+                        (now - item.enqueued_s) * 1e3)
+                if tracer is not None:
+                    tracer.record("queue.wait", item.enqueued_s, now,
+                                  parent=item.ctx, bucket=bucket.capacity)
+        t0 = time.time()
         try:
             probs = self.engine.score([i.graph for i in batch], bucket)
         except Exception as exc:  # noqa: BLE001 — per-batch failure domain
+            if tracer is not None:
+                tracer.record("engine.dispatch", t0, parent=first_ctx,
+                              n_graphs=len(batch), error=type(exc).__name__)
             for item in batch:
                 item.future.set_exception(exc)
             return
+        t1 = time.time()
+        if self.metrics is not None:
+            self.metrics.dispatch.observe((t1 - t0) * 1e3)
+            self.metrics.observe_batch(len(batch), bucket.capacity)
+            self.metrics.observe_padding(
+                bucket.graph_nodes,
+                real={"nodes": sum(i.graph.n_nodes for i in batch),
+                      "edges": sum(i.graph.n_edges for i in batch),
+                      "graphs": len(batch)},
+                padded={"nodes": bucket.spec.max_nodes,
+                        "edges": bucket.spec.max_edges,
+                        "graphs": bucket.spec.max_graphs})
+        if tracer is not None:
+            tracer.record("engine.dispatch", t0, t1, parent=first_ctx,
+                          n_graphs=len(batch), n_batches=1,
+                          bucket=bucket.capacity)
         for item, p in zip(batch, probs):
             item.future.set_result(float(p))
+        if tracer is not None:
+            tracer.record("host.reduce", t1, parent=first_ctx,
+                          n_graphs=len(batch))

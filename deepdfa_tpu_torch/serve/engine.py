@@ -14,9 +14,16 @@ which also builds the CUDA kernel of the fused layout.
 weights (kernel B5) once a calibration gate has compared its scores with the
 float32 model's; :meth:`ScoringEngine.score_unit` scores a multi-function
 unit through the hierarchical scorer (kernel B4).
+:meth:`ScoringEngine.from_checkpoint` restores a ``train.fit`` run's best
+(else latest) checkpoint into the fused layout, so a trained model serves
+on kernel B1. With ``latency_mode`` every dispatch goes through
+:meth:`ScoringEngine.submit`: pad, upload and launch under the engine lock
+with no host sync, the scores read back by :meth:`PendingScore.result`.
 
-Mesh replication, latency-mode ``submit``, the warm store and artifact
-export are not ported yet (ROADMAP A6, A11).
+`score` and `submit` are where the ``serve.engine_raises`` fault point
+lives: an injected (or real) engine failure surfaces as a per-request error
+in the batcher, never as a dead server. Mesh replication, the warm store
+and artifact export are not ported yet (ROADMAP A11, A6b).
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ import torch
 from deepdfa_tpu_torch import resolve_device
 from deepdfa_tpu_torch.data.graphs import (BucketSpec, Graph, _round_up,
                                            batch_np, to_device)
+from deepdfa_tpu_torch.resilience import faults
 
 __all__ = ["OversizeGraphError", "ServeBucket", "serve_buckets",
-           "mega_bucket", "ScoringEngine", "model_revision"]
+           "mega_bucket", "ScoringEngine", "PendingScore", "model_revision"]
 
 
 class OversizeGraphError(ValueError):
@@ -122,20 +130,55 @@ def model_revision(state_dict, device) -> str:
     return h.hexdigest()[:16]
 
 
+class PendingScore:
+    """Handle returned by :meth:`ScoringEngine.submit`: the launched
+    forward's probabilities stay on the device, with the batch tensors
+    uploaded for it kept alive beside them; :meth:`result` is the one
+    blocking read."""
+
+    __slots__ = ("_dev", "_inputs", "_n")
+
+    def __init__(self, dev, inputs, n: int):
+        self._dev = dev
+        self._inputs = inputs
+        self._n = n
+
+    def result(self) -> np.ndarray:
+        probs = np.asarray(self._dev.to("cpu"), np.float32)
+        self._inputs = None
+        return probs[: self._n]
+
+
 class ScoringEngine:
     """``score(graphs, bucket) -> fn_prob[len(graphs)]`` over a fixed
     bucket ladder. ``score_fn`` maps a padded numpy ``BatchedGraphs`` to
-    per-graph probabilities ``[max_graphs]``. Every dispatch holds the
-    engine lock."""
+    per-graph probabilities ``[max_graphs]``.
+
+    ``device_fn`` (the live-model constructors set it) maps a padded numpy
+    batch to ``(probs on the device, the uploaded batch tensors)`` without
+    a host sync; it backs :meth:`submit` and ``latency_mode``. The port's
+    engines have one replica (``n_replicas`` is 1: mesh replication is
+    ROADMAP A11). Every dispatch holds the engine lock, so concurrent
+    ``submit`` callers never share or interleave their uploaded batches.
+    ``flight`` is the server's flight recorder, given every dispatch."""
 
     def __init__(self, score_fn, buckets, label_style: str = "graph",
                  feat_keys=(), vocab_hash: str | None = None,
                  model_rev: str | None = None,
                  mega: ServeBucket | None = None, precision: str = "f32",
-                 int8_score_delta: float | None = None, hier_factory=None):
+                 int8_score_delta: float | None = None, hier_factory=None,
+                 device_fn=None, latency_mode: bool = False):
         if not buckets:
             raise ValueError("need at least one serving bucket")
+        if latency_mode and device_fn is None:
+            warnings.warn(
+                "latency_mode requires a device_fn (live-model engines "
+                "only); serving in synchronous mode", stacklevel=2)
+            latency_mode = False
         self._score_fn = score_fn
+        self._device_fn = device_fn
+        self.latency_mode = latency_mode
+        self.n_replicas = 1
         self.buckets = tuple(sorted(
             buckets, key=lambda b: (b.graph_nodes, b.spec.max_graphs)))
         self.label_style = label_style
@@ -154,6 +197,15 @@ class ScoringEngine:
         self.warm_buckets: list[int] = []
         self.last_warmup_report: dict | None = None
         self._lock = threading.RLock()
+        # set by the server: every dispatch records its bucket and its
+        # real-graph count into the crash flight recorder
+        self.flight = None
+
+    def _record_dispatch(self, kind: str, bucket, n_graphs: int) -> None:
+        if self.flight is not None:  # record() never raises
+            self.flight.record(kind, bucket=bucket.graph_nodes,
+                               n_graphs=n_graphs,
+                               dispatch=self.n_dispatches)
 
     # -- routing ------------------------------------------------------------
 
@@ -168,16 +220,41 @@ class ScoringEngine:
 
     # -- scoring ------------------------------------------------------------
 
+    def _padded_batch(self, graphs, bucket: ServeBucket):
+        return batch_np(graphs, bucket.spec.max_graphs,
+                        bucket.spec.max_nodes, bucket.spec.max_edges)
+
     def score(self, graphs, bucket: ServeBucket) -> np.ndarray:
         """Pad ``graphs`` (all pre-routed to ``bucket``) and dispatch one
-        forward; returns the real graphs' probabilities."""
+        forward; returns the real graphs' probabilities. In latency mode
+        this is :meth:`submit` and its blocking read."""
+        if self.latency_mode:
+            return self.submit(graphs, bucket).result()
+        faults.raise_if("serve.engine_raises")
         graphs = list(graphs)
         with self._lock:
-            batch = batch_np(graphs, bucket.spec.max_graphs,
-                             bucket.spec.max_nodes, bucket.spec.max_edges)
+            batch = self._padded_batch(graphs, bucket)
             probs = np.asarray(self._score_fn(batch), np.float32)
             self.n_dispatches += 1
+        self._record_dispatch("engine.dispatch", bucket, len(graphs))
         return probs[: len(graphs)]
+
+    def submit(self, graphs, bucket: ServeBucket) -> PendingScore:
+        """Latency-mode dispatch: pad, upload, launch — no host sync. The
+        sequence runs under the engine lock, so each caller's
+        :class:`PendingScore` holds exactly the tensors its own dispatch
+        uploaded and produced."""
+        if self._device_fn is None:
+            raise RuntimeError(
+                "submit() needs a live-model engine (device_fn)")
+        faults.raise_if("serve.engine_raises")
+        graphs = list(graphs)
+        with self._lock:
+            batch = self._padded_batch(graphs, bucket)
+            dev, inputs = self._device_fn(batch)
+            self.n_dispatches += 1
+        self._record_dispatch("engine.submit", bucket, len(graphs))
+        return PendingScore(dev, inputs, len(graphs))
 
     def score_packed(self, graphs) -> np.ndarray:
         """Score a mixed-size request set through the megabatch bucket:
@@ -261,6 +338,7 @@ class ScoringEngine:
         :class:`~deepdfa_tpu_torch.models.ggnn_hier.UnitCallGraph`) into a
         unit score and a per-function attribution. Never touches the bucket
         ladder; level-1 dispatches count in ``n_dispatches``."""
+        faults.raise_if("serve.engine_raises")
         hier = self.hier
         with self._lock:
             before = hier.n_level1_dispatches + hier.n_fallback_dispatches
@@ -281,8 +359,11 @@ class ScoringEngine:
     def warmup(self) -> dict:
         """Run every bucket (and the megabatch shape) once, so the first
         request pays neither the kernel build nor first-call setup; returns
-        ``{"buckets": n, "per_bucket": {name: {"seconds": s}}}``. Calls the
-        score function directly: warmup dispatches are not counted."""
+        ``{"buckets": n, "per_bucket": {name: {"source": "compile",
+        "compile_seconds": s}}}`` (the JAX package's report without its
+        warm-store counters, ROADMAP A6b). Calls the functions directly:
+        warmup dispatches are not counted, and an armed
+        ``serve.engine_raises`` is left for the first request."""
         g = self._dummy_graph()
         report: dict = {"buckets": len(self.buckets), "per_bucket": {}}
         shapes = [(str(b.graph_nodes), b) for b in self.buckets]
@@ -291,10 +372,11 @@ class ScoringEngine:
         for name, b in shapes:
             t0 = time.perf_counter()
             with self._lock:
-                batch = batch_np([g], b.spec.max_graphs, b.spec.max_nodes,
-                                 b.spec.max_edges)
+                batch = self._padded_batch([g], b)
                 np.asarray(self._score_fn(batch), np.float32)
-            report["per_bucket"][name] = {"seconds": time.perf_counter() - t0}
+            report["per_bucket"][name] = {
+                "source": "compile",
+                "compile_seconds": time.perf_counter() - t0}
         self.warm_buckets = [b.graph_nodes for b in self.buckets]
         self.last_warmup_report = report
         return report
@@ -307,8 +389,8 @@ class ScoringEngine:
                    megabatch: bool = False, device=None,
                    vocab_hash: str | None = None, precision: str = "f32",
                    mesh=None, int8_max_score_delta: float = 0.01,
-                   calibration_graphs=None,
-                   journal=None) -> "ScoringEngine":
+                   calibration_graphs=None, journal=None,
+                   latency_mode: bool = False) -> "ScoringEngine":
         """Live-model engine. ``state`` (a state dict, or None to keep the
         model's own weights) is loaded into ``model``, which moves to
         ``device`` — ``cuda`` unless the caller names another; without a
@@ -331,7 +413,8 @@ class ScoringEngine:
         fails to build or launch raises ``RuntimeError`` out of this call.
 
         A megabatch-compatible model also gets the hierarchical path
-        (:meth:`score_unit`), always over the float32 weights."""
+        (:meth:`score_unit`), always over the float32 weights.
+        ``latency_mode`` sends every dispatch through :meth:`submit`."""
         from deepdfa_tpu_torch.models.ggnn_hier import (HierScorer,
                                                         megabatch_compatible)
         from deepdfa_tpu_torch.predict import make_scorer
@@ -350,23 +433,27 @@ class ScoringEngine:
         buckets = tuple(buckets or serve_buckets(max_batch))
         model_rev = model_revision(model.state_dict(), dev)
 
-        def make_score_fn(m):
+        def make_fns(m):
             scorer = make_scorer(m, label_style)
 
+            def device_fn(batch):
+                inputs = to_device(batch, dev, keys)
+                probs, _ = scorer(inputs)
+                return probs, inputs
+
             def score_fn(batch):
-                probs, _ = scorer(to_device(batch, dev, keys))
-                return probs.cpu().numpy()
+                return device_fn(batch)[0].cpu().numpy()
 
-            return score_fn
+            return score_fn, device_fn
 
-        score_fn = make_score_fn(model)
+        score_fn, device_fn = make_fns(model)
         int8_delta = None
         if precision == "int8":
-            score8, int8_delta, reason = _int8_gate(
-                model, score_fn, make_score_fn, keys, buckets, dev,
+            fns8, int8_delta, reason = _int8_gate(
+                model, score_fn, make_fns, keys, buckets, dev,
                 calibration_graphs, int8_max_score_delta)
-            if score8 is not None:
-                score_fn = score8
+            if fns8 is not None:
+                score_fn, device_fn = fns8
             else:
                 warnings.warn(
                     f"int8 serving path refused — {reason}; serving f32",
@@ -391,15 +478,52 @@ class ScoringEngine:
                    vocab_hash=vocab_hash, model_rev=model_rev,
                    mega=mega_bucket(max_batch) if megabatch else None,
                    precision=precision, int8_score_delta=int8_delta,
-                   hier_factory=hier_factory)
+                   hier_factory=hier_factory, device_fn=device_fn,
+                   latency_mode=latency_mode)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_dir, vocabs,
+                        max_batch: int | None = None, journal=None,
+                        device=None) -> "ScoringEngine":
+        """Restore a ``train.fit`` run's best (else latest) checkpoint, as
+        predict does, and serve it on ``device`` (``cuda`` unless the
+        caller names another). The model is always built in the **fused**
+        layout — every message round on kernel B1 on the card — whatever
+        layout trained it: the segment, fused and megabatch layouts share
+        one parameter set (the JAX package serves on its segment layout,
+        which in the port runs no kernel). ``cfg.serve`` supplies the batch
+        width, ``precision``, the int8 gate and ``latency_mode``;
+        ``mesh_replicas > 1`` cannot reach here (the config refuses it)."""
+        from deepdfa_tpu_torch.models import make_model
+        from deepdfa_tpu_torch.pipeline import vocab_content_hash
+        from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+
+        dev = resolve_device(device)
+        ckpts = CheckpointManager(ckpt_dir, cfg.checkpoint)
+        if ckpts.latest_step() is None:
+            raise FileNotFoundError(
+                f"no checkpoint under {ckpt_dir} — the engine serves a "
+                "trained model; run fit first")
+        state = (ckpts.restore_best(map_location="cpu")
+                 if ckpts.best_step() is not None
+                 else ckpts.restore_latest(map_location="cpu"))
+        mcfg = dataclasses.replace(cfg.model, layout="fused")
+        model = make_model(mcfg, cfg.input_dim, device="cpu")
+        return cls.from_model(
+            model, state, mcfg.label_style, feat_keys=tuple(vocabs),
+            max_batch=max_batch or cfg.serve.max_batch, device=dev,
+            vocab_hash=vocab_content_hash(vocabs),
+            precision=cfg.serve.precision,
+            int8_max_score_delta=cfg.serve.int8_max_score_delta,
+            journal=journal, latency_mode=cfg.serve.latency_mode)
 
 
-def _int8_gate(model, score_fn, make_score_fn, keys, buckets, dev,
+def _int8_gate(model, score_fn, make_fns, keys, buckets, dev,
                calibration_graphs, max_delta: float):
     """Quantize ``model``'s conv and compare the int8 model's scores with
-    ``score_fn``'s on a calibration batch per bucket. Returns ``(score
-    function of the int8 model or None, max probability difference,
-    reason for a refusal)``. Only calibration's ``ValueError`` (a non-finite
+    ``score_fn``'s on a calibration batch per bucket. Returns ``((score,
+    device) functions of the int8 model, or None; max probability
+    difference; reason for a refusal)``. Only calibration's ``ValueError`` (a non-finite
     checkpoint) is a refusal; anything the scoring raises propagates."""
     from deepdfa_tpu_torch.models.ggnn_int8 import (GGNNInt8,
                                                     quantize_conv_params)
@@ -410,7 +534,8 @@ def _int8_gate(model, score_fn, make_score_fn, keys, buckets, dev,
         return None, None, f"calibration refused: {exc}"
     model8 = GGNNInt8(model.cfg, model.input_dim)
     model8.load_state_dict(qstate)
-    score8 = make_score_fn(model8.to(dev).eval())
+    fns8 = make_fns(model8.to(dev).eval())
+    score8 = fns8[0]
     cal = list(calibration_graphs or _calibration_graphs(keys, buckets))
     delta = 0.0
     for b in buckets:
@@ -423,6 +548,6 @@ def _int8_gate(model, score_fn, make_score_fn, keys, buckets, dev,
         p8 = np.asarray(score8(batch), np.float32)[: len(gs)]
         delta = max(delta, float(np.max(np.abs(p32 - p8))))
     if delta <= max_delta:
-        return score8, delta, None
+        return fns8, delta, None
     return None, delta, (f"max score delta {delta:.2e} exceeds "
                          f"serve.int8_max_score_delta {max_delta:.2e}")

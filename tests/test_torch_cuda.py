@@ -890,3 +890,53 @@ def test_tiny_llama_on_the_card_matches_the_cpu(cuda, kw):
     # FFMA in the kernels against the CPU's sums, every row
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_latency_mode_submit_on_the_card_equals_score(cuda):
+    """Latency-mode ``submit`` on the fused kernel: uploads and launches
+    without a host sync, and its read-back equals the synchronous
+    ``score`` bitwise; submits from several threads each read their own
+    batch's scores."""
+    import threading
+
+    from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
+    from deepdfa_tpu_torch.data.synthetic import random_dataset
+    from deepdfa_tpu_torch.models import make_model
+    from deepdfa_tpu_torch.serve import ScoringEngine
+
+    keys = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
+    cfg = GGNNConfig(hidden_dim=32, n_steps=5, num_output_layers=3,
+                     layout="fused")
+    engine = ScoringEngine.from_model(make_model(cfg, 1002, device="cuda"),
+                                      None, "graph", keys, max_batch=16,
+                                      device="cuda", latency_mode=True)
+    engine.warmup()
+    bucket = engine.buckets[0]
+    groups = [random_dataset(3, seed=s, input_dim=1002, mean_nodes=40)
+              for s in range(6)]
+    before = tfg.n_launches
+    pending = [engine.submit(g, bucket) for g in groups]
+    got = [p.result() for p in pending]
+    assert tfg.n_launches - before == 6 * tfg.launches_per_call(5)
+    engine.latency_mode = False
+    want = [engine.score(g, bucket) for g in groups]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    engine.latency_mode = True
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(4):
+                np.testing.assert_array_equal(
+                    engine.submit(groups[i], bucket).result(), want[i])
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors

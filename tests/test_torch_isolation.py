@@ -19,8 +19,9 @@ PORT = REPO / "deepdfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "deepdfa_tpu")
 # every module of the port (the C front end, the encode pipeline, scan,
 # the corpus side, preprocess, predict, the dataset readers and their table
-# layer, Joern ingestion and its session included) and chip_smoke.py
-N_MODULES = 74
+# layer, Joern ingestion and its session, the HTTP service, the cascade and
+# the telemetry plane included) and chip_smoke.py
+N_MODULES = 84
 
 
 def _port_files():

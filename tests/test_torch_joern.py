@@ -411,7 +411,13 @@ def test_fault_schedule_equals_jax(spec):
 
 
 def test_the_port_declares_only_the_points_it_fires():
-    assert faults.KNOWN_POINTS == ("joern.hang", "joern.die")
+    assert faults.KNOWN_POINTS == (
+        "joern.hang", "joern.die", "serve.drop_request",
+        "serve.engine_raises", "obs.trace_drop", "obs.flight_drop",
+        "extract.worker_crash", "cascade.tier2_timeout",
+        "cascade.escalation_drop", "frontend.worker_crash",
+        "frontend.spawn_fail")
+    assert set(faults.KNOWN_POINTS) <= set(jfaults.KNOWN_POINTS)
     assert set(faults.POINT_DOCS) == set(faults.KNOWN_POINTS)
     for point in faults.KNOWN_POINTS:
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
