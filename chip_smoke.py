@@ -239,6 +239,32 @@ Each phase prints one JSON line; any failure exits non-zero.
    deepdfa_tpu_torch.scan --interproc`` over the fixtures (its
    ``scan.json`` rows and unit score equal to ``scan_paths`` in this
    process on B1 and B4).
+17c. artifact — exported artifacts and the warm store on the corpus run.
+   ``train.cli.export_model`` traces the restored best checkpoint on the
+   card at the config's ceiling shapes (257 graphs × 40,960 nodes × 81,920
+   edges) into ``model.pt2`` + ``manifest.json``, and ``serving.
+   export_ggnn`` the same state on the CPU: export and load seconds,
+   ``.pt2`` bytes, and each program must call the registered ops
+   ``deepdfa.fused_ggnn`` and ``deepdfa.segment_sum`` and no
+   ``index_add``. ``ScoringEngine.from_artifact`` of each on the card
+   scores the 400 test sources + the realworld fixtures, each with B1's
+   count reset just before: B1 launches = dispatches × 11, all ``wgmma``;
+   functions/s beside the ``from_checkpoint`` engine's; both within
+   ``ARTIFACT_LIMIT`` of it, and the CPU-exported artifact run on the CPU
+   within ``PROB_LIMIT`` of the card. The warm store: two engines restored
+   from the checkpoint warm through one ``WarmStore`` (the first misses 3
+   and exports 3, the second hits 3, per bucket the first call's, the
+   load's and the saved seconds as measured) and score the same functions
+   bitwise equal, the joiner's B1 launches = dispatches × 11; then the same
+   for two int8 engines (the gate must accept; the joiner's B5 launches =
+   dispatches × 15, its programs call ``deepdfa.int8_matmul``) over the
+   golden model's seeded weights: the gate refuses the corpus fit's (its
+   verdict and delta are reported).
+   Then ``serve.server --artifact`` and ``serve.server`` with
+   ``serve.warm_store_dir`` (its ``serving`` line: 3 hits) as
+   subprocesses (8 × 200, bodies within ``ARTIFACT_LIMIT`` of the engine,
+   ``drained``, rc 0), and ``scan --artifact`` over the fixtures (rows
+   equal to ``scan_paths`` on the in-process artifact engine).
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
@@ -373,7 +399,11 @@ from deepdfa_tpu_torch.serve.cache import ScanCache
 from deepdfa_tpu_torch.serve.engine import model_revision
 from deepdfa_tpu_torch.serve.frontend import encode_session_factory
 from deepdfa_tpu_torch.serve.server import build_server
+from deepdfa_tpu_torch.serve.warmstore import WarmStore
+from deepdfa_tpu_torch.serving import (export_ggnn, exported_ops,
+                                       load_exported, load_program)
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+from deepdfa_tpu_torch.train.cli import export_model
 from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
 from deepdfa_tpu_torch.train.metrics import ConfusionState
@@ -3489,12 +3519,12 @@ def read_json_line(stream, status: str, timeout: float) -> dict:
     return found
 
 
-def serve_entry_point(run_dir: Path, shard_dir: Path, sources: list[str],
+def serve_entry_point(args: list[str], sources: list[str],
                       want: list[list[float | None]], log: Path) -> dict:
-    """``python -m deepdfa_tpu_torch.serve.server`` on the corpus run: the
-    ``serving`` line, 8 requests, SIGTERM, the ``drained`` line, rc 0."""
-    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.serve.server",
-           "--run-dir", str(run_dir), "--shard-dir", str(shard_dir),
+    """``python -m deepdfa_tpu_torch.serve.server`` with ``args`` (a run
+    dir or an artifact, the shard dir): the ``serving`` line, 8 requests,
+    SIGTERM, the ``drained`` line, rc 0."""
+    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.serve.server", *args,
            "--set", "serve.port=0"]
     t0 = time.perf_counter()
     with open(log, "w") as err:
@@ -3523,6 +3553,7 @@ def serve_entry_point(run_dir: Path, shard_dir: Path, sources: list[str],
     return {"cmd": " ".join(cmd[1:]), "start_s": start_s,
             "serving": bool(serving), "buckets_warmed":
                 serving.get("buckets_warmed"),
+            "warm_store": serving.get("warm_store"),
             "answers": [a[0] for a in answers], "drained": drained,
             "rc": rc, "max_abs_prob_diff_vs_engine": diff,
             "log_tail": log.read_text()[-400:] if rc else ""}
@@ -3686,8 +3717,9 @@ def phase_serve_http(ctx: dict, work: Path) -> dict:
             else:
                 want8[-1].append(ref_probs[j])
                 j += 1
-    entry = serve_entry_point(run_dir, shard_dir, sources, want8,
-                              work / "serve_entry.log")
+    entry = serve_entry_point(
+        ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir)], sources,
+        want8, work / "serve_entry.log")
     scan_cli = scan_entry_point(cfg, run_dir, shard_dir, vocabs, work)
 
     encode_busy_s = sum(b - a for a, b in intervals)
@@ -3849,6 +3881,296 @@ def scan_entry_point(cfg: ExperimentConfig, run_dir: Path, shard_dir: Path,
             "b4_launches": mb.n_launches,
             "b4_launches_by_variant": dict(mb.n_variant_launches),
             "stderr_tail": proc.stderr[-400:] if proc.returncode else ""}
+
+
+# ----------------------------------------------------------- artifact
+
+
+ARTIFACT_LIMIT = 1e-6  # artifact against checkpoint: one card, two shapes
+
+
+def program_ops(program) -> dict:
+    """Which of the registered ops an exported program calls, and whether
+    it calls ``index_add`` (float atomics on the card)."""
+    ops = exported_ops(program)
+    return {"fused_ggnn": "deepdfa.fused_ggnn.default" in ops,
+            "segment_sum": "deepdfa.segment_sum.default" in ops,
+            "int8_matmul": "deepdfa.int8_matmul.default" in ops,
+            "index_add": any("index_add" in op for op in ops),
+            "n_nodes": len(program.graph.nodes)}
+
+
+def timed_scores(engine, graphs: list) -> tuple[list[float], float, int]:
+    """``raw_scores`` with its wall seconds and the engine's dispatches."""
+    d0 = engine.n_dispatches
+    t0 = time.perf_counter()
+    out = raw_scores(engine, graphs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, engine.n_dispatches - d0
+
+
+def warm_pair(make_engine, store: WarmStore, graphs: list, kernel) -> dict:
+    """Two engines from ``make_engine`` (one set of weights) join through
+    ``store``: the first misses and exports every bucket, the second loads
+    them. The second's scoring is the main path: ``kernel``'s count (B1's
+    module or B5's) from zero, read right after."""
+    reps, engines = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eng = make_engine()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = eng.warmup(warm_store=store)
+        reps.append({**rep, "build_s": build_s,
+                     "warmup_s": time.perf_counter() - t0})
+        engines.append(eng)
+    a, b = engines
+    want = raw_scores(a, graphs)
+    kernel.n_launches = 0
+    for k in kernel.n_variant_launches:
+        kernel.n_variant_launches[k] = 0
+    got, wall, dispatches = timed_scores(b, graphs)
+    launches, by_variant = kernel.n_launches, dict(kernel.n_variant_launches)
+    return {"precision": [a.precision, b.precision],
+            "model_rev": [a.model_rev, b.model_rev],
+            "first": reps[0], "joiner": reps[1],
+            "entries": store.stats()["entries"],
+            "joiner_dispatches": dispatches, "joiner_wall_s": wall,
+            "joiner_functions_per_s": len(graphs) / wall,
+            "launches": launches, "launches_by_variant": by_variant,
+            "bitwise_equal": got == want, "scores": got}
+
+
+def phase_artifact(work: Path) -> dict:
+    """Exported artifacts and the warm store on the card, on the corpus
+    phase's fit run: ``export_model`` on the card at the config's ceiling
+    shapes and the same state exported on the CPU, both programs read,
+    both artifacts scored on the card by ``from_artifact`` (the CPU one on
+    the CPU too); two f32 and two int8 engines joining through one warm
+    store; the ``serve.server --artifact``, ``serve.server`` with
+    ``serve.warm_store_dir`` and ``scan --artifact`` entry points as
+    subprocesses."""
+    shard_dir = port_utils.processed_dir() / "demo" / "shards"
+    run_dir = work / "run"
+    ckpt_dir = run_dir / "checkpoints"
+    vocabs = load_vocabs(shard_dir)
+    cfg = corpus_config()
+    sources = [p.read_text() for p in sorted((work / "test_sources")
+                                             .glob("*.c"))]
+    sources += [p.read_text() for p in sorted((FIXTURES / "realworld")
+                                              .glob("*.c"))]
+    encoded = [encode_source(src, vocabs) for src in sources]
+    graphs = [fn.graph for enc in encoded for fn in enc
+              if fn.graph is not None]
+
+    # export on the card through the CLI's function, and the same state on
+    # the CPU
+    t0 = time.perf_counter()
+    exported = export_model(cfg, run_dir, shard_dir=shard_dir,
+                            device="cuda")
+    export_s = time.perf_counter() - t0
+    card_dir = Path(exported["export_dir"])
+    ckpts = CheckpointManager(ckpt_dir, cfg.checkpoint)
+    state = ckpts.restore(ckpts.best_step(), map_location="cpu")
+    t0 = time.perf_counter()
+    cpu_dir = export_ggnn(cfg, state, work / "export_cpu", device="cpu",
+                          vocab_hash=vocab_content_hash(vocabs))
+    export_cpu_s = time.perf_counter() - t0
+    programs = {}
+    for name, d in (("card", card_dir), ("cpu", cpu_dir)):
+        t0 = time.perf_counter()
+        sv = load_exported(d, device="cuda")
+        programs[name] = {**program_ops(sv.program),
+                          "load_s": time.perf_counter() - t0,
+                          "pt2_bytes": (d / "model.pt2").stat().st_size}
+    manifest = json.loads((card_dir / "manifest.json").read_text())
+
+    # the main path: both artifacts scored on the card, counts from zero
+    ref = ScoringEngine.from_checkpoint(cfg, ckpt_dir, vocabs, device="cuda")
+    ref.warmup()
+    engines = {}
+    for name, d in (("card", card_dir), ("cpu", cpu_dir)):
+        t0 = time.perf_counter()
+        eng = ScoringEngine.from_artifact(d, vocabs=vocabs, device="cuda")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.warmup()
+        engines[name] = (eng, {"build_s": build_s,
+                               "warmup_s": time.perf_counter() - t0})
+    scored = {}
+    for name, (eng, row) in engines.items():
+        fg.n_launches = 0
+        reset_variant_counts()
+        probs, wall, dispatches = timed_scores(eng, graphs)
+        scored[name] = probs
+        row.update(dispatches=dispatches, wall_s=wall,
+                   functions_per_s=len(graphs) / wall,
+                   b1_launches=fg.n_launches,
+                   b1_launches_by_variant=dict(fg.n_variant_launches))
+
+    # off the main path: the checkpoint engine on the card, the CPU artifact
+    # on the CPU
+    ref_probs, ref_wall, ref_dispatches = timed_scores(ref, graphs)
+    cpu_eng = ScoringEngine.from_artifact(cpu_dir, vocabs=vocabs,
+                                          device="cpu")
+    cpu_probs = raw_scores(cpu_eng, graphs)
+    diff = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+    # the warm store: two f32 engines restored from the checkpoint, then two
+    # int8 engines, one store. The int8 gate refuses the corpus fit's
+    # weights (its verdict is recorded), so the int8 pair serves the
+    # golden model's seeded weights, which it accepts (serve_int8)
+    store = WarmStore(work / "warm_store")
+    warm = warm_pair(lambda: ScoringEngine.from_checkpoint(
+        cfg, ckpt_dir, vocabs, device="cuda"), store, graphs, fg)
+    cfg8 = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, precision="int8"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gate = ScoringEngine.from_checkpoint(cfg8, ckpt_dir, vocabs,
+                                             device="cuda")
+    warm8 = warm_pair(lambda: ScoringEngine.from_model(
+        golden_model("cuda"), None, "graph", tuple(vocabs),
+        max_batch=MAX_BATCH, device="cuda",
+        vocab_hash=vocab_content_hash(vocabs), precision="int8"),
+        store, graphs, i8)
+    int8_ops = [program_ops(load_program(store.get(k).payload, "cuda")[0])
+                for k in store.keys()
+                if store.get(k).meta["precision"] == "int8"]
+
+    # the entry points, each in a process of its own
+    want8, j = [], 0
+    card_rounded = [round(p, 6) for p in scored["card"]]
+    for enc in encoded[:8]:
+        want8.append([])
+        for fn in enc:
+            if fn.graph is None:
+                want8[-1].append(None)
+            else:
+                want8[-1].append(card_rounded[j])
+                j += 1
+    entry = serve_entry_point(
+        ["--artifact", str(card_dir), "--shard-dir", str(shard_dir)],
+        sources, want8, work / "serve_artifact.log")
+    ref_rounded = [round(p, 6) for p in ref_probs]
+    want_ref, j = [], 0
+    for enc in encoded[:8]:
+        want_ref.append([])
+        for fn in enc:
+            want_ref[-1].append(None if fn.graph is None else ref_rounded[j])
+            j += fn.graph is not None
+    entry_store = serve_entry_point(
+        ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir), "--set",
+         f"serve.warm_store_dir={store.root}"], sources, want_ref,
+        work / "serve_store.log")
+    tree = work / "artifact_scan_tree"
+    tree.mkdir()
+    for p in sorted((FIXTURES / "realworld").glob("*.c")):
+        shutil.copy(p, tree / p.name)
+    out = work / "artifact_scan"
+    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.scan", str(tree),
+           "--run-dir", str(out), "--artifact", str(card_dir),
+           "--shard-dir", str(shard_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=600)
+    scan_s = time.perf_counter() - t0
+    cli = (json.loads((out / "scan.json").read_text())
+           if proc.returncode == 0 else {"results": []})
+    local = scan_paths([tree], vocabs, engine=engines["card"][0],
+                       n_workers=4)
+    scan_cli = {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+                "seconds": scan_s, "functions": local["n_functions"],
+                "rows_equal": scan_rows(cli) == scan_rows(local),
+                "stderr_tail": proc.stderr[-400:] if proc.returncode else ""}
+
+    per1, per5 = fg.launches_per_call(STEPS), 3 * STEPS
+    strip = lambda w: {k: v for k, v in w.items() if k != "scores"}
+    row = {
+        "phase": "artifact", "card": nvidia_smi(), "torch": torch.__version__,
+        "model": "golden GGNN (hidden 32 x 4, 5 rounds, 3 head layers) "
+                 "from the corpus fit",
+        "shape": manifest["input_leaves"][-3]["shape"]
+        + manifest["input_leaves"][-2]["shape"]
+        + manifest["input_leaves"][-1]["shape"],
+        "functions": len(graphs),
+        "export": {"card_s": export_s, "cpu_s": export_cpu_s,
+                   "pt2_bytes": exported["pt2_bytes"],
+                   "restored": exported["restored"],
+                   "step": exported["step"]},
+        "programs": programs,
+        "engines": {name: row for name, (_, row) in engines.items()},
+        "checkpoint_engine": {"dispatches": ref_dispatches,
+                              "wall_s": ref_wall,
+                              "functions_per_s": len(graphs) / ref_wall},
+        "max_abs_diff_vs_checkpoint": {
+            name: diff(scored[name], ref_probs) for name in scored},
+        "limit": ARTIFACT_LIMIT,
+        "cpu_artifact_on_cpu_vs_card": diff(cpu_probs, scored["cpu"]),
+        "cpu_limit": PROB_LIMIT,
+        "warm_store": strip(warm), "warm_store_int8": strip(warm8),
+        "int8_gate_on_checkpoint": {"precision": gate.precision,
+                                    "int8_score_delta":
+                                        gate.int8_score_delta},
+        "int8_programs": int8_ops,
+        "entry_point": entry, "entry_point_store": entry_store,
+        "scan_cli": scan_cli}
+    emit(row)
+    for name, ops in programs.items():
+        if not (ops["fused_ggnn"] and ops["segment_sum"]) or ops["index_add"]:
+            fail(f"artifact: the {name}-exported program's ops {ops}")
+    for name, d in row["max_abs_diff_vs_checkpoint"].items():
+        if not d <= ARTIFACT_LIMIT:
+            fail(f"artifact: the {name}-exported artifact {d} from the "
+                 f"checkpoint engine")
+    check_probs("artifact", np.asarray(scored["card"]))
+    if not row["cpu_artifact_on_cpu_vs_card"] <= PROB_LIMIT:
+        fail(f"artifact: the CPU artifact on the CPU "
+             f"{row['cpu_artifact_on_cpu_vs_card']} from the card")
+    for name, (_, r) in engines.items():
+        if r["b1_launches"] <= 0 or r["b1_launches"] != \
+                r["dispatches"] * per1:
+            fail(f"artifact: {r['b1_launches']} B1 launches for "
+                 f"{r['dispatches']} dispatches of the {name} artifact "
+                 f"(expected {per1} each)")
+        check_ggnn_wgmma(f"artifact ({name})", "B1",
+                         r["b1_launches_by_variant"], r["b1_launches"])
+    for name, w, per, kernel, precision in (
+            ("warm_store", warm, per1, "B1", "f32"),
+            ("warm_store_int8", warm8, per5, "B5", "int8")):
+        first, joiner = w["first"], w["joiner"]
+        if w["precision"] != [precision] * 2:
+            fail(f"artifact {name}: precision {w['precision']} (the int8 "
+                 f"gate's verdict)")
+        if (first["hits"], first["misses"], joiner["hits"],
+                joiner["misses"]) != (0, 3, 3, 0) or not w["bitwise_equal"]:
+            fail(f"artifact {name}: first {first['hits']}/{first['misses']}"
+                 f", joiner {joiner['hits']}/{joiner['misses']} (hits/"
+                 f"misses), bitwise equal {w['bitwise_equal']}")
+        if w["launches"] <= 0 or w["launches"] != \
+                w["joiner_dispatches"] * per:
+            fail(f"artifact {name}: {w['launches']} {kernel} launches for "
+                 f"{w['joiner_dispatches']} dispatches (expected {per})")
+        if w["launches_by_variant"].get("wgmma") != w["launches"]:
+            fail(f"artifact {name}: {kernel} by variant "
+                 f"{w['launches_by_variant']}")
+    if warm["entries"] != 3 or warm8["entries"] != 6 or len(int8_ops) != 3 \
+            or not all(o["int8_matmul"] and not o["index_add"]
+                       for o in int8_ops):
+        fail(f"artifact: store entries {warm['entries']} / "
+             f"{warm8['entries']}, int8 programs {int8_ops}")
+    for name, e in (("--artifact", entry), ("warm_store_dir", entry_store)):
+        if not (e["serving"] and e["answers"] == [200] * 8 and e["drained"]
+                and e["rc"] == 0
+                and e["max_abs_prob_diff_vs_engine"] is not None
+                and e["max_abs_prob_diff_vs_engine"] <= ARTIFACT_LIMIT):
+            fail(f"artifact: the serve.server {name} entry point {e}")
+    if (entry_store["warm_store"] or {}).get("hits") != 3:
+        fail(f"artifact: serve.server with serve.warm_store_dir reported "
+             f"{entry_store['warm_store']}")
+    if not scan_cli["rows_equal"] or scan_cli["rc"] != 0:
+        fail(f"artifact: the scan --artifact entry point {scan_cli}")
+    return row
 
 
 # --------------------------------------------------------------- phase 18
@@ -4130,6 +4452,7 @@ def drive() -> int:
     try:
         corpus = timed("corpus", phase_corpus, corpus_work)
         serve_http = timed("serve_http", phase_serve_http, ctx, corpus_work)
+        artifact = timed("artifact", phase_artifact, corpus_work)
     finally:
         shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
@@ -4156,6 +4479,13 @@ def drive() -> int:
     # the HTTP service's tier 1 and the scan entry point's check
     http_b1 = (serve_http["b1_launches"]
                + serve_http["scan_cli"]["b1_launches"])
+    # the exported artifacts (card- and CPU-exported) and the warm-store
+    # joiners (f32 on B1, int8 on B5)
+    art_b1 = sum(r["b1_launches"] for r in artifact["engines"].values())
+    art_var = [r["b1_launches_by_variant"]
+               for r in artifact["engines"].values()]
+    store_b1 = artifact["warm_store"]["launches"]
+    store_b5 = artifact["warm_store_int8"]["launches"]
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -4164,7 +4494,7 @@ def drive() -> int:
                      + train_mb["fwd_launches"] + scan["b1_launches"]
                      + corpus["fit"]["b1_launches"]
                      + corpus["predict"]["b1_launches"] + bigvul_b1
-                     + http_b1),
+                     + http_b1 + art_b1 + store_b1),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -4174,7 +4504,8 @@ def drive() -> int:
                              "bigvul": bigvul_b1,
                              "serve_http": serve_http["b1_launches"],
                              "serve_http_scan":
-                                 serve_http["scan_cli"]["b1_launches"]},
+                                 serve_http["scan_cli"]["b1_launches"],
+                             "artifact": art_b1, "warm_store": store_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -4187,7 +4518,8 @@ def drive() -> int:
             bigvul["devign"]["fit"]["launches_by_variant"]["fwd"],
             bigvul["joern"]["b1_launches_by_variant"],
             serve_http["b1_launches_by_variant"],
-            serve_http["scan_cli"]["b1_launches_by_variant"]),
+            serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
+            artifact["warm_store"]["launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -4270,16 +4602,20 @@ def drive() -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deepdfa_tpu/ops/int8_matmul.py:44",
-        "launches": serve8["n_launches"] + joint8["b5_launches"],
+        "launches": (serve8["n_launches"] + joint8["b5_launches"]
+                     + store_b5),
         "launches_by_path": {"serve_int8": serve8["n_launches"],
-                             "joint_int8": joint8["b5_launches"]},
+                             "joint_int8": joint8["b5_launches"],
+                             "warm_store_int8": store_b5},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows
                            if r["x_dtype"] == "float32"),
         "max_rel_err": max(r["max_rel_err"] for r in int8_rows
                            if r["x_dtype"] == "float32"),
         "variant": b5["variant"],
         "launches_by_variant": {
-            v: serve8["variant_launches"][v] + joint8["b5_variant_launches"][v]
+            v: (serve8["variant_launches"][v]
+                + joint8["b5_variant_launches"][v]
+                + artifact["warm_store_int8"]["launches_by_variant"][v])
             for v in i8.VARIANTS},
         # CUDA-graph replay times: CUDA-event times of a call this short
         # measure the host's per-call cost (the row's "ms", "plain_ms",

@@ -27,7 +27,9 @@ host without a GPU they raise instead of running on the CPU.
 
 from __future__ import annotations
 
-__all__ = ["resolve_device"]
+__all__ = ["__version__", "resolve_device"]
+
+__version__ = "0.5.0"  # pyproject.toml
 
 
 def resolve_device(device=None) -> "torch.device":

@@ -429,10 +429,10 @@ class FederationConfig:
 class ServeConfig:
     """Online scoring service knobs (``deepdfa_tpu_torch/serve``; CLI:
     ``--set serve.*``): the micro-batching window, the bounded queue, the
-    content-addressed scan cache, the HTTP endpoint, the cascade and the
-    frontend pool. The JAX package's fleet parts keep their defaults here
-    and raise when set: ``warm_store_dir`` (ROADMAP A6b),
-    ``mesh_replicas > 1`` (A11), ``admission``, ``continual``,
+    content-addressed scan cache, the HTTP endpoint, the cascade, the
+    frontend pool and the warm store (``warm_store_dir``). The JAX
+    package's fleet parts keep their defaults here and raise when set:
+    ``mesh_replicas > 1`` (ROADMAP A11), ``admission``, ``continual``,
     ``federation`` and ``autoscale`` (A15)."""
 
     host: str = "127.0.0.1"
@@ -451,7 +451,9 @@ class ServeConfig:
     # under the engine lock, the scores read back by PendingScore.result
     latency_mode: bool = False
     replica_id: str | None = None  # default: host:port at serve time
-    warm_store_dir: str | None = None  # ROADMAP A6b
+    # the fleet's store of exported bucket programs (serve/warmstore.py):
+    # warmup loads each bucket from it, or exports it there
+    warm_store_dir: str | None = None
     probe_interval_s: float = 2.0
     mesh_replicas: int = 0  # > 1: ROADMAP A11
     obs: ObsConfig = field(default_factory=ObsConfig)
@@ -481,10 +483,6 @@ class ServeConfig:
             raise ValueError("probe_interval_s must be > 0")
         if self.mesh_replicas < 0:
             raise ValueError("mesh_replicas must be >= 0")
-        if self.warm_store_dir is not None:
-            raise NotImplementedError(
-                "ServeConfig.warm_store_dir is not ported yet: ROADMAP A6b "
-                "(the warm store and artifact export)")
         if self.mesh_replicas > 1:
             raise NotImplementedError(
                 "ServeConfig.mesh_replicas > 1 is not ported yet: ROADMAP "

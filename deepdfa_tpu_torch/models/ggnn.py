@@ -50,7 +50,12 @@ class GRUCell(nn.Module):
 
 def check_edges_sorted(receivers: torch.Tensor) -> None:
     """Raise unless the edge list is sorted by receiver: the fused kernel
-    builds its CSR segments from that order, and would sum wrongly."""
+    builds its CSR segments from that order, and would sum wrongly. Skipped
+    while ``torch.export`` traces (the check reads values, which a traced
+    program has not): an exported program's caller checks the sort on the
+    host (:mod:`deepdfa_tpu_torch.serving`)."""
+    if torch.compiler.is_exporting():
+        return
     if receivers.numel() > 1 and bool((receivers[1:] < receivers[:-1]).any()):
         raise ValueError(
             "edges are not sorted by receiver — sort hand-built edge lists "

@@ -7,7 +7,9 @@ keeps ``edge_linear`` and ``gru.{x,h}_proj`` as ``nn.Linear``), but the
 :func:`deepdfa_tpu_torch.ops.fused_ggnn.fused_ggnn` — the CUDA kernels on the
 card (forward and, when training, backward), their plain versions on the
 CPU. Gradients reach the embeddings through the conv's input ``h0``.
-Embeddings, pooling and the head are inherited unchanged.
+Embeddings, pooling and the head are inherited unchanged. Without a
+gradient the rounds are one call of the registered op
+``deepdfa::fused_ggnn``, which is what an exported program records.
 """
 
 from __future__ import annotations

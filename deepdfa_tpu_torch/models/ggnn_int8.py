@@ -7,8 +7,9 @@ segment-layout batches, with the same embeddings, pooling and head), but
 every conv product — ``edge_linear`` and the two fused 3-gate GRU
 projections — runs through :func:`~deepdfa_tpu_torch.ops.int8_matmul.
 int8_matmul` against int8 weights with per-output-channel float32 scales:
-kernel B5 on the card, three launches per round. Embeddings, pooling and
-the head stay float32.
+kernel B5 on the card, three launches per round, each a call of the
+registered op ``deepdfa::int8_matmul`` (so an exported program records
+it). Embeddings, pooling and the head stay float32.
 
 The int8 conv is inference only: the weights are not trained in int8.
 :func:`quantize_conv_params` calibrates a trained float32 state dict at

@@ -21,6 +21,11 @@ layout:
   :func:`fused_ggnn_backward_reference` backward, the same math in plain
   torch.
 
+A call that needs no gradient goes through the registered op
+``deepdfa::fused_ggnn`` (:mod:`.custom_ops`), whose CPU and CUDA
+implementations are the two above, so ``torch.export`` records B1 as one
+node.
+
 Both directions have two variants, chosen by :func:`variant` from the
 width: ``"wgmma"`` (width 128 after padding to a multiple of 4, the golden
 width and every bucket of the main paths: 3xTF32 products on the tensor
@@ -40,10 +45,10 @@ import ctypes
 
 import torch
 
-from deepdfa_tpu_torch.ops import _build
+from deepdfa_tpu_torch.ops import _build, custom_ops
 
 __all__ = ["BWD_KERNELS", "TC_WIDTH", "VARIANTS", "bwd_launches_per_call",
-           "fused_ggnn", "fused_ggnn_backward_reference",
+           "forward_cuda", "fused_ggnn", "fused_ggnn_backward_reference",
            "fused_ggnn_reference", "heads_words", "launches_per_call",
            "n_bwd_launches", "n_bwd_variant_launches", "n_launches",
            "n_variant_launches", "variant"]
@@ -546,9 +551,13 @@ def fused_ggnn(h0, senders, receivers, ew, eb, xw, xb, hw, hb, *,
                 "the card does not have: its one backward is the CUDA kernel "
                 "(bwd_kernel='auto' or 'pallas')")
         return _FusedGGNN.apply(h0, senders, receivers, *weights, n_steps)
-    if h0.device.type == "cpu":
-        return fused_ggnn_reference(h0, senders, receivers, *weights,
-                                    n_steps=n_steps)
+    return custom_ops.fused_ggnn(h0, senders, receivers, *weights, n_steps)
+
+
+def forward_cuda(h0, senders, receivers, weights, n_steps: int):
+    """B1's no-grad forward on CUDA tensors (the CUDA implementation of
+    the ``deepdfa::fused_ggnn`` op): ``n_steps`` rounds on the variant
+    :func:`variant` picks, into a new ``[N, D]`` float32 tensor."""
     n, d = h0.shape
     if n_steps == 0 or n == 0 or d == 0:
         return h0.to(torch.float32).contiguous().clone()

@@ -22,6 +22,9 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
 - Differentiable with respect to ``x`` only, as the JAX ``custom_vjp``:
   ``dx = (g · scale) @ qᵀ`` with both factors rounded to bf16 and summed in
   float32. The weight and scale are a frozen base and get no gradient.
+- A call that needs no gradient goes through the registered op
+  ``deepdfa::int8_matmul`` (:mod:`.custom_ops`), so ``torch.export``
+  records B5 as one node.
 - :func:`calibrate_int8` is the symmetric absmax calibration, bit for bit
   the JAX package's: in numpy on the host, or in torch on a tensor's own
   device.
@@ -34,9 +37,9 @@ import ctypes
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.ops import _build
+from deepdfa_tpu_torch.ops import _build, custom_ops
 
-__all__ = ["VARIANTS", "calibrate_int8", "int8_matmul",
+__all__ = ["VARIANTS", "calibrate_int8", "forward_cuda", "int8_matmul",
            "int8_matmul_reference", "n_launches", "n_variant_launches",
            "variant"]
 
@@ -200,6 +203,13 @@ def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """B5 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale, out_dtype)
+    return forward_cuda(x, q, scale, out_dtype)
+
+
+def forward_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """B5 on CUDA tensors into a new ``[..., N]`` tensor (the CUDA
+    implementation of the ``deepdfa::int8_matmul`` op)."""
     k, n = q.shape
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
@@ -240,4 +250,4 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check(x, q, scale, out_dtype)
     if torch.is_grad_enabled() and x.requires_grad:
         return _Int8Matmul.apply(x, q, scale, out_dtype)
-    return _forward(x, q, scale, out_dtype)
+    return custom_ops.int8_matmul(x, q, scale, out_dtype)

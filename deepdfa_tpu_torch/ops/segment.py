@@ -11,12 +11,17 @@ from run to run, so :func:`segment_sum` and the backward of :func:`gather`
 reduce in a fixed order instead: the rows are put in segment order by a
 stable sort and reduced by ``torch.segment_reduce`` over contiguous ranges,
 with no float atomics. Two calls on the same inputs are bitwise equal, and
-so are two training runs and a resumed one.
+so are two training runs and a resumed one. A :func:`segment_sum` that
+needs no gradient goes through the registered op ``deepdfa::segment_sum``
+(:mod:`.custom_ops`), so an exported program picks the CPU or the CUDA sum
+from its inputs' device when it runs, not when it was traced.
 """
 
 from __future__ import annotations
 
 import torch
+
+from deepdfa_tpu_torch.ops import custom_ops
 
 __all__ = ["gather", "segment_sum", "segment_max", "segment_softmax"]
 
@@ -61,6 +66,8 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum of the rows of ``data`` that share a segment id; an empty
     segment sums to 0."""
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return custom_ops.segment_sum(data, segment_ids, num_segments)
     if data.device.type == "cuda":
         return _ordered_segment_sum(data, segment_ids, num_segments)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))

@@ -363,9 +363,9 @@ def scan_command(cfg, run_dir: Path, targets: Sequence[str], *,
     config's processed dataset dir), a scoring engine restored from
     ``ckpt_dir`` when one is given (the scan still encodes without one),
     tier 2 restored from ``serve.cascade.joint_dir`` with ``cascade``;
-    ``scan.json`` written atomically into ``run_dir``. ``artifact`` raises:
-    exported artifacts are ROADMAP A6b. The engines run on ``device``
-    (``cuda`` unless the caller names another)."""
+    ``scan.json`` written atomically into ``run_dir``. ``artifact`` (an
+    exported artifact directory) scores instead of a checkpoint. The
+    engines run on ``device`` (``cuda`` unless the caller names another)."""
     from deepdfa_tpu_torch import utils
     from deepdfa_tpu_torch.pipeline import load_vocabs
     from deepdfa_tpu_torch.resilience.journal import atomic_write_text
@@ -381,11 +381,6 @@ def scan_command(cfg, run_dir: Path, targets: Sequence[str], *,
             raise ValueError(
                 "scan --cascade needs a tier-2 checkpoint: set "
                 "serve.cascade.joint_dir (a JointTrainer run dir)")
-    if artifact is not None:
-        raise NotImplementedError(
-            "scanning with an exported artifact is not ported yet: ROADMAP "
-            "A6b (the warm store and artifact export)")
-
     if shard_dir is None:
         sample_text = "_sample" if cfg.data.sample else ""
         shard_dir = (utils.processed_dir() / cfg.data.dsname
@@ -393,13 +388,19 @@ def scan_command(cfg, run_dir: Path, targets: Sequence[str], *,
     vocabs = load_vocabs(shard_dir)
 
     engine = None
-    if ckpt_dir is not None:
+    if artifact is not None:
+        from deepdfa_tpu_torch.serve.engine import ScoringEngine
+
+        engine = ScoringEngine.from_artifact(artifact, vocabs=vocabs,
+                                             device=device)
+    elif ckpt_dir is not None:
         from deepdfa_tpu_torch.serve.engine import ScoringEngine
 
         engine = ScoringEngine.from_checkpoint(cfg, ckpt_dir, vocabs,
                                                device=device)
     else:
-        logger.info("scan: no --ckpt-dir — encoding without scores")
+        logger.info("scan: no --ckpt-dir/--artifact — encoding without "
+                    "scores")
 
     tier2 = None
     if cascade:
@@ -455,7 +456,9 @@ def main(argv=None) -> dict:
                         help="extraction-cache dir (default: "
                              "<run-dir>/extract_cache)")
     parser.add_argument("--artifact", default=None,
-                        help="an exported artifact dir (ROADMAP A6b: raises)")
+                        help="exported artifact dir (python -m "
+                             "deepdfa_tpu_torch.train.cli export) instead "
+                             "of a checkpoint")
     parser.add_argument("--cascade", action="store_true",
                         help="rescore borderline-band functions through the "
                              "tier-2 joint engine (needs "

@@ -1,6 +1,7 @@
 """Online scoring: the bucketed engine, the request micro-batcher, the scan
-cache, the serving metrics, the two-tier cascade, the frontend encode pool
-and the hierarchical scorer's embedding cache. The HTTP service is
+cache, the serving metrics, the two-tier cascade, the frontend encode pool,
+the hierarchical scorer's embedding cache and the warm store of exported
+bucket programs. The HTTP service is
 :mod:`deepdfa_tpu_torch.serve.server` (``python -m
 deepdfa_tpu_torch.serve.server``; not imported here, so that ``-m`` runs
 it as a fresh module)."""
@@ -24,6 +25,8 @@ from deepdfa_tpu_torch.serve.frontend import (ENCODE_ITEM_ERRORS,
                                               VocabHashMismatch,
                                               encode_session_factory)
 from deepdfa_tpu_torch.serve.metrics import LatencyReservoir, ServeMetrics
+from deepdfa_tpu_torch.serve.warmstore import (WarmEntry, WarmStore,
+                                               bucket_artifact_key)
 
 __all__ = ["CascadeRouter", "ENCODE_ITEM_ERRORS", "EMBCACHE_VERSION",
            "EscalationDropped", "FrontendPool", "FrontendProcessSession",
@@ -32,4 +35,5 @@ __all__ = ["CascadeRouter", "ENCODE_ITEM_ERRORS", "EMBCACHE_VERSION",
            "ScanCache", "ScanEntry", "ScoringEngine", "ServeBucket",
            "ServeMetrics", "ThreadEncodeSession", "Tier2Batcher",
            "Tier2DeadlineError", "Tier2QueueFull", "VocabHashMismatch",
+           "WarmEntry", "WarmStore", "bucket_artifact_key",
            "encode_session_factory", "mega_bucket", "serve_buckets"]

@@ -8,7 +8,10 @@ route to the smallest size class that fits their graph
 :meth:`ScoringEngine.score` pads and dispatches one forward.
 :meth:`ScoringEngine.score_packed` scores a mixed-size window through one
 wider megabatch shape. :meth:`ScoringEngine.warmup` runs every bucket once,
-which also builds the CUDA kernel of the fused layout.
+which also builds the CUDA kernel of the fused layout; with a
+:class:`~deepdfa_tpu_torch.serve.warmstore.WarmStore` it loads each
+bucket's exported program from the store, or exports it there for the next
+replica (:meth:`ScoringEngine.bucket_key` is the content address).
 
 ``from_model(..., precision="int8")`` serves the conv products on int8
 weights (kernel B5) once a calibration gate has compared its scores with the
@@ -16,14 +19,16 @@ float32 model's; :meth:`ScoringEngine.score_unit` scores a multi-function
 unit through the hierarchical scorer (kernel B4).
 :meth:`ScoringEngine.from_checkpoint` restores a ``train.fit`` run's best
 (else latest) checkpoint into the fused layout, so a trained model serves
-on kernel B1. With ``latency_mode`` every dispatch goes through
+on kernel B1. :meth:`ScoringEngine.from_artifact` serves a ``torch.export``
+artifact (:mod:`deepdfa_tpu_torch.serving`) at its one shape, without the
+model code. With ``latency_mode`` every dispatch goes through
 :meth:`ScoringEngine.submit`: pad, upload and launch under the engine lock
 with no host sync, the scores read back by :meth:`PendingScore.result`.
 
 `score` and `submit` are where the ``serve.engine_raises`` fault point
 lives: an injected (or real) engine failure surfaces as a per-request error
-in the batcher, never as a dead server. Mesh replication, the warm store
-and artifact export are not ported yet (ROADMAP A11, A6b).
+in the batcher, never as a dead server. Mesh replication is not ported
+yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -116,6 +121,14 @@ def _calibration_graphs(feat_keys, buckets, n_per_bucket: int = 4,
     return out
 
 
+def _dummy_graph(feat_keys) -> Graph:
+    n = 2
+    feats = {k: np.zeros(n, np.int32) for k in feat_keys}
+    return Graph(senders=np.arange(n - 1, dtype=np.int32),
+                 receivers=np.arange(1, n, dtype=np.int32),
+                 node_feats=feats).with_self_loops()
+
+
 def model_revision(state_dict, device) -> str:
     """Model revision: a content address of the state dict (names, dtypes,
     shapes, bytes), with the framework and the device kind folded in, so a
@@ -160,14 +173,19 @@ class ScoringEngine:
     engines have one replica (``n_replicas`` is 1: mesh replication is
     ROADMAP A11). Every dispatch holds the engine lock, so concurrent
     ``submit`` callers never share or interleave their uploaded batches.
-    ``flight`` is the server's flight recorder, given every dispatch."""
+    ``flight`` is the server's flight recorder, given every dispatch.
+
+    ``export_fn`` (live single-replica engines) maps a bucket to ``(the
+    saved exported program, seconds)`` for the warm store; ``device`` is
+    where a program loaded from the store runs."""
 
     def __init__(self, score_fn, buckets, label_style: str = "graph",
                  feat_keys=(), vocab_hash: str | None = None,
                  model_rev: str | None = None,
                  mega: ServeBucket | None = None, precision: str = "f32",
                  int8_score_delta: float | None = None, hier_factory=None,
-                 device_fn=None, latency_mode: bool = False):
+                 device_fn=None, latency_mode: bool = False,
+                 export_fn=None, device=None):
         if not buckets:
             raise ValueError("need at least one serving bucket")
         if latency_mode and device_fn is None:
@@ -177,6 +195,8 @@ class ScoringEngine:
             latency_mode = False
         self._score_fn = score_fn
         self._device_fn = device_fn
+        self._export_fn = export_fn
+        self.device = device
         self.latency_mode = latency_mode
         self.n_replicas = 1
         self.buckets = tuple(sorted(
@@ -196,6 +216,8 @@ class ScoringEngine:
         self.n_dispatches = 0
         self.warm_buckets: list[int] = []
         self.last_warmup_report: dict | None = None
+        # buckets served by a program loaded from the warm store
+        self._bucket_fns: dict[ServeBucket, object] = {}
         self._lock = threading.RLock()
         # set by the server: every dispatch records its bucket and its
         # real-graph count into the crash flight recorder
@@ -234,7 +256,8 @@ class ScoringEngine:
         graphs = list(graphs)
         with self._lock:
             batch = self._padded_batch(graphs, bucket)
-            probs = np.asarray(self._score_fn(batch), np.float32)
+            fn = self._bucket_fns.get(bucket, self._score_fn)
+            probs = np.asarray(fn(batch), np.float32)
             self.n_dispatches += 1
         self._record_dispatch("engine.dispatch", bucket, len(graphs))
         return probs[: len(graphs)]
@@ -347,38 +370,115 @@ class ScoringEngine:
                                   + hier.n_fallback_dispatches - before)
         return out
 
-    # -- warmup -------------------------------------------------------------
+    # -- warmup + warm store -----------------------------------------------
 
-    def _dummy_graph(self) -> Graph:
-        n = 2
-        feats = {k: np.zeros(n, np.int32) for k in self.feat_keys}
-        return Graph(senders=np.arange(n - 1, dtype=np.int32),
-                     receivers=np.arange(1, n, dtype=np.int32),
-                     node_feats=feats).with_self_loops()
+    def bucket_key(self, bucket: ServeBucket) -> str:
+        """Warm-store content address of one bucket's exported program."""
+        from deepdfa_tpu_torch.serve.warmstore import bucket_artifact_key
 
-    def warmup(self) -> dict:
-        """Run every bucket (and the megabatch shape) once, so the first
-        request pays neither the kernel build nor first-call setup; returns
-        ``{"buckets": n, "per_bucket": {name: {"source": "compile",
-        "compile_seconds": s}}}`` (the JAX package's report without its
-        warm-store counters, ROADMAP A6b). Calls the functions directly:
-        warmup dispatches are not counted, and an armed
-        ``serve.engine_raises`` is left for the first request."""
-        g = self._dummy_graph()
-        report: dict = {"buckets": len(self.buckets), "per_bucket": {}}
-        shapes = [(str(b.graph_nodes), b) for b in self.buckets]
+        return bucket_artifact_key(
+            self.vocab_hash, self.model_rev, self.precision,
+            self.label_style, self.feat_keys, bucket.spec.max_graphs,
+            bucket.spec.max_nodes, bucket.spec.max_edges)
+
+    def _warm_cold(self, bucket: ServeBucket, g: Graph) -> None:
+        """The bucket's first call, made directly: warmup dispatches are
+        not counted, and an armed ``serve.engine_raises`` is left for the
+        first request."""
+        with self._lock:
+            batch = self._padded_batch([g], bucket)
+            np.asarray(self._score_fn(batch), np.float32)
+
+    def _load_bucket_fn(self, payload: bytes):
+        """A warm-store payload as this bucket's score function, on the
+        engine's device (the live path's feature-key contract)."""
+        from deepdfa_tpu_torch.serving import _Servable, load_program
+
+        dev = torch.device(self.device or "cpu")
+        program, module = load_program(payload, dev)
+        return _Servable(program=program, module=module, device=dev,
+                         manifest={"node_feat_keys": list(self.feat_keys)})
+
+    def warmup(self, warm_store=None, journal=None) -> dict:
+        """Warm every bucket's callable so the first request pays neither
+        the kernel build nor first-call setup; returns a report
+        (``buckets``, ``hits``, ``misses``, ``compile_seconds_saved``,
+        ``per_bucket``: per bucket its ``key``, ``source`` and seconds).
+
+        With a ``warm_store``, each bucket first tries the store: a hit
+        loads the content-addressed exported program and serves the bucket
+        from it, and ``compile_seconds_saved`` is the populating replica's
+        recorded first-call seconds less this load's (never below 0); a
+        miss runs the bucket's first call and, when the engine can export
+        (live single-replica, synchronous mode), commits the program for
+        the next replica (a failed export warns and is reported, warmup
+        goes on). The megabatch shape never exports. Journaled
+        (``event="warmup"``) when ``journal`` is given."""
+        use_store = (warm_store is not None and self._export_fn is not None
+                     and not self.latency_mode)
+        g = _dummy_graph(self.feat_keys)
+        report: dict = {"buckets": len(self.buckets), "hits": 0, "misses": 0,
+                        "compile_seconds_saved": 0.0, "per_bucket": {}}
+        for b in self.buckets:
+            key = self.bucket_key(b) if use_store else None
+            entry = warm_store.get(key) if use_store else None
+            row: dict = {"key": key}
+            if entry is not None:
+                t0 = time.perf_counter()
+                fn = self._load_bucket_fn(entry.payload)
+                with self._lock:
+                    fn(self._padded_batch([g], b))
+                warm_s = time.perf_counter() - t0
+                self._bucket_fns[b] = fn
+                recorded = float(entry.meta.get("compile_seconds", 0.0))
+                saved = max(0.0, recorded - warm_s)
+                report["hits"] += 1
+                report["compile_seconds_saved"] += saved
+                row.update(source="store", warm_seconds=warm_s,
+                           compile_seconds=recorded,
+                           compile_seconds_saved=saved)
+            else:
+                t0 = time.perf_counter()
+                self._warm_cold(b, g)
+                compile_s = time.perf_counter() - t0
+                report["misses"] += 1
+                row.update(source="compile", compile_seconds=compile_s)
+                if use_store:
+                    try:
+                        payload, export_s = self._export_fn(b)
+                        warm_store.put(key, payload, {
+                            "compile_seconds": compile_s,
+                            "vocab_hash": self.vocab_hash,
+                            "model_rev": self.model_rev,
+                            "precision": self.precision,
+                            "label_style": self.label_style,
+                            "graph_nodes": b.graph_nodes,
+                            "spec": [b.spec.max_graphs, b.spec.max_nodes,
+                                     b.spec.max_edges],
+                        })
+                        row["export_seconds"] = export_s
+                    except Exception as exc:  # noqa: BLE001 — the store is
+                        # an optimization: the bucket is already warm
+                        warnings.warn(
+                            f"warm-store export failed for bucket "
+                            f"{b.graph_nodes}: {type(exc).__name__}: {exc}",
+                            stacklevel=2)
+                        row["export_error"] = f"{type(exc).__name__}: {exc}"
+            report["per_bucket"][str(b.graph_nodes)] = row
         if self.mega_bucket is not None:
-            shapes.append(("mega", self.mega_bucket))
-        for name, b in shapes:
+            # the packed shape warms like a ladder bucket, never exports,
+            # and reports under "mega" so ladder rows keep their node keys
             t0 = time.perf_counter()
-            with self._lock:
-                batch = self._padded_batch([g], b)
-                np.asarray(self._score_fn(batch), np.float32)
-            report["per_bucket"][name] = {
-                "source": "compile",
+            self._warm_cold(self.mega_bucket, g)
+            report["per_bucket"]["mega"] = {
+                "key": None, "source": "compile",
                 "compile_seconds": time.perf_counter() - t0}
         self.warm_buckets = [b.graph_nodes for b in self.buckets]
         self.last_warmup_report = report
+        if journal is not None:
+            journal.write(event="warmup", vocab_hash=self.vocab_hash,
+                          model_rev=self.model_rev, precision=self.precision,
+                          **report)
         return report
 
     # -- constructor --------------------------------------------------------
@@ -444,16 +544,16 @@ class ScoringEngine:
             def score_fn(batch):
                 return device_fn(batch)[0].cpu().numpy()
 
-            return score_fn, device_fn
+            return score_fn, device_fn, m
 
-        score_fn, device_fn = make_fns(model)
+        score_fn, device_fn, chosen = make_fns(model)
         int8_delta = None
         if precision == "int8":
             fns8, int8_delta, reason = _int8_gate(
                 model, score_fn, make_fns, keys, buckets, dev,
                 calibration_graphs, int8_max_score_delta)
             if fns8 is not None:
-                score_fn, device_fn = fns8
+                score_fn, device_fn, chosen = fns8
             else:
                 warnings.warn(
                     f"int8 serving path refused — {reason}; serving f32",
@@ -479,7 +579,9 @@ class ScoringEngine:
                    mega=mega_bucket(max_batch) if megabatch else None,
                    precision=precision, int8_score_delta=int8_delta,
                    hier_factory=hier_factory, device_fn=device_fn,
-                   latency_mode=latency_mode)
+                   latency_mode=latency_mode,
+                   export_fn=_make_export_fn(chosen, label_style, keys),
+                   device=dev)
 
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_dir, vocabs,
@@ -517,13 +619,66 @@ class ScoringEngine:
             int8_max_score_delta=cfg.serve.int8_max_score_delta,
             journal=journal, latency_mode=cfg.serve.latency_mode)
 
+    @classmethod
+    def from_artifact(cls, artifact_dir, vocabs=None,
+                      device=None) -> "ScoringEngine":
+        """Engine over an exported artifact (:func:`deepdfa_tpu_torch.
+        serving.export_ggnn`) on ``device`` (``cuda`` unless the caller
+        names another). The program is traced at ONE shape, so the ladder
+        is one bucket at the manifest's budgets. With ``vocabs``, their
+        content hash is checked against the manifest (``load_exported``
+        warns on a mismatch). No megabatch shape, no hierarchical path, no
+        ``latency_mode``."""
+        from deepdfa_tpu_torch.serving import load_exported
+
+        vocab_hash = None
+        if vocabs is not None:
+            from deepdfa_tpu_torch.pipeline import vocab_content_hash
+
+            vocab_hash = vocab_content_hash(vocabs)
+        dev = resolve_device(device)
+        servable = load_exported(artifact_dir, expect_vocab_hash=vocab_hash,
+                                 device=dev)
+        man = servable.manifest
+        leaves = man["input_leaves"]
+        # flatten order: node_feats (sorted keys), senders, receivers,
+        # node_gidx, node_mask, edge_mask, graph_mask
+        max_graphs = int(leaves[-1]["shape"][0])
+        max_edges = int(leaves[-2]["shape"][0])
+        max_nodes = int(leaves[-3]["shape"][0])
+        spec = BucketSpec(max_graphs, max_nodes, max_edges)
+        bucket = ServeBucket(spec=spec, graph_nodes=max_nodes - 1)
+        return cls(servable, (bucket,), label_style=man["label_style"],
+                   feat_keys=tuple(man["node_feat_keys"]),
+                   vocab_hash=man.get("vocab_hash"), device=dev)
+
+
+def _make_export_fn(model, label_style: str, feat_keys):
+    """``bucket -> (saved exported program, export seconds)`` for the warm
+    store: :func:`deepdfa_tpu_torch.serving.export_program` of ``model``
+    (the engine's chosen model: int8 when the gate accepted it) at one
+    bucket's padded shape, on the model's device. The program is
+    ``serving.ScoreProgram``: the probabilities :func:`~deepdfa_tpu_torch.
+    predict.make_scorer` gives, without the gate weights."""
+
+    def export_bucket(bucket: ServeBucket):
+        from deepdfa_tpu_torch.serving import export_program, save_program
+
+        t0 = time.perf_counter()
+        ex = batch_np([_dummy_graph(feat_keys)], bucket.spec.max_graphs,
+                      bucket.spec.max_nodes, bucket.spec.max_edges)
+        program = export_program(model, ex, feat_keys, label_style)
+        return save_program(program), time.perf_counter() - t0
+
+    return export_bucket
+
 
 def _int8_gate(model, score_fn, make_fns, keys, buckets, dev,
                calibration_graphs, max_delta: float):
     """Quantize ``model``'s conv and compare the int8 model's scores with
     ``score_fn``'s on a calibration batch per bucket. Returns ``((score,
-    device) functions of the int8 model, or None; max probability
-    difference; reason for a refusal)``. Only calibration's ``ValueError`` (a non-finite
+    device) functions of the int8 model and the model, or None; max
+    probability difference; reason for a refusal)``. Only calibration's ``ValueError`` (a non-finite
     checkpoint) is a refusal; anything the scoring raises propagates."""
     from deepdfa_tpu_torch.models.ggnn_int8 import (GGNNInt8,
                                                     quantize_conv_params)

@@ -3,8 +3,7 @@ rendered in the Prometheus text exposition format at ``/metrics``.
 
 A copy of ``deepdfa_tpu/serve/metrics.py`` with every family name and
 label kept, less the families of parts not ported yet: admission control
-and brownout (ROADMAP A15) and the warm store's hit/miss counters (A6b).
-Stdlib-only, so the serve path grows no dependency: counters are plain ints under one
+and brownout (ROADMAP A15). Stdlib-only, so the serve path grows no dependency: counters are plain ints under one
 lock, latency quantiles come from a bounded ring buffer — O(window) per
 scrape, O(1) per request, and immune to unbounded growth on long-lived
 servers.
@@ -120,8 +119,9 @@ class ServeMetrics:
         self.flight = None
 
     def set_warmup(self, report: dict) -> None:
-        """Publish an engine warmup report (per-bucket seconds of the first
-        call, kernel builds included) for /metrics scrapes."""
+        """Publish an engine warmup report (warm-store hits and misses, and
+        per-bucket seconds of the first call or of the store's load) for
+        /metrics scrapes."""
         with self._lock:
             self.warmup = dict(report)
 
@@ -310,6 +310,14 @@ class ServeMetrics:
                 fam.set(reservoir.quantile(q), quantile=q)
         warm = snap.get("warmup")
         if warm:
+            reg.counter("warm_store_hits_total",
+                        "Warm-store program hits at warmup").set(
+                warm.get("hits"))
+            reg.counter("warm_store_misses_total",
+                        "Warm-store misses at warmup").set(warm.get("misses"))
+            reg.gauge("warm_store_compile_seconds_saved",
+                      "Compile seconds skipped via warm-store hits").set(
+                warm.get("compile_seconds_saved"))
             compile_s = reg.gauge("warmup_compile_seconds",
                                   "Per-bucket warmup compile seconds",
                                   labels=("bucket", "source"))

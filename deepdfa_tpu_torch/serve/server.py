@@ -33,8 +33,11 @@ the micro-batcher drains what is queued, in-flight handler threads finish
 writing their responses (bounded by ``serve.drain_timeout_s``), then the
 listener closes. No admitted request is abandoned mid-flight.
 
-Not ported yet: admission control and brownout, request capture
-(ROADMAP A15), the warm store and ``--artifact`` (A6b).
+A replica serves a ``train.fit`` run (``--run-dir``) or an exported
+artifact (``--artifact``, :mod:`deepdfa_tpu_torch.serving`); with
+``serve.warm_store_dir`` its warmup goes through the fleet's warm store
+(:mod:`.warmstore`). Not ported yet: admission control and brownout,
+request capture (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -91,13 +94,14 @@ class ScoreServer:
     def __init__(self, engine: ScoringEngine, vocabs,
                  cfg: ServeConfig | None = None, cache: ScanCache | None = None,
                  metrics: ServeMetrics | None = None,
-                 replica_id: str | None = None, journal=None,
+                 replica_id: str | None = None, warm_store=None, journal=None,
                  tier2_engine=None, frontend_pool=None, vocab_source=None,
                  device=None):
         self.cfg = cfg or ServeConfig()
         self.engine = engine
         self.vocabs = vocabs
         self.replica_id = replica_id or self.cfg.replica_id
+        self.warm_store = warm_store
         self.journal = journal
         self.metrics = metrics or ServeMetrics(self.cfg.latency_window)
         self.cache = cache if cache is not None else ScanCache(
@@ -201,10 +205,12 @@ class ScoreServer:
 
     def warmup(self) -> dict:
         """Warm the engine's bucket ladder (every kernel of the path built
-        and launched once) and, with the cascade, the tier-2 engine;
-        publish the report to /metrics and return it. Call it before
-        :meth:`start`: the first request then pays no build."""
-        report = self.engine.warmup()
+        and launched once; through the warm store when one is wired) and,
+        with the cascade, the tier-2 engine; publish the report to /metrics
+        and return it. Call it before :meth:`start`: the first request then
+        pays no build."""
+        report = self.engine.warmup(warm_store=self.warm_store,
+                                    journal=self.journal)
         if self.cascade is not None and hasattr(self.cascade.engine,
                                                 "warmup"):
             report["tier2"] = self.cascade.engine.warmup()
@@ -629,32 +635,38 @@ def build_server(cfg: ExperimentConfig, run_dir: Path | None = None,
                  shard_dir: Path | str | None = None,
                  journal=None, tier2_engine=None,
                  device=None) -> ScoreServer:
-    """Wire vocabs + engine + server from a config and a ``train.fit`` run
-    (``run_dir``, whose ``checkpoints/`` it restores, or ``ckpt_dir``):
-    :meth:`ScoringEngine.from_checkpoint` on ``device`` (``cuda`` unless
-    the caller names another; without a GPU this raises). With
-    ``serve.cascade.enabled``, ``tier2_engine`` (a
+    """Wire vocabs + engine + server from a config and either a
+    ``train.fit`` run (``run_dir``, whose ``checkpoints/`` it restores, or
+    ``ckpt_dir``: :meth:`ScoringEngine.from_checkpoint`) or an exported
+    ``artifact`` directory (:meth:`ScoringEngine.from_artifact`), on
+    ``device`` (``cuda`` unless the caller names another; without a GPU
+    this raises). ``serve.warm_store_dir`` attaches the fleet's warm store.
+    With ``serve.cascade.enabled``, ``tier2_engine`` (a
     :class:`~deepdfa_tpu_torch.llm.joint_engine.JointEngine`) is tier 2,
-    else one is restored from ``serve.cascade.joint_dir``. ``artifact``
-    raises: exported artifacts are ROADMAP A6b."""
+    else one is restored from ``serve.cascade.joint_dir``."""
     from deepdfa_tpu_torch import utils
 
-    if artifact is not None:
-        raise NotImplementedError(
-            "serving an exported artifact is not ported yet: ROADMAP A6b "
-            "(the warm store and artifact export)")
     if shard_dir is None:
         sample = "_sample" if cfg.data.sample else ""
         shard_dir = utils.processed_dir() / cfg.data.dsname / f"shards{sample}"
     vocabs = load_vocabs(shard_dir)
-    if run_dir is None and ckpt_dir is None:
-        raise ValueError("need --run-dir or --ckpt-dir")
-    engine = ScoringEngine.from_checkpoint(
-        cfg, ckpt_dir or Path(run_dir) / "checkpoints", vocabs,
-        max_batch=cfg.serve.max_batch, journal=journal, device=device)
-    return ScoreServer(engine, vocabs, cfg.serve, journal=journal,
-                       tier2_engine=tier2_engine, vocab_source=shard_dir,
-                       device=device)
+    if artifact is not None:
+        engine = ScoringEngine.from_artifact(artifact, vocabs=vocabs,
+                                             device=device)
+    else:
+        if run_dir is None and ckpt_dir is None:
+            raise ValueError("need --run-dir/--ckpt-dir or --artifact")
+        engine = ScoringEngine.from_checkpoint(
+            cfg, ckpt_dir or Path(run_dir) / "checkpoints", vocabs,
+            max_batch=cfg.serve.max_batch, journal=journal, device=device)
+    warm_store = None
+    if cfg.serve.warm_store_dir:
+        from .warmstore import WarmStore
+
+        warm_store = WarmStore(cfg.serve.warm_store_dir)
+    return ScoreServer(engine, vocabs, cfg.serve, warm_store=warm_store,
+                       journal=journal, tier2_engine=tier2_engine,
+                       vocab_source=shard_dir, device=device)
 
 
 def serve_command(cfg: ExperimentConfig, run_dir: Path | None = None,
@@ -676,6 +688,8 @@ def serve_command(cfg: ExperimentConfig, run_dir: Path | None = None,
         "status": "serving", "host": server.cfg.host, "port": server.port,
         "replica_id": server.replica_id,
         "buckets_warmed": warmed["buckets"],
+        "warm_store": {k: warmed[k] for k in
+                       ("hits", "misses", "compile_seconds_saved")},
         "label_style": server.engine.label_style,
         "vocab_hash": server.engine.vocab_hash,
         "model_rev": server.engine.model_rev,
@@ -694,8 +708,9 @@ def serve_command(cfg: ExperimentConfig, run_dir: Path | None = None,
 
 def main(argv=None) -> dict:
     """``python -m deepdfa_tpu_torch.serve.server``: the JAX package's
-    flags; ``--artifact`` raises (ROADMAP A6b). ``--device cpu`` serves on
-    the CPU (the card is the default)."""
+    flags (``--artifact`` serves an exported artifact directory instead of
+    a checkpoint). ``--device cpu`` serves on the CPU (the card is the
+    default)."""
     import argparse
 
     from deepdfa_tpu_torch.config import load_config
@@ -707,12 +722,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--run-dir", default=None)
     parser.add_argument("--ckpt-dir", default=None)
     parser.add_argument("--artifact", default=None,
-                        help="an exported artifact dir (ROADMAP A6b: raises)")
+                        help="exported artifact dir (python -m "
+                             "deepdfa_tpu_torch.train.cli export) instead "
+                             "of a checkpoint")
     parser.add_argument("--shard-dir", default=None,
                         help="shard dir holding vocab.json (default: the "
                              "config's processed dataset dir)")
     parser.add_argument("--journal", default=None,
-                        help="journal file for int8-gate events")
+                        help="journal file for warmup / int8-gate events")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)

@@ -528,9 +528,10 @@ def test_scan_command_cascade_requires_scores_and_joint_dir(tmp_path):
         scan_command(cfg, tmp_path, [str(tmp_path)],
                      ckpt_dir=tmp_path / "nonexistent_ckpt", workers=1,
                      cache_dir=None, cascade=True)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    # an exported artifact's scores are tier-1 scores too
+    with pytest.raises(ValueError, match="needs a tier-2 checkpoint"):
         scan_command(cfg, tmp_path, [str(tmp_path)], artifact="x",
-                     workers=1)
+                     workers=1, cascade=True)
 
 
 # ---------------------------------------------------------------------------

@@ -940,3 +940,52 @@ def test_latency_mode_submit_on_the_card_equals_score(cuda):
     for t in threads:
         t.join()
     assert not errors, errors
+
+
+# ---------------------------------------------------------------------------
+# the registered ops (ops/custom_ops.py): each one's CUDA implementation
+# against its CPU one on the same inputs, counted like a live call
+
+
+def _op_case(op, rng):
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    if op == "fused_ggnn":
+        # the first ladder bucket's shape at width 128, 5 rounds
+        args = _problem(rng, 2048, 128, 8192)
+        return args + [5], tfg, tfg.launches_per_call(5), 1e-4
+    if op == "segment_sum":
+        # the pooling's sum of 16,768 node rows into 257 graph slots
+        data = torch.from_numpy(
+            rng.standard_normal((16768, 256)).astype(np.float32)).cuda()
+        ids = torch.from_numpy(
+            np.sort(rng.integers(0, 257, 16768)).astype(np.int32)).cuda()
+        return [data, ids, 257], None, 0, 1e-5
+    q, scale = tmm.calibrate_int8(
+        rng.normal(size=(128, 384)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(5120, 128)).astype(np.float32))
+    return ([x.cuda(), torch.from_numpy(q).cuda(),
+             torch.from_numpy(scale).cuda(), torch.float32], tmm, 1, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fused_ggnn", "segment_sum", "int8_matmul"])
+def test_registered_op_on_the_card_matches_its_cpu_implementation(cuda, op):
+    from deepdfa_tpu_torch.ops import custom_ops
+
+    fn = getattr(custom_ops, op)
+    args, counter, per_call, limit = _op_case(op, np.random.default_rng(7))
+    before = counter.n_launches if counter is not None else 0
+    with torch.inference_mode():
+        got = fn(*args)
+        again = fn(*args)
+        want = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+    torch.cuda.synchronize()
+    if counter is not None:
+        assert counter.n_launches - before == 2 * per_call
+    # no float atomics on the card: two calls are bitwise equal
+    assert torch.equal(got, again) and got.device.type == "cuda"
+    # float32 sums in another order than the CPU's, over the largest value
+    top = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= limit * max(top, 1.0)

@@ -19,9 +19,10 @@ PORT = REPO / "deepdfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "deepdfa_tpu")
 # every module of the port (the C front end, the encode pipeline, scan,
 # the corpus side, preprocess, predict, the dataset readers and their table
-# layer, Joern ingestion and its session, the HTTP service, the cascade and
-# the telemetry plane included) and chip_smoke.py
-N_MODULES = 84
+# layer, Joern ingestion and its session, the HTTP service, the cascade,
+# the telemetry plane, the registered ops, the exported artifacts, the warm
+# store and the trainer's command line included) and chip_smoke.py
+N_MODULES = 88
 
 
 def _port_files():

@@ -94,7 +94,7 @@ def _traffic(m):
 
 def test_serve_metrics_render_the_jax_bytes_less_the_deferred_families():
     got, want = _traffic(ServeMetrics(64)), _traffic(JServeMetrics(64))
-    deferred = ("admission_", "brownout_", "warm_store_")
+    deferred = ("admission_", "brownout_")
     keep = [line for line in want.splitlines()
             if not any(f"deepdfa_serve_{d}" in line for d in deferred)]
     assert got.splitlines() == keep

@@ -7,8 +7,7 @@ carried across with ``Vocabulary.from_dict``), and take the same requests:
 status codes and JSON bodies are equal key for key (``/healthz`` apart from
 ``model_rev`` and ``replica_id``, which name the process), and the
 ``/metrics`` families are equal apart from those of parts the port has not
-(``JAX_ONLY_FAMILIES``: admission control and brownout, ROADMAP A15; the
-warm store, A6b).
+(``JAX_ONLY_FAMILIES``: admission control and brownout, ROADMAP A15).
 
 Live engines: a JAX GGNN's parameters carried across by
 ``bridge.flax_to_torch`` (both servers score the demo sources within
@@ -71,16 +70,13 @@ KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
 INPUT_DIM = JFeatureConfig().input_dim
 ATOL = 1e-5
 # families only the JAX package renders: admission control and brownout
-# (ROADMAP A15) and the warm store's counters (A6b)
+# (ROADMAP A15)
 JAX_ONLY_FAMILIES = {
     "deepdfa_serve_admission_admitted_total",
     "deepdfa_serve_admission_shed_total",
     "deepdfa_serve_brownout_level",
     "deepdfa_serve_brownout_transitions_total",
     "deepdfa_serve_brownout_suppressed_escalations_total",
-    "deepdfa_serve_warm_store_hits_total",
-    "deepdfa_serve_warm_store_misses_total",
-    "deepdfa_serve_warm_store_compile_seconds_saved",
 }
 # /healthz values that name the process or the framework's weights
 PER_PROCESS = {"model_rev", "replica_id"}
@@ -231,8 +227,7 @@ def test_metrics_families_equal_jax(demo):
     jfam, tfam = _families(jtext), _families(ttext)
     # (the admission counters render only once a decision was made)
     assert set(jfam) - set(tfam) == JAX_ONLY_FAMILIES & set(jfam)
-    assert set(jfam) - set(tfam) >= {"deepdfa_serve_brownout_level",
-                                     "deepdfa_serve_warm_store_hits_total"}
+    assert set(jfam) - set(tfam) >= {"deepdfa_serve_brownout_level"}
     assert tfam == {k: v for k, v in jfam.items()
                     if k not in JAX_ONLY_FAMILIES}
     # the counters of the same traffic are the same samples
@@ -242,6 +237,8 @@ def test_metrics_families_equal_jax(demo):
                             "deepdfa_serve_errors_total",
                             "deepdfa_serve_cache_", "deepdfa_serve_batches",
                             "deepdfa_serve_batch_graphs_total",
+                            "deepdfa_serve_warm_store_hits_total",
+                            "deepdfa_serve_warm_store_misses_total",
                             "deepdfa_serve_warmup_compile_seconds{")):
             name = line.split()[0]
             assert any(j.split()[0] == name for j in jtext.splitlines()), line
@@ -535,14 +532,27 @@ def test_from_checkpoint_serves_the_fit_run_on_the_fused_layout(demo,
 
 
 def test_a_server_without_a_gpu_raises_and_artifacts_wait(fit_run):
+    """Without a GPU the default device raises, for a checkpoint and for an
+    exported artifact alike; the artifact serves on an explicit CPU."""
+    from deepdfa_tpu_torch.train.cli import export_model
+
     cfg, run, shards = fit_run
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_server(cfg, run_dir=run, shard_dir=shards)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    artifact = export_model(cfg, run, shard_dir=shards,
+                            device="cpu")["export_dir"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--run-dir", str(run), "--shard-dir", str(shards),
-              "--artifact", str(run)])
+              "--artifact", artifact])
+    srv = build_server(cfg, artifact=artifact, shard_dir=shards,
+                       device="cpu").start()
+    try:
+        (bucket,) = srv.engine.buckets
+        assert bucket.spec.max_nodes == cfg.data.batch.max_nodes
+    finally:
+        srv.shutdown()
     with pytest.raises(ValueError, match="run-dir"):
         build_server(cfg, shard_dir=shards, device="cpu")
 
@@ -575,7 +585,7 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
      ValueError, "band_lo < band_hi"),
     ({"serve.frontend.mode": "fork"}, ValueError, "mode"),
     ({"serve.obs.drift_bins": 1}, ValueError, "drift_bins"),
-    ({"serve.warm_store_dir": "/x"}, NotImplementedError, "A6b"),
+    ({"serve.warm_store_dir": "/x"}, None, None),  # parses (the warm store)
     ({"serve.mesh_replicas": 2}, NotImplementedError, "A11"),
     ({"serve.admission.enabled": True}, NotImplementedError, "A15"),
     ({"serve.continual.capture_path": "c.jsonl"}, NotImplementedError, "A15"),
@@ -584,6 +594,11 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
     ({"serve.obs.train_port": 0}, NotImplementedError, "A4"),
 ])
 def test_serve_config_validation_and_deferred_parts(overrides, error, match):
+    if error is None:
+        serve = json.loads(to_json(load_config(overrides=overrides)))["serve"]
+        for key, value in overrides.items():
+            assert serve[key.split(".", 1)[1]] == value
+        return
     with pytest.raises(error, match=match):
         load_config(overrides=overrides)
 
