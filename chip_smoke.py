@@ -265,6 +265,38 @@ Each phase prints one JSON line; any failure exits non-zero.
    subprocesses (8 × 200, bodies within ``ARTIFACT_LIMIT`` of the engine,
    ``drained``, rc 0), and ``scan --artifact`` over the fixtures (rows
    equal to ``scan_paths`` on the in-process artifact engine).
+17d. trainer — ``python -m deepdfa_tpu_torch.train.cli`` on the corpus
+   phase's ``demo`` shards, the golden model in the fused layout, 3 epochs
+   of 6 steps, every child with ``--device cuda``. A clean ``fit`` through
+   ``cli.main`` in this process, the counts reset just before: B1 =
+   (steps + eval batches) × 11, B2 = steps × 17, all ``wgmma``; its final
+   parameters are the oracle. Four children side by side: a crash
+   between the second checkpoint's payload and its ``meta.json`` (rc 137,
+   a ``*.tmp`` left), a ``preempt.sigterm`` mid-epoch (rc 75, the
+   emergency commit within ``preempt_deadline_s``, steps done > 0), a real
+   SIGUSR1 sent after the first commit (rc 75, its newest checkpoint
+   restorable), and a ``step.hang`` with a 10 s deadline whose
+   ``/metrics``, ``/healthz`` and ``/slo`` (``serve.obs.train_port=0``)
+   are scraped while it is wedged (non-zero exit within the deadline plus
+   ``TRAINER_ABORT_MARGIN_S`` of the wedge being seen, ``watchdog_timeout``
+   journaled, a flight dump). Then ``fit --resume`` of the crashed and the
+   preempted runs, each bitwise the clean run, beside an isolated tuning
+   trial (a ``fit`` child on the card). In this process: a fit with
+   ``step.nan_grads`` on three consecutive steps and patience 2 (it
+   completes, ``n_rollbacks`` ≥ 1, ``lr_scale`` = backoff ** rollbacks, B1
+   and B2 following every step run); ``test`` (B1 = batches × 11; its
+   probabilities within ``PROB_LIMIT`` of the same checkpoint on the CPU;
+   ``pr.csv`` and ``pr_binned.csv`` with the JAX header), ``predict``
+   over the realworld fixtures (B1 = scorer calls × 11, within
+   ``ARTIFACT_LIMIT`` of ``predict_paths`` in this process), ``analyze``
+   (the 28 variants) and ``trace export`` (``train.epoch`` spans);
+   ``run_int8_train`` over two megabatch-packed corpus batches, 8 steps
+   (B5 = (gate batches + steps) × 15, all ``wgmma``; the gate's deltas
+   within ``INT8_TRAIN_LIMIT`` of the gate on the CPU); one epoch with
+   ``frozen_encoder_optimizer`` (every encoder tensor bitwise unchanged,
+   the head moved); a two-point tuning grid. Steps/s and p50 step ms, the
+   children's seconds to their ``corpus:`` line and the resumes' to their
+   first step, the emergency commit's and the abort's seconds.
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
@@ -391,6 +423,7 @@ from deepdfa_tpu_torch.pipeline import (encode_cpg, encode_source,
                                         vocab_content_hash)
 from deepdfa_tpu_torch.predict import (Scorer, collect_sources, load_vocabs,
                                        predict_paths)
+from deepdfa_tpu_torch.resilience import faults
 from deepdfa_tpu_torch.scan import _score_functions, scan_paths
 from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
                                      ScoringEngine, mega_bucket,
@@ -404,6 +437,7 @@ from deepdfa_tpu_torch.serving import (export_ggnn, exported_ops,
                                        load_exported, load_program)
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 from deepdfa_tpu_torch.train.cli import export_model
+from deepdfa_tpu_torch.train.cli import main as cli_main
 from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
 from deepdfa_tpu_torch.train.metrics import ConfusionState
@@ -4173,6 +4207,546 @@ def phase_artifact(work: Path) -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 17d
+
+
+TRAINER_PREEMPT_HIT = 9  # epoch 1, after two of its six steps
+TRAINER_NAN_HITS = "8,9,10"  # epoch 1: patience 2 trips inside the epoch
+TRAINER_HANG_HIT = 4  # epoch 0, after three steps
+TRAINER_STEP_DEADLINE_S = 10.0
+# from the wedge being seen to the process gone: the watchdog's deadline,
+# its one-second grace to unwind, the journal, the flight dump and exit
+TRAINER_ABORT_MARGIN_S = 5.0
+TRAINER_SIGNAL_EPOCHS = 200  # the SIGUSR1 run lasts until it is signalled
+INT8_TRAIN_STEPS = 8
+INT8_TRAIN_LIMIT = 1e-4
+
+
+def run_cli(argv: list[str]):
+    """``train.cli.main(argv)`` in this process, the root logger's handlers
+    and level restored after (``main`` points them at the run's log)."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        return cli_main(argv)
+    finally:
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+
+def cli_command(cfg_file: Path, run_dir: Path, *extra: str) -> list[str]:
+    """A ``python -m deepdfa_tpu_torch.train.cli fit`` command on the card."""
+    return [sys.executable, "-m", "deepdfa_tpu_torch.train.cli", "fit",
+            "--config", str(cfg_file), "--run-dir", str(run_dir),
+            "--device", "cuda", *extra]
+
+
+def start_cli(cmd: list[str], log: Path, faults_spec: str | None = None):
+    """``cmd`` as a child of the repository root, stderr into ``log``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT))
+    env.pop("DEEPDFA_FAULTS", None)
+    if faults_spec:
+        env["DEEPDFA_FAULTS"] = faults_spec
+    f = open(log, "w")
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env,
+                            stdout=subprocess.DEVNULL, stderr=f)
+    proc.log_file = f
+    proc.t0, proc.t_wall = time.perf_counter(), time.time()
+    return proc
+
+
+def finish_cli(proc, timeout: float = 300.0) -> dict:
+    """Wait for a child; its rc, wall seconds and the tail of its log."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    proc.log_file.close()
+    text = Path(proc.log_file.name).read_text()
+    end = getattr(proc, "exit_at", None) or time.perf_counter()
+    return {"rc": rc, "seconds": end - proc.t0,
+            **log_seconds(text, proc.t_wall),
+            "log_tail": text[-1500:] if rc not in (0, 75, 137) else ""}
+
+
+def log_seconds(log_text: str, t_wall: float) -> dict:
+    """Seconds from a child's start to its ``corpus:`` log line (imports,
+    the CUDA context, the shards read) and, for a resume, to its ``resume:
+    epochs`` line (the checkpoint restored: its first step is next)."""
+    import datetime as dt
+    import re
+
+    out = {}
+    for key, pattern in (("to_corpus_s", r"INFO corpus:"),
+                         ("to_resume_s", r"INFO resume: epochs")):
+        m = re.search(r"^(\S+ \S+) \S+ " + pattern, log_text, re.M)
+        out[key] = (dt.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+                    .timestamp() - t_wall) if m else None
+    return out
+
+
+def fit_launches(run_dir: Path, b1: int, b2: int, by_variant: dict) -> dict:
+    """A fit's launch counts beside what its journal's steps and eval
+    batches give."""
+    timing = json.loads((run_dir / "journal.json").read_text())["timing"]
+    steps, evals = timing["train_steps"], timing["eval_batches"]
+    return {"train_steps": steps, "eval_batches": evals,
+            "b1_launches": b1, "b2_launches": b2,
+            "expected": {"fwd": (steps + evals) * fg.launches_per_call(STEPS),
+                         "bwd": steps * fg.bwd_launches_per_call(STEPS)},
+            "launches_by_variant": by_variant,
+            "p50_step_ms": float(np.percentile(timing["step_ms"], 50))
+            if timing["step_ms"] else None}
+
+
+def check_fit_launches(name: str, run: dict) -> None:
+    got = {"fwd": run["b1_launches"], "bwd": run["b2_launches"]}
+    if got != run["expected"] or not run["train_steps"]:
+        fail(f"{name}: B1 {got['fwd']}, B2 {got['bwd']} launches, expected "
+             f"{run['expected']} for {run['train_steps']} steps and "
+             f"{run['eval_batches']} eval batches")
+    check_ggnn_wgmma(name, "B1", run["launches_by_variant"]["fwd"],
+                     run["b1_launches"])
+    check_ggnn_wgmma(name, "B2", run["launches_by_variant"]["bwd"],
+                     run["b2_launches"])
+
+
+def counted_cli(argv: list[str]) -> tuple:
+    """``run_cli(argv)`` with B1/B2 counts from zero, read right after:
+    (result, B1, B2, by variant, seconds)."""
+    fg.n_launches = fg.n_bwd_launches = 0
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, fg.n_launches, fg.n_bwd_launches,
+            {"fwd": dict(fg.n_variant_launches),
+             "bwd": dict(fg.n_bwd_variant_launches)}, seconds)
+
+
+def same_params(a: Path, b: Path) -> bool:
+    pa, pb = read_params(a), read_params(b)
+    return pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k])
+                                          for k in pa)
+
+
+def test_probs(cfg: ExperimentConfig, state: dict, device: str) -> np.ndarray:
+    """The test split's probabilities under ``state`` on ``device``, in the
+    order ``test`` scores them."""
+    from deepdfa_tpu_torch.train.fit import _batch_stream, _batcher
+
+    test = load_corpus(cfg)["test"]
+    model = make_model(cfg.model, cfg.input_dim, device=device)
+    model.load_state_dict(state)
+    model.eval()
+    out = []
+    with torch.no_grad():
+        for b in _batch_stream(_batcher(cfg, test), test):
+            keep = np.asarray(b.graph_mask) > 0
+            out.append(torch.sigmoid(model(to_device(b, device))).cpu()
+                       .numpy()[keep])
+    return np.concatenate(out)
+
+
+def scrape(port: int) -> dict:
+    """``/metrics``, ``/healthz`` and ``/slo`` of a trainer's endpoint."""
+    import re
+
+    out = {}
+    status, body = http_call(port, "GET", "/metrics", timeout=5.0)
+    out["/metrics"] = {"status": status,
+                       "families": sorted(families(body.decode()))}
+    status, body = http_call(port, "GET", "/healthz", timeout=5.0)
+    out["healthz"] = json.loads(body) if status == 200 else None
+    status, body = http_call(port, "GET", "/slo", timeout=5.0)
+    text = body.decode()
+    out["/slo"] = {"status": status,
+                   "names": sorted(set(re.findall(r'slo="([a-z_0-9]+)"',
+                                                  text))),
+                   # MFU needs a FLOP count and a roofline: fit gives none
+                   "mfu_floor_burn": 'burn_rate{slo="mfu_floor"' in text}
+    return out
+
+
+def watch_children(procs: dict, runs: dict, hang_log: Path,
+                   hang_hit: int) -> tuple[dict, dict]:
+    """Until every child has exited: send SIGUSR1 to the ``signal`` run
+    once its first checkpoint is committed, scrape the ``hang`` run's
+    endpoint (its port read from its log) once it has run the steps before
+    its wedge, and note when each child exits (``proc.exit_at``). Returns
+    (signal row, wedge row)."""
+    import re
+
+    sig: dict = {"signalled_s": None}
+    wedge: dict = {}
+    port = None
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline:
+        for p in procs.values():
+            if getattr(p, "exit_at", None) is None and p.poll() is not None:
+                p.exit_at = time.perf_counter()
+        p = procs["signal"]
+        if sig["signalled_s"] is None and p.poll() is None and \
+                list((runs["signal"] / "checkpoints").glob("*/meta.json")):
+            p.send_signal(signal.SIGUSR1)
+            sig["signalled_s"] = time.perf_counter() - p.t0
+        h = procs["hang"]
+        if not wedge and h.poll() is None:
+            if port is None:
+                m = re.search(r"trainer telemetry on :(\d+)",
+                              hang_log.read_text())
+                port = int(m.group(1)) if m else None
+            else:
+                try:
+                    status, body = http_call(port, "GET", "/healthz",
+                                             timeout=5.0)
+                    if status == 200 and \
+                            json.loads(body)["steps"] >= hang_hit - 1:
+                        wedge = {"port": port,
+                                 "wedge_seen_s": time.perf_counter(),
+                                 **scrape(port)}
+                except OSError as exc:
+                    wedge = {"error": repr(exc)}
+        if all(getattr(p, "exit_at", None) is not None
+               for p in procs.values()):
+            break
+        time.sleep(0.02)
+    return sig, wedge or {"error": "the wedged run was never scraped"}
+
+
+def phase_trainer(work: Path) -> dict:
+    """``python -m deepdfa_tpu_torch.train.cli`` on the card over the corpus
+    phase's ``demo`` shards, the golden model in the fused layout: a clean
+    fit (the oracle), a crash between a checkpoint's payload and its
+    ``meta.json`` and a mid-epoch preemption, each resumed; a real SIGUSR1;
+    a divergence rolled back; a wedged step aborted by the watchdog while
+    its telemetry is scraped; ``test``, ``predict``, ``analyze`` and
+    ``trace export``; ``run_int8_train`` on B5; one frozen-encoder epoch;
+    a tuning grid and one isolated trial."""
+    from deepdfa_tpu_torch.config import to_json
+    from deepdfa_tpu_torch.train import checkpoint as ckpt_mod
+    from deepdfa_tpu_torch.train.fit import _batch_stream, _batcher
+    from deepdfa_tpu_torch.train.int8_train import run_int8_train
+    from deepdfa_tpu_torch.train.loop import TrainState
+    from deepdfa_tpu_torch.train.tune import grid_space, run_trials
+
+    shard_dir = port_utils.processed_dir() / "demo" / "shards"
+    root = work / "trainer"
+    root.mkdir()
+    cfg = corpus_config()
+    cfg_file = root / "config.json"
+    cfg_file.write_text(to_json(cfg))
+    # ``serve.obs`` of the hung run: its endpoint and two trainer SLOs
+    hang_file = root / "hang_config.json"
+    hang_file.write_text(to_json(dataclasses.replace(
+        cfg, serve=dataclasses.replace(cfg.serve, obs=dataclasses.replace(
+            cfg.serve.obs, train_port=0, slo_step_ms=1000.0,
+            slo_mfu_floor=0.5)))))
+    fit_argv = lambda run, *extra: ["fit", "--config", str(cfg_file),  # noqa: E731
+                                    "--run-dir", str(run), "--device",
+                                    "cuda", *extra]
+
+    # 1. the clean fit, in this process: the oracle of the resumed runs
+    clean = root / "clean"
+    final, b1, b2, var, clean_s = counted_cli(fit_argv(clean))
+    clean_row = fit_launches(clean, b1, b2, var) | {
+        "seconds": clean_s, "final_metrics": final}
+
+    # 2-4, 6. the children: a crash, a preemption, a real SIGUSR1 and a
+    # wedged step, side by side
+    runs = {name: root / name for name in ("crash", "preempt", "signal",
+                                           "hang")}
+    procs = {
+        "crash": start_cli(cli_command(cfg_file, runs["crash"]),
+                           root / "crash.log",
+                           "ckpt.crash_between_state_and_meta@2"),
+        "preempt": start_cli(cli_command(cfg_file, runs["preempt"]),
+                             root / "preempt.log",
+                             f"preempt.sigterm@{TRAINER_PREEMPT_HIT}"),
+        "signal": start_cli(cli_command(
+            cfg_file, runs["signal"], "--set",
+            f"optim.max_epochs={TRAINER_SIGNAL_EPOCHS}"),
+            root / "signal.log"),
+        "hang": start_cli(cli_command(
+            hang_file, runs["hang"], "--set",
+            f"resilience.step_deadline_s={TRAINER_STEP_DEADLINE_S}"),
+            root / "hang.log", f"step.hang@{TRAINER_HANG_HIT}"),
+    }
+    sig, wedge = watch_children(procs, runs, root / "hang.log",
+                                TRAINER_HANG_HIT)
+    children = {name: finish_cli(p) for name, p in procs.items()}
+    hang_exit = getattr(procs["hang"], "exit_at", None)
+    abort_s = (hang_exit - wedge["wedge_seen_s"]
+               if "wedge_seen_s" in wedge and hang_exit else None)
+    crash_tmp = sorted(p.name for p in
+                       (runs["crash"] / "checkpoints").glob("*.tmp"))
+    pre_journal = json.loads((runs["preempt"] / "journal.json").read_text())
+    sig_journal = json.loads((runs["signal"] / "journal.json").read_text())
+    hang_journal = json.loads((runs["hang"] / "journal.json").read_text())
+    try:
+        sig_step = CheckpointManager(runs["signal"] / "checkpoints"
+                                     ).restore_resume(map_location="cpu")[0]
+    except FileNotFoundError:
+        sig_step = None
+
+    # the resumes (children) and the isolated tuning trial
+    resumes = {name: start_cli(cli_command(cfg_file, runs[name], "--resume"),
+                               root / f"{name}_resume.log")
+               for name in ("crash", "preempt")}
+    iso = run_trials(iter([{"optim.max_epochs": 1}]), root / "tune_iso",
+                     configs=[str(cfg_file)], isolate=True, device="cuda")
+    resumed = {name: finish_cli(p) for name, p in resumes.items()}
+    iso_run = root / "tune_iso" / "trial_0"
+    iso_log = (iso_run / "run.log").read_text() if (
+        iso_run / "run.log").exists() else ""
+
+    # 5. a divergence rolled back, in this process
+    with faults.installed(f"step.nan_grads@{TRAINER_NAN_HITS}"):
+        sen_final, sb1, sb2, svar, sen_s = counted_cli(fit_argv(
+            root / "sentinel", "--set", "resilience.sentinel_patience=2"))
+    sentinel_row = fit_launches(root / "sentinel", sb1, sb2, svar) | {
+        "seconds": sen_s, "final_metrics": sen_final}
+
+    # 7. test, predict, analyze and trace export on the clean run
+    fg.n_launches = 0
+    reset_variant_counts()
+    tested = run_cli(["test", "--config", str(cfg_file), "--run-dir",
+                      str(root / "test"), "--ckpt-dir",
+                      str(clean / "checkpoints"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    test_b1, test_var = fg.n_launches, dict(fg.n_variant_launches)
+    test_graphs = load_corpus(cfg)["test"]
+    test_batches = sum(1 for _ in _batch_stream(_batcher(cfg, test_graphs),
+                                                test_graphs))
+    fg.n_launches = 0
+    reset_variant_counts()
+    predicted = run_cli(["predict", "--config", str(cfg_file), "--run-dir",
+                         str(root / "predict"), "--ckpt-dir",
+                         str(clean / "checkpoints"), "--shard-dir",
+                         str(shard_dir), "--source",
+                         str(FIXTURES / "realworld"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
+    analyzed = run_cli(["analyze", "--config", str(cfg_file), "--run-dir",
+                        str(root / "analyze")])
+    traced = run_cli(["trace", "--run-dir", str(clean), "--out",
+                      str(root / "trace_events.json")])
+    trace_names = {e["name"] for e in json.loads(
+        (root / "trace_events.json").read_text())["traceEvents"]}
+    # off the main path: the same checkpoint on the CPU, and predict_paths
+    # in this process over the same fixtures
+    best = CheckpointManager(clean / "checkpoints").restore_best(
+        map_location="cpu")
+    p_card = test_probs(cfg, best, "cuda")
+    p_cpu = test_probs(cfg, best, "cpu")
+    model = make_model(cfg.model, cfg.input_dim, device="cuda")
+    model.load_state_dict(best)
+    scorer = SizedScorer(model)
+    in_proc = predict_paths([FIXTURES / "realworld"], cfg=cfg, model=model,
+                            vocabs=load_vocabs(shard_dir), scorer=scorer)
+    pred_cmp = compare_predictions(predicted, in_proc)
+    pr = {name: (root / "test" / name).read_text().splitlines()
+          for name in ("pr.csv", "pr_binned.csv")}
+
+    # 8. run_int8_train on B5 over megabatch-packed corpus batches
+    corpus = load_corpus(cfg)
+    plan = make_model(dataclasses.replace(cfg.model, layout="megabatch"),
+                      cfg.input_dim, device="cpu").plan_for(0, 0, 0)
+    packed = mb.pack_megabatches(
+        corpus["train"], width=plan.width, n_steps=plan.n_steps,
+        table_rows=plan.table_rows, embed_width=plan.embed_width,
+        n_head_layers=plan.n_head_layers, uniform=True).batches[:2]
+    i8.n_launches = 0
+    i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
+    t0 = time.perf_counter()
+    int8_run = run_int8_train(packed, cfg=cfg, steps=INT8_TRAIN_STEPS,
+                              device="cuda")
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    int8_b5, int8_var = i8.n_launches, dict(i8.n_variant_launches)
+    # the gate alone on the CPU: a threshold of 0 refuses after the deltas
+    int8_cpu = run_int8_train(packed, cfg=cfg, steps=INT8_TRAIN_STEPS,
+                              device="cpu", max_score_delta=0.0)
+    int8_diff = max(abs(int8_run["per_bucket_delta"][k]
+                        - int8_cpu["per_bucket_delta"][k])
+                    for k in int8_cpu["per_bucket_delta"])
+
+    # 9. one epoch with the encoder frozen, from the clean run's weights
+    fmodel = make_model(cfg.model, cfg.input_dim, device="cuda")
+    fmodel.load_state_dict(best)
+    before = {k: v.detach().clone() for k, v in fmodel.state_dict().items()}
+    opt = ckpt_mod.frozen_encoder_optimizer(
+        fmodel, lambda ps: torch.optim.AdamW(
+            ps, lr=cfg.optim.lr, weight_decay=cfg.optim.weight_decay))
+    ftrainer = Trainer(fmodel, cfg, pos_weight=positive_weight(np.array(
+        [int(g.node_feats["_VULN"].max()) for g in corpus["train"]])))
+    fstate = TrainState(fmodel, opt, torch.Generator().manual_seed(0), 0)
+    fbatcher = _batcher(cfg, corpus["train"] + corpus["val"])
+    ftrainer.train_epoch(fstate, _batch_stream(fbatcher, corpus["train"],
+                                               shuffle_seed=0))
+    after = fmodel.state_dict()
+    mask = ckpt_mod.freeze_mask(after)
+    frozen_same = all(torch.equal(after[k], before[k]) for k, v in
+                      mask.items() if not v)
+    head_moved = any(not torch.equal(after[k], before[k]) for k, v in
+                     mask.items() if v)
+
+    # 10. a two-point grid in this process
+    grid = run_trials(grid_space({"optim.lr": [1e-3, 5e-4]}),
+                      root / "tune_grid", configs=[str(cfg_file)],
+                      base_overrides={"optim.max_epochs": 1}, device="cuda")
+
+    def child_row(name):
+        return {k: children[name][k] for k in ("rc", "seconds",
+                                               "to_corpus_s")}
+
+    row = {
+        "phase": "trainer", "card": nvidia_smi(),
+        "clean": clean_row,
+        "crash": child_row("crash") | {
+            "tmp_left": crash_tmp, "resume": resumed["crash"],
+            "bitwise": same_params(clean, runs["crash"])},
+        "preempt": child_row("preempt") | {
+            "steps_done": pre_journal.get("preempted_steps_done"),
+            "emergency_commit_s": pre_journal.get("emergency_commit_s"),
+            "deadline_s": pre_journal.get("emergency_deadline_s"),
+            "resume": resumed["preempt"],
+            "bitwise": same_params(clean, runs["preempt"])},
+        "signal": child_row("signal") | sig | {
+            "preempted": sig_journal.get("preempted"),
+            "steps_done": sig_journal.get("preempted_steps_done"),
+            "emergency_commit_s": sig_journal.get("emergency_commit_s"),
+            "restorable_step": sig_step},
+        "sentinel": sentinel_row,
+        "hang": child_row("hang") | {
+            "deadline_s": TRAINER_STEP_DEADLINE_S,
+            "margin_s": TRAINER_ABORT_MARGIN_S, "abort_s": abort_s,
+            "watchdog_timeout": hang_journal.get("watchdog_timeout"),
+            "flight_dumps": len(list(runs["hang"].glob("flight-*.json"))),
+            "telemetry": {k: v for k, v in wedge.items()
+                          if k != "wedge_seen_s"},
+            "log_tail": children["hang"]["log_tail"]},
+        "test": {"metrics": {k: v for k, v in tested.items()
+                             if k.startswith(("test_F1", "test_loss",
+                                              "n_graphs"))},
+                 "batches": test_batches, "b1_launches": test_b1,
+                 "b1_launches_by_variant": test_var,
+                 "max_abs_prob_diff_vs_cpu": float(np.abs(p_card - p_cpu)
+                                                   .max()),
+                 "limit": PROB_LIMIT,
+                 "pr_headers": {k: v[0] for k, v in pr.items()},
+                 "pr_rows": {k: len(v) - 1 for k, v in pr.items()}},
+        "predict": {"scored": predicted["n_scored"],
+                    "b1_launches": pred_b1, "b1_launches_by_variant": pred_var,
+                    "scorer_calls": scorer.n_calls, "vs_in_process": pred_cmp},
+        "analyze": {"splits": {k: v["graphs"] for k, v in
+                               analyzed["splits"].items()},
+                    "variants": len(analyzed["variants"] or {})},
+        "trace": {"records": traced["trace_records"],
+                  "spans": traced["spans"], "names": sorted(trace_names)},
+        "int8_train": {
+            "accepted": int8_run["accepted"],
+            "int8_score_delta": int8_run["int8_score_delta"],
+            "per_bucket_delta": int8_run["per_bucket_delta"],
+            "cpu_per_bucket_delta": int8_cpu["per_bucket_delta"],
+            "max_delta_diff_vs_cpu": int8_diff,
+            "loss_first": int8_run.get("loss_first"),
+            "loss_last": int8_run.get("loss_last"),
+            "loss_decreased": int8_run.get("loss_decreased"),
+            "steps": int8_run["steps"], "gate_batches": len(packed),
+            "seconds": int8_s,
+            "steps_per_s": (int8_run["steps"] / int8_s if int8_s else None),
+            "b5_launches": int8_b5, "b5_launches_by_variant": int8_var},
+        "freeze": {"frozen_bitwise": frozen_same, "head_moved": head_moved},
+        "tune": {"grid": [{"overrides": t.overrides,
+                           "val_F1Score": t.metrics.get("val_F1Score"),
+                           "error": t.error} for t in grid],
+                 "isolated": {"error": iso[0].error,
+                              "final_metrics": (iso_run /
+                                                "final_metrics.json").exists(),
+                              "on_cuda": "device=cuda" in iso_log}},
+    }
+    emit(row)
+
+    # the gates
+    check_fit_launches("trainer_fit", clean_row)
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"trainer: non-finite clean metrics {final}")
+    c = row["crash"]
+    if c["rc"] != 137 or not crash_tmp or c["resume"]["rc"] != 0 or \
+            not c["bitwise"]:
+        fail(f"trainer: crash → resume {c}")
+    p = row["preempt"]
+    if p["rc"] != 75 or not (p["steps_done"] or 0) > 0 or \
+            p["emergency_commit_s"] is None or \
+            p["emergency_commit_s"] > p["deadline_s"] or \
+            p["resume"]["rc"] != 0 or not p["bitwise"]:
+        fail(f"trainer: preempt → resume {p}")
+    s = row["signal"]
+    if s["signalled_s"] is None or s["rc"] != 75 or s["restorable_step"] is \
+            None or s["preempted"] != "signal SIGUSR1":
+        fail(f"trainer: the SIGUSR1 run {s}")
+    check_fit_launches("trainer_sentinel", sentinel_row)
+    n_rb = sen_final["n_rollbacks"]
+    if not sen_final or n_rb < 1 or sen_final["lr_scale"] != \
+            cfg.resilience.lr_backoff ** n_rb:
+        fail(f"trainer: the sentinel run {sen_final}")
+    h = row["hang"]
+    if not h["rc"] or abort_s is None or \
+            abort_s > TRAINER_STEP_DEADLINE_S + TRAINER_ABORT_MARGIN_S or \
+            h["watchdog_timeout"] is None or not h["flight_dumps"]:
+        fail(f"trainer: the wedged run {h}")
+    tel = h["telemetry"]
+    if "error" in tel or tel["/metrics"]["status"] != 200 or \
+            "deepdfa_train_steps_total" not in tel["/metrics"]["families"] or \
+            not (tel["healthz"] or {}).get("ok") or \
+            tel["/slo"]["names"] != ["mfu_floor", "step_time"] or \
+            tel["/slo"]["mfu_floor_burn"]:
+        fail(f"trainer: the wedged run's telemetry {tel}")
+    t = row["test"]
+    per1 = fg.launches_per_call(STEPS)
+    if test_b1 != test_batches * per1 or \
+            t["max_abs_prob_diff_vs_cpu"] > PROB_LIMIT or \
+            t["pr_headers"] != {"pr.csv": ",precision,recall,thresholds",
+                                "pr_binned.csv":
+                                    ",precision,recall,thresholds"} or \
+            t["pr_rows"]["pr_binned.csv"] != 101 or \
+            tested["n_graphs_scored"] != len(test_graphs):
+        fail(f"trainer: test {t}")
+    check_ggnn_wgmma("trainer_test", "B1", test_var, test_b1)
+    if pred_b1 != scorer.n_calls * per1 or not pred_b1 or \
+            not pred_cmp["rows_equal"] or \
+            pred_cmp["max_abs_prob_diff"] > ARTIFACT_LIMIT or \
+            (pred_cmp["max_abs_saliency_diff"] or 0.0) > ARTIFACT_LIMIT:
+        fail(f"trainer: predict {row['predict']}")
+    check_ggnn_wgmma("trainer_predict", "B1", pred_var, pred_b1)
+    if row["analyze"]["variants"] != 28 or \
+            row["analyze"]["splits"] != {k: len(v) for k, v in corpus.items()}:
+        fail(f"trainer: analyze {row['analyze']}")
+    if "train.epoch" not in trace_names:
+        fail(f"trainer: the trace holds {sorted(trace_names)}")
+    i = row["int8_train"]
+    per5 = 3 * STEPS
+    if int8_b5 != (len(packed) + int8_run["steps"]) * per5 or \
+            int8_var.get("wgmma") != int8_b5 or \
+            int8_diff > INT8_TRAIN_LIMIT or int8_run["accepted"] != (
+                int8_cpu["int8_score_delta"] <= int8_run["max_score_delta"]):
+        fail(f"trainer: run_int8_train {i}")
+    if not (frozen_same and head_moved):
+        fail(f"trainer: the frozen-encoder epoch {row['freeze']}")
+    if any(t.error for t in grid) or iso[0].error or \
+            not row["tune"]["isolated"]["final_metrics"] or \
+            not row["tune"]["isolated"]["on_cuda"]:
+        fail(f"trainer: tune {row['tune']}")
+    return row
+
+
 # --------------------------------------------------------------- phase 18
 
 
@@ -4453,6 +5027,7 @@ def drive() -> int:
         corpus = timed("corpus", phase_corpus, corpus_work)
         serve_http = timed("serve_http", phase_serve_http, ctx, corpus_work)
         artifact = timed("artifact", phase_artifact, corpus_work)
+        trainer = timed("trainer", phase_trainer, corpus_work)
     finally:
         shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
@@ -4486,6 +5061,20 @@ def drive() -> int:
                for r in artifact["engines"].values()]
     store_b1 = artifact["warm_store"]["launches"]
     store_b5 = artifact["warm_store_int8"]["launches"]
+    # the trainer's command line: the clean and the rolled-back fits, test
+    # and predict on B1 (B2 in the fits), run_int8_train on B5
+    tr_fit, tr_sen = trainer["clean"], trainer["sentinel"]
+    tr_b1 = {"trainer_fit": tr_fit["b1_launches"],
+             "trainer_sentinel": tr_sen["b1_launches"],
+             "trainer_test": trainer["test"]["b1_launches"],
+             "trainer_predict": trainer["predict"]["b1_launches"]}
+    tr_b1_var = [tr_fit["launches_by_variant"]["fwd"],
+                 tr_sen["launches_by_variant"]["fwd"],
+                 trainer["test"]["b1_launches_by_variant"],
+                 trainer["predict"]["b1_launches_by_variant"]]
+    tr_b2 = {"trainer_fit": tr_fit["b2_launches"],
+             "trainer_sentinel": tr_sen["b2_launches"]}
+    tr_b5 = trainer["int8_train"]["b5_launches"]
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -4494,7 +5083,7 @@ def drive() -> int:
                      + train_mb["fwd_launches"] + scan["b1_launches"]
                      + corpus["fit"]["b1_launches"]
                      + corpus["predict"]["b1_launches"] + bigvul_b1
-                     + http_b1 + art_b1 + store_b1),
+                     + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -4505,7 +5094,8 @@ def drive() -> int:
                              "serve_http": serve_http["b1_launches"],
                              "serve_http_scan":
                                  serve_http["scan_cli"]["b1_launches"],
-                             "artifact": art_b1, "warm_store": store_b1},
+                             "artifact": art_b1, "warm_store": store_b1,
+                             **tr_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -4519,7 +5109,7 @@ def drive() -> int:
             bigvul["joern"]["b1_launches_by_variant"],
             serve_http["b1_launches_by_variant"],
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
-            artifact["warm_store"]["launches_by_variant"]),
+            artifact["warm_store"]["launches_by_variant"], *tr_b1_var),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -4537,18 +5127,21 @@ def drive() -> int:
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn_bwd.cu",
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
-                     + corpus["fit"]["b2_launches"] + bigvul_b2),
+                     + corpus["fit"]["b2_launches"] + bigvul_b2
+                     + sum(tr_b2.values())),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
                              "corpus_fit": corpus["fit"]["b2_launches"],
-                             "bigvul": bigvul_b2},
+                             "bigvul": bigvul_b2, **tr_b2},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
             train_mb["launches_by_variant"]["bwd"],
             corpus["fit"]["launches_by_variant"]["bwd"],
             bigvul["fit"]["launches_by_variant"]["bwd"],
-            bigvul["devign"]["fit"]["launches_by_variant"]["bwd"]),
+            bigvul["devign"]["fit"]["launches_by_variant"]["bwd"],
+            tr_fit["launches_by_variant"]["bwd"],
+            tr_sen["launches_by_variant"]["bwd"]),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],
@@ -4603,10 +5196,11 @@ def drive() -> int:
         "source": "deepdfa_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deepdfa_tpu/ops/int8_matmul.py:44",
         "launches": (serve8["n_launches"] + joint8["b5_launches"]
-                     + store_b5),
+                     + store_b5 + tr_b5),
         "launches_by_path": {"serve_int8": serve8["n_launches"],
                              "joint_int8": joint8["b5_launches"],
-                             "warm_store_int8": store_b5},
+                             "warm_store_int8": store_b5,
+                             "int8_train": tr_b5},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows
                            if r["x_dtype"] == "float32"),
         "max_rel_err": max(r["max_rel_err"] for r in int8_rows
@@ -4615,7 +5209,8 @@ def drive() -> int:
         "launches_by_variant": {
             v: (serve8["variant_launches"][v]
                 + joint8["b5_variant_launches"][v]
-                + artifact["warm_store_int8"]["launches_by_variant"][v])
+                + artifact["warm_store_int8"]["launches_by_variant"][v]
+                + trainer["int8_train"]["b5_launches_by_variant"][v])
             for v in i8.VARIANTS},
         # CUDA-graph replay times: CUDA-event times of a call this short
         # measure the host's per-call cost (the row's "ms", "plain_ms",

@@ -184,24 +184,46 @@ class CheckpointConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    """The in-step non-finite guard: when ``sentinel`` is on, a step whose
-    loss or any gradient is non-finite keeps the previous parameters,
-    optimizer state and metrics and reports a NaN loss. The rest of the JAX
-    package's resilience block (rollback, preemption, watchdog) is not
-    ported yet."""
+    """Fault-tolerance knobs (``deepdfa_tpu_torch/resilience``): the
+    divergence sentinel (with ``sentinel`` on, a step whose loss or any
+    gradient is non-finite keeps the previous parameters, optimizer state
+    and metrics; after ``sentinel_patience`` consecutive skips ``fit`` rolls
+    back to the last good checkpoint at ``lr * lr_backoff``, at most
+    ``max_rollbacks`` times), the preemption handler and its emergency
+    checkpoint, and the step watchdog."""
 
     sentinel: bool = True
+    sentinel_patience: int = 3  # consecutive non-finite steps → rollback
+    sentinel_lag: int = 2  # the host checks the loss N steps behind
+    lr_backoff: float = 0.5  # LR scale applied per rollback
+    max_rollbacks: int = 3  # rollbacks before the run gives up
+    emergency_ckpt: bool = True  # SIGTERM/SIGUSR1 → step-boundary emergency save
+    preempt_deadline_s: float = 30.0  # emergency-commit latency budget
+    step_deadline_s: float = 0.0  # per-step watchdog deadline; 0 = off
+
+    def __post_init__(self):
+        if self.sentinel_patience < 1:
+            raise ValueError("sentinel_patience must be >= 1")
+        if self.sentinel_lag < 0:
+            raise ValueError("sentinel_lag must be >= 0")
+        if not 0.0 < self.lr_backoff <= 1.0:
+            raise ValueError("lr_backoff must be in (0, 1]")
+        if self.max_rollbacks < 0:
+            raise ValueError("max_rollbacks must be >= 0")
+        if self.preempt_deadline_s <= 0:
+            raise ValueError("preempt_deadline_s must be > 0")
+        if self.step_deadline_s < 0:
+            raise ValueError("step_deadline_s must be >= 0 (0 disables)")
 
 
 @dataclass(frozen=True)
 class ObsConfig:
     """Observability knobs (``deepdfa_tpu_torch/obs``; CLI: ``--set
     serve.obs.*``): request tracing, slow-trace exemplars, the score-drift
-    sentinel, the flight recorder and the SLO burn-rate engine.
-    ``train_port`` (the trainer's telemetry endpoint) waits for ROADMAP A4
-    and raises when set."""
+    sentinel, the flight recorder, the SLO burn-rate engine and the
+    trainer's telemetry endpoint (``train_port``)."""
 
-    trace: bool = True  # record spans on the serve path
+    trace: bool = True  # record spans on the serve and train paths
     trace_buffer: int = 4096  # bounded in-memory span buffer per process
     # root spans slower than this journal their whole trace as an
     # event=trace exemplar (None/<=0 disables)
@@ -215,7 +237,7 @@ class ObsConfig:
     drift_threshold: float = 0.2
     drift_min_samples: int = 64
     drift_max_revs: int = 64
-    train_port: int = -1  # -1 disables (ROADMAP A4)
+    train_port: int = -1  # trainer /metrics, /healthz, /slo; -1 disables
     # flight recorder: bounded ring of the last N events, dumped atomically
     # as flight-<ts>.json on a crash or SIGUSR2
     flight_events: int = 256
@@ -224,8 +246,8 @@ class ObsConfig:
     slo_availability: float = 0.99  # non-5xx floor
     slo_error_rate: float = 0.95  # non-error (2xx) floor
     slo_p99_ms: float = 2000.0  # p99 latency ceiling
-    slo_step_ms: float = 0.0  # train mean-step ceiling (ROADMAP A4)
-    slo_mfu_floor: float = 0.0  # train MFU floor (ROADMAP A4)
+    slo_step_ms: float = 0.0  # train mean-step ceiling; 0 disables
+    slo_mfu_floor: float = 0.0  # train MFU floor; 0 disables
     slo_fast_window_s: float = 300.0
     slo_slow_window_s: float = 3600.0
     slo_burn_threshold: float = 2.0
@@ -265,11 +287,6 @@ class ObsConfig:
                 "need 0 < slo_fast_window_s <= slo_slow_window_s")
         if self.slo_burn_threshold <= 0:
             raise ValueError("slo_burn_threshold must be > 0")
-        for name in ("train_port", "slo_step_ms", "slo_mfu_floor"):
-            if getattr(self, name) != _default(type(self), name):
-                raise NotImplementedError(
-                    f"ObsConfig.{name} is not ported yet: ROADMAP A4 "
-                    "(training telemetry)")
 
 
 @dataclass(frozen=True)
@@ -553,16 +570,6 @@ _NOT_PORTED: dict[tuple[str, str], str] = {
     ("ExperimentConfig", "profile"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "time"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "trace"): "ROADMAP A13 (profiling)",
-    ("ResilienceConfig", "sentinel_patience"): "ROADMAP A4 (divergence "
-                                               "rollback)",
-    ("ResilienceConfig", "sentinel_lag"): "ROADMAP A4 (divergence rollback)",
-    ("ResilienceConfig", "lr_backoff"): "ROADMAP A4 (divergence rollback)",
-    ("ResilienceConfig", "max_rollbacks"): "ROADMAP A4 (divergence rollback)",
-    ("ResilienceConfig", "emergency_ckpt"): "ROADMAP A4 (preemption and "
-                                            "emergency checkpoints)",
-    ("ResilienceConfig", "preempt_deadline_s"): "ROADMAP A4 (preemption and "
-                                                "emergency checkpoints)",
-    ("ResilienceConfig", "step_deadline_s"): "ROADMAP A4 (watchdog)",
 }
 
 

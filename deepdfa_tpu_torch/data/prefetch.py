@@ -10,7 +10,8 @@ queue. On the CPU it is a plain iterator: batches are converted one at a
 time in the consumer's thread.
 
 Exceptions raised by the producer (e.g. an oversize graph rejected by the
-batcher mid-stream) are re-raised in the consumer at the point of ``next()``.
+batcher mid-stream, or the ``prefetch.producer_raises`` fault point) are
+re-raised in the consumer at the point of ``next()``.
 Closing the generator (or leaving its loop early) stops the producer and
 joins its thread.
 """
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.data.graphs import BatchedGraphs, to_device
+from deepdfa_tpu_torch.resilience import faults
 
 __all__ = ["prefetch_to_device"]
 
@@ -70,6 +72,7 @@ def prefetch_to_device(iterator: Iterable[BatchedGraphs], device,
     device = torch.device(device)
     if device.type != "cuda" or size <= 0:
         for batch in iterator:
+            faults.raise_if("prefetch.producer_raises")
             yield to_device(batch, device)
         return
 
@@ -94,6 +97,9 @@ def prefetch_to_device(iterator: Iterable[BatchedGraphs], device,
         try:
             torch.cuda.set_device(device)
             for batch in iterator:
+                # a batcher blowing up mid-stream inside the thread must
+                # surface at the consumer's next(), never hang
+                faults.raise_if("prefetch.producer_raises")
                 if not _put(_stage(batch, device, stream)):
                     return
         except BaseException as e:  # re-raised consumer-side

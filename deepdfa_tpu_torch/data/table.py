@@ -28,6 +28,7 @@ order (``columns``) beside it. A missing value is ``float("nan")``, as
 from __future__ import annotations
 
 import csv
+import gzip
 import json
 import math
 import re
@@ -143,12 +144,15 @@ def _csv_column(raw: list[str | None], as_str: bool) -> list:
 
 
 def read_csv(path: str | Path, *, str_columns: Iterable[str] = ()) -> Rows:
-    """Read a CSV file as ``pd.read_csv(path, dtype={c: str for c in
-    str_columns})`` does (see the module docstring). A row with more
+    """Read a CSV file (gzip-compressed when ``path`` ends in ``.gz``) as
+    ``pd.read_csv(path, dtype={c: str for c in str_columns})`` does (see
+    the module docstring). A row with more
     fields than the header raises ``ValueError`` (pandas would take the
     extra leading field as the index); a shorter one is padded with NaN."""
     _raise_field_limit()
-    with open(path, newline="", encoding="utf-8-sig") as f:
+    # a ``.gz`` path is gzip-compressed, as pandas infers from the suffix
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rt", newline="", encoding="utf-8-sig") as f:
         records = [r for r in csv.reader(f) if r]
     if not records:
         raise ValueError(f"{path}: no columns to parse")

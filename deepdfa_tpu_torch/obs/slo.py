@@ -1,8 +1,8 @@
 """SLO burn-rate engine — declarative objectives judged from metric snapshots.
 
 A trimmed copy of ``deepdfa_tpu/obs/slo.py``: the engine, the serve-side
-specs and the ``alerts.json`` artifact. The router's, the federation's and
-the trainer's specs wait for ROADMAP A15 and A4. An :class:`SLOSpec`
+and trainer specs and the ``alerts.json`` artifact. The router's and the
+federation's specs wait for ROADMAP A15. An :class:`SLOSpec`
 declares one objective over keys of a flat metrics snapshot, in one of
 three kinds:
 
@@ -11,9 +11,9 @@ three kinds:
   multi-window form: the bad fraction over a window divided by the budget,
   alerting only when BOTH the fast and the slow window burn above the
   threshold.
-- ``max`` — a windowed gauge ceiling (p99 latency). Burn is
+- ``max`` — a windowed gauge ceiling (p99 latency, mean step time). Burn is
   ``mean / target``; it alerts when sustained above 1.
-- ``min`` — a windowed gauge floor. Burn is ``target / mean``.
+- ``min`` — a windowed gauge floor (MFU). Burn is ``target / mean``.
 
 The engine is fed at *scrape* time (``observe(snapshot)``), keeps a bounded
 sample deque per spec, and renders through
@@ -40,6 +40,7 @@ __all__ = [
     "SLOSpec",
     "SLOEngine",
     "serve_specs",
+    "train_specs",
     "write_alerts_artifact",
 ]
 
@@ -299,6 +300,19 @@ def serve_specs(*, availability: float = 0.99, error_rate: float = 0.95,
                     total="cascade_escalated_total"),
         )
     return specs
+
+
+def train_specs(*, step_ms: float = 0.0,
+                mfu_floor: float = 0.0) -> tuple[SLOSpec, ...]:
+    """Train-side objectives; 0 disables a spec (step time and MFU floors
+    are hardware-specific, so there is no honest universal default)."""
+    specs = []
+    if step_ms > 0:
+        specs.append(SLOSpec("step_time", "max", step_ms,
+                             value="mean_step_ms"))
+    if mfu_floor > 0:
+        specs.append(SLOSpec("mfu_floor", "min", mfu_floor, value="mfu"))
+    return tuple(specs)
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ __all__ = [
     "Tracer",
     "new_trace_id",
     "new_span_id",
+    "load_trace_records",
     "parse_traceparent",
     "chrome_trace",
 ]
@@ -301,3 +302,22 @@ def chrome_trace(spans) -> dict:
                      **(rec.get("attrs") or {})},
         })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def load_trace_records(path: str | Path) -> list[dict]:
+    """Load ``event=trace`` exemplar records from one file or every
+    ``trace-*.json`` under a directory (a run dir is searched recursively
+    so ``<run>/traces/`` works without naming it). Unreadable or non-trace
+    files are skipped: export is a reporting path."""
+    path = Path(path)
+    files = ([path] if path.is_file()
+             else sorted(path.rglob("trace-*.json")))
+    out = []
+    for f in files:
+        try:
+            rec = json.loads(f.read_text())
+        except (OSError, json.JSONDecodeError):
+            continue
+        if isinstance(rec, dict) and rec.get("event") == "trace":
+            out.append(rec)
+    return out

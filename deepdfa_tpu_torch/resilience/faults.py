@@ -1,10 +1,12 @@
 """Deterministic, named fault-injection points.
 
 A copy of ``deepdfa_tpu/resilience/faults.py`` that declares only the
-points the port fires: the Joern session's (``cpg/joern_session.py``), the
-HTTP service's, the tracer's and flight recorder's, the extraction pool's,
-the cascade's and the frontend pool's. The other points of the JAX
-registry come with their fire sites (ROADMAP A15).
+points the port fires: the trainer's (``train/checkpoint.py``,
+``train/loop.py``, ``data/prefetch.py``), the Joern session's
+(``cpg/joern_session.py``), the HTTP service's, the tracer's and flight
+recorder's, the extraction pool's, the cascade's and the frontend pool's.
+The other points of the JAX registry come with their fire sites (ROADMAP
+A11, A15).
 
 Faults are (a) reachable from outside the process — a subprocess under
 test arms them through the ``DEEPDFA_FAULTS`` environment variable — (b)
@@ -49,10 +51,15 @@ __all__ = [
 ENV_VAR = "DEEPDFA_FAULTS"
 
 KNOWN_POINTS = (
+    "ckpt.crash_between_state_and_meta",
+    "step.nan_grads",
+    "prefetch.producer_raises",
     "joern.hang",
     "joern.die",
     "serve.drop_request",
     "serve.engine_raises",
+    "preempt.sigterm",
+    "step.hang",
     "obs.trace_drop",
     "obs.flight_drop",
     "extract.worker_crash",
@@ -64,6 +71,14 @@ KNOWN_POINTS = (
 
 # One line per point; keys equal KNOWN_POINTS.
 POINT_DOCS = {
+    "ckpt.crash_between_state_and_meta": (
+        "hard-exit between the checkpoint state write and its meta.json "
+        "commit (train/checkpoint.py)"),
+    "step.nan_grads": (
+        "poison one train step's loss scale so its gradients go NaN "
+        "(train/loop.py)"),
+    "prefetch.producer_raises": (
+        "raise inside the prefetch producer thread (data/prefetch.py)"),
     "joern.hang": (
         "swallow one REPL command so the prompt never returns "
         "(cpg/joern_session.py)"),
@@ -75,6 +90,12 @@ POINT_DOCS = {
     "serve.engine_raises": (
         "raise inside the scoring engine — that batch's requests get 500s, "
         "the dispatcher survives (serve/server.py)"),
+    "preempt.sigterm": (
+        "flag a preemption notice at a train step boundary, as if SIGTERM "
+        "had arrived — drives the emergency-checkpoint path (train/loop.py)"),
+    "step.hang": (
+        "wedge one train step: a cancel-aware sleep the HangWatchdog must "
+        "convert into a bounded, journaled timeout abort (train/loop.py)"),
     "obs.trace_drop": (
         "lose one span at export — counted in dropped_total; the request it "
         "annotates must still succeed (obs/tracing.py)"),

@@ -1,5 +1,6 @@
-"""Checkpointing: best/last/periodic policies, retention and crash-safe
-commits.
+"""Checkpointing: best/last/periodic policies, retention, crash-safe
+commits, emergency checkpoints and the encoder transfer (partial load and
+freeze).
 
 The port of ``CheckpointManager`` (``deepdfa_tpu/train/checkpoint.py``)
 with ``torch.save`` payloads in place of orbax. A step is written into
@@ -7,7 +8,9 @@ with ``torch.save`` payloads in place of orbax. A step is written into
 ``aux.pt`` (the optimizer state, the generator state and the step, what
 ``fit(resume=True)`` needs), then ``meta.json`` — and only then renamed
 into place with ``os.replace``. ``meta.json`` inside a committed directory
-is therefore the commit marker: :meth:`CheckpointManager._scan` deletes
+is therefore the commit marker (the ``ckpt.crash_between_state_and_meta``
+fault point kills the process between the payload and the marker):
+:meth:`CheckpointManager._scan` deletes
 ``*.tmp`` leftovers and marker-less step directories, and
 :meth:`CheckpointManager.restore_resume` walks newest to oldest past any
 step whose payload fails to load, so a corrupt step costs one step of
@@ -15,6 +18,11 @@ progress, never the run.
 
 Payloads load with ``torch.load(weights_only=True)``: tensors, numbers and
 containers only.
+
+The encoder transfer (the reference's ``--freeze_graph``,
+``main_cli.py:136-145``) works over state-dict keys: the head (``head.*``,
+the JAX package's ``out_{i}``) and the pooling gate (``pooling.*``) are
+re-initialised and trained, the rest loaded and frozen.
 """
 
 from __future__ import annotations
@@ -23,15 +31,31 @@ import json
 import os
 import re
 import shutil
+import time
 from pathlib import Path
 from typing import Any
 
 import torch
 
 from deepdfa_tpu_torch.config import CheckpointConfig
+from deepdfa_tpu_torch.resilience import faults
 from deepdfa_tpu_torch.resilience.journal import fsync_dir
 
-__all__ = ["CheckpointManager"]
+__all__ = [
+    "CheckpointManager",
+    "encoder_partial_load",
+    "freeze_mask",
+    "frozen_encoder_optimizer",
+    "is_head_key",
+]
+
+
+def is_head_key(key: str) -> bool:
+    """State-dict entries of the classification head (``head.{i}``, the
+    JAX package's ``out_{i}``) or the attention-pooling gate (``pooling``):
+    left out and re-initialised on encoder transfer, the keys the reference
+    drops (``main_cli.py:139-141``)."""
+    return key.split(".", 1)[0] in ("pooling", "head")
 
 
 class CheckpointManager:
@@ -78,13 +102,19 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
 
     def save(self, step: int, state: Any, metrics: dict[str, float] | None = None,
-             epoch: int | None = None, aux: Any | None = None) -> bool:
+             epoch: int | None = None, aux: Any | None = None,
+             preempted: dict | None = None, force: bool = False) -> bool:
         """Save if any policy wants this step, then apply retention. Returns
         whether a checkpoint was written. ``state`` and ``aux`` are anything
         ``torch.save`` writes (tensors, numbers, containers); ``aux`` is
-        restored by :meth:`restore_aux` only."""
+        restored by :meth:`restore_aux` only. ``preempted`` (``{"steps_done":
+        n, "reason": ...}``) lands in ``meta.json`` for the mid-epoch
+        resume; ``force`` commits whatever the policies say (the emergency
+        checkpoint)."""
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         reasons = []
+        if force:
+            reasons.append("emergency")
         if self.cfg.save_last:
             reasons.append("last")
         if epoch is not None and self.cfg.periodic_every and (
@@ -106,7 +136,10 @@ class CheckpointManager:
         torch.save(state, tmp / "state.pt")
         if aux is not None:
             torch.save(aux, tmp / "aux.pt")
+        faults.crash_if("ckpt.crash_between_state_and_meta")
         meta = dict(step=int(step), epoch=epoch, metrics=metrics, reasons=reasons)
+        if preempted is not None:
+            meta["preempted"] = dict(preempted)
         (tmp / "meta.json").write_text(json.dumps(meta))
         if path.exists():
             shutil.rmtree(path)
@@ -118,6 +151,24 @@ class CheckpointManager:
         self._saved.sort(key=lambda m: m["step"])
         self._retain()
         return True
+
+    def save_emergency(self, step: int, state: Any, *, epoch: int | None,
+                       aux: Any | None = None, steps_done: int = 0,
+                       reason: str = "preempted") -> float:
+        """The preemption path's save: a forced commit through the ordinary
+        atomic protocol whose ``meta.json`` records how far into the epoch
+        the run got (the resume replays the epoch's deterministic stream and
+        skips ``steps_done`` batches). Returns the commit's wall seconds,
+        which the caller holds against ``resilience.preempt_deadline_s``.
+        Tensors on the card are copied to the host inside the timed
+        commit, after the stream has finished the step that made them."""
+        t0 = time.monotonic()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.save(step, state, metrics={}, epoch=epoch, aux=aux,
+                  preempted={"steps_done": int(steps_done), "reason": reason},
+                  force=True)
+        return time.monotonic() - t0
 
     def _is_best(self, value: float) -> bool:
         best = self.best_metric()
@@ -212,3 +263,40 @@ class CheckpointManager:
 
     def meta(self, step: int) -> dict:
         return json.loads((self._path(step) / "meta.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# encoder transfer (freeze_graph)
+
+
+def encoder_partial_load(init_state: dict, ckpt_state: dict) -> dict:
+    """``init_state`` with every entry of ``ckpt_state`` laid over it,
+    *except* the head and the pooling gate, which keep their fresh values
+    (``main_cli.py:136-145``: the checkpoint loaded minus ``out``/pooling)."""
+    out = dict(init_state)
+    for key, value in ckpt_state.items():
+        if not is_head_key(key) and key in out:
+            out[key] = value
+    return out
+
+
+def freeze_mask(state: dict) -> dict[str, bool]:
+    """``{key: trainable}`` over a state dict: True for the head and the
+    pooling gate, False for the frozen encoder."""
+    return {key: is_head_key(key) for key in state}
+
+
+def frozen_encoder_optimizer(model: torch.nn.Module, make_optimizer):
+    """``make_optimizer(params)`` over the head and pooling parameters of
+    ``model`` only (the ``--freeze_graph`` training mode,
+    ``main_cli.py:142-145``). The encoder's parameters get
+    ``requires_grad=False`` and stay out of the optimizer, so no update
+    touches them, weight decay included (``optax.set_to_zero`` zeroes the
+    whole update)."""
+    trainable = []
+    for name, param in model.named_parameters():
+        keep = is_head_key(name)
+        param.requires_grad_(keep)
+        if keep:
+            trainable.append(param)
+    return make_optimizer(trainable)

@@ -13,17 +13,22 @@ state object, advanced.
 
 The optimizer is ``optax.adamw``'s: ``AdamW(lr, betas=(0.9, 0.999),
 eps=1e-8, weight_decay)`` over every parameter, after
-``clip_grad_norm_(grad_clip)`` when ``optim.grad_clip`` is set. Node and
-dataflow label styles, the node-level loss undersampling, the divergence
-sentinel's rollback, preemption, the watchdog and telemetry are not ported
-yet (ROADMAP A3, A4).
+``clip_grad_norm_(grad_clip)`` when ``optim.grad_clip`` is set.
+:meth:`Trainer.train_epoch` takes the resilience layer's hooks as the JAX
+package's does: the divergence sentinel, the preemption handler, a
+mid-epoch skip count, the step watchdog and the training telemetry, and
+fires the ``step.nan_grads``, ``preempt.sigterm`` and ``step.hang`` fault
+points. Node and dataflow label styles and the node-level loss
+undersampling are not ported yet (ROADMAP A3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import time
+from contextlib import nullcontext
 from typing import Callable, Iterable
 
 import torch
@@ -33,6 +38,8 @@ from deepdfa_tpu_torch.config import ExperimentConfig
 from deepdfa_tpu_torch.data.graphs import BatchedGraphs
 from deepdfa_tpu_torch.data.prefetch import prefetch_to_device
 from deepdfa_tpu_torch.ops.segment import segment_max
+from deepdfa_tpu_torch.resilience import faults
+from deepdfa_tpu_torch.resilience.preemption import Preempted
 from deepdfa_tpu_torch.train.metrics import (ConfusionState, compute_metrics,
                                              update_confusion)
 
@@ -189,9 +196,10 @@ class Trainer:
     There is no segment twin for oversized buckets: on the card the fused
     and whole-model kernels take every bucket shape the batcher emits, or
     raise. After each
-    epoch or evaluation, ``step_ms`` holds the host milliseconds of each
-    train step (each ends at the guard's device sync), ``train_seconds`` the
-    epoch's wall time and ``n_eval_batches`` counts evaluated batches."""
+    epoch or evaluation (an epoch that raised included), ``step_ms`` holds
+    the host milliseconds of each train step run (each ends at the guard's
+    device sync), ``train_seconds`` the epoch's wall time and
+    ``n_eval_batches`` counts evaluated batches."""
 
     model: nn.Module
     cfg: ExperimentConfig
@@ -251,28 +259,135 @@ class Trainer:
         return prefetch_to_device(batches, self.device,
                                   size=self.cfg.data.prefetch)
 
-    def train_epoch(self, state: TrainState, batches: Iterable[BatchedGraphs]
+    def _watched(self, step: Callable) -> Callable:
+        """``step`` run on a watchdog's worker thread: CUDA's current device
+        is per thread, so the worker enters the model's device first."""
+        if self.device.type != "cuda":
+            return step
+
+        def run(*args):
+            with torch.cuda.device(self.device):
+                return step(*args)
+
+        return run
+
+    def train_epoch(self, state: TrainState, batches: Iterable[BatchedGraphs],
+                    sentinel=None, preemption=None, skip_steps: int = 0,
+                    watchdog=None, telemetry=None
                     ) -> tuple[TrainState, dict[str, float], float]:
-        """One pass over ``batches``: ``(state, train metrics, mean loss)``."""
+        """One pass over ``batches``: ``(state, train metrics, mean loss)``.
+
+        ``sentinel``: a :class:`~deepdfa_tpu_torch.resilience.sentinel.
+        DivergenceSentinel` observing every step's loss; it raises
+        ``DivergenceError`` after ``patience`` consecutive skipped
+        (non-finite) steps. The ``step.nan_grads`` fault point poisons a
+        step through its ``loss_scale``.
+
+        ``preemption``: a :class:`~deepdfa_tpu_torch.resilience.preemption.
+        PreemptionHandler` whose flag is read at every step boundary; once
+        set (a real SIGTERM/SIGUSR1, or the ``preempt.sigterm`` fault) the
+        loop raises :class:`Preempted` with the state and the batches
+        consumed this epoch.
+
+        ``skip_steps``: pass over the first N batches of the deterministic
+        stream without running them (the mid-epoch resume after a
+        preemption); they are dropped before the prefetcher, so none is
+        copied to the card.
+
+        ``watchdog``: a :class:`~deepdfa_tpu_torch.resilience.watchdog.
+        HangWatchdog`; every step, its host sync (the guard's) included,
+        runs under its deadline, and the ``step.hang`` fault parks a
+        cancel-aware wedge there (armed without a watchdog it does nothing).
+
+        ``telemetry``: a :class:`~deepdfa_tpu_torch.obs.telemetry.
+        TrainTelemetry`. It only reads clocks: batches, generator and step
+        order are untouched, so a telemetered epoch is bitwise a bare one.
+        """
         metrics = ConfusionState.zeros(self.device)
         losses, wsums = [], []
         self.step_ms = []
+        nan_armed = faults.active("step.nan_grads")
+        pre_armed = preemption is not None and faults.active("preempt.sigterm")
+        hang_armed = watchdog is not None and faults.active("step.hang")
         t_epoch = time.perf_counter()
-        stream = self._stream(batches)
+        source = iter(batches)
+        consumed = sum(1 for _ in itertools.islice(source, max(skip_steps, 0)))
+        stream = self._stream(source)
+        tracer = telemetry.tracer if telemetry is not None else None
+        epoch_cm = (tracer.span("train.epoch", root=True)
+                    if tracer is not None else nullcontext())
         try:
-            for batch in stream:
-                step, _ = self.steps_for(batch)
-                t0 = time.perf_counter()
-                state, metrics, loss, wsum = step(state, batch, metrics)
-                self.step_ms.append((time.perf_counter() - t0) * 1e3)
-                losses.append(loss)
-                wsums.append(wsum)
-            out = (state, compute_metrics(metrics, "train_"),
-                   _weighted_mean(losses, wsums))
+            with epoch_cm as epoch_sp:
+                parent = None if epoch_sp is None else epoch_sp.ctx
+                while True:
+                    t_wait = time.time()
+                    try:
+                        batch = next(stream)
+                    except StopIteration:
+                        break
+                    wait_end = time.time()
+                    if pre_armed and faults.fire("preempt.sigterm"):
+                        if telemetry is not None:
+                            telemetry.record_event(
+                                "fault.fired", point="preempt.sigterm",
+                                step=consumed)
+                        preemption.trigger("injected fault preempt.sigterm")
+                    if preemption is not None and preemption.triggered:
+                        raise Preempted(state, consumed,
+                                        preemption.reason or "preempted")
+                    step, _ = self.steps_for(batch)
+                    if hang_armed and faults.fire("step.hang"):
+                        # a simulated wedged step: parks until the deadline
+                        # cancels it, then WatchdogTimeout
+                        if telemetry is not None:
+                            telemetry.record_event(
+                                "fault.fired", point="step.hang",
+                                step=consumed)
+                        watchdog.call("train_step", lambda cancel: cancel.wait(),
+                                      cancel_aware=True)
+                    nan_fired = nan_armed and faults.fire("step.nan_grads")
+                    if nan_fired and telemetry is not None:
+                        telemetry.record_event(
+                            "fault.fired", point="step.nan_grads",
+                            step=consumed)
+                    args = ((state, batch, metrics, float("nan")) if nan_fired
+                            else (state, batch, metrics))
+                    t_disp, t0 = time.time(), time.perf_counter()
+                    if watchdog is not None:
+                        state, metrics, loss, wsum = watchdog.call(
+                            "train_step", self._watched(step), *args)
+                    else:
+                        state, metrics, loss, wsum = step(*args)
+                    disp_end = time.time()
+                    self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    consumed += 1
+                    if telemetry is not None:
+                        # the bucket's shape fixes every leaf's shape
+                        shape_key = (batch.max_graphs, batch.max_nodes,
+                                     batch.senders.shape[0])
+                        telemetry.observe_step(wait_end - t_wait,
+                                               disp_end - t_disp,
+                                               shape_key=shape_key)
+                        tracer.record("data.wait", t_wait, wait_end,
+                                      parent=parent, step=consumed - 1)
+                        tracer.record("step.dispatch", t_disp, disp_end,
+                                      parent=parent, step=consumed - 1)
+                    if sentinel is not None:
+                        sentinel.observe(loss)
+                    losses.append(loss)
+                    wsums.append(wsum)
+                if sentinel is not None:
+                    sentinel.flush()
+                t_sync = time.time()
+                out = (state, compute_metrics(metrics, "train_"),
+                       _weighted_mean(losses, wsums))
+                if tracer is not None:
+                    tracer.record("device.sync", t_sync, parent=parent,
+                                  n_steps=consumed)
         finally:
             # joins the prefetch thread, also when a step raised
             stream.close()
-        self.train_seconds = time.perf_counter() - t_epoch
+            self.train_seconds = time.perf_counter() - t_epoch
         return out
 
     def evaluate(self, model: nn.Module, batches: Iterable[BatchedGraphs],

@@ -1,22 +1,29 @@
-"""Masked confusion counts and the metrics computed from them.
+"""Masked confusion counts, the metrics computed from them, PR curves and
+the confusion matrix.
 
-The port of the part of ``deepdfa_tpu/train/metrics.py`` the trainer uses:
-the counts are float32 scalar tensors on the batch's device, updated step by
-step without a host sync; masked rows contribute nothing. ``compute_metrics``
-mirrors torchmetrics' micro-averaged defaults (global counts, threshold 0.5,
-0 when a denominator is 0). :func:`classification_report` is the JAX
-package's sklearn-style report, computed here with numpy alone.
+The port of ``deepdfa_tpu/train/metrics.py``: the counts are float32 scalar
+tensors on the batch's device, updated step by step without a host sync;
+masked rows contribute nothing. ``compute_metrics`` mirrors torchmetrics'
+micro-averaged defaults (global counts, threshold 0.5, 0 when a denominator
+is 0). :func:`classification_report` and :func:`pr_curve` are the JAX
+package's sklearn calls, computed here with numpy alone (the card's machine
+has no sklearn). The statement top-k ranking (``eval_statements``) waits
+for the node label style (ROADMAP A3).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import warnings
+
 import numpy as np
 import torch
 
-__all__ = ["ConfusionState", "classification_report", "compute_metrics",
-           "update_confusion"]
+__all__ = ["ConfusionState", "MeanState", "binned_pr_curve",
+           "classification_report", "compute_metrics", "confusion_matrix",
+           "pr_curve", "update_confusion", "update_confusion_by_class",
+           "update_mean"]
 
 
 class ConfusionState(NamedTuple):
@@ -61,6 +68,45 @@ def compute_metrics(state: ConfusionState, prefix: str = "") -> dict[str, float]
         f"{prefix}Recall": rec,
         f"{prefix}F1Score": f1,
     }
+
+
+class MeanState(NamedTuple):
+    total: torch.Tensor
+    count: torch.Tensor
+
+    @classmethod
+    def zeros(cls, device=None) -> "MeanState":
+        return cls(*(torch.zeros((), dtype=torch.float32, device=device)
+                     for _ in range(2)))
+
+    def compute(self) -> float:
+        c = float(self.count)
+        return float(self.total) / c if c else 0.0
+
+
+def update_mean(state: MeanState, value, weight=1.0) -> MeanState:
+    value = torch.as_tensor(value, dtype=torch.float32,
+                            device=state.total.device)
+    weight = torch.as_tensor(weight, dtype=torch.float32,
+                             device=state.total.device)
+    return MeanState(state.total + value * weight, state.count + weight)
+
+
+def update_confusion_by_class(state_pos: ConfusionState,
+                              state_neg: ConfusionState, probs: torch.Tensor,
+                              labels: torch.Tensor,
+                              mask: torch.Tensor | None = None,
+                              threshold: float = 0.5
+                              ) -> tuple[ConfusionState, ConfusionState]:
+    """Positive-only and negative-only collections (the reference's
+    ``test_metrics_positive`` / ``_negative``, ``base_module.py:50-60``):
+    each sees only the examples whose true label matches."""
+    m = torch.ones_like(probs) if mask is None else mask.float()
+    lab = labels.float()
+    pos = update_confusion(state_pos, probs, labels, m * lab, threshold)
+    neg = update_confusion(state_neg, probs, labels, m * (1.0 - lab),
+                           threshold)
+    return pos, neg
 
 
 def _divide(num: np.ndarray, den: np.ndarray) -> np.ndarray:
@@ -111,3 +157,68 @@ def classification_report(probs: np.ndarray, labels: np.ndarray,
         f"f1_{avg}": mean(f),
         "support_0": int(true_sum[0]), "support_1": int(true_sum[1]),
     }
+
+
+def confusion_matrix(probs: np.ndarray, labels: np.ndarray,
+                     threshold: float = 0.5) -> np.ndarray:
+    """2x2 confusion matrix [[tn, fp], [fn, tp]] (``base_module.py:383``)."""
+    preds = (np.asarray(probs) >= threshold).astype(int)
+    labels = np.asarray(labels).astype(int)
+    return np.bincount(labels * 2 + preds, minlength=4).reshape(2, 2)
+
+
+def pr_curve(probs: np.ndarray, labels: np.ndarray):
+    """(precision, recall, thresholds), written to ``pr.csv``
+    (``base_module.py:358-359``): ``sklearn.metrics.precision_recall_curve``
+    as sklearn 1.9 computes it (no truncation at full recall), with a
+    closing threshold of 1.0 appended as the JAX package does. Scores are
+    sorted descending; each distinct score is one threshold, its ties
+    counted together; precision is 0 where nothing is predicted positive,
+    and recall is 1 everywhere (with a warning) when no label is positive.
+    Labels must be 0/1."""
+    y_true = np.asarray(labels).reshape(-1)
+    y_score = np.asarray(probs).reshape(-1)
+    if y_true.shape != y_score.shape:
+        raise ValueError(f"pr_curve: {y_true.size} labels for {y_score.size} "
+                         "scores")
+    if not np.all(np.isfinite(y_score)):
+        raise ValueError("pr_curve: non-finite scores")
+    if not np.isin(np.unique(y_true), (0, 1)).all():
+        raise ValueError("pr_curve: labels must be 0/1")
+    order = np.argsort(y_score, kind="stable")[::-1]
+    y_score = y_score[order]
+    hit = (y_true[order] == 1).astype(np.float64)
+    idx = np.concatenate([np.nonzero(np.diff(y_score))[0],
+                          [y_true.size - 1]])
+    tps = np.cumsum(hit, dtype=np.float64)[idx]
+    fps = 1 + idx.astype(np.float64) - tps
+    ps = tps + fps
+    precision = np.where(ps != 0, np.divide(tps, np.where(ps != 0, ps, 1.0)),
+                         0.0)
+    if tps[-1] == 0:
+        warnings.warn("No positive class found in y_true, recall is set to "
+                      "one for all thresholds.")
+        recall = np.full(tps.shape, 1.0)
+    else:
+        recall = tps / tps[-1]
+    return (np.concatenate([precision[::-1], [1.0]]),
+            np.concatenate([recall[::-1], [0.0]]),
+            np.concatenate([y_score[idx][::-1], [1.0]]))
+
+
+def binned_pr_curve(probs: np.ndarray, labels: np.ndarray, bins: int = 1):
+    """Fixed-threshold PR curve, as
+    ``torchmetrics.BinnedPrecisionRecallCurve(num_thresholds=bins)``."""
+    thresholds = np.linspace(0, 1, bins)
+    precision = np.zeros(bins + 1)
+    recall = np.zeros(bins + 1)
+    for i, t in enumerate(thresholds):
+        preds = probs >= t
+        tp = float(np.sum(preds & (labels == 1)))
+        fp = float(np.sum(preds & (labels == 0)))
+        fn = float(np.sum(~preds & (labels == 1)))
+        precision[i] = tp / (tp + fp) if (tp + fp) else 1.0
+        recall[i] = tp / (tp + fn) if (tp + fn) else 0.0
+    precision[bins] = 1.0
+    recall[bins] = 0.0
+    return precision, recall, np.concatenate([thresholds, [1.0]])

@@ -1,7 +1,8 @@
-"""Storage layout.
+"""Storage layout, run ids and host seeding.
 
 A copy of the directory helpers of ``deepdfa_tpu/utils.py``: the storage
-root and its ``external``/``processed``/``cache`` children. The default
+root and its ``external``/``processed``/``cache`` children, ``get_run_id``
+and ``seed_all``. The default
 root is the repository's ``storage/`` directory, the JAX package's own, so
 the two packages read each other's shard directories; the environment
 variable ``DEEPDFA_STORAGE`` moves it. Every helper creates its directory
@@ -10,11 +11,16 @@ when it is first asked for.
 
 from __future__ import annotations
 
+import datetime
 import os
+import random
 from pathlib import Path
+from typing import Sequence
+
+import numpy as np
 
 __all__ = ["project_dir", "storage_dir", "external_dir", "processed_dir",
-           "cache_dir", "get_dir"]
+           "cache_dir", "get_dir", "get_run_id", "seed_all"]
 
 
 def project_dir() -> Path:
@@ -50,3 +56,20 @@ def processed_dir() -> Path:
 def cache_dir() -> Path:
     """Memoisation caches; safe to delete."""
     return get_dir(storage_dir() / "cache")
+
+
+def get_run_id(args: Sequence[str] | None = None) -> str:
+    """Timestamped unique run id, e.g. ``202607290755_1a2b3c_fit``
+    (timestamp + short random hex + optional slug), reproducible after
+    :func:`seed_all`."""
+    stamp = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
+    nonce = "%06x" % random.randrange(16**6)
+    slug = "_".join(str(a) for a in args) if args else ""
+    return f"{stamp}_{nonce}" + (f"_{slug}" if slug else "")
+
+
+def seed_all(seed: int = 0) -> None:
+    """Seed the host generators (``random``, numpy's global one). The
+    trainer draws from explicit generators seeded by the config."""
+    random.seed(seed)
+    np.random.seed(seed)

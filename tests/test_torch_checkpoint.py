@@ -30,6 +30,17 @@ from deepdfa_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from deepdfa_tpu_torch.train.fit import fit  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small fits: they run as fast
+    as on every core, and six test workers with a thread per core each
+    oversubscribe the host ten times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _own_storage(tmp_path_factory, monkeypatch):
     """``load_corpus`` reads ``processed_dir()``: point the storage root at
@@ -222,12 +233,22 @@ def test_resume_without_a_run_starts_fresh(tmp_path):
 
 @pytest.mark.parametrize("overrides,match", [
     ({"mesh": {"dp": 1}}, "A11"),
-    ({"resilience": {"sentinel_patience": 3}}, "rollback"),
-    ({"resilience": {"emergency_ckpt": False}}, "preemption"),
+    # the resilience block is ported: accepted, and fit completes
+    ({"resilience": {"sentinel_patience": 3}}, None),
+    ({"resilience": {"emergency_ckpt": False}}, None),
     ({"model": {"label_style": "node"}}, "A3"),
 ])
 def test_unported_fit_options_raise(tmp_path, overrides, match):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(overrides))
+    if match is None:
+        cfg = load_config(path, overrides=_TINY | {"optim.max_epochs": 1})
+        assert cfg.resilience == dataclasses.replace(
+            cfg.resilience, **overrides["resilience"])
+        final = fit(cfg, tmp_path / "run", device="cpu")
+        assert final["n_rollbacks"] == 0 and final["lr_scale"] == 1.0
+        assert all(np.isfinite(v) for v in final.values())
+        assert (tmp_path / "run" / "final_metrics.json").exists()
+        return
     with pytest.raises(NotImplementedError, match=match):
         fit(load_config(path), tmp_path / "run", device="cpu")

@@ -1,7 +1,8 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX, nothing of the
-JAX package and no pandas: every module imports in a fresh interpreter where
-``jax``, ``flax``, ``optax`` and ``pandas`` are poisoned and ``deepdfa_tpu``
-is blocked, and no port file names them in an import statement. (A
+JAX package, no pandas and no sklearn: every module imports in a fresh
+interpreter where ``jax``, ``flax``, ``optax``, ``pandas`` and ``sklearn``
+are poisoned and ``deepdfa_tpu`` is blocked, and no port file names them in
+an import statement. (A
 subprocess, because this pytest process has already imported JAX.)"""
 
 import ast
@@ -16,13 +17,16 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "deepdfa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "deepdfa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn",
+             "deepdfa_tpu")
 # every module of the port (the C front end, the encode pipeline, scan,
 # the corpus side, preprocess, predict, the dataset readers and their table
 # layer, Joern ingestion and its session, the HTTP service, the cascade,
 # the telemetry plane, the registered ops, the exported artifacts, the warm
-# store and the trainer's command line included) and chip_smoke.py
-N_MODULES = 88
+# store, the trainer's command line, its resilience layer, the training
+# telemetry, the int8 training experiment and the tuning loop included)
+# and chip_smoke.py
+N_MODULES = 94
 
 
 def _port_files():
@@ -36,7 +40,7 @@ def _forbidden(name: str) -> bool:
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax", "pandas"):
+        for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn"):
             sys.modules[name] = None
 
         class Block(importlib.abc.MetaPathFinder):
@@ -55,7 +59,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             importlib.import_module(name)
         bad = sorted(n for n in sys.modules if sys.modules[n] is not None and
                      (n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                          "pandas", "deepdfa_tpu")))
+                                          "pandas", "sklearn",
+                                          "deepdfa_tpu")))
         assert not bad, bad
         print(len(names))
     """)

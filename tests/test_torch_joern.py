@@ -412,8 +412,10 @@ def test_fault_schedule_equals_jax(spec):
 
 def test_the_port_declares_only_the_points_it_fires():
     assert faults.KNOWN_POINTS == (
-        "joern.hang", "joern.die", "serve.drop_request",
-        "serve.engine_raises", "obs.trace_drop", "obs.flight_drop",
+        "ckpt.crash_between_state_and_meta", "step.nan_grads",
+        "prefetch.producer_raises", "joern.hang", "joern.die",
+        "serve.drop_request", "serve.engine_raises", "preempt.sigterm",
+        "step.hang", "obs.trace_drop", "obs.flight_drop",
         "extract.worker_crash", "cascade.tier2_timeout",
         "cascade.escalation_drop", "frontend.worker_crash",
         "frontend.spawn_fail")

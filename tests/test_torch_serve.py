@@ -591,13 +591,16 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
     ({"serve.continual.capture_path": "c.jsonl"}, NotImplementedError, "A15"),
     ({"serve.federation.cells": ["a:1"]}, NotImplementedError, "A15"),
     ({"serve.autoscale.max_replicas": 8}, NotImplementedError, "A15"),
-    ({"serve.obs.train_port": 0}, NotImplementedError, "A4"),
+    ({"serve.obs.train_port": 0}, None, None),  # parses (trainer telemetry)
 ])
 def test_serve_config_validation_and_deferred_parts(overrides, error, match):
     if error is None:
-        serve = json.loads(to_json(load_config(overrides=overrides)))["serve"]
+        parsed = json.loads(to_json(load_config(overrides=overrides)))
         for key, value in overrides.items():
-            assert serve[key.split(".", 1)[1]] == value
+            node = parsed
+            for part in key.split("."):
+                node = node[part]
+            assert node == value
         return
     with pytest.raises(error, match=match):
         load_config(overrides=overrides)

@@ -308,8 +308,8 @@ def test_export_model_writes_the_artifact_with_provenance(fit_run, artifact):
 def test_export_model_requires_a_checkpoint(tmp_path):
     with pytest.raises(FileNotFoundError, match="run fit first"):
         cli.export_model(_port_cfg(), tmp_path / "empty", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        cli.main(["fit", "--run-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="A13"):
+        cli.main(["bench", "--run-dir", str(tmp_path)])
 
 
 def _graphs(vocabs, sources):
