@@ -297,6 +297,38 @@ Each phase prints one JSON line; any failure exits non-zero.
    the head moved); a two-point tuning grid. Steps/s and p50 step ms, the
    children's seconds to their ``corpus:`` line and the resumes' to their
    first step, the emergency commit's and the abort's seconds.
+17e. dataflow — the source paper's node-level and dataflow-lattice GGNN,
+   on the corpus phase's ``demo`` shards and test sources. ``preprocess
+   --dataset demo_hard --n 400 --dataflow-labels --dataflow-families``
+   (``scripts/dataflow_experiment.py``'s corpus plus the families). Two
+   ``train.cli fit`` runs with ``label_style dataflow_solution_out`` in the
+   segment layout (the unions run on the ordered segment sums, no
+   kernel), ``aggregation`` sum and ``union_relu``, the golden model, 12
+   epochs: the train loss falls, the test F1 beside BASELINE.md's 0.974
+   (reported only), ``test`` on the card within ``PROB_LIMIT`` of the CPU
+   (loss and every node's probability); a ``union_simple`` step repeats
+   bitwise on the card. A ``node`` fit in the fused layout on the demo
+   shards (B1 = (steps + eval batches) × 11, B2 = steps × 17, all
+   ``wgmma``), ``test`` (``statement_hit@1..10``, B1 = batches × 11),
+   ``predict`` over the fixtures and the test sources (one scorer call a
+   function, B1 = functions × 11; every node probability within
+   ``PROB_LIMIT`` of the CPU). One epoch each with the families in the
+   fused layout: width 224 (``dataflow_families``, solver labels) and 288
+   (both flags, the same functions rebuilt with the interprocedural
+   columns, graph labels): B1 = (steps + eval batches) × 11 and B2 = steps
+   × 32, all ``ffma``; B1 and B2 at each width against their plain
+   versions (``KERNEL_LIMIT``, ``GRAD_LIMIT`` against float64), bitwise
+   repeats, graph times and bounds; the kernels' shared-memory width
+   limits read on the card. The node model exported on the card (its
+   program calls ``deepdfa.fused_ggnn``), loaded by ``from_artifact`` and
+   served over HTTP through ``build_server`` to 64 test sources (B1 =
+   dispatches × 11, all ``wgmma``; every score within ``ARTIFACT_LIMIT``
+   of the engine). Then, as children side by side: a node fit crashed
+   between a checkpoint's payload and its ``meta.json`` (rc 137), resumed
+   bitwise the clean run, and ``train.cli scan`` over the fixtures with
+   the node checkpoint (rc 0). Export and load seconds, p50 step ms, test
+   graphs/s, predict functions/s, each with the card's name and power
+   limit.
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
@@ -730,11 +762,9 @@ def phase_kernel() -> list[dict]:
     shapes = [("ladder_126", ladder[0], 50), ("ladder_1022", ladder[1], 500),
               ("ladder_4094", ladder[2], 2500),
               ("mega", mega_bucket(MAX_BATCH), 50)]
-    w = lambda *s, std: torch.from_numpy(
-        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
+    w = seeded_cuda(rng)
     d = WIDTH
-    weights = (w(d, d, std=d ** -0.5), w(d, std=0.1), w(d, 3 * d, std=d ** -0.5),
-               w(3 * d, std=0.1), w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1))
+    weights = ggnn_weights(w, d)
     rows = []
     for name, bucket, mean_nodes in shapes + [("mega_padding_spread", None, 0)]:
         if bucket is None:
@@ -1012,86 +1042,138 @@ def kernel_grads(args, g):
                                g)
 
 
+def seeded_cuda(rng):
+    """``(*shape, std) -> float32 tensor on the card`` drawn from ``rng``."""
+    return lambda *s, std: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
+
+
+def ggnn_weights(w, d: int) -> tuple:
+    """The edge linear and the GRU's two gate products at width ``d``, with
+    their biases, drawn by ``w``."""
+    return (w(d, d, std=d ** -0.5), w(d, std=0.1), w(d, 3 * d, std=d ** -0.5),
+            w(3 * d, std=0.1), w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1))
+
+
+def bucket_kernel_row(b, d: int, weights, w) -> dict:
+    """B1 and B2 at width ``d`` on the bucket batch ``b`` against their plain
+    versions: the no-grad forward's largest difference, each gradient's
+    against float64 over its largest magnitude (the chosen variant's, the
+    FFMA variant's forced, the plain float32 version's), two calls bitwise
+    equal, launches by variant of one call each, times (CUDA events and
+    graph replays) and the 3xTF32 and FFMA bounds of both. ``weights``
+    from :func:`ggnn_weights`; ``h0`` and the cotangent drawn by ``w``.
+    Direct launches, off the main path's counts."""
+    n, e = b.max_nodes, len(b.senders)
+    h0 = w(n, d, std=0.2)
+    # the loss's cotangent is zero on padding nodes, which the pooling
+    # masks out; on the sink, whose padding edges loop back to itself
+    # hundreds of times, a nonzero one would be amplified through
+    # saturated gates until float32 keeps no digit of it
+    mask = torch.from_numpy(b.node_mask).cuda()
+    g = w(n, d, std=1e-3) * mask[:, None]
+    args = (h0, torch.from_numpy(b.senders).cuda(),
+            torch.from_numpy(b.receivers).cuda()) + weights
+    with torch.no_grad():
+        before = dict(fg.n_variant_launches)
+        out = fg.fused_ggnn(*args, n_steps=STEPS)
+        fwd_launches = {k: fg.n_variant_launches[k] - before[k]
+                        for k in fg.VARIANTS}
+        out_again = fg.fused_ggnn(*args, n_steps=STEPS)
+        plain_out = fg.fused_ggnn_reference(*args, n_steps=STEPS)
+    got = kernel_grads(args, g)
+    again = kernel_grads(args, g)
+    exact = fg.fused_ggnn_backward_reference(
+        *(a.double() if a.is_floating_point() else a for a in args),
+        g.double(), n_steps=STEPS)
+    plain = fg.fused_ggnn_backward_reference(*args, g, n_steps=STEPS)
+    torch.cuda.synchronize()
+
+    def rel_to_exact(grads):
+        return {name: float((a.double() - r).abs().max())
+                / max(float(r.abs().max()), 1e-30)
+                for name, a, r in zip(GRAD_NAMES, grads, exact)}
+
+    errs = {name: float((a.double() - r).abs().max())
+            for name, a, r in zip(GRAD_NAMES, got, exact)}
+    rel, plain_rel = rel_to_exact(got), rel_to_exact(plain)
+    bitwise = bool(torch.equal(out, out_again)) and all(
+        torch.equal(a, c) for a, c in zip(got, again))
+    finite = bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(a).all()) for a in got)
+    p = fg._Prepared(h0, args[1], args[2], weights, fg._max_width)
+    fwd = lambda kind=None: fg._forward_cuda(p, STEPS, bank=True,  # noqa: E731
+                                             kind=kind)
+    _, states, aggs = fwd()
+    bwd = lambda kind=None: fg._backward_cuda(p, states, aggs, g,  # noqa: E731
+                                              kind)
+    plain_bwd = lambda: fg.fused_ggnn_backward_reference(  # noqa: E731
+        *args, g, n_steps=STEPS)
+    # the kept FFMA variant, forced: still right, and the yardstick
+    ffma_rel = rel_to_exact(bwd("ffma"))
+    before = dict(fg.n_bwd_variant_launches)
+    bwd()
+    launches = {k: fg.n_bwd_variant_launches[k] - before[k]
+                for k in fg.VARIANTS}
+    fwd_ms = cuda_ms(fwd, 10)
+    bwd_ms = cuda_ms(bwd, 10)
+    plain_ms = cuda_ms(plain_bwd, 10)
+    bwd_again = cuda_ms(bwd, 10)
+    with torch.no_grad():
+        fwd_graph = graph_ms(lambda: fg.fused_ggnn(*args, n_steps=STEPS), 10)
+        plain_fwd_graph = graph_ms(lambda: fg.fused_ggnn_reference(
+            *args, n_steps=STEPS), 10)
+    dev = {"fwd_graph_ms": fwd_graph, "plain_fwd_graph_ms": plain_fwd_graph,
+           "fwd_banked_graph_ms": graph_ms(fwd, 10),
+           "ffma_fwd_banked_graph_ms": graph_ms(lambda: fwd("ffma"), 10),
+           "bwd_graph_ms": graph_ms(bwd, 10),
+           "ffma_bwd_graph_ms": graph_ms(lambda: bwd("ffma"), 10),
+           "plain_bwd_graph_ms": graph_ms(plain_bwd, 10)}
+    dev["bwd_graph_ms_repeat"] = graph_ms(bwd, 10)
+    fb = kernel_bound(n, e, d, STEPS)
+    return {"n": n, "e": e, "d": d,
+            "graphs": int(b.graph_mask.sum()),
+            "real_nodes": int(b.node_mask.sum()),
+            "real_edges": int(b.edge_mask.sum()),
+            "sink_segment_edges": int((b.senders == n - 1).sum()),
+            "variant": p.variant,
+            # the padding sink's row sums thousands of looped edges into
+            # saturated gates, where float32 keeps few digits; no output
+            # reads it (its edges loop back to itself)
+            "fwd_max_abs_err": float((out - plain_out)[mask].abs().max()),
+            "fwd_max_abs_err_all_rows": float((out - plain_out).abs().max()),
+            "max_abs_err": errs, "rel_err": rel, "limit": GRAD_LIMIT,
+            "plain_f32_rel_err": plain_rel, "ffma_rel_err": ffma_rel,
+            "bitwise_repeat": bitwise, "finite": finite,
+            "fwd_banked_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "bwd_ms_repeat": bwd_again, "plain_bwd_ms": plain_ms, **dev,
+            # B2's bounds as bound_ms / ffma_bound_ms, B1's with fwd_
+            **bwd_bound(n, e, d, STEPS),
+            **{f"fwd_{k}": v for k, v in fb.items()},
+            "fwd_launches_per_call": fg.launches_per_call(STEPS),
+            "bwd_launches_per_call": fg.bwd_launches_per_call(STEPS),
+            "fwd_launches_by_variant": fwd_launches,
+            "bwd_launches_by_variant": launches}
+
+
 def phase_train_kernel() -> list[dict]:
     rng = np.random.default_rng(4)
     train, buckets = train_buckets(train_config())
-    d = WIDTH
-    w = lambda *s, std: torch.from_numpy(
-        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
-    weights = (w(d, d, std=d ** -0.5), w(d, std=0.1), w(d, 3 * d, std=d ** -0.5),
-               w(3 * d, std=0.1), w(d, 3 * d, std=d ** -0.5), w(3 * d, std=0.1))
+    w = seeded_cuda(rng)
+    weights = ggnn_weights(w, WIDTH)
     rows = []
     for bucket in buckets:
-        b = pack(train, bucket)
-        n, e = b.max_nodes, len(b.senders)
-        h0 = w(n, d, std=0.2)
-        # the loss's cotangent is zero on padding nodes, which the pooling
-        # masks out; on the sink, whose padding edges loop back to itself
-        # hundreds of times, a nonzero one would be amplified through
-        # saturated gates until float32 keeps no digit of it
-        mask = torch.from_numpy(b.node_mask).cuda()
-        g = w(n, d, std=1e-3) * mask[:, None]
-        args = (h0, torch.from_numpy(b.senders).cuda(),
-                torch.from_numpy(b.receivers).cuda()) + weights
-        got = kernel_grads(args, g)
-        again = kernel_grads(args, g)
-        exact = fg.fused_ggnn_backward_reference(
-            *(a.double() if a.is_floating_point() else a for a in args),
-            g.double(), n_steps=STEPS)
-        plain = fg.fused_ggnn_backward_reference(*args, g, n_steps=STEPS)
-        torch.cuda.synchronize()
-
-        def rel_to_exact(grads):
-            return {name: float((a.double() - r).abs().max())
-                    / max(float(r.abs().max()), 1e-30)
-                    for name, a, r in zip(GRAD_NAMES, grads, exact)}
-
-        errs = {name: float((a.double() - r).abs().max())
-                for name, a, r in zip(GRAD_NAMES, got, exact)}
-        rel, plain_rel = rel_to_exact(got), rel_to_exact(plain)
-        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        p = fg._Prepared(h0, args[1], args[2], weights, fg._max_width)
-        fwd = lambda kind=None: fg._forward_cuda(p, STEPS, bank=True,
-                                                 kind=kind)
-        _, states, aggs = fwd()
-        bwd = lambda kind=None: fg._backward_cuda(p, states, aggs, g, kind)
-        plain_bwd = lambda: fg.fused_ggnn_backward_reference(
-            *args, g, n_steps=STEPS)
-        # the kept FFMA variant, forced: still right, and the yardstick
-        ffma_rel = rel_to_exact(bwd("ffma"))
-        before = dict(fg.n_bwd_variant_launches)
-        bwd()
-        launches = {k: fg.n_bwd_variant_launches[k] - before[k]
-                    for k in fg.VARIANTS}
-        fwd_ms = cuda_ms(fwd, 10)
-        bwd_ms = cuda_ms(bwd, 10)
-        plain_ms = cuda_ms(plain_bwd, 10)
-        bwd_again = cuda_ms(bwd, 10)
-        dev = {"fwd_banked_graph_ms": graph_ms(fwd, 10),
-               "ffma_fwd_banked_graph_ms": graph_ms(lambda: fwd("ffma"), 10),
-               "bwd_graph_ms": graph_ms(bwd, 10),
-               "ffma_bwd_graph_ms": graph_ms(lambda: bwd("ffma"), 10),
-               "plain_bwd_graph_ms": graph_ms(plain_bwd, 10)}
-        dev["bwd_graph_ms_repeat"] = graph_ms(bwd, 10)
-        row = {"phase": "train_kernel", "n": n, "e": e, "d": d,
-               "graphs": int(b.graph_mask.sum()),
-               "real_nodes": int(b.node_mask.sum()),
-               "real_edges": int(b.edge_mask.sum()),
-               "sink_segment_edges": int((b.senders == n - 1).sum()),
-               "variant": p.variant,
-               "max_abs_err": errs, "rel_err": rel, "limit": GRAD_LIMIT,
-               "plain_f32_rel_err": plain_rel, "ffma_rel_err": ffma_rel,
-               "bitwise_repeat": bitwise, "finite": finite,
-               "fwd_banked_ms": fwd_ms, "bwd_ms": bwd_ms,
-               "bwd_ms_repeat": bwd_again, "plain_bwd_ms": plain_ms, **dev,
-               **bwd_bound(n, e, d, STEPS),
-               "fwd_launches_per_call": fg.launches_per_call(STEPS),
-               "bwd_launches_per_call": fg.bwd_launches_per_call(STEPS),
-               "bwd_launches_by_variant": launches}
+        row = {"phase": "train_kernel",
+               **bucket_kernel_row(pack(train, bucket), WIDTH, weights, w)}
         emit(row)
-        if not finite or not bitwise:
-            fail(f"backward kernel at n={n}: finite={finite} bitwise={bitwise}")
+        n, rel, ffma_rel = row["n"], row["rel_err"], row["ffma_rel_err"]
+        launches = row["bwd_launches_by_variant"]
+        if not row["finite"] or not row["bitwise_repeat"]:
+            fail(f"backward kernel at n={n}: finite={row['finite']} "
+                 f"bitwise={row['bitwise_repeat']}")
+        if not row["fwd_max_abs_err"] <= KERNEL_LIMIT:
+            fail(f"forward kernel disagrees with its plain version at n={n}: "
+                 f"{row['fwd_max_abs_err']} on real nodes")
         bad = {k: v for k, v in rel.items() if not v <= GRAD_LIMIT}
         bad.update({f"ffma_{k}": v for k, v in ffma_rel.items()
                     if not v <= GRAD_LIMIT})
@@ -1346,8 +1428,7 @@ def model_inputs(b, rng, d: int = WIDTH, n_layers: int = 3):
     ``[in, out]`` layout, with batch ``b``'s ids, edges and slots, on the
     card: the positional arguments of ``fused_ggnn_model``."""
     ed = d // len(ALL_SUBKEYS)
-    w = lambda *s, std: torch.from_numpy(
-        (rng.standard_normal(s) * std).astype(np.float32)).cuda()
+    w = seeded_cuda(rng)
     ids = np.stack([b.node_feats[k] + i * INPUT_DIM for i, k in enumerate(KEYS)],
                    axis=-1)
     head = tuple((w(2 * d, o, std=(2 * d) ** -0.5), w(o, std=0.1))
@@ -4336,10 +4417,12 @@ def same_params(a: Path, b: Path) -> bool:
                                           for k in pa)
 
 
-def test_probs(cfg: ExperimentConfig, state: dict, device: str) -> np.ndarray:
-    """The test split's probabilities under ``state`` on ``device``, in the
+def eval_probs(cfg: ExperimentConfig, state: dict, device: str) -> np.ndarray:
+    """The probability of every row the test split's loss weighs (a graph,
+    or a node for the node styles) under ``state`` on ``device``, in the
     order ``test`` scores them."""
     from deepdfa_tpu_torch.train.fit import _batch_stream, _batcher
+    from deepdfa_tpu_torch.train.loop import extract_labels
 
     test = load_corpus(cfg)["test"]
     model = make_model(cfg.model, cfg.input_dim, device=device)
@@ -4348,9 +4431,10 @@ def test_probs(cfg: ExperimentConfig, state: dict, device: str) -> np.ndarray:
     out = []
     with torch.no_grad():
         for b in _batch_stream(_batcher(cfg, test), test):
-            keep = np.asarray(b.graph_mask) > 0
-            out.append(torch.sigmoid(model(to_device(b, device))).cpu()
-                       .numpy()[keep])
+            tb = to_device(b, device)
+            _, weights = extract_labels(tb, cfg.model.label_style)
+            keep = (weights > 0).cpu().numpy()
+            out.append(torch.sigmoid(model(tb)).cpu().numpy()[keep])
     return np.concatenate(out)
 
 
@@ -4543,8 +4627,8 @@ def phase_trainer(work: Path) -> dict:
     # in this process over the same fixtures
     best = CheckpointManager(clean / "checkpoints").restore_best(
         map_location="cpu")
-    p_card = test_probs(cfg, best, "cuda")
-    p_cpu = test_probs(cfg, best, "cpu")
+    p_card = eval_probs(cfg, best, "cuda")
+    p_cpu = eval_probs(cfg, best, "cpu")
     model = make_model(cfg.model, cfg.input_dim, device="cuda")
     model.load_state_dict(best)
     scorer = SizedScorer(model)
@@ -4744,6 +4828,408 @@ def phase_trainer(work: Path) -> dict:
             not row["tune"]["isolated"]["final_metrics"] or \
             not row["tune"]["isolated"]["on_cuda"]:
         fail(f"trainer: tune {row['tune']}")
+    return row
+
+
+# ------------------------------------------------------------ phase 17e
+
+DATAFLOW_FUNCTIONS = 400
+# scripts/dataflow_experiment.py's corpus, plus the static-analysis families
+DATAFLOW_ARGS = ["--dataset", "demo_hard", "--n", str(DATAFLOW_FUNCTIONS),
+                 "--seed", "0", "--workers", str(CORPUS_WORKERS),
+                 "--dataflow-labels", "--dataflow-families"]
+# the experiment's node-level runs: max(25 // 2, 5) epochs
+DATAFLOW_EPOCHS = 12
+# BASELINE.md: the JAX package's node-level dataflow_solution_out GGNN
+# reached this test F1 with sum and with union_relu aggregation
+BASELINE_DFA_F1 = 0.974
+DATAFLOW_SERVED = 64
+# the node fit's loss keeps as many non-vulnerable nodes as vulnerable ones
+NODE_UNDERSAMPLE_FACTOR = 1.0
+
+
+def dataflow_config(**model) -> ExperimentConfig:
+    """The dataflow experiment's run: ``ExperimentConfig()``'s defaults
+    (the golden model, undersampling ``v1.0``, 256 graphs a batch) on
+    ``demo_hard`` for ``DATAFLOW_EPOCHS``, with ``model`` overrides."""
+    base = ExperimentConfig()
+    return dataclasses.replace(
+        base, data=dataclasses.replace(base.data, dsname="demo_hard"),
+        model=dataclasses.replace(base.model, **model),
+        optim=dataclasses.replace(base.optim, max_epochs=DATAFLOW_EPOCHS))
+
+
+def epoch_losses(run_dir: Path) -> list[float]:
+    """Each epoch's mean train loss, from the run's log."""
+    import re
+
+    text = (run_dir / "run.log").read_text()
+    return [float(v) for v in re.findall(r"epoch \d+: train_loss=(\S+)",
+                                         text)]
+
+
+def phase_dataflow(work: Path) -> dict:
+    """The source paper's node-level and dataflow-lattice GGNN on the card,
+    after the corpus phase (its ``demo`` shards and test sources): the
+    dataflow experiment's corpus; node-level dataflow-solution fits in the
+    segment layout with sum and ``union_relu`` aggregation; a node-label
+    fit in the fused layout on B1/B2 (``wgmma``) with ``test``,
+    ``predict``, a crash and its resume; one epoch each with the analysis
+    families at widths 224 and 288 on B1/B2's ``ffma`` variant; the node
+    model exported, loaded and served over HTTP; ``train.cli scan`` with
+    the node checkpoint."""
+    from deepdfa_tpu_torch.config import active_dfa_families, to_json
+    from deepdfa_tpu_torch.data.graphs import save_shards
+    from deepdfa_tpu_torch.data.materialize import CorpusBuilder
+    from deepdfa_tpu_torch.train.fit import _batch_stream, _batcher
+    from deepdfa_tpu_torch.train.loop import bce_with_logits, extract_labels
+
+    smi = nvidia_smi()
+    root = work / "dataflow"
+    root.mkdir()
+    demo_dir = port_utils.processed_dir() / "demo" / "shards"
+    hard_dir = port_utils.processed_dir() / "demo_hard" / "shards"
+    per1 = fg.launches_per_call(STEPS)
+    row: dict = {"phase": "dataflow", "card": smi}
+
+    def write_cfg(name: str, cfg: ExperimentConfig) -> Path:
+        path = root / f"{name}.json"
+        path.write_text(to_json(cfg))
+        return path
+
+    # 1. the experiment's corpus, with the families
+    t0 = time.perf_counter()
+    built = preprocess.main(DATAFLOW_ARGS)
+    row["build"] = {"seconds": time.perf_counter() - t0,
+                    "graphs": built.get("graphs"),
+                    "vul_graphs": built.get("vul_graphs"),
+                    "dataflow_families": built.get("dataflow_families")}
+
+    # 2. node-level dataflow solutions in the segment layout (no kernel:
+    # the union aggregators run on the ordered segment sums), sum and
+    # union_relu, test on the card against the CPU
+    solutions = {}
+    for agg in ("sum", "union_relu"):
+        cfg = dataflow_config(label_style="dataflow_solution_out",
+                              aggregation=agg)
+        cfg_file = write_cfg(f"dfa_{agg}", cfg)
+        run = root / f"dfa_{agg}"
+        t0 = time.perf_counter()
+        final = run_cli(["fit", "--config", str(cfg_file), "--run-dir",
+                         str(run), "--device", "cuda"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        timing = json.loads((run / "journal.json").read_text())["timing"]
+        t0 = time.perf_counter()
+        tested = run_cli(["test", "--config", str(cfg_file), "--run-dir",
+                          str(root / f"test_{agg}"), "--ckpt-dir",
+                          str(run / "checkpoints"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        cpu_tested = run_cli(["test", "--config", str(cfg_file), "--run-dir",
+                              str(root / f"test_{agg}_cpu"), "--ckpt-dir",
+                              str(run / "checkpoints"), "--device", "cpu"])
+        best = CheckpointManager(run / "checkpoints").restore_best(
+            map_location="cpu")
+        p_card = eval_probs(cfg, best, "cuda")
+        p_cpu = eval_probs(cfg, best, "cpu")
+        losses = epoch_losses(run)
+        solutions[agg] = {
+            "epochs": len(losses), "train_loss_first": losses[0],
+            "train_loss_last": losses[-1], "fit_seconds": fit_s,
+            "train_steps": timing["train_steps"],
+            "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
+            "test_F1Score": tested["test_F1Score"],
+            "baseline_F1Score": BASELINE_DFA_F1,
+            "test_seconds": test_s,
+            "test_graphs_per_s": tested["n_graphs_scored"] / test_s,
+            "test_nodes": int(p_card.size),
+            "max_abs_prob_diff_vs_cpu": float(np.abs(p_card - p_cpu).max()),
+            "test_loss_diff_vs_cpu": abs(tested["test_loss"]
+                                         - cpu_tested["test_loss"]),
+            "final_metrics": final}
+    row["solutions"] = solutions
+    # off the main path: the product union's ordered sum of logs repeats
+    # bitwise on the card (forward and every gradient)
+    ucfg = dataflow_config(label_style="dataflow_solution_out",
+                           aggregation="union_simple")
+    umodel = make_model(ucfg.model, ucfg.input_dim, device="cuda")
+    utrain = load_corpus(ucfg)["train"]
+    ubatch = to_device(pack(utrain, derive_buckets(utrain,
+                                                   TRAIN_GRAPHS)[-1]), "cuda")
+
+    def union_step():
+        umodel.zero_grad(set_to_none=True)
+        out = umodel(ubatch)
+        labels, weights = extract_labels(ubatch, "dataflow_solution_out")
+        bce_with_logits(out, labels, weights).backward()
+        return [out.detach().clone()] + [p.grad.clone()
+                                         for p in umodel.parameters()]
+
+    ua, ub = union_step(), union_step()
+    row["union_simple_bitwise"] = all(torch.equal(a, b)
+                                      for a, b in zip(ua, ub))
+    row["union_simple_finite"] = all(bool(torch.isfinite(a).all())
+                                     for a in ua)
+
+    # 3. node labels in the fused layout on the corpus phase's demo shards,
+    # the loss undersampled (its keep masks drawn on the host, replayed by
+    # the crash's resume)
+    base = corpus_config()
+    ncfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, label_style="node"),
+        optim=dataclasses.replace(
+            base.optim,
+            undersample_node_on_loss_factor=NODE_UNDERSAMPLE_FACTOR))
+    ncfg_file = write_cfg("node", ncfg)
+    node_run = root / "node"
+    fit_argv = lambda run, *extra: ["fit", "--config", str(ncfg_file),  # noqa: E731
+                                    "--run-dir", str(run), "--device",
+                                    "cuda", *extra]
+    final, b1, b2, var, node_s = counted_cli(fit_argv(node_run))
+    node_row = fit_launches(node_run, b1, b2, var) | {
+        "seconds": node_s, "final_metrics": final,
+        "undersample_node_on_loss_factor": NODE_UNDERSAMPLE_FACTOR}
+    fg.n_launches = 0
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    tested = run_cli(["test", "--config", str(ncfg_file), "--run-dir",
+                      str(root / "node_test"), "--ckpt-dir",
+                      str(node_run / "checkpoints"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_b1, test_var = fg.n_launches, dict(fg.n_variant_launches)
+    test_graphs = load_corpus(ncfg)["test"]
+    test_batches = sum(1 for _ in _batch_stream(_batcher(ncfg, test_graphs),
+                                                test_graphs))
+    hits = {k: v for k, v in tested.items() if k.startswith("statement_hit@")}
+    sources = [str(FIXTURES / "realworld"), str(work / "test_sources")]
+    vocabs = load_vocabs(demo_dir)
+    fg.n_launches = 0
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    predicted = run_cli(["predict", "--config", str(ncfg_file), "--run-dir",
+                         str(root / "node_predict"), "--ckpt-dir",
+                         str(node_run / "checkpoints"), "--shard-dir",
+                         str(demo_dir), "--top-k", str(ALL_STATEMENTS),
+                         *[a for s in sources for a in ("--source", s)],
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
+    best = CheckpointManager(node_run / "checkpoints").restore_best(
+        map_location="cpu")
+    cpu_model = make_model(ncfg.model, ncfg.input_dim, device="cpu")
+    cpu_model.load_state_dict(best)
+    pred_cmp = compare_predictions(predicted, predict_paths(
+        sources, cfg=ncfg, model=cpu_model, vocabs=vocabs,
+        top_k=ALL_STATEMENTS))
+    row["node"] = {
+        "fit": node_row, "test": {
+            "statement_hits": hits, "test_F1Score": tested["test_F1Score"],
+            "seconds": test_s,
+            "graphs_per_s": tested["n_graphs_scored"] / test_s,
+            "b1_launches": test_b1, "batches": test_batches,
+            "b1_launches_by_variant": test_var},
+        "predict": {"n_scored": predicted["n_scored"], "seconds": pred_s,
+                    "functions_per_s": predicted["n_scored"] / pred_s,
+                    "saliency": sorted({r.get("saliency") for r in
+                                        predicted["results"]
+                                        if "error" not in r}),
+                    "b1_launches": pred_b1,
+                    "b1_launches_by_variant": pred_var, **pred_cmp}}
+
+    # 4. the analysis families in the fused layout: 224 wide with the
+    # dataflow families on the demo_hard shards (solver labels), 288 with
+    # both flags on the same functions rebuilt with the interprocedural
+    # columns (extraction-cache hits; graph labels)
+    fg._kernels()
+    fg._bwd_kernels()
+    row["ffma_limits"] = {"fwd_max_width": fg._max_width,
+                          "bwd_max_width": fg._max_train_width}
+    records = demo_corpus(DATAFLOW_FUNCTIONS, seed=0, style="hard")
+    ip_dir = port_utils.processed_dir() / "demo_hard_ip" / "shards"
+    ip_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cpgs, _, _ = preprocess.extract_streaming(
+        records, ip_dir, workers=CORPUS_WORKERS, dataset="demo_hard")
+    splits = json.loads((hard_dir / "splits.json").read_text())
+    ip_graphs, _ = CorpusBuilder(FeatureConfig(
+        dataflow_families=True, interproc_families=True)).build(
+        cpgs, splits["train"],
+        graph_labels={r["id"]: int(r["vul"]) for r in records})
+    save_shards(ip_graphs, ip_dir)
+    (ip_dir / "splits.json").write_text(json.dumps(splits))
+    ip_build_s = time.perf_counter() - t0
+    families = {}
+    w = seeded_cuda(np.random.default_rng(7))
+    for name, dsname, flags, style in (
+            ("w224", "demo_hard", dict(dataflow_families=True),
+             "dataflow_solution_out"),
+            ("w288", "demo_hard_ip", dict(dataflow_families=True,
+                                          interproc_families=True), "graph")):
+        b = dataflow_config(label_style=style, layout="fused")
+        cfg = dataclasses.replace(
+            b, data=dataclasses.replace(
+                b.data, dsname=dsname, feature=dataclasses.replace(
+                    b.data.feature, **flags)),
+            optim=dataclasses.replace(b.optim, max_epochs=1))
+        width = cfg.model.hidden_dim * (len(ALL_SUBKEYS) + len(
+            active_dfa_families(cfg.model.dataflow_families,
+                                cfg.model.interproc_families)))
+        cfg_file = write_cfg(name, cfg)
+        final, b1, b2, var, fit_s = counted_cli([
+            "fit", "--config", str(cfg_file), "--run-dir", str(root / name),
+            "--device", "cuda"])
+        run = fit_launches(root / name, b1, b2, var)
+        run["expected"]["bwd"] = run["train_steps"] * \
+            fg.bwd_launches_per_call(STEPS, "ffma")
+        train = load_corpus(cfg)["train"]
+        kernel = bucket_kernel_row(
+            pack(train, derive_buckets(train, TRAIN_GRAPHS)[-1]), width,
+            ggnn_weights(w, width), w)
+        families[name] = {"width": width, "dsname": dsname,
+                          "label_style": style, "fit_seconds": fit_s,
+                          "final_metrics": final, **run, "kernel": kernel}
+    row["families"] = families
+    row["ip_build_seconds"] = ip_build_s
+
+    # 5. the node model exported on the card, loaded, and served over HTTP
+    t0 = time.perf_counter()
+    exported = run_cli(["export", "--config", str(ncfg_file), "--run-dir",
+                        str(node_run), "--shard-dir", str(demo_dir),
+                        "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    art_dir = Path(exported["export_dir"])
+    t0 = time.perf_counter()
+    art_engine = ScoringEngine.from_artifact(art_dir, vocabs=vocabs,
+                                             device="cuda")
+    load_s = time.perf_counter() - t0
+    ops = program_ops(load_exported(art_dir, device="cuda").program)
+    served = [p.read_text() for p in sorted((work / "test_sources")
+                                            .glob("*.c"))][:DATAFLOW_SERVED]
+    graphs = [fn.graph for src in served
+              for fn in encode_source(src, vocabs) if fn.graph is not None]
+    want = raw_scores(art_engine, graphs)
+    server = build_server(dataclasses.replace(ncfg, serve=ServeConfig(
+        port=0, max_batch=MAX_BATCH, max_queue=1024)), artifact=art_dir,
+        shard_dir=demo_dir, device="cuda")
+    server.warmup()
+    server.start()
+    try:
+        fg.n_launches = 0
+        reset_variant_counts()
+        d0 = server.engine.n_dispatches
+        answers, lat, wall = http_pass(server.port, served)
+        torch.cuda.synchronize()
+        art_b1, art_var = fg.n_launches, dict(fg.n_variant_launches)
+        art_dispatches = server.engine.n_dispatches - d0
+    finally:
+        server.shutdown()
+    bodies = [r["vulnerable_probability"] for status, body in answers
+              if status == 200 for r in body["results"]
+              if "vulnerable_probability" in r]
+    row["artifact"] = {
+        "export_seconds": export_s, "load_seconds": load_s,
+        "pt2_bytes": (art_dir / "model.pt2").stat().st_size,
+        "label_style": art_engine.label_style, "ops": ops,
+        "functions": len(graphs), "answers": len(bodies),
+        "max_abs_diff_vs_engine": max((abs(a - b) for a, b in
+                                       zip(bodies, want)), default=None),
+        **pass_row(answers, lat, wall, len(graphs)),
+        "dispatches": art_dispatches, "b1_launches": art_b1,
+        "b1_launches_by_variant": art_var}
+
+    # 6. the crash and its resume, and train.cli scan with the node
+    # checkpoint: children side by side, after every timed step above
+    crash_run = root / "node_crash"
+    crash = start_cli(cli_command(ncfg_file, crash_run), root / "crash.log",
+                      "ckpt.crash_between_state_and_meta@2")
+    scan_dir = root / "scan"
+    scan = start_cli([sys.executable, "-m", "deepdfa_tpu_torch.train.cli",
+                      "scan", str(FIXTURES / "realworld"), "--config",
+                      str(ncfg_file), "--run-dir", str(scan_dir),
+                      "--ckpt-dir", str(node_run / "checkpoints"),
+                      "--shard-dir", str(demo_dir), "--workers", "2",
+                      "--device", "cuda"], root / "scan.log")
+    crashed, scanned = finish_cli(crash), finish_cli(scan)
+    crash_tmp = sorted(p.name for p in
+                       (crash_run / "checkpoints").glob("*.tmp"))
+    resumed = run_cli(fit_argv(crash_run, "--resume"))
+    scan_json = (json.loads((scan_dir / "scan.json").read_text())
+                 if (scan_dir / "scan.json").exists() else {})
+    row["node"]["crash"] = {"rc": crashed["rc"], "tmp": crash_tmp,
+                            "seconds": crashed["seconds"],
+                            "log_tail": crashed["log_tail"],
+                            "bitwise": same_params(node_run, crash_run),
+                            "metrics_equal":
+                                resumed == node_row["final_metrics"]}
+    row["scan_cli"] = {"rc": scanned["rc"], "seconds": scanned["seconds"],
+                       "n_scored": scan_json.get("n_scored"),
+                       "log_tail": scanned["log_tail"]}
+    emit(row)
+
+    # the gates
+    if row["build"]["graphs"] != DATAFLOW_FUNCTIONS or \
+            not row["build"]["dataflow_families"]:
+        fail(f"dataflow: preprocess {built}")
+    for agg, s in solutions.items():
+        if not s["train_loss_last"] < s["train_loss_first"] or \
+                not s["max_abs_prob_diff_vs_cpu"] <= PROB_LIMIT or \
+                not s["test_loss_diff_vs_cpu"] <= PROB_LIMIT:
+            fail(f"dataflow: the {agg} solution fit {s}")
+    if not (row["union_simple_bitwise"] and row["union_simple_finite"]):
+        fail("dataflow: union_simple on the card is not a bitwise repeat")
+    check_fit_launches("dataflow_node_fit", node_row)
+    t = row["node"]["test"]
+    if sorted(hits) != sorted(f"statement_hit@{k}" for k in range(1, 11)) \
+            or test_b1 != test_batches * per1:
+        fail(f"dataflow: node test {t}")
+    check_ggnn_wgmma("dataflow_node_test", "B1", test_var, test_b1)
+    p = row["node"]["predict"]
+    if not p["rows_equal"] or not p["n_scored"] or \
+            p["saliency"] != ["node_probability"] or \
+            not p["max_abs_prob_diff"] <= PROB_LIMIT or \
+            not (p["max_abs_saliency_diff"] or 0.0) <= PROB_LIMIT or \
+            pred_b1 != p["n_scored"] * per1:
+        fail(f"dataflow: node predict {p}")
+    check_ggnn_wgmma("dataflow_node_predict", "B1", pred_var, pred_b1)
+    c = row["node"]["crash"]
+    if c["rc"] != 137 or not c["tmp"] or not c["bitwise"] or \
+            not c["metrics_equal"]:
+        fail(f"dataflow: node crash → resume {c}")
+    limits = row["ffma_limits"]
+    for name, f in families.items():
+        k = f["kernel"]
+        got = {"fwd": f["b1_launches"], "bwd": f["b2_launches"]}
+        if got != f["expected"] or not f["train_steps"] or \
+                f["launches_by_variant"]["fwd"]["ffma"] != got["fwd"] or \
+                f["launches_by_variant"]["bwd"]["ffma"] != got["bwd"]:
+            fail(f"dataflow: {name} fit launches {got} by variant "
+                 f"{f['launches_by_variant']}, expected {f['expected']} "
+                 "on ffma")
+        if k["variant"] != "ffma" or not k["finite"] or \
+                not k["fwd_max_abs_err"] <= KERNEL_LIMIT or \
+                not max(k["rel_err"].values()) <= GRAD_LIMIT or \
+                not max(k["ffma_rel_err"].values()) <= GRAD_LIMIT or \
+                not k["bitwise_repeat"] or \
+                k["fwd_launches_by_variant"] != {"wgmma": 0, "ffma": per1} or \
+                k["bwd_launches_by_variant"] != {
+                    "wgmma": 0,
+                    "ffma": fg.bwd_launches_per_call(STEPS, "ffma")}:
+            fail(f"dataflow: {name} kernels {k}")
+        if f["width"] > min(limits.values()):
+            fail(f"dataflow: width {f['width']} over the limits {limits}")
+    a = row["artifact"]
+    if not a["ops"]["fused_ggnn"] or a["ops"]["index_add"] or \
+            a["label_style"] != "node" or a["answers"] != a["functions"] or \
+            a["max_abs_diff_vs_engine"] is None or \
+            a["max_abs_diff_vs_engine"] > ARTIFACT_LIMIT or \
+            art_b1 != art_dispatches * per1 or not art_b1:
+        fail(f"dataflow: node artifact {a}")
+    check_ggnn_wgmma("dataflow_artifact", "B1", art_var, art_b1)
+    if scanned["rc"] != 0 or not row["scan_cli"]["n_scored"]:
+        fail(f"dataflow: train.cli scan {row['scan_cli']}")
     return row
 
 
@@ -5028,6 +5514,7 @@ def drive() -> int:
         serve_http = timed("serve_http", phase_serve_http, ctx, corpus_work)
         artifact = timed("artifact", phase_artifact, corpus_work)
         trainer = timed("trainer", phase_trainer, corpus_work)
+        dataflow = timed("dataflow", phase_dataflow, corpus_work)
     finally:
         shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
@@ -5075,6 +5562,36 @@ def drive() -> int:
     tr_b2 = {"trainer_fit": tr_fit["b2_launches"],
              "trainer_sentinel": tr_sen["b2_launches"]}
     tr_b5 = trainer["int8_train"]["b5_launches"]
+    # the node-level and dataflow-lattice GGNN: the node fit, test, predict
+    # and artifact on wgmma, the families' fits on ffma
+    df_node, df_fams = dataflow["node"], list(dataflow["families"].values())
+    df_b1 = {"dataflow_node_fit": df_node["fit"]["b1_launches"],
+             "dataflow_node_test": df_node["test"]["b1_launches"],
+             "dataflow_node_predict": df_node["predict"]["b1_launches"],
+             "dataflow_artifact": dataflow["artifact"]["b1_launches"],
+             "dataflow_families": sum(f["b1_launches"] for f in df_fams)}
+    df_b1_var = [df_node["fit"]["launches_by_variant"]["fwd"],
+                 df_node["test"]["b1_launches_by_variant"],
+                 df_node["predict"]["b1_launches_by_variant"],
+                 dataflow["artifact"]["b1_launches_by_variant"],
+                 *[f["launches_by_variant"]["fwd"] for f in df_fams]]
+    df_b2 = {"dataflow_node_fit": df_node["fit"]["b2_launches"],
+             "dataflow_families": sum(f["b2_launches"] for f in df_fams)}
+    df_b2_var = [df_node["fit"]["launches_by_variant"]["bwd"],
+                 *[f["launches_by_variant"]["bwd"] for f in df_fams]]
+    # B1 and B2 at the families' widths, on ffma: graph ms, the 3xTF32
+    # bound as at width 128 and the FFMA one beside it
+    df_widths = {str(f["width"]): {
+        "n": k["n"], "e": k["e"], "fwd_max_abs_err": k["fwd_max_abs_err"],
+        "bwd_max_rel_err": max(k["rel_err"].values()),
+        "graph_ms": k["fwd_graph_ms"], "plain_graph_ms": k["plain_fwd_graph_ms"],
+        "bound_ms": k["fwd_bound_ms"], "bound_by": k["fwd_bound_by"],
+        "ffma_bound_ms": k["fwd_ffma_bound_ms"],
+        "bwd_graph_ms": k["bwd_graph_ms"],
+        "plain_bwd_graph_ms": k["plain_bwd_graph_ms"],
+        "bwd_bound_ms": k["bound_ms"], "bwd_bound_by": k["bound_by"],
+        "bwd_ffma_bound_ms": k["ffma_bound_ms"]}
+        for f in df_fams for k in [f["kernel"]]}
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -5083,7 +5600,8 @@ def drive() -> int:
                      + train_mb["fwd_launches"] + scan["b1_launches"]
                      + corpus["fit"]["b1_launches"]
                      + corpus["predict"]["b1_launches"] + bigvul_b1
-                     + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())),
+                     + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())
+                     + sum(df_b1.values())),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -5095,7 +5613,7 @@ def drive() -> int:
                              "serve_http_scan":
                                  serve_http["scan_cli"]["b1_launches"],
                              "artifact": art_b1, "warm_store": store_b1,
-                             **tr_b1},
+                             **tr_b1, **df_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -5109,7 +5627,8 @@ def drive() -> int:
             bigvul["joern"]["b1_launches_by_variant"],
             serve_http["b1_launches_by_variant"],
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
-            artifact["warm_store"]["launches_by_variant"], *tr_b1_var),
+            artifact["warm_store"]["launches_by_variant"], *tr_b1_var,
+            *df_b1_var),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -5121,6 +5640,7 @@ def drive() -> int:
         "ffma_bound_ms": mega["ffma_bound_ms"],
         "call_ms": mega["ms"], "plain_call_ms": mega["plain_ms"],
         "ffma_call_ms": mega["ffma_ms"],
+        "ffma_widths": df_widths, "ffma_limits": dataflow["ffma_limits"],
         "shape": f"mega n={mega['n']} e={mega['e']} d={mega['d']} "
                  f"n_steps={mega['n_steps']}"}, {
         "name": "fused_ggnn_backward", "route": "cuda",
@@ -5128,11 +5648,11 @@ def drive() -> int:
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
                      + corpus["fit"]["b2_launches"] + bigvul_b2
-                     + sum(tr_b2.values())),
+                     + sum(tr_b2.values()) + sum(df_b2.values())),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
                              "corpus_fit": corpus["fit"]["b2_launches"],
-                             "bigvul": bigvul_b2, **tr_b2},
+                             "bigvul": bigvul_b2, **tr_b2, **df_b2},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
@@ -5141,7 +5661,7 @@ def drive() -> int:
             bigvul["fit"]["launches_by_variant"]["bwd"],
             bigvul["devign"]["fit"]["launches_by_variant"]["bwd"],
             tr_fit["launches_by_variant"]["bwd"],
-            tr_sen["launches_by_variant"]["bwd"]),
+            tr_sen["launches_by_variant"]["bwd"], *df_b2_var),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],
@@ -5150,6 +5670,7 @@ def drive() -> int:
         "ffma_ms": full["ffma_bwd_graph_ms"],
         "ffma_bound_ms": full["ffma_bound_ms"],
         "call_ms": full["bwd_ms"], "plain_call_ms": full["plain_bwd_ms"],
+        "ffma_widths": df_widths,
         "shape": f"train n={full['n']} e={full['e']} d={full['d']} "
                  f"n_steps={STEPS}"}, {
         "name": "megabatch_model", "route": "cuda",

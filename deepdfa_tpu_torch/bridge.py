@@ -2,8 +2,10 @@
 
 The Flax tree is given as nested dicts of numpy arrays (``params`` of
 ``GGNN.init``, converted with ``np.asarray``). Its names are
-``embed_{sk}.embedding`` (or ``embed.embedding``), ``ggnn.edge_linear``,
-``ggnn.gru.{x_proj,h_proj}``, ``pooling.gate`` and ``out_{i}``. A Flax
+``embed_{sk}.embedding`` (or ``embed.embedding``), one
+``embed_dfa_{fam}.embedding`` per active static-analysis family,
+``ggnn.edge_linear``, ``ggnn.gru.{x_proj,h_proj}``, ``pooling.gate`` (graph
+labels only: the node styles have no pooling) and ``out_{i}``. A Flax
 ``kernel`` is ``[in, out]`` and becomes ``nn.Linear.weight`` transposed; the
 GRU's fused r|z|n columns become rows in the same order. Both directions
 copy values exactly, so a round trip is bit for bit.
@@ -32,7 +34,8 @@ import re
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
+from deepdfa_tpu_torch.config import (ALL_SUBKEYS, DFA_FEATURE_DIMS,
+                                      GGNNConfig, active_dfa_families)
 
 __all__ = ["flax_to_torch", "fusion_flax_to_torch", "fusion_torch_to_flax",
            "level2_flax_to_torch", "level2_torch_to_flax",
@@ -45,17 +48,26 @@ def _linear_names(cfg: GGNNConfig) -> dict[tuple[str, ...], str]:
         ("ggnn", "edge_linear"): "ggnn.edge_linear",
         ("ggnn", "gru", "x_proj"): "ggnn.gru.x_proj",
         ("ggnn", "gru", "h_proj"): "ggnn.gru.h_proj",
-        ("pooling", "gate"): "pooling.gate",
     }
+    if cfg.label_style == "graph":
+        names[("pooling", "gate")] = "pooling.gate"
     for i in range(0 if cfg.encoder_mode else cfg.num_output_layers):
         names[(f"out_{i}",)] = f"head.{i}"
     return names
 
 
-def _embed_names(cfg: GGNNConfig) -> dict[str, str]:
+def _embed_names(cfg: GGNNConfig, input_dim: int) -> dict[str, tuple[str, int]]:
+    """Flax table name → (state-dict key, row count)."""
     if cfg.concat_all_absdf:
-        return {f"embed_{sk}": f"embeddings.{sk}.weight" for sk in ALL_SUBKEYS}
-    return {"embed": "embedding.weight"}
+        names = {f"embed_{sk}": (f"embeddings.{sk}.weight", input_dim)
+                 for sk in ALL_SUBKEYS}
+    else:
+        names = {"embed": ("embedding.weight", input_dim)}
+    for fam in active_dfa_families(cfg.dataflow_families,
+                                   cfg.interproc_families):
+        names[f"embed_dfa_{fam}"] = (f"dfa_embeddings.{fam}.weight",
+                                     DFA_FEATURE_DIMS[fam])
+    return names
 
 
 def _at(tree: dict, path) -> dict:
@@ -71,11 +83,11 @@ def flax_to_torch(params_np: dict, cfg: GGNNConfig, input_dim: int) -> dict:
     def put(name, arr):
         state[name] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
 
-    for flax_name, torch_name in _embed_names(cfg).items():
+    for flax_name, (torch_name, rows) in _embed_names(cfg, input_dim).items():
         table = np.asarray(params_np[flax_name]["embedding"])
-        if table.shape[0] != input_dim:
+        if table.shape[0] != rows:
             raise ValueError(f"{flax_name} has {table.shape[0]} rows, "
-                             f"expected input_dim={input_dim}")
+                             f"expected {rows}")
         put(torch_name, table)
     for path, prefix in _linear_names(cfg).items():
         leaf = _at(params_np, path)
@@ -91,10 +103,10 @@ def torch_to_flax(state_dict: dict, cfg: GGNNConfig, input_dim: int) -> dict:
         return state_dict[name].detach().cpu().numpy().copy()
 
     params: dict = {}
-    for flax_name, torch_name in _embed_names(cfg).items():
+    for flax_name, (torch_name, rows) in _embed_names(cfg, input_dim).items():
         params[flax_name] = {"embedding": get(torch_name)}
-        if params[flax_name]["embedding"].shape[0] != input_dim:
-            raise ValueError(f"{torch_name} does not have input_dim={input_dim} rows")
+        if params[flax_name]["embedding"].shape[0] != rows:
+            raise ValueError(f"{torch_name} does not have {rows} rows")
     for path, prefix in _linear_names(cfg).items():
         node = params
         for key in path[:-1]:

@@ -18,12 +18,13 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
 
-__all__ = ["ALL_SUBKEYS", "BatchConfig", "CascadeConfig", "CheckpointConfig",
-           "DataConfig", "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP",
-           "ExperimentConfig", "FeatureConfig", "FrontendConfig",
-           "GGNNConfig", "IDFA_REACH_CLIP", "LAYOUTS", "ObsConfig",
+__all__ = ["AGGREGATIONS", "ALL_SUBKEYS", "BatchConfig", "CascadeConfig",
+           "CheckpointConfig", "DataConfig", "DFA_FAMILIES",
+           "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP", "ExperimentConfig",
+           "FeatureConfig", "FrontendConfig", "GGNNConfig", "IDFA_FAMILIES",
+           "IDFA_REACH_CLIP", "LABEL_STYLES", "LAYOUTS", "ObsConfig",
            "OptimConfig", "ResilienceConfig", "SINGLE_SUBKEYS", "ServeConfig",
-           "load_config", "to_json"]
+           "active_dfa_families", "load_config", "to_json"]
 
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
 
@@ -38,12 +39,31 @@ SINGLE_SUBKEYS = {"api": False, "datatype": True, "literal": False, "operator": 
 # 0 untouched / 1 uses / 2 introduces; ireach counts reaching definitions
 # owned by another method (clipped), itaint is the interprocedural taint
 # code, 3 where only a cross-call flow taints the node.
+DFA_FAMILIES = ("live_out", "uninit", "taint")
+IDFA_FAMILIES = ("ireach", "itaint")
 DFA_LIVE_OUT_CLIP = 16
 IDFA_REACH_CLIP = 8
 DFA_FEATURE_DIMS = {
     "live_out": DFA_LIVE_OUT_CLIP + 1, "uninit": 2, "taint": 3,
     "ireach": IDFA_REACH_CLIP + 1, "itaint": 4,
 }
+
+
+def active_dfa_families(dataflow: bool, interproc: bool) -> tuple[str, ...]:
+    """The families a (data, model) flag pair turns on, in embedding order:
+    the one place the model and the bridge read, so their layouts agree."""
+    fams: tuple[str, ...] = ()
+    if dataflow:
+        fams += DFA_FAMILIES
+    if interproc:
+        fams += IDFA_FAMILIES
+    return fams
+
+
+# Label styles and message aggregations the model takes.
+LABEL_STYLES = ("graph", "node", "dataflow_solution_in",
+                "dataflow_solution_out")
+AGGREGATIONS = ("sum", "union_simple", "union_relu")
 
 # Layouts this package runs, and the roadmap item that ports each other one.
 LAYOUTS = ("segment", "fused", "megabatch")
@@ -57,8 +77,8 @@ class FeatureConfig:
     """Abstract-dataflow feature vocabulary settings.
 
     ``input_dim = limit_all + 2`` accounts for the not-a-definition token (0)
-    and the UNKNOWN token. The family flags carry over to the model, which
-    refuses them until ROADMAP A3 ports the families.
+    and the UNKNOWN token. The family flags carry over to the model
+    (``ExperimentConfig``), which widens its input by one table each.
     """
 
     subkeys: tuple[str, ...] = ALL_SUBKEYS
@@ -96,6 +116,13 @@ class GGNNConfig:
     the card ``auto`` and ``pallas`` run the backward kernel and ``xla``
     raises when training (see
     :func:`~deepdfa_tpu_torch.ops.fused_ggnn.fused_ggnn`).
+
+    ``label_style``: ``graph`` (one logit per graph, attention pooling),
+    ``node``, ``dataflow_solution_in`` or ``dataflow_solution_out`` (one
+    logit per node, no pooling). ``aggregation``: ``sum`` (DGL parity),
+    ``union_simple`` or ``union_relu`` (the DFA-lattice unions of
+    :mod:`deepdfa_tpu_torch.ops.union`, segment layout only). The family
+    flags widen the input with one ``hidden_dim`` table per family.
     """
 
     hidden_dim: int = 32
@@ -123,8 +150,11 @@ class GGNNConfig:
     @property
     def out_dim(self) -> int:
         """Pooled embedding width: embed + hidden, each ×4 when the four
-        subkey embeddings are concatenated."""
+        subkey embeddings are concatenated, plus one ``hidden_dim`` slice
+        per static-analysis family."""
         mult = len(ALL_SUBKEYS) if self.concat_all_absdf else 1
+        mult += len(active_dfa_families(self.dataflow_families,
+                                        self.interproc_families))
         return 2 * self.hidden_dim * mult
 
 
@@ -167,7 +197,8 @@ class OptimConfig:
     max_epochs: int = 25
     use_weighted_loss: bool = True
     grad_clip: float | None = None
-    # node-label training only (ROADMAP A3); graph labels ignore it
+    # node-label training only: keep every vulnerable node and each other
+    # node with probability factor × n_vul / n_nonvul in the loss
     undersample_node_on_loss_factor: float | None = None
 
 
@@ -534,7 +565,7 @@ class ExperimentConfig:
 
     def __post_init__(self):
         # data→model link for the static-analysis families, as in the JAX
-        # package (the model then refuses them until they are ported)
+        # package: when the data emits them, the model widens
         feat = self.data.feature
         for flag in ("dataflow_families", "interproc_families"):
             if getattr(feat, flag) and not getattr(self.model, flag):

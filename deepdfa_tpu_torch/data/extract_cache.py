@@ -20,8 +20,8 @@ entry via ``atomic_write_text``. An entry exists iff its meta exists; a
 torn write, a missing payload, a meta/payload digest mismatch or an
 unreadable blob all read as a miss — never as a decode crash. Writers race
 benignly: both write identical content under content-addressed names, last
-``os.replace`` wins. (The JAX package's ``extract.cache_corrupt``
-fault-injection point waits for a port of its fault registry.)
+``os.replace`` wins. The ``extract.cache_corrupt`` fault point corrupts one read's
+payload, which then reads as a miss.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import threading
 from dataclasses import dataclass
 from pathlib import Path
 
+from deepdfa_tpu_torch.resilience import faults
 from deepdfa_tpu_torch.resilience.journal import (atomic_write_bytes,
                                                   atomic_write_text)
 
@@ -101,11 +102,14 @@ class ExtractCache:
     # -- protocol -----------------------------------------------------------
     def get(self, key: str):
         """The committed payload for ``key``, or None (MISS). Any torn,
-        corrupt or foreign entry is a MISS, never an exception."""
+        corrupt, foreign or injected-corrupt entry is a MISS, never an
+        exception."""
         payload_path, meta_path = self._paths(key)
         try:
             meta = json.loads(meta_path.read_text())
             blob = payload_path.read_bytes()
+            if faults.fire("extract.cache_corrupt"):
+                blob = blob[: len(blob) // 2] + b"\x00corrupt"
             if meta.get("sha256") != hashlib.sha256(blob).hexdigest():
                 raise ValueError("payload digest mismatch")
             value = _PortUnpickler(io.BytesIO(blob)).load()

@@ -1,15 +1,25 @@
 """Gated Graph Neural Network over batched CFGs, in PyTorch.
 
 The port of ``deepdfa_tpu/models/ggnn.py`` (segment layout): abstract-dataflow
-embeddings → ``n_steps`` rounds of (edge linear → gather(senders) → sum over
-receivers → GRU) → gated attention pooling → MLP classifier. Parameters
-carry the JAX package's values through :mod:`deepdfa_tpu_torch.bridge`.
+embeddings (plus one table per static-analysis family when the family flags
+are on) → ``n_steps`` rounds of (edge linear → gather(senders) → aggregate
+over receivers → GRU) → gated attention pooling (``label_style="graph"``)
+→ MLP classifier. Parameters carry the JAX package's values through
+:mod:`deepdfa_tpu_torch.bridge`.
 
-This slice covers the concatenated-subkey and single-table embeddings,
-``label_style="graph"``, the classifier head and ``encoder_mode`` (no head:
-the pooled ``[max_graphs, out_dim]`` rows, what the LLM fusion head reads).
-The static-analysis feature families, union aggregation, node labels and
-per-step ``taps`` raise ``NotImplementedError``: later slices port them.
+- ``aggregation``: ``sum`` (DGL parity), or the DFA-lattice unions
+  ``union_simple`` / ``union_relu`` (:mod:`deepdfa_tpu_torch.ops.union`):
+  messages and the node's own state go through a sigmoid and are folded
+  by the segment union.
+- ``label_style``: ``graph`` pools into one logit per graph slot; ``node``,
+  ``dataflow_solution_in`` and ``dataflow_solution_out`` build no pooling
+  and return one logit per node slot (padding included: callers mask with
+  ``node_mask``).
+- ``encoder_mode``: no head; the pooled ``[max_graphs, out_dim]`` rows (or,
+  for the node styles, the per-node rows), what the LLM fusion head reads.
+- ``taps`` (a diagnostic): ``n_steps`` zero tensors shaped like the state,
+  added after each GRU update, so the gradient with respect to ``taps[t]``
+  is dL/dh_t.
 """
 
 from __future__ import annotations
@@ -20,9 +30,13 @@ import torch
 from torch import nn
 
 from deepdfa_tpu_torch import resolve_device
-from deepdfa_tpu_torch.config import ALL_SUBKEYS, GGNNConfig
+from deepdfa_tpu_torch.config import (ALL_SUBKEYS, AGGREGATIONS,
+                                      DFA_FEATURE_DIMS, LABEL_STYLES,
+                                      GGNNConfig, active_dfa_families)
 from deepdfa_tpu_torch.data.graphs import BatchedGraphs
 from deepdfa_tpu_torch.ops.segment import gather, segment_softmax, segment_sum
+from deepdfa_tpu_torch.ops.union import (segment_union_relu,
+                                         segment_union_simple)
 
 __all__ = ["GGNN", "GRUCell", "GatedGraphConv", "GlobalAttentionPooling",
            "check_edges_sorted", "init_params"]
@@ -63,15 +77,23 @@ def check_edges_sorted(receivers: torch.Tensor) -> None:
 
 
 class GatedGraphConv(nn.Module):
-    """``n_steps`` of (linear → gather(senders) → sum over receivers → GRU),
-    with sum aggregation. Input features are zero-padded from ``in_feats``
-    up to ``out_feats``. Edges must arrive sorted by receiver (the
-    ``batch_np`` contract); every call checks it."""
+    """``n_steps`` of (linear → gather(senders) → aggregate over receivers →
+    GRU). Input features are zero-padded from ``in_feats`` up to
+    ``out_feats``. Edges must arrive sorted by receiver (the ``batch_np``
+    contract); every call checks it.
 
-    def __init__(self, out_feats: int, n_steps: int):
+    ``aggregation``: ``sum``, or ``union_simple`` / ``union_relu``, which
+    treat messages as soft membership bits: the messages and the node's own
+    state map through a sigmoid and the segment union folds them, the
+    reaching-definitions meet operator."""
+
+    def __init__(self, out_feats: int, n_steps: int, aggregation: str = "sum"):
         super().__init__()
+        if aggregation not in AGGREGATIONS:
+            raise ValueError(f"unknown aggregation {aggregation!r}")
         self.out_feats = out_feats
         self.n_steps = n_steps
+        self.aggregation = aggregation
         self.edge_linear = nn.Linear(out_feats, out_feats)
         self.gru = GRUCell(out_feats)
 
@@ -84,13 +106,21 @@ class GatedGraphConv(nn.Module):
             h = torch.cat([h, pad], dim=-1)
         return h
 
-    def forward(self, h, senders, receivers) -> torch.Tensor:
+    def forward(self, h, senders, receivers, taps=None) -> torch.Tensor:
         h = self._pad(h, receivers)
         n_nodes = h.shape[0]
-        for _ in range(self.n_steps):
+        union = {"union_simple": segment_union_simple,
+                 "union_relu": segment_union_relu}.get(self.aggregation)
+        for step in range(self.n_steps):
             msg = self.edge_linear(h)
-            agg = segment_sum(gather(msg, senders), receivers, n_nodes)
+            if union is None:
+                agg = segment_sum(gather(msg, senders), receivers, n_nodes)
+            else:
+                agg = union(torch.sigmoid(h), torch.sigmoid(msg), senders,
+                            receivers)
             h = self.gru(agg, h)
+            if taps is not None:
+                h = h + taps[step]
         return h
 
 
@@ -109,30 +139,23 @@ class GlobalAttentionPooling(nn.Module):
         return segment_sum(gate[:, None] * h, node_gidx, num_graphs), gate
 
 
-def _unsupported(cfg: GGNNConfig) -> str | None:
-    if cfg.dataflow_families or cfg.interproc_families:
-        return "the static-analysis feature families (ROADMAP A3)"
-    if cfg.aggregation != "sum":
-        return f"aggregation={cfg.aggregation!r} (union aggregators, ROADMAP A2/A3)"
-    if cfg.label_style != "graph":
-        return f"label_style={cfg.label_style!r} (ROADMAP A3)"
-    if cfg.dtype != "float32":
-        return f"dtype={cfg.dtype!r}"
-    return None
-
-
 class GGNN(nn.Module):
     """The flagship DeepDFA model: abstract-dataflow embeddings → GGNN →
     attention pooling → MLP classifier. ``forward`` takes a
     :class:`BatchedGraphs` of tensors and returns one logit per graph slot
-    (and the gate weights when ``return_gate``); in ``encoder_mode`` there
-    is no head and it returns the pooled ``[max_graphs, out_dim]`` rows."""
+    (``label_style="graph"``) or per node slot (the node styles), and the
+    pooling's gate weights too when ``return_gate`` (None for the node
+    styles, which have no pooling); in ``encoder_mode`` there is no head and
+    it returns the pooled ``[max_graphs, out_dim]`` rows (per-node rows for
+    the node styles). ``taps``: see the module docstring."""
 
     def __init__(self, cfg: GGNNConfig, input_dim: int):
         super().__init__()
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet: {missing}")
+        if cfg.dtype != "float32":
+            raise NotImplementedError(f"not ported yet: dtype={cfg.dtype!r}")
+        if cfg.label_style not in LABEL_STYLES:
+            raise ValueError(f"unknown label_style {cfg.label_style!r} "
+                             f"(one of {', '.join(LABEL_STYLES)})")
         self.cfg = cfg
         self.input_dim = input_dim
         embed_dim = cfg.hidden_dim
@@ -144,9 +167,19 @@ class GGNN(nn.Module):
         else:
             self.embedding = nn.Embedding(input_dim, embed_dim)
             hidden_dim = cfg.hidden_dim
+        self.families = active_dfa_families(cfg.dataflow_families,
+                                            cfg.interproc_families)
+        if self.families:
+            # one hidden_dim-wide table per family, after the subkey tables
+            self.dfa_embeddings = nn.ModuleDict(
+                {fam: nn.Embedding(DFA_FEATURE_DIMS[fam], cfg.hidden_dim)
+                 for fam in self.families})
+            embed_dim += cfg.hidden_dim * len(self.families)
+            hidden_dim += cfg.hidden_dim * len(self.families)
         self.ggnn = self._conv(hidden_dim)
         out_in = embed_dim + hidden_dim
-        self.pooling = GlobalAttentionPooling(out_in)
+        if cfg.label_style == "graph":
+            self.pooling = GlobalAttentionPooling(out_in)
         n_head = 0 if cfg.encoder_mode else cfg.num_output_layers
         self.head = nn.ModuleList(
             nn.Linear(out_in, 1 if i == cfg.num_output_layers - 1 else out_in)
@@ -154,21 +187,32 @@ class GGNN(nn.Module):
 
     def _conv(self, hidden_dim: int) -> nn.Module:
         """Build the message-passing conv (overridden by ``GGNNFused``)."""
-        return GatedGraphConv(hidden_dim, self.cfg.n_steps)
+        return GatedGraphConv(hidden_dim, self.cfg.n_steps,
+                              self.cfg.aggregation)
 
     def embed_nodes(self, batch: BatchedGraphs) -> torch.Tensor:
         if self.cfg.concat_all_absdf:
-            return torch.cat(
+            out = torch.cat(
                 [self.embeddings[sk](batch.node_feats[f"_ABS_DATAFLOW_{sk}"])
                  for sk in ALL_SUBKEYS], dim=-1)
-        return self.embedding(batch.node_feats["_ABS_DATAFLOW"])
+        else:
+            out = self.embedding(batch.node_feats["_ABS_DATAFLOW"])
+        if self.families:
+            out = torch.cat(
+                [out] + [self.dfa_embeddings[fam](batch.node_feats[f"_DFA_{fam}"])
+                         for fam in self.families], dim=-1)
+        return out
 
-    def forward(self, batch: BatchedGraphs, return_gate: bool = False):
+    def forward(self, batch: BatchedGraphs, return_gate: bool = False,
+                taps=None):
         feat_embed = self.embed_nodes(batch)
-        ggnn_out = self.ggnn(feat_embed, batch.senders, batch.receivers)
+        ggnn_out = self.ggnn(feat_embed, batch.senders, batch.receivers,
+                             taps=taps)
         out = torch.cat([ggnn_out, feat_embed], dim=-1)
-        out, gate = self.pooling(out, batch.node_gidx, batch.node_mask,
-                                 batch.max_graphs)
+        gate = None
+        if self.cfg.label_style == "graph":
+            out, gate = self.pooling(out, batch.node_gidx, batch.node_mask,
+                                     batch.max_graphs)
         if self.cfg.encoder_mode:
             return (out, gate) if return_gate else out
         for i, layer in enumerate(self.head):

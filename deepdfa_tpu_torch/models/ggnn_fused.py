@@ -7,7 +7,10 @@ keeps ``edge_linear`` and ``gru.{x,h}_proj`` as ``nn.Linear``), but the
 :func:`deepdfa_tpu_torch.ops.fused_ggnn.fused_ggnn` — the CUDA kernels on the
 card (forward and, when training, backward), their plain versions on the
 CPU. Gradients reach the embeddings through the conv's input ``h0``.
-Embeddings, pooling and the head are inherited unchanged. Without a
+Embeddings (the family tables included), pooling and the per-graph or
+per-node head are inherited unchanged; the union aggregators and per-step
+``taps`` are segment-layout features and raise here, as in the JAX
+package. Without a
 gradient the rounds are one call of the registered op
 ``deepdfa::fused_ggnn``, which is what an exported program records.
 """
@@ -21,17 +24,28 @@ __all__ = ["GGNNFused", "GatedGraphConvFused"]
 
 
 class GatedGraphConvFused(GatedGraphConv):
-    """Drop-in for :class:`GatedGraphConv` backed by :func:`fused_ggnn`.
-    Weights go to the kernel in the JAX package's ``[in, out]`` layout (as
-    ``.t()`` views, so autograd hands ``nn.Linear`` its gradients in
-    ``[out, in]``). ``bwd_kernel`` selects the backward (see
-    :func:`fused_ggnn`)."""
+    """Drop-in for :class:`GatedGraphConv` (sum aggregation) backed by
+    :func:`fused_ggnn`. Weights go to the kernel in the JAX package's
+    ``[in, out]`` layout (as ``.t()`` views, so autograd hands
+    ``nn.Linear`` its gradients in ``[out, in]``). ``bwd_kernel`` selects
+    the backward (see :func:`fused_ggnn`)."""
 
-    def __init__(self, out_feats: int, n_steps: int, bwd_kernel: str = "auto"):
+    def __init__(self, out_feats: int, n_steps: int, bwd_kernel: str = "auto",
+                 aggregation: str = "sum"):
+        if aggregation != "sum":
+            raise ValueError(
+                f"layout=fused supports aggregation='sum' only (DGL parity "
+                f"path); got {aggregation!r} — use layout=segment for "
+                f"the union-lattice aggregators")
         super().__init__(out_feats, n_steps)
         self.bwd_kernel = bwd_kernel
 
-    def forward(self, h, senders, receivers):
+    def forward(self, h, senders, receivers, taps=None):
+        if taps is not None:
+            raise ValueError(
+                "per-step taps are a segment-layout diagnostic — the fused "
+                "kernel does not materialise per-round states (use "
+                "layout=segment for tap-based gradient probes)")
         h = self._pad(h, receivers)
         el, gru = self.edge_linear, self.gru
         return fused_ggnn(
@@ -48,4 +62,4 @@ class GGNNFused(GGNN):
 
     def _conv(self, hidden_dim: int):
         return GatedGraphConvFused(hidden_dim, self.cfg.n_steps,
-                                   self.cfg.bwd_kernel)
+                                   self.cfg.bwd_kernel, self.cfg.aggregation)

@@ -78,14 +78,23 @@ class GatedGraphConvInt8(nn.Module):
     sorted by receiver (checked), and input features are zero-padded up to
     ``out_feats``."""
 
-    def __init__(self, out_feats: int, n_steps: int):
+    def __init__(self, out_feats: int, n_steps: int, aggregation: str = "sum"):
         super().__init__()
+        if aggregation != "sum":
+            raise ValueError(
+                f"precision=int8 supports aggregation='sum' only; got "
+                f"{aggregation!r} — serve the union-lattice aggregators "
+                f"at f32")
         self.out_feats = out_feats
         self.n_steps = n_steps
         self.edge_linear = _Int8Linear(out_feats, out_feats)
         self.gru = _Int8GRU(out_feats)
 
-    def forward(self, h, senders, receivers) -> torch.Tensor:
+    def forward(self, h, senders, receivers, taps=None) -> torch.Tensor:
+        if taps is not None:
+            raise ValueError(
+                "per-step taps are a training diagnostic — the int8 conv is "
+                "a serving path (use layout=segment at f32)")
         check_edges_sorted(receivers)
         if h.shape[-1] > self.out_feats:
             raise ValueError("in_feats must be <= out_feats (DGL contract)")
@@ -106,7 +115,8 @@ class GGNNInt8(GGNN):
     Built by the serving engine for ``precision="int8"``."""
 
     def _conv(self, hidden_dim: int) -> nn.Module:
-        return GatedGraphConvInt8(hidden_dim, self.cfg.n_steps)
+        return GatedGraphConvInt8(hidden_dim, self.cfg.n_steps,
+                                  self.cfg.aggregation)
 
 
 def quantize_conv_params(state_dict: dict) -> dict:

@@ -23,7 +23,8 @@ import torch
 
 from deepdfa_tpu_torch.ops import custom_ops
 
-__all__ = ["gather", "segment_sum", "segment_max", "segment_softmax"]
+__all__ = ["gather", "segment_sum", "segment_max", "segment_mean",
+           "segment_softmax"]
 
 
 def _ordered_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -82,6 +83,26 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
     return out.scatter_reduce_(0, idx.expand_as(data), data, "amax",
                                include_self=True)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean of the rows of ``data`` that share a segment id, through the
+    same ordered :func:`segment_sum` (no float atomics on the card).
+    ``mask`` (bool, per row) leaves padding rows out of both the sum and
+    the count; an empty segment gives 0."""
+    trailing = (1,) * (data.dim() - 1)
+    if mask is not None:
+        data = torch.where(mask.reshape(mask.shape[0], *trailing), data,
+                           torch.zeros_like(data))
+        counts = segment_sum(mask.to(data.dtype), segment_ids, num_segments)
+    else:
+        counts = segment_sum(data.new_ones(data.shape[0]), segment_ids,
+                             num_segments)
+    totals = segment_sum(data, segment_ids, num_segments)
+    counts = torch.clamp(counts, min=1)
+    return totals / counts.reshape(num_segments, *trailing)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,

@@ -12,8 +12,11 @@ saliency** (:func:`occlusion_saliency`: the drop in the function's
 probability when one statement's dataflow features are masked), 16 masked
 copies to one padded batch and one scorer call per batch; ``saliency=
 "gate"`` ranks by the readout's attention weights, one forward per
-function. Node-label models (``label_style="node"``) are not ported yet
-(ROADMAP A3).
+function. Node-label models (``label_style="node"``) score a function as
+the largest probability of its real nodes and rank statements by those
+node probabilities (``saliency`` ``"node_probability"``); a
+dataflow-solution model predicts solver bits, not vulnerability, and is
+refused.
 
 The scorer runs on the model's device: on the card the fused layout's
 message rounds are kernel B1 for every forward, the occlusion batches
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.data.graphs import _round_up, batch_np, to_device
+from deepdfa_tpu_torch.ops.segment import segment_max
 from deepdfa_tpu_torch.pipeline import encode_source, load_vocabs
 
 __all__ = ["Scorer", "load_vocabs", "make_scorer", "occlusion_saliency",
@@ -37,10 +41,13 @@ __all__ = ["Scorer", "load_vocabs", "make_scorer", "occlusion_saliency",
 
 
 def make_scorer(model, label_style: str) -> Callable:
-    """``batch -> (fn_prob[max_graphs], gate_weights[max_nodes])`` over a
+    """``batch -> (fn_prob[max_graphs], node_saliency[max_nodes])`` over a
     batch of tensors on the model's device, under
-    ``torch.inference_mode()``. Unsupported models fail here with a clear
-    message."""
+    ``torch.inference_mode()``: the pooling's gate weights for a graph-label
+    model; for a node-label model the node probabilities, and as the
+    function's probability the largest over its real nodes (0 for a slot
+    with none, as ``serve.engine``'s artifact path gives). Unsupported
+    models fail here with a clear message."""
     cfg = getattr(model, "cfg", None)
     if cfg is not None and cfg.encoder_mode:
         raise ValueError(
@@ -52,12 +59,21 @@ def make_scorer(model, label_style: str) -> Callable:
             "which scoring reports; serve its state dict with "
             "layout='fused' (the same parameters and logits)")
     if label_style == "node":
-        raise NotImplementedError(
-            "node-label scoring is not ported yet (ROADMAP A3/A6)")
+        def score_nodes(batch):
+            with torch.inference_mode():
+                node_p = torch.sigmoid(model(batch))
+                masked = torch.where(batch.node_mask, node_p,
+                                     torch.full_like(node_p, float("-inf")))
+                fn_p = segment_max(masked, batch.node_gidx,
+                                   batch.max_graphs)
+                return torch.clamp_min(fn_p, 0.0), node_p
+
+        return score_nodes
     if label_style != "graph":
         raise ValueError(
             f"predict supports label_style 'graph' or 'node', not "
-            f"{label_style!r}")
+            f"{label_style!r} (dataflow-solution checkpoints score RD bits, "
+            "not vulnerability)")
 
     def score(batch):
         with torch.inference_mode():
@@ -69,8 +85,8 @@ def make_scorer(model, label_style: str) -> Callable:
 
 class Scorer:
     """:func:`make_scorer` over host-side padded batches: moves each batch
-    to the model's device and returns ``(fn_prob, gate)`` as float32 numpy
-    arrays. ``n_calls`` counts the forwards."""
+    to the model's device and returns ``(fn_prob, node_saliency)`` as
+    float32 numpy arrays. ``n_calls`` counts the forwards."""
 
     def __init__(self, model, label_style: str = "graph"):
         self._score = make_scorer(model, label_style)
@@ -78,9 +94,9 @@ class Scorer:
         self.n_calls = 0
 
     def __call__(self, batch) -> tuple[np.ndarray, np.ndarray]:
-        probs, gate = self._score(to_device(batch, self.device))
+        probs, sal = self._score(to_device(batch, self.device))
         self.n_calls += 1
-        return probs.float().cpu().numpy(), gate.float().cpu().numpy()
+        return probs.float().cpu().numpy(), sal.float().cpu().numpy()
 
 
 def _single_batch(g):
@@ -140,13 +156,11 @@ def predict_source(
     ``top_statements`` of ``line``/``code``/``weight``), or an ``error``
     row for a function with no CFG.
 
-    ``saliency``: ``"occlusion"`` (default) or ``"gate"``."""
+    ``saliency`` (graph-label models): ``"occlusion"`` (default) or
+    ``"gate"``. Node-label models always rank by the node probabilities."""
     if saliency not in ("occlusion", "gate"):
         raise ValueError(f"saliency must be 'occlusion' or 'gate', "
                          f"not {saliency!r}")
-    if label_style != "graph":
-        raise NotImplementedError(
-            "node-label scoring is not ported yet (ROADMAP A3/A6)")
     results = []
     for enc in encode_source(code, vocabs):
         fname, g, node_ids, cpg = enc.name, enc.graph, enc.node_ids, enc.cpg
@@ -154,12 +168,16 @@ def predict_source(
             results.append({"function": fname, "file": name,
                             "error": enc.error})
             continue
-        fn_p, gate = scorer(_single_batch(g))
+        fn_p, node_sal = scorer(_single_batch(g))
         prob = float(fn_p[0])
-        if saliency == "occlusion":
+        used = saliency
+        if label_style == "node":
+            used = "node_probability"
+            sal = node_sal[: len(node_ids)]
+        elif saliency == "occlusion":
             sal = occlusion_saliency(scorer, g, len(node_ids), full_p=prob)
         else:
-            sal = gate[: len(node_ids)]
+            sal = node_sal[: len(node_ids)]
         order = np.argsort(-sal)[: max(top_k, 0)]
         statements = [
             {
@@ -173,7 +191,7 @@ def predict_source(
             "function": fname,
             "file": name,
             "vulnerable_probability": round(prob, 6),
-            "saliency": saliency,
+            "saliency": used,
             "top_statements": statements,
         })
     return results

@@ -4,7 +4,8 @@ A copy of ``deepdfa_tpu/resilience/faults.py`` that declares only the
 points the port fires: the trainer's (``train/checkpoint.py``,
 ``train/loop.py``, ``data/prefetch.py``), the Joern session's
 (``cpg/joern_session.py``), the HTTP service's, the tracer's and flight
-recorder's, the extraction pool's, the cascade's and the frontend pool's.
+recorder's, the extraction pool's and its cache's, the cascade's, the
+frontend pool's and the function-embedding cache's.
 The other points of the JAX registry come with their fire sites (ROADMAP
 A11, A15).
 
@@ -63,10 +64,12 @@ KNOWN_POINTS = (
     "obs.trace_drop",
     "obs.flight_drop",
     "extract.worker_crash",
+    "extract.cache_corrupt",
     "cascade.tier2_timeout",
     "cascade.escalation_drop",
     "frontend.worker_crash",
     "frontend.spawn_fail",
+    "embcache.cache_corrupt",
 )
 
 # One line per point; keys equal KNOWN_POINTS.
@@ -107,6 +110,9 @@ POINT_DOCS = {
         "kill one extraction-pool worker thread mid-task — its in-flight "
         "item is re-queued and survivors steal its backlog "
         "(data/extraction.py)"),
+    "extract.cache_corrupt": (
+        "corrupt one extraction-cache payload at read — the entry must "
+        "read as a MISS, never a decode crash (data/extract_cache.py)"),
     "cascade.tier2_timeout": (
         "blow one tier-2 batch's deadline inside the cascade dispatcher — "
         "the requests keep their tier-1 answers with tier2_degraded: true "
@@ -123,6 +129,10 @@ POINT_DOCS = {
         "fail one frontend encode-session spawn — the supervisor retries "
         "with backoff; a pool that cannot spawn at all degrades to inline "
         "encode, never a 5xx (serve/frontend.py)"),
+    "embcache.cache_corrupt": (
+        "corrupt one function-embedding-cache payload at read — the entry "
+        "must read as a MISS (level 1 re-embeds), never a decode crash "
+        "(serve/embcache.py)"),
 }
 
 

@@ -18,8 +18,8 @@ Commit protocol: the raw float32 payload lands first via
 exists; a torn write, a missing payload, a meta/payload digest mismatch or
 a wrong-width blob all read as a miss, never as an exception. Writers race
 benignly: identical content under content-addressed names, last
-``os.replace`` wins. (The JAX package's ``embcache.cache_corrupt``
-fault-injection point waits for a port of its fault registry.)
+``os.replace`` wins. The ``embcache.cache_corrupt`` fault point corrupts one read's
+payload, which then reads as a miss.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from deepdfa_tpu_torch.pipeline import source_key
+from deepdfa_tpu_torch.resilience import faults
 from deepdfa_tpu_torch.resilience.journal import (atomic_write_bytes,
                                                   atomic_write_text)
 
@@ -80,12 +81,14 @@ class FunctionEmbeddingCache:
         return self.root / f"{key}.f32", self.root / f"{key}.json"
 
     def get(self, key: str) -> np.ndarray | None:
-        """The committed embedding for ``key``, or None (a miss). A torn or
-        corrupt entry is a miss, never an exception."""
+        """The committed embedding for ``key``, or None (a miss). A torn,
+        corrupt or injected-corrupt entry is a miss, never an exception."""
         payload_path, meta_path = self._paths(key)
         try:
             meta = json.loads(meta_path.read_text())
             blob = payload_path.read_bytes()
+            if faults.fire("embcache.cache_corrupt"):
+                blob = blob[: len(blob) // 2] + b"\x00corrupt"
             if meta.get("sha256") != hashlib.sha256(blob).hexdigest():
                 raise ValueError("payload digest mismatch")
             emb = np.frombuffer(blob, np.float32)

@@ -21,7 +21,8 @@ unit through the hierarchical scorer (kernel B4).
 (else latest) checkpoint into the fused layout, so a trained model serves
 on kernel B1. :meth:`ScoringEngine.from_artifact` serves a ``torch.export``
 artifact (:mod:`deepdfa_tpu_torch.serving`) at its one shape, without the
-model code. With ``latency_mode`` every dispatch goes through
+model code; a node-label artifact's per-node probabilities are reduced to
+function scores on the host. With ``latency_mode`` every dispatch goes through
 :meth:`ScoringEngine.submit`: pad, upload and launch under the engine lock
 with no host sync, the scores read back by :meth:`PendingScore.result`.
 
@@ -396,8 +397,10 @@ class ScoringEngine:
 
         dev = torch.device(self.device or "cpu")
         program, module = load_program(payload, dev)
-        return _Servable(program=program, module=module, device=dev,
-                         manifest={"node_feat_keys": list(self.feat_keys)})
+        servable = _Servable(program=program, module=module, device=dev,
+                             manifest={"node_feat_keys": list(self.feat_keys)})
+        return (_function_max(servable) if self.label_style == "node"
+                else servable)
 
     def warmup(self, warm_store=None, journal=None) -> dict:
         """Warm every bucket's callable so the first request pays neither
@@ -580,7 +583,7 @@ class ScoringEngine:
                    precision=precision, int8_score_delta=int8_delta,
                    hier_factory=hier_factory, device_fn=device_fn,
                    latency_mode=latency_mode,
-                   export_fn=_make_export_fn(chosen, label_style, keys),
+                   export_fn=_make_export_fn(chosen, keys),
                    device=dev)
 
     @classmethod
@@ -648,18 +651,37 @@ class ScoringEngine:
         max_nodes = int(leaves[-3]["shape"][0])
         spec = BucketSpec(max_graphs, max_nodes, max_edges)
         bucket = ServeBucket(spec=spec, graph_nodes=max_nodes - 1)
-        return cls(servable, (bucket,), label_style=man["label_style"],
+        label_style = man.get("label_style", "graph")
+        score_fn = (_function_max(servable) if label_style == "node"
+                    else servable)
+        return cls(score_fn, (bucket,), label_style=label_style,
                    feat_keys=tuple(man["node_feat_keys"]),
                    vocab_hash=man.get("vocab_hash"), device=dev)
 
 
-def _make_export_fn(model, label_style: str, feat_keys):
+def _function_max(servable):
+    """A node-label program's per-node probabilities reduced to function
+    scores on the host: per graph slot, the largest over its real nodes
+    (0 for an empty slot), as the JAX package's ``from_artifact`` does."""
+
+    def score_fn(batch):
+        node_p = np.asarray(servable(batch), np.float32)
+        fn = np.zeros(batch.max_graphs, np.float32)
+        mask = np.asarray(batch.node_mask)
+        np.maximum.at(fn, np.asarray(batch.node_gidx)[mask], node_p[mask])
+        return fn
+
+    return score_fn
+
+
+def _make_export_fn(model, feat_keys):
     """``bucket -> (saved exported program, export seconds)`` for the warm
     store: :func:`deepdfa_tpu_torch.serving.export_program` of ``model``
     (the engine's chosen model: int8 when the gate accepted it) at one
     bucket's padded shape, on the model's device. The program is
     ``serving.ScoreProgram``: the probabilities :func:`~deepdfa_tpu_torch.
-    predict.make_scorer` gives, without the gate weights."""
+    predict.make_scorer` gives, without the gate weights (per node for a
+    node-label model, reduced per function on the host when loaded)."""
 
     def export_bucket(bucket: ServeBucket):
         from deepdfa_tpu_torch.serving import export_program, save_program
@@ -667,7 +689,7 @@ def _make_export_fn(model, label_style: str, feat_keys):
         t0 = time.perf_counter()
         ex = batch_np([_dummy_graph(feat_keys)], bucket.spec.max_graphs,
                       bucket.spec.max_nodes, bucket.spec.max_edges)
-        program = export_program(model, ex, feat_keys, label_style)
+        program = export_program(model, ex, feat_keys)
         return save_program(program), time.perf_counter() - t0
 
     return export_bucket

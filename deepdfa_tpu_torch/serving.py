@@ -19,9 +19,12 @@ Artifact layout (one directory):
 The program takes the batch's leaves as positional tensors, in the JAX
 manifest's flatten order: ``node_feats`` by sorted key, then ``senders``,
 ``receivers``, ``node_gidx``, ``node_mask``, ``edge_mask``,
-``graph_mask``. It returns ``sigmoid(GGNNFused(batch))`` per graph slot
-``[max_graphs]``; padding slots carry garbage, and callers mask with
-``graph_mask``. Its nodes carry no device: :func:`load_program` places it
+``graph_mask``. It returns ``sigmoid(GGNNFused(batch))``: per graph slot
+``[max_graphs]`` for a graph-label model, per node slot ``[max_nodes]`` for
+a node-label one. Padding slots carry garbage, and callers mask with
+``graph_mask`` / ``node_mask``; the node→function max stays out of the
+program, on the host (``ScoringEngine.from_artifact``), as in the JAX
+package. Its nodes carry no device: :func:`load_program` places it
 on any device, and the registered ops pick their CPU or CUDA
 implementation from the inputs when they run. A torch loader never reads
 a JAX StableHLO artifact.
@@ -108,15 +111,10 @@ def _tensors(batch: BatchedGraphs, feat_keys, device) -> list[torch.Tensor]:
             for a in _leaves(batch, feat_keys)]
 
 
-def export_program(model: nn.Module, example: BatchedGraphs, feat_keys,
-                   label_style: str = "graph"):
+def export_program(model: nn.Module, example: BatchedGraphs, feat_keys):
     """``torch.export`` of ``sigmoid(model(batch))`` at ``example``'s
     shapes, traced on the model's device with no gradient (so every
     kernel call is a registered op). Returns the ``ExportedProgram``."""
-    if label_style != "graph":
-        raise NotImplementedError(
-            f"exporting label_style={label_style!r} is not ported yet: the "
-            "node-label model is ROADMAP A3")
     dev = next(model.parameters()).device
     args = tuple(_tensors(example, feat_keys, dev))
     with torch.no_grad():
@@ -161,10 +159,6 @@ def export_ggnn(cfg: ExperimentConfig, state_dict, out_dir: str | Path,
     parameter set). ``model``: an already built fused model, given by a
     caller that restored into it; ``vocab_hash``: the training
     vocabularies' content hash, the stale-artifact guard's input."""
-    if cfg.model.label_style != "graph":
-        raise NotImplementedError(
-            f"exporting label_style={cfg.model.label_style!r} is not ported "
-            "yet: the node-label model is ROADMAP A3")
     from deepdfa_tpu_torch.models import make_model
 
     dev = resolve_device(device)
@@ -177,7 +171,7 @@ def export_ggnn(cfg: ExperimentConfig, state_dict, out_dir: str | Path,
     model = model.to(dev).eval()
     ex = example_batch(cfg, vocab_keys) if example is None else example
     keys = sorted(ex.node_feats)
-    program = export_program(model, ex, keys, cfg.model.label_style)
+    program = export_program(model, ex, keys)
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -185,7 +179,7 @@ def export_ggnn(cfg: ExperimentConfig, state_dict, out_dir: str | Path,
     manifest = {
         "format": FORMAT,
         "callable": "sigmoid(GGNNFused(batch)) — probabilities; mask padding "
-                    "with graph_mask",
+                    "with graph_mask/node_mask",
         "label_style": cfg.model.label_style,
         "layout": cfg.model.layout,
         "input_treedef": "positional: node_feats[" + ", ".join(keys)
@@ -209,8 +203,8 @@ def export_ggnn(cfg: ExperimentConfig, state_dict, out_dir: str | Path,
 @dataclasses.dataclass
 class _Servable:
     """A loaded program: call it with a ``BatchedGraphs`` of numpy arrays
-    at the program's shapes; returns float32 probabilities ``[max_graphs]``
-    on the host."""
+    at the program's shapes; returns float32 probabilities on the host
+    (``[max_graphs]``, or ``[max_nodes]`` for a node-label model)."""
 
     program: object
     module: object

@@ -7,7 +7,8 @@ The port of ``deepdfa_tpu/train/cli.py``. Commands:
   emergency checkpoint recorded); a preempted fit exits with rc 75.
 - ``test``: restore the best (else the latest) checkpoint and evaluate the
   test split: overall, positive-only and negative-only metrics, the
-  classification report, ``pr.csv`` and ``pr_binned.csv`` (pandas'
+  classification report, for node-label models the statement ranking's
+  ``statement_hit@1..10``, ``pr.csv`` and ``pr_binned.csv`` (pandas'
   ``to_csv`` bytes), the confusion matrix logged, ``test_metrics.json``.
 - ``analyze``: per-split feature and dataflow-solution coverage, the label
   balance and, from ``hashes.csv.gz``, the feature-variant grid;
@@ -18,8 +19,12 @@ The port of ``deepdfa_tpu/train/cli.py``. Commands:
   artifact in ``<run-dir>/export`` (:mod:`deepdfa_tpu_torch.serving`).
 - ``trace export``: the run's trace exemplars as one Chrome trace-event
   JSON.
-- ``serve`` and ``scan`` have entry points of their own (``python -m
-  deepdfa_tpu_torch.serve.server``, ``python -m deepdfa_tpu_torch.scan``);
+- ``serve``: :func:`~deepdfa_tpu_torch.serve.server.serve_command` (the
+  HTTP service, from ``--ckpt-dir`` or ``--artifact``);
+- ``scan <target> [--source ...]``: :func:`~deepdfa_tpu_torch.scan.
+  scan_command` (``--workers``, ``--cache-dir``, ``--cascade``,
+  ``--interproc``); both also have entry points of their own (``python -m
+  deepdfa_tpu_torch.serve.server``, ``python -m deepdfa_tpu_torch.scan``).
   ``bench`` (the perf ledger) is not ported yet (ROADMAP A13).
 
 Every command runs on ``--device`` (``cuda`` unless another is named).
@@ -58,7 +63,7 @@ COMMANDS = ("fit", "test", "analyze", "predict", "export", "serve", "trace",
 
 # commands routinely pointed at a fit run dir: they read its config.json as
 # the base layer, never overwrite it, and never mark the run as crashed
-_READERS = ("predict", "export")
+_READERS = ("predict", "export", "serve", "scan")
 
 
 def _shard_dir(cfg: ExperimentConfig) -> Path:
@@ -119,6 +124,7 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     pos = M.ConfusionState.zeros(dev)
     neg = M.ConfusionState.zeros(dev)
     all_probs, all_labels = [], []
+    statement_items = []  # node labels: (probs, labels) per function
     losses, wsums = [], []
     n_graphs_scored = 0  # must equal len(test_graphs): no silent truncation
     stream = prefetch_to_device(_batch_stream(batcher, test_graphs), dev,
@@ -126,7 +132,8 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     try:
         for batch in stream:
             _, eval_step = trainer.steps_for(batch)
-            n_graphs_scored += int(batch.graph_mask.sum())
+            n_real = int(batch.graph_mask.sum())
+            n_graphs_scored += n_real
             overall, loss, probs, labels, weights = eval_step(model, batch,
                                                               overall)
             pos, neg = M.update_confusion_by_class(pos, neg, probs, labels,
@@ -134,8 +141,16 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
             losses.append(float(loss))
             wsums.append(float(weights.sum()))
             keep = (weights > 0).cpu().numpy()
-            all_probs.append(probs.cpu().numpy()[keep])
-            all_labels.append(labels.cpu().numpy()[keep])
+            p_np, l_np = probs.cpu().numpy(), labels.cpu().numpy()
+            all_probs.append(p_np[keep])
+            all_labels.append(l_np[keep])
+            if cfg.model.label_style == "node":
+                gidx = batch.node_gidx.cpu().numpy()
+                for gi in range(n_real):
+                    sel = (gidx == gi) & keep
+                    if sel.any():
+                        statement_items.append((p_np[sel],
+                                                l_np[sel].astype(int)))
     finally:
         stream.close()
 
@@ -152,6 +167,11 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     results |= M.compute_metrics(neg, "test_neg_")
     results |= {f"report_{k}": v for k, v in
                 M.classification_report(probs, labels).items()}
+    if statement_items:
+        topk = M.eval_statements_list(statement_items)
+        results |= {f"statement_hit@{k}": v for k, v in topk.items()}
+        logger.info("statement top-k hit rates: %s",
+                    {k: round(v, 4) for k, v in topk.items()})
 
     write_curve(run_dir / "pr.csv", M.pr_curve(probs, labels.astype(int)))
     write_curve(run_dir / "pr_binned.csv",
@@ -468,7 +488,8 @@ def _parser():
     parser = argparse.ArgumentParser(prog="deepdfa-tpu-torch")
     parser.add_argument("command", choices=COMMANDS)
     parser.add_argument("subcommand", nargs="?", default=None,
-                        help="trace: 'export' (the default)")
+                        help="trace: 'export' (the default); scan: the "
+                             "file or directory to scan")
     parser.add_argument("--out", default=None,
                         help="trace export: output path (default: "
                              "<run-dir>/trace_events.json)")
@@ -487,7 +508,22 @@ def _parser():
                         help="shard dir holding vocab.json (default: the "
                              "config's processed dataset dir)")
     parser.add_argument("--source", action="append", default=[],
-                        help="predict: C file or directory (repeatable)")
+                        help="predict/scan: C file or directory (repeatable)")
+    parser.add_argument("--workers", type=int, default=4,
+                        help="scan: extraction-pool worker count")
+    parser.add_argument("--cache-dir", default=None,
+                        help="scan: extraction-cache dir (default: "
+                             "<run-dir>/extract_cache)")
+    parser.add_argument("--artifact", default=None,
+                        help="serve/scan: an exported artifact dir (train.cli "
+                             "export) instead of a checkpoint")
+    parser.add_argument("--cascade", action="store_true",
+                        help="scan: rescore borderline-band functions "
+                             "through the tier-2 joint engine (needs "
+                             "serve.cascade.joint_dir)")
+    parser.add_argument("--interproc", action="store_true",
+                        help="scan: also score the target as one unit and "
+                             "report cross-function taint flows")
     parser.add_argument("--top-k", type=int, default=5,
                         help="predict: statements ranked per function")
     parser.add_argument("--saliency", choices=("occlusion", "gate"),
@@ -512,10 +548,6 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.command == "predict" and not args.source:
         parser.error("predict requires at least one --source")
-    if args.command in ("serve", "scan"):
-        parser.error(f"{args.command} has an entry point of its own: python "
-                     "-m deepdfa_tpu_torch."
-                     + ("serve.server" if args.command == "serve" else "scan"))
     if args.command == "trace":
         # a reporting path: no config, no run-dir creation, no logging
         if (args.subcommand or "export") != "export":
@@ -568,6 +600,23 @@ def main(argv=None) -> dict:
         if args.command == "export":
             return export_model(cfg, run_dir, ckpt_dir, shard_dir=shard_dir,
                                 device=args.device)
+        if args.command == "serve":
+            from deepdfa_tpu_torch.serve.server import serve_command
+
+            return serve_command(cfg, run_dir=run_dir, ckpt_dir=ckpt_dir,
+                                 artifact=args.artifact, shard_dir=shard_dir,
+                                 device=args.device)
+        if args.command == "scan":
+            from deepdfa_tpu_torch.scan import scan_command
+
+            targets = (([args.subcommand] if args.subcommand else [])
+                       + list(args.source))
+            return scan_command(
+                cfg, run_dir, targets, ckpt_dir=ckpt_dir,
+                artifact=args.artifact, workers=args.workers,
+                cache_dir=Path(args.cache_dir) if args.cache_dir else None,
+                cascade=args.cascade, interproc=args.interproc,
+                shard_dir=shard_dir, device=args.device)
         return analyze(cfg, run_dir)
     except Exception:
         # the crash marker (main_cli.py:324-336), not for the commands

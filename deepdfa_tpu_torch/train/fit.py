@@ -28,10 +28,12 @@ Data: the materialised shards and ``splits.json`` under
 ``python -m deepdfa_tpu_torch.preprocess`` or the JAX package's
 ``scripts/preprocess.py``), re-partitioned at load time by a named split
 when ``data.split`` names one; without shards, a deterministic synthetic
-corpus (with a warning). The elastic mesh block
-(``meta.json``'s ``mesh``; ``resharded`` stays 0), node and dataflow labels
-and the dense layout are not ported yet (ROADMAP A11, A3, A10); a config
-that asks for one raises ``NotImplementedError``. All three ported layouts (segment, fused,
+corpus (with a warning). Every ``label_style`` trains: graph labels, node
+labels and the dataflow solutions (shards built with the solver-label
+flag), in the segment and fused layouts. The elastic mesh block
+(``meta.json``'s ``mesh``; ``resharded`` stays 0) and the dense layout are
+not ported yet (ROADMAP A11, A10); a config that asks for one raises
+``NotImplementedError``. All three ported layouts (segment, fused,
 megabatch) train on the same segment batches and buckets; on the card the
 megabatch layout's kernel takes every bucket, with no segment twin.
 """

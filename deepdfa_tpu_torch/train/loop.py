@@ -1,9 +1,13 @@
 """Training and eval steps and the epoch loop for the GGNN classifier.
 
-The port of ``deepdfa_tpu/train/loop.py`` for ``label_style="graph"``:
-masked graph labels (an empty padded graph slot gets label 0 and weight 0),
-``BCEWithLogitsLoss(pos_weight=...)`` in log-sigmoid form, metric counts
-accumulated on the device, and the in-step non-finite guard.
+The port of ``deepdfa_tpu/train/loop.py``: labels for every
+``label_style`` (graph labels are masked segment maxima, so an empty padded
+graph slot gets label 0 and weight 0; node and dataflow-solution labels are
+per node, weighted by ``node_mask``, and ``dataflow_solution_in`` keeps
+only definition nodes, ``cut_nodef``), ``BCEWithLogitsLoss(pos_weight=...)``
+in log-sigmoid form, the node-level undersampling of the loss, metric
+counts accumulated on the device (per node for the node styles), and the
+in-step non-finite guard.
 
 Where the JAX package is functional, this port updates in place: the
 parameters live in the model and ``torch.optim.AdamW`` updates them and
@@ -18,8 +22,12 @@ eps=1e-8, weight_decay)`` over every parameter, after
 package's does: the divergence sentinel, the preemption handler, a
 mid-epoch skip count, the step watchdog and the training telemetry, and
 fires the ``step.nan_grads``, ``preempt.sigterm`` and ``step.hang`` fault
-points. Node and dataflow label styles and the node-level loss
-undersampling are not ported yet (ROADMAP A3).
+points.
+
+Node undersampling draws its keep mask from the step's
+``torch.Generator``, so it is reproducible run to run but not bit for bit
+``jax.random.bernoulli``'s: the two packages agree on the keep rate, not
+on which nodes are kept.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ __all__ = [
     "graph_labels",
     "make_eval_step",
     "make_train_step",
+    "node_undersample_weights",
 ]
 
 
@@ -78,11 +87,38 @@ def graph_labels(batch: BatchedGraphs) -> torch.Tensor:
 
 def extract_labels(batch: BatchedGraphs,
                    label_style: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """(labels, weights); the weights exclude padded graph slots."""
+    """(labels, weights) for ``label_style``. The weights exclude padding:
+    padded graph slots for ``graph``, padding nodes for the node styles,
+    and for ``dataflow_solution_in`` also the nodes that define nothing
+    (a zero abstract-dataflow id: ``cut_nodef``)."""
     if label_style == "graph":
         return graph_labels(batch), batch.graph_mask.float()
-    raise NotImplementedError(
-        f"label_style={label_style!r} is not ported yet (ROADMAP A3)")
+    if label_style == "node":
+        return batch.node_feats["_VULN"].float(), batch.node_mask.float()
+    if label_style in ("dataflow_solution_in", "dataflow_solution_out"):
+        is_in = label_style.endswith("_in")
+        labels = batch.node_feats["_DF_IN" if is_in else "_DF_OUT"].float()
+        weights = batch.node_mask.float()
+        if is_in:
+            key = ("_ABS_DATAFLOW" if "_ABS_DATAFLOW" in batch.node_feats
+                   else "_ABS_DATAFLOW_datatype")
+            weights = weights * (batch.node_feats[key] != 0).float()
+        return labels, weights
+    raise NotImplementedError(label_style)
+
+
+def node_undersample_weights(rng: torch.Generator, labels: torch.Tensor,
+                             weights: torch.Tensor,
+                             factor: float) -> torch.Tensor:
+    """The node-level loss undersampling: keep every positive node, keep
+    each negative with probability ``factor * n_pos / n_neg`` (clipped to
+    [0, 1]), the keep mask drawn from ``rng`` on the host."""
+    n_pos = torch.sum(weights * labels)
+    n_neg = torch.clamp(torch.sum(weights * (1.0 - labels)), min=1.0)
+    p_keep = torch.clamp(factor * n_pos / n_neg, 0.0, 1.0)
+    u = torch.rand(labels.shape, generator=rng).to(labels.device)
+    keep = (u < p_keep).float()
+    return weights * torch.where(labels > 0, torch.ones_like(keep), keep)
 
 
 def bce_sums(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
@@ -107,7 +143,9 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
 
 def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
                     grad_clip: float | None = None,
-                    sentinel_guard: bool = True) -> Callable:
+                    sentinel_guard: bool = True,
+                    undersample_node_on_loss_factor: float | None = None
+                    ) -> Callable:
     """The train step ``(state, batch, metrics, loss_scale=1.0) -> (state,
     metrics, loss, weight_sum)``: forward, masked loss, backward, AdamW
     update, metric counts.
@@ -117,18 +155,28 @@ def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
     its loss as NaN (one device sync per step decides it). ``loss_scale``
     (exact at 1.0) multiplies the loss, so a NaN scale poisons every
     gradient through the chain rule.
+
+    ``undersample_node_on_loss_factor`` (``label_style="node"`` only):
+    reweights the loss by :func:`node_undersample_weights`, drawn from the
+    step's generator.
     """
+    undersample = (label_style == "node"
+                   and undersample_node_on_loss_factor is not None)
 
     def train_step(state: TrainState, batch: BatchedGraphs,
                    metrics: ConfusionState, loss_scale: float = 1.0):
-        # one draw per step: the graph-label loss uses no randomness, but
-        # the generator advances as the JAX package's key is split
-        torch.randint(0, 2**62, (1,), generator=state.rng)
+        # one draw per step, as the JAX package splits its key: the
+        # undersampling's keep mask comes from a generator seeded with it
+        sub = int(torch.randint(0, 2**62, (1,), generator=state.rng))
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         logits = model(batch)
         labels, weights = extract_labels(batch, label_style)
+        if undersample:
+            weights = node_undersample_weights(
+                torch.Generator().manual_seed(sub), labels, weights,
+                undersample_node_on_loss_factor)
         loss = bce_with_logits(logits, labels, weights, pos_weight) * loss_scale
         loss.backward()
         loss = loss.detach()
@@ -218,7 +266,8 @@ class Trainer:
         label_style = self.cfg.model.label_style
         self.train_step = make_train_step(
             label_style, pos_weight=pos_weight, grad_clip=o.grad_clip,
-            sentinel_guard=self.cfg.resilience.sentinel)
+            sentinel_guard=self.cfg.resilience.sentinel,
+            undersample_node_on_loss_factor=o.undersample_node_on_loss_factor)
         self.eval_step = make_eval_step(label_style, pos_weight=pos_weight)
 
     @property

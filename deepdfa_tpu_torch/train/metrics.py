@@ -7,8 +7,9 @@ masked rows contribute nothing. ``compute_metrics`` mirrors torchmetrics'
 micro-averaged defaults (global counts, threshold 0.5, 0 when a denominator
 is 0). :func:`classification_report` and :func:`pr_curve` are the JAX
 package's sklearn calls, computed here with numpy alone (the card's machine
-has no sklearn). The statement top-k ranking (``eval_statements``) waits
-for the node label style (ROADMAP A3).
+has no sklearn). :func:`eval_statements` and :func:`eval_statements_list`
+are IVDetect's statement top-k ranking, which ``test`` reports for
+node-label models.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 __all__ = ["ConfusionState", "MeanState", "binned_pr_curve",
            "classification_report", "compute_metrics", "confusion_matrix",
-           "pr_curve", "update_confusion", "update_confusion_by_class",
+           "eval_statements", "eval_statements_list", "pr_curve", "update_confusion", "update_confusion_by_class",
            "update_mean"]
 
 
@@ -165,6 +166,52 @@ def confusion_matrix(probs: np.ndarray, labels: np.ndarray,
     preds = (np.asarray(probs) >= threshold).astype(int)
     labels = np.asarray(labels).astype(int)
     return np.bincount(labels * 2 + preds, minlength=4).reshape(2, 2)
+
+
+def eval_statements(probs: np.ndarray, labels: np.ndarray,
+                    thresh: float = 0.5) -> dict[int, int]:
+    """IVDetect's top-k statement ranking for ONE function
+    (``helpers/evaluate.py:262-291``): rank statements by probability;
+    hit@k is 1 iff a truly vulnerable statement is in the top k. For a
+    function with no vulnerable statement, hit@k is 1 iff nothing is
+    predicted above ``thresh`` (a correct all-clear)."""
+    probs = np.asarray(probs, dtype=float)
+    labels = np.asarray(labels, dtype=int)
+    if labels.sum() == 0:
+        clear = int(not (probs > thresh).any())
+        return {k: clear for k in range(1, 11)}
+    order = np.argsort(-probs, kind="stable")
+    ranked = labels[order]
+    return {k: int(ranked[:k].any()) for k in range(1, 11)}
+
+
+def eval_statements_list(items: list[tuple[np.ndarray, np.ndarray]],
+                         thresh: float = 0.5,
+                         vulonly: bool = False) -> dict[int, float]:
+    """Corpus-level top-k hit rates (``evaluate.py:294-322``): the mean
+    hit@k over vulnerable functions, times the all-clear rate over the
+    other functions unless ``vulonly``. An absent class counts as 1, so a
+    corpus with no clean function keeps its vulnerable rate."""
+
+    def rate(subset, empty: float):
+        if not subset:
+            return {k: empty for k in range(1, 11)}
+        acc = {k: 0 for k in range(1, 11)}
+        for probs, labels in subset:
+            hit = eval_statements(probs, labels, thresh)
+            for k in acc:
+                acc[k] += hit[k]
+        return {k: v / len(subset) for k, v in acc.items()}
+
+    vul = [i for i in items if np.asarray(i[1]).sum() > 0]
+    vul_rate = rate(vul, 0.0)
+    if vulonly:
+        return vul_rate
+    nonvul = [i for i in items if np.asarray(i[1]).sum() == 0]
+    nonvul_rate = rate(nonvul, 1.0)
+    if not vul:
+        return nonvul_rate
+    return {k: vul_rate[k] * nonvul_rate[k] for k in range(1, 11)}
 
 
 def pr_curve(probs: np.ndarray, labels: np.ndarray):

@@ -236,15 +236,17 @@ def test_resume_without_a_run_starts_fresh(tmp_path):
     # the resilience block is ported: accepted, and fit completes
     ({"resilience": {"sentinel_patience": 3}}, None),
     ({"resilience": {"emergency_ckpt": False}}, None),
-    ({"model": {"label_style": "node"}}, "A3"),
+    # node labels are ported: accepted, and fit completes
+    ({"model": {"label_style": "node"}}, None),
 ])
 def test_unported_fit_options_raise(tmp_path, overrides, match):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(overrides))
     if match is None:
         cfg = load_config(path, overrides=_TINY | {"optim.max_epochs": 1})
-        assert cfg.resilience == dataclasses.replace(
-            cfg.resilience, **overrides["resilience"])
+        for section, values in overrides.items():
+            block = getattr(cfg, section)
+            assert block == dataclasses.replace(block, **values)
         final = fit(cfg, tmp_path / "run", device="cpu")
         assert final["n_rollbacks"] == 0 and final["lr_scale"] == 1.0
         assert all(np.isfinite(v) for v in final.values())

@@ -434,17 +434,21 @@ def test_the_wrapper_computes_the_plain_version(lib, d):
     p = fg._Prepared(h0, snd, rcv, weights, 1024)
     out, states, aggs = fg._forward_cuda(p, steps, bank=True)
     want = fg.fused_ggnn_reference(h0, snd, rcv, *weights, n_steps=steps)
-    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    err, top = float((out - want).abs().max()), float(want.abs().max())
+    assert err <= 1e-5 * top, f"forward error {err} over largest {top}"
     ping, _, _ = fg._forward_cuda(p, steps, bank=False)
-    assert torch.equal(ping, out)
+    assert torch.equal(ping, out), (
+        f"ping-pong differs by {float((ping - out).abs().max())}")
     g = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (n, d)).astype(F32) * 1e-2)
     got = fg._backward_cuda(p, states, aggs, g)
     ref = fg.fused_ggnn_backward_reference(h0, snd, rcv, *weights, g,
                                            n_steps=steps)
-    for a, r in zip(got, ref):
+    for name, a, r in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb"),
+                          got, ref):
         assert a.shape == r.shape
-        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        err, top = float((a - r).abs().max()), float(r.abs().max())
+        assert err <= 1e-5 * top, f"{name}: error {err} over largest {top}"
 
 
 class _MegaStandIn(_StandIn):

@@ -416,9 +416,10 @@ def test_the_port_declares_only_the_points_it_fires():
         "prefetch.producer_raises", "joern.hang", "joern.die",
         "serve.drop_request", "serve.engine_raises", "preempt.sigterm",
         "step.hang", "obs.trace_drop", "obs.flight_drop",
-        "extract.worker_crash", "cascade.tier2_timeout",
-        "cascade.escalation_drop", "frontend.worker_crash",
-        "frontend.spawn_fail")
+        "extract.worker_crash", "extract.cache_corrupt",
+        "cascade.tier2_timeout", "cascade.escalation_drop",
+        "frontend.worker_crash", "frontend.spawn_fail",
+        "embcache.cache_corrupt")
     assert set(faults.KNOWN_POINTS) <= set(jfaults.KNOWN_POINTS)
     assert set(faults.POINT_DOCS) == set(faults.KNOWN_POINTS)
     for point in faults.KNOWN_POINTS:

@@ -3,7 +3,8 @@ package's ``GGNN.apply`` and ``GGNNFused.apply`` (the Pallas kernel in
 interpret mode) on padded ``batch_np`` batches, with the Flax parameters
 carried across by ``deepdfa_tpu_torch.bridge``. Also: the bridge round trip
 is bit for bit, the eager ``edges_sorted`` check raises, the port's host
-batching equals the JAX package's, and unported options raise.
+batching equals the JAX package's, the options A3 ported build and run,
+and unported layouts raise.
 
 Tolerance: atol=2e-5, rtol=1e-4 (as tests/test_ggnn_parity.py): matmul
 summation order differs between torch and XLA.
@@ -156,9 +157,23 @@ def test_megabatch_layout_is_ported():
     dict(aggregation="union_simple"), dict(dataflow_families=True),
 ])
 def test_unported_model_options_raise(kw):
+    """These options were unported (ROADMAP A3) and now build and run on a
+    padded batch that carries the family columns; an unknown value of the
+    same field still raises."""
     cfg = dataclasses.replace(GGNNConfig(**SMALL), **kw)
-    with pytest.raises(NotImplementedError):
-        make_model(cfg, INPUT_DIM, device="cpu")
+    model = make_model(cfg, INPUT_DIM, device="cpu")
+    graphs = jdataset(6, seed=0, input_dim=INPUT_DIM, mean_nodes=12,
+                      dataflow_families=True, interproc_families=True)
+    batch = jbatch_np(graphs, 8, 256, 640)
+    with torch.inference_mode():
+        out = model(to_device(batch, "cpu"))
+    rows = 256 if cfg.label_style == "node" else 8
+    assert out.shape == (rows,) and bool(torch.isfinite(out).all())
+    field = next(iter(kw))
+    if isinstance(kw[field], str):
+        bad = dataclasses.replace(cfg, **{field: "nonsense"})
+        with pytest.raises(ValueError, match="nonsense"):
+            make_model(bad, INPUT_DIM, device="cpu")
 
 
 def test_make_model_without_device_needs_a_gpu():

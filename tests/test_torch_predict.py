@@ -46,7 +46,8 @@ from deepdfa_tpu.pipeline import encode_source as jencode  # noqa: E402
 
 from deepdfa_tpu_torch import bridge, predict  # noqa: E402
 from deepdfa_tpu_torch.config import ExperimentConfig, GGNNConfig  # noqa: E402
-from deepdfa_tpu_torch.data.graphs import Graph  # noqa: E402
+from deepdfa_tpu_torch.data.graphs import Graph, batch_np, to_device  # noqa: E402
+from deepdfa_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from deepdfa_tpu_torch.data.vocab import Vocabulary  # noqa: E402
 from deepdfa_tpu_torch.models import make_model  # noqa: E402
 from deepdfa_tpu_torch.pipeline import encode_source  # noqa: E402
@@ -181,8 +182,18 @@ def test_occlusion_saliency_masking_math():
 
 def test_make_scorer_refuses_unsupported_models():
     model = make_model(GGNNConfig(**SMALL), INPUT_DIM, device="cpu")
-    with pytest.raises(NotImplementedError, match="node-label"):
-        predict.make_scorer(model, "node")
+    # a node-label model scores: the function is its real nodes' max
+    node = make_model(GGNNConfig(**SMALL, label_style="node"), INPUT_DIM,
+                      device="cpu")
+    graphs = random_dataset(3, seed=2, input_dim=INPUT_DIM, mean_nodes=9)
+    batch = to_device(batch_np(graphs, 4, 128, 512), "cpu")
+    fn_p, node_p = predict.make_scorer(node, "node")(batch)
+    assert fn_p.shape == (4,) and node_p.shape == (128,)
+    for gi in range(3):
+        real = (batch.node_gidx == gi) & batch.node_mask
+        assert float(fn_p[gi]) == float(node_p[real].max())
+    # a slot with no real node scores 0, as the artifact path's host max
+    assert float(fn_p[3]) == 0.0
     with pytest.raises(ValueError, match="dataflow_solution_in"):
         predict.make_scorer(model, "dataflow_solution_in")
     enc = make_model(GGNNConfig(**SMALL, encoder_mode=True), INPUT_DIM,
@@ -203,9 +214,8 @@ def test_predict_refuses_bad_options(vocabs, models, paths):
     with pytest.raises(ValueError, match="saliency"):
         predict.predict_source(code, scorer=scorer, vocabs=tvocabs,
                                saliency="attention")
-    with pytest.raises(NotImplementedError, match="node-label"):
-        predict.predict_source(code, scorer=scorer, vocabs=tvocabs,
-                               label_style="node")
+    with pytest.raises(ValueError, match="RD bits"):
+        predict.Scorer(model, "dataflow_solution_out")
     other = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, feature=dataclasses.replace(cfg.data.feature,
                                               limit_all=50)))

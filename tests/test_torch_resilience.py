@@ -204,7 +204,7 @@ def test_the_trainer_fault_points_are_declared_with_jax_docs():
     for point in TRAINER_POINTS:
         assert point in faults.KNOWN_POINTS
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
-    assert len(faults.KNOWN_POINTS) == 16
+    assert len(faults.KNOWN_POINTS) == 18
     assert "mesh.device_lost" not in faults.KNOWN_POINTS  # with A11
 
 

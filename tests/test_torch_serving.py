@@ -12,8 +12,10 @@ rounds, hidden 8 × 4 subkeys, ``data.batch`` of 8 graphs × 512 nodes ×
   ``test_torch_serve.py`` limit: float32 sums in another order);
 - the manifest's key set (plus ``torch_version``) and ``input_leaves``
   equal JAX's;
-- the refusals: a missing feature key, a vocab mismatch (a warning),
-  node labels (A3), a JAX StableHLO directory;
+- the refusals: a missing feature key, a vocab mismatch (a warning), a
+  JAX StableHLO directory;
+- a node-label export against the JAX node export, and both
+  ``from_artifact`` engines' host-side per-function max;
 - the program: the registered ops ``deepdfa.fused_ggnn`` and
   ``deepdfa.segment_sum`` (``deepdfa.int8_matmul`` for an int8 model) and
   no ``index_add``; a fresh process that loads it through
@@ -166,12 +168,40 @@ def test_vocab_hash_mismatch_warns(exports, tmp_path):
 
 
 def test_node_labels_raise_naming_a3(exports, tmp_path):
+    """Node labels (ROADMAP A3) no longer raise: a node-label model exports
+    per-node probabilities, equal to the JAX package's node export on the
+    same parameters (the graph model's, less its pooling), and both
+    ``from_artifact`` engines take the per-function max on the host."""
+    from deepdfa_tpu.serve.engine import ScoringEngine as JEngine
+
     cfg = exports["cfg"]
     node = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, label_style="node"))
-    with pytest.raises(NotImplementedError, match="A3"):
-        serving.export_ggnn(node, exports["state"], tmp_path / "n",
-                            device="cpu")
+    state = {k: v for k, v in exports["state"].items()
+             if not k.startswith("pooling.")}
+    out = serving.export_ggnn(node, state, tmp_path / "n", device="cpu")
+    man = json.loads((out / "manifest.json").read_text())
+    assert man["label_style"] == "node"
+    jcfg = jload_config(overrides={**NARROW, "model.layout": "segment",
+                                   "model.label_style": "node"})
+    jparams = jax.tree.map(jnp.asarray, bridge.torch_to_flax(
+        state, node.model, cfg.input_dim))
+    jout = jexport_ggnn(jcfg, jparams, tmp_path / "jn")
+    batch = exports["batch"]
+    got = serving.load_exported(out, device="cpu")(batch)
+    want = np.asarray(jload_exported(jout)(batch))
+    assert got.shape == want.shape == (batch.node_mask.shape[0],)
+    mask = np.asarray(batch.node_mask)
+    np.testing.assert_allclose(got[mask], want[mask], atol=ATOL, rtol=0)
+    teng = ScoringEngine.from_artifact(out, device="cpu")
+    jeng = JEngine.from_artifact(jout)
+    assert teng.label_style == jeng.label_style == "node"
+    fn_t, fn_j = teng._score_fn(batch), np.asarray(jeng._score_fn(batch))
+    real = np.asarray(batch.graph_mask)
+    np.testing.assert_allclose(fn_t[real], fn_j[real], atol=ATOL, rtol=0)
+    gidx = np.asarray(batch.node_gidx)
+    for gi in np.flatnonzero(real):
+        assert fn_t[gi] == got[mask & (gidx == gi)].max()
 
 
 def test_a_jax_stablehlo_dir_raises_naming_the_format(exports):

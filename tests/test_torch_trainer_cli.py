@@ -280,7 +280,8 @@ def test_trace_export_equals_jax(straight, tmp_path):
             "device.sync"} <= names
 
 
-def test_a_crash_renames_the_log_and_bench_waits_for_a13(storage, tmp_path):
+def test_a_crash_renames_the_log_and_bench_waits_for_a13(storage, tmp_path,
+                                                         monkeypatch):
     run = tmp_path / "crash"
     with faults.installed("prefetch.producer_raises@2"):
         with pytest.raises(faults.InjectedFault):
@@ -290,9 +291,29 @@ def test_a_crash_renames_the_log_and_bench_waits_for_a13(storage, tmp_path):
         cli.main(["bench"])
     with pytest.raises(SystemExit):
         cli.main(["predict", "--run-dir", str(run)])  # needs --source
-    for command in ("serve", "scan"):  # entry points of their own
-        with pytest.raises(SystemExit):
-            cli.main([command, "--run-dir", str(run)])
+    # serve and scan dispatch as the JAX CLI does, with its arguments
+    from deepdfa_tpu_torch import scan
+    from deepdfa_tpu_torch.serve import server
+
+    calls = []
+    monkeypatch.setattr(server, "serve_command",
+                        lambda cfg, **kw: calls.append(("serve", kw)) or {})
+    monkeypatch.setattr(scan, "scan_command",
+                        lambda cfg, run_dir, targets, **kw: calls.append(
+                            ("scan", targets, kw)) or {})
+    cli.main(["serve", "--run-dir", str(run), "--artifact", "a",
+              "--device", "cpu"])
+    cli.main(["scan", "t1", "--source", "t2", "--run-dir", str(run),
+              "--workers", "2", "--cache-dir", "c", "--interproc",
+              "--device", "cpu"])
+    assert calls == [
+        ("serve", dict(run_dir=run, ckpt_dir=None, artifact="a",
+                       shard_dir=None, device="cpu")),
+        ("scan", ["t1", "t2"], dict(ckpt_dir=None, artifact=None, workers=2,
+                                    cache_dir=Path("c"), cascade=False,
+                                    interproc=True, shard_dir=None,
+                                    device="cpu"))]
+    assert (run / "run.log.error").exists()  # readers never mark the run
 
 
 # ------------------------------------------------------------------ metrics
