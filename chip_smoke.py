@@ -54,7 +54,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    uninterrupted run, and a second uninterrupted run: both bitwise equal
    (the port's reductions on the card have a fixed order). One step runs
    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` as a
-   diagnostic: the ops that warn are listed.
+   diagnostic, in a spawned process beside the resume's: the ops that
+   warn are listed.
 6. mega_kernel — the whole-model kernel (B3) against its plain version
    ``megabatch_reference`` on the card at the golden width, 5 rounds and 3
    head layers, at the megabatch serving shape and the three training
@@ -233,9 +234,9 @@ Each phase prints one JSON line; any failure exits non-zero.
    its function; ``/metrics``, ``/slo`` and ``/healthz`` (the JAX
    package's keys); the device's busy share of a profiled cold pass;
    SIGTERM with requests in flight (every request not refused for the
-   drain answered 200, the listener closed). Then ``python -m
-   deepdfa_tpu_torch.serve.server`` as a subprocess (its ``serving`` line,
-   8 requests, SIGTERM, its ``drained`` line, rc 0) and ``python -m
+   drain answered 200, the listener closed). Then, side by side, ``python
+   -m deepdfa_tpu_torch.serve.server`` as a subprocess (its ``serving``
+   line, 8 requests, SIGTERM, its ``drained`` line, rc 0) and ``python -m
    deepdfa_tpu_torch.scan --interproc`` over the fixtures (its
    ``scan.json`` rows and unit score equal to ``scan_paths`` in this
    process on B1 and B4).
@@ -260,8 +261,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    dispatches × 15, its programs call ``deepdfa.int8_matmul``) over the
    golden model's seeded weights: the gate refuses the corpus fit's (its
    verdict and delta are reported).
-   Then ``serve.server --artifact`` and ``serve.server`` with
-   ``serve.warm_store_dir`` (its ``serving`` line: 3 hits) as
+   Then, side by side, ``serve.server --artifact`` and ``serve.server``
+   with ``serve.warm_store_dir`` (its ``serving`` line: 3 hits) as
    subprocesses (8 × 200, bodies within ``ARTIFACT_LIMIT`` of the engine,
    ``drained``, rc 0), and ``scan --artifact`` over the fixtures (rows
    equal to ``scan_paths`` on the in-process artifact engine).
@@ -328,12 +329,44 @@ Each phase prints one JSON line; any failure exits non-zero.
    bitwise the clean run, and ``train.cli scan`` over the fixtures with
    the node checkpoint (rc 0). Export and load seconds, p50 step ms, test
    graphs/s, predict functions/s, each with the card's name and power
-   limit.
+   limit. Beside all of it, from the phase's start, the dataflow
+   experiment itself (``python -m deepdfa_tpu_torch.dataflow_experiment``,
+   segment layout, no kernel) as four children side by side, each in a
+   storage root of its own: the table at the script's defaults (n 400, 25
+   epochs), ``--chain-sweep 2``, ``--rescue 2 --epochs 60`` and
+   ``--union-pretrain 2 --epochs 60``: each exits 0 and prints the JAX
+   script's JSON keys, every F1 and every per-round gradient norm finite
+   (one a round), the graph row's train loss falls; the table beside
+   BASELINE.md's and the margin over the feature baseline reported.
+17f. continual — the continual loop on the corpus phase's shards and test
+   sources: rev A, a 4-epoch fused fit, staged into a warm store and
+   served by two replicas spawned side by side through
+   ``SubprocessLauncher`` with capture on, behind an in-process
+   ``FleetRouter``; the 410 serve_http sources from 16 clients through the
+   router; ``run_retrain`` (the delta through the corpus build's
+   extraction cache: 2,000 hits and 64 new ``codegen`` misses; one fused
+   epoch resumed from rev A's last commit: rev B); ``shadow_replay`` of
+   rev B against rev A over the captured traffic and
+   ``no_regression_gate`` (val loss; no ledger leg: the repo's
+   ``BENCH_*.json`` describe the JAX package); ``stage_candidate``;
+   ``PromotionController.promote`` through the router while 4 clients
+   keep sending; a second roll whose drift watch the injected
+   ``continual.rollback_trigger`` fires, back to rev A; a controller
+   process killed at ``continual.rollout_crash`` (rc 137) and resumed by
+   ``converge``; ``continual.capture_drop`` armed on a capturing server in
+   the ring. Gates: no 5xx, the ring never empty, every join warm
+   (``join_cold_compiles`` 0), the answers after each roll within 1e-6 of
+   the engine of the rev that should serve and not of the other; B1 =
+   (fit steps + eval batches + engine calls) × 11 and B2 = fit steps × 17
+   in this process, and B1 = (dispatches + warm-up calls) × 11 in every
+   replica, all ``wgmma``. Reported: router requests/s and p50/p99,
+   capture records and drops, the delta, p50 step ms, the shadow PSI, the
+   seconds of each roll and of every spawn.
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
    leading unnamed index and every typed column of the reference reader)
-   of 2,000 ``codegen`` pairs, half vulnerable, every 40th a
+   of 1,000 ``codegen`` pairs, half vulnerable, every 40th a
    dataflow-hard one of chain depth 30-120, and an
    ``external/linevul_splits.csv`` assigning every id; then
    ``preprocess --dataset bigvul --split fixed --workers 4`` (rows read and
@@ -402,7 +435,7 @@ import threading
 import time
 import types
 import warnings
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -463,6 +496,7 @@ from deepdfa_tpu_torch.serve import (FunctionEmbeddingCache, MicroBatcher,
 from deepdfa_tpu_torch.serve.cache import ScanCache
 from deepdfa_tpu_torch.serve.engine import model_revision
 from deepdfa_tpu_torch.serve.frontend import encode_session_factory
+from deepdfa_tpu_torch.serve.autoscaler import SubprocessLauncher
 from deepdfa_tpu_torch.serve.server import build_server
 from deepdfa_tpu_torch.serve.warmstore import WarmStore
 from deepdfa_tpu_torch.serving import (export_ggnn, exported_ops,
@@ -1265,6 +1299,11 @@ def resume_in_fresh_process(cfg: ExperimentConfig, run_dir: Path) -> dict:
 
 def _deterministic_step(cfg: ExperimentConfig, batch,
                         pos_weight: float) -> list[str]:
+    """One train step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, run in a spawned process (the fixed cuBLAS workspace
+    it needs would slow the caller's other measurements): the messages of
+    the ops with no deterministic implementation on the card. A diagnostic;
+    the check is the bitwise resume."""
     # cuBLAS reads its workspace setting when this process first uses it
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1282,19 +1321,6 @@ def _deterministic_step(cfg: ExperimentConfig, batch,
     finally:
         torch.use_deterministic_algorithms(False)
     return sorted({str(w.message)[:160] for w in caught})
-
-
-def deterministic_diagnostic(cfg: ExperimentConfig, batch,
-                             pos_weight: float) -> list[str]:
-    """One train step under ``torch.use_deterministic_algorithms(True,
-    warn_only=True)`` in a spawned process (the fixed cuBLAS workspace it
-    needs would slow this process's other measurements): the messages of
-    the ops with no deterministic implementation on the card. A diagnostic;
-    the check is the bitwise resume."""
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
-        return pool.submit(_deterministic_step, cfg, batch,
-                           pos_weight).result(timeout=600)
 
 
 def phase_train(layout: str) -> dict:
@@ -1335,15 +1361,19 @@ def drive_train(work: Path, layout: str) -> dict:
                                cfg.optim.lr)
     vs_cpu = compare_steps(on_card, one_step(cfg, batch, pw, "cpu"),
                            cfg.optim.lr)
-    nondeterministic = deterministic_diagnostic(cfg, batch, pw)
-
-    # resume: 2 epochs, then resume to 3, against the straight run
-    two = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
-                                                             max_epochs=2))
-    fit(two, work / "resumed", device="cuda")
-    resumed = resume_in_fresh_process(cfg, work / "resumed")
-    # and a second uninterrupted run
-    fit(cfg, work / "again", device="cuda")
+    # the diagnostic's process starts beside the resume's (both mostly
+    # wait on a spawned interpreter's start-up)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as child:
+        diagnostic = child.submit(_deterministic_step, cfg, batch, pw)
+        # resume: 2 epochs, then resume to 3, against the straight run
+        two = dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, max_epochs=2))
+        fit(two, work / "resumed", device="cuda")
+        resumed = resume_in_fresh_process(cfg, work / "resumed")
+        # and a second uninterrupted run
+        fit(cfg, work / "again", device="cuda")
+        nondeterministic = diagnostic.result(timeout=600)
     pa, pb = read_params(work / "straight"), read_params(work / "resumed")
     pc = read_params(work / "again")
     resume_diff = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
@@ -3832,10 +3862,15 @@ def phase_serve_http(ctx: dict, work: Path) -> dict:
             else:
                 want8[-1].append(ref_probs[j])
                 j += 1
-    entry = serve_entry_point(
-        ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir)], sources,
-        want8, work / "serve_entry.log")
-    scan_cli = scan_entry_point(cfg, run_dir, shard_dir, vocabs, work)
+    # side by side: each mostly waits on its child's start-up
+    with ThreadPoolExecutor(max_workers=2) as children:
+        entry = children.submit(
+            serve_entry_point,
+            ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir)],
+            sources, want8, work / "serve_entry.log")
+        scan_cli = children.submit(scan_entry_point, cfg, run_dir,
+                                   shard_dir, vocabs, work)
+        entry, scan_cli = entry.result(), scan_cli.result()
 
     encode_busy_s = sum(b - a for a, b in intervals)
     n_cold_fns = sum(len(body.get("results", [])) for _, body in cold)
@@ -4164,9 +4199,6 @@ def phase_artifact(work: Path) -> dict:
             else:
                 want8[-1].append(card_rounded[j])
                 j += 1
-    entry = serve_entry_point(
-        ["--artifact", str(card_dir), "--shard-dir", str(shard_dir)],
-        sources, want8, work / "serve_artifact.log")
     ref_rounded = [round(p, 6) for p in ref_probs]
     want_ref, j = [], 0
     for enc in encoded[:8]:
@@ -4174,10 +4206,6 @@ def phase_artifact(work: Path) -> dict:
         for fn in enc:
             want_ref[-1].append(None if fn.graph is None else ref_rounded[j])
             j += fn.graph is not None
-    entry_store = serve_entry_point(
-        ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir), "--set",
-         f"serve.warm_store_dir={store.root}"], sources, want_ref,
-        work / "serve_store.log")
     tree = work / "artifact_scan_tree"
     tree.mkdir()
     for p in sorted((FIXTURES / "realworld").glob("*.c")):
@@ -4186,10 +4214,28 @@ def phase_artifact(work: Path) -> dict:
     cmd = [sys.executable, "-m", "deepdfa_tpu_torch.scan", str(tree),
            "--run-dir", str(out), "--artifact", str(card_dir),
            "--shard-dir", str(shard_dir)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True,
-                          text=True, timeout=600)
-    scan_s = time.perf_counter() - t0
+
+    def scan_child():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True,
+                              text=True, timeout=600)
+        return proc, time.perf_counter() - t0
+
+    # the three entry points side by side: each mostly waits on its
+    # child's start-up
+    with ThreadPoolExecutor(max_workers=3) as children:
+        entry = children.submit(
+            serve_entry_point,
+            ["--artifact", str(card_dir), "--shard-dir", str(shard_dir)],
+            sources, want8, work / "serve_artifact.log")
+        entry_store = children.submit(
+            serve_entry_point,
+            ["--run-dir", str(run_dir), "--shard-dir", str(shard_dir),
+             "--set", f"serve.warm_store_dir={store.root}"], sources,
+            want_ref, work / "serve_store.log")
+        scanned = children.submit(scan_child)
+        entry, entry_store = entry.result(), entry_store.result()
+        proc, scan_s = scanned.result()
     cli = (json.loads((out / "scan.json").read_text())
            if proc.returncode == 0 else {"results": []})
     local = scan_paths([tree], vocabs, engine=engines["card"][0],
@@ -4848,6 +4894,192 @@ DATAFLOW_SERVED = 64
 NODE_UNDERSAMPLE_FACTOR = 1.0
 
 
+# the dataflow experiment (python -m deepdfa_tpu_torch.dataflow_experiment):
+# the table at the script's defaults (n 400, 25 epochs), and its sweeps at
+# chain depth 2; the rescue and the union pretraining at 60 epochs, cut from
+# the 250 of storage/chain_rescue_r05.json and storage/union_pretrain_r05.json
+EXPERIMENT_MODES = {
+    "table": [],
+    "chain_sweep": ["--chain-sweep", "2"],
+    "rescue": ["--rescue", "2", "--epochs", "60"],
+    "union_pretrain": ["--union-pretrain", "2", "--epochs", "60"],
+}
+EXPERIMENT_EPOCHS = 25  # the script's default: the table's graph row
+EXPERIMENT_STEPS = 5  # the golden depth: one gradient norm a round
+# scripts/dataflow_experiment.py's JSON keys
+EXPERIMENT_TABLE_KEYS = [
+    "feature_lr_f1", "feature_lr_acc", "feature_lr_train_acc", "ggnn_f1",
+    "ggnn_acc", "dfa_node_f1_sum", "dfa_node_f1_union_relu", "n",
+    "margin_vs_feature_baseline"]
+EXPERIMENT_TOP_KEYS = {
+    "chain_sweep": ["n", "epochs", "depths", "runs"],
+    "rescue": ["n", "epochs", "depths", "n_steps", "runs"],
+    "union_pretrain": ["n", "epochs", "depths", "n_steps", "aggregation",
+                       "runs"]}
+EXPERIMENT_RUN_KEYS = {
+    "chain_sweep": {"L2_sum_n5": ["f1", "acc"],
+                    "L2_union_relu_n5": ["f1", "acc"]},
+    "rescue": {"L2_sum": None, "L2_union_relu": None},
+    "union_pretrain": {"L2": ["node_pretrain", "graph_warmstart",
+                              "graph_warmstart_frozen"]}}
+EXPERIMENT_CURVE_KEYS = ["test_f1", "test_acc", "breakthrough_epoch",
+                         "val_logit_label_corr", "grad_norm_per_step",
+                         "curve_tail", "curve_every4"]
+EXPERIMENT_ROW_KEYS = ["epoch", "train_acc", "val_acc", "val_f1",
+                       "train_loss"]
+# BASELINE.md's table (the JAX script's runs, reported beside the port's)
+BASELINE_EXPERIMENT = {"feature_lr_f1": 0.39, "ggnn_f1": 0.987,
+                       "dfa_node_f1_sum": 0.974,
+                       "dfa_node_f1_union_relu": 0.974}
+
+
+def start_experiments(root: Path) -> dict:
+    """Every mode of the experiment as a child on the card, side by side,
+    each building its corpora in a storage root of its own."""
+    runs = {}
+    for mode, extra in EXPERIMENT_MODES.items():
+        d = root / f"experiment_{mode}"
+        d.mkdir()
+        env = {**os.environ, "DEEPDFA_STORAGE": str(d / "storage"),
+               "OMP_NUM_THREADS": "2"}
+        cmd = [sys.executable, "-m", "deepdfa_tpu_torch.dataflow_experiment",
+               "--out", str(d / "runs"), *extra]
+        out, err = open(d / "stdout.txt", "w"), open(d / "stderr.log", "w")
+        r = {"proc": subprocess.Popen(cmd, cwd=REPO_ROOT, stdout=out,
+                                      stderr=err, env=env),
+             "t0": time.perf_counter(), "files": (out, err), "dir": d,
+             "cmd": " ".join(cmd[1:]), "seconds": None}
+
+        def waiter(r=r):
+            r["proc"].wait()
+            r["seconds"] = time.perf_counter() - r["t0"]
+
+        r["waiter"] = threading.Thread(target=waiter, daemon=True)
+        r["waiter"].start()
+        runs[mode] = r
+    return runs
+
+
+def finish_experiments(runs: dict, timeout: float = 900.0) -> dict:
+    """Each child's exit code, seconds, last stdout line (its JSON) and
+    the train loss of every epoch its fits logged, in order."""
+    import re
+
+    deadline = time.perf_counter() + timeout
+    rows = {}
+    for mode, r in runs.items():
+        r["waiter"].join(max(0.0, deadline - time.perf_counter()))
+        proc = r["proc"]
+        if proc.poll() is None:
+            proc.kill()
+        rc = proc.wait()
+        for f in r["files"]:
+            f.close()
+        lines = (r["dir"] / "stdout.txt").read_text().strip().splitlines()
+        try:
+            result = json.loads(lines[-1]) if lines else None
+        except json.JSONDecodeError:
+            result = None
+        log = (r["dir"] / "stderr.log").read_text()
+        rows[mode] = {"cmd": r["cmd"], "rc": rc, "seconds": r["seconds"],
+                      "result": result,
+                      "train_losses": [float(v) for v in re.findall(
+                          r"epoch \d+: train_loss=(\S+)", log)],
+                      "log_tail": log[-600:] if rc else ""}
+    return rows
+
+
+def experiment_curves(mode: str, result: dict) -> list[dict]:
+    """The per-run curve records of a rescue or union-pretrain result."""
+    runs = result.get("runs", {})
+    if mode == "rescue":
+        return list(runs.values())
+    return [stage for run in runs.values() for stage in run.values()]
+
+
+def check_experiments(rows: dict) -> None:
+    """Fail unless every mode exited 0 and printed the JAX script's keys,
+    every F1 and every per-round gradient norm is finite (one norm a
+    round), and the table's graph row trained with a falling loss."""
+    finite = lambda v: isinstance(v, (int, float)) and np.isfinite(v)
+    for mode, row in rows.items():
+        res = row["result"]
+        if row["rc"] != 0 or not isinstance(res, dict):
+            fail(f"dataflow experiment {mode}: rc {row['rc']} "
+                 f"{row['log_tail']}")
+        if mode == "table":
+            if list(res) != EXPERIMENT_TABLE_KEYS or \
+                    not all(finite(v) for v in res.values()):
+                fail(f"dataflow experiment table: {res}")
+            losses = row["train_losses"][:EXPERIMENT_EPOCHS]
+            if len(losses) != EXPERIMENT_EPOCHS or \
+                    not losses[-1] < losses[0]:
+                fail(f"dataflow experiment: the graph row's train losses "
+                     f"{losses}")
+            continue
+        runs = res.get("runs", {})
+        if list(res) != EXPERIMENT_TOP_KEYS[mode] or \
+                list(runs) != list(EXPERIMENT_RUN_KEYS[mode]):
+            fail(f"dataflow experiment {mode}: keys {list(res)} / "
+                 f"{list(runs)}")
+        if mode == "chain_sweep":
+            for key, run in runs.items():
+                if list(run) != EXPERIMENT_RUN_KEYS[mode][key] or \
+                        not all(finite(v) for v in run.values()):
+                    fail(f"dataflow experiment chain_sweep {key}: {run}")
+            continue
+        if mode == "union_pretrain" and any(
+                list(run) != EXPERIMENT_RUN_KEYS[mode][key]
+                for key, run in runs.items()):
+            fail(f"dataflow experiment union_pretrain: {runs}")
+        for curve in experiment_curves(mode, res):
+            rows_ = curve.get("curve_tail", []) + curve.get("curve_every4",
+                                                            [])
+            norms = curve.get("grad_norm_per_step", {})
+            if list(curve) != EXPERIMENT_CURVE_KEYS or \
+                    not finite(curve["test_f1"]) or not rows_ or \
+                    any(list(r) != EXPERIMENT_ROW_KEYS for r in rows_) or \
+                    any(len(v) != EXPERIMENT_STEPS or
+                        not all(finite(x) for x in v)
+                        for v in norms.values()):
+                fail(f"dataflow experiment {mode}: curve "
+                     f"{ {k: curve.get(k) for k in EXPERIMENT_CURVE_KEYS[:5]} }")
+        probed = [c for c in experiment_curves(mode, res)
+                  if c.get("grad_norm_per_step")]
+        if not probed:
+            fail(f"dataflow experiment {mode}: no gradient norms")
+
+
+def experiment_report(rows: dict) -> dict:
+    """The numbers the phase reports: the table beside BASELINE.md's, the
+    margin over the feature baseline, the sweeps' F1s and plateaus."""
+    out = {mode: {"rc": r["rc"], "seconds": r["seconds"]}
+           for mode, r in rows.items()}
+    table = rows["table"]["result"] or {}
+    out["table"] |= {
+        "result": table, "baseline": BASELINE_EXPERIMENT,
+        "margin_vs_feature_baseline": table.get("margin_vs_feature_baseline"),
+        "graph_train_loss_first_last": (
+            rows["table"]["train_losses"][:1]
+            + rows["table"]["train_losses"][EXPERIMENT_EPOCHS - 1:
+                                            EXPERIMENT_EPOCHS])}
+    for mode in ("chain_sweep", "rescue", "union_pretrain"):
+        res = rows[mode]["result"] or {}
+        runs = res.get("runs", {})
+        if mode == "chain_sweep":
+            out[mode]["runs"] = runs
+        elif mode == "rescue":
+            out[mode]["runs"] = {k: {f: v.get(f) for f in (
+                "test_f1", "test_acc", "breakthrough_epoch",
+                "val_logit_label_corr", "grad_norm_per_step")}
+                for k, v in runs.items()}
+        else:
+            out[mode]["runs"] = {k: {s: {f: c.get(f) for f in (
+                "test_f1", "breakthrough_epoch", "grad_norm_per_step")}
+                for s, c in v.items()} for k, v in runs.items()}
+    return out
+
+
 def dataflow_config(**model) -> ExperimentConfig:
     """The dataflow experiment's run: ``ExperimentConfig()``'s defaults
     (the golden model, undersampling ``v1.0``, 256 graphs a batch) on
@@ -4896,6 +5128,10 @@ def phase_dataflow(work: Path) -> dict:
         path = root / f"{name}.json"
         path.write_text(to_json(cfg))
         return path
+
+    # 0. the dataflow experiment itself, its four modes as children side
+    # by side (segment layout: no kernel), harvested at the phase's end
+    experiments = start_experiments(root)
 
     # 1. the experiment's corpus, with the families
     t0 = time.perf_counter()
@@ -5167,6 +5403,10 @@ def phase_dataflow(work: Path) -> dict:
     row["scan_cli"] = {"rc": scanned["rc"], "seconds": scanned["seconds"],
                        "n_scored": scan_json.get("n_scored"),
                        "log_tail": scanned["log_tail"]}
+    t0 = time.perf_counter()
+    experiment = finish_experiments(experiments)
+    row["experiment"] = experiment_report(experiment)
+    row["experiment"]["waited_s"] = time.perf_counter() - t0
     emit(row)
 
     # the gates
@@ -5230,13 +5470,647 @@ def phase_dataflow(work: Path) -> dict:
     check_ggnn_wgmma("dataflow_artifact", "B1", art_var, art_b1)
     if scanned["rc"] != 0 or not row["scan_cli"]["n_scored"]:
         fail(f"dataflow: train.cli scan {row['scan_cli']}")
+    check_experiments(experiment)
+    return row
+
+
+# --------------------------------------------------------------- phase 17f
+
+
+CONTINUAL_CLIENTS = SERVE_HTTP_CLIENTS
+# clients that keep sending through the router while a roll runs (16 of
+# them slowed each replica's start from ~20 s to 20-31 s on the card)
+CONTINUAL_LOAD_CLIENTS = 4
+CONTINUAL_NEW_FUNCTIONS = 64  # new codegen functions in the retrain's corpus
+CONTINUAL_CHECK = 64  # sources whose answers are held against an engine
+CONTINUAL_LIMIT = 1e-6  # a replica's answer against its rev's engine
+CONTINUAL_SPAWN_TIMEOUT_S = 300.0
+# rev A's epochs (rev B adds one): a retrain that refines a settled model.
+# Earlier on the card the model still moves: the shadow gate (PSI 0.25)
+# refused the third epoch over the second (PSI 4.2) and the fourth over the
+# third (0.29)
+CONTINUAL_EPOCHS = 4
+# replicas and controllers import the port from this checkout
+REPLICA_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    [str(REPO_ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+
+# a replica: serve.server's entry point, whose B1 counts, engine dispatches
+# and capture counters land in the file its first argument names when it
+# exits (drained, or failing on a closed stdout after its controller died)
+REPLICA_MAIN = """
+import json, sys
+from deepdfa_tpu_torch.ops import fused_ggnn as fg
+from deepdfa_tpu_torch.serve import server as srv
+
+seen = []
+wait = srv.ScoreServer.wait
+
+
+def tracked(self):
+    seen.append(self)
+    return wait(self)
+
+
+srv.ScoreServer.wait = tracked
+try:
+    srv.main(sys.argv[2:])
+finally:
+    s = seen[0] if seen else None
+    with open(sys.argv[1], "w") as f:
+        json.dump({"b1_launches": fg.n_launches,
+                   "b1_launches_by_variant": dict(fg.n_variant_launches),
+                   "dispatches": s.engine.n_dispatches if s else None,
+                   "warm_calls": len(s.engine.buckets) if s else None,
+                   "warm_misses": ((s.engine.last_warmup_report or {})
+                                   .get("misses") if s else None),
+                   "capture": (s.capture.stats()
+                               if s is not None and s.capture else None)},
+                  f)
+"""
+
+# a promotion controller in a process of its own, driving the router's
+# admin surface; armed with continual.rollout_crash it dies between the
+# candidate's warm join and the prior replica's retirement
+CONTROLLER_MAIN = """
+import json, sys
+from deepdfa_tpu_torch.continual.promote import PromotionController
+from deepdfa_tpu_torch.resilience.journal import RunJournal
+from deepdfa_tpu_torch.serve.autoscaler import (AdminRouterClient,
+                                                SubprocessLauncher)
+
+spec = json.loads(open(sys.argv[1]).read())
+
+
+def launcher(tag):
+    return SubprocessLauncher(
+        lambda i: [a.replace("@ID@", f"{tag}{i}") for a in spec["argv"][tag]],
+        startup_timeout_s=spec["spawn_timeout_s"])
+
+
+pc = PromotionController(
+    AdminRouterClient("127.0.0.1", spec["router_port"]),
+    launcher(spec["candidate_tag"]), launcher(spec["prior_tag"]),
+    candidate_rev=spec["candidate_rev"], prior_rev=spec["prior_rev"],
+    alerts_path=spec["alerts"], state_journal=RunJournal(spec["state"]),
+    drift_settle_polls=2, poll_interval_s=0.5, join_timeout_s=120.0)
+print(json.dumps(pc.promote(spec["shadow"])), flush=True)
+"""
+
+
+def replica_argv(root: Path, cfg_file: Path, ckpt_dir: Path, shard_dir: Path,
+                 store: Path, ident: str) -> list[str]:
+    """A replica serving ``ckpt_dir`` on the card, warming from the fleet's
+    store and capturing its traffic into ``root/<ident>.capture.jsonl``."""
+    return [sys.executable, "-c", REPLICA_MAIN,
+            str(root / f"{ident}.counts.json"), "--config", str(cfg_file),
+            "--ckpt-dir", str(ckpt_dir), "--shard-dir", str(shard_dir),
+            "--set", "serve.port=0", "--set", f"serve.warm_store_dir={store}",
+            "--set", "serve.continual.enabled=true",
+            "--set", f"serve.continual.capture_path="
+                     f"{root / (ident + '.capture.jsonl')}"]
+
+
+class TimedLauncher(SubprocessLauncher):
+    """The fleet's launcher, keeping every handle and each spawn's
+    seconds; spawn ``i`` of ``tag`` is replica ``{tag}{i}``."""
+
+    def __init__(self, argv_of, tag: str):
+        super().__init__(lambda i: argv_of(f"{tag}{i}"),
+                         env=REPLICA_ENV,
+                         startup_timeout_s=CONTINUAL_SPAWN_TIMEOUT_S)
+        self.handles: list = []
+        self.seconds: list[float] = []
+
+    def spawn(self):
+        t0 = time.perf_counter()
+        handle = super().spawn()
+        self.seconds.append(time.perf_counter() - t0)
+        self.handles.append(handle)
+        return handle
+
+
+class Traffic:
+    """Closed-loop clients cycling over ``sources`` through the router
+    while a roll runs, every status kept, and a watch of the ring's size
+    (it must never be empty)."""
+
+    def __init__(self, router, sources: list[str], clients: int):
+        self.router, self.sources, self.clients = router, sources, clients
+        self.status: dict = {}
+        self.min_ring = None
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads: list = []
+
+    def _client(self, k: int) -> None:
+        i = k
+        while not self._stop.is_set():
+            try:
+                code, _ = http_call(self.router.port, "POST", "/score",
+                                    {"source": self.sources[
+                                        i % len(self.sources)]})
+            except OSError as exc:
+                code = type(exc).__name__
+            with self._lock:
+                self.status[code] = self.status.get(code, 0) + 1
+            i += self.clients
+
+    def _watch(self) -> None:
+        while not self._stop.is_set():
+            n = len(self.router.ring)
+            self.min_ring = n if self.min_ring is None else min(
+                self.min_ring, n)
+            self._stop.wait(0.005)
+
+    def __enter__(self):
+        self._threads = [threading.Thread(target=self._client, args=(k,),
+                                          daemon=True)
+                         for k in range(self.clients)]
+        self._threads.append(threading.Thread(target=self._watch,
+                                              daemon=True))
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+
+    def row(self) -> dict:
+        return {"status": {str(k): v for k, v in self.status.items()},
+                "requests": sum(self.status.values()),
+                "non_200": sum(v for k, v in self.status.items()
+                               if k != 200),
+                "min_ring": self.min_ring}
+
+
+def source_graphs(sources: list[str], vocabs: dict) -> list[list]:
+    """Each source's encoded function graphs (None where a function has no
+    scoreable graph), in the server's row order."""
+    return [[enc.graph for enc in encode_source(src, vocabs, keep_cpg=False)]
+            for src in sources]
+
+
+def answers_vs(answers, graphs: list[list], engine) -> dict:
+    """The largest difference of the 200 answers' probabilities from
+    ``engine``'s scores of the same graphs, over every scored row."""
+    flat = [g for gs in graphs for g in gs if g is not None]
+    scores = iter(raw_scores(engine, flat))
+    want = [[next(scores) if g is not None else None for g in gs]
+            for gs in graphs]
+    diffs, n = [], 0
+    for (status, body), ws in zip(answers, want):
+        if status != 200:
+            continue
+        for r, w in zip(body["results"], ws):
+            if w is not None and "vulnerable_probability" in r:
+                diffs.append(abs(r["vulnerable_probability"] - w))
+                n += 1
+    return {"rows": n, "max_abs_diff": max(diffs) if diffs else None}
+
+
+def wait_gone(pid: int, timeout: float = 120.0) -> bool:
+    """Wait for a process that is not this one's child (a dead
+    controller's orphan, reparented to this subreaper) to exit."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            done, _ = os.waitpid(pid, os.WNOHANG)
+            if done == pid:
+                return True
+        except ChildProcessError:
+            try:
+                state = Path(f"/proc/{pid}/stat").read_text().split()[2]
+            except (FileNotFoundError, IndexError):
+                return True
+            if state == "Z":
+                return True
+        time.sleep(0.1)
+    return False
+
+
+def replica_counts(root: Path, idents: list[str]) -> dict:
+    """Every replica's B1 launches beside (dispatches + warm-up calls) ×
+    launches per call, and its capture counters."""
+    per1 = fg.launches_per_call(STEPS)
+    rows, total = {}, dict.fromkeys(fg.VARIANTS, 0)
+    for ident in idents:
+        path = root / f"{ident}.counts.json"
+        if not path.exists():
+            rows[ident] = None
+            continue
+        c = json.loads(path.read_text())
+        c["expected"] = ((c["dispatches"] or 0) + (c["warm_calls"] or 0)) \
+            * per1
+        rows[ident] = c
+        for v in fg.VARIANTS:
+            total[v] += c["b1_launches_by_variant"].get(v, 0)
+    return {"replicas": rows, "b1_launches": sum(total.values()),
+            "b1_launches_by_variant": total}
+
+
+def phase_continual(work: Path) -> dict:
+    """The continual loop on the card, on the corpus phase's ``demo`` shards
+    and test sources: rev A (a 4-epoch fused fit) served by two spawned
+    replicas behind an in-process ``FleetRouter`` with capture on; the 410
+    serve_http sources from 16 clients; ``run_retrain`` (the extraction
+    cache's delta over the corpus and new functions, one fused epoch
+    resumed from rev A's last commit: rev B); ``shadow_replay`` of rev B
+    against rev A over the captured traffic and ``no_regression_gate``;
+    ``stage_candidate``; ``PromotionController.promote`` through the
+    router under load; the injected ``continual.rollback_trigger`` rolling
+    the fleet back to rev A; a controller process killed at
+    ``continual.rollout_crash`` and resumed by ``converge``; and
+    ``continual.capture_drop`` armed on a capturing server in the ring."""
+    import ctypes
+
+    from deepdfa_tpu_torch.config import to_json
+    from deepdfa_tpu_torch.continual import (PromotionController,
+                                             no_regression_gate, read_capture,
+                                             run_retrain, shadow_replay,
+                                             stage_candidate)
+    from deepdfa_tpu_torch.obs.slo import write_alerts_artifact
+    from deepdfa_tpu_torch.resilience.journal import RunJournal
+    from deepdfa_tpu_torch.serve.router import FleetRouter
+    from deepdfa_tpu_torch.serve.server import ScoreServer
+
+    smi = nvidia_smi()
+    # orphans of a dead controller reparent to this process, which reaps
+    # them (PR_SET_CHILD_SUBREAPER, cleared at the phase's end)
+    prctl = ctypes.CDLL(None, use_errno=True).prctl
+    prctl(36, 1, 0, 0, 0)
+    root = work / "continual"
+    fleet_dir = root / "fleet"
+    fleet_dir.mkdir(parents=True)
+    shard_dir = port_utils.processed_dir() / "demo" / "shards"
+    vocabs = load_vocabs(shard_dir)
+    per1, per2 = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
+    base = corpus_config()
+    cfg_a = dataclasses.replace(base, optim=dataclasses.replace(
+        base.optim, max_epochs=CONTINUAL_EPOCHS))
+    cfg_b = dataclasses.replace(base, optim=dataclasses.replace(
+        base.optim, max_epochs=CONTINUAL_EPOCHS + 1))
+    cfg_file = root / "config.json"
+    cfg_file.write_text(to_json(cfg_a))
+    run = root / "run"
+    store = root / "warm_store"
+    sources = ([p.read_text() for p in sorted(
+        (work / "test_sources").glob("*.c"))]
+               + [p.read_text() for p in sorted(
+                   (FIXTURES / "realworld").glob("*.c"))])
+    check = sources[:CONTINUAL_CHECK]
+    check_graphs = source_graphs(check, vocabs)
+    row: dict = {"phase": "continual", "card": smi,
+                 "sources": len(sources)}
+    fg.n_launches = fg.n_bwd_launches = 0
+    reset_variant_counts()
+    t_phase = time.perf_counter()
+
+    # rev A: a short fused fit on the corpus shards, its checkpoints kept
+    fit_a = fit(cfg_a, run, device="cuda")
+    torch.cuda.synchronize()
+    timing_a = json.loads((run / "journal.json").read_text())["timing"]
+    ckpt_a = root / "rev_a"
+    shutil.copytree(run / "checkpoints", ckpt_a)
+    engine_a = ScoringEngine.from_checkpoint(cfg_a, ckpt_a, vocabs,
+                                             device="cuda")
+    rev_a = engine_a.model_rev
+    warm = WarmStore(store)
+    staged_a = stage_candidate(engine_a, warm)
+
+    # two replicas of rev A side by side behind the router
+    def argv_of(ckpt):
+        return lambda ident: replica_argv(fleet_dir, cfg_file, ckpt,
+                                          shard_dir, store, ident)
+
+    launchers: list[TimedLauncher] = []
+
+    def launcher(ckpt, tag):
+        lch = TimedLauncher(argv_of(ckpt), tag)
+        launchers.append(lch)
+        return lch
+
+    router = FleetRouter([], port=0, probe_interval_s=0.5,
+                         allow_empty=True).start(probe=True)
+    initial = [launcher(ckpt_a, f"A_init{k}_") for k in range(2)]
+    spawned: list = [None, None]
+    errors: list = []
+
+    def spawn_initial(k):
+        try:
+            spawned[k] = initial[k].spawn()
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=spawn_initial, args=(k,))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    initial_s = time.perf_counter() - t0
+    if errors or not all(spawned):
+        router.shutdown()
+        for h in spawned:
+            if h is not None:
+                h.kill()
+        fail(f"continual: initial spawns {errors}")
+    fleet = {h.name: h for h in spawned}
+    for h in spawned:
+        router.add_backend(h.name)
+    states = router.probe_once()
+    row["fleet"] = {"initial_spawn_s": initial_s,
+                    "join_cold_compiles": [h.join_cold_compiles
+                                           for h in spawned],
+                    "states": states}
+    try:
+        # the serve_http sources from 16 clients through the router
+        answers, lat, wall = http_pass(router.port, sources,
+                                       CONTINUAL_CLIENTS)
+        n_fn = sum(len(a[1].get("results", [])) for a in answers
+                   if a is not None and a[0] == 200)
+        snap = router.metrics.snapshot()
+        row["traffic"] = pass_row(answers, lat, wall, n_fn) | {
+            "router_p50_ms": snap["latency_p50_ms"],
+            "router_p99_ms": snap["latency_p99_ms"],
+            "forwarded": snap["forwarded_total"]}
+        first_codes = [a[0] for a in answers]
+        traffic = root / "traffic.jsonl"
+        captured = []
+        for h in spawned:
+            ident = Path(h.proc.args[3]).name.split(".")[0]
+            captured += read_capture(fleet_dir / f"{ident}.capture.jsonl")
+        traffic.write_text("".join(json.dumps(r, sort_keys=True) + "\n"
+                                   for r in captured))
+        row["capture"] = {"records": len(captured),
+                          "revs": sorted({r["model_rev"] for r in captured})}
+
+        # the retrain: the delta through the extraction cache the corpus
+        # build filled, one fused epoch resumed from rev A's last commit
+        corpus_rows = demo_corpus(CORPUS_FUNCTIONS, seed=0)
+        new_rows = codegen_rows(CONTINUAL_NEW_FUNCTIONS, seed=17,
+                                first_id=10_000_000)
+        delta_sources = {r["id"]: str(r["before"])
+                         for r in corpus_rows + new_rows}
+        cache = ExtractCache(port_utils.cache_dir() / "cpg_cache" / "demo",
+                             salt="native")
+        t0 = time.perf_counter()
+        record = run_retrain(cfg_b, run, sources=delta_sources, cache=cache,
+                             extract=preprocess._ExtractSession().extract,
+                             baseline_metrics=fit_a, metric="val_loss",
+                             higher_is_better=False)
+        torch.cuda.synchronize()
+        retrain_s = time.perf_counter() - t0
+        timing_b = json.loads((run / "journal.json").read_text())["timing"]
+        ckpt_b = root / "rev_b"
+        latest = CheckpointManager(run / "checkpoints").latest_step()
+        shutil.copytree(run / "checkpoints" / f"{latest:08d}",
+                        ckpt_b / f"{latest:08d}")
+        engine_b = ScoringEngine.from_checkpoint(cfg_b, ckpt_b, vocabs,
+                                                 device="cuda")
+        rev_b = engine_b.model_rev
+        t0 = time.perf_counter()
+        shadow = shadow_replay(traffic, engine_a, engine_b,
+                               bins=base.serve.continual.shadow_bins,
+                               max_psi=base.serve.continual.shadow_max_psi,
+                               out_path=root / "shadow_report.json")
+        shadow_s = time.perf_counter() - t0
+        gate = no_regression_gate(record["metrics"], fit_a, shadow,
+                                  metric="val_loss", higher_is_better=False)
+        row["retrain"] = {
+            "delta": record["delta"], "seconds": retrain_s,
+            "record_gate": record["gate"], "gate": gate,
+            "train_steps": timing_b["train_steps"],
+            "eval_batches": timing_b["eval_batches"],
+            "p50_step_ms": float(np.percentile(timing_b["step_ms"], 50)),
+            "val_loss": {"rev_a": fit_a["val_loss"],
+                         "rev_b": record["metrics"]["val_loss"]},
+            "rev_a": rev_a, "rev_b": rev_b}
+        row["shadow"] = {k: shadow[k] for k in (
+            "n_records", "n_replayed", "oversize", "max_psi",
+            "max_abs_delta", "zero_diff", "pass")} | {"seconds": shadow_s}
+
+        # stage rev B, then the replica-by-replica roll under load
+        staged_b = stage_candidate(engine_b, warm)
+        row["staged"] = {"rev_a": staged_a, "rev_b": staged_b}
+        alerts = write_alerts_artifact(root / "alerts.json", [])
+        state_path = root / "promotion_state.json"
+
+        def controller(cand_tag, prior_tag):
+            pc = PromotionController(
+                router, launcher(ckpt_b, cand_tag),
+                launcher(ckpt_a, prior_tag), candidate_rev=rev_b,
+                prior_rev=rev_a, alerts_path=alerts,
+                state_journal=RunJournal(state_path),
+                drift_settle_polls=2, poll_interval_s=0.5,
+                join_timeout_s=120.0)
+            for h in fleet.values():
+                pc.adopt(h)
+            return pc
+
+        def roll(name, pc, fn, *args):
+            with Traffic(router, sources, CONTINUAL_LOAD_CLIENTS) as load:
+                t0 = time.perf_counter()
+                out = fn(*args)
+                seconds = time.perf_counter() - t0
+            for lch in launchers:
+                for h in lch.handles:
+                    fleet.setdefault(h.name, h)
+            for gone in set(fleet) - set(router.backends):
+                fleet.pop(gone)
+            check_answers, _, _ = http_pass(router.port, check,
+                                            CONTINUAL_CLIENTS)
+            row[name] = {
+                "seconds": seconds, "completed": out.get("completed"),
+                "rolled_back": out.get("rolled_back"),
+                "refused": out.get("refused"),
+                "join_cold_compiles": out["join_cold_compiles"],
+                "rollback_total": out["rollback_total"],
+                "ring_by_rev": {("rev_a" if k == rev_a else
+                                 "rev_b" if k == rev_b else k): len(v)
+                                for k, v in out["ring_by_rev"].items()},
+                "actions": [d["action"] for d in out["decisions"]],
+                "load": load.row(),
+                "check_status": sorted({a[0] for a in check_answers},
+                                       key=str),
+                "vs_rev_a": answers_vs(check_answers, check_graphs,
+                                       engine_a),
+                "vs_rev_b": answers_vs(check_answers, check_graphs,
+                                       engine_b)}
+            return out
+
+        if not gate["allow"] or not shadow["pass"]:
+            emit(row)
+            fail(f"continual: the candidate's gate {gate} / shadow "
+                 f"{row['shadow']}")
+        pc = controller("B_", "A_prior_")
+        roll("promote", pc, pc.promote, shadow)
+        # the rollback: a drift watch forced to fire over the promoted fleet
+        pc = controller("B_back_", "A_back_")
+        with faults.installed("continual.rollback_trigger@1"):
+            roll("rollback", pc, pc.promote, shadow)
+
+        # a controller process killed mid-rollout, resumed by converge
+        spec = root / "controller.json"
+        spec.write_text(json.dumps({
+            "argv": {"B_crash_": replica_argv(fleet_dir, cfg_file, ckpt_b,
+                                              shard_dir, store, "@ID@"),
+                     "A_crash_": replica_argv(fleet_dir, cfg_file, ckpt_a,
+                                              shard_dir, store, "@ID@")},
+            "router_port": router.port, "candidate_tag": "B_crash_",
+            "prior_tag": "A_crash_", "candidate_rev": rev_b,
+            "prior_rev": rev_a, "alerts": str(alerts),
+            "state": str(state_path), "shadow": shadow,
+            "spawn_timeout_s": CONTINUAL_SPAWN_TIMEOUT_S}))
+        env = {**REPLICA_ENV,
+               "DEEPDFA_FAULTS": "continual.rollout_crash@1"}
+        with Traffic(router, sources, CONTINUAL_LOAD_CLIENTS) as load:
+            t0 = time.perf_counter()
+            crashed = subprocess.run(
+                [sys.executable, "-c", CONTROLLER_MAIN, str(spec)],
+                cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            crash_s = time.perf_counter() - t0
+        crash_state = RunJournal(state_path).read() or {}
+        orphans = [r["pid"] for r in crash_state.get("joined", [])
+                   if r.get("pid") and r["name"] not in fleet]
+        row["crash"] = {"rc": crashed.returncode, "seconds": crash_s,
+                        "phase": crash_state.get("phase"),
+                        "orphans": len(orphans), "load": load.row(),
+                        "stderr_tail": crashed.stderr[-400:]
+                        if crashed.returncode != 137 else ""}
+        pc = controller("B_conv_", "A_conv_")
+        out = roll("converge", pc, pc.converge)
+        row["converge"]["orphans_exited"] = all(wait_gone(int(p))
+                                                for p in orphans)
+        row["converge"]["state"] = (RunJournal(state_path).read()
+                                    or {}).get("phase")
+
+        # capture_drop armed on a capturing server of rev A in the ring:
+        # every request answers 200, every drop is counted
+        dropper = ScoreServer(
+            engine_a, vocabs, dataclasses.replace(
+                base.serve, port=0, continual=dataclasses.replace(
+                    base.serve.continual, enabled=True,
+                    capture_path=str(root / "dropped.jsonl"))))
+        dropper.start()
+        name = f"127.0.0.1:{dropper.port}"
+        try:
+            router.add_backend(name)
+            drop_sources = [r["before"] for r in codegen_rows(
+                CONTINUAL_CHECK, seed=23, first_id=20_000_000)]
+            with faults.installed("continual.capture_drop"):
+                drop_answers, _, _ = http_pass(router.port, drop_sources,
+                                               CONTINUAL_CLIENTS)
+            forwarded = router.backends[name].forwarded
+        finally:
+            router.remove_backend(name)
+            dropper.shutdown()
+        row["capture_drop"] = {
+            "status": sorted({a[0] for a in drop_answers}, key=str),
+            "forwarded": forwarded, "capture": dropper.capture.stats()}
+    finally:
+        rsnap = router.shutdown()
+        for h in list(fleet.values()):
+            h.drain()
+        for lch in launchers:
+            for h in lch.handles:
+                try:
+                    h.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    h.kill()
+                    h.wait()
+        prctl(36, 0, 0, 0, 0)
+    torch.cuda.synchronize()
+    idents = [Path(h.proc.args[3]).name.split(".")[0]
+              for lch in launchers for h in lch.handles]
+    replicas = replica_counts(fleet_dir, idents + [
+        p.name.split(".")[0] for p in fleet_dir.glob("B_crash_*.counts.json")])
+    b1, b2 = fg.n_launches, fg.n_bwd_launches
+    by_variant = {"fwd": dict(fg.n_variant_launches),
+                  "bwd": dict(fg.n_bwd_variant_launches)}
+    fit_steps = timing_a["train_steps"] + timing_b["train_steps"]
+    fit_evals = timing_a["eval_batches"] + timing_b["eval_batches"]
+    engine_calls = (engine_a.n_dispatches + engine_b.n_dispatches
+                    + staged_a["buckets"] + staged_b["buckets"])
+    row["launches"] = {
+        "b1": b1, "b2": b2, "by_variant": by_variant,
+        "fit_b1": (fit_steps + fit_evals) * per1, "fit_b2": fit_steps * per2,
+        "engines_b1": engine_calls * per1,
+        "expected": {"fwd": (fit_steps + fit_evals + engine_calls) * per1,
+                     "bwd": fit_steps * per2},
+        "replicas": replicas}
+    row["router"] = {k: rsnap[k] for k in (
+        "requests_total", "retries_total", "no_backend_total",
+        "errors_total", "latency_p50_ms", "latency_p99_ms")}
+    row["spawns"] = {"count": sum(len(lch.seconds) for lch in launchers),
+                     "seconds": [round(s, 3) for lch in launchers
+                                 for s in lch.seconds]}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+
+    # the gates
+    if set(first_codes) != {200} or len(captured) < len(sources):
+        fail(f"continual: the first pass {row['traffic']} / capture "
+             f"{row['capture']}")
+    d = row["retrain"]["delta"]
+    if d["hits"] < CORPUS_FUNCTIONS or d["misses"] < CONTINUAL_NEW_FUNCTIONS \
+            or d["failures"]:
+        fail(f"continual: the retrain's delta {d}")
+    if shadow["zero_diff"] or rev_a == rev_b:
+        fail(f"continual: rev B is rev A {row['shadow']}")
+    for name, want in (("promote", "rev_b"), ("rollback", "rev_a"),
+                       ("converge", "rev_a")):
+        r = row[name]
+        other = "rev_a" if want == "rev_b" else "rev_b"
+        if list(r["ring_by_rev"]) != [want] or r["join_cold_compiles"] or \
+                r["load"]["non_200"] or not r["load"]["min_ring"] or \
+                r["check_status"] != [200] or \
+                not r[f"vs_{want}"]["max_abs_diff"] <= CONTINUAL_LIMIT or \
+                r[f"vs_{other}"]["max_abs_diff"] <= CONTINUAL_LIMIT:
+            fail(f"continual: {name} {r}")
+    if not row["promote"]["completed"] or not row["rollback"]["rolled_back"] \
+            or "drift_alert" not in row["rollback"]["actions"] or \
+            not row["converge"]["rolled_back"] or \
+            row["converge"]["state"] != "rolled_back" or \
+            not row["converge"]["orphans_exited"]:
+        fail(f"continual: the roll's outcomes {row['promote']['actions']} "
+             f"{row['rollback']['actions']} {row['converge']}")
+    c = row["crash"]
+    if c["rc"] != 137 or c["phase"] != "rolling" or c["orphans"] != 1 or \
+            c["load"]["non_200"] or not c["load"]["min_ring"]:
+        fail(f"continual: the killed controller {c}")
+    cd = row["capture_drop"]
+    if cd["status"] != [200] or not cd["forwarded"] or \
+            cd["capture"]["dropped"] != cd["forwarded"] or \
+            cd["capture"]["written"]:
+        fail(f"continual: capture_drop {cd}")
+    if rsnap["no_backend_total"] or rsnap["errors_total"]:
+        fail(f"continual: router {row['router']}")
+    lr = row["launches"]
+    if {"fwd": b1, "bwd": b2} != lr["expected"]:
+        fail(f"continual: B1 {b1}, B2 {b2} launches, expected "
+             f"{lr['expected']}")
+    check_ggnn_wgmma("continual", "B1", by_variant["fwd"], b1)
+    check_ggnn_wgmma("continual", "B2", by_variant["bwd"], b2)
+    for ident, c in replicas["replicas"].items():
+        # every replica warmed from the store: no join compiled cold, the
+        # killed controller's orphan included
+        if c is None or c["b1_launches"] != c["expected"] or \
+                c["b1_launches_by_variant"].get("wgmma") != c["b1_launches"] \
+                or c["warm_misses"] != 0:
+            fail(f"continual: replica {ident} launches {c}")
     return row
 
 
 # --------------------------------------------------------------- phase 18
 
 
-BIGVUL_FUNCTIONS = 2000
+# halved from 2,000 (~20 s of build) to keep the smoke near its length
+# beside the continual phase
+BIGVUL_FUNCTIONS = 1000
 BIGVUL_TAIL = 40  # every 40th function dataflow-hard: Big-Vul's heavy tail
 DEVIGN_FUNCTIONS = 400
 BIGVUL_WORKERS = 4
@@ -5515,6 +6389,7 @@ def drive() -> int:
         artifact = timed("artifact", phase_artifact, corpus_work)
         trainer = timed("trainer", phase_trainer, corpus_work)
         dataflow = timed("dataflow", phase_dataflow, corpus_work)
+        continual = timed("continual", phase_continual, corpus_work)
     finally:
         shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
@@ -5579,6 +6454,14 @@ def drive() -> int:
              "dataflow_families": sum(f["b2_launches"] for f in df_fams)}
     df_b2_var = [df_node["fit"]["launches_by_variant"]["bwd"],
                  *[f["launches_by_variant"]["bwd"] for f in df_fams]]
+    # the continual loop: its fits and in-process engines, and the
+    # replicas' own counts
+    cont = continual["launches"]
+    cont_b1 = {"continual_fits": cont["fit_b1"],
+               "continual_engines": cont["engines_b1"],
+               "continual_replicas": cont["replicas"]["b1_launches"]}
+    cont_b1_var = [cont["by_variant"]["fwd"],
+                   cont["replicas"]["b1_launches_by_variant"]]
     # B1 and B2 at the families' widths, on ffma: graph ms, the 3xTF32
     # bound as at width 128 and the FFMA one beside it
     df_widths = {str(f["width"]): {
@@ -5601,7 +6484,7 @@ def drive() -> int:
                      + corpus["fit"]["b1_launches"]
                      + corpus["predict"]["b1_launches"] + bigvul_b1
                      + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())
-                     + sum(df_b1.values())),
+                     + sum(df_b1.values()) + sum(cont_b1.values())),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -5613,7 +6496,7 @@ def drive() -> int:
                              "serve_http_scan":
                                  serve_http["scan_cli"]["b1_launches"],
                              "artifact": art_b1, "warm_store": store_b1,
-                             **tr_b1, **df_b1},
+                             **tr_b1, **df_b1, **cont_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -5628,7 +6511,7 @@ def drive() -> int:
             serve_http["b1_launches_by_variant"],
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
             artifact["warm_store"]["launches_by_variant"], *tr_b1_var,
-            *df_b1_var),
+            *df_b1_var, *cont_b1_var),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -5648,11 +6531,13 @@ def drive() -> int:
         "replaces": "deepdfa_tpu/ops/fused_ggnn.py:221",
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
                      + corpus["fit"]["b2_launches"] + bigvul_b2
-                     + sum(tr_b2.values()) + sum(df_b2.values())),
+                     + sum(tr_b2.values()) + sum(df_b2.values())
+                     + cont["b2"]),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
                              "corpus_fit": corpus["fit"]["b2_launches"],
-                             "bigvul": bigvul_b2, **tr_b2, **df_b2},
+                             "bigvul": bigvul_b2, **tr_b2, **df_b2,
+                             "continual_fits": cont["b2"]},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
@@ -5661,7 +6546,8 @@ def drive() -> int:
             bigvul["fit"]["launches_by_variant"]["bwd"],
             bigvul["devign"]["fit"]["launches_by_variant"]["bwd"],
             tr_fit["launches_by_variant"]["bwd"],
-            tr_sen["launches_by_variant"]["bwd"], *df_b2_var),
+            tr_sen["launches_by_variant"]["bwd"], *df_b2_var,
+            cont["by_variant"]["bwd"]),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],

@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import Any
 
 __all__ = ["AGGREGATIONS", "ALL_SUBKEYS", "BatchConfig", "CascadeConfig",
-           "CheckpointConfig", "DataConfig", "DFA_FAMILIES",
+           "CheckpointConfig", "ContinualConfig", "DataConfig", "DFA_FAMILIES",
            "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP", "ExperimentConfig",
            "FeatureConfig", "FrontendConfig", "GGNNConfig", "IDFA_FAMILIES",
            "IDFA_REACH_CLIP", "LABEL_STYLES", "LAYOUTS", "ObsConfig",
@@ -433,24 +433,52 @@ class AdmissionConfig:
 
 @dataclass(frozen=True)
 class ContinualConfig:
-    """The continuous-learning loop (request capture, shadow replay,
-    promotion), with the JAX package's names and defaults. Not ported yet:
-    any other value raises (ROADMAP A15)."""
+    """The continuous-learning loop (``deepdfa_tpu_torch/continual``; CLI:
+    ``--set serve.continual.*``), with the JAX package's names, defaults
+    and checks: the sampled request-capture journal on ``/score`` (capture
+    can never fail the request it records), the shadow-replay gate, the
+    promotion veto's freshness window and the post-roll drift watch.
+    Capture is off by default."""
 
     enabled: bool = False
+    # request capture (continual/capture.py): JSONL journal of scored
+    # requests; None disables capture even when the loop is enabled
     capture_path: str | None = None
+    # record every Nth /score request (1 = every request)
     capture_sample_every: int = 1
+    # past this many records capture stops (counted as skipped)
     capture_max_records: int = 10000
+    # shadow replay (continual/shadow.py): histogram bins and the
+    # per-bucket PSI ceiling a candidate must stay under
     shadow_bins: int = 10
     shadow_max_psi: float = 0.25
+    # promotion veto (obs/slo.py read_promotion_veto): an older
+    # alerts.json is stale, and stale refuses
     veto_max_age_s: float = 3600.0
+    # post-roll drift watch (continual/promote.py): clean polls before the
+    # candidate is confirmed, and their cadence
     drift_settle_polls: int = 3
     poll_interval_s: float = 0.5
+    # per-replica warm-join budget during a roll
     join_timeout_s: float = 120.0
 
     def __post_init__(self):
-        _refuse_non_default(self, "ROADMAP A15 (the continuous-learning "
-                                  "loop)")
+        if self.capture_sample_every < 1:
+            raise ValueError("capture_sample_every must be >= 1")
+        if self.capture_max_records < 1:
+            raise ValueError("capture_max_records must be >= 1")
+        if self.shadow_bins < 2:
+            raise ValueError("shadow_bins must be >= 2")
+        if self.shadow_max_psi <= 0:
+            raise ValueError("shadow_max_psi must be > 0")
+        if self.veto_max_age_s <= 0:
+            raise ValueError("veto_max_age_s must be > 0")
+        if self.drift_settle_polls < 1:
+            raise ValueError("drift_settle_polls must be >= 1")
+        if self.poll_interval_s <= 0:
+            raise ValueError("poll_interval_s must be > 0")
+        if self.join_timeout_s <= 0:
+            raise ValueError("join_timeout_s must be > 0")
 
 
 @dataclass(frozen=True)
@@ -478,10 +506,11 @@ class ServeConfig:
     """Online scoring service knobs (``deepdfa_tpu_torch/serve``; CLI:
     ``--set serve.*``): the micro-batching window, the bounded queue, the
     content-addressed scan cache, the HTTP endpoint, the cascade, the
-    frontend pool and the warm store (``warm_store_dir``). The JAX
-    package's fleet parts keep their defaults here and raise when set:
-    ``mesh_replicas > 1`` (ROADMAP A11), ``admission``, ``continual``,
-    ``federation`` and ``autoscale`` (A15)."""
+    frontend pool, the warm store (``warm_store_dir``) and the continual
+    loop's capture (``continual``). The JAX package's other fleet parts
+    keep their defaults here and raise when set: ``mesh_replicas > 1``
+    (ROADMAP A11), ``admission``, ``federation`` and ``autoscale``
+    (A15)."""
 
     host: str = "127.0.0.1"
     port: int = 8341  # 0 = ephemeral (the bound port is reported at start)

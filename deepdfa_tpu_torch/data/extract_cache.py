@@ -140,7 +140,21 @@ class ExtractCache:
         with self._lock:
             self._stats.puts += 1
 
+    def get_or_extract(self, code: str, extract):
+        """``(value, hit)`` — the committed payload for ``code``, or
+        ``extract(code)`` committed on the way out."""
+        k = self.key(code)
+        value = self.get(k)
+        if value is not None:
+            return value, True
+        value = extract(code)
+        self.put(k, value)
+        return value, False
+
     # -- accounting ---------------------------------------------------------
+    def __len__(self) -> int:
+        return sum(1 for _ in self.root.glob("*.json"))
+
     def stats(self) -> dict:
         with self._lock:
             s = self._stats

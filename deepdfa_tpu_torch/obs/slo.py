@@ -1,8 +1,9 @@
 """SLO burn-rate engine — declarative objectives judged from metric snapshots.
 
-A trimmed copy of ``deepdfa_tpu/obs/slo.py``: the engine, the serve-side
-and trainer specs and the ``alerts.json`` artifact. The router's and the
-federation's specs wait for ROADMAP A15. An :class:`SLOSpec`
+A trimmed copy of ``deepdfa_tpu/obs/slo.py``: the engine, the serve-side,
+router and trainer specs, the ``alerts.json`` artifact and its fail-closed
+reader (the promotion veto). The federation's specs wait for ROADMAP A15.
+An :class:`SLOSpec`
 declares one objective over keys of a flat metrics snapshot, in one of
 three kinds:
 
@@ -39,6 +40,8 @@ from deepdfa_tpu_torch.resilience.journal import atomic_write_text
 __all__ = [
     "SLOSpec",
     "SLOEngine",
+    "read_promotion_veto",
+    "router_specs",
     "serve_specs",
     "train_specs",
     "write_alerts_artifact",
@@ -302,6 +305,17 @@ def serve_specs(*, availability: float = 0.99, error_rate: float = 0.95,
     return specs
 
 
+def router_specs(*, availability: float = 0.99,
+                 p99_ms: float = 2000.0) -> tuple[SLOSpec, ...]:
+    """The fleet router's objectives: availability over every non-2xx it
+    answers, and its round-trip p99."""
+    return (
+        SLOSpec("availability", "ratio", availability,
+                bad="errors_total", total="requests_total"),
+        SLOSpec("latency_p99", "max", p99_ms, value="latency_p99_ms"),
+    )
+
+
 def train_specs(*, step_ms: float = 0.0,
                 mfu_floor: float = 0.0) -> tuple[SLOSpec, ...]:
     """Train-side objectives; 0 disables a spec (step time and MFU floors
@@ -343,3 +357,42 @@ def write_alerts_artifact(path, statuses, *, extra_alerts=(),
         return path
     except Exception:  # noqa: BLE001 — the veto artifact is advisory output
         return None
+
+
+def read_promotion_veto(path, *, max_age_s: float = 3600.0,
+                        clock=time.time) -> dict:
+    """The consuming half of :func:`write_alerts_artifact`: the promotion
+    controller's veto check, and it is fail-closed. A missing, torn
+    (unparseable or of the wrong shape) or stale (``generated_at_unix``
+    older than ``max_age_s``) ``alerts.json`` is no veto evidence, and no
+    evidence refuses. Only a fresh, well-formed artifact with
+    ``promotion_vetoed`` false gives ``allow=True``.
+
+    Returns ``{"allow", "reason", "vetoed", "age_s", "firing"}``;
+    ``vetoed``/``age_s`` are None when the artifact could not be read.
+    Never raises."""
+    refusal = {"allow": False, "vetoed": None, "age_s": None, "firing": []}
+    if path is None:
+        return {**refusal, "reason": "missing"}
+    try:
+        text = Path(path).read_text()
+    except (FileNotFoundError, OSError):
+        return {**refusal, "reason": "missing"}
+    try:
+        doc = json.loads(text)
+    except (json.JSONDecodeError, ValueError):
+        return {**refusal, "reason": "torn"}
+    if (not isinstance(doc, dict) or doc.get("schema") != 1
+            or not isinstance(doc.get("generated_at_unix"), (int, float))
+            or "promotion_vetoed" not in doc):
+        return {**refusal, "reason": "torn"}
+    age_s = float(clock()) - float(doc["generated_at_unix"])
+    firing = doc.get("firing") or []
+    if age_s > max_age_s:
+        return {**refusal, "reason": "stale", "age_s": round(age_s, 3),
+                "vetoed": bool(doc["promotion_vetoed"]), "firing": firing}
+    if doc["promotion_vetoed"]:
+        return {"allow": False, "reason": "vetoed", "vetoed": True,
+                "age_s": round(age_s, 3), "firing": firing}
+    return {"allow": True, "reason": "fresh", "vetoed": False,
+            "age_s": round(age_s, 3), "firing": firing}

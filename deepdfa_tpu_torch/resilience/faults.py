@@ -5,9 +5,9 @@ points the port fires: the trainer's (``train/checkpoint.py``,
 ``train/loop.py``, ``data/prefetch.py``), the Joern session's
 (``cpg/joern_session.py``), the HTTP service's, the tracer's and flight
 recorder's, the extraction pool's and its cache's, the cascade's, the
-frontend pool's and the function-embedding cache's.
-The other points of the JAX registry come with their fire sites (ROADMAP
-A11, A15).
+frontend pool's, the function-embedding cache's and the continual loop's
+(``continual/capture.py``, ``continual/promote.py``). The other points of
+the JAX registry come with their fire sites (ROADMAP A11, A15).
 
 Faults are (a) reachable from outside the process — a subprocess under
 test arms them through the ``DEEPDFA_FAULTS`` environment variable — (b)
@@ -70,6 +70,9 @@ KNOWN_POINTS = (
     "frontend.worker_crash",
     "frontend.spawn_fail",
     "embcache.cache_corrupt",
+    "continual.capture_drop",
+    "continual.rollout_crash",
+    "continual.rollback_trigger",
 )
 
 # One line per point; keys equal KNOWN_POINTS.
@@ -133,6 +136,18 @@ POINT_DOCS = {
         "corrupt one function-embedding-cache payload at read — the entry "
         "must read as a MISS (level 1 re-embeds), never a decode crash "
         "(serve/embcache.py)"),
+    "continual.capture_drop": (
+        "fail one request-capture journal write — counted in the capture's "
+        "dropped counter; the /score request it records must still succeed "
+        "(continual/capture.py)"),
+    "continual.rollout_crash": (
+        "hard-exit the promotion controller mid-rollout, between a "
+        "candidate's warm join and the prior replica's retirement — a "
+        "resumed controller must converge the fleet (continual/promote.py)"),
+    "continual.rollback_trigger": (
+        "force the post-roll drift watch to fire against the candidate rev "
+        "— the controller rolls back and the prior model_rev serves again "
+        "(continual/promote.py)"),
 }
 
 

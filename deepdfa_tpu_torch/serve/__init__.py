@@ -3,8 +3,11 @@ cache, the serving metrics, the two-tier cascade, the frontend encode pool,
 the hierarchical scorer's embedding cache and the warm store of exported
 bucket programs. The HTTP service is
 :mod:`deepdfa_tpu_torch.serve.server` (``python -m
-deepdfa_tpu_torch.serve.server``; not imported here, so that ``-m`` runs
-it as a fresh module)."""
+deepdfa_tpu_torch.serve.server``), the fleet router in front of its
+replicas :mod:`deepdfa_tpu_torch.serve.router` (``python -m
+deepdfa_tpu_torch.serve.router``) and their launcher
+:mod:`deepdfa_tpu_torch.serve.autoscaler`; none is imported here, so that
+``-m`` runs each as a fresh module."""
 
 from deepdfa_tpu_torch.serve.batcher import MicroBatcher, QueueFullError
 from deepdfa_tpu_torch.serve.cache import ScanCache, ScanEntry

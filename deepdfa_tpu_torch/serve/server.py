@@ -36,8 +36,12 @@ listener closes. No admitted request is abandoned mid-flight.
 A replica serves a ``train.fit`` run (``--run-dir``) or an exported
 artifact (``--artifact``, :mod:`deepdfa_tpu_torch.serving`); with
 ``serve.warm_store_dir`` its warmup goes through the fleet's warm store
-(:mod:`.warmstore`). Not ported yet: admission control and brownout,
-request capture (ROADMAP A15).
+(:mod:`.warmstore`). With ``serve.continual.enabled`` and a
+``capture_path``, every scored request is journaled for the continual loop
+(:mod:`deepdfa_tpu_torch.continual.capture`), and capture can never fail
+the request it records. A fleet of replicas sits behind
+:mod:`.router`. Not ported yet: admission control and brownout (ROADMAP
+A15).
 """
 
 from __future__ import annotations
@@ -183,6 +187,20 @@ class ScoreServer:
                 tracer=self.tracer, vocab_source=vocab_source)
             if self.frontend is not None:
                 self.frontend.start()
+        # continuous-learning capture (continual/capture.py): a sampled,
+        # bounded journal of scored requests feeding shadow replay and
+        # incremental retraining. record_request never raises, so the hook
+        # in handle_score is bare.
+        cont_cfg = self.cfg.continual
+        self.capture = None
+        if cont_cfg.enabled and cont_cfg.capture_path:
+            from deepdfa_tpu_torch.continual.capture import TrafficCapture
+
+            self.capture = TrafficCapture(
+                Path(cont_cfg.capture_path),
+                sample_every=cont_cfg.capture_sample_every,
+                max_records=cont_cfg.capture_max_records,
+                flight=self.flight)
         self._draining = threading.Event()
         self._stop_requested = threading.Event()
         self._stopped = threading.Event()
@@ -476,6 +494,11 @@ class ScoreServer:
                 if fut is not None:
                     self.metrics.observe_answered(row["tier"])
 
+        if self.capture is not None:
+            # the request as served (scores, tiers, the encoded graphs);
+            # capture never fails it
+            self.capture.record_request(key, rows, graphs,
+                                        model_rev=tier1_rev)
         self.cache.store(key, results=rows)
         return 200, {"results": rows, "cached": False}
 

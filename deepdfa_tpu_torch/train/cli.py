@@ -24,8 +24,11 @@ The port of ``deepdfa_tpu/train/cli.py``. Commands:
 - ``scan <target> [--source ...]``: :func:`~deepdfa_tpu_torch.scan.
   scan_command` (``--workers``, ``--cache-dir``, ``--cascade``,
   ``--interproc``); both also have entry points of their own (``python -m
-  deepdfa_tpu_torch.serve.server``, ``python -m deepdfa_tpu_torch.scan``).
-  ``bench`` (the perf ledger) is not ported yet (ROADMAP A13).
+  deepdfa_tpu_torch.serve.server``, ``python -m deepdfa_tpu_torch.scan``);
+- ``bench [ledger] [--check] [--trend] [--ledger-dir PATH ...]``: the
+  perf-regression ledger's verdicts over bench artifacts
+  (:func:`deepdfa_tpu_torch.obs.ledger.main`; ``--check`` exits 1 on a
+  regression). The ``bench.py``-shaped torch stages are ROADMAP A13.
 
 Every command runs on ``--device`` (``cuda`` unless another is named).
 Config: layered JSON/YAML files (``--config``, later wins) and dotted
@@ -488,8 +491,9 @@ def _parser():
     parser = argparse.ArgumentParser(prog="deepdfa-tpu-torch")
     parser.add_argument("command", choices=COMMANDS)
     parser.add_argument("subcommand", nargs="?", default=None,
-                        help="trace: 'export' (the default); scan: the "
-                             "file or directory to scan")
+                        help="trace: 'export' (the default); bench: "
+                             "'ledger' (the default); scan: the file or "
+                             "directory to scan")
     parser.add_argument("--out", default=None,
                         help="trace export: output path (default: "
                              "<run-dir>/trace_events.json)")
@@ -531,6 +535,16 @@ def _parser():
                         help="predict statement ranking: occlusion = per-"
                              "statement evidence drop; gate = readout "
                              "attention, one forward")
+    parser.add_argument("--check", action="store_true",
+                        help="bench ledger: exit non-zero when the latest "
+                             "entry of any series regressed past its band")
+    parser.add_argument("--trend", action="store_true",
+                        help="bench ledger: print per-series sparkline "
+                             "trends")
+    parser.add_argument("--ledger-dir", action="append", default=[],
+                        help="bench ledger: artifact file or directory to "
+                             "ingest (repeatable; default: the working "
+                             "directory)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
     return parser
@@ -557,9 +571,20 @@ def main(argv=None) -> dict:
         return trace_export(Path(args.run_dir),
                             Path(args.out) if args.out else None)
     if args.command == "bench":
-        raise NotImplementedError(
-            "the bench command (the perf ledger) is not ported yet: "
-            "ROADMAP A13")
+        # a reporting path, as trace: no config, no run dir, no logging
+        if (args.subcommand or "ledger") != "ledger":
+            parser.error(f"unknown bench subcommand {args.subcommand!r}")
+        from deepdfa_tpu_torch.obs import ledger
+
+        ledger_argv = list(args.ledger_dir)
+        if args.check:
+            ledger_argv.append("--check")
+        if args.trend:
+            ledger_argv.append("--trend")
+        rc = ledger.main(ledger_argv)
+        if rc:
+            raise SystemExit(rc)
+        return {"command": "bench", "subcommand": "ledger", "rc": rc}
     if args.command == "export" and not args.run_dir:
         parser.error("export requires --run-dir")
 

@@ -24,9 +24,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn",
 # layer, Joern ingestion and its session, the HTTP service, the cascade,
 # the telemetry plane, the registered ops, the exported artifacts, the warm
 # store, the trainer's command line, its resilience layer, the training
-# telemetry, the int8 training experiment and the tuning loop included)
-# and chip_smoke.py
-N_MODULES = 94
+# telemetry, the int8 training experiment, the tuning loop, the dataflow
+# experiment, the perf ledger, the fleet router, the replica launcher and
+# the continual loop included) and chip_smoke.py
+N_MODULES = 104
 
 
 def _port_files():

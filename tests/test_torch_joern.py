@@ -419,7 +419,8 @@ def test_the_port_declares_only_the_points_it_fires():
         "extract.worker_crash", "extract.cache_corrupt",
         "cascade.tier2_timeout", "cascade.escalation_drop",
         "frontend.worker_crash", "frontend.spawn_fail",
-        "embcache.cache_corrupt")
+        "embcache.cache_corrupt", "continual.capture_drop",
+        "continual.rollout_crash", "continual.rollback_trigger")
     assert set(faults.KNOWN_POINTS) <= set(jfaults.KNOWN_POINTS)
     assert set(faults.POINT_DOCS) == set(faults.KNOWN_POINTS)
     for point in faults.KNOWN_POINTS:

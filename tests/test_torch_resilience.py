@@ -204,8 +204,13 @@ def test_the_trainer_fault_points_are_declared_with_jax_docs():
     for point in TRAINER_POINTS:
         assert point in faults.KNOWN_POINTS
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
-    assert len(faults.KNOWN_POINTS) == 18
+    assert len(faults.KNOWN_POINTS) == 21
     assert "mesh.device_lost" not in faults.KNOWN_POINTS  # with A11
+    # the continual loop's three points, by name and doc against JAX's
+    for point in ("continual.capture_drop", "continual.rollout_crash",
+                  "continual.rollback_trigger"):
+        assert point in faults.KNOWN_POINTS and point in jfaults.KNOWN_POINTS
+        assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
 
 
 @pytest.mark.parametrize("spec", [

@@ -588,7 +588,8 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
     ({"serve.warm_store_dir": "/x"}, None, None),  # parses (the warm store)
     ({"serve.mesh_replicas": 2}, NotImplementedError, "A11"),
     ({"serve.admission.enabled": True}, NotImplementedError, "A15"),
-    ({"serve.continual.capture_path": "c.jsonl"}, NotImplementedError, "A15"),
+    ({"serve.continual.capture_path": "c.jsonl"}, None, None),  # capture
+    ({"serve.continual.shadow_bins": 1}, ValueError, "shadow_bins"),
     ({"serve.federation.cells": ["a:1"]}, NotImplementedError, "A15"),
     ({"serve.autoscale.max_replicas": 8}, NotImplementedError, "A15"),
     ({"serve.obs.train_port": 0}, None, None),  # parses (trainer telemetry)

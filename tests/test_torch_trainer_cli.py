@@ -287,8 +287,11 @@ def test_a_crash_renames_the_log_and_bench_waits_for_a13(storage, tmp_path,
         with pytest.raises(faults.InjectedFault):
             cli.main(_fit_argv(run))
     assert (run / "run.log.error").exists() and not (run / "run.log").exists()
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli.main(["bench"])
+    # bench ledger over the repo's artifacts: the JAX CLI's summary and rc
+    repo = Path(__file__).resolve().parent.parent
+    bench = ["bench", "ledger", "--ledger-dir", str(repo), "--check"]
+    assert cli.main(bench) == jcli.main(bench) == {
+        "command": "bench", "subcommand": "ledger", "rc": 0}
     with pytest.raises(SystemExit):
         cli.main(["predict", "--run-dir", str(run)])  # needs --source
     # serve and scan dispatch as the JAX CLI does, with its arguments
