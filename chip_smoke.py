@@ -362,6 +362,33 @@ Each phase prints one JSON line; any failure exits non-zero.
    replica, all ``wgmma``. Reported: router requests/s and p50/p99,
    capture records and drops, the delta, p50 step ms, the shadow PSI, the
    seconds of each roll and of every spawn.
+17g. fleet — admission, brownout, the autoscaler and the federation on
+   the continual phase's rev A (the golden GGNN on B1, ``wgmma``), after
+   the JAX bench's three stages. Overload: one in-process server with
+   admission on and the 7B as tier 2 (a band of [0, 1]): 24 interactive
+   requests from 2 clients (no shed), then 10x that, half batch, from 8
+   clients until ``/healthz`` shows brownout level >= 1 mid-flight;
+   ``admission.brownout_force`` to level 2, 16 fresh requests there (no B6
+   launch, escalations suppressed); the nominal requests again until the
+   level is 0, and 16 fresh ones (B6 again). No 5xx, every shed a 429 with
+   a Retry-After, batch shed first. Meanwhile the first two replicas
+   start (``serve.server`` children with admission on, 20 interactive
+   requests a second, started by ``SubprocessLauncher``). Then two cells
+   behind an in-process ``FederationRouter``: cell A an in-process
+   ``FleetRouter`` whose replicas an ``Autoscaler`` (1-2) keeps, cell B a
+   ``serve.router`` child over one replica. A sticky trickle;
+   ``federation.cell_kill`` under 8 clients takes cell B (its replacement,
+   a new replica behind an in-process router, starts at once); cell A, shedding, browns out and refuses a
+   ``PromotionController`` (gate ``brownout``), scales up,
+   ``autoscale.replica_crash`` kills its newest replica and
+   ``autoscale.spawn_fail`` fails the heal's first spawn (retried); the
+   replacement cell ready within 60 s of the kill;
+   ``federation.spillover_drop`` and ``federation.probe_partition`` once
+   each; a trickle scales cell A down (ring exit, then SIGTERM) and the
+   gate passes once every cell is back at level 0. Five replica starts;
+   B1 = calls x 11 in this process and in every replica (a killed
+   replica's counts are those it last wrote, every 0.25 s),
+   B6 = tier-2 batches x 32, all ``wgmma``.
 18. bigvul — the real-dataset readers and Joern ingestion, in the run's
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
@@ -412,7 +439,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    functions/s, and B5's share of one batch's profiled device time.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
-``nvidia-smi`` name and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
+fleet phase's numbers again on one short line, the ``nvidia-smi`` name
+and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints nothing and exits 2.
 """
 
@@ -6105,6 +6133,753 @@ def phase_continual(work: Path) -> dict:
     return row
 
 
+# --------------------------------------------------------------- phase 17g
+
+
+# the JAX bench's saturation (bench.py ADMISSION_SATURATION_X) and its
+# cell-kill recovery deadline (bench.py FEDERATION_RECOVERY_DEADLINE_S)
+FLEET_SATURATION_X = 10
+FLEET_RECOVERY_DEADLINE_S = 60.0
+FLEET_NOMINAL = 24  # the overload leg's nominal interactive requests
+FLEET_CLIENTS = 8  # closed-loop clients of the saturating loads
+FLEET_LEVEL2_PASS = 16  # fresh requests served while the level is 2
+FLEET_REPLACE_DEADLINE_S = 120.0  # a replica takes 18-31 s to start
+FLEET_WAIT_S = 240.0  # the bound on any one wait of the phase
+# the overload server: an interactive budget no load exhausts, a tiny
+# batch budget (batch sheds first), short brownout hysteresis with a
+# cooldown that holds each level for 5 s (a saturation lap on the card
+# ends inside it, so the forced step is the one to level 2), the ladder up to level 2
+# (the JAX bench's `_run_overload` settings but for these two)
+FLEET_ADMISSION = dict(
+    enabled=True, interactive_rate=500.0, interactive_burst=100_000.0,
+    batch_rate=1.0, batch_burst=4.0, interactive_deadline_ms=120_000.0,
+    batch_deadline_ms=1_000.0, brownout=True, burn_high=1.4, burn_low=0.8,
+    up_consecutive=2, down_consecutive=4, cooldown_s=5.0,
+    poll_interval_s=0.25, max_level=2)
+# short SLO windows so the burn tracks each leg; the latency ceiling
+# above a tier-2 escalation's wait, so the sheds (the error ratio) drive
+# the ladder; the drift sentinel never reaches its sample floor here (the
+# legs' traffic mix shifts by design)
+FLEET_OBS = dict(slo_p99_ms=30_000.0, slo_fast_window_s=2.0,
+                 slo_slow_window_s=4.0, drift_min_samples=1_000_000_000)
+# the replicas: an interactive budget of 20 a second, so 8 closed-loop
+# clients shed and a trickle does not, the ladder to level 1
+FLEET_REPLICA_SETS = {
+    "serve.admission.enabled": "true",
+    "serve.admission.interactive_rate": "20",
+    "serve.admission.interactive_burst": "20",
+    "serve.admission.burn_high": "1.4", "serve.admission.burn_low": "0.8",
+    "serve.admission.up_consecutive": "2",
+    "serve.admission.down_consecutive": "4",
+    "serve.admission.cooldown_s": "2", "serve.admission.poll_interval_s":
+        "0.25", "serve.admission.max_level": "1",
+    "serve.latency_window": "64",
+    **{f"serve.obs.{k}": str(v) for k, v in FLEET_OBS.items()
+       if k != "slo_p99_ms"}}
+
+# a fleet replica: REPLICA_MAIN's counts, also rewritten (atomically,
+# under the engine's lock) every 0.25 s once it serves, so a replica killed
+# with SIGKILL leaves its last consistent counts behind
+FLEET_REPLICA_MAIN = """
+import json, os, sys, threading
+from deepdfa_tpu_torch.ops import fused_ggnn as fg
+from deepdfa_tpu_torch.serve import server as srv
+
+seen = []
+wait = srv.ScoreServer.wait
+
+
+def counts(s):
+    with s.engine._lock:
+        return {"b1_launches": fg.n_launches,
+                "b1_launches_by_variant": dict(fg.n_variant_launches),
+                "dispatches": s.engine.n_dispatches,
+                "warm_calls": len(s.engine.buckets),
+                "warm_misses": (s.engine.last_warmup_report or {})
+                .get("misses")}
+
+
+def write(s):
+    tmp = sys.argv[1] + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(counts(s), f)
+    os.replace(tmp, sys.argv[1])
+
+
+def tracked(self):
+    seen.append(self)
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(0.25):
+            write(self)
+
+    threading.Thread(target=loop, daemon=True).start()
+    try:
+        return wait(self)
+    finally:
+        stop.set()
+
+
+srv.ScoreServer.wait = tracked
+try:
+    srv.main(sys.argv[2:])
+finally:
+    if seen:
+        write(seen[0])
+"""
+
+
+def fleet_replica_argv(root: Path, cfg_file: Path, ckpt_dir: Path,
+                       shard_dir: Path, store: Path, ident: str) -> list[str]:
+    """A fleet replica serving ``ckpt_dir`` on the card with admission on,
+    warming from the fleet's store."""
+    sets = {"serve.port": "0", "serve.warm_store_dir": str(store),
+            **FLEET_REPLICA_SETS}
+    return [sys.executable, "-c", FLEET_REPLICA_MAIN,
+            str(root / f"{ident}.counts.json"), "--config", str(cfg_file),
+            "--ckpt-dir", str(ckpt_dir), "--shard-dir", str(shard_dir),
+            *[a for k, v in sets.items() for a in ("--set", f"{k}={v}")]]
+
+
+def qos_call(port: int, source: str, klass: str = "interactive") -> dict:
+    """One ``/score`` with a QoS class: status, body and the routing
+    headers (a socket failure is status None)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/score",
+                     body=json.dumps({"source": source, "class": klass}),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return {"status": r.status, "body": json.loads(r.read() or b"{}"),
+                "retry_after": r.getheader("Retry-After"),
+                "cell": r.getheader("X-DeepDFA-Cell"),
+                "spill": r.getheader("X-DeepDFA-Spillover"), "class": klass}
+    except OSError as exc:
+        return {"status": None, "body": {"error": repr(exc)},
+                "retry_after": None, "cell": None, "spill": None,
+                "class": klass}
+    finally:
+        conn.close()
+
+
+def run_bodies(port: int, bodies: list[tuple[str, str]], clients: int):
+    """Closed-loop clients over ``(class, source)`` bodies; the answers in
+    body order."""
+    answers: list = [None] * len(bodies)
+
+    def client(k):
+        for i in range(k, len(bodies), clients):
+            answers[i] = qos_call(port, bodies[i][1], bodies[i][0])
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers
+
+
+class Load:
+    """Closed-loop clients sending fresh interactive sources until
+    stopped (``gap_s`` between one client's requests); every answer kept."""
+
+    def __init__(self, port: int, sources: list[str], tag: str,
+                 clients: int, gap_s: float = 0.0):
+        self.port, self.sources, self.tag = port, sources, tag
+        self.clients, self.gap_s = clients, gap_s
+        self.answers: list = []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads: list = []
+
+    def _client(self, k: int) -> None:
+        i = k
+        while not self._stop.is_set():
+            src = (self.sources[i % len(self.sources)]
+                   + f"\n// fleet {self.tag} {i}\n")
+            a = qos_call(self.port, src)
+            with self._lock:
+                self.answers.append(a)
+            i += self.clients
+            if self.gap_s:
+                self._stop.wait(self.gap_s)
+
+    def __enter__(self):
+        self._threads = [threading.Thread(target=self._client, args=(k,),
+                                          daemon=True)
+                         for k in range(self.clients)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return list(self.answers)
+
+
+def codes(answers) -> dict:
+    """Answers counted by class and status."""
+    out: dict = {}
+    for a in answers:
+        key = f"{a['class']}:{a['status']}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def shed_contract(answers) -> list:
+    """Answers that break the shed contract: a 5xx, no answer, or a 429
+    without a Retry-After equal to its body's ``retry_after_s``."""
+    bad = []
+    for a in answers:
+        s = a["status"]
+        if s is None or s >= 500 or (s == 429 and (
+                a["retry_after"] is None
+                or a["retry_after"] != str(a["body"].get("retry_after_s")))):
+            bad.append({k: a[k] for k in ("status", "class", "retry_after")}
+                       | {"error": a["body"].get("error")})
+    return bad
+
+
+def wait_for(pred, timeout: float = FLEET_WAIT_S, every: float = 0.1):
+    """Poll ``pred`` until it is true; its last value (false at timeout)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        out = pred()
+        if out or time.perf_counter() >= deadline:
+            return out
+        time.sleep(every)
+
+
+def healthz(port: int) -> dict:
+    try:
+        status, data = http_call(port, "GET", "/healthz", timeout=10)
+        return json.loads(data)
+    except (OSError, ValueError):
+        return {}
+
+
+class HealthSampler:
+    """``/healthz`` sampled every 0.1 s on a thread: the highest
+    ``brownout_level`` seen while a leg runs."""
+
+    def __init__(self, port: int):
+        self.port, self.level_max, self.samples = port, 0, 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.1):
+            h = healthz(self.port)
+            if h:
+                self.samples += 1
+                self.level_max = max(self.level_max,
+                                     int(h.get("brownout_level") or 0))
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=30)
+
+
+def fleet_overload(ctx: dict, cfg, ckpt: Path, shard_dir: Path,
+                   sources: list[str]) -> dict:
+    """The admission/brownout sawtooth on one in-process server (after the
+    JAX bench's ``_run_overload``): rev A on B1 with the 7B as tier 2 (B6;
+    a band of [0, 1], so every admitted function escalates)."""
+    from deepdfa_tpu_torch.config import AdmissionConfig, ObsConfig
+
+    scfg = dataclasses.replace(cfg, serve=ServeConfig(
+        port=0, max_batch=MAX_BATCH, max_queue=1024, latency_window=64,
+        obs=ObsConfig(**FLEET_OBS),
+        admission=AdmissionConfig(**FLEET_ADMISSION),
+        cascade=CascadeConfig(enabled=True, band_lo=0.0, band_hi=1.0,
+                              tier2_max_batch=4, tier2_max_queue=1024,
+                              tier2_deadline_ms=120_000.0)))
+    tier2 = JointEngine(ctx["llm"], ctx["fusion"], ctx["tok"], ctx["jcfg"],
+                        max_batch=4, device="cuda")
+    server = build_server(scfg, ckpt_dir=ckpt, shard_dir=shard_dir,
+                          tier2_engine=tier2)
+    server.warmup()
+    server.start()
+    port = server.port
+    n, sat = FLEET_NOMINAL, FLEET_SATURATION_X
+    uniq = lambda tag, i: sources[i % len(sources)] + f"\n// {tag} {i}\n"
+    row: dict = {}
+
+    # the main path: counts from zero, read right after
+    fg.n_launches = 0
+    reset_variant_counts()
+    reset_flash_counts()
+    tier2.n_batches = 0
+    d0 = server.engine.n_dispatches
+    t0 = time.perf_counter()
+    try:
+        nominal = run_bodies(port, [("interactive", uniq("nominal", i))
+                                    for i in range(n)], 2)
+        # saturation: 10x the nominal count, half batch, every lap fresh,
+        # until /healthz shows the ladder moving (bounded)
+        overload, laps = [], 0
+        with HealthSampler(port) as sampler:
+            while True:
+                # each client alternates the classes, so both keep
+                # arriving through the whole lap
+                mixed = [(k, uniq(f"sat{laps}{k}", i)) for i in range(sat * n)
+                         for k in [("interactive", "batch")[
+                             (i // FLEET_CLIENTS) % 2]]]
+                overload += run_bodies(port, mixed, FLEET_CLIENTS)
+                laps += 1
+                if sampler.level_max >= 1 or \
+                        time.perf_counter() - t0 > FLEET_WAIT_S:
+                    break
+        level_sat = server.brownout.level
+        # admission.brownout_force: the ladder one level deeper (2)
+        with faults.installed("admission.brownout_force@1"):
+            forced = wait_for(lambda: server.brownout.level >= 2, 10.0)
+        transitions = server.brownout.summary()["transitions_total"]
+        b6_before, sup_before = fa.n_launches, \
+            server.metrics.brownout_suppressed_escalations_total
+        level2 = run_bodies(port, [("interactive", uniq("level2", i))
+                                   for i in range(FLEET_LEVEL2_PASS)], 2)
+        held = (server.brownout.level >= 2 and
+                server.brownout.summary()["transitions_total"] == transitions)
+        b6_level2 = fa.n_launches - b6_before
+        suppressed = (server.metrics.brownout_suppressed_escalations_total
+                      - sup_before)
+        # recovery: the nominal bodies again (cache hits) until level 0
+        t_rec, recovery, rec_laps = time.perf_counter(), [], 0
+        while server.brownout.level > 0 and \
+                time.perf_counter() - t_rec < FLEET_WAIT_S:
+            recovery += run_bodies(port, [("interactive", uniq("nominal", i))
+                                          for i in range(n)], 2)
+            rec_laps += 1
+            time.sleep(0.1)
+        recovery_s = time.perf_counter() - t_rec
+        b6_before = fa.n_launches
+        after = run_bodies(port, [("interactive", uniq("after", i))
+                                  for i in range(FLEET_LEVEL2_PASS)], 2)
+        b6_after = fa.n_launches - b6_before
+        torch.cuda.synchronize()
+        b1, b1_var = fg.n_launches, dict(fg.n_variant_launches)
+        b6, b6_var = fa.n_launches, dict(fa.n_variant_launches)
+        calls = server.engine.n_dispatches - d0
+        batches2 = tier2.n_batches
+        health = healthz(port)
+    finally:
+        snap = server.shutdown()
+    adm, brown = snap["admission"], snap["brownout"]
+    every = nominal + overload + level2 + recovery + after
+    per1, per6 = fg.launches_per_call(STEPS), ctx["cfg"].num_hidden_layers
+    row.update({
+        "codes": {"nominal": codes(nominal), "saturation": codes(overload),
+                  "level2": codes(level2), "recovery": codes(recovery),
+                  "after": codes(after)},
+        "saturation_laps": laps, "recovery_laps": rec_laps,
+        "requests": len(every), "seconds": time.perf_counter() - t0,
+        "healthz_level_max_mid_flight": sampler.level_max,
+        "healthz_samples": sampler.samples, "level_after_saturation":
+            level_sat, "forced_to_2": bool(forced), "level2_held": held,
+        "force_fired": any(t["reason"] == "fault_injected"
+                           for t in brown["transitions"]),
+        "recovery_s": recovery_s, "level_end": health.get("brownout_level"),
+        "admitted": adm["admitted"], "shed": adm["shed"],
+        "shed_reasons": adm["shed_reasons"],
+        "first_shed_class": next((d["class"] for d in adm["decisions"]),
+                                 None),
+        "interactive_sheds_before_brownout":
+            adm["interactive_sheds_before_brownout"],
+        "transitions": [(t["level_from"], t["level_to"], t["reason"])
+                        for t in brown["transitions"]],
+        "max_level_seen": brown["max_level_seen"],
+        "suppressed_escalations": snap[
+            "brownout_suppressed_escalations_total"],
+        "suppressed_at_level2": suppressed,
+        "escalations": snap["cascade_escalated_total"],
+        "tier1_calls": calls, "tier2_batches": batches2,
+        "b1_launches": b1, "b1_launches_by_variant": b1_var,
+        "b6_launches": b6, "b6_launches_by_variant": b6_var,
+        "b6_at_level2": b6_level2, "b6_after_recovery": b6_after,
+        "launches_per_call": {"b1": per1, "b6": per6},
+        "contract_breaks": shed_contract(every)[:5]})
+    if row["contract_breaks"] or any(a["status"] != 200 for a in nominal):
+        fail(f"fleet overload: nominal {row['codes']['nominal']}, "
+             f"breaks {row['contract_breaks']}")
+    if sampler.level_max < 1 or not forced or not held or \
+            row["max_level_seen"] < 2 or health.get("brownout_level") != 0:
+        fail(f"fleet overload: the ladder: mid-flight max "
+             f"{sampler.level_max}, forced {forced}, held {held}, "
+             f"{row['transitions']}, end {health.get('brownout_level')}")
+    if not adm["shed"].get("batch") or row["first_shed_class"] != "batch" \
+            or adm["interactive_sheds_before_brownout"]:
+        fail(f"fleet overload: batch must shed first: {adm['shed']}, "
+             f"first {row['first_shed_class']}, interactive early "
+             f"{adm['interactive_sheds_before_brownout']}")
+    if b6_level2 != 0 or suppressed <= 0 or b6_after <= 0:
+        fail(f"fleet overload: B6 {b6_level2} at level 2 (suppressed "
+             f"{suppressed}), {b6_after} after recovery")
+    for name, launches, n_calls, per in (("B1", b1, calls, per1),
+                                         ("B6", b6, batches2, per6)):
+        if launches <= 0 or launches != n_calls * per:
+            fail(f"fleet overload: {launches} {name} launches for "
+                 f"{n_calls} calls (expected {per} each)")
+    check_ggnn_wgmma("fleet overload", "B1", b1_var, b1)
+    check_wgmma("fleet overload", b6_var, b6)
+    return row
+
+
+def fleet_line(row: dict) -> dict:
+    """The fleet phase's numbers on one short line near the end of the
+    output: codes by class, sheds, the highest brownout level seen, scale
+    events, heal and recovery seconds, B1 and B6 counts."""
+    o, a, f = row["overload"], row["autoscale"], row["federation"]
+    m = f["metrics"]
+    return {"fleet": {
+        "card": row["card"], "seconds": row["seconds"],
+        "overload": {k: o[k] for k in (
+            "codes", "shed", "shed_reasons", "first_shed_class",
+            "healthz_level_max_mid_flight", "max_level_seen", "transitions",
+            "recovery_s", "suppressed_at_level2", "b1_launches",
+            "tier1_calls", "b6_launches", "tier2_batches", "b6_at_level2",
+            "b6_after_recovery", "seconds")},
+        "autoscale": {k: a[k] for k in (
+            "actions", "first_starts_s", "replace_latency_s")},
+        "federation": {k: f[k] for k in (
+            "codes", "sticky", "spillover_at_kill", "kill_to_ready_s",
+            "promotion_refused")} | {k: m[k] for k in (
+                "spillover_total", "spillover_errors_total",
+                "fleetwide_shed_total", "fleetwide_5xx_total",
+                "latency_p50_ms", "latency_p99_ms")},
+        "replicas_b1": {k: (c or {}).get("b1_launches") for k, c in
+                        row["replicas"]["replicas"].items()},
+        "start_s": row["spawns"]["seconds"]}}
+
+
+def spawn_router(backend: str, log: Path):
+    """``python -m deepdfa_tpu_torch.serve.router`` over one replica: the
+    process and its port."""
+    err = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepdfa_tpu_torch.serve.router", "--backend",
+         backend, "--port", "0", "--probe-interval", "0.5"],
+        cwd=REPO_ROOT, env=REPLICA_ENV, stdout=subprocess.PIPE, stderr=err,
+        text=True)
+    err.close()
+    line = read_json_line(proc.stdout, "routing", 120)
+    if not line:
+        proc.kill()
+        proc.wait()
+        fail(f"fleet: the router over {backend} never printed its line")
+    return proc, int(line["port"])
+
+
+def phase_fleet(ctx: dict, work: Path) -> dict:
+    """Admission, brownout, the autoscaler and the federation on the card,
+    on the continual phase's rev A (the golden GGNN, width 128, 5 rounds):
+    the overload leg in process, while the first two replicas start; then
+    two cells behind an in-process ``FederationRouter``: cell A an
+    in-process ``FleetRouter`` whose replicas (``serve.server`` children
+    started by ``SubprocessLauncher``) an ``Autoscaler`` keeps, cell B a
+    ``serve.router`` child over one replica. Cell B is killed under load;
+    the survivor's autoscaler scales up and heals while B's replacement
+    starts. Five replica starts in all."""
+    from deepdfa_tpu_torch.config import AutoscaleConfig, FederationConfig
+    from deepdfa_tpu_torch.continual import PromotionController
+    from deepdfa_tpu_torch.continual.shadow import SCHEMA
+    from deepdfa_tpu_torch.obs.slo import write_alerts_artifact
+    from deepdfa_tpu_torch.pipeline import source_key
+    from deepdfa_tpu_torch.serve.autoscaler import Autoscaler
+    from deepdfa_tpu_torch.serve.federation import FederationRouter
+    from deepdfa_tpu_torch.serve.router import FleetRouter
+
+    smi = nvidia_smi()
+    cont = work / "continual"
+    root = work / "fleet"
+    root.mkdir()
+    shard_dir = port_utils.processed_dir() / "demo" / "shards"
+    ckpt, cfg_file, store = cont / "rev_a", cont / "config.json", \
+        cont / "warm_store"
+    sources = [p.read_text() for p in sorted(
+        (work / "test_sources").glob("*.c"))]
+    row: dict = {"phase": "fleet", "card": smi,
+                 "model": "golden GGNN (width 128, 5 rounds), the continual "
+                          "phase's rev A; tier 2 codellama_7b(flash) bf16"}
+    t_phase = time.perf_counter()
+    launchers: list[TimedLauncher] = []
+
+    def launcher(tag):
+        lch = TimedLauncher(lambda ident: fleet_replica_argv(
+            root, cfg_file, ckpt, shard_dir, store, ident), tag)
+        launchers.append(lch)
+        return lch
+
+    routers: list = []  # router children
+    cell_a = FleetRouter([], port=0, probe_interval_s=0.5,
+                         allow_empty=True).start(probe=True)
+    in_process = [cell_a]  # in-process cell routers
+    acfg = AutoscaleConfig(
+        enabled=True, min_replicas=1, max_replicas=2, poll_interval_s=0.5,
+        burn_high=1.4, burn_low=0.8, up_consecutive=2, down_consecutive=4,
+        cooldown_s=3.0, replace_deadline_s=FLEET_REPLACE_DEADLINE_S,
+        spawn_attempts=3, spawn_backoff_s=0.5)
+    as_launcher = launcher("S_")
+    scaler = Autoscaler(acfg, cell_a, as_launcher)
+    first: dict = {}
+    starts: list = []
+    fed = None
+    stop_probe = threading.Event()
+    try:
+        # cell A's first replica and cell B's start while the overload leg
+        # runs
+        def start(tag, lch):
+            try:
+                first[tag] = lch.spawn()
+            except Exception as exc:  # noqa: BLE001 — reported below
+                first[tag] = exc
+
+        t0 = time.perf_counter()
+        starts += [threading.Thread(target=start, args=args) for args in (
+            ("S", as_launcher), ("F_B", launcher("F_B_")))]
+        for t in starts:
+            t.start()
+        row["overload"] = fleet_overload(ctx, corpus_config(), ckpt,
+                                         shard_dir, sources)
+        for t in starts:
+            t.join()
+        first_s = time.perf_counter() - t0
+        if any(isinstance(h, Exception) for h in first.values()):
+            fail(f"fleet: the first replicas did not start: {first}")
+        # the autoscaler adopts cell A's first replica
+        scaler.adopt(first["S"])
+        scaler.start()
+        acts = lambda: [d["action"] for d in scaler.summary()["decisions"]]
+        proc, rport = spawn_router(first["F_B"].name, root / "router_B.log")
+        routers.append(proc)
+        cells = {"A": {"name": f"127.0.0.1:{cell_a.port}"},
+                 "B": {"name": f"127.0.0.1:{rport}", "router": proc,
+                       "replica": first["F_B"]}}
+        killed: dict = {}
+        replacement: dict = {}
+
+        def replace_cell():
+            # a new replica behind a router of its own, joining the
+            # federation through its readiness gate
+            h = launcher("F_C_").spawn()
+            router_c = FleetRouter([h.name], port=0, probe_interval_s=0.5)
+            in_process.append(router_c.start(probe=True))
+            name = f"127.0.0.1:{router_c.port}"
+            replacement.update(name=name, replica=h)
+            with probe_lock:
+                fed.add_cell(name)
+            if wait_for(lambda: fed.cells[name].state == "ready",
+                        FLEET_WAIT_S, 0.1):
+                replacement["t_ready"] = time.perf_counter()
+
+        def kill_cell(name):
+            cell = next(c for c in cells.values() if c["name"] == name)
+            cell["router"].kill()
+            cell["replica"].kill()
+            killed.update(name=name, t=time.perf_counter())
+            threading.Thread(target=replace_cell, daemon=True).start()
+
+        # cell B first: federation.cell_kill takes the first ready cell
+        fed = FederationRouter(
+            cells=[cells["B"]["name"], cells["A"]["name"]],
+            cfg=FederationConfig(probe_interval_s=0.5), kill_hook=kill_cell)
+        # the probe loop is the smoke's, and a chaos point is armed only
+        # while the lock keeps it out, so each fires on the probe meant
+        probe_lock = threading.Lock()
+
+        def prober():
+            while not stop_probe.wait(0.5):
+                with probe_lock:
+                    fed.probe_once()
+
+        fed.start(probe=False)
+        ready = wait_for(lambda: set(fed.probe_once().values()) == {"ready"},
+                         60.0, 0.5)
+        threading.Thread(target=prober, daemon=True).start()
+        # a nominal trickle is sticky: each key on its ring owner
+        bodies = [("interactive", src + "\n// fleet sticky\n")
+                  for src in sources[:32]]
+        laps = [run_bodies(fed.port, bodies, 2) for _ in range(2)]
+        sticky = [a["cell"] == fed.ring.route(source_key(b[1]))
+                  and a["spill"] == "false" and a["status"] == 200
+                  for lap in laps for a, b in zip(lap, bodies)]
+        same = [x["cell"] == y["cell"] for x, y in zip(*laps)]
+        every = laps[0] + laps[1]
+        alerts = write_alerts_artifact(root / "alerts.json", [])
+        shadow = {"schema": SCHEMA, "pass": True}
+        pc = PromotionController(None, None, None, candidate_rev="b",
+                                 prior_rev="a", alerts_path=alerts,
+                                 brownout_targets=lambda: [
+                                     c.name for c in fed.cells.values()
+                                     if c.state == "ready"])
+        survivor = int(cells["A"]["name"].split(":")[1])
+        with Load(fed.port, sources, "fleet_high", FLEET_CLIENTS) as load:
+            time.sleep(1.0)
+            # federation.cell_kill: cell B and its replica SIGKILLed, its
+            # replacement started; the whole load lands on cell A
+            with probe_lock, faults.installed("federation.cell_kill@1"):
+                fed.probe_once()
+            spill_at_kill = wait_for(
+                lambda: fed.metrics.snapshot()["spillover_total"], 5.0)
+            # cell A sheds on its replica's 20/s budget: it browns out, and
+            # the promotion controller's gate refuses
+            browned = wait_for(lambda: healthz(survivor)
+                               .get("brownout_level", 0) >= 1, 60.0)
+            refused = pc.check_gates(shadow)
+            # the burn scales cell A up (its start beside the replacement's)
+            up = wait_for(lambda: len(scaler.summary()["replicas"]) == 2
+                          and "scale_up" in acts())
+            # A's newest replica killed, its heal's first spawn failing
+            # once and retried with backoff
+            n_before = len(scaler.summary()["decisions"])
+            with faults.installed("autoscale.replica_crash@1;"
+                                  "autoscale.spawn_fail@1"):
+                healed = wait_for(lambda: "replace" in acts()[n_before:])
+            # the replacement cell, ready through the readiness gate
+            rejoined = wait_for(lambda: "t_ready" in replacement,
+                                FLEET_WAIT_S, 0.2)
+            recovery_s = (replacement["t_ready"] - killed["t"]
+                          if rejoined and killed else None)
+            # a spilled forward dropped (A's keys spill to the replacement),
+            # then one probe partitioned
+            with faults.installed("federation.spillover_drop@1"):
+                dropped = wait_for(lambda: fed.metrics.snapshot()[
+                    "spillover_errors_total"] >= 1, 60.0)
+            with probe_lock:
+                fed.remove_cell(killed.get("name", ""))
+                with faults.installed("federation.probe_partition@1"):
+                    partitioned = fed.probe_once()
+                healed_probe = fed.probe_once()
+            high = load.snapshot()
+        # a trickle: the burn falls, cell A scales down (ring exit, then
+        # SIGTERM) and every cell calms to level 0, where the gate passes
+        n_before = len(scaler.summary()["decisions"])
+        with Load(fed.port, sources, "fleet_low", 1, gap_s=0.25) as low:
+            down = wait_for(lambda: "scale_down" in acts()[n_before:])
+            calm = wait_for(lambda: all(
+                healthz(c.port).get("brownout_level", 1) == 0
+                for c in fed.cells.values()), 60.0)
+            passed = pc.check_gates(shadow)
+        every += high + low.snapshot()
+        stop_probe.set()
+        summary = scaler.stop(drain=False)
+        decisions = summary["decisions"]
+        replace = next((d for d in decisions if d["action"] == "replace"),
+                       {})
+        row["autoscale"] = {
+            "first_starts_s": first_s, "replicas": summary["replicas"],
+            "actions": [d["action"] for d in decisions],
+            "scale_up": bool(up), "healed": bool(healed),
+            "scaled_down": bool(down),
+            "replace_latency_s": replace.get("replace_latency_s"),
+            "replace_deadline_s": FLEET_REPLACE_DEADLINE_S,
+            "join_cold_compiles": summary["join_cold_compiles"],
+            "spawn_give_ups": summary["spawn_give_ups"],
+            "drained": [d["backend"] for d in decisions
+                        if d["action"] == "scale_down"]}
+        fsnap = fed.metrics.snapshot()
+        row["federation"] = {
+            "cells": {k: c["name"] for k, c in cells.items()},
+            "ready": bool(ready), "sticky": all(sticky) and all(same),
+            "sticky_requests": len(sticky), "killed": killed.get("name"),
+            "spillover_at_kill": spill_at_kill,
+            "survivor_browned_out": bool(browned),
+            "promotion_refused": refused,
+            "promotion_after_recovery": passed, "survivor_calm": bool(calm),
+            "replacement": replacement.get("name"),
+            "kill_to_ready_s": recovery_s,
+            "recovery_deadline_s": FLEET_RECOVERY_DEADLINE_S,
+            "spillover_dropped": bool(dropped),
+            "partitioned_probe": partitioned, "next_probe": healed_probe,
+            "codes": {"high": codes(high), "low": codes(low.snapshot()),
+                      "sticky": codes(laps[0] + laps[1])},
+            "metrics": dict(fsnap)}
+    finally:
+        stop_probe.set()
+        scaler.stop(drain=False)
+        for t in starts:  # a replica still starting is drained below too
+            t.join()
+        if fed is not None:
+            fed.shutdown()
+        for router in in_process:
+            router.shutdown()
+        for proc in routers:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for lch in launchers:
+            for h in lch.handles:
+                h.drain()
+        for proc in routers:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for lch in launchers:
+            for h in lch.handles:
+                try:
+                    h.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    h.kill()
+                    h.wait()
+    idents = [Path(h.proc.args[3]).name.split(".")[0]
+              for lch in launchers for h in lch.handles]
+    replicas = replica_counts(root, idents)
+    row["replicas"] = replicas
+    row["spawns"] = {"count": sum(len(lch.seconds) for lch in launchers),
+                     "seconds": [round(s, 3) for lch in launchers
+                                 for s in lch.seconds]}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+
+    a, f = row["autoscale"], row["federation"]
+    if not (a["scale_up"] and a["healed"] and a["scaled_down"]) or \
+            a["replace_latency_s"] is None or \
+            a["replace_latency_s"] > FLEET_REPLACE_DEADLINE_S or \
+            a["join_cold_compiles"] or a["spawn_give_ups"] or \
+            "replica_crash_injected" not in a["actions"] or \
+            len(a["replicas"]) != 1:
+        fail(f"fleet autoscale: {a}")
+    if not f["ready"] or not f["sticky"] or shed_contract(every) or \
+            f["metrics"]["fleetwide_5xx_total"] or \
+            not f["metrics"]["spillover_total"] or not f["spillover_dropped"]:
+        fail(f"fleet federation: {f}, breaks {shed_contract(every)[:5]}")
+    if f["killed"] != f["cells"]["B"] or f["kill_to_ready_s"] is None or \
+            f["kill_to_ready_s"] > FLEET_RECOVERY_DEADLINE_S:
+        fail(f"fleet federation: the killed cell {f['killed']}, its "
+             f"replacement {f['replacement']} ready "
+             f"{f['kill_to_ready_s']} s after the kill")
+    if list(f["partitioned_probe"].values()).count("down") != 1 or \
+            set(f["next_probe"].values()) != {"ready"}:
+        fail(f"fleet federation: the partitioned probe "
+             f"{f['partitioned_probe']}, the next {f['next_probe']}")
+    r = f["promotion_refused"]
+    if not f["survivor_browned_out"] or not r or r.get("gate") != \
+            "brownout" or not f["survivor_calm"] or \
+            f["promotion_after_recovery"] is not None:
+        fail(f"fleet federation: the promotion gate refused {r}, after "
+             f"recovery {f['promotion_after_recovery']}")
+    for ident, c in replicas["replicas"].items():
+        if c is None or c["b1_launches"] != c["expected"] or \
+                c["b1_launches_by_variant"].get("wgmma") != \
+                c["b1_launches"] or c["warm_misses"] != 0:
+            fail(f"fleet: replica {ident} launches {c}")
+    if row["spawns"]["count"] > 5:
+        fail(f"fleet: {row['spawns']['count']} replica starts (at most 5)")
+    return row
+
+
 # --------------------------------------------------------------- phase 18
 
 
@@ -6390,6 +7165,7 @@ def drive() -> int:
         trainer = timed("trainer", phase_trainer, corpus_work)
         dataflow = timed("dataflow", phase_dataflow, corpus_work)
         continual = timed("continual", phase_continual, corpus_work)
+        fleet = timed("fleet", phase_fleet, ctx, corpus_work)
     finally:
         shutil.rmtree(corpus_work, ignore_errors=True)
     bigvul = timed("bigvul", phase_bigvul)
@@ -6462,6 +7238,11 @@ def drive() -> int:
                "continual_replicas": cont["replicas"]["b1_launches"]}
     cont_b1_var = [cont["by_variant"]["fwd"],
                    cont["replicas"]["b1_launches_by_variant"]]
+    # the fleet: the overload server's tier 1 and the fleet's replicas
+    fleet_b1 = {"fleet_overload": fleet["overload"]["b1_launches"],
+                "fleet_replicas": fleet["replicas"]["b1_launches"]}
+    fleet_b1_var = [fleet["overload"]["b1_launches_by_variant"],
+                    fleet["replicas"]["b1_launches_by_variant"]]
     # B1 and B2 at the families' widths, on ffma: graph ms, the 3xTF32
     # bound as at width 128 and the FFMA one beside it
     df_widths = {str(f["width"]): {
@@ -6484,7 +7265,8 @@ def drive() -> int:
                      + corpus["fit"]["b1_launches"]
                      + corpus["predict"]["b1_launches"] + bigvul_b1
                      + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())
-                     + sum(df_b1.values()) + sum(cont_b1.values())),
+                     + sum(df_b1.values()) + sum(cont_b1.values())
+                     + sum(fleet_b1.values())),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -6496,7 +7278,7 @@ def drive() -> int:
                              "serve_http_scan":
                                  serve_http["scan_cli"]["b1_launches"],
                              "artifact": art_b1, "warm_store": store_b1,
-                             **tr_b1, **df_b1, **cont_b1},
+                             **tr_b1, **df_b1, **cont_b1, **fleet_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -6511,7 +7293,7 @@ def drive() -> int:
             serve_http["b1_launches_by_variant"],
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
             artifact["warm_store"]["launches_by_variant"], *tr_b1_var,
-            *df_b1_var, *cont_b1_var),
+            *df_b1_var, *cont_b1_var, *fleet_b1_var),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -6648,19 +7430,23 @@ def drive() -> int:
                         ":758 (body :342-481)",
         "launches": (joint["b6_launches"] + joint8["b6_launches"]
                      + finetune["b6_launches"] + joint_train["b6_launches"]
-                     + scan["b6_launches"] + serve_http["b6_launches"]),
+                     + scan["b6_launches"] + serve_http["b6_launches"]
+                     + fleet["overload"]["b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
                              "joint_train": joint_train["b6_launches"],
                              "scan_cascade": scan["b6_launches"],
-                             "serve_http": serve_http["b6_launches"]},
+                             "serve_http": serve_http["b6_launches"],
+                             "fleet_overload":
+                                 fleet["overload"]["b6_launches"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
                    for r in (joint, joint8, finetune, joint_train))
             + scan["b6_launches_by_variant"][v]
             + serve_http["b6_launches_by_variant"][v]
+            + fleet["overload"]["b6_launches_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
@@ -6701,6 +7487,7 @@ def drive() -> int:
         "library_call_ms": b6b["library_ms"],
         "shape": f"7b_train b={b6b['b']} s={b6b['s']} h={b6b['h']} "
                  f"d={b6b['d']} bf16"}]})
+    emit(fleet_line(fleet))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

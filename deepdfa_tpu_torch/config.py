@@ -384,40 +384,88 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class AutoscaleConfig:
-    """The fleet autoscaler's knobs, with the JAX package's names and
-    defaults. Not ported yet: any other value raises (ROADMAP A15)."""
+    """Fleet autoscaler knobs (``serve/autoscaler.py``; CLI: ``--set
+    serve.autoscale.*``): the SLO-driven decision loop that spawns and
+    drains replicas. Scale-up admits only warm-joined replicas; scale-down
+    is SIGTERM flag-only drain; a dead replica is replaced within
+    ``replace_deadline_s`` (standing invariant 22)."""
 
     enabled: bool = False
     min_replicas: int = 1
     max_replicas: int = 4
-    poll_interval_s: float = 2.0
+    poll_interval_s: float = 2.0  # supervisor scrape + decide cadence
+    # burn-rate watermarks (fast window, from each backend's /slo): scale
+    # up when the worst ratio-SLO burn sits above the high watermark for
+    # up_consecutive polls; scale down when every burn sits below the low
+    # watermark for down_consecutive polls. The gap is the hysteresis band
+    # that keeps burn flapping from oscillating the fleet.
     burn_high: float = 2.0
     burn_low: float = 0.5
     up_consecutive: int = 2
     down_consecutive: int = 5
-    cooldown_s: float = 30.0
-    replace_deadline_s: float = 30.0
-    spawn_attempts: int = 3
-    spawn_backoff_s: float = 0.5
+    cooldown_s: float = 30.0  # no new scale decision after any action
+    replace_deadline_s: float = 30.0  # crash detection -> warm replacement
+    spawn_attempts: int = 3  # launcher retries through resilience/retry.py
+    spawn_backoff_s: float = 0.5  # base backoff between spawn attempts
 
     def __post_init__(self):
-        _refuse_non_default(self, "ROADMAP A15 (the fleet autoscaler)")
+        if self.min_replicas < 1:
+            raise ValueError("min_replicas must be >= 1")
+        if self.min_replicas > self.max_replicas:
+            raise ValueError("min_replicas must be <= max_replicas")
+        if self.poll_interval_s <= 0:
+            raise ValueError("poll_interval_s must be > 0")
+        if self.burn_high <= 0:
+            raise ValueError("burn_high must be > 0")
+        if not 0 <= self.burn_low < self.burn_high:
+            raise ValueError("need 0 <= burn_low < burn_high")
+        if self.up_consecutive < 1:
+            raise ValueError("up_consecutive must be >= 1")
+        if self.down_consecutive < 1:
+            raise ValueError("down_consecutive must be >= 1")
+        if self.cooldown_s <= 0:
+            raise ValueError("cooldown_s must be > 0")
+        if self.replace_deadline_s <= 0:
+            raise ValueError("replace_deadline_s must be > 0")
+        if self.spawn_attempts < 1:
+            raise ValueError("spawn_attempts must be >= 1")
+        if self.spawn_backoff_s <= 0:
+            raise ValueError("spawn_backoff_s must be > 0")
 
 
 @dataclass(frozen=True)
 class AdmissionConfig:
-    """Admission control, QoS classes and brownout, with the JAX package's
-    names and defaults. Not ported yet: any other value raises (ROADMAP
-    A15)."""
+    """Admission-control / QoS knobs (``serve/admission.py``; CLI: ``--set
+    serve.admission.*``): per-tenant token buckets with two priority
+    classes (``interactive`` score vs ``batch`` rescore, tagged
+    per-request), deadline-aware shedding off the frontend queue-wait
+    signal, and the brownout controller — the same hysteresis/streak/
+    cooldown decision shape as the autoscaler, stepping through declared
+    degradation levels under sustained SLO burn. A shed is always
+    429 + deterministic Retry-After (derived from bucket refill state,
+    never wall-clock randomness), never a 5xx; the interactive class
+    sheds last (invariant candidate 30)."""
 
     enabled: bool = False
+    # per-(tenant, class) token buckets: refill rate (requests/s) and
+    # burst capacity. The batch class gets the smaller budget — it is the
+    # first traffic shed under pressure.
     interactive_rate: float = 200.0
     interactive_burst: float = 200.0
     batch_rate: float = 50.0
     batch_burst: float = 50.0
+    # deadline-aware shedding: when the observed frontend queue-wait p99
+    # exceeds a class's deadline the class sheds before paying encode
+    # cost. Interactive gets the tight deadline; batch tolerates more.
     interactive_deadline_ms: float = 2000.0
     batch_deadline_ms: float = 10000.0
+    # queue-depth guard: estimated wait is also judged from the frontend
+    # queue depth — depth beyond this per-class multiple of the burst
+    # capacity sheds batch traffic early (0 disables the depth signal)
     depth_shed_factor: float = 4.0
+    # brownout controller (hysteresis watermarks over the fast-window SLO
+    # burn, consecutive-poll streaks, post-action cooldown — the exact
+    # decision shape of AutoscaleConfig so operators tune one vocabulary)
     brownout: bool = True
     burn_high: float = 2.0
     burn_low: float = 0.5
@@ -425,10 +473,35 @@ class AdmissionConfig:
     down_consecutive: int = 5
     cooldown_s: float = 5.0
     poll_interval_s: float = 0.5
+    # highest brownout level the controller may reach: 1 = shed batch,
+    # 2 = + warm-cache hits + tier-1 only, 3 = + shed interactive
     max_level: int = 3
 
     def __post_init__(self):
-        _refuse_non_default(self, "ROADMAP A15 (admission control)")
+        for name in ("interactive_rate", "interactive_burst",
+                     "batch_rate", "batch_burst"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0")
+        if self.interactive_deadline_ms <= 0:
+            raise ValueError("interactive_deadline_ms must be > 0")
+        if self.batch_deadline_ms <= 0:
+            raise ValueError("batch_deadline_ms must be > 0")
+        if self.depth_shed_factor < 0:
+            raise ValueError("depth_shed_factor must be >= 0 (0 disables)")
+        if self.burn_high <= 0:
+            raise ValueError("burn_high must be > 0")
+        if not 0 <= self.burn_low < self.burn_high:
+            raise ValueError("need 0 <= burn_low < burn_high")
+        if self.up_consecutive < 1:
+            raise ValueError("up_consecutive must be >= 1")
+        if self.down_consecutive < 1:
+            raise ValueError("down_consecutive must be >= 1")
+        if self.cooldown_s <= 0:
+            raise ValueError("cooldown_s must be > 0")
+        if self.poll_interval_s <= 0:
+            raise ValueError("poll_interval_s must be > 0")
+        if not 1 <= self.max_level <= 3:
+            raise ValueError("max_level must be in [1, 3]")
 
 
 @dataclass(frozen=True)
@@ -483,22 +556,56 @@ class ContinualConfig:
 
 @dataclass(frozen=True)
 class FederationConfig:
-    """Multi-cell federation, with the JAX package's names and defaults.
-    Not ported yet: any other value raises (ROADMAP A15)."""
+    """Multi-cell federation knobs (``serve/federation.py``; CLI: ``--set
+    serve.federation.*``): the cell ring the :class:`FederationRouter`
+    fronts, the saturation watermarks that trigger spillover off a cell's
+    own ``/healthz`` + ``/slo`` truth (no new probes), and the drain
+    deadline for cell-level deploys. Off by default — a single-cell
+    deployment never pays for federation."""
 
     enabled: bool = False
+    # the cell ring: each entry is the host:port of a cell's FleetRouter.
+    # Empty means the federation starts with no members (cells join via
+    # /admin/cells), mirroring FleetRouter's allow_empty bootstrap.
     cells: tuple[str, ...] = ()
+    # virtual nodes per cell on the source-key-sticky hash ring
     vnodes: int = 16
+    # cell health-probe cadence (GET /healthz + GET /slo per cell)
     probe_interval_s: float = 1.0
+    # spillover watermarks — a cell is SATURATED (spill its sticky
+    # traffic to the least-burned healthy cell) when ANY of these trips:
+    # its reported brownout level, its frontend queue-wait p99, or its
+    # fast-window SLO burn rate
     spill_brownout_level: int = 1
     spill_queue_wait_p99_ms: float = 5000.0
     spill_burn_high: float = 2.0
+    # cell-level drain: budget for the drained cell's in-flight forwards
+    # to finish after it has left the cell ring (flag-only, invariant 6)
     drain_deadline_s: float = 30.0
+    # floor on the Retry-After a fleet-wide shed advertises when no cell
+    # supplied one (e.g. every cell was unreachable, not shedding)
     retry_after_floor_s: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "cells", tuple(self.cells))
-        _refuse_non_default(self, "ROADMAP A15 (federation)")
+        for cell in self.cells:
+            if not isinstance(cell, str) or ":" not in cell:
+                raise ValueError(
+                    f"cells entries must be 'host:port' strings, got {cell!r}")
+        if self.vnodes < 1:
+            raise ValueError("vnodes must be >= 1")
+        if self.probe_interval_s <= 0:
+            raise ValueError("probe_interval_s must be > 0")
+        if not 1 <= self.spill_brownout_level <= 3:
+            raise ValueError("spill_brownout_level must be in [1, 3]")
+        if self.spill_queue_wait_p99_ms <= 0:
+            raise ValueError("spill_queue_wait_p99_ms must be > 0")
+        if self.spill_burn_high <= 0:
+            raise ValueError("spill_burn_high must be > 0")
+        if self.drain_deadline_s <= 0:
+            raise ValueError("drain_deadline_s must be > 0")
+        if self.retry_after_floor_s < 1:
+            raise ValueError("retry_after_floor_s must be >= 1")
 
 
 @dataclass(frozen=True)
@@ -506,11 +613,10 @@ class ServeConfig:
     """Online scoring service knobs (``deepdfa_tpu_torch/serve``; CLI:
     ``--set serve.*``): the micro-batching window, the bounded queue, the
     content-addressed scan cache, the HTTP endpoint, the cascade, the
-    frontend pool, the warm store (``warm_store_dir``) and the continual
-    loop's capture (``continual``). The JAX package's other fleet parts
-    keep their defaults here and raise when set: ``mesh_replicas > 1``
-    (ROADMAP A11), ``admission``, ``federation`` and ``autoscale``
-    (A15)."""
+    frontend pool, the warm store (``warm_store_dir``), the continual
+    loop's capture (``continual``), admission and brownout
+    (``admission``), the federation (``federation``) and the autoscaler
+    (``autoscale``). ``mesh_replicas > 1`` raises (ROADMAP A11)."""
 
     host: str = "127.0.0.1"
     port: int = 8341  # 0 = ephemeral (the bound port is reported at start)
@@ -564,21 +670,6 @@ class ServeConfig:
             raise NotImplementedError(
                 "ServeConfig.mesh_replicas > 1 is not ported yet: ROADMAP "
                 "A11 (mesh replication)")
-
-
-def _default(cls: type, name: str) -> Any:
-    f = cls.__dataclass_fields__[name]
-    return f.default_factory() if f.default is dataclasses.MISSING \
-        else f.default
-
-
-def _refuse_non_default(cfg: Any, later: str) -> None:
-    """Raise ``NotImplementedError`` naming ``later`` unless every field of
-    ``cfg`` keeps its default: the block parses, and is not ported yet."""
-    for f in dataclasses.fields(cfg):
-        if getattr(cfg, f.name) != _default(type(cfg), f.name):
-            raise NotImplementedError(
-                f"{type(cfg).__name__}.{f.name} is not ported yet: {later}")
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,8 @@
 """SLO burn-rate engine — declarative objectives judged from metric snapshots.
 
 A trimmed copy of ``deepdfa_tpu/obs/slo.py``: the engine, the serve-side,
-router and trainer specs, the ``alerts.json`` artifact and its fail-closed
-reader (the promotion veto). The federation's specs wait for ROADMAP A15.
-An :class:`SLOSpec`
+router, federation and trainer specs, the ``alerts.json`` artifact and its
+fail-closed reader (the promotion veto). An :class:`SLOSpec`
 declares one objective over keys of a flat metrics snapshot, in one of
 three kinds:
 
@@ -40,6 +39,7 @@ from deepdfa_tpu_torch.resilience.journal import atomic_write_text
 __all__ = [
     "SLOSpec",
     "SLOEngine",
+    "federation_specs",
     "read_promotion_veto",
     "router_specs",
     "serve_specs",
@@ -227,6 +227,17 @@ class SLOEngine:
 
     # -- exposition ---------------------------------------------------------
 
+    def worst_fast_burn(self) -> float | None:
+        """Max fast-window burn across the specs — the one-number
+        overload signal. The autoscaler reads it over HTTP (``/slo`` and
+        ``max_fast_burn``); the in-process brownout controller
+        (``serve/admission.py``) reads it here, off the same statuses."""
+        burns = [row["burn_fast"] for row in self.statuses()
+                 if row.get("burn_fast") is not None]
+        return max(burns, default=None)
+
+    # -- exposition ---------------------------------------------------------
+
     def stage(self, reg: MetricsRegistry) -> None:
         """Stage the SLO families into a caller-owned registry (the caller
         picks the ``deepdfa_*`` prefix — invariant 16)."""
@@ -313,6 +324,21 @@ def router_specs(*, availability: float = 0.99,
         SLOSpec("availability", "ratio", availability,
                 bad="errors_total", total="requests_total"),
         SLOSpec("latency_p99", "max", p99_ms, value="latency_p99_ms"),
+    )
+
+
+def federation_specs(*, availability: float = 0.99,
+                     p99_ms: float = 2000.0) -> tuple[SLOSpec, ...]:
+    """Federation-tier objectives (invariant candidate 32). Availability
+    budgets 5xx ONLY — a fleet-wide 429 shed is correct behaviour per
+    request, a 5xx is a broken promise; ``spillover_errors`` pages the
+    moment a spilled forward is lost instead of retried."""
+    return (
+        SLOSpec("availability", "ratio", availability,
+                bad="fleetwide_5xx_total", total="requests_total"),
+        SLOSpec("latency_p99", "max", p99_ms, value="latency_p99_ms"),
+        SLOSpec("spillover_errors", "max", 0.0,
+                value="spillover_errors_total"),
     )
 
 

@@ -174,8 +174,9 @@ def fused_ggnn_reference(h0, senders, receivers, ew, eb, xw, xb, hw, hb, *,
                          n_steps: int) -> torch.Tensor:
     """The plain torch version (``_unrolled_reference`` of the JAX package).
     Edges are summed per receiver with ``index_add_``: in edge-list order on
-    the CPU, with atomics on CUDA."""
-    h = h0.float()
+    the CPU, with atomics on CUDA. Runs in float32, or in float64 when
+    given float64 inputs."""
+    h = h0.to(torch.promote_types(h0.dtype, torch.float32))
     n = h.shape[0]
     for _ in range(n_steps):
         msg = h @ ew + eb

@@ -6,8 +6,10 @@ points the port fires: the trainer's (``train/checkpoint.py``,
 (``cpg/joern_session.py``), the HTTP service's, the tracer's and flight
 recorder's, the extraction pool's and its cache's, the cascade's, the
 frontend pool's, the function-embedding cache's and the continual loop's
-(``continual/capture.py``, ``continual/promote.py``). The other points of
-the JAX registry come with their fire sites (ROADMAP A11, A15).
+(``continual/capture.py``, ``continual/promote.py``), admission and
+brownout's (``serve/admission.py``), the autoscaler's
+(``serve/autoscaler.py``) and the federation's (``serve/federation.py``).
+``mesh.device_lost`` comes with its fire site (ROADMAP A11).
 
 Faults are (a) reachable from outside the process — a subprocess under
 test arms them through the ``DEEPDFA_FAULTS`` environment variable — (b)
@@ -63,6 +65,8 @@ KNOWN_POINTS = (
     "step.hang",
     "obs.trace_drop",
     "obs.flight_drop",
+    "autoscale.spawn_fail",
+    "autoscale.replica_crash",
     "extract.worker_crash",
     "extract.cache_corrupt",
     "cascade.tier2_timeout",
@@ -70,9 +74,15 @@ KNOWN_POINTS = (
     "frontend.worker_crash",
     "frontend.spawn_fail",
     "embcache.cache_corrupt",
+    "admission.bucket_exhausted",
+    "admission.deadline_blown",
+    "admission.brownout_force",
     "continual.capture_drop",
     "continual.rollout_crash",
     "continual.rollback_trigger",
+    "federation.cell_kill",
+    "federation.spillover_drop",
+    "federation.probe_partition",
 )
 
 # One line per point; keys equal KNOWN_POINTS.
@@ -109,6 +119,14 @@ POINT_DOCS = {
         "lose one flight-recorder event at record — counted in "
         "obs_dropped_total; the request/step it annotates must still "
         "succeed (obs/flightrec.py)"),
+    "autoscale.spawn_fail": (
+        "fail one replica launch inside the autoscaler's launcher — the "
+        "spawn retries with backoff and journals a give-up on exhaustion "
+        "(serve/autoscaler.py)"),
+    "autoscale.replica_crash": (
+        "kill -9 one managed replica mid-load — the ring fails over, the "
+        "autoscaler detects the dead probe and warm-joins a replacement "
+        "within replace_deadline_s (serve/autoscaler.py)"),
     "extract.worker_crash": (
         "kill one extraction-pool worker thread mid-task — its in-flight "
         "item is re-queued and survivors steal its backlog "
@@ -136,6 +154,18 @@ POINT_DOCS = {
         "corrupt one function-embedding-cache payload at read — the entry "
         "must read as a MISS (level 1 re-embeds), never a decode crash "
         "(serve/embcache.py)"),
+    "admission.bucket_exhausted": (
+        "drain one (tenant, class) token bucket at admission — the request "
+        "sheds as a 429 with a deterministic Retry-After, never a 5xx "
+        "(serve/admission.py)"),
+    "admission.deadline_blown": (
+        "force one deadline check to judge the queue wait as past the "
+        "class deadline — the request sheds as a 429, never a 5xx "
+        "(serve/admission.py)"),
+    "admission.brownout_force": (
+        "force the brownout controller one level deeper on its next poll — "
+        "the transition is journaled and /healthz reports the new level "
+        "honestly (serve/admission.py)"),
     "continual.capture_drop": (
         "fail one request-capture journal write — counted in the capture's "
         "dropped counter; the /score request it records must still succeed "
@@ -148,6 +178,18 @@ POINT_DOCS = {
         "force the post-roll drift watch to fire against the candidate rev "
         "— the controller rolls back and the prior model_rev serves again "
         "(continual/promote.py)"),
+    "federation.cell_kill": (
+        "kill -9 one whole cell (its router and every replica) from the "
+        "federation probe loop — survivors absorb the sticky traffic with "
+        "zero client-visible 5xx (serve/federation.py)"),
+    "federation.spillover_drop": (
+        "drop one spilled-over forward on the wire — the federation "
+        "counts a spillover error and retries the next cell, never a 5xx "
+        "(serve/federation.py)"),
+    "federation.probe_partition": (
+        "partition one cell health probe — the probe reads as a socket "
+        "failure, the cell is marked down and rejoins on the next clean "
+        "probe (serve/federation.py)"),
 }
 
 

@@ -1,34 +1,32 @@
-"""Generic retry: capped exponential backoff with deterministic jitter.
+"""Generic retry: capped exponential backoff + total deadline + jitter.
 
-The part of ``deepdfa_tpu/resilience/retry.py`` the extraction supervisor's
-session spawns need. The backoff for attempt *n* is a pure function of *n*
-(the JAX package's fault-registry hash at seed 0), so a replayed run waits
-the same schedule; ``sleep`` is a parameter, so tests drive a virtual
-clock. The JAX package's total ``deadline``, injectable ``clock`` and
-jitter ``seed`` wait for a caller that needs them.
+Built for the Joern extraction supervisor (a JVM REPL that can hang, die,
+or refuse to spawn while the host is loaded) but deliberately free of any
+Joern knowledge. Two properties matter for the chaos battery:
+
+- **deterministic jitter** — the backoff for attempt *n* is a pure function
+  of ``(seed, n)`` (the fault registry's hash, :mod:`.faults`),
+  so a replayed run waits the same schedule;
+- **injectable clocks** — ``sleep``/``clock`` are parameters, so the unit
+  tests drive a virtual clock and finish in microseconds.
 """
 
 from __future__ import annotations
 
-import hashlib
 import time
 from dataclasses import dataclass
 from typing import Callable, TypeVar
+
+from deepdfa_tpu_torch.resilience.faults import _unit
 
 __all__ = ["RetryPolicy", "RetryExhausted", "retry_call"]
 
 T = TypeVar("T")
 
 
-def _unit(seed: int, point: str, hit: int) -> float:
-    """Deterministic uniform in [0, 1): pure function of (seed, point, hit)."""
-    digest = hashlib.sha256(f"{seed}:{point}:{hit}".encode()).digest()
-    return int.from_bytes(digest[:8], "big") / 2.0**64
-
-
 class RetryExhausted(RuntimeError):
-    """All attempts failed; ``__cause__`` carries the last underlying
-    exception."""
+    """All attempts failed (or the deadline would be blown); ``__cause__``
+    carries the last underlying exception."""
 
     def __init__(self, attempts: int, elapsed: float, last: BaseException):
         super().__init__(
@@ -42,13 +40,16 @@ class RetryExhausted(RuntimeError):
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """``delay(n) = min(base * multiplier**(n-1), max_delay)`` ± jitter."""
+    """``delay(n) = min(base * multiplier**(n-1), max_delay)`` ± jitter;
+    ``deadline`` bounds total wall time across attempts (checked before
+    sleeping — a retry that cannot finish in budget is not started)."""
 
     attempts: int = 3
     base_delay: float = 0.5
     max_delay: float = 30.0
     multiplier: float = 2.0
     jitter: float = 0.1  # fraction of the delay, spread symmetrically
+    deadline: float | None = None
 
     def __post_init__(self):
         if self.attempts < 1:
@@ -56,12 +57,12 @@ class RetryPolicy:
         if not 0.0 <= self.jitter < 1.0:
             raise ValueError("jitter must be in [0, 1)")
 
-    def delay(self, attempt: int) -> float:
+    def delay(self, attempt: int, seed: int = 0) -> float:
         """Backoff after failure number ``attempt`` (1-based)."""
         raw = min(self.base_delay * self.multiplier ** (attempt - 1), self.max_delay)
         if not self.jitter:
             return raw
-        u = _unit(0, "retry", attempt)
+        u = _unit(seed, "retry", attempt)
         return raw * (1.0 - self.jitter + 2.0 * self.jitter * u)
 
 
@@ -71,11 +72,13 @@ def retry_call(
     retry_on: tuple[type[BaseException], ...] = (Exception,),
     on_retry: Callable[[int, BaseException, float], None] | None = None,
     sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+    seed: int = 0,
 ) -> T:
     """Call ``fn`` up to ``policy.attempts`` times; raise
-    :class:`RetryExhausted` when the attempts run out.
+    :class:`RetryExhausted` when attempts or the deadline run out.
     ``on_retry(attempt, exc, delay)`` observes each scheduled retry."""
-    start = time.monotonic()
+    start = clock()
     last: BaseException | None = None
     for attempt in range(1, policy.attempts + 1):
         try:
@@ -84,8 +87,11 @@ def retry_call(
             last = exc
             if attempt >= policy.attempts:
                 break
-            delay = policy.delay(attempt)
+            delay = policy.delay(attempt, seed=seed)
+            if policy.deadline is not None and (clock() - start) + delay > policy.deadline:
+                break
             if on_retry is not None:
                 on_retry(attempt, exc, delay)
             sleep(delay)
-    raise RetryExhausted(attempt, time.monotonic() - start, last) from last
+    assert last is not None
+    raise RetryExhausted(attempt, clock() - start, last) from last

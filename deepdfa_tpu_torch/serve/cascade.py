@@ -238,6 +238,15 @@ class CascadeRouter:
     def in_band(self, prob: float) -> bool:
         return self.cfg.band_lo <= prob <= self.cfg.band_hi
 
+    def escalation_allowed(self, brownout_level: int = 0) -> bool:
+        """Brownout level >= 2 is tier-1 only (serve/admission.py): the
+        request keeps its tier-1 answer — degradation, never a 5xx — but
+        no tier-2 capacity (kernel B6 on the card) is spent while the
+        fleet sheds load."""
+        from .admission import BROWNOUT_TIER1_ONLY
+
+        return brownout_level < BROWNOUT_TIER1_ONLY
+
     def escalate(self, text: str, graph) -> Future:
         """Enqueue one borderline function for tier-2 rescoring. Raises
         :class:`EscalationDropped` (armed ``cascade.escalation_drop``) or

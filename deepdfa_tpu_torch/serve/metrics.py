@@ -2,8 +2,8 @@
 rendered in the Prometheus text exposition format at ``/metrics``.
 
 A copy of ``deepdfa_tpu/serve/metrics.py`` with every family name and
-label kept, less the families of parts not ported yet: admission control
-and brownout (ROADMAP A15). Stdlib-only, so the serve path grows no dependency: counters are plain ints under one
+label kept. Stdlib-only, so the serve path grows no dependency: counters
+are plain ints under one
 lock, latency quantiles come from a bounded ring buffer — O(window) per
 scrape, O(1) per request, and immune to unbounded growth on long-lived
 servers.
@@ -110,6 +110,16 @@ class ServeMetrics:
         self.frontend_inline_total = 0
         self.frontend_encode = LatencyReservoir(latency_window)
         self.frontend_queue_wait = LatencyReservoir(latency_window)
+        # admission control + brownout (serve/admission.py): per-class
+        # admitted/shed counters (a shed is a 429 with a deterministic
+        # Retry-After — invariant candidate 30, NOT an error), the current
+        # brownout degradation level, its lifetime transition count, and
+        # the cascade escalations suppressed at brownout level >= 2
+        self.admission_admitted: dict[str, int] = {}
+        self.admission_shed: dict[str, int] = {}
+        self.brownout_level = 0
+        self.brownout_transitions_total = 0
+        self.brownout_suppressed_escalations_total = 0
         self.warmup: dict | None = None  # last engine warmup report
         # attachment points set by the server: the request tracer and the
         # score-drift sentinel both render through /metrics when present;
@@ -144,6 +154,12 @@ class ServeMetrics:
         """One served /score row attributed to the tier that scored it."""
         with self._lock:
             self.cascade_answered[tier] = self.cascade_answered.get(tier, 0) + 1
+
+    def observe_admission(self, klass: str, admitted: bool) -> None:
+        """One admission decision for priority class ``klass``."""
+        with self._lock:
+            table = self.admission_admitted if admitted else self.admission_shed
+            table[klass] = table.get(klass, 0) + 1
 
     def observe_batch(self, n_real: int, capacity: int) -> None:
         with self._lock:
@@ -196,6 +212,12 @@ class ServeMetrics:
                 "tier2_queue_depth": self.tier2_queue_depth,
                 "frontend_queue_depth": self.frontend_queue_depth,
                 "frontend_inline_total": self.frontend_inline_total,
+                "admission_admitted": dict(self.admission_admitted),
+                "admission_shed": dict(self.admission_shed),
+                "brownout_level": self.brownout_level,
+                "brownout_transitions_total": self.brownout_transitions_total,
+                "brownout_suppressed_escalations_total":
+                    self.brownout_suppressed_escalations_total,
             }
         snap["padding_efficiency"] = self.padding_efficiency()
         snap["mean_batch_occupancy"] = (
@@ -285,6 +307,29 @@ class ServeMetrics:
                     "pool was unavailable (degrade-to-inline, invariant "
                     "25 — never a 5xx)").set(
             snap["frontend_inline_total"])
+        admitted = reg.counter("admission_admitted_total",
+                               "Requests admitted past admission control, "
+                               "by priority class", labels=("class",))
+        for klass, n in snap["admission_admitted"].items():
+            admitted.set(n, **{"class": klass})
+        shed = reg.counter("admission_shed_total",
+                           "Requests shed by admission control (429 + "
+                           "deterministic Retry-After, never a 5xx), "
+                           "by priority class", labels=("class",))
+        for klass, n in snap["admission_shed"].items():
+            shed.set(n, **{"class": klass})
+        reg.gauge("brownout_level",
+                  "Current brownout degradation level (0 normal, 1 shed "
+                  "batch, 2 + cache hits + tier-1 only, 3 + shed "
+                  "interactive)").set(snap["brownout_level"])
+        reg.counter("brownout_transitions_total",
+                    "Brownout level transitions (each one journaled as a "
+                    "brownout_transition event)").set(
+            snap["brownout_transitions_total"])
+        reg.counter("brownout_suppressed_escalations_total",
+                    "Cascade escalations suppressed at brownout level >= 2 "
+                    "(tier-1 only — the tier-1 answer is still served)").set(
+            snap["brownout_suppressed_escalations_total"])
         for family, help_, reservoir in (
                 ("latency_ms", "End-to-end /score latency", self.latency),
                 ("queue_wait_ms", "Time a graph waited in the micro-batch "

@@ -21,8 +21,9 @@ the tier-2 :class:`~deepdfa_tpu_torch.llm.joint_engine.JointEngine`
 (kernel B6) through :mod:`.cascade`.
 
 Failure domains, smallest first: a bad request body is a 400; an
-unparseable source is a 422; an oversize function a 413; backpressure
-(bounded queue) and the ``serve.drop_request`` fault are 503; a blown
+unparseable source is a 422; an oversize function a 413; a shed by
+admission control a 429 with a Retry-After; backpressure (bounded queue)
+and the ``serve.drop_request`` fault are 503; a blown
 request deadline is a 504; an engine failure (``serve.engine_raises``
 included) is a 500 for the requests in that batch. None of them touch the
 server's lifetime. Frontend-pool trouble degrades to inline encode
@@ -39,9 +40,12 @@ artifact (``--artifact``, :mod:`deepdfa_tpu_torch.serving`); with
 (:mod:`.warmstore`). With ``serve.continual.enabled`` and a
 ``capture_path``, every scored request is journaled for the continual loop
 (:mod:`deepdfa_tpu_torch.continual.capture`), and capture can never fail
-the request it records. A fleet of replicas sits behind
-:mod:`.router`. Not ported yet: admission control and brownout (ROADMAP
-A15).
+the request it records. With ``serve.admission.enabled``, admission
+control sheds load before encode as a 429 with a Retry-After, and the
+brownout controller steps through its degradation levels under sustained
+SLO burn (:mod:`.admission`). A fleet of replicas sits behind
+:mod:`.router`, the autoscaler (:mod:`.autoscaler`) and cells behind
+:mod:`.federation`.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ from deepdfa_tpu_torch.obs.flightrec import install_sigusr2
 from deepdfa_tpu_torch.pipeline import encode_source, load_vocabs, source_key
 from deepdfa_tpu_torch.resilience import faults
 
+from .admission import QOS_CLASSES, AdmissionController, BrownoutController
+
 from .batcher import MicroBatcher, QueueFullError
 from .cache import ScanCache
 from .engine import OversizeGraphError, ScoringEngine
@@ -72,10 +78,6 @@ from .metrics import ServeMetrics
 
 __all__ = ["QOS_CLASSES", "ScoreServer", "build_server", "serve_command",
            "main"]
-
-# the priority classes a request may name (the JAX package's admission
-# classes: the port accepts and checks the tag, admission is ROADMAP A15)
-QOS_CLASSES = ("interactive", "batch")
 
 logger = logging.getLogger(__name__)
 
@@ -187,6 +189,23 @@ class ScoreServer:
                 tracer=self.tracer, vocab_source=vocab_source)
             if self.frontend is not None:
                 self.frontend.start()
+        # admission control + QoS classes + brownout (serve/admission.py):
+        # shed load BEFORE encode cost is paid — always a 429 with a
+        # deterministic Retry-After, never a 5xx; under sustained SLO burn
+        # the brownout controller steps through declared degradation
+        # levels
+        adm_cfg = self.cfg.admission
+        self.admission = None
+        self.brownout = None
+        if adm_cfg.enabled:
+            self.admission = AdmissionController(
+                adm_cfg, metrics=self.metrics, journal=journal,
+                flight=self.flight)
+            if adm_cfg.brownout:
+                self.brownout = BrownoutController(
+                    adm_cfg, self._observe_fast_burn, metrics=self.metrics,
+                    journal=journal, flight=self.flight).start()
+                self.admission.brownout = self.brownout
         # continuous-learning capture (continual/capture.py): a sampled,
         # bounded journal of scored requests feeding shadow replay and
         # incremental retraining. record_request never raises, so the hook
@@ -268,6 +287,8 @@ class ScoreServer:
         """Refuse new scores, drain queue + in-flight handlers, close."""
         self._draining.set()
         self._stop_requested.set()
+        if self.brownout is not None:
+            self.brownout.stop()
         if self.frontend is not None and self._owns_frontend:
             self.frontend.stop(drain=drain, timeout=self.cfg.drain_timeout_s)
         self.batcher.stop(drain=drain, timeout=self.cfg.drain_timeout_s)
@@ -285,6 +306,10 @@ class ScoreServer:
         self._stopped.set()
         snap = self.metrics.snapshot()
         snap["cache"] = self.cache.stats()
+        if self.admission is not None:
+            snap["admission"] = self.admission.summary()
+        if self.brownout is not None:
+            snap["brownout"] = self.brownout.summary()
         return snap
 
     # -- verdict layer (/slo) ----------------------------------------------
@@ -328,8 +353,11 @@ class ScoreServer:
     def _observe_slo(self) -> None:
         """One SLO evaluation against the live snapshot: journal any
         alert transitions as events and refresh the ``alerts.json``
-        promotion veto. None of the side effects can fail the caller
-        (invariant 14 — drops count in ``obs_dropped_total``)."""
+        promotion veto. Both the ``/slo`` scrape and the brownout
+        controller's poll drive this same path, so transitions are
+        journaled identically whoever observes first. None of the side
+        effects can fail the caller (invariant 14 — drops count in
+        ``obs_dropped_total``)."""
         events = self.slo.observe(self._slo_snapshot())
         if events:
             for evt in events:
@@ -350,6 +378,13 @@ class ScoreServer:
                                          self.slo.statuses()) is None:
                     self.slo.dropped_total += 1
 
+    def _observe_fast_burn(self) -> float | None:
+        """The brownout controller's signal source: drive one SLO
+        evaluation (the path a ``/slo`` scrape drives) and return the
+        worst fast-window burn across the specs."""
+        self._observe_slo()
+        return self.slo.worst_fast_burn()
+
     def render_slo(self) -> str:
         """The ``/slo`` body, rendered through the shared registry
         (invariant 16) after one evaluation pass."""
@@ -369,12 +404,14 @@ class ScoreServer:
         source = payload.get("source") if isinstance(payload, dict) else None
         if not isinstance(source, str) or not source.strip():
             return 400, {"error": "body must be JSON with a 'source' string"}
-        # QoS tagging: a request may name its priority class (checked as
-        # the JAX package checks it; admission itself is ROADMAP A15)
+        # QoS tagging (serve/admission.py): every request carries a
+        # priority class (default interactive — a human waiting on a
+        # score) and a tenant for its token bucket
         qos = payload.get("class") or "interactive"
         if qos not in QOS_CLASSES:
             return 400, {"error": f"class must be one of "
                                   f"{'/'.join(QOS_CLASSES)}"}
+        tenant = payload.get("tenant") or "default"
         if self.draining:
             return 503, {"error": "server is draining"}
         if faults.fire("serve.drop_request"):
@@ -393,8 +430,23 @@ class ScoreServer:
                     entry is not None and entry.results is None
                     and entry.encoded is not None)
         if entry is not None and entry.results is not None:
-            # a result-level hit costs no encode or score work
+            # a result-level hit costs no encode or score work, so it is
+            # served at every brownout level without spending a token —
+            # the "warm-cache hits" half of brownout level 2
             return 200, {"results": entry.results, "cached": True}
+
+        # admission control sits here — after the free cache hit, before
+        # any encode cost is paid. A shed is a 429 with a deterministic
+        # Retry-After (from bucket refill state), never a 5xx, and the
+        # controller has journaled the decision and put it in the flight
+        # ring
+        if self.admission is not None:
+            decision = self.admission.admit(tenant, qos)
+            if not decision["admit"]:
+                return 429, {"error": "request shed by admission control",
+                             "reason": decision["reason"],
+                             "class": qos,
+                             "retry_after_s": decision["retry_after_s"]}
 
         if entry is not None and entry.encoded is not None:
             encoded = entry.encoded  # frontend skipped: encode-level hit
@@ -462,6 +514,12 @@ class ScoreServer:
             row["tier"] = 1
             row["tier1_score"] = round(prob, 6)
             if not cascade.in_band(prob):
+                continue
+            if (self.brownout is not None
+                    and not cascade.escalation_allowed(self.brownout.level)):
+                # brownout level >= 2 is tier-1 only: the tier-1 answer
+                # is served, no tier-2 capacity is spent
+                self.metrics.inc("brownout_suppressed_escalations_total")
                 continue
             self.metrics.inc("cascade_escalated_total")
             with self._span("cascade.escalate", score=round(prob, 6),
@@ -591,14 +649,21 @@ def _make_handler(server: ScoreServer):
                                  "alive": server.frontend.alive}
                                 if server.frontend is not None
                                 else {"mode": "inline", "alive": True}),
-                            # the overload-signal surface; admission and
-                            # brownout are ROADMAP A15: never on here
+                            # the overload-signal surface: the admission
+                            # layer, autoscaler and federation router read
+                            # these numbers, and the brownout level is
+                            # reported honestly
                             "frontend_queue_wait_p99_ms": (
                                 server.metrics.frontend_queue_wait
                                 .quantile(0.99)),
-                            "admission": False,
-                            "brownout_level": 0,
-                            "brownout": "normal"})
+                            "admission": server.admission is not None,
+                            "brownout_level": (
+                                server.brownout.level
+                                if server.brownout is not None else 0),
+                            "brownout": (
+                                server.brownout.level_name
+                                if server.brownout is not None
+                                else "normal")})
             elif self.path == "/metrics":
                 self._send(200, server.metrics.render(server.cache.stats()),
                            content_type="text/plain; version=0.0.4")
@@ -640,7 +705,13 @@ def _make_handler(server: ScoreServer):
                 server.flight.dump("handler_crash")
             finally:
                 server.metrics.inc("inflight", -1)
-            self._send(code, body)
+            headers = None
+            if code == 429 and isinstance(body, dict) \
+                    and "retry_after_s" in body:
+                # the shed contract: every 429 carries a Retry-After
+                # derived from bucket refill state
+                headers = {"Retry-After": str(body["retry_after_s"])}
+            self._send(code, body, extra_headers=headers)
             ms = (time.perf_counter() - t0) * 1000.0
             server.metrics.observe_response(code, ms)
             server.flight.record("request", code=code, ms=round(ms, 3))

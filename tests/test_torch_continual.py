@@ -5,8 +5,8 @@ Both packages run side by side on the same inputs, and where they compute
 the same thing the test compares them, exactly:
 
 - ``ContinualConfig``: defaults, validation messages, dotted overrides and
-  the JSON round trip (the A15 refusals of ``admission``, ``autoscale``
-  and ``federation`` stay);
+  the JSON round trip; ``admission``, ``autoscale`` and ``federation``
+  parse as the JAX package's do, and refuse the same values;
 - capture: journal bytes (fixed clock), sampling and bound counters, the
   unwritable path, ``continual.capture_drop``, the torn tail, and the rows
   a real ``ScoreServer`` records (equal to the JAX server's but for the
@@ -196,12 +196,23 @@ def test_continual_config_dotted_overrides_and_roundtrip(tmp_path):
     assert load_config(path).serve.continual == cc
     with pytest.raises(ValueError, match="shadow_bins"):
         load_config(overrides={"serve.continual.shadow_bins": 1})
-    # the rest of A15 keeps its refusal
+    # the fleet's blocks parse as the JAX package's do, and refuse alike
     for key, value in (("serve.admission.enabled", True),
                        ("serve.autoscale.max_replicas", 8),
                        ("serve.federation.cells", ["a:1"])):
-        with pytest.raises(NotImplementedError, match="A15"):
-            load_config(overrides={key: value})
+        block = key.split(".")[1]
+        assert json.loads(to_json(load_config(overrides={key: value})))[
+            "serve"][block] == json.loads(jto_json(jload_config(
+                overrides={key: value})))["serve"][block]
+    for key, value in (("serve.admission.max_level", 4),
+                       ("serve.autoscale.min_replicas", 0),
+                       ("serve.federation.cells", ["nocolon"])):
+        errors = []
+        for load in (load_config, jload_config):
+            with pytest.raises(ValueError) as e:
+                load(overrides={key: value})
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
 
 
 # ---------------------------------------------------------------------------

@@ -23,13 +23,12 @@ tests/test_torch_cuda.py).
   the row's sign and of the other sign, zero rows, subnormal and huge
   values (bitwise: the kernel's sum must be the serial sum).
 
-Tolerances: the stand-ins compute in float32 plain torch, so the wrapper's
-forward equals the plain version to float32 rounding (1e-5 of the largest
-state: the stand-in's products and the plain version's run in one order,
-but the wrapper's padded and banked buffers are checked, not the sums),
-and its backward within 1e-5 of each gradient's largest value (the weight
-gradients are summed per 512-node chunk, then in chunk order, as on the
-card).
+Tolerances: the stand-ins compute in float32 plain torch on fresh copies
+of their operands, on one thread, so the wrapper's forward and backward
+equal the same functions chained directly on the call's tensors bit for
+bit; against the plain versions they hold within a first-order float32
+error bound that scales with each result's sum of absolute terms
+(``_error_bounds`` states the derivation).
 """
 
 import ctypes
@@ -71,16 +70,90 @@ def _heads(idx: np.ndarray) -> np.ndarray:
     return words.view(I32)
 
 
+def _read(ptr, shape, dtype):
+    """A fresh copy of the array at ``ptr``: every operand the stand-ins
+    compute on is a new allocation (64-byte aligned), so their products do
+    not depend on where the wrapper's buffers lie."""
+    return _dense(ptr, shape, dtype).clone()
+
+
+def _mm(a, b):
+    """``a @ b`` on fresh contiguous copies of both operands: the same
+    operands give the same bits whatever views they came as."""
+    return a.contiguous().clone() @ b.contiguous().clone()
+
+
+def _row_ptr(keys: np.ndarray, n: int) -> np.ndarray:
+    """CSR offsets of sorted ``keys`` over ``n`` rows, as int32."""
+    if not len(keys):
+        return np.zeros(n + 1, dtype=I32)
+    return np.searchsorted(keys, np.arange(n + 1), side="left").astype(I32)
+
+
 def _segment_sum(src, idx, row_ptr, n):
     """Per row, the in-order sum of src[idx[e]] over its segment."""
-    out = torch.zeros((n, src.shape[1]))
+    out = src.new_zeros((n, src.shape[1]))
     keys = torch.repeat_interleave(torch.arange(n),
                                    (row_ptr[1:] - row_ptr[:-1]).long())
     return out.index_add_(0, keys, src[idx.long()])
 
 
 def _gates(agg, h, xw, xb, hw, hb):
-    return fg._gru(agg, h, xw, xb, hw, hb)
+    xr, xz, xn = (_mm(agg, xw) + xb).chunk(3, dim=-1)
+    hr, hz, hn = (_mm(h, hw) + hb).chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    return r, z, torch.tanh(xn + r * hn), hn
+
+
+# What each kernel computes, on tensors: the stand-ins call these on the
+# arrays behind the wrapper's addresses, and `_chain` calls them directly.
+
+def _linear_t(a, w, b=None):
+    y = _mm(a, w)
+    return y + b if b is not None else y
+
+
+def _round_t(h, msg, row_ptr, snd, w4):
+    """One forward round: ``(h', agg)``."""
+    agg = _segment_sum(msg, snd, row_ptr, h.shape[0])
+    _, z, ng, _ = _gates(agg, h, *w4)
+    return (1.0 - z) * ng + z * h, agg
+
+
+def _gate_t(h, agg, g, w4):
+    """The reverse round's chain: ``(dxp, dhp, g z)``."""
+    r, z, ng, hn = _gates(agg, h, *w4)
+    dz = g * (h - ng)
+    dpre_n = g * (1.0 - z) * (1.0 - ng * ng)
+    dpre_r = dpre_n * hn * r * (1.0 - r)
+    dpre_z = dz * z * (1.0 - z)
+    return (torch.cat([dpre_r, dpre_z, dpre_n], 1),
+            torch.cat([dpre_r, dpre_z, dpre_n * r], 1), g * z)
+
+
+def _chunks(n):
+    return -(-n // 512)
+
+
+def _wgrad_rows(agg, dxp, h, dhp, dmsg):
+    """Per 512-node chunk, the weight gradients' partial row
+    ``[dxw | dxb | dhw | dhb | dew | deb]``."""
+    rows = []
+    for c in range(_chunks(h.shape[0])):
+        s = slice(512 * c, 512 * c + 512)
+        rows.append(torch.cat([
+            _mm(agg[s].t(), dxp[s]).reshape(-1), dxp[s].sum(0),
+            _mm(h[s].t(), dhp[s]).reshape(-1), dhp[s].sum(0),
+            _mm(h[s].t(), dmsg[s]).reshape(-1), dmsg[s].sum(0)]))
+    return torch.stack(rows)
+
+
+def _reduce_t(part):
+    s = part[0].clone()
+    for c in range(1, part.shape[0]):
+        s = s + part[c]
+    return s
 
 
 class _StandIn:
@@ -102,21 +175,16 @@ class _StandIn:
 
     # ---- shared shapes
     def _w(self, xw, xb, hw, hb, d):
-        return (_dense(xw, (d, 3 * d), F32), _dense(xb, (3 * d,), F32),
-                _dense(hw, (d, 3 * d), F32), _dense(hb, (3 * d,), F32))
+        return (_read(xw, (d, 3 * d), F32), _read(xb, (3 * d,), F32),
+                _read(hw, (d, 3 * d), F32), _read(hb, (3 * d,), F32))
 
     # ---- forward
     def _prep(self, keys, idx, e, n, row_ptr, heads):
-        if e:
-            k = _dense(keys, (e,), I32).numpy()
-            rp = np.searchsorted(k, np.arange(n + 1), side="left")
-        else:
-            rp = np.zeros(n + 1, dtype=np.int64)
-        _dense(row_ptr, (n + 1,), I32)[:] = torch.from_numpy(rp.astype(I32))
-        if heads is not None:
-            words = _heads(_dense(idx, (e,), I32).numpy()) if e else None
-            if words is not None:
-                _dense(heads, (len(words),), I32)[:] = torch.from_numpy(words)
+        k = _read(keys, (e,), I32).numpy() if e else np.zeros(0, I32)
+        _dense(row_ptr, (n + 1,), I32)[:] = torch.from_numpy(_row_ptr(k, n))
+        if heads is not None and e:
+            words = _heads(_read(idx, (e,), I32).numpy())
+            _dense(heads, (len(words),), I32)[:] = torch.from_numpy(words)
 
     def ggnn_tc_prep(self, rcv, snd, e, n, row_ptr, heads, stream):
         code = self._call("tc_prep", n)
@@ -131,9 +199,8 @@ class _StandIn:
         return code
 
     def _linear(self, a, w, b, out, n, din, dout, acc=0):
-        y = _dense(a, (n, din), F32) @ _dense(w, (din, dout), F32)
-        if b:
-            y = y + _dense(b, (dout,), F32)
+        y = _linear_t(_read(a, (n, din), F32), _read(w, (din, dout), F32),
+                      _read(b, (dout,), F32) if b else None)
         o = _dense(out, (n, dout), F32)
         o[:] = o + y if acc else y
 
@@ -152,14 +219,12 @@ class _StandIn:
 
     def _round(self, h, msg, row_ptr, snd, xw, xb, hw, hb, h_out, agg_bank,
                n, d):
-        rp = _dense(row_ptr, (n + 1,), I32)
+        rp = _read(row_ptr, (n + 1,), I32)
         e = int(rp[n])
-        hh = _dense(h, (n, d), F32)
-        agg = _segment_sum(_dense(msg, (n, d), F32),
-                           _dense(snd, (e,), I32) if e else
-                           torch.zeros(0, dtype=torch.int32), rp, n)
-        _, z, ng, _ = _gates(agg, hh, *self._w(xw, xb, hw, hb, d))
-        _dense(h_out, (n, d), F32)[:] = (1.0 - z) * ng + z * hh
+        idx = _read(snd, (e,), I32) if e else torch.zeros(0, dtype=torch.int32)
+        h_new, agg = _round_t(_read(h, (n, d), F32), _read(msg, (n, d), F32),
+                              rp, idx, self._w(xw, xb, hw, hb, d))
+        _dense(h_out, (n, d), F32)[:] = h_new
         if agg_bank:
             _dense(agg_bank, (n, d), F32)[:] = agg
 
@@ -193,15 +258,8 @@ class _StandIn:
         return code
 
     def _gate(self, h, agg, g, xw, xb, hw, hb, n, d):
-        """The reverse round's chain: (dxp, dhp, g z) in plain torch."""
-        hh, a, gg = (_dense(p, (n, d), F32) for p in (h, agg, g))
-        r, z, ng, hn = _gates(a, hh, *self._w(xw, xb, hw, hb, d))
-        dz = gg * (hh - ng)
-        dpre_n = gg * (1.0 - z) * (1.0 - ng * ng)
-        dpre_r = dpre_n * hn * r * (1.0 - r)
-        dpre_z = dz * z * (1.0 - z)
-        return (torch.cat([dpre_r, dpre_z, dpre_n], 1),
-                torch.cat([dpre_r, dpre_z, dpre_n * r], 1), gg * z)
+        return _gate_t(*(_read(p, (n, d), F32) for p in (h, agg, g)),
+                       self._w(xw, xb, hw, hb, d))
 
     def ggnn_bwd_tc_gate(self, h, agg, g, xw, xb, hw, hb, dxp, dhn, dagg,
                          dh_out, n, stream):
@@ -211,9 +269,10 @@ class _StandIn:
             x, hp, gz = self._gate(h, agg, g, xw, xb, hw, hb, n, d)
             _dense(dxp, (n, 3 * d), F32)[:] = x
             _dense(dhn, (n, d), F32)[:] = hp[:, 2 * d:]
-            _dense(dagg, (n, d), F32)[:] = x @ _dense(xw, (d, 3 * d), F32).t()
-            _dense(dh_out, (n, d), F32)[:] = gz + hp @ _dense(
-                hw, (d, 3 * d), F32).t()
+            _dense(dagg, (n, d), F32)[:] = _mm(
+                x, _read(xw, (d, 3 * d), F32).t())
+            _dense(dh_out, (n, d), F32)[:] = gz + _mm(
+                hp, _read(hw, (d, 3 * d), F32).t())
         return code
 
     def ggnn_bwd_gate(self, h, agg, g, xw, xb, hw, hb, dxp, dhp, dh_out, n,
@@ -233,11 +292,11 @@ class _StandIn:
         return code
 
     def _tsum(self, dagg, csc_ptr, csc_rcv, dmsg, n, d):
-        cp = _dense(csc_ptr, (n + 1,), I32)
+        cp = _read(csc_ptr, (n + 1,), I32)
         e = int(cp[n])
         _dense(dmsg, (n, d), F32)[:] = _segment_sum(
-            _dense(dagg, (n, d), F32),
-            _dense(csc_rcv, (e,), I32) if e else
+            _read(dagg, (n, d), F32),
+            _read(csc_rcv, (e,), I32) if e else
             torch.zeros(0, dtype=torch.int32), cp, n)
 
     def ggnn_bwd_tc_tsum(self, dagg, csc_ptr, csc_rcv, heads, ew, dmsg, dh,
@@ -247,7 +306,8 @@ class _StandIn:
             d = self.d
             self._tsum(dagg, csc_ptr, csc_rcv, dmsg, n, d)
             o = _dense(dh, (n, d), F32)
-            o[:] = o + _dense(dmsg, (n, d), F32) @ _dense(ew, (d, d), F32).t()
+            o[:] = o + _mm(_read(dmsg, (n, d), F32),
+                           _read(ew, (d, d), F32).t())
         return code
 
     def ggnn_bwd_transpose_sum(self, dagg, csc_ptr, csc_rcv, dmsg, n, d,
@@ -259,27 +319,21 @@ class _StandIn:
 
     @staticmethod
     def ggnn_bwd_chunks(n):
-        return -(-n // 512)
+        return _chunks(n)
 
     @staticmethod
     def ggnn_bwd_partial_width(d):
         return 2 * (d * 3 * d + 3 * d) + d * d + d
 
     def _wgrad(self, agg, dxp, h, dhp, dmsg, part, n, d, acc, dhp_width):
-        chunks, ld = self.ggnn_bwd_chunks(n), self.ggnn_bwd_partial_width(d)
-        a, hh = _dense(agg, (n, d), F32), _dense(h, (n, d), F32)
-        bx = _dense(dxp, (n, 3 * d), F32)
-        bh = _dense(dhp, (n, dhp_width), F32)
+        bx = _read(dxp, (n, 3 * d), F32)
+        bh = _read(dhp, (n, dhp_width), F32)
         if dhp_width == d:  # the tensor-core kernels' dhn: dhp's last block
             bh = torch.cat([bx[:, :2 * d], bh], 1)
-        bm = _dense(dmsg, (n, d), F32)
-        out = _dense(part, (chunks, ld), F32)
-        for c in range(chunks):
-            s = slice(512 * c, min(n, 512 * c + 512))
-            row = torch.cat([(a[s].t() @ bx[s]).reshape(-1), bx[s].sum(0),
-                             (hh[s].t() @ bh[s]).reshape(-1), bh[s].sum(0),
-                             (hh[s].t() @ bm[s]).reshape(-1), bm[s].sum(0)])
-            out[c] = out[c] + row if acc else row
+        rows = _wgrad_rows(_read(agg, (n, d), F32), bx, _read(h, (n, d), F32),
+                           bh, _read(dmsg, (n, d), F32))
+        out = _dense(part, (_chunks(n), self.ggnn_bwd_partial_width(d)), F32)
+        out[:] = out + rows if acc else rows
 
     def ggnn_bwd_tc_wgrad(self, agg, dxp, h, dhn, dmsg, part, n, acc, stream):
         code = self._call("bwd_tc_wgrad", n)
@@ -297,16 +351,121 @@ class _StandIn:
     def ggnn_bwd_reduce(self, part, chunks, ld, out, stream):
         code = self._call("bwd_reduce", chunks)
         if self.compute and not code:
-            p = _dense(part, (chunks, ld), F32)
-            s = p[0].clone()
-            for c in range(1, chunks):
-                s = s + p[c]
-            _dense(out, (ld,), F32)[:] = s
+            _dense(out, (ld,), F32)[:] = _reduce_t(
+                _read(part, (chunks, ld), F32))
         return code
 
     @staticmethod
     def ggnn_error_string(code):
         return b"an illegal memory access was encountered"
+
+
+def _chain(h0, snd, rcv, weights, n_steps, g):
+    """The stand-ins' functions called directly on the call's tensors, in
+    the order the wrapper launches them, with none of its buffers, banks or
+    addresses: ``(out, dh0, dew, deb, dxw, dxb, dhw, dhb)``."""
+    n, d = h0.shape
+    ew, eb, xw, xb, hw, hb = weights
+    w4 = (xw, xb, hw, hb)
+    rp = torch.from_numpy(_row_ptr(rcv.numpy(), n))
+    h, hs, aggs = h0, [], []
+    for _ in range(n_steps):
+        msg = _linear_t(h, ew, eb)
+        hs.append(h)
+        h, agg = _round_t(h, msg, rp, snd, w4)
+        aggs.append(agg)
+    out = h
+    order = np.argsort(snd.numpy(), kind="stable")
+    cp = torch.from_numpy(_row_ptr(snd.numpy()[order], n))
+    csc_rcv = rcv[torch.from_numpy(order)]
+    dh, part = g, None
+    for t in reversed(range(n_steps)):
+        dxp, dhp, gz = _gate_t(hs[t], aggs[t], dh, w4)
+        dagg = _mm(dxp, xw.t())
+        dh_next = gz + _mm(dhp, hw.t())
+        dmsg = _segment_sum(dagg, csc_rcv, cp, n)
+        dh = dh_next + _mm(dmsg, ew.t())
+        rows = _wgrad_rows(aggs[t], dxp, hs[t], dhp, dmsg)
+        part = rows if part is None else part + rows
+    dxw, dxb, dhw, dhb, dew, deb = _reduce_t(part).split(
+        [d * 3 * d, 3 * d, d * 3 * d, 3 * d, d * d, d])
+    return (out, dh, dew.view(d, d), deb, dxw.view(d, 3 * d), dxb,
+            dhw.view(d, 3 * d), dhb)
+
+
+U = 2.0 ** -24  # float32's unit roundoff
+
+
+def _gamma(k):
+    """Higham's gamma_k = k u / (1 - k u): a float32 sum of k + 1 terms, in
+    any order, is within gamma_k of the sum of their absolute values."""
+    return k * U / (1 - k * U)
+
+
+def _tolerances(h0, snd, rcv, weights, n_steps, g):
+    """Per element of ``(out, dh0, dew, deb, dxw, dxb, dhw, dhb)``: gamma_k
+    times the sum of absolute terms of the last sum that makes it, from a
+    float64 run of the plain version.
+
+    - ``out``: the last round's pre-activations, whose errors pass through
+      sigmoid and tanh with a gain of at most 1; for column j the largest
+      over its three gate columns of ``|agg| |xw| + |xb| + |h| |hw| + |hb|
+      + (edge sum of |msg|) |xw|``, with k = d + 1 + the largest in-degree
+      (the edge sum, then the product).
+    - ``dh0``: the first round's ``|g z| + |dhp| |hw|^T + |dmsg| |ew|^T +
+      (edge sum of |dagg|) |ew|^T``, with k = 3d + 1 + the largest
+      out-degree.
+    - the weight gradients: the sum over every row of every round of
+      ``|a|^T |b|`` (``|b|`` for the biases), with k = n n_steps + the
+      512-node chunks.
+
+    That is the room a single float32 evaluation of each last sum may
+    take, in any order, and it scales with the terms, not with the
+    largest result, so a gradient whose terms cancel gets the room its
+    terms need.
+    """
+    A = torch.abs
+    n, d = h0.shape
+    ew, eb, xw, xb, hw, hb = (w.double() for w in weights)
+    snd, rcv = snd.long(), rcv.long()
+    seg = lambda x, to, fr: x.new_zeros((n, x.shape[1])).index_add_(
+        0, to, x.index_select(0, fr))
+    h, hs, aggs = h0.double(), [], []
+    for _ in range(n_steps):
+        hs.append(h)
+        aggs.append(seg(h @ ew + eb, rcv, snd))
+        _, z, ng, _ = fg._gru(aggs[-1], h, xw, xb, hw, hb)
+        h = (1.0 - z) * ng + z * h
+    h, agg = hs[-1], aggs[-1]
+    pre = (A(agg) @ A(xw) + A(xb) + A(h) @ A(hw) + A(hb)
+           + seg(A(h @ ew + eb), rcv, snd) @ A(xw))
+    out = pre.view(n, 3, d).amax(1)
+    dh = g.double()
+    names = ("ew", "eb", "xw", "xb", "hw", "hb")
+    terms = dict.fromkeys(names, 0.0)
+    for t in reversed(range(n_steps)):
+        h, agg = hs[t], aggs[t]
+        r, z, ng, hn = fg._gru(agg, h, xw, xb, hw, hb)
+        dz, dn = dh * (h - ng), dh * (1.0 - z)
+        dpn = dn * (1.0 - ng * ng)
+        dpr, dpz = dpn * hn * r * (1.0 - r), dz * z * (1.0 - z)
+        dxp = torch.cat([dpr, dpz, dpn], 1)
+        dhp = torch.cat([dpr, dpz, dpn * r], 1)
+        dagg = dxp @ xw.t()
+        dmsg = seg(dagg, snd, rcv)
+        dh0 = (A(dh * z) + A(dhp) @ A(hw).t() + A(dmsg) @ A(ew).t()
+               + seg(A(dagg), snd, rcv) @ A(ew).t())
+        dh = dh * z + dhp @ hw.t() + dmsg @ ew.t()
+        for k, (a, b) in {"xw": (agg, dxp), "hw": (h, dhp),
+                          "ew": (h, dmsg)}.items():
+            terms[k] = terms[k] + A(a).t() @ A(b)
+        for k, b in {"xb": dxp, "hb": dhp, "eb": dmsg}.items():
+            terms[k] = terms[k] + A(b).sum(0)
+    deg_in = int(torch.bincount(rcv, minlength=n).max())
+    deg_out = int(torch.bincount(snd, minlength=n).max())
+    gw = _gamma(n * n_steps + _chunks(n))
+    return ((_gamma(d + 1 + deg_in) * out, _gamma(3 * d + 1 + deg_out) * dh0)
+            + tuple(gw * terms[k] for k in names))
 
 
 @pytest.fixture
@@ -324,7 +483,12 @@ def lib(monkeypatch):
         monkeypatch.setattr(fg, name, dict.fromkeys(fg.VARIANTS, 0))
     monkeypatch.setattr(fg, "n_launches", 0)
     monkeypatch.setattr(fg, "n_bwd_launches", 0)
-    return install
+    # one intra-op thread: a product then takes one summation order, so the
+    # stand-ins and `_chain` agree bit for bit on the same operands
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield install
+    torch.set_num_threads(threads)
 
 
 def _graph(n, e, d, seed=0, sink_loops=0):
@@ -427,28 +591,45 @@ def test_a_failed_backward_launch_raises(lib, entry):
 def test_the_wrapper_computes_the_plain_version(lib, d):
     """Buffers, banks, ping-pong and argument order: the stand-ins write
     what each kernel computes, and the wrapper's forward and backward
-    equal the plain versions."""
+    equal bit for bit the stand-ins' functions chained directly on the
+    call's tensors (`_chain`). The same chain in float64 equals the plain
+    versions in float64 within `_tolerances`: the room float32 summation
+    may take in each result's last sum. Both float64 runs evaluate one
+    function and differ only in their orders of summation, by some 1e-16
+    of the terms times the chain's gain; the gain of this graph's chain
+    (its sink's 70 self-loops feed three rounds) stays below 1e5, so the
+    float64 runs agree far inside that room, while a misrouted term or a
+    wrong formula is off by the order of the terms themselves."""
     lib(d=d)
     n, steps = 300, 3
     h0, snd, rcv, weights = _graph(n, 900, d, sink_loops=70)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n, d)).astype(F32) * 1e-2)
     p = fg._Prepared(h0, snd, rcv, weights, 1024)
     out, states, aggs = fg._forward_cuda(p, steps, bank=True)
-    want = fg.fused_ggnn_reference(h0, snd, rcv, *weights, n_steps=steps)
-    err, top = float((out - want).abs().max()), float(want.abs().max())
-    assert err <= 1e-5 * top, f"forward error {err} over largest {top}"
     ping, _, _ = fg._forward_cuda(p, steps, bank=False)
     assert torch.equal(ping, out), (
         f"ping-pong differs by {float((ping - out).abs().max())}")
-    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (n, d)).astype(F32) * 1e-2)
-    got = fg._backward_cuda(p, states, aggs, g)
-    ref = fg.fused_ggnn_backward_reference(h0, snd, rcv, *weights, g,
-                                           n_steps=steps)
-    for name, a, r in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb"),
-                          got, ref):
-        assert a.shape == r.shape
-        err, top = float((a - r).abs().max()), float(r.abs().max())
-        assert err <= 1e-5 * top, f"{name}: error {err} over largest {top}"
+    got = (out,) + fg._backward_cuda(p, states, aggs, g)
+    names = ("out", "dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb")
+    for name, a, c in zip(names, got, _chain(h0, snd, rcv, weights, steps,
+                                             g)):
+        assert a.shape == c.shape and torch.equal(a, c), (
+            f"{name}: differs from the chained stand-ins by "
+            f"{float((a - c).abs().max())}")
+    wide = (h0.double(), snd, rcv, tuple(w.double() for w in weights))
+    chained = _chain(*wide, steps, g.double())
+    ref = (fg.fused_ggnn_reference(*wide[:3], *wide[3], n_steps=steps),)
+    ref += fg.fused_ggnn_backward_reference(*wide[:3], *wide[3], g.double(),
+                                            n_steps=steps)
+    for name, c, r, tol in zip(names, chained, ref,
+                               _tolerances(h0, snd, rcv, weights, steps, g)):
+        assert c.dtype == r.dtype == torch.float64
+        err = (c - r).abs()
+        worst = int((err / tol).argmax())
+        assert bool((err <= tol).all()), (
+            f"{name}: error {float(err.flatten()[worst])} over its room "
+            f"{float(tol.flatten()[worst])}")
 
 
 class _MegaStandIn(_StandIn):

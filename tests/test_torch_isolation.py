@@ -25,9 +25,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn",
 # the telemetry plane, the registered ops, the exported artifacts, the warm
 # store, the trainer's command line, its resilience layer, the training
 # telemetry, the int8 training experiment, the tuning loop, the dataflow
-# experiment, the perf ledger, the fleet router, the replica launcher and
-# the continual loop included) and chip_smoke.py
-N_MODULES = 104
+# experiment, the perf ledger, the fleet router, the replica launcher,
+# the continual loop, admission control and the federation included) and
+# chip_smoke.py
+N_MODULES = 106
 
 
 def _port_files():

@@ -94,13 +94,15 @@ def _traffic(m):
 
 def test_serve_metrics_render_the_jax_bytes_less_the_deferred_families():
     got, want = _traffic(ServeMetrics(64)), _traffic(JServeMetrics(64))
-    deferred = ("admission_", "brownout_")
+    # no family is deferred any more: admission and brownout render too
+    deferred = ()
     keep = [line for line in want.splitlines()
             if not any(f"deepdfa_serve_{d}" in line for d in deferred)]
-    assert got.splitlines() == keep
-    assert ServeMetrics(8).snapshot().keys() == {
-        k for k in JServeMetrics(8).snapshot()
-        if not k.startswith(("admission_", "brownout_"))}
+    assert got.splitlines() == keep == want.splitlines()
+    assert any(line.startswith("deepdfa_serve_brownout_level")
+               for line in keep)
+    assert ServeMetrics(8).snapshot().keys() == \
+        JServeMetrics(8).snapshot().keys()
 
 
 @pytest.mark.parametrize("header", [

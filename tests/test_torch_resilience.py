@@ -204,13 +204,21 @@ def test_the_trainer_fault_points_are_declared_with_jax_docs():
     for point in TRAINER_POINTS:
         assert point in faults.KNOWN_POINTS
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
-    assert len(faults.KNOWN_POINTS) == 21
+    assert len(faults.KNOWN_POINTS) == 29
     assert "mesh.device_lost" not in faults.KNOWN_POINTS  # with A11
     # the continual loop's three points, by name and doc against JAX's
     for point in ("continual.capture_drop", "continual.rollout_crash",
                   "continual.rollback_trigger"):
         assert point in faults.KNOWN_POINTS and point in jfaults.KNOWN_POINTS
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
+
+
+def test_known_points_are_the_jax_registry_less_the_mesh_point():
+    """Every point of the JAX registry but ``mesh.device_lost`` (ROADMAP
+    A11), in its order, with its doc."""
+    want = tuple(p for p in jfaults.KNOWN_POINTS if p != "mesh.device_lost")
+    assert faults.KNOWN_POINTS == want
+    assert faults.POINT_DOCS == {p: jfaults.POINT_DOCS[p] for p in want}
 
 
 @pytest.mark.parametrize("spec", [

@@ -6,8 +6,8 @@ vocabularies (the JAX front end's ``CorpusBuilder`` over ``demo_corpus(6)``,
 carried across with ``Vocabulary.from_dict``), and take the same requests:
 status codes and JSON bodies are equal key for key (``/healthz`` apart from
 ``model_rev`` and ``replica_id``, which name the process), and the
-``/metrics`` families are equal apart from those of parts the port has not
-(``JAX_ONLY_FAMILIES``: admission control and brownout, ROADMAP A15).
+``/metrics`` families are equal (``JAX_ONLY_FAMILIES`` is empty: the port
+renders admission control's and brownout's too).
 
 Live engines: a JAX GGNN's parameters carried across by
 ``bridge.flax_to_torch`` (both servers score the demo sources within
@@ -69,15 +69,8 @@ SMALL = dict(hidden_dim=8, n_steps=2, num_output_layers=2)
 KEYS = tuple(f"_ABS_DATAFLOW_{sk}" for sk in ALL_SUBKEYS)
 INPUT_DIM = JFeatureConfig().input_dim
 ATOL = 1e-5
-# families only the JAX package renders: admission control and brownout
-# (ROADMAP A15)
-JAX_ONLY_FAMILIES = {
-    "deepdfa_serve_admission_admitted_total",
-    "deepdfa_serve_admission_shed_total",
-    "deepdfa_serve_brownout_level",
-    "deepdfa_serve_brownout_transitions_total",
-    "deepdfa_serve_brownout_suppressed_escalations_total",
-}
+# families only the JAX package renders: none
+JAX_ONLY_FAMILIES: set[str] = set()
 # /healthz values that name the process or the framework's weights
 PER_PROCESS = {"model_rev", "replica_id"}
 
@@ -226,10 +219,9 @@ def test_metrics_families_equal_jax(demo):
         ttext = _req(tsrv.port, "GET", "/metrics")[1].decode()
     jfam, tfam = _families(jtext), _families(ttext)
     # (the admission counters render only once a decision was made)
-    assert set(jfam) - set(tfam) == JAX_ONLY_FAMILIES & set(jfam)
-    assert set(jfam) - set(tfam) >= {"deepdfa_serve_brownout_level"}
-    assert tfam == {k: v for k, v in jfam.items()
-                    if k not in JAX_ONLY_FAMILIES}
+    assert set(jfam) - set(tfam) == JAX_ONLY_FAMILIES == set()
+    assert "deepdfa_serve_brownout_level" in set(jfam) & set(tfam)
+    assert tfam == jfam
     # the counters of the same traffic are the same samples
     for line in ttext.splitlines():
         if line.startswith(("deepdfa_serve_requests_total",
@@ -587,11 +579,14 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
     ({"serve.obs.drift_bins": 1}, ValueError, "drift_bins"),
     ({"serve.warm_store_dir": "/x"}, None, None),  # parses (the warm store)
     ({"serve.mesh_replicas": 2}, NotImplementedError, "A11"),
-    ({"serve.admission.enabled": True}, NotImplementedError, "A15"),
+    ({"serve.admission.enabled": True}, None, None),  # parses (admission)
     ({"serve.continual.capture_path": "c.jsonl"}, None, None),  # capture
     ({"serve.continual.shadow_bins": 1}, ValueError, "shadow_bins"),
-    ({"serve.federation.cells": ["a:1"]}, NotImplementedError, "A15"),
-    ({"serve.autoscale.max_replicas": 8}, NotImplementedError, "A15"),
+    ({"serve.federation.cells": ["a:1"]}, None, None),  # parses
+    ({"serve.autoscale.max_replicas": 8}, None, None),  # parses
+    ({"serve.admission.max_level": 4}, ValueError, "max_level"),
+    ({"serve.federation.vnodes": 0}, ValueError, "vnodes"),
+    ({"serve.autoscale.min_replicas": 5}, ValueError, "min_replicas"),
     ({"serve.obs.train_port": 0}, None, None),  # parses (trainer telemetry)
 ])
 def test_serve_config_validation_and_deferred_parts(overrides, error, match):
