@@ -340,7 +340,7 @@ Each phase prints one JSON line; any failure exits non-zero.
    BASELINE.md's and the margin over the feature baseline reported.
 17f. continual — the continual loop on the corpus phase's shards and test
    sources: rev A, a 4-epoch fused fit, staged into a warm store and
-   served by two replicas spawned side by side through
+   served by one replica spawned through
    ``SubprocessLauncher`` with capture on, behind an in-process
    ``FleetRouter``; the 410 serve_http sources from 16 clients through the
    router; ``run_retrain`` (the delta through the corpus build's
@@ -393,7 +393,7 @@ Each phase prints one JSON line; any failure exits non-zero.
    storage root, with inputs written in the published schemas without
    pandas. Big-Vul: a full-schema ``external/MSR_data_cleaned.csv`` (a
    leading unnamed index and every typed column of the reference reader)
-   of 1,000 ``codegen`` pairs, half vulnerable, every 40th a
+   of 500 ``codegen`` pairs, half vulnerable, every 40th a
    dataflow-hard one of chain depth 30-120, and an
    ``external/linevul_splits.csv`` assigning every id; then
    ``preprocess --dataset bigvul --split fixed --workers 4`` (rows read and
@@ -438,6 +438,40 @@ Each phase prints one JSON line; any failure exits non-zero.
    card (``INT8_PROB_LIMIT``), the difference from the bf16 engine,
    functions/s, and B5's share of one batch's profiled device time.
 
+22. llm_tune — self-instruct LoRA tuning over an int8 base:
+   ``LlamaForCausalLM(codellama_7b(int8_runtime=True, attn_impl="flash",
+   lora_rank=16))`` over joint_int8's quantized weights and a seeded int8
+   LM head, ``finetune_llm``'s path (``demo_rows`` with explanations from
+   the planted bugs, ``multitask_examples``, the response-only loss,
+   ``LoraFinetuner``): 16 demo functions, block 256, batch 4 (4 steps),
+   the counts reset just before: B5 launches = steps × 225, the int8
+   VJP's products (bf16 operands, float32 sums, no B5 launch) = steps ×
+   222, B6 = steps × 32, B6b = steps × 64, all ``wgmma``; the first step's
+   adapter gradients against B5, B6 and B6b all on their plain versions
+   (``INT8_LORA_GRAD_LIMIT``); p50 step ms and peak memory. Then
+   ``bench_llm.py``'s default step (batch 8, seq 1024, rank 16,
+   ``remat=True``) on a copy of the adapters, one step to warm and one
+   timed: step ms, tokens/s, peak memory, B5 = steps × 449 (each layer
+   recomputed whole in the backward), B6 = steps × 64.
+23. generate — greedy decoding from the tuned int8 7B: 4 left-padded
+   prompts of 128 tokens, 64 new tokens, a KV cache of 192 slots (0.40 GB
+   where a 16,384-slot cache would be 34.4 GB), the B5 count reset just
+   before: B5 launches = 191 steps × 225, all ``wgmma``; ms per step and
+   per new token; the logits against every projection on B5's plain
+   version fed the same sequence (``GEN_LOGIT_LIMIT``), each token the
+   plain path's argmax or a near-tie within twice the limit.
+17h. linevul — ``python -m deepdfa_tpu_torch.train_joint --preset
+   linevul_fusion`` as a child on the card, beside the bigvul phase:
+   CodeBERT-base width (seeded), block 512, batch 16, trained end to end
+   with the corpus run's GGNN (fused layout) loaded and frozen
+   (``--freeze-graph``), 2 epochs over the demo corpus's first 200
+   functions and ``--do_test``: the train loss falls, B1 = (steps + eval
+   and test batches) × 11 and B2 = steps × 17 in the child, all
+   ``wgmma``.
+   (The int8_kernel phase also holds B5 at decode shapes, M 1, 4 and 8,
+   lm_head's 4096 × 32016 among them, and times the int8 VJP's product at
+   the tuning shape, M 1,024.)
+
 Then each phase's wall seconds, the kernel table as one JSON line, the
 fleet phase's numbers again on one short line, the ``nvidia-smi`` name
 and power limit line, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -476,7 +510,7 @@ from deepdfa_tpu_torch.config import (ALL_SUBKEYS, BatchConfig,
                                       CascadeConfig, DataConfig,
                                       ExperimentConfig, FeatureConfig,
                                       FrontendConfig, GGNNConfig, OptimConfig,
-                                      ServeConfig)
+                                      ServeConfig, to_json)
 from deepdfa_tpu_torch.cpg import analyses as cpg_analyses
 from deepdfa_tpu_torch.cpg.dataflow import ReachingDefinitions
 from deepdfa_tpu_torch.cpg.features import (SOLVER_BACKENDS,
@@ -495,12 +529,15 @@ from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
 from deepdfa_tpu_torch.llm import llama as llama_mod
 from deepdfa_tpu_torch.llm.dataset import (GraphJoin, HashTokenizer,
                                            encode_functions)
+from deepdfa_tpu_torch.finetune_llm import demo_rows, multitask_examples
 from deepdfa_tpu_torch.llm.finetune import (FinetuneConfig, LoraFinetuner,
                                             _lm_batches, lm_loss)
+from deepdfa_tpu_torch.llm.generate import GenerateConfig, generate
 from deepdfa_tpu_torch.llm.fusion import build_fusion
 from deepdfa_tpu_torch.llm.joint import JointConfig, JointTrainer
 from deepdfa_tpu_torch.llm.joint_engine import JointEngine
 from deepdfa_tpu_torch.llm.llama import LlamaModel, build_llama, codellama_7b
+from deepdfa_tpu_torch.llm.presets import PRESETS
 from deepdfa_tpu_torch.llm.lora import freeze_base, is_lora_name, merge_lora
 from deepdfa_tpu_torch.llm.quant import to_int8_runtime_params
 from deepdfa_tpu_torch.models import make_model
@@ -611,6 +648,22 @@ INT8_PROB_LIMIT = 1.8e-2
 # (its float32 loss gradient rounds otherwise). The per-row check of B6b
 # against its plain version (flash_bwd_kernel) is the tight one.
 LORA_GRAD_LIMIT = 5.5e-2
+# the first int8 LoRA step's adapter gradients (B5, B6, B6b against all
+# three on their plain versions, the same bf16 VJP) over each adapter's
+# largest: LORA_GRAD_LIMIT's roundings, and B5's outputs one bf16 ulp apart
+# from its plain version's, carried back through 32 layers. Twice the
+# larger of its readings on an H100 at weight seeds 0 and 1 (PERF.md):
+# 4.96e-2 and 3.76e-2
+INT8_LORA_GRAD_LIMIT = 9.9e-2
+# greedy generation's logits (the tuned int8 7B, bf16) against every
+# projection on B5's plain version fed the same sequence, over the plain
+# logits' largest magnitude: B5's outputs may round one bf16 ulp apart, and
+# 32 layers carry each rounding (as INT8_PROB_LIMIT's). Twice the larger of
+# its readings on an H100 at weight seeds 0 and 1 (PERF.md): 1.58e-2 and
+# 1.68e-2. A generated token that is not the plain path's argmax must lie
+# within twice this of the plain maximum (a near-tie: both paths' logits
+# move by up to the limit; seed 0 has one, 5.4e-3 below)
+GEN_LOGIT_LIMIT = 3.4e-2
 # hidden states of the model with the trained adapters merged into its
 # projections against the unmerged model, over the largest value: the
 # merged weight rounds W + A·B·scale to bf16 once, the unmerged path adds
@@ -1922,7 +1975,7 @@ def int8_bound(m: int, k: int, n: int,
 
 
 def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
-              main: bool) -> dict:
+              main: bool, **tags) -> dict:
     """One B5 shape against its plain version: the error over the largest
     output, two calls bitwise equal, the variant both calls took, CUDA-event
     and CUDA-graph times of the kernel, the plain version and the library
@@ -1973,7 +2026,7 @@ def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
            "library": f"torch.matmul(x, (q·scale) dequantized in advance to "
                       f"{'bf16' if bf16 else 'float32'}), TF32 off",
            **dev, "bound_ms": bound_ms, "bound_by": bound_by,
-           "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9)}
+           "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9), **tags}
     emit(row)
     if sum(took.values()) != 2 or not (bitwise and err <= limit):
         fail(f"B5 at m={m} k={k} n={n}: launches={took} bitwise={bitwise} "
@@ -1981,6 +2034,35 @@ def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
     if main and variant != "wgmma":
         fail(f"B5 at m={m} k={k} n={n}: a main-path shape took the "
              f"{variant} variant")
+    return row
+
+
+def vjp_case(gen, m: int, k: int, n: int) -> dict:
+    """``i8.vjp_product`` (the int8 VJP's ``bf16(g·scale) @ bf16(q)ᵀ``
+    summed in float32) at ``[m, n] @ [k, n]ᵀ`` against the same bf16
+    operands widened to float32 (cuBLAS float32 sums, TF32 off), over the
+    largest output: CUDA-event and graph times and the bound (the bf16
+    operands and output moved once, 2·M·K·N at the bf16 peak)."""
+    q, _ = i8.calibrate_int8(torch.randn(k, n, generator=gen, device="cuda"))
+    gs = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def product():
+        return i8.vjp_product(gs, q, torch.bfloat16)
+
+    got = product()
+    want = (gs.float() @ q.t().to(torch.bfloat16).float()).to(torch.bfloat16)
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    t_ops = 2 * m * k * n / PEAK_BF16
+    t_bytes = (2 * m * n + k * n + 2 * m * k) / PEAK_BYTES
+    row = {"phase": "int8_kernel", "vjp": True, "m": m, "k": k, "n": n,
+           "max_rel_err": err, "limit": INT8_BF16_LIMIT,
+           "ms": cuda_ms(product, 20), "graph_ms": graph_ms(product, 20),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    emit(row)
+    if not err <= INT8_BF16_LIMIT:
+        fail(f"int8 VJP product at m={m} k={k} n={n}: {err}")
     return row
 
 
@@ -2006,6 +2088,19 @@ def phase_int8_kernel() -> list[dict]:
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         rows.append(int8_case(x, q, scale, torch.bfloat16, 10,
                               INT8_BF16_LIMIT, main=True))
+    # decode: one token a row, M = batch 4 (and 1 and 8 for the box's
+    # ragged edge at q_proj's shape), N = 32016 for lm_head
+    for m, k, n in ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
+                    (4, 4096, 32016), (1, 4096, 4096), (8, 4096, 4096)):
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        q, scale = i8.calibrate_int8(w)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append(int8_case(x, q, scale, torch.bfloat16, 50,
+                              INT8_BF16_LIMIT, main=True, decode=True))
+        del w, q, scale
+    # the activation gradient's product at the tuning shape (b 4, s 256)
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32016)):
+        rows.append(vjp_case(gen, 4 * 256, k, n))
     # off the main paths: the FFMA variant, at a shape TMA cannot describe
     for dt, limit in ((torch.float32, INT8_LIMIT),
                       (torch.bfloat16, INT8_BF16_LIMIT)):
@@ -2467,6 +2562,355 @@ def phase_joint_int8(ctx: dict) -> dict:
     if not row["max_abs_prob_diff_vs_plain_int8"] <= INT8_PROB_LIMIT:
         fail(f"joint_int8: {row['max_abs_prob_diff_vs_plain_int8']} from the "
              f"plain int8 path")
+    ctx["llm8"] = llm8  # the int8 base of llm_tune and generate
+    return row
+
+
+# ------------------------------------------------------------ phase 22
+
+TUNE_FUNCTIONS = 16  # demo functions of the self-instruct tuning: 4 steps
+TUNE_BLOCK, TUNE_BATCH = 256, 4
+BENCH_BATCH, BENCH_SEQ = 8, 1024  # bench_llm.py's default step (remat on)
+# B5 launches of one forward of the int8 7B: 7 projections x 32 layers and
+# lm_head; activation-gradient products of one backward: the same less the
+# first layer's q/k/v, whose input (the frozen embedding, normed) needs no
+# gradient; remat recomputes every layer whole in the backward
+B5_PER_FORWARD = 7 * 32 + 1
+VJP_PER_BACKWARD = B5_PER_FORWARD - 3
+B5_REMAT_PER_STEP = B5_PER_FORWARD + 7 * 32
+
+
+def int8_lm(cfg, base8: dict, head8: dict, seed: int):
+    """A ``LlamaForCausalLM`` of ``cfg`` (int8 runtime) over the tensors of
+    ``base8`` (an int8 ``LlamaModel`` state) and ``head8`` (``lm_head.q``,
+    ``lm_head.scale``), no copy, with fresh LoRA adapters drawn on the card
+    from ``seed`` (``A`` N(0, 1/rank), ``B`` zero)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = {f"model.{k}": v for k, v in base8.items()}
+    state.update(head8)
+    with torch.device("meta"):
+        model = llama_mod.LlamaForCausalLM(cfg)
+    for name, t in model.named_parameters():
+        if name.endswith("lora_a"):
+            state[name] = torch.randn(t.shape, generator=gen, device="cuda"
+                                      ) * cfg.lora_rank ** -0.5
+        elif name.endswith("lora_b"):
+            state[name] = torch.zeros(t.shape, device="cuda")
+    model.load_state_dict(state, assign=True)
+    return model.eval()
+
+
+class PlainInt8(torch.autograd.Function):
+    """B5's plain version forward, the port's VJP backward (its product is
+    no kernel of B5): the witness of the int8 tuning step."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        return i8.int8_matmul_reference(x, q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        gs = (g.to(torch.float32) * scale).to(torch.bfloat16)
+        return i8.vjp_product(gs, q, ctx.x_dtype), None, None, None
+
+
+def plain_int8_matmul(x, q, scale, out_dtype=torch.float32):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return PlainInt8.apply(x, q, scale, out_dtype)
+    return i8.int8_matmul_reference(x, q, scale, out_dtype)
+
+
+def int8_adapter_grads(model, ids, pad, loss_mask, plain: bool) -> dict:
+    """The adapters' gradients of one response-only LM loss, with B5, B6
+    and B6b or (``plain``) all three on their plain versions."""
+    saved = llama_mod.flash_attention, llama_mod.int8_matmul
+    if plain:
+        llama_mod.flash_attention = plain_flash_attention
+        llama_mod.int8_matmul = plain_int8_matmul
+    try:
+        freeze_base(model)
+        loss = lm_loss(model(ids, pad), ids, pad, loss_mask)
+        loss.backward()
+    finally:
+        llama_mod.flash_attention, llama_mod.int8_matmul = saved
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def reset_int8_counts() -> None:
+    """B5's launch counts, in all and by variant, and the VJP's products,
+    to 0."""
+    i8.n_launches = i8.n_vjp_products = 0
+    i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
+
+
+def tune_counts() -> dict:
+    return {"b5": i8.n_launches, "b5_by_variant": dict(i8.n_variant_launches),
+            "vjp": i8.n_vjp_products, "b6": fa.n_launches,
+            "b6_by_variant": dict(fa.n_variant_launches),
+            "b6b": fa.n_bwd_launches,
+            "b6b_by_variant": dict(fa.n_bwd_variant_launches)}
+
+
+def check_tune_counts(name: str, c: dict, steps: int, b5_per_step: int,
+                      b6_per_step: int) -> None:
+    want = {"b5": steps * b5_per_step, "vjp": steps * VJP_PER_BACKWARD,
+            "b6": steps * b6_per_step, "b6b": steps * 64}
+    got = {k: c[k] for k in want}
+    if steps <= 0 or got != want:
+        fail(f"{name}: launches {got}, expected {want} for {steps} steps")
+    if c["b5_by_variant"]["wgmma"] != c["b5"]:
+        fail(f"{name}: B5 launches by variant {c['b5_by_variant']}")
+    check_wgmma(name, c["b6_by_variant"], c["b6"])
+    check_wgmma(f"{name} (B6b)", c["b6b_by_variant"], c["b6b"])
+
+
+def phase_llm_tune(ctx: dict, seed: int = 0) -> dict:
+    """Self-instruct LoRA tuning (``finetune_llm``'s path: the demo
+    multitask dialogues, response-only loss, ``LoraFinetuner``) of
+    CodeLlama-7B width and depth over the joint_int8 phase's int8 base and a
+    seeded int8 LM head, rank 16, ``attn_impl="flash"``: B5 forward, the
+    int8 VJP's products backward, B6/B6b."""
+    cfg = codellama_7b(attn_impl="flash", lora_rank=LORA_RANK,
+                       lora_alpha=16.0, int8_runtime=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    head = (torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen,
+                        device="cuda") * cfg.hidden_size ** -0.5)
+    head8 = to_int8_runtime_params({"lm_head.weight": head})
+    del head
+    base8 = ctx["llm8"].state_dict()
+    model = int8_lm(cfg, base8, head8, seed + 42)
+    tok = ctx["tok"]
+    examples = multitask_examples(demo_rows(TUNE_FUNCTIONS, seed=seed), tok,
+                                  TUNE_BLOCK)
+    fcfg = FinetuneConfig(epochs=1, batch_size=TUNE_BATCH, seed=seed)
+
+    # witness: the first step's adapter gradients, kernels against plain
+    ids, pad, lm = next(_lm_batches(examples, TUNE_BATCH, seed=fcfg.seed))
+    ids, pad, lm = (torch.from_numpy(a).cuda() for a in (ids, pad, lm))
+    g_kernel = int8_adapter_grads(model, ids, pad, lm, plain=False)
+    g_plain = int8_adapter_grads(model, ids, pad, lm, plain=True)
+    witness = 0.0
+    for name, want in g_plain.items():
+        top = float(want.abs().max())
+        err = float((g_kernel[name] - want).abs().max())
+        witness = max(witness, (float("inf") if err else 0.0) if top == 0.0
+                      else err / top)
+    del g_kernel, g_plain
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        tuner = LoraFinetuner(model, fcfg, run_dir=Path(tmp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from zero, read right after
+        reset_int8_counts()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        model, losses = tuner.train(examples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tune_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(tuner.step_seconds)
+        saved = sorted(p.name for p in Path(tmp).iterdir())
+
+    # bench_llm.py's default step (batch 8, seq 1024, rank 16, remat) over
+    # a copy of the tuned adapters: one step to warm, one timed
+    state = {k: v.clone() if is_lora_name(k) else v
+             for k, v in model.state_dict().items()}
+    rcfg = dataclasses.replace(cfg, remat=True)
+    with torch.device("meta"):
+        bench = llama_mod.LlamaForCausalLM(rcfg)
+    bench.load_state_dict(state, assign=True)
+    del state
+    bench_ex = multitask_examples(demo_rows(BENCH_BATCH, seed=seed + 1), tok,
+                                  BENCH_SEQ)
+    btuner = LoraFinetuner(bench, FinetuneConfig(
+        epochs=2, batch_size=BENCH_BATCH, seed=seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_int8_counts()
+    reset_flash_counts()
+    _, bench_losses = btuner.train(bench_ex)
+    torch.cuda.synchronize()
+    bench_counts = tune_counts()
+    bench_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bench_seconds = list(btuner.step_seconds)
+    del bench, btuner
+    torch.cuda.empty_cache()
+
+    real = int(examples.pad_mask.sum())
+    graded = int(examples.loss_mask.sum())
+    row = {"phase": "llm_tune",
+           "model": "LlamaForCausalLM(codellama_7b(int8_runtime=True, "
+                    "attn_impl='flash', lora_rank=16)), seeded int8 base",
+           "seed": seed, "layers": cfg.num_hidden_layers,
+           "functions": TUNE_FUNCTIONS, "block": TUNE_BLOCK,
+           "batch": TUNE_BATCH, "steps": steps, "wall_s": wall,
+           "p50_step_ms": float(np.percentile(tuner.step_seconds, 50) * 1e3),
+           "real_tokens": real, "graded_tokens": graded,
+           "real_tokens_per_s": real / wall, "losses": losses,
+           "peak_memory_gb": peak_gb, "launches": counts,
+           "b5_launches_per_step": B5_PER_FORWARD,
+           "vjp_products_per_step": VJP_PER_BACKWARD,
+           "first_step_grad_rel_err_vs_plain": witness,
+           "grad_limit": INT8_LORA_GRAD_LIMIT, "saved": saved,
+           "bench": {"batch": BENCH_BATCH, "seq": BENCH_SEQ, "remat": True,
+                     "steps": len(bench_seconds), "losses": bench_losses,
+                     "step_ms": bench_seconds[-1] * 1e3,
+                     "warm_step_ms": bench_seconds[0] * 1e3,
+                     "tokens_per_s": BENCH_BATCH * BENCH_SEQ
+                     / bench_seconds[-1],
+                     "peak_memory_gb": bench_peak_gb,
+                     "launches": bench_counts,
+                     "b5_launches_per_step": B5_REMAT_PER_STEP}}
+    emit(row)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(bench_losses))):
+        fail(f"llm_tune: non-finite losses {losses} {bench_losses}")
+    check_tune_counts("llm_tune", counts, steps, B5_PER_FORWARD, 32)
+    check_tune_counts("llm_tune (bench)", bench_counts, len(bench_seconds),
+                      B5_REMAT_PER_STEP, 64)
+    if not witness <= INT8_LORA_GRAD_LIMIT:
+        fail(f"llm_tune: first-step adapter gradients {witness} from the "
+             f"plain path (limit {INT8_LORA_GRAD_LIMIT})")
+    if saved != ["adapters_epoch_0"]:
+        fail(f"llm_tune: wrote {saved}")
+    ctx["tuned"] = model
+    return row
+
+
+# ------------------------------------------------------------ phase 23
+
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+
+
+@torch.inference_mode()
+def forced_scores(model, ids: np.ndarray, mask: np.ndarray,
+                  tokens: np.ndarray) -> torch.Tensor:
+    """The logits ``[new, b, vocab]`` of ``generate``'s decode loop at its
+    generation positions when it is fed the prompts and then ``tokens``
+    (what ``generate`` fed itself: each row's tokens, eos after it
+    finished)."""
+    dev = next(model.parameters()).device
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+    toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    (b, s), new = ids.shape, toks.shape[1]
+    cache = llama_mod.KVCache.empty(model.cfg, b, s + new, dev)
+    out = []
+    for t in range(s + new - 1):
+        cur = ids[:, t] if t < s else toks[:, t - s]
+        valid = mask[:, t] if t < s else torch.ones_like(mask[:, 0])
+        logits, cache = model(cur[:, None], valid[:, None], decode=True,
+                              cache=cache)
+        if t >= s - 1:
+            out.append(logits[:, 0])
+    return torch.stack(out)
+
+
+def token_agreement(tokens: np.ndarray, kernel: torch.Tensor,
+                    plain: torch.Tensor, eos: int) -> dict:
+    """The generated tokens against B5's plain version fed the same
+    sequence: the logits' largest difference over the plain logits'
+    largest magnitude, and at every position up to each row's eos whether
+    the token is the plain path's argmax, or else how far below the plain
+    maximum its plain logit lies (over the same magnitude)."""
+    top = float(plain.abs().max())
+    diff = float((kernel - plain).abs().max()) / top
+    best = plain.argmax(dim=-1).cpu().numpy().T  # [b, new]
+    compared = differ = 0
+    gaps = []
+    for r in range(tokens.shape[0]):
+        for j in range(tokens.shape[1]):
+            compared += 1
+            if tokens[r, j] != best[r, j]:
+                differ += 1
+                p = plain[j, r]
+                gaps.append({"row": r, "pos": j, "gap": float(
+                    p.max() - p[int(tokens[r, j])]) / top})
+            if tokens[r, j] == eos:
+                break
+    return {"logit_rel_diff": diff, "positions": compared,
+            "argmax_differs": differ, "near_ties": gaps}
+
+
+def phase_generate(ctx: dict, seed: int = 0) -> dict:
+    """Greedy generation from the tuned int8 7B on the KV cache: 4
+    left-padded prompts of 128 tokens, 64 new tokens, one decode step a
+    position (191 steps of 225 B5 launches, M = 4)."""
+    model, tok = ctx["tuned"], ctx["tok"]
+    rows = [tok.encode_block(t, GEN_PROMPT)
+            for t in c_functions(GEN_BATCH, seed=seed + 43, lo=40, hi=200)]
+    ids = np.stack([r[0] for r in rows])
+    mask = np.stack([r[1] for r in rows])
+    gcfg = GenerateConfig(max_new_tokens=GEN_NEW, do_sample=False)
+    steps = GEN_PROMPT + GEN_NEW - 1
+    generate(model, ids[:, :8], mask[:, :8],
+             GenerateConfig(max_new_tokens=2, do_sample=False))  # warm
+
+    # the main path: counts from zero, read right after
+    reset_int8_counts()
+    scores: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, ids, mask, gcfg, scores=scores)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = i8.n_launches, dict(i8.n_variant_launches)
+
+    # off the main path: every projection on B5's plain version, fed the
+    # same sequence up to the last row's eos (the positions compared)
+    eos_at = [int(np.argmax(r == gcfg.eos_token_id)) if
+              (r == gcfg.eos_token_id).any() else GEN_NEW - 1 for r in out]
+    n_cmp = max(eos_at) + 1
+    saved = llama_mod.int8_matmul
+    llama_mod.int8_matmul = plain_int8_matmul
+    try:
+        t0 = time.perf_counter()
+        plain = forced_scores(model, ids, mask, out[:, :n_cmp])
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        llama_mod.int8_matmul = saved
+    agree = token_agreement(out[:, :n_cmp],
+                            torch.stack(scores[:n_cmp]).float(), plain,
+                            gcfg.eos_token_id)
+    del scores, plain
+    cfg = model.cfg
+    cache_gb = (cfg.num_hidden_layers * 2 * GEN_BATCH * (GEN_PROMPT + GEN_NEW)
+                * cfg.num_key_value_heads * cfg.head_dim * 2) / 1e9
+    full_gb = cache_gb * cfg.max_position_embeddings / (GEN_PROMPT + GEN_NEW)
+    row = {"phase": "generate", "seed": seed, "batch": GEN_BATCH,
+           "prompt": GEN_PROMPT, "new_tokens": GEN_NEW, "steps": steps,
+           "wall_s": wall, "ms_per_step": wall / steps * 1e3,
+           "ms_per_new_token": wall / GEN_NEW * 1e3,
+           "new_tokens_per_s": GEN_BATCH * GEN_NEW / wall,
+           "plain_b5_wall_s": plain_wall, "b5_launches": launches,
+           "b5_launches_expected": steps * B5_PER_FORWARD,
+           "b5_variant_launches": variants,
+           "cache_gb": cache_gb, "full_length_cache_gb": full_gb,
+           "prompt_real_tokens": mask.sum(axis=1).tolist(), **agree,
+           "logit_limit": GEN_LOGIT_LIMIT, "tokens": out[:, :16].tolist()}
+    emit(row)
+    if out.shape != (GEN_BATCH, GEN_NEW) or not np.all(
+            (out >= 0) & (out < cfg.vocab_size)):
+        fail(f"generate: tokens of shape {out.shape} out of the vocabulary")
+    if launches != steps * B5_PER_FORWARD or variants["wgmma"] != launches:
+        fail(f"generate: {launches} B5 launches by variant {variants} for "
+             f"{steps} steps (expected {B5_PER_FORWARD} each, all wgmma)")
+    if not agree["logit_rel_diff"] <= GEN_LOGIT_LIMIT:
+        fail(f"generate: logits {agree['logit_rel_diff']} from B5's plain "
+             f"version (limit {GEN_LOGIT_LIMIT})")
+    wide = [g for g in agree["near_ties"]
+            if g["gap"] > 2 * GEN_LOGIT_LIMIT]
+    if wide:
+        fail(f"generate: tokens that B5's plain version ranks clearly "
+             f"lower: {wide}")
     return row
 
 
@@ -5518,6 +5962,11 @@ CONTINUAL_SPAWN_TIMEOUT_S = 300.0
 # refused the third epoch over the second (PSI 4.2) and the fourth over the
 # third (0.29)
 CONTINUAL_EPOCHS = 4
+# the fleet the rolls replace replica by replica: each roll waits on one
+# start a replica (18-31 s). Two made the phase 170-238 s on the card;
+# one still rolls through the router with the ring never empty (the
+# candidate joins before the prior leaves)
+CONTINUAL_REPLICAS = 1
 # replicas and controllers import the port from this checkout
 REPLICA_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     [str(REPO_ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
@@ -5740,7 +6189,7 @@ def replica_counts(root: Path, idents: list[str]) -> dict:
 
 def phase_continual(work: Path) -> dict:
     """The continual loop on the card, on the corpus phase's ``demo`` shards
-    and test sources: rev A (a 4-epoch fused fit) served by two spawned
+    and test sources: rev A (a 4-epoch fused fit) served by a spawned
     replicas behind an in-process ``FleetRouter`` with capture on; the 410
     serve_http sources from 16 clients; ``run_retrain`` (the extraction
     cache's delta over the corpus and new functions, one fused epoch
@@ -5807,7 +6256,7 @@ def phase_continual(work: Path) -> dict:
     warm = WarmStore(store)
     staged_a = stage_candidate(engine_a, warm)
 
-    # two replicas of rev A side by side behind the router
+    # CONTINUAL_REPLICAS replicas of rev A side by side behind the router
     def argv_of(ckpt):
         return lambda ident: replica_argv(fleet_dir, cfg_file, ckpt,
                                           shard_dir, store, ident)
@@ -5821,8 +6270,9 @@ def phase_continual(work: Path) -> dict:
 
     router = FleetRouter([], port=0, probe_interval_s=0.5,
                          allow_empty=True).start(probe=True)
-    initial = [launcher(ckpt_a, f"A_init{k}_") for k in range(2)]
-    spawned: list = [None, None]
+    initial = [launcher(ckpt_a, f"A_init{k}_")
+               for k in range(CONTINUAL_REPLICAS)]
+    spawned: list = [None] * CONTINUAL_REPLICAS
     errors: list = []
 
     def spawn_initial(k):
@@ -5833,7 +6283,7 @@ def phase_continual(work: Path) -> dict:
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=spawn_initial, args=(k,))
-               for k in range(2)]
+               for k in range(CONTINUAL_REPLICAS)]
     for t in threads:
         t.start()
     for t in threads:
@@ -6885,7 +7335,116 @@ def phase_fleet(ctx: dict, work: Path) -> dict:
 
 # halved from 2,000 (~20 s of build) to keep the smoke near its length
 # beside the continual phase
-BIGVUL_FUNCTIONS = 1000
+# ------------------------------------------------------------ phase 17h
+
+# the demo corpus train_joint reads (its first 200 functions: the corpus
+# phase's shards hold them), its 80/10/10 split and 2 epochs at the
+# preset's batch 16 and block 512
+LINEVUL_FUNCTIONS = 200
+LINEVUL_EPOCHS = 2
+# train_joint's entry point in a child, its B1/B2 counts written to the
+# file the first argument names when it exits
+LINEVUL_MAIN = """
+import json, sys
+from deepdfa_tpu_torch import train_joint
+from deepdfa_tpu_torch.ops import fused_ggnn as fg
+try:
+    train_joint.main(sys.argv[2:])
+finally:
+    with open(sys.argv[1], "w") as f:
+        json.dump({"b1_launches": fg.n_launches,
+                   "b1_launches_by_variant": dict(fg.n_variant_launches),
+                   "b2_launches": fg.n_bwd_launches,
+                   "b2_launches_by_variant": dict(fg.n_bwd_variant_launches)},
+                  f)
+"""
+
+
+def start_linevul(work: Path) -> tuple:
+    """Start ``python -m deepdfa_tpu_torch.train_joint --preset
+    linevul_fusion`` as a child on the card: CodeBERT-base width (seeded),
+    block 512, batch 16, trained end to end with the corpus run's GGNN
+    (fused layout, B1/B2) loaded and frozen (``--freeze-graph``), 2 epochs
+    over the demo corpus's first 200 functions, ``--do_test``. Returns
+    what :func:`finish_linevul` reads."""
+    out_dir = work / "linevul"
+    counts_file = work / "linevul.counts.json"
+    # the GGNN's config beside the checkpoints, as train.cli fit writes it
+    # (the corpus phase fits in process): the fused layout, so B1/B2 run
+    config = work / "run" / "config.json"
+    if not config.exists():
+        config.write_text(to_json(corpus_config()))
+    cmd = [sys.executable, "-c", LINEVUL_MAIN, str(counts_file), "--preset",
+           "linevul_fusion", "--dataset", "demo", "--freeze-graph",
+           str(work / "run" / "checkpoints"), "--epochs",
+           str(LINEVUL_EPOCHS), "--do_train", "--do_test", "--output_dir",
+           str(out_dir), "--device", "cuda"]
+    # the run's storage root (set after REPLICA_ENV was taken) holds the
+    # corpus phase's shards
+    env = {**os.environ, "PYTHONPATH": REPLICA_ENV["PYTHONPATH"]}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(work))
+    return proc, counts_file, time.perf_counter()
+
+
+def finish_linevul(started: tuple) -> dict:
+    """Wait for the ``train_joint`` child and check it: the train loss
+    falls, B1 = (train steps + eval and test batches) × 11 and B2 = train
+    steps × 17 in the child, all ``wgmma``."""
+    proc, counts_file, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("linevul: train_joint did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"linevul: train_joint exited {proc.returncode}: "
+             f"{stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    counts = json.loads(counts_file.read_text())
+    n = LINEVUL_FUNCTIONS
+    n_train = int(n * 0.8)
+    n_eval, n_test = int(n * 0.9) - n_train, n - int(n * 0.9)
+    jcfg = PRESETS["linevul_fusion"].joint
+    per_epoch = -(-n_train // jcfg.train_batch_size)
+    steps = LINEVUL_EPOCHS * per_epoch
+    evals = sum("eval_loss" in h for h in out["history"])
+    eval_batches = (evals * -(-n_eval // jcfg.eval_batch_size)
+                    + -(-n_test // jcfg.eval_batch_size))
+    train_loss = [h["train_loss"] for h in out["history"]
+                  if "train_loss" in h]
+    per = fg.launches_per_call(STEPS)
+    want = {"b1_launches": (steps + eval_batches) * per,
+            "b2_launches": steps * fg.bwd_launches_per_call(STEPS)}
+    row = {"phase": "linevul", "preset": "linevul_fusion",
+           "encoder": "codebert_base (seeded), train_llm, pool cls",
+           "block": jcfg.block_size, "batch": jcfg.train_batch_size,
+           "epochs": LINEVUL_EPOCHS, "n_train": out["n_train"],
+           "steps": steps, "evals": evals, "wall_s": wall,
+           "train_loss": train_loss, "test_loss": out.get("test_loss"),
+           "test_f1_weighted": out.get("test_f1_weighted"),
+           "num_missing": out.get("num_missing"),
+           "freeze_graph": out.get("freeze_graph"), **counts,
+           "expected": want}
+    emit(row)
+    if out["n_train"] != n_train or len(train_loss) != LINEVUL_EPOCHS:
+        fail(f"linevul: {out['n_train']} train examples, losses "
+             f"{train_loss}")
+    if not (all(np.isfinite(train_loss)) and train_loss[-1] < train_loss[0]):
+        fail(f"linevul: the train loss did not fall: {train_loss}")
+    for key, value in want.items():
+        if counts[key] != value:
+            fail(f"linevul: {key} {counts[key]}, expected {value}")
+    for key in ("b1_launches", "b2_launches"):
+        if counts[f"{key}_by_variant"]["wgmma"] != counts[key]:
+            fail(f"linevul: {key} by variant {counts[f'{key}_by_variant']}")
+    return row
+
+
+BIGVUL_FUNCTIONS = 500  # halved from 1,000 for the smoke's time limit
 BIGVUL_TAIL = 40  # every 40th function dataflow-hard: Big-Vul's heavy tail
 DEVIGN_FUNCTIONS = 400
 BIGVUL_WORKERS = 4
@@ -7151,13 +7710,16 @@ def drive() -> int:
     train_mb = timed("train_megabatch", phase_train, "megabatch")
     hier_rows = timed("hier_kernel", phase_hier_kernel)
     hier = timed("hier", phase_hier)
-    int8_rows = timed("int8_kernel", phase_int8_kernel)
+    int8_all = timed("int8_kernel", phase_int8_kernel)
+    int8_rows = [r for r in int8_all if not r.get("vjp")]
+    vjp_rows = [r for r in int8_all if r.get("vjp")]
     serve8 = timed("serve_int8", phase_serve_int8)
     flash_rows = timed("flash_kernel", phase_flash_kernel)
     bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
     joint, ctx = timed("joint", phase_joint)
     scan = timed("scan", phase_scan, ctx)
     corpus_work = Path(tempfile.mkdtemp(prefix="chip_smoke_corpus_"))
+    linevul_child = None
     try:
         corpus = timed("corpus", phase_corpus, corpus_work)
         serve_http = timed("serve_http", phase_serve_http, ctx, corpus_work)
@@ -7166,12 +7728,22 @@ def drive() -> int:
         dataflow = timed("dataflow", phase_dataflow, corpus_work)
         continual = timed("continual", phase_continual, corpus_work)
         fleet = timed("fleet", phase_fleet, ctx, corpus_work)
+        # the train_joint child on the corpus run, beside the bigvul phase
+        linevul_child = start_linevul(corpus_work)
+        bigvul = timed("bigvul", phase_bigvul)
+        linevul = timed("linevul", finish_linevul, linevul_child)
+        seconds["linevul"] = linevul["wall_s"]  # beside bigvul
+        linevul_child = None
     finally:
+        if linevul_child is not None:
+            linevul_child[0].kill()
+            linevul_child[0].wait()
         shutil.rmtree(corpus_work, ignore_errors=True)
-    bigvul = timed("bigvul", phase_bigvul)
     finetune = timed("finetune", phase_finetune, ctx)
     joint_train = timed("joint_train", phase_joint_train, ctx)
     joint8 = timed("joint_int8", phase_joint_int8, ctx)
+    tune = timed("llm_tune", phase_llm_tune, ctx)
+    gen = timed("generate", phase_generate, ctx)
     emit({"phase": "seconds", **seconds})
 
     mega = next(r for r in shapes if r["shape"] == "mega")
@@ -7266,7 +7838,7 @@ def drive() -> int:
                      + corpus["predict"]["b1_launches"] + bigvul_b1
                      + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())
                      + sum(df_b1.values()) + sum(cont_b1.values())
-                     + sum(fleet_b1.values())),
+                     + sum(fleet_b1.values()) + linevul["b1_launches"]),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -7278,7 +7850,8 @@ def drive() -> int:
                              "serve_http_scan":
                                  serve_http["scan_cli"]["b1_launches"],
                              "artifact": art_b1, "warm_store": store_b1,
-                             **tr_b1, **df_b1, **cont_b1, **fleet_b1},
+                             **tr_b1, **df_b1, **cont_b1, **fleet_b1,
+                             "linevul": linevul["b1_launches"]},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -7293,7 +7866,8 @@ def drive() -> int:
             serve_http["b1_launches_by_variant"],
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
             artifact["warm_store"]["launches_by_variant"], *tr_b1_var,
-            *df_b1_var, *cont_b1_var, *fleet_b1_var),
+            *df_b1_var, *cont_b1_var, *fleet_b1_var,
+            linevul["b1_launches_by_variant"]),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -7314,12 +7888,13 @@ def drive() -> int:
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
                      + corpus["fit"]["b2_launches"] + bigvul_b2
                      + sum(tr_b2.values()) + sum(df_b2.values())
-                     + cont["b2"]),
+                     + cont["b2"] + linevul["b2_launches"]),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
                              "corpus_fit": corpus["fit"]["b2_launches"],
                              "bigvul": bigvul_b2, **tr_b2, **df_b2,
-                             "continual_fits": cont["b2"]},
+                             "continual_fits": cont["b2"],
+                             "linevul": linevul["b2_launches"]},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
@@ -7329,7 +7904,7 @@ def drive() -> int:
             bigvul["devign"]["fit"]["launches_by_variant"]["bwd"],
             tr_fit["launches_by_variant"]["bwd"],
             tr_sen["launches_by_variant"]["bwd"], *df_b2_var,
-            cont["by_variant"]["bwd"]),
+            cont["by_variant"]["bwd"], linevul["b2_launches_by_variant"]),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],
@@ -7385,11 +7960,17 @@ def drive() -> int:
         "source": "deepdfa_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deepdfa_tpu/ops/int8_matmul.py:44",
         "launches": (serve8["n_launches"] + joint8["b5_launches"]
-                     + store_b5 + tr_b5),
+                     + store_b5 + tr_b5 + tune["launches"]["b5"]
+                     + tune["bench"]["launches"]["b5"] + gen["b5_launches"]),
         "launches_by_path": {"serve_int8": serve8["n_launches"],
                              "joint_int8": joint8["b5_launches"],
                              "warm_store_int8": store_b5,
-                             "int8_train": tr_b5},
+                             "int8_train": tr_b5,
+                             "llm_tune": tune["launches"]["b5"],
+                             "llm_tune_bench": tune["bench"]["launches"]["b5"],
+                             "generate": gen["b5_launches"]},
+        "vjp_products": {"llm_tune": tune["launches"]["vjp"],
+                         "llm_tune_bench": tune["bench"]["launches"]["vjp"]},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows
                            if r["x_dtype"] == "float32"),
         "max_rel_err": max(r["max_rel_err"] for r in int8_rows
@@ -7399,7 +7980,10 @@ def drive() -> int:
             v: (serve8["variant_launches"][v]
                 + joint8["b5_variant_launches"][v]
                 + artifact["warm_store_int8"]["launches_by_variant"][v]
-                + trainer["int8_train"]["b5_launches_by_variant"][v])
+                + trainer["int8_train"]["b5_launches_by_variant"][v]
+                + tune["launches"]["b5_by_variant"][v]
+                + tune["bench"]["launches"]["b5_by_variant"][v]
+                + gen["b5_variant_launches"][v])
             for v in i8.VARIANTS},
         # CUDA-graph replay times: CUDA-event times of a call this short
         # measure the host's per-call cost (the row's "ms", "plain_ms",
@@ -7422,7 +8006,19 @@ def drive() -> int:
             "ms": b5_llm["graph_ms"], "plain_ms": b5_llm["plain_graph_ms"],
             "bound_ms": b5_llm["bound_ms"], "bound_by": b5_llm["bound_by"],
             "library_ms": b5_llm["library_graph_ms"],
-            "library": b5_llm["library"]}}, {
+            "library": b5_llm["library"]},
+        "decode": [{  # one token a row: bound by the weight's bytes
+            "shape": f"m={r['m']} k={r['k']} n={r['n']} bf16",
+            "variant": r["variant"], "max_rel_err": r["max_rel_err"],
+            "ms": r["graph_ms"], "plain_ms": r["plain_graph_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_graph_ms"]}
+            for r in int8_rows if r.get("decode")],
+        "vjp": [{  # the activation gradient's product (no B5 launch)
+            "shape": f"m={r['m']} k={r['k']} n={r['n']} bf16",
+            "max_rel_err": r["max_rel_err"], "ms": r["graph_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+            for r in vjp_rows]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/flash_attention.cu",
         "replaces": "deepdfa_tpu/llm/llama.py:222",
@@ -7431,7 +8027,9 @@ def drive() -> int:
         "launches": (joint["b6_launches"] + joint8["b6_launches"]
                      + finetune["b6_launches"] + joint_train["b6_launches"]
                      + scan["b6_launches"] + serve_http["b6_launches"]
-                     + fleet["overload"]["b6_launches"]),
+                     + fleet["overload"]["b6_launches"]
+                     + tune["launches"]["b6"]
+                     + tune["bench"]["launches"]["b6"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
@@ -7439,7 +8037,10 @@ def drive() -> int:
                              "scan_cascade": scan["b6_launches"],
                              "serve_http": serve_http["b6_launches"],
                              "fleet_overload":
-                                 fleet["overload"]["b6_launches"]},
+                                 fleet["overload"]["b6_launches"],
+                             "llm_tune": tune["launches"]["b6"],
+                             "llm_tune_bench":
+                                 tune["bench"]["launches"]["b6"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
@@ -7447,6 +8048,8 @@ def drive() -> int:
             + scan["b6_launches_by_variant"][v]
             + serve_http["b6_launches_by_variant"][v]
             + fleet["overload"]["b6_launches_by_variant"][v]
+            + tune["launches"]["b6_by_variant"][v]
+            + tune["bench"]["launches"]["b6_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
@@ -7469,11 +8072,19 @@ def drive() -> int:
         "stock_kernel": "_flash_attention_bwd (:254): dkv body :796, dq "
                         "body :1146; reached by jax.grad through "
                         "deepdfa_tpu/llm/llama.py:222",
-        "launches": finetune["b6b_launches"],
+        "launches": (finetune["b6b_launches"] + tune["launches"]["b6b"]
+                     + tune["bench"]["launches"]["b6b"]),
         "launches_by_path": {"finetune": finetune["b6b_launches"],
-                             "joint_train": joint_train["b6b_launches"]},
+                             "joint_train": joint_train["b6b_launches"],
+                             "llm_tune": tune["launches"]["b6b"],
+                             "llm_tune_bench":
+                                 tune["bench"]["launches"]["b6b"]},
         "variant": b6b["variant"],
-        "launches_by_variant": finetune["b6b_variant_launches"],
+        "launches_by_variant": {
+            v: (finetune["b6b_variant_launches"][v]
+                + tune["launches"]["b6b_by_variant"][v]
+                + tune["bench"]["launches"]["b6b_by_variant"][v])
+            for v in fa.VARIANTS},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_rows),
         "max_row_rel_err": max(max(r["max_row_rel_err"].values())
                                for r in bwd_rows),

@@ -24,6 +24,11 @@ adapters' ``lora_a``/``lora_b`` keep the Flax layout), and
 model's ``flowgnn_encoder`` (the GGNN in encoder mode) + ``classifier``
 tree. Values are copied exactly (a bf16 tensor goes to float32 numpy, which
 holds it exactly), so round trips are bit for bit.
+
+:func:`roberta_flax_to_torch` / :func:`roberta_torch_to_flax` carry a
+``RobertaEncoder`` tree (``layer_{i}`` ↔ ``encoder.layer.{i}``, Embed
+``embedding`` ↔ ``weight``, LayerNorm ``scale`` ↔ ``weight``, Dense
+``kernel`` ↔ ``weight`` transposed), bit for bit.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from deepdfa_tpu_torch.config import (ALL_SUBKEYS, DFA_FEATURE_DIMS,
 
 __all__ = ["flax_to_torch", "fusion_flax_to_torch", "fusion_torch_to_flax",
            "level2_flax_to_torch", "level2_torch_to_flax",
-           "llama_flax_to_torch", "llama_torch_to_flax", "torch_to_flax"]
+           "llama_flax_to_torch", "llama_torch_to_flax",
+           "roberta_flax_to_torch", "roberta_torch_to_flax", "torch_to_flax"]
 
 
 def _linear_names(cfg: GGNNConfig) -> dict[tuple[str, ...], str]:
@@ -209,6 +215,50 @@ def llama_torch_to_flax(state_dict: dict) -> dict:
             _put(params, path + ["kernel"], np.ascontiguousarray(arr.T))
         else:
             _put(params, path + [leaf], arr)
+    return params
+
+
+def roberta_flax_to_torch(params_np: dict) -> dict:
+    """A state dict for :class:`~deepdfa_tpu_torch.llm.roberta.
+    RobertaEncoder` from the JAX package's ``RobertaEncoder`` tree (nested
+    dicts of numpy arrays)."""
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, path: list[str]) -> None:
+        for key, val in node.items():
+            if isinstance(val, dict):
+                m = re.fullmatch(r"layer_(\d+)", key)
+                walk(val, path + ([f"encoder.layer.{m.group(1)}"] if m
+                                  else [key]))
+                continue
+            arr = np.asarray(val, dtype=np.float32)
+            if key == "kernel":
+                arr = arr.T
+            leaf = "bias" if key == "bias" else "weight"
+            state[".".join(path + [leaf])] = torch.from_numpy(
+                np.array(arr, copy=True))
+
+    walk(params_np, [])
+    return state
+
+
+def roberta_torch_to_flax(state_dict: dict) -> dict:
+    """The JAX package's ``RobertaEncoder`` tree (nested dicts of numpy)
+    from a :class:`~deepdfa_tpu_torch.llm.roberta.RobertaEncoder` state
+    dict."""
+    params: dict = {}
+    for name, t in state_dict.items():
+        *path, leaf = re.sub(r"^encoder\.layer\.(\d+)\.", r"layer_\1.",
+                             name).split(".")
+        arr = _numpy(t)
+        if leaf == "bias":
+            _put(params, path + ["bias"], arr)
+        elif path[-1] == "LayerNorm":
+            _put(params, path + ["scale"], arr)
+        elif path[-1].endswith("_embeddings"):
+            _put(params, path + ["embedding"], arr)
+        else:
+            _put(params, path + ["kernel"], np.ascontiguousarray(arr.T))
     return params
 
 

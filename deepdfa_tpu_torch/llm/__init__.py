@@ -7,7 +7,10 @@ and B6b backward — and int8-resident projections on kernel B5),
 ``lora.py``, ``finetune.py`` (``LoraFinetuner``), ``quant.py``,
 ``convert.py`` (HF checkpoints from a local directory), ``fusion.py``,
 ``dataset.py``, ``joint.py`` (``JointTrainer`` and the evaluation step),
-``joint_engine.py`` (``JointEngine``, the cascade's tier 2) and
-``presets.py``. Generation, self-instruct data, RoBERTa and the ring
-attention are not ported yet (ROADMAP A12's rest, A11).
+``joint_engine.py`` (``JointEngine``, the cascade's tier 2),
+``presets.py`` (the CodeLlama and LineVul presets), ``generate.py`` (batch
+generation on the KV cache), ``selfinstruct.py`` (the multitask
+self-instruct data) and ``roberta.py`` (the CodeBERT encoder of LineVul).
+Not ported yet: the dense graph join (ROADMAP A10) and the ring attention
+(A11).
 """

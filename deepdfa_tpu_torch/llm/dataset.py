@@ -9,8 +9,9 @@ A copy of the segment-layout part of ``deepdfa_tpu/llm/dataset.py``
 - :func:`_fit_block` — truncate or left-pad to ``block_size`` with an
   explicit pad mask (pads share the eos id, so values cannot tell them);
 - :class:`TextExamples` / :class:`TextBatch`, :func:`encode_functions`
-  (an HF tokenizer also works) and :func:`text_batches` (the tail batch is
-  padded with masked rows, so every batch has one shape);
+  (an HF tokenizer also works), :func:`devign_split` (the sequential
+  80/10/10 split) and :func:`text_batches` (the tail batch is padded with
+  masked rows, so every batch has one shape);
 - :class:`GraphJoin` / :class:`JoinedBatch` — example ``i`` of a batch owns
   graph slot ``i`` of a ``batch_np`` batch; a missing graph becomes an empty
   placeholder with ``mask=False``.
@@ -32,8 +33,8 @@ from deepdfa_tpu_torch.data.graphs import BatchedGraphs, Graph, batch_np
 from deepdfa_tpu_torch.data.tokenise import tokenise
 
 __all__ = ["GraphJoin", "HashTokenizer", "JoinedBatch", "TextBatch",
-           "TextExamples", "encode_functions", "normalize_whitespace",
-           "text_batches"]
+           "TextExamples", "devign_split", "encode_functions",
+           "normalize_whitespace", "text_batches"]
 
 
 def normalize_whitespace(code: str) -> str:
@@ -149,6 +150,14 @@ def encode_functions(funcs: Sequence[str], labels: Sequence[int], tokenizer,
         pad_mask=np.stack(masks) if masks else np.zeros((0, block_size),
                                                         bool),
     )
+
+
+def devign_split(n: int) -> dict[str, np.ndarray]:
+    """Sequential 80/10/10 index split (the reference's
+    ``train_test_split(shuffle=False)`` twice, ``train.py:102-115``)."""
+    i80, i90 = int(n * 0.8), int(n * 0.8) + int(n * 0.2 * 0.5)
+    idx = np.arange(n)
+    return {"train": idx[:i80], "eval": idx[i80:i90], "test": idx[i90:]}
 
 
 def text_batches(examples: TextExamples, batch_size: int,

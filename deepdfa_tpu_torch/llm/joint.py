@@ -94,8 +94,10 @@ class JointConfig:
 
 def hidden_states(llm, batch: JoinedBatch, device) -> torch.Tensor:
     """The LLM's final hidden states ``[b, s, hidden]`` of the batch's text,
-    with its explicit pad mask; positions are ``arange`` (RoPE is relative,
-    so a left-padded row keeps its real tokens' distances)."""
+    with its explicit pad mask: a ``LlamaModel`` takes ``arange`` positions
+    (RoPE is relative, so a left-padded row keeps its real tokens'
+    distances), a ``RobertaEncoder`` places its absolute positions from the
+    mask."""
     ids = torch.from_numpy(np.ascontiguousarray(batch.text.input_ids)).to(
         device)
     mask = torch.from_numpy(np.ascontiguousarray(batch.text.pad_mask)).to(
@@ -370,7 +372,8 @@ def make_joint_steps(llm: nn.Module, fusion: nn.Module,
     dropout draws from ``seed`` and the step count. ``train_llm=False``
     (MSIVD): the LLM runs under ``no_grad``, so no backward is built
     through it. ``train_llm=True``: ``state.params`` is ``{"fusion",
-    "llm"}`` and gradients flow through the encoder. ``eval_step(params,
+    "llm"}``, gradients flow through the encoder, and the encoder's own
+    dropout (RoBERTa's) is on for the step. ``eval_step(params,
     batch) -> (loss, probs)`` runs under ``inference_mode``."""
     dev = torch.device(device) if device is not None else next(
         fusion.parameters()).device
@@ -382,6 +385,9 @@ def make_joint_steps(llm: nn.Module, fusion: nn.Module,
     def train_step(state: JointState, batch: JoinedBatch):
         fus, enc = parts(state.params)
         fus.train()
+        # the encoder's own dropout (RoBERTa's HF rates) only on the steps
+        # that train it; the frozen LLM runs as in eval
+        enc.train(train_llm)
         devices = [dev] if dev.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(seed * 1_000_003 + state.step)
@@ -402,6 +408,7 @@ def make_joint_steps(llm: nn.Module, fusion: nn.Module,
     def evaluate(params: nn.Module, batch: JoinedBatch):
         fus, enc = parts(params)
         fus.eval()
+        enc.eval()
         return eval_step(enc, fus, batch, dev)
 
     return train_step, evaluate

@@ -26,11 +26,22 @@ padding query rows (B6 lets them attend to earlier padding, ``full``
 zeroes them) and agree on real rows. ``int8_runtime=True`` holds every
 projection as int8 weights with per-channel scales (:class:`Int8Dense`, on
 kernel B5), made from a float checkpoint by
-:func:`~deepdfa_tpu_torch.llm.quant.to_int8_runtime_params`.
+:func:`~deepdfa_tpu_torch.llm.quant.to_int8_runtime_params`; its backward
+gives the activation gradient, so LoRA adapters train over an int8 base.
+``remat=True`` recomputes each decoder layer in the backward
+(``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
 
-Not ported yet: ``attn_impl="ring"`` (multi-GPU, ROADMAP A11), ``decode``
-(the KV cache of ``llm/generate.py``, ROADMAP A12) and ``mesh_shardings``;
-the first two raise ``NotImplementedError``.
+``decode=True`` runs against a :class:`KVCache` the caller makes
+(:meth:`KVCache.empty`), passes in and gets back: keys, values and the
+validity of each slot, per layer, updated in place. Where the JAX package's
+cache is ``max_position_embeddings`` long, the port's is as long as the
+caller asks (prompt + new tokens for generation): masked slots add exact
+zeros, so the tokens are the same, and each step reads only that many
+slots. Decode attention is plain torch, as it is plain jnp in the JAX
+package.
+
+Not ported yet: ``attn_impl="ring"`` (multi-GPU, ROADMAP A11), which raises
+``NotImplementedError``, and ``mesh_shardings``.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from deepdfa_tpu_torch import resolve_device
 from deepdfa_tpu_torch.llm.lora import LoRAAdapter
@@ -47,7 +59,7 @@ from deepdfa_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from deepdfa_tpu_torch.ops.int8_matmul import int8_matmul
 from deepdfa_tpu_torch.ops.ring_attention import full_attention
 
-__all__ = ["Attention", "DecoderLayer", "Int8Dense", "LlamaConfig",
+__all__ = ["Attention", "DecoderLayer", "Int8Dense", "KVCache", "LlamaConfig",
            "LlamaForCausalLM", "LlamaModel", "MLP", "RMSNorm", "apply_rope",
            "build_llama", "codellama_13b", "codellama_7b", "init_llama_params",
            "rope_cos_sin", "tiny_llama"]
@@ -71,7 +83,7 @@ class LlamaConfig:
     max_position_embeddings: int = 16384
     dtype: str = "bfloat16"
     attn_impl: str = "full"  # "full" | "flash" | "ring"
-    remat: bool = False  # a training option of the JAX package; no effect
+    remat: bool = False  # recompute each decoder layer in the backward
     lora_rank: int = 0  # 0 = disabled; >0 adds LoRA to q_proj/v_proj
     lora_alpha: float = 16.0
     # int8-resident projection weights on kernel B5 (Int8Dense)
@@ -205,6 +217,63 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+@dataclasses.dataclass
+class KVCache:
+    """The decode cache: per layer, keys and values ``[b, max_len, h_kv,
+    d]`` in the model's type and the validity of each slot ``[b, max_len]``
+    (False for left padding and for slots not written yet); ``pos`` is the
+    next slot to write. A decode call writes its tokens at ``pos`` and
+    advances it, in place, and returns the cache."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    valid: list[torch.Tensor]
+    pos: int = 0
+
+    @classmethod
+    def empty(cls, cfg: LlamaConfig, batch: int, max_len: int,
+              device=None) -> "KVCache":
+        """A zero cache of ``max_len`` slots for ``batch`` rows."""
+        dev = resolve_device(device)
+        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        n = cfg.num_hidden_layers
+        return cls(
+            k=[torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+               for _ in range(n)],
+            v=[torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+               for _ in range(n)],
+            valid=[torch.zeros(batch, max_len, dtype=torch.bool, device=dev)
+                   for _ in range(n)])
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[1]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.k, *self.v, *self.valid))
+
+
+def _decode_attend(q, k, v, step_valid, cache: KVCache, layer: int):
+    """Write this step's keys, values and validity at ``cache.pos`` and
+    attend over every written, valid slot: causal by slot index, so a
+    several-token step sees its own earlier tokens and not its later ones
+    (``_decode_attend`` of the JAX package, for its one-token steps)."""
+    b, s = q.shape[:2]
+    pos = cache.pos
+    if pos + s > cache.max_len:
+        raise ValueError(f"decode: {pos + s} tokens overflow a cache of "
+                         f"{cache.max_len} slots")
+    cache.k[layer][:, pos:pos + s] = k
+    cache.v[layer][:, pos:pos + s] = v
+    cache.valid[layer][:, pos:pos + s] = (
+        True if step_valid is None else step_valid.bool())
+    slots = torch.arange(cache.max_len, device=q.device)
+    return full_attention(q, cache.k[layer], cache.v[layer], causal=True,
+                          kv_mask=cache.valid[layer],
+                          q_positions=slots[pos:pos + s], kv_positions=slots)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -222,7 +291,8 @@ class Attention(nn.Module):
             self.lora_v = LoRAAdapter(cfg.hidden_size, h_kv * d,
                                       cfg.lora_rank, cfg.lora_alpha, dtype=dt)
 
-    def forward(self, x, attn_mask, cos, sin) -> torch.Tensor:
+    def forward(self, x, attn_mask, cos, sin, cache: KVCache | None = None,
+                layer: int = 0) -> torch.Tensor:
         cfg = self.cfg
         h, h_kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                       cfg.head_dim)
@@ -236,7 +306,9 @@ class Attention(nn.Module):
         q = apply_rope(q.reshape(b, s, h, d), cos, sin)
         k = apply_rope(k.reshape(b, s, h_kv, d), cos, sin)
         v = v.reshape(b, s, h_kv, d)
-        if cfg.attn_impl == "flash" and s % 128 == 0:
+        if cache is not None:
+            out = _decode_attend(q, k, v, attn_mask, cache, layer)
+        elif cfg.attn_impl == "flash" and s % 128 == 0:
             out = flash_attention(q, k, v, attn_mask, causal=True)
         else:  # "full", and "flash" off the kernel's block multiple
             out = full_attention(q, k, v, causal=True, kv_mask=attn_mask)
@@ -268,14 +340,17 @@ class DecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, dt)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, attn_mask, cos, sin) -> torch.Tensor:
-        x = x + self.self_attn(self.input_layernorm(x), attn_mask, cos, sin)
+    def forward(self, x, attn_mask, cos, sin, cache: KVCache | None = None,
+                layer: int = 0) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), attn_mask, cos, sin,
+                               cache, layer)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
     """Decoder stack -> final-norm hidden states [b, s, hidden] in
-    ``cfg.dtype`` (what the fusion head reads)."""
+    ``cfg.dtype`` (what the fusion head reads); with ``decode=True``,
+    ``(hidden states, cache)``."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -291,25 +366,43 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attn_mask: torch.Tensor | None = None,
                 positions: torch.Tensor | None = None,
-                decode: bool = False) -> torch.Tensor:
-        if decode:
-            raise NotImplementedError(
-                "decode=True (the KV-cache generation of llm/generate.py) is "
-                "not ported yet (ROADMAP A12)")
+                decode: bool = False, cache: KVCache | None = None):
+        """Without ``decode``, hidden states of the whole sequence. With
+        ``decode``, ``input_ids`` ``[b, s]`` are the next ``s`` tokens,
+        ``attn_mask`` ``[b, s]`` their validity, and ``cache`` is written
+        at its ``pos`` (positions default to ``pos ..``); returns
+        ``(hidden states, cache)``."""
+        if decode and cache is None:
+            raise ValueError("decode=True takes the cache to read and write "
+                             "(KVCache.empty(cfg, batch, max_len))")
         if positions is None:
-            positions = torch.arange(input_ids.shape[1],
-                                     device=input_ids.device).expand(
-                                         input_ids.shape)
+            start = cache.pos if decode else 0
+            positions = torch.arange(
+                start, start + input_ids.shape[1],
+                device=input_ids.device).expand(input_ids.shape)
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim,
                                 self.cfg.rope_theta)
         x = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            x = layer(x, attn_mask, cos, sin)
+        remat = self.cfg.remat and torch.is_grad_enabled() and not decode
+        for i, layer in enumerate(self.layers):
+            if remat:
+                # the whole layer is recomputed: torch's early stop left
+                # out other projections on the card than on the CPU
+                with set_checkpoint_early_stop(False):
+                    x = checkpoint(layer, x, attn_mask, cos, sin,
+                                   use_reentrant=False)
+            else:
+                x = layer(x, attn_mask, cos, sin, cache if decode else None,
+                          i)
+        if decode:
+            cache.pos += input_ids.shape[1]
+            return self.norm(x), cache
         return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
-    """The LM head on top, logits in float32."""
+    """The LM head on top, logits in float32 (with ``decode=True``,
+    ``(logits, cache)``)."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -319,8 +412,12 @@ class LlamaForCausalLM(nn.Module):
                               cfg.torch_dtype, cfg.int8_runtime)
 
     def forward(self, input_ids, attn_mask=None, positions=None,
-                decode=False) -> torch.Tensor:
-        hidden = self.model(input_ids, attn_mask, positions, decode)
+                decode=False, cache: KVCache | None = None):
+        if decode:
+            hidden, cache = self.model(input_ids, attn_mask, positions, True,
+                                       cache)
+            return self.lm_head(hidden).to(torch.float32), cache
+        hidden = self.model(input_ids, attn_mask, positions)
         return self.lm_head(hidden).to(torch.float32)
 
 

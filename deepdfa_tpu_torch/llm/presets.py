@@ -1,11 +1,13 @@
 """Joint-model launch presets.
 
-The five CodeLlama presets of ``deepdfa_tpu/llm/presets.py`` (the MSIVD
-launch scripts) as structured configs. ``finetuned`` marks presets that
+The presets of ``deepdfa_tpu/llm/presets.py`` as structured configs: the
+five CodeLlama ones (the MSIVD launch scripts) and the two LineVul ones of
+BASELINE config #3 (``linevul``: CodeBERT alone; ``linevul_fusion``:
+CodeBERT fine-tuned with the frozen pretrained GGNN, CLS ⊕ pooled graph),
+whose ``llm`` is a :class:`~deepdfa_tpu_torch.llm.roberta.RobertaConfig`
+and ``encoder_family`` ``"roberta"``. ``finetuned`` marks presets that
 start from a LoRA-finetuned model. The JAX package's mesh suggestions are
-not carried (multi-GPU is ROADMAP A11). The two LineVul presets
-(``linevul``, ``linevul_fusion``) run the RoBERTa encoder, which is not
-ported yet: looking them up raises ``NotImplementedError``.
+not carried (multi-GPU is ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 
 from deepdfa_tpu_torch.llm.joint import JointConfig
 from deepdfa_tpu_torch.llm.llama import LlamaConfig, codellama_7b, codellama_13b
+from deepdfa_tpu_torch.llm.roberta import RobertaConfig, codebert_base
 
 __all__ = ["JointPreset", "PRESETS"]
 
@@ -21,26 +24,16 @@ __all__ = ["JointPreset", "PRESETS"]
 @dataclasses.dataclass(frozen=True)
 class JointPreset:
     name: str
-    llm: LlamaConfig
+    llm: LlamaConfig | RobertaConfig  # RobertaConfig for "roberta"
     joint: JointConfig
     finetuned: bool  # load LoRA-finetuned weights first (--finetuned_path)
     dataset: str  # reference data family the preset targets
+    # the stack under the fusion head: "llama" (causal, MSIVD) or "roberta"
+    # (bidirectional CodeBERT, the LineVul configs)
     encoder_family: str = "llama"
 
 
-_NOT_PORTED = ("linevul", "linevul_fusion")
-
-
-class _Presets(dict):
-    def __missing__(self, name):
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"preset {name!r} runs the RoBERTa encoder (llm/roberta.py), "
-                "which is not ported yet (ROADMAP A12)")
-        raise KeyError(name)
-
-
-PRESETS: dict[str, JointPreset] = _Presets({p.name: p for p in [
+PRESETS: dict[str, JointPreset] = {p.name: p for p in [
     # bigvul_ft_bigvul.sh — CodeLlama-7B finetuned, Big-Vul
     JointPreset(
         name="bigvul_ft_bigvul", llm=codellama_7b(),
@@ -77,4 +70,23 @@ PRESETS: dict[str, JointPreset] = _Presets({p.name: p for p in [
                           eval_batch_size=4, learning_rate=1e-5,
                           dataset_style="precisebugs", use_gnn=False),
         finetuned=False, dataset="precisebugs"),
-]})
+    # BASELINE config #3a — LineVul alone: fine-tuned CodeBERT classifier
+    # (msr_train_linevul.sh: block 512, batch 16, lr 2e-5, 10 epochs)
+    JointPreset(
+        name="linevul", llm=codebert_base(),
+        joint=JointConfig(block_size=512, epochs=10, train_batch_size=16,
+                          eval_batch_size=16, learning_rate=2e-5,
+                          dataset_style="bigvul", use_gnn=False,
+                          train_llm=True),
+        finetuned=False, dataset="bigvul", encoder_family="roberta"),
+    # BASELINE config #3b — DeepDFA + LineVul (msr_train_combined.sh):
+    # CodeBERT fine-tuned end to end, the pretrained GGNN frozen
+    # (main_cli.py:136-145), CLS ⊕ pooled-graph head
+    JointPreset(
+        name="linevul_fusion", llm=codebert_base(),
+        joint=JointConfig(block_size=512, epochs=10, train_batch_size=16,
+                          eval_batch_size=16, learning_rate=2e-5,
+                          dataset_style="bigvul", use_gnn=True,
+                          train_llm=True, freeze_gnn=True),
+        finetuned=False, dataset="bigvul", encoder_family="roberta"),
+]}

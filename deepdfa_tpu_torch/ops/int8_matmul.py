@@ -20,8 +20,9 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
   strides and addresses it cannot. ``n_launches`` counts the kernel's launches,
   ``n_variant_launches`` each variant's.
 - Differentiable with respect to ``x`` only, as the JAX ``custom_vjp``:
-  ``dx = (g · scale) @ qᵀ`` with both factors rounded to bf16 and summed in
-  float32. The weight and scale are a frozen base and get no gradient.
+  ``dx = (g · scale) @ qᵀ`` with both factors in bf16, summed in float32
+  (:func:`vjp_product`; no float32 copy of the weight). The weight and
+  scale are a frozen base and get no gradient.
 - A call that needs no gradient goes through the registered op
   ``deepdfa::int8_matmul`` (:mod:`.custom_ops`), so ``torch.export``
   records B5 as one node.
@@ -41,13 +42,15 @@ from deepdfa_tpu_torch.ops import _build, custom_ops
 
 __all__ = ["VARIANTS", "calibrate_int8", "forward_cuda", "int8_matmul",
            "int8_matmul_reference", "n_launches", "n_variant_launches",
-           "variant"]
+           "n_vjp_products", "variant", "vjp_product"]
 
 VARIANTS = ("wgmma", "ffma")
 # CUDA kernel launches made by int8_matmul (B5) since the last reset, in
 # all and by variant
 n_launches = 0
 n_variant_launches = dict.fromkeys(VARIANTS, 0)
+# activation-gradient products (vjp_product) since the last reset
+n_vjp_products = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -219,6 +222,36 @@ def forward_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return out.reshape(*x.shape[:-1], n)
 
 
+def vjp_product(gs: torch.Tensor, q: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """``gs[..., N] @ q[K, N]ᵀ`` as ``[..., K]`` in ``out_dtype``: the
+    activation gradient's product, as the JAX VJP takes it (``jnp.dot`` of
+    bf16 operands with ``preferred_element_type=float32``, then cast).
+
+    ``gs`` is the bf16 ``g · scale``; the weight is converted to bf16 once
+    for this call (exact: int8 fits bf16's 8-bit significand), a transient
+    copy of one layer at half the float32 size, and no float32 copy of it is
+    made. On CUDA tensors ``torch.mm(..., out_dtype=torch.float32)`` sums
+    the bf16 products in float32 (the product sits outside any Pallas
+    kernel in the JAX package, so a library call is its counterpart). On CPU
+    tensors a bf16 ``out_dtype`` takes the bf16 product (float32 sums,
+    rounded once), and a float32 one its plain version: the bf16 operands
+    widened to float32, which hold them exactly. ``n_vjp_products`` counts
+    the calls."""
+    global n_vjp_products
+    k, n = q.shape
+    g2 = gs.reshape(-1, n)
+    qb = q.to(torch.bfloat16)  # [K, N]
+    if gs.device.type == "cuda":
+        dx = torch.mm(g2, qb.t(), out_dtype=torch.float32).to(out_dtype)
+    elif out_dtype == torch.bfloat16:
+        dx = torch.mm(g2, qb.t())
+    else:
+        dx = g2.to(torch.float32) @ qb.t().to(torch.float32)
+    n_vjp_products += 1
+    return dx.reshape(*gs.shape[:-1], k)
+
+
 class _Int8Matmul(torch.autograd.Function):
     """The product, differentiable with respect to ``x`` only."""
 
@@ -231,10 +264,8 @@ class _Int8Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, scale = ctx.saved_tensors
-        # the JAX package's VJP: both factors in bf16, summed in float32
-        gs = (g.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
-        dx = gs @ q.t().to(torch.bfloat16).to(torch.float32)
-        return dx.to(ctx.x_dtype), None, None, None
+        gs = (g.to(torch.float32) * scale).to(torch.bfloat16)
+        return vjp_product(gs, q, ctx.x_dtype), None, None, None
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -989,3 +989,80 @@ def test_registered_op_on_the_card_matches_its_cpu_implementation(cuda, op):
     # float32 sums in another order than the CPU's, over the largest value
     top = float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= limit * max(top, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 4096, 11008),
+                                   (8, 11008, 4096), (4, 4096, 32016)])
+def test_int8_kernel_at_decode_shapes_matches_plain_version(cuda, m, k, n):
+    """B5 at one token a row (M far below the 256-row TMA box): the
+    ``wgmma`` variant, rows past M neither read nor written."""
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    gen = torch.Generator().manual_seed(m + n)
+    q, scale = tmm.calibrate_int8((torch.randn(k, n, generator=gen)
+                                   * k ** -0.5).cuda())
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+    before = tmm.n_variant_launches["wgmma"]
+    got = tmm.int8_matmul(x, q, scale, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tmm.n_variant_launches["wgmma"] - before == 1
+    want = tmm.int8_matmul_reference(x, q, scale, torch.bfloat16)
+    top = float(want.float().abs().max())
+    # float32 sums in another order; a bf16 output may round one ulp apart
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2 * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_int8_vjp_on_the_card_sums_bf16_operands_in_float32(cuda, x_dtype):
+    """The activation gradient through B5 on the card: bf16 operands,
+    float32 sums (``torch.mm(..., out_dtype=float32)``), against the same
+    bf16 operands widened to float32 on the CPU."""
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    gen = torch.Generator().manual_seed(5)
+    q, scale = tmm.calibrate_int8(torch.randn(256, 384, generator=gen))
+    x = torch.randn(64, 256, generator=gen).to(x_dtype)
+    g = torch.randn(64, 384, generator=gen).to(x_dtype)
+    xc = x.cuda().requires_grad_()
+    before = tmm.n_vjp_products
+    tmm.int8_matmul(xc, q.cuda(), scale.cuda(), out_dtype=x_dtype).backward(
+        g.cuda())
+    assert tmm.n_vjp_products - before == 1 and xc.grad.dtype == x_dtype
+    want = ((g.float() * scale).to(torch.bfloat16).float()
+            @ q.t().to(torch.bfloat16).float()).to(x_dtype)
+    top = float(want.float().abs().max())
+    # float32 sums in another order (then one bf16 rounding for bf16 x)
+    limit = 1e-2 if x_dtype == torch.bfloat16 else 1e-5
+    assert float((xc.grad.cpu().float() - want.float()).abs().max()) <= \
+        limit * top
+
+
+@pytest.mark.gpu
+def test_greedy_generation_on_the_card_matches_the_cpu(cuda):
+    """``generate`` on ``tiny_llama`` (float32, int8 projections on B5):
+    the card's tokens are the CPU's, one B5 launch a projection a step."""
+    from deepdfa_tpu_torch.llm import llama as tl
+    from deepdfa_tpu_torch.llm.generate import GenerateConfig, generate
+    from deepdfa_tpu_torch.llm.quant import to_int8_runtime_params
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    cfg = tl.tiny_llama(int8_runtime=True)
+    state = to_int8_runtime_params(tl.build_llama(
+        tl.tiny_llama(), "cpu", seed=5, cls=tl.LlamaForCausalLM).state_dict())
+    models = []
+    for dev in ("cpu", "cuda"):
+        model = tl.build_llama(cfg, dev, seed=None, cls=tl.LlamaForCausalLM)
+        model.load_state_dict(state)
+        models.append(model)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(3, cfg.vocab_size, (2, 16)).astype(np.int32)
+    mask = np.ones((2, 16), bool)
+    mask[1, :5] = False
+    g = GenerateConfig(max_new_tokens=8, do_sample=False)
+    before = tmm.n_launches
+    got = generate(models[1], ids, mask, g)
+    assert tmm.n_launches - before == (16 + 8 - 1) * (
+        7 * cfg.num_hidden_layers + 1)
+    np.testing.assert_array_equal(got, generate(models[0], ids, mask, g))

@@ -424,11 +424,20 @@ def test_two_cells_behind_the_federation_score_like_the_jax_server(demo,
     try:
         fed.probe_once()
         fed.start(probe=False)
+        # the ring hashes the cells' names, which hold the ports the system
+        # hands out, so the demo sources alone may all stick to one cell:
+        # small generated functions follow until each cell owns one
+        pool = sources + ["\n".join(sources[:3])]
+        extra = 0
+        while len({fed.ring.route(source_key(s)) for s in pool}) < 2:
+            pool.append(f"int extra_{extra}(int a) {{ return a + {extra}; }}")
+            extra += 1
         served = set()
-        for src in sources + ["\n".join(sources[:3])]:
+        for src in pool:
             got = _post(fed.port, {"source": src})
             want = _post(jsrv.port, {"source": src})
             assert got[0] == want[0] == 200
+            assert got[2]["X-DeepDFA-Cell"] == fed.ring.route(source_key(src))
             served.add(got[2]["X-DeepDFA-Cell"])
             rows = zip(got[1]["results"], want[1]["results"], strict=True)
             for a, b in rows:

@@ -1,9 +1,11 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX, nothing of the
-JAX package, no pandas and no sklearn: every module imports in a fresh
-interpreter where ``jax``, ``flax``, ``optax``, ``pandas`` and ``sklearn``
-are poisoned and ``deepdfa_tpu`` is blocked, and no port file names them in
-an import statement. (A
-subprocess, because this pytest process has already imported JAX.)"""
+JAX package, no pandas, no sklearn and no transformers at module level:
+every module imports in a fresh interpreter where ``jax``, ``flax``,
+``optax``, ``pandas``, ``sklearn`` and ``transformers`` are poisoned and
+``deepdfa_tpu`` is blocked, and no port file names the first five or the
+JAX package in an import statement (``transformers`` only inside the
+functions that load an HF tokenizer). (A subprocess, because this pytest
+process has already imported JAX.)"""
 
 import ast
 import subprocess
@@ -26,9 +28,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn",
 # store, the trainer's command line, its resilience layer, the training
 # telemetry, the int8 training experiment, the tuning loop, the dataflow
 # experiment, the perf ledger, the fleet router, the replica launcher,
-# the continual loop, admission control and the federation included) and
-# chip_smoke.py
-N_MODULES = 106
+# the continual loop, admission control, the federation, generation, the
+# self-instruct data, RoBERTa and the finetune_llm, train_joint and
+# performance_evaluation entry points included) and chip_smoke.py
+N_MODULES = 112
 
 
 def _port_files():
@@ -42,7 +45,8 @@ def _forbidden(name: str) -> bool:
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn"):
+        for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn",
+                     "transformers"):
             sys.modules[name] = None
 
         class Block(importlib.abc.MetaPathFinder):
@@ -61,7 +65,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             importlib.import_module(name)
         bad = sorted(n for n in sys.modules if sys.modules[n] is not None and
                      (n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                          "pandas", "sklearn",
+                                          "pandas", "sklearn", "transformers",
                                           "deepdfa_tpu")))
         assert not bad, bad
         print(len(names))

@@ -370,9 +370,16 @@ def test_llama_construction_errors(kw, exc, match):
 
 
 def test_decode_raises_naming_its_roadmap_item():
+    """decode=True is ported (tests/test_torch_generate.py); without the
+    cache it must read and write it raises, naming the cache."""
     model = tl.build_llama(tl.tiny_llama(), "cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="KVCache"):
         model(torch.ones(1, 4, dtype=torch.long), decode=True)
+    cache = tl.KVCache.empty(model.cfg, 1, 4, "cpu")
+    with torch.inference_mode():
+        hidden, cache = model(torch.ones(1, 4, dtype=torch.long),
+                              decode=True, cache=cache)
+    assert hidden.shape == (1, 4, 64) and cache.pos == 4
 
 
 def test_seeded_init_is_reproducible_and_in_distribution():
@@ -432,17 +439,20 @@ def test_hf_directory_loads_with_no_renaming(tmp_path, fmt):
 
 
 def test_llama_presets_are_the_jax_presets():
+    """Every JAX preset, the two LineVul (RoBERTa) ones included."""
+    from deepdfa_tpu_torch.llm import roberta as troberta
+
     for name, p in presets.PRESETS.items():
         j = jpresets.PRESETS[name]
+        assert type(p.llm).__name__ == type(j.llm).__name__, name
         assert dataclasses.asdict(p.llm) == dataclasses.asdict(j.llm), name
         assert dataclasses.asdict(p.joint) == dataclasses.asdict(j.joint)
         assert (p.finetuned, p.dataset, p.encoder_family) == (
             j.finetuned, j.dataset, j.encoder_family)
-    assert set(presets.PRESETS) == {n for n, p in jpresets.PRESETS.items()
-                                    if p.encoder_family == "llama"}
+    assert set(presets.PRESETS) == set(jpresets.PRESETS)
     assert presets.PRESETS["bigvul_ft_bigvul"].llm == tl.codellama_7b()
     for name in ("linevul", "linevul_fusion"):
-        with pytest.raises(NotImplementedError, match="roberta"):
-            presets.PRESETS[name]
+        assert presets.PRESETS[name].llm == troberta.codebert_base()
+        assert presets.PRESETS[name].encoder_family == "roberta"
     with pytest.raises(KeyError):
         presets.PRESETS["nope"]

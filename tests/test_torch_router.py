@@ -364,11 +364,42 @@ def demo():
     return vocabs, [r["before"] for r in rows]
 
 
+def _sources_on_every_node(ring, pool, per_node: int) -> list[str]:
+    """The first ``per_node`` sources of ``pool`` that ``ring`` routes to
+    each of its nodes. The ring hashes the replicas' names, which hold
+    the ports the system hands out, so a fixed handful of sources can all
+    land on one replica (6 sources over 2 replicas: 4.5 % of port pairs);
+    picking them by the ring's own assignment keeps both shards busy."""
+    from deepdfa_tpu_torch.pipeline import source_key
+
+    picked = {node: [] for node in ring.nodes}
+    for src in pool:
+        node = ring.route(source_key(src))
+        if len(picked[node]) < per_node:
+            picked[node].append(src)
+        if all(len(v) == per_node for v in picked.values()):
+            return [s for v in picked.values() for s in v]
+    raise AssertionError(f"the pool left a node short: {picked}")
+
+
+def _source_pool(sources):
+    """The demo sources, then as many small distinct functions as a pick
+    needs."""
+    yield from sources
+    i = 0
+    while True:
+        yield f"int extra_{i}(int a) {{ return a + {i}; }}"
+        i += 1
+
+
 def test_router_sharded_cache_hits_real_servers(demo):
-    """Replayed sources route back to the replica that cached them: the
-    per-shard hit counters climb and no shard duplicates another's
+    """Replayed sources route back to the replica that cached them: each
+    replica's hit counter equals the number of sources the ring assigns
+    it, every replica takes some, and no shard duplicates another's
     entries."""
-    vocabs, sources = demo
+    from deepdfa_tpu_torch.pipeline import source_key
+
+    vocabs, demo_sources = demo
     servers = [ScoreServer(_stub_engine(tuple(vocabs)), vocabs,
                            ServeConfig(port=0, max_wait_ms=2.0),
                            replica_id=f"r{i}").start()
@@ -380,8 +411,11 @@ def test_router_sharded_cache_hits_real_servers(demo):
     router.probe_once()
     router.start(probe=False)
     try:
-        assert sorted(router.ring.nodes) == sorted(
-            f"127.0.0.1:{s.port}" for s in servers)
+        names = [f"127.0.0.1:{s.port}" for s in servers]
+        assert sorted(router.ring.nodes) == sorted(names)
+        sources = _sources_on_every_node(router.ring,
+                                         _source_pool(demo_sources), 3)
+        owner = [router.ring.route(source_key(src)) for src in sources]
         for src in sources:
             status, body, _ = _route_post(router.port, src)
             assert status == 200 and body["cached"] is False
@@ -390,9 +424,8 @@ def test_router_sharded_cache_hits_real_servers(demo):
             assert status == 200 and body["cached"] is True, body
         hits = [s.cache.stats()["hits"] for s in servers]
         entries = [s.cache.stats()["entries"] for s in servers]
-        assert sum(hits) == len(sources)
-        assert all(h > 0 for h in hits)
-        assert sum(entries) == len(sources)
+        assert hits == [owner.count(n) for n in names] == [3, 3]
+        assert entries == hits
     finally:
         router.shutdown()
         for s in servers:
