@@ -471,6 +471,41 @@ Each phase prints one JSON line; any failure exits non-zero.
    (The int8_kernel phase also holds B5 at decode shapes, M 1, 4 and 8,
    lm_head's 4096 × 32016 among them, and times the int8 VJP's product at
    the tuning shape, M 1,024.)
+17i. dense — after linevul, on the bigvul phase's shards through a named
+   split that spreads their dataflow-hard tail over train, valid and test
+   (``DENSE_SPLIT``), every fit through ``train.cli``'s ``main`` in this
+   process: ``fit`` with ``layout=dense`` (the golden model, 256 graphs a
+   batch, ``max_nodes`` 40,960: a per-graph cap of 160 over the corpus-
+   derived budgets; the graphs over the budget go to the segment twin,
+   counted per split) for 2 epochs, then a 1-epoch fit and its ``fit
+   --resume``: the validation loss falls, the resumed run's parameters
+   bitwise the 2-epoch run's, no B1/B2 launch (cuBLAS products); ``test``
+   of the best checkpoint (every test graph scored, the overflow through
+   the twin); the dense forward of the test graphs within ``DENSE_LIMIT``
+   of the segment forward of the same parameters and of itself on the CPU;
+   the checkpoint served by ``ScoringEngine.from_checkpoint`` (B1 =
+   dispatches × 11, all ``wgmma``) within ``DENSE_LIMIT`` of it;
+   ``GraphJoin(layout="dense")`` into the fusion head with the trained
+   encoder over the joint phase's 7B weights cut to 2 decoder layers, on
+   the card against the CPU (``JOINT_PROB_LIMIT``), and a segment-layout
+   join refused; ``train_joint --predict-source`` over the realworld
+   fixtures with the linevul run (the script's JSON keys, every function
+   scored, B1 on ``wgmma``); the fit's p50 step ms and a profiled step's
+   busy share.
+17j. dp — data parallelism: a world-size-1 NCCL group, the dp train and
+   eval steps on fused batches (B1 11 a train or eval step, B2 17 a train
+   step, all ``wgmma``) and on dense batches (no launch) against the
+   single-device steps (``DP_LIMIT``), timed; two ranks sharing the card
+   over gloo (children started before the dense phase and run beside it:
+   one dp=2 step against dp=1 with ``accum=2`` over the same two batches in
+   this process, ``DP2_LIMIT``; timed steps; then ``mesh.device_lost``:
+   rank 0 builds the one-slot mesh, rank 1 is lost); the fault in this
+   process halving a two-slot mesh; ``fit --resume`` of the dense phase's
+   1-epoch run with its checkpoints' ``mesh`` set to the two-slot mesh's
+   block (``resharded`` 1, bitwise the 2-epoch run); ``from_model(...,
+   mesh=local_mesh(1))`` scoring through ``score_groups`` against the plain
+   engine (``DP_LIMIT``, B1 = calls × 11, ``wgmma``) and ``local_mesh``
+   refusing more replicas than cards.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 fleet phase's numbers again on one short line, the ``nvidia-smi`` name
@@ -5563,13 +5598,14 @@ def dataflow_config(**model) -> ExperimentConfig:
         optim=dataclasses.replace(base.optim, max_epochs=DATAFLOW_EPOCHS))
 
 
-def epoch_losses(run_dir: Path) -> list[float]:
-    """Each epoch's mean train loss, from the run's log."""
+def epoch_losses(run_dir: Path, key: str = "train_loss") -> list[float]:
+    """Each epoch's mean train loss (or, with ``key="val_loss"``, its
+    validation loss), from the run's log."""
     import re
 
     text = (run_dir / "run.log").read_text()
-    return [float(v) for v in re.findall(r"epoch \d+: train_loss=(\S+)",
-                                         text)]
+    return [float(v) for v in re.findall(
+        r"epoch \d+: .*?\b" + key + r"=(\S+)", text)]
 
 
 def phase_dataflow(work: Path) -> dict:
@@ -7664,6 +7700,696 @@ def phase_bigvul() -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 20a
+
+# the dense layout at the config's batch: 256 graphs of at most
+# 40,960 / 256 = 160 nodes each, on the bigvul phase's shards, whose
+# dataflow-hard tail (every BIGVUL_TAIL-th function, chain depth 30-120)
+# lies over the per-graph budget and goes to the segment twin. The fixed
+# split puts that whole tail in test, so the phase reads the shards
+# through a named split (DENSE_SPLIT) that spreads it over the three
+DENSE_EPOCHS = 2
+DENSE_SPLIT = "dense_tail"
+# the dense forward (float32 batched products, TF32 off) against the segment
+# forward of the same parameters, against itself on the CPU, and the
+# dense-trained checkpoint served on B1 against it: float32 sums in other
+# orders (KERNEL_LIMIT's reasoning)
+DENSE_LIMIT = 1e-4
+DENSE_CHUNK = 64  # graphs per comparison batch
+# train_joint's JSON keys in its --predict-source mode
+PREDICT_SOURCE_KEYS = {"results", "n_scored", "n_errors", "checkpoint",
+                       "run_dir"}
+
+
+def dense_config() -> ExperimentConfig:
+    """The golden model in the dense layout, trained on the bigvul phase's
+    shards through :data:`DENSE_SPLIT` without undersampling at the
+    config's batch."""
+    base = corpus_config()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, layout="dense"),
+        data=DataConfig(dsname="bigvul", split=DENSE_SPLIT, undersample=None,
+                        batch=BatchConfig(batch_graphs=TRAIN_GRAPHS,
+                                          auto_buckets=True)),
+        optim=dataclasses.replace(base.optim, max_epochs=DENSE_EPOCHS))
+
+
+def write_dense_split() -> None:
+    """``external/splits/{DENSE_SPLIT}.csv``: the fixed split's assignment,
+    but the dataflow-hard tail spread 2:1:1 over train, valid and test."""
+    path = port_utils.external_dir() / "splits" / f"{DENSE_SPLIT}.csv"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i in range(BIGVUL_FUNCTIONS):
+        part = SPLIT_OF[(i // 2) % 10]
+        if i % BIGVUL_TAIL == BIGVUL_TAIL - 1:
+            part = ("train", "train", "valid", "test")[(i // BIGVUL_TAIL) % 4]
+        rows.append(f"{i},{part}\n")
+    path.write_text("example_index,split\n" + "".join(rows))
+
+
+def chunks(items: list, n: int) -> list[list]:
+    return [items[i:i + n] for i in range(0, len(items), n)]
+
+
+def layout_probs(cfg: ExperimentConfig, state: dict, batches: list,
+                 layout: str, device: str) -> np.ndarray:
+    """The real graphs' probabilities of ``batches`` under ``state`` in
+    ``layout`` on ``device``."""
+    model = make_model(dataclasses.replace(cfg.model, layout=layout),
+                       INPUT_DIM, device=device)
+    model.load_state_dict(state)
+    model.eval()
+    out = []
+    with torch.no_grad():
+        for b in batches:
+            n = int(b.graph_mask.sum())
+            out.append(torch.sigmoid(model(to_device(b, device))[:n])
+                       .cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_dense(ctx: dict, work: Path) -> dict:
+    """The dense layout on the card: ``train.cli fit`` with
+    ``layout=dense`` on the bigvul phase's shards, a 1-epoch fit and its
+    ``fit --resume`` (each through ``train.cli``'s ``main`` in this
+    process; the trainer phase starts ``python -m`` children); the
+    forward against the segment layout and the CPU; the checkpoint served
+    on B1; ``GraphJoin(layout="dense")`` into the fusion head at 2 decoder
+    layers against the CPU; ``train_joint --predict-source`` over the
+    realworld fixtures with the linevul phase's run."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from deepdfa_tpu_torch import train_joint
+    from deepdfa_tpu_torch.data.dense import DenseBatch, batch_dense
+    from deepdfa_tpu_torch.data.graphs import _round_up
+    from deepdfa_tpu_torch.llm.dataset import text_batches
+    from deepdfa_tpu_torch.llm.joint import eval_step
+    from deepdfa_tpu_torch.train.checkpoint import encoder_partial_load
+    from deepdfa_tpu_torch.train.fit import _batcher
+
+    root = work / "dense"
+    root.mkdir()
+    write_dense_split()
+    cfg = dense_config()
+    cfg_file = root / "dense.json"
+    cfg_file.write_text(to_json(cfg))
+    full, half = root / "full", root / "half"
+
+    corpus = load_corpus(cfg)
+    batcher = _batcher(cfg, corpus["train"] + corpus["val"])
+    cap = batcher.nodes_per_graph
+    over = {k: sum(g.n_nodes > cap for g in v) for k, v in corpus.items()}
+    # test derives its own budgets from the test split
+    test_cap = _batcher(cfg, corpus["test"]).nodes_per_graph
+    over["test"] = sum(g.n_nodes > test_cap for g in corpus["test"])
+    fit_argv = ["fit", "--config", str(cfg_file), "--device", "cuda"]
+    fg.n_launches = fg.n_bwd_launches = 0
+    t0 = time.perf_counter()
+    run_cli(fit_argv + ["--run-dir", str(full)])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(fit_argv + ["--run-dir", str(half), "--set",
+                        "optim.max_epochs=1"])
+    # the dp phase resumes a copy of this 1-epoch run across a changed mesh
+    shutil.copytree(half, work / "dense_elastic")
+    resumed = run_cli(fit_argv + ["--run-dir", str(half), "--resume"])
+    torch.cuda.synchronize()
+    half_s = time.perf_counter() - t0
+    fit_kernels = {"b1": fg.n_launches, "b2": fg.n_bwd_launches}
+    final = json.loads((full / "final_metrics.json").read_text())
+    timing = json.loads((full / "journal.json").read_text())["timing"]
+    losses = epoch_losses(full)
+    val_losses = epoch_losses(full, "val_loss")
+    # the best checkpoint: what test, predict and the engine restore
+    state = CheckpointManager(full / "checkpoints").restore_best(
+        map_location="cpu")
+    tested = run_cli(["test", "--config", str(cfg_file), "--run-dir",
+                      str(root / "test"), "--ckpt-dir",
+                      str(full / "checkpoints"), "--device", "cuda"])
+
+    # the forward: dense on the card against segment on the card and dense
+    # on the CPU, over the test graphs within the cap
+    tests = [g for g in corpus["test"] if g.n_nodes <= cap]
+    npg = _round_up(max(g.n_nodes for g in tests), 8)
+    dense_b = [batch_dense(c, len(c), npg) for c in chunks(tests, DENSE_CHUNK)]
+    seg_b = [batch_np(c, len(c) + 1, _round_up(sum(g.n_nodes for g in c) + 2),
+                      max(_round_up(sum(g.n_edges for g in c)), 128))
+             for c in chunks(tests, DENSE_CHUNK)]
+    p_dense = layout_probs(cfg, state, dense_b, "dense", "cuda")
+    p_seg = layout_probs(cfg, state, seg_b, "segment", "cuda")
+    p_cpu = layout_probs(cfg, state, dense_b, "dense", "cpu")
+
+    # the dense-trained checkpoint served on B1 (the engine's fused layout)
+    vocabs = load_vocabs(port_utils.processed_dir() / "bigvul" / "shards")
+    engine = ScoringEngine.from_checkpoint(cfg, full / "checkpoints", vocabs,
+                                           device="cuda")
+    engine.warmup()
+    fg.n_launches = 0
+    reset_variant_counts()
+    engine.n_dispatches = 0
+    by_bucket: dict = {}
+    for i, g in enumerate(tests):
+        by_bucket.setdefault(engine.assign_bucket(g), []).append(i)
+    p_served = np.zeros(len(tests), np.float32)
+    for bucket, idx in by_bucket.items():
+        for c in chunks(idx, min(bucket.capacity, MAX_BATCH)):
+            p_served[c] = engine.score([tests[i] for i in c], bucket)
+    torch.cuda.synchronize()
+    serve_b1, serve_var = fg.n_launches, dict(fg.n_variant_launches)
+    dispatches = engine.n_dispatches
+
+    # GraphJoin(layout="dense") into the fusion head: the joint phase's 7B
+    # weights cut to 2 decoder layers, the trained dense encoder, on the
+    # card against the CPU
+    cfg2 = dataclasses.replace(ctx["cfg"], num_hidden_layers=2)
+    state2 = {k: v for k, v in ctx["llm"].state_dict().items()
+              if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+    fusion = build_fusion(cfg.model, INPUT_DIM, cfg2.hidden_size,
+                          dropout_rate=0.1, device="cuda", seed=5)
+    enc = fusion.flowgnn_encoder
+    enc.load_state_dict(encoder_partial_load(enc.state_dict(), state))
+    cpu_fusion = build_fusion(cfg.model, INPUT_DIM, cfg2.hidden_size,
+                              dropout_rate=0.1, device="cpu")
+    cpu_fusion.load_state_dict({k: v.cpu()
+                                for k, v in fusion.state_dict().items()})
+    cpu_llm = build_llama(cfg2, "cpu", seed=None)
+    cpu_llm.load_state_dict({k: v.cpu() for k, v in state2.items()})
+    join = GraphJoin(graphs={i: g for i, g in enumerate(tests[:2])},
+                     layout="dense")
+    # the joint phase's first two functions (its 2-layer check's texts)
+    texts = [text for text, _ in ctx["items"][:2]]
+    examples = encode_functions(texts, [0, 1], ctx["tok"],
+                                ctx["jcfg"].block_size, indices=[0, 1])
+    jb = join.join(next(text_batches(examples, 2)))
+    _, pj_card = eval_step(shared_llama(cfg2, state2), fusion, jb, "cuda")
+    _, pj_cpu = eval_step(cpu_llm, cpu_fusion, jb, "cpu")
+    joint_diff = float((pj_card.float().cpu() - pj_cpu.float()).abs().max())
+    mismatch = None
+    try:  # a segment-layout join into the dense head
+        seg = GraphJoin(graphs=dict(join.graphs)).join(jb.text).graphs
+        fusion(torch.zeros(2, 4, cfg2.hidden_size, device="cuda"),
+               to_device(seg, "cuda"))
+    except TypeError as exc:
+        mismatch = str(exc)
+
+    # train_joint --predict-source with the linevul phase's run
+    fg.n_launches = 0
+    reset_variant_counts()
+    t1 = time.perf_counter()
+    with redirect_stdout(StringIO()):
+        scanned = train_joint.main([
+            "--preset", "linevul_fusion", "--dataset", "demo",
+            "--freeze-graph", str(work / "run" / "checkpoints"),
+            "--output_dir", str(work / "linevul"), "--predict-source",
+            str(FIXTURES / "realworld"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t1
+    scan_b1, scan_var = fg.n_launches, dict(fg.n_variant_launches)
+    n_fixture_fns = sum(len(parse_functions(p.read_text())) for p in
+                        sorted((FIXTURES / "realworld").glob("*.c")))
+
+    pw = positive_weight(np.array([int(g.node_feats["_VULN"].max())
+                                   for g in corpus["train"]]))
+    widest = next(b for b in batcher.batches(corpus["train"])
+                  if isinstance(b, DenseBatch)
+                  and b.nodes_per_graph == batcher.sizes[-1])
+    busy = profile_train_step(cfg, widest, pw)
+    row = {"phase": "dense", "card": nvidia_smi(),
+           "config": "golden GGNN, layout dense, batch 256, max_nodes 40960",
+           "per_graph_cap": max(cfg.data.batch.max_nodes // TRAIN_GRAPHS, 8),
+           "dense_sizes": batcher.sizes, "test_budget": test_cap,
+           "per_split": {k: len(v) for k, v in corpus.items()},
+           "over_cap": over,
+           "fit": {"seconds": full_s, "epoch_losses": losses, "epoch_val_losses": val_losses,
+                   "final_metrics": final,
+                   "train_steps": timing["train_steps"],
+                   "p50_step_ms": float(np.percentile(timing["step_ms"], 50)),
+                   "busy_share": busy["busy_share"], "profile_step": busy,
+                   "b1_launches": fit_kernels["b1"],
+                   "b2_launches": fit_kernels["b2"]},
+           "resume": {"seconds": half_s, "resharded": resumed["resharded"],
+                      "bitwise": same_params(full, half)},
+           "test": {k: tested[k] for k in ("n_graphs_scored",
+                                           "n_oversize_fallback",
+                                           "test_loss", "test_F1Score")},
+           "forward": {"graphs": len(tests), "nodes_per_graph": npg,
+                       "vs_segment": float(np.abs(p_dense - p_seg).max()),
+                       "vs_cpu": float(np.abs(p_dense - p_cpu).max()),
+                       "limit": DENSE_LIMIT},
+           "served": {"dispatches": dispatches, "b1_launches": serve_b1,
+                      "b1_launches_by_variant": serve_var,
+                      "vs_dense": float(np.abs(p_served - p_dense).max())},
+           "fusion": {"layers": 2, "hidden": cfg2.hidden_size,
+                      "nodes_per_graph": jb.graphs.nodes_per_graph,
+                      "vs_cpu": joint_diff, "limit": JOINT_PROB_LIMIT,
+                      "segment_batch_refused": mismatch},
+           "predict_source": {"keys": sorted(scanned), "seconds": scan_s,
+                              "n_scored": scanned.get("n_scored"),
+                              "n_errors": scanned.get("n_errors"),
+                              "fixture_functions": n_fixture_fns,
+                              "b1_launches": scan_b1,
+                              "b1_launches_by_variant": scan_var}}
+    emit(row)
+    # the validation loss (the checkpoints' criterion): the epoch-mean train
+    # loss mixes two full batches with 1-3-graph steps (the widest bucket
+    # and the overflow), each an AdamW step as large as a full batch's
+    if not (len(val_losses) == DENSE_EPOCHS
+            and val_losses[-1] < val_losses[0]):
+        fail(f"dense: the validation loss did not fall: {val_losses} "
+             f"(train {losses})")
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"dense: non-finite final metrics {final}")
+    routed = {"train": final["n_oversize_fallback_train"],
+              "val": final["n_oversize_fallback_val"],
+              "test": tested["n_oversize_fallback"]}
+    if not (over["train"] + over["val"] > 0 and routed == over
+            and final["n_dropped_train"] == final["n_dropped_val"] == 0
+            and tested["n_graphs_scored"] == len(corpus["test"])):
+        fail(f"dense: {over} graphs over the budgets {cap} / {test_cap} "
+             f"(fit / test), {routed} routed "
+             f"to the segment twin, test scored "
+             f"{tested['n_graphs_scored']} of {len(corpus['test'])}")
+    if fit_kernels != {"b1": 0, "b2": 0}:
+        fail(f"dense: the dense fit launched B1/B2 {fit_kernels}")
+    if not row["resume"]["bitwise"] or resumed["resharded"] != 0:
+        fail(f"dense: the 1+1-epoch resume {row['resume']} is not the "
+             f"2-epoch run")
+    for key in ("vs_segment", "vs_cpu"):
+        if not row["forward"][key] <= DENSE_LIMIT:
+            fail(f"dense: the forward {key} = {row['forward'][key]}")
+    if not row["served"]["vs_dense"] <= DENSE_LIMIT or \
+            serve_b1 != dispatches * fg.launches_per_call(STEPS):
+        fail(f"dense: served {row['served']}")
+    check_ggnn_wgmma("dense_serve", "B1", serve_var, serve_b1)
+    if not (joint_diff <= JOINT_PROB_LIMIT and mismatch):
+        fail(f"dense: the dense fusion {row['fusion']}")
+    if set(scanned) != PREDICT_SOURCE_KEYS or scanned["n_errors"] or \
+            scanned["n_scored"] != n_fixture_fns or not scan_b1:
+        fail(f"dense: predict-source {row['predict_source']}")
+    check_ggnn_wgmma("predict_source", "B1", scan_var, scan_b1)
+    return row
+
+
+# ------------------------------------------------------------ phase 20b
+
+# the dp step at world size 1 (NCCL) against the single-device step on the
+# same batch: the step sums the loss and the gradients and divides by the
+# weight sum after the backward, the single-device step differentiates the
+# mean; one float32 rounding apart (gradients over each one's largest, see
+# compare_steps; parameters where the gradient is above STEP_GRAD_FLOOR)
+DP_LIMIT = 1e-6
+# dp=2 over gloo (two ranks sharing the card) against dp=1 with accum=2 over
+# the same two batches: the two gradient sums added in the all-reduce
+# against the accumulation, float32 either way
+DP2_LIMIT = 1e-5
+DP_STEPS = 4  # the dp steps timed at each world size (the first warms up)
+# one rank of the two-rank leg
+DP_RANK_MAIN = """
+import sys
+import chip_smoke
+chip_smoke.dp_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_batches(layout: str) -> tuple[list, float]:
+    """Two same-bucket training batches of 256 seeded DeepDFA-sized graphs
+    in ``layout`` (segment batches for fused, dense for dense), and the
+    positive weight."""
+    from deepdfa_tpu_torch.data.dense import batch_dense
+    from deepdfa_tpu_torch.data.graphs import _round_up
+
+    graphs = random_dataset(2 * TRAIN_GRAPHS, seed=41, input_dim=INPUT_DIM,
+                            mean_nodes=50)
+    pw = positive_weight(np.array([int(g.node_feats["_VULN"].max())
+                                   for g in graphs]))
+    halves = chunks(graphs, TRAIN_GRAPHS)
+    if layout == "dense":
+        npg = _round_up(max(g.n_nodes for g in graphs), 8)
+        return [batch_dense(h, TRAIN_GRAPHS, npg) for h in halves], pw
+    n = _round_up(max(sum(g.n_nodes for g in h) for h in halves) + 2)
+    e = _round_up(max(sum(g.n_edges for g in h) for h in halves))
+    return [batch_np(h, TRAIN_GRAPHS + 1, n, e) for h in halves], pw
+
+
+def dp_model(layout: str):
+    cfg = train_config(layout)
+    model = make_model(cfg.model, INPUT_DIM, device="cuda", seed=0)
+    return cfg, model
+
+
+def timed_steps(step, state, stacked) -> tuple[object, list[float]]:
+    """``DP_STEPS`` more steps of ``step``: their milliseconds."""
+    ms = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, _, loss, _ = step(state, stacked, ConfusionState.zeros("cuda"))
+        float(loss)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ms
+
+
+def grads_of(model) -> dict:
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def params_of(model) -> dict:
+    return {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def held_to(ga: dict, gb: dict, pa: dict, pb: dict, la: float, lb: float,
+            limit: float, lr: float) -> dict:
+    """Two steps' loss, gradients (each over its largest, floored at a
+    thousandth of the model's largest) and new parameters (where the
+    gradient is above STEP_GRAD_FLOOR; within 2 lr everywhere) against
+    ``limit``."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in ga.values())
+    grad_rel = max(float((ga[k] - gb[k]).abs().max())
+                   / max(float(ga[k].abs().max()), floor) for k in ga)
+    big = [(pa[k] - pb[k]).abs()[ga[k].abs() > STEP_GRAD_FLOOR] for k in pa]
+    out = {"loss_diff": abs(la - lb), "grad_rel_diff": grad_rel,
+           "param_diff_where_grad_above_floor": max(
+               float(t.max()) if t.numel() else 0.0 for t in big),
+           "param_diff": max(float((pa[k] - pb[k]).abs().max()) for k in pa),
+           "limit": limit}
+    out["ok"] = (out["loss_diff"] <= limit and grad_rel <= limit
+                 and out["param_diff_where_grad_above_floor"] <= limit
+                 and out["param_diff"] <= 2 * lr)
+    return out
+
+
+def dp_rank(rank: int, port: int, work: str) -> None:
+    """One rank of the two-rank leg: gloo over a TCP store, both ranks on
+    the card. One dp=2 step over the parent's two fused batches (rank 0
+    writes its gradients and new parameters), ``DP_STEPS`` timed steps,
+    then ``mesh.device_lost`` armed: rank 0 builds the surviving mesh,
+    rank 1 is lost. Each rank writes its counts and readings."""
+    import torch.distributed as dist
+
+    from deepdfa_tpu_torch.config import MeshConfig
+    from deepdfa_tpu_torch.parallel.dp import (dp_init_state,
+                                               make_dp_train_step,
+                                               stack_batches)
+    from deepdfa_tpu_torch.parallel.mesh import (DeviceLost, build_mesh,
+                                                 initialize_multihost)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(work)
+    initialize_multihost(f"tcp://localhost:{port}", 2, rank,
+                         backend="gloo", timeout_s=120)
+    try:
+        mesh = build_mesh(MeshConfig(), devices=["cuda:0", "cuda:0"])
+        batches, pw = pickle.loads((out / "batches.pkl").read_bytes())
+        cfg, model = dp_model("fused")
+        state = Trainer(model, cfg, pos_weight=pw).init_state()
+        state = dp_init_state(model, state.optimizer, mesh, seed=cfg.seed)
+        step = make_dp_train_step(model, state.optimizer, mesh,
+                                  pos_weight=pw)
+        stacked = stack_batches(batches)
+        fg.n_launches = fg.n_bwd_launches = 0
+        reset_variant_counts()
+        state, _, loss, wsum = step(state, stacked,
+                                    ConfusionState.zeros("cuda"))
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"grads": grads_of(model), "params": params_of(model),
+                        "loss": float(loss)}, out / "rank0.pt")
+        state, ms = timed_steps(step, state, stacked)
+        torch.cuda.synchronize()
+        counts = {"b1_launches": fg.n_launches,
+                  "b2_launches": fg.n_bwd_launches,
+                  "by_variant": {"fwd": dict(fg.n_variant_launches),
+                                 "bwd": dict(fg.n_bwd_variant_launches)}}
+        with faults.installed("mesh.device_lost@1"):
+            try:
+                survivor = build_mesh(MeshConfig(),
+                                      devices=["cuda:0", "cuda:0"])
+                lost = {"lost": False, "devices": survivor.size,
+                        "world": survivor.world}
+            except DeviceLost as exc:
+                lost = {"lost": True, "error": str(exc)}
+        (out / f"rank{rank}.json").write_text(json.dumps({
+            "mesh": {"devices": mesh.size, "world": mesh.world,
+                     "slots": list(mesh.local_slots)},
+            "steps": 1 + DP_STEPS, "wsum": float(wsum), "step_ms": ms,
+            **counts, "device_lost": lost}))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dp_ranks(work: Path) -> dict:
+    """Start the two gloo ranks of the dp phase as children (they share
+    nothing with the dense phase, which runs beside them): returns what
+    :func:`phase_dp` reads."""
+    root = work / "dp"
+    root.mkdir()
+    fused_batches, pw = dp_batches("fused")
+    (root / "batches.pkl").write_bytes(pickle.dumps((fused_batches, pw)))
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
+    env.pop("DEEPDFA_FAULTS", None)
+    logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_RANK_MAIN, str(r), str(port), str(root)],
+        cwd=REPO_ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
+        for r, log in enumerate(logs)]
+    return {"root": root, "port": port, "procs": procs, "logs": logs,
+            "t0": time.perf_counter(), "batches": fused_batches, "pw": pw}
+
+
+def stop_dp_ranks(ranks: dict) -> None:
+    """Kill the rank children (a phase before the dp phase failed)."""
+    for proc, log in zip(ranks["procs"], ranks["logs"]):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase_dp(work: Path, ranks: dict) -> dict:
+    """Data parallelism on the card: a world-size-1 NCCL group (the dp
+    train and eval steps on fused and dense batches against the
+    single-device steps), two ranks sharing the card over gloo (dp=2
+    against dp=1 with accum=2; started by :func:`start_dp_ranks`),
+    ``mesh.device_lost``, ``fit --resume`` across a changed mesh, and the
+    replicated engine at one replica."""
+    import torch.distributed as dist
+
+    from deepdfa_tpu_torch.config import MeshConfig
+    from deepdfa_tpu_torch.parallel.dp import (make_dp_eval_step,
+                                               make_dp_train_step,
+                                               stack_batches)
+    from deepdfa_tpu_torch.parallel.elastic import (mesh_block,
+                                                    mesh_changed,
+                                                    stack_elastic)
+    from deepdfa_tpu_torch.parallel.mesh import (build_mesh,
+                                                 initialize_multihost,
+                                                 local_mesh)
+
+    root = ranks["root"]
+    fused_batches, pw = ranks["batches"], ranks["pw"]
+    nccl_port = free_port()
+    while nccl_port == ranks["port"]:
+        nccl_port = free_port()
+
+    # world size 1 under NCCL: the dp steps against the single-device ones
+    initialize_multihost(f"tcp://localhost:{nccl_port}", 1, 0,
+                         backend="nccl")
+    world1 = {}
+    try:
+        mesh = build_mesh(MeshConfig())
+        for layout in ("fused", "dense"):
+            batches, lpw = ((fused_batches, pw) if layout == "fused"
+                            else dp_batches("dense"))
+            cfg, a = dp_model(layout)
+            ta = Trainer(a, cfg, pos_weight=lpw)
+            sa = ta.init_state()
+            _, b = dp_model(layout)
+            sb = Trainer(b, cfg, pos_weight=lpw).init_state()
+            step = make_dp_train_step(b, sb.optimizer, mesh, pos_weight=lpw)
+            estep = make_dp_eval_step(b, mesh, pos_weight=lpw)
+            sa, _, la, _ = ta.train_step(sa, to_device(batches[0], "cuda"),
+                                         ConfusionState.zeros("cuda"))
+            m_a, l_ea, _, _, _ = ta.eval_step(
+                a, to_device(batches[1], "cuda"),
+                ConfusionState.zeros("cuda"))
+            stacked = stack_batches(batches[:1])
+            # the main path: the dp train step, the dp eval step and the
+            # timed steps, counts from zero
+            fg.n_launches = fg.n_bwd_launches = 0
+            reset_variant_counts()
+            sb, _, lb, _ = step(sb, stacked, ConfusionState.zeros("cuda"))
+            torch.cuda.synchronize()
+            train = held_to(grads_of(a), grads_of(b), params_of(a),
+                            params_of(b), float(la), float(lb), DP_LIMIT,
+                            cfg.optim.lr)
+            b.load_state_dict(a.state_dict())
+            m_b, l_eb, _ = estep(b, stack_batches(batches[1:]),
+                                 ConfusionState.zeros("cuda"))
+            eval_diff = max([abs(float(l_ea) - float(l_eb))]
+                            + [abs(float(x) - float(y))
+                               for x, y in zip(m_a, m_b)])
+            sb, ms = timed_steps(step, sb, stacked)
+            torch.cuda.synchronize()
+            world1[layout] = {
+                "train": train, "eval_diff": eval_diff,
+                "train_steps": 1 + DP_STEPS, "eval_steps": 1,
+                "b1_launches": fg.n_launches, "b2_launches": fg.n_bwd_launches,
+                "b1_launches_by_variant": dict(fg.n_variant_launches),
+                "b2_launches_by_variant": dict(fg.n_bwd_variant_launches),
+                "step_ms": ms, "p50_step_ms": float(np.median(ms[1:]))}
+        world1["mesh"] = mesh_block(mesh)
+    finally:
+        dist.destroy_process_group()
+
+    # dp=1 with accum=2 over the ranks' two batches, in this process
+    cfg, c = dp_model("fused")
+    sc = Trainer(c, cfg, pos_weight=pw).init_state()
+    acc = make_dp_train_step(c, sc.optimizer, local_mesh(1), pos_weight=pw,
+                             accum=2)
+    sc, _, lc, _ = acc(sc, stack_elastic(fused_batches, dp=1, accum=2)[0],
+                       ConfusionState.zeros("cuda"))
+    torch.cuda.synchronize()
+
+    # mesh.device_lost in one process: two slots halve to one
+    two = build_mesh(MeshConfig(), devices=["cuda:0", "cuda:0"], group=None)
+    with faults.installed("mesh.device_lost@1"):
+        shrunk = build_mesh(MeshConfig(), devices=["cuda:0", "cuda:0"],
+                            group=None)
+    lost = {"before": mesh_block(two), "after": mesh_block(shrunk),
+            "changed": mesh_changed(mesh_block(two), mesh_block(shrunk))}
+
+    # fit --resume of the dense phase's 1-epoch run, its checkpoints
+    # recorded under the two-slot mesh
+    elastic = work / "dense_elastic"
+    for meta_file in (elastic / "checkpoints").glob("*/meta.json"):
+        meta = json.loads(meta_file.read_text())
+        meta["mesh"] = mesh_block(two)
+        meta_file.write_text(json.dumps(meta))
+    t0 = time.perf_counter()
+    resumed = run_cli(["fit", "--config", str(work / "dense" / "dense.json"),
+                       "--run-dir", str(elastic), "--device", "cuda",
+                       "--resume"])
+    resume_s = time.perf_counter() - t0
+    journal = json.loads((elastic / "journal.json").read_text())
+
+    # the replicated engine at one replica against the plain engine
+    graphs = requests()[:64]
+    plain = ScoringEngine.from_model(golden_model("cuda"), None, "graph",
+                                     KEYS, max_batch=MAX_BATCH, device="cuda")
+    rep = ScoringEngine.from_model(golden_model("cuda"), None, "graph", KEYS,
+                                   max_batch=MAX_BATCH, mesh=local_mesh(1))
+    rep.warmup()
+    groups: dict = {}
+    for g in graphs:
+        groups.setdefault(plain.assign_bucket(g), []).append(g)
+    plan = [(bucket, c) for bucket, gs in groups.items()
+            for c in chunks(gs, min(bucket.capacity, MAX_BATCH))]
+    fg.n_launches = 0
+    reset_variant_counts()
+    got = [rep.score_groups([c], bucket)[0] for bucket, c in plan]
+    torch.cuda.synchronize()
+    rep_b1, rep_var = fg.n_launches, dict(fg.n_variant_launches)
+    want = [plain.score(c, bucket) for bucket, c in plan]
+    rep_diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    too_many = None
+    try:
+        local_mesh(torch.cuda.device_count() + 1)
+    except ValueError as exc:
+        too_many = str(exc)
+
+    # the two ranks
+    rank_rows = []
+    for r, proc in enumerate(ranks["procs"]):
+        try:
+            proc.wait(timeout=max(5.0, 180 - (time.perf_counter()
+                                              - ranks["t0"])))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        ranks["logs"][r].close()
+        if proc.returncode != 0:
+            fail(f"dp: rank {r} exited {proc.returncode}: "
+                 f"{(root / f'rank{r}.log').read_text()[-1500:]}")
+        rank_rows.append(json.loads((root / f"rank{r}.json").read_text()))
+    ranks_s = time.perf_counter() - ranks["t0"]
+    r0 = torch.load(root / "rank0.pt")
+    dp2 = held_to(r0["grads"], grads_of(c), r0["params"], params_of(c),
+                  r0["loss"], float(lc), DP2_LIMIT, cfg.optim.lr)
+
+    per1, per2 = fg.launches_per_call(STEPS), fg.bwd_launches_per_call(STEPS)
+    row = {"phase": "dp", "card": nvidia_smi(), "world1": world1,
+           "world2": {"ranks": rank_rows, "vs_accum2": dp2,
+                      "since_start_s": ranks_s,
+                      "p50_step_ms": float(np.median(
+                          [m for r in rank_rows for m in r["step_ms"][1:]]))},
+           "device_lost": lost,
+           "resume": {"seconds": resume_s,
+                      "resharded": resumed["resharded"],
+                      "epochs": journal.get("epoch"),
+                      "completed": journal.get("completed"),
+                      "bitwise_vs_dense_full": same_params(
+                          elastic, work / "dense" / "full")},
+           "replicated": {"replicas": rep.n_replicas, "calls": len(plan),
+                          "vs_plain": rep_diff, "b1_launches": rep_b1,
+                          "b1_launches_by_variant": rep_var,
+                          "too_many_replicas": too_many}}
+    emit(row)
+    for layout in ("fused", "dense"):
+        w = world1[layout]
+        if not (w["train"]["ok"] and w["eval_diff"] <= DP_LIMIT):
+            fail(f"dp: world size 1, {layout}: {w['train']}, eval "
+                 f"{w['eval_diff']}")
+    f = world1["fused"]
+    if (f["b1_launches"], f["b2_launches"]) != (
+            (f["train_steps"] + f["eval_steps"]) * per1,
+            f["train_steps"] * per2):
+        fail(f"dp: fused dp step launches {f}")
+    check_ggnn_wgmma("dp_fused", "B1", f["b1_launches_by_variant"],
+                     f["b1_launches"])
+    check_ggnn_wgmma("dp_fused", "B2", f["b2_launches_by_variant"],
+                     f["b2_launches"])
+    d = world1["dense"]
+    if d["b1_launches"] or d["b2_launches"]:
+        fail(f"dp: the dense dp step launched B1/B2: {d}")
+    if not dp2["ok"]:
+        fail(f"dp: dp=2 against dp=1 accum=2: {dp2}")
+    for r, rr in enumerate(rank_rows):
+        steps = rr["steps"]
+        if (rr["b1_launches"], rr["b2_launches"]) != (steps * per1,
+                                                      steps * per2):
+            fail(f"dp: rank {r} launches {rr}")
+        check_ggnn_wgmma(f"dp_rank{r}", "B1", rr["by_variant"]["fwd"],
+                         rr["b1_launches"])
+        check_ggnn_wgmma(f"dp_rank{r}", "B2", rr["by_variant"]["bwd"],
+                         rr["b2_launches"])
+        if rr["device_lost"]["lost"] != (r == 1) or (
+                r == 0 and rr["device_lost"]["devices"] != 1):
+            fail(f"dp: rank {r} under mesh.device_lost: {rr['device_lost']}")
+    if not (lost["changed"] and lost["after"]["devices"] == 1):
+        fail(f"dp: mesh.device_lost {lost}")
+    res = row["resume"]
+    if res["resharded"] != 1 or not res["completed"] or \
+            not res["bitwise_vs_dense_full"]:
+        fail(f"dp: the resume across the changed mesh {res}")
+    if not rep_diff <= DP_LIMIT or not too_many or \
+            rep_b1 != len(plan) * per1:
+        fail(f"dp: the replicated engine {row['replicated']}")
+    check_ggnn_wgmma("dp_replicated", "B1", rep_var, rep_b1)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7734,6 +8460,13 @@ def drive() -> int:
         linevul = timed("linevul", finish_linevul, linevul_child)
         seconds["linevul"] = linevul["wall_s"]  # beside bigvul
         linevul_child = None
+        # the dp phase's two gloo ranks run beside the dense phase
+        dp_ranks = start_dp_ranks(corpus_work)
+        try:
+            dense = timed("dense", phase_dense, ctx, corpus_work)
+            dp = timed("dp", phase_dp, corpus_work, dp_ranks)
+        finally:
+            stop_dp_ranks(dp_ranks)
     finally:
         if linevul_child is not None:
             linevul_child[0].kill()
@@ -7815,6 +8548,24 @@ def drive() -> int:
                 "fleet_replicas": fleet["replicas"]["b1_launches"]}
     fleet_b1_var = [fleet["overload"]["b1_launches_by_variant"],
                     fleet["replicas"]["b1_launches_by_variant"]]
+    # the dense layout's served checkpoint and predict-source; the dp
+    # steps at world size 1 and on the two gloo ranks, the replicated engine
+    w1, ranks = dp["world1"]["fused"], dp["world2"]["ranks"]
+    dense_b1 = {"dense_serve": dense["served"]["b1_launches"],
+                "dense_predict_source":
+                    dense["predict_source"]["b1_launches"],
+                "dp_world1": w1["b1_launches"],
+                "dp_gloo_ranks": sum(r["b1_launches"] for r in ranks),
+                "dp_replicated": dp["replicated"]["b1_launches"]}
+    dense_b1_var = [dense["served"]["b1_launches_by_variant"],
+                    dense["predict_source"]["b1_launches_by_variant"],
+                    w1["b1_launches_by_variant"],
+                    *[r["by_variant"]["fwd"] for r in ranks],
+                    dp["replicated"]["b1_launches_by_variant"]]
+    dp_b2 = {"dp_world1": w1["b2_launches"],
+             "dp_gloo_ranks": sum(r["b2_launches"] for r in ranks)}
+    dp_b2_var = [w1["b2_launches_by_variant"],
+                 *[r["by_variant"]["bwd"] for r in ranks]]
     # B1 and B2 at the families' widths, on ffma: graph ms, the 3xTF32
     # bound as at width 128 and the FFMA one beside it
     df_widths = {str(f["width"]): {
@@ -7838,7 +8589,8 @@ def drive() -> int:
                      + corpus["predict"]["b1_launches"] + bigvul_b1
                      + http_b1 + art_b1 + store_b1 + sum(tr_b1.values())
                      + sum(df_b1.values()) + sum(cont_b1.values())
-                     + sum(fleet_b1.values()) + linevul["b1_launches"]),
+                     + sum(fleet_b1.values()) + linevul["b1_launches"]
+                     + sum(dense_b1.values())),
         "launches_by_path": {"serve": serve["n_launches"],
                              "train": train["fwd_launches"],
                              "train_megabatch": train_mb["fwd_launches"],
@@ -7851,7 +8603,7 @@ def drive() -> int:
                                  serve_http["scan_cli"]["b1_launches"],
                              "artifact": art_b1, "warm_store": store_b1,
                              **tr_b1, **df_b1, **cont_b1, **fleet_b1,
-                             "linevul": linevul["b1_launches"]},
+                             "linevul": linevul["b1_launches"], **dense_b1},
         "variant": mega["variant"],
         "launches_by_variant": sum_variants(
             serve["launches_by_variant"],
@@ -7867,7 +8619,7 @@ def drive() -> int:
             serve_http["scan_cli"]["b1_launches_by_variant"], *art_var,
             artifact["warm_store"]["launches_by_variant"], *tr_b1_var,
             *df_b1_var, *cont_b1_var, *fleet_b1_var,
-            linevul["b1_launches_by_variant"]),
+            linevul["b1_launches_by_variant"], *dense_b1_var),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         # CUDA-graph replay times (the host's 11 launches a call show in
         # CUDA-event times: kept as call_ms and the like); ffma_ms is the
@@ -7888,13 +8640,14 @@ def drive() -> int:
         "launches": (train["bwd_launches"] + train_mb["bwd_launches"]
                      + corpus["fit"]["b2_launches"] + bigvul_b2
                      + sum(tr_b2.values()) + sum(df_b2.values())
-                     + cont["b2"] + linevul["b2_launches"]),
+                     + cont["b2"] + linevul["b2_launches"]
+                     + sum(dp_b2.values())),
         "launches_by_path": {"train": train["bwd_launches"],
                              "train_megabatch": train_mb["bwd_launches"],
                              "corpus_fit": corpus["fit"]["b2_launches"],
                              "bigvul": bigvul_b2, **tr_b2, **df_b2,
                              "continual_fits": cont["b2"],
-                             "linevul": linevul["b2_launches"]},
+                             "linevul": linevul["b2_launches"], **dp_b2},
         "variant": full["variant"],
         "launches_by_variant": sum_variants(
             train["launches_by_variant"]["bwd"],
@@ -7904,7 +8657,8 @@ def drive() -> int:
             bigvul["devign"]["fit"]["launches_by_variant"]["bwd"],
             tr_fit["launches_by_variant"]["bwd"],
             tr_sen["launches_by_variant"]["bwd"], *df_b2_var,
-            cont["by_variant"]["bwd"], linevul["b2_launches_by_variant"]),
+            cont["by_variant"]["bwd"], linevul["b2_launches_by_variant"],
+            *dp_b2_var),
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in train_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
         "ms": full["bwd_graph_ms"], "plain_ms": full["plain_bwd_graph_ms"],

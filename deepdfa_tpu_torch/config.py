@@ -5,8 +5,8 @@ the fused-layout scoring path, the trainer (``train.fit``) and the HTTP
 service (``serve.server``) read. Field names, defaults and derived
 properties are unchanged, so a config written for the JAX package builds
 the same model, run and server here. A config that asks for a part of the
-JAX package this port does not have yet (a mesh, telemetry, preemption,
-divergence rollback, admission control, the warm store, ...) raises
+JAX package this port does not have yet (profiling; an ``fsdp``, ``tp``
+or ``sp`` mesh axis, when the mesh is built) raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -22,7 +22,8 @@ __all__ = ["AGGREGATIONS", "ALL_SUBKEYS", "BatchConfig", "CascadeConfig",
            "CheckpointConfig", "ContinualConfig", "DataConfig", "DFA_FAMILIES",
            "DFA_FEATURE_DIMS", "DFA_LIVE_OUT_CLIP", "ExperimentConfig",
            "FeatureConfig", "FrontendConfig", "GGNNConfig", "IDFA_FAMILIES",
-           "IDFA_REACH_CLIP", "LABEL_STYLES", "LAYOUTS", "ObsConfig",
+           "IDFA_REACH_CLIP", "LABEL_STYLES", "LAYOUTS", "MeshConfig",
+           "ObsConfig",
            "OptimConfig", "ResilienceConfig", "SINGLE_SUBKEYS", "ServeConfig",
            "active_dfa_families", "load_config", "to_json"]
 
@@ -65,11 +66,8 @@ LABEL_STYLES = ("graph", "node", "dataflow_solution_in",
                 "dataflow_solution_out")
 AGGREGATIONS = ("sum", "union_simple", "union_relu")
 
-# Layouts this package runs, and the roadmap item that ports each other one.
-LAYOUTS = ("segment", "fused", "megabatch")
-_LATER_LAYOUTS = {
-    "dense": "ROADMAP queue A, item A10 (dense layout)",
-}
+# The graph layouts the model runs in (one parameter set across them).
+LAYOUTS = ("segment", "fused", "megabatch", "dense")
 
 
 @dataclass(frozen=True)
@@ -108,10 +106,12 @@ class GGNNConfig:
 
     ``layout`` is ``segment`` (gather + segment sum per round, plain torch),
     ``fused`` (every message round, forward and backward, on the
-    hand-written CUDA kernels of :mod:`deepdfa_tpu_torch.ops.fused_ggnn`) or
+    hand-written CUDA kernels of :mod:`deepdfa_tpu_torch.ops.fused_ggnn`),
     ``megabatch`` (the whole forward on the CUDA kernel of
     :mod:`deepdfa_tpu_torch.ops.megabatch`, trained through the fused
-    kernels). All three share one parameter set. ``bwd_kernel`` is the
+    kernels) or ``dense`` (per-graph ``[n, n]`` adjacency, message passing
+    as float32 batched products: :mod:`deepdfa_tpu_torch.models.ggnn_dense`).
+    All four share one parameter set. ``bwd_kernel`` is the
     fused layout's backward option (``auto`` | ``pallas`` | ``xla``): on
     the card ``auto`` and ``pallas`` run the backward kernel and ``xla``
     raises when training (see
@@ -121,7 +121,7 @@ class GGNNConfig:
     ``node``, ``dataflow_solution_in`` or ``dataflow_solution_out`` (one
     logit per node, no pooling). ``aggregation``: ``sum`` (DGL parity),
     ``union_simple`` or ``union_relu`` (the DFA-lattice unions of
-    :mod:`deepdfa_tpu_torch.ops.union`, segment layout only). The family
+    :mod:`deepdfa_tpu_torch.ops.union`, segment and dense layouts). The family
     flags widen the input with one ``hidden_dim`` table per family.
     """
 
@@ -139,10 +139,6 @@ class GGNNConfig:
     bwd_kernel: str = "auto"
 
     def __post_init__(self):
-        if self.layout in _LATER_LAYOUTS:
-            raise NotImplementedError(
-                f"layout={self.layout!r} is not ported yet: "
-                f"{_LATER_LAYOUTS[self.layout]}")
         if self.layout not in LAYOUTS:
             raise ValueError(
                 f"unknown layout {self.layout!r} (one of {', '.join(LAYOUTS)})")
@@ -200,6 +196,39 @@ class OptimConfig:
     # node-label training only: keep every vulnerable node and each other
     # node with probability factor × n_vul / n_nonvul in the loss
     undersample_node_on_loss_factor: float | None = None
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes (:mod:`deepdfa_tpu_torch.parallel.mesh`).
+    dp×fsdp×tp×sp must equal the device count; -1 on a single axis means
+    "all remaining devices". Only ``dp`` (data parallelism over a process
+    group) is ported: ``fsdp``/``tp``/``sp`` above 1 raise when a mesh is
+    built (ROADMAP A11b)."""
+
+    dp: int = -1
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    def axis_sizes(self, n_devices: int) -> dict[str, int]:
+        sizes = {"dp": self.dp, "fsdp": self.fsdp, "tp": self.tp,
+                 "sp": self.sp}
+        wild = [k for k, v in sizes.items() if v == -1]
+        if len(wild) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        fixed = 1
+        for k, v in sizes.items():
+            if v != -1:
+                fixed *= v
+        if wild:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by {fixed}")
+            sizes[wild[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise ValueError(f"mesh {sizes} != {n_devices} devices")
+        return sizes
 
 
 @dataclass(frozen=True)
@@ -616,7 +645,8 @@ class ServeConfig:
     frontend pool, the warm store (``warm_store_dir``), the continual
     loop's capture (``continual``), admission and brownout
     (``admission``), the federation (``federation``) and the autoscaler
-    (``autoscale``). ``mesh_replicas > 1`` raises (ROADMAP A11)."""
+    (``autoscale``). ``mesh_replicas > 1`` replicates the engine, one
+    replica per local device (``ScoringEngine.from_checkpoint``)."""
 
     host: str = "127.0.0.1"
     port: int = 8341  # 0 = ephemeral (the bound port is reported at start)
@@ -638,7 +668,9 @@ class ServeConfig:
     # warmup loads each bucket from it, or exports it there
     warm_store_dir: str | None = None
     probe_interval_s: float = 2.0
-    mesh_replicas: int = 0  # > 1: ROADMAP A11
+    # > 1: replicate the engine across this many local devices, one
+    # replica per device; the batcher packs one batch per replica
+    mesh_replicas: int = 0
     obs: ObsConfig = field(default_factory=ObsConfig)
     autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
     cascade: CascadeConfig = field(default_factory=CascadeConfig)
@@ -666,10 +698,6 @@ class ServeConfig:
             raise ValueError("probe_interval_s must be > 0")
         if self.mesh_replicas < 0:
             raise ValueError("mesh_replicas must be >= 0")
-        if self.mesh_replicas > 1:
-            raise NotImplementedError(
-                "ServeConfig.mesh_replicas > 1 is not ported yet: ROADMAP "
-                "A11 (mesh replication)")
 
 
 @dataclass(frozen=True)
@@ -677,6 +705,7 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: GGNNConfig = field(default_factory=GGNNConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -703,6 +732,7 @@ _NESTED: dict[tuple[str, str], type] = {
     ("ExperimentConfig", "data"): DataConfig,
     ("ExperimentConfig", "model"): GGNNConfig,
     ("ExperimentConfig", "optim"): OptimConfig,
+    ("ExperimentConfig", "mesh"): MeshConfig,
     ("ExperimentConfig", "checkpoint"): CheckpointConfig,
     ("ExperimentConfig", "resilience"): ResilienceConfig,
     ("ExperimentConfig", "serve"): ServeConfig,
@@ -717,7 +747,6 @@ _NESTED: dict[tuple[str, str], type] = {
 
 # Fields of the JAX package's config that name parts not ported yet.
 _NOT_PORTED: dict[tuple[str, str], str] = {
-    ("ExperimentConfig", "mesh"): "ROADMAP A11 (data parallelism)",
     ("ExperimentConfig", "profile"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "time"): "ROADMAP A13 (profiling)",
     ("ExperimentConfig", "trace"): "ROADMAP A13 (profiling)",

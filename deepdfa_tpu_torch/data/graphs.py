@@ -430,7 +430,12 @@ def load_shards(in_dir) -> list[Graph]:
 def to_device(batch: BatchedGraphs, device, feat_keys=None) -> BatchedGraphs:
     """The batch as torch tensors on ``device``. ``feat_keys`` keeps only
     those feature columns (request graphs carry columns the model never
-    reads, such as ``_VULN``)."""
+    reads, such as ``_VULN``). A dense-layout batch goes through
+    :func:`~deepdfa_tpu_torch.data.dense.dense_to_device`."""
+    if hasattr(batch, "adj"):  # a dense-layout batch
+        from deepdfa_tpu_torch.data.dense import dense_to_device
+
+        return dense_to_device(batch, device, feat_keys)
     keys = batch.node_feats.keys() if feat_keys is None else feat_keys
 
     def put(a):

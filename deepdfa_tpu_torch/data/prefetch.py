@@ -39,8 +39,18 @@ class _ProducerError:
         self.exc = exc
 
 
-def _stage(batch: BatchedGraphs, device: torch.device,
-           stream) -> tuple[BatchedGraphs, Any]:
+def _map_batch(batch, fn):
+    """``batch`` (a segment- or dense-layout batch) with ``fn`` applied to
+    every array, the feature dict's values included."""
+    from deepdfa_tpu_torch.data.dense import DenseBatch
+
+    cls = DenseBatch if hasattr(batch, "adj") else BatchedGraphs
+    return cls(*({k: fn(v) for k, v in field.items()}
+                 if isinstance(field, dict) else fn(field)
+                 for field in batch))
+
+
+def _stage(batch, device: torch.device, stream):
     """``batch`` copied to ``device`` on ``stream`` through pinned memory,
     and the event that marks the end of the copy."""
     def put(a):
@@ -48,20 +58,18 @@ def _stage(batch: BatchedGraphs, device: torch.device,
         return host.to(device, non_blocking=True)
 
     with torch.cuda.stream(stream):
-        staged = BatchedGraphs(
-            node_feats={k: put(v) for k, v in batch.node_feats.items()},
-            senders=put(batch.senders), receivers=put(batch.receivers),
-            node_gidx=put(batch.node_gidx), node_mask=put(batch.node_mask),
-            edge_mask=put(batch.edge_mask), graph_mask=put(batch.graph_mask))
+        staged = _map_batch(batch, put)
         event = torch.cuda.Event()
         event.record(stream)
     return staged, event
 
 
-def _tensors(batch: BatchedGraphs):
-    yield from batch.node_feats.values()
-    yield from (batch.senders, batch.receivers, batch.node_gidx,
-                batch.node_mask, batch.edge_mask, batch.graph_mask)
+def _tensors(batch):
+    for field in batch:
+        if isinstance(field, dict):
+            yield from field.values()
+        else:
+            yield field
 
 
 def prefetch_to_device(iterator: Iterable[BatchedGraphs], device,

@@ -11,6 +11,6 @@ and B6b backward — and int8-resident projections on kernel B5),
 ``presets.py`` (the CodeLlama and LineVul presets), ``generate.py`` (batch
 generation on the KV cache), ``selfinstruct.py`` (the multitask
 self-instruct data) and ``roberta.py`` (the CodeBERT encoder of LineVul).
-Not ported yet: the dense graph join (ROADMAP A10) and the ring attention
-(A11).
+``dataset.GraphJoin`` joins segment or dense graph batches. Not ported
+yet: the ring attention and the sharded engine (ROADMAP A11b).
 """

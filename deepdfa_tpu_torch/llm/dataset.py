@@ -1,7 +1,7 @@
 """Text batches and the graph join for the fusion head.
 
-A copy of the segment-layout part of ``deepdfa_tpu/llm/dataset.py``
-(host-side numpy, no framework):
+A copy of ``deepdfa_tpu/llm/dataset.py`` (host-side numpy, no
+framework):
 
 - :class:`HashTokenizer` — stable hashes of IVDetect subtokens into
   ``[n_special, vocab_size)``, bos 1 prepended, eos 2 as the pad; no vocab
@@ -13,10 +13,9 @@ A copy of the segment-layout part of ``deepdfa_tpu/llm/dataset.py``
   80/10/10 split) and :func:`text_batches` (the tail batch is padded with
   masked rows, so every batch has one shape);
 - :class:`GraphJoin` / :class:`JoinedBatch` — example ``i`` of a batch owns
-  graph slot ``i`` of a ``batch_np`` batch; a missing graph becomes an empty
-  placeholder with ``mask=False``.
-
-The dense graph layout waits for ROADMAP A10.
+  graph slot ``i`` of a ``batch_np`` batch (or, in the dense layout, of a
+  ``batch_dense`` batch); a missing graph becomes an empty placeholder with
+  ``mask=False``.
 """
 
 from __future__ import annotations
@@ -29,6 +28,8 @@ from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 
+from deepdfa_tpu_torch.data.dense import (DenseBatch, batch_dense,
+                                          derive_dense_size)
 from deepdfa_tpu_torch.data.graphs import BatchedGraphs, Graph, batch_np
 from deepdfa_tpu_torch.data.tokenise import tokenise
 
@@ -185,7 +186,8 @@ def text_batches(examples: TextExamples, batch_size: int,
 
 class JoinedBatch(NamedTuple):
     text: TextBatch
-    graphs: BatchedGraphs | None
+    # BatchedGraphs or DenseBatch (GraphJoin.layout); None without a GNN
+    graphs: BatchedGraphs | DenseBatch | None
     # example is real AND its graph was found: what the loss sees
     mask: np.ndarray  # [b] bool
 
@@ -194,23 +196,30 @@ class JoinedBatch(NamedTuple):
 class GraphJoin:
     """Id-keyed graph lookup for fusion batches: example ``i`` of the batch
     owns graph slot ``i``; a miss becomes an empty graph with
-    ``mask=False`` and counts in ``num_missing``."""
+    ``mask=False`` and counts in ``num_missing``.
+
+    ``layout``: ``"segment"`` (flat :class:`BatchedGraphs` at the
+    ``max_nodes``/``max_edges`` budget) or ``"dense"`` (a
+    :class:`~deepdfa_tpu_torch.data.dense.DenseBatch` at one per-graph
+    budget: the store's 99th-percentile size, capped by ``max_nodes``). In
+    the dense layout a graph over the budget is treated as missing
+    (``mask=False``) and counts in ``num_oversize``, so one outlier never
+    grows every batch's ``n²`` adjacency. Must match the fusion model's
+    ``GGNNConfig.layout``."""
 
     graphs: dict[int, Graph]
     max_nodes: int = 4096
     max_edges: int = 8192
     num_missing: int = 0
+    num_oversize: int = 0
     layout: str = "segment"
 
     def __post_init__(self):
-        if self.layout == "dense":
-            raise NotImplementedError(
-                "GraphJoin(layout='dense') is not ported yet: the dense "
-                "graph layout is ROADMAP A10")
-        if self.layout != "segment":
+        if self.layout not in ("segment", "dense"):
             raise ValueError(f"unknown layout {self.layout!r} (segment | "
                              f"dense)")
         self._counter_lock = threading.Lock()
+        self._npg: int | None = None
 
     def _placeholder(self) -> Graph:
         if not self.graphs:
@@ -238,8 +247,27 @@ class GraphJoin:
                 picked.append(placeholder)
                 if batch.mask[i]:
                     n_missing += 1
-        graphs = batch_np(picked, len(picked) + 1, self.max_nodes,
-                          self.max_edges)
+        if self.layout == "dense":
+            npg = self._dense_npg()
+            n_oversize = 0
+            for i, g in enumerate(picked):
+                if g.n_nodes > npg:
+                    picked[i] = placeholder
+                    found[i] = False
+                    n_oversize += 1
+            with self._counter_lock:
+                self.num_oversize += n_oversize
+            graphs = batch_dense(picked, len(picked), npg)
+        else:
+            graphs = batch_np(picked, len(picked) + 1, self.max_nodes,
+                              self.max_edges)
         with self._counter_lock:
             self.num_missing += n_missing
         return JoinedBatch(text=batch, graphs=graphs, mask=batch.mask & found)
+
+    def _dense_npg(self) -> int:
+        """The dense per-graph budget, derived once from the store."""
+        if self._npg is None:
+            npg = derive_dense_size(list(self.graphs.values()), quantile=0.99)
+            self._npg = min(npg, max(self.max_nodes, 8))
+        return self._npg

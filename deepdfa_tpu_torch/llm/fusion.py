@@ -9,7 +9,10 @@ The port of ``deepdfa_tpu/llm/fusion.py``:
   package the float32 graph embedding is first cast to the hidden states'
   type (bf16 for CodeLlama), then the whole row to the head's float32;
 - :class:`FusionModel` — the GGNN in ``encoder_mode`` over the joined graph
-  batch (slot ``i`` belongs to example ``i``) plus the head; 2-way logits;
+  batch (slot ``i`` belongs to example ``i``) plus the head; 2-way logits.
+  The encoder's layout follows ``gnn_cfg.layout``; a graph batch of the
+  other layout (a segment batch to a dense encoder or the reverse) raises
+  the JAX module's ``TypeError``;
 - :func:`fusion_loss` — masked mean cross-entropy and the softmax.
 
 Parameter names follow the JAX tree (``flowgnn_encoder.*``,
@@ -79,8 +82,9 @@ class ClassificationHead(nn.Module):
 class FusionModel(nn.Module):
     """GGNN encoder + classification head. ``gnn_cfg`` is forced into
     encoder mode with graph labels; ``use_gnn=False`` is the LLM-only head.
-    The encoder's layout follows ``gnn_cfg.layout`` (segment or fused: one
-    parameter set)."""
+    The encoder's layout follows ``gnn_cfg.layout`` (segment, fused or
+    dense: one parameter set), and the joined batch's type must match it:
+    ``GraphJoin(layout="dense")`` for a dense encoder."""
 
     def __init__(self, gnn_cfg: GGNNConfig, input_dim: int,
                  llm_hidden_size: int, use_gnn: bool = True,
@@ -90,13 +94,14 @@ class FusionModel(nn.Module):
         in_features = llm_hidden_size
         if use_gnn:
             from deepdfa_tpu_torch.models.ggnn import GGNN
+            from deepdfa_tpu_torch.models.ggnn_dense import GGNNDense
             from deepdfa_tpu_torch.models.ggnn_fused import GGNNFused
             from deepdfa_tpu_torch.models.ggnn_megabatch import GGNNMegabatch
 
             cfg = dataclasses.replace(gnn_cfg, encoder_mode=True,
                                       label_style="graph")
-            cls = {"fused": GGNNFused, "megabatch": GGNNMegabatch}.get(
-                cfg.layout, GGNN)
+            cls = {"fused": GGNNFused, "megabatch": GGNNMegabatch,
+                   "dense": GGNNDense}.get(cfg.layout, GGNN)
             self.flowgnn_encoder = cls(cfg, input_dim)
             in_features += cfg.out_dim
         self.classifier = ClassificationHead(in_features, llm_hidden_size,
@@ -106,6 +111,16 @@ class FusionModel(nn.Module):
                 token_mask: torch.Tensor | None = None) -> torch.Tensor:
         embed = None
         if self.use_gnn:
+            # the batch's type is the layout: a nameable error instead of a
+            # shape error deep inside the encoder
+            is_dense = hasattr(graphs, "adj")
+            want_dense = self.flowgnn_encoder.cfg.layout == "dense"
+            if is_dense != want_dense:
+                raise TypeError(
+                    f"FusionModel(layout={self.flowgnn_encoder.cfg.layout!r}"
+                    f") got a {'dense' if is_dense else 'segment'}-layout "
+                    "graph batch — construct GraphJoin with the same layout "
+                    "as fusion.gnn_cfg.layout")
             pooled = self.flowgnn_encoder(graphs)  # [max_graphs, out_dim]
             embed = pooled[: llm_hidden_states.shape[0]]
         return self.classifier(llm_hidden_states, embed, token_mask)

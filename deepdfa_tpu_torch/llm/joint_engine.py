@@ -119,7 +119,7 @@ class JointEngine:
 
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded LLM (mesh=) is not ported yet (ROADMAP A11)")
+                "a sharded LLM (mesh=) is not ported yet (ROADMAP A11b)")
         jcfg = jcfg or JointConfig()
         newest = newest_epoch_dir(run_dir)
         if newest is None:

@@ -40,7 +40,7 @@ zeros, so the tokens are the same, and each step reads only that many
 slots. Decode attention is plain torch, as it is plain jnp in the JAX
 package.
 
-Not ported yet: ``attn_impl="ring"`` (multi-GPU, ROADMAP A11), which raises
+Not ported yet: ``attn_impl="ring"`` (multi-GPU, ROADMAP A11b), which raises
 ``NotImplementedError``, and ``mesh_shardings``.
 """
 
@@ -133,7 +133,7 @@ def _check_config(cfg: LlamaConfig) -> None:
     if cfg.attn_impl == "ring":
         raise NotImplementedError(
             "attn_impl='ring' (sequence-sharded ring attention) is not "
-            "ported yet: it needs several GPUs (ROADMAP A11)")
+            "ported yet: it needs several GPUs (ROADMAP A11b)")
     if cfg.attn_impl not in ("full", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} (full | "
                          f"flash | ring)")

@@ -7,7 +7,7 @@ CodeBERT fine-tuned with the frozen pretrained GGNN, CLS ⊕ pooled graph),
 whose ``llm`` is a :class:`~deepdfa_tpu_torch.llm.roberta.RobertaConfig`
 and ``encoder_family`` ``"roberta"``. ``finetuned`` marks presets that
 start from a LoRA-finetuned model. The JAX package's mesh suggestions are
-not carried (multi-GPU is ROADMAP A11).
+not carried (the sharded LLM is ROADMAP A11b).
 """
 
 from __future__ import annotations

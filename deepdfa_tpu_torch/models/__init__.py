@@ -1,5 +1,5 @@
-"""PyTorch models: the GGNN classifier in the segment, fused and megabatch
-layouts."""
+"""PyTorch models: the GGNN classifier in the segment, fused, megabatch and
+dense layouts."""
 
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ def make_model(cfg: GGNNConfig, input_dim: int, device=None, seed: int = 0):
     ``seed`` on ``device`` (``cuda`` unless the caller names another). The
     layouts share one parameter set, so a state dict moves between them."""
     from deepdfa_tpu_torch.models.ggnn import GGNN, build
+    from deepdfa_tpu_torch.models.ggnn_dense import GGNNDense
     from deepdfa_tpu_torch.models.ggnn_fused import GGNNFused
     from deepdfa_tpu_torch.models.ggnn_megabatch import GGNNMegabatch
 
-    cls = {"fused": GGNNFused, "megabatch": GGNNMegabatch}.get(cfg.layout, GGNN)
+    cls = {"fused": GGNNFused, "megabatch": GGNNMegabatch,
+           "dense": GGNNDense}.get(cfg.layout, GGNN)
     return build(cls, cfg, input_dim, device=device, seed=seed)

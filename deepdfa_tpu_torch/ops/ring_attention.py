@@ -6,7 +6,7 @@ sequence that is not a multiple of 128 under ``"flash"``) and
 :func:`_repeat_kv`. Scores are float32, masked entries take ``_NEG_INF``
 (a large negative number, not ``-inf``, so no NaN arises), and a query row
 with no unmasked key returns zeros. The sequence-sharded ring itself waits
-for multi-GPU (ROADMAP A11).
+for multi-GPU (ROADMAP A11b).
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Deterministic, named fault-injection points.
 
-A copy of ``deepdfa_tpu/resilience/faults.py`` that declares only the
-points the port fires: the trainer's (``train/checkpoint.py``,
-``train/loop.py``, ``data/prefetch.py``), the Joern session's
+A copy of ``deepdfa_tpu/resilience/faults.py`` declaring the JAX
+registry's points, each with its fire site in the port: the trainer's
+(``train/checkpoint.py``, ``train/loop.py``, ``data/prefetch.py``), the
+mesh's (``parallel/mesh.py``), the Joern session's
 (``cpg/joern_session.py``), the HTTP service's, the tracer's and flight
 recorder's, the extraction pool's and its cache's, the cascade's, the
 frontend pool's, the function-embedding cache's and the continual loop's
 (``continual/capture.py``, ``continual/promote.py``), admission and
 brownout's (``serve/admission.py``), the autoscaler's
 (``serve/autoscaler.py``) and the federation's (``serve/federation.py``).
-``mesh.device_lost`` comes with its fire site (ROADMAP A11).
 
 Faults are (a) reachable from outside the process — a subprocess under
 test arms them through the ``DEEPDFA_FAULTS`` environment variable — (b)
@@ -62,6 +62,7 @@ KNOWN_POINTS = (
     "serve.drop_request",
     "serve.engine_raises",
     "preempt.sigterm",
+    "mesh.device_lost",
     "step.hang",
     "obs.trace_drop",
     "obs.flight_drop",
@@ -109,6 +110,9 @@ POINT_DOCS = {
     "preempt.sigterm": (
         "flag a preemption notice at a train step boundary, as if SIGTERM "
         "had arrived — drives the emergency-checkpoint path (train/loop.py)"),
+    "mesh.device_lost": (
+        "halve the device list handed to build_mesh — a lost host; the "
+        "surviving slice builds a smaller mesh (parallel/mesh.py)"),
     "step.hang": (
         "wedge one train step: a cancel-aware sleep the HangWatchdog must "
         "convert into a bounded, journaled timeout abort (train/loop.py)"),

@@ -12,10 +12,11 @@ dispatch:
 - the drained window is grouped by the engine's size buckets and each group
   greedy-packed into batches within the bucket's budgets.
 
-Each packed batch is one ``engine.score`` call (the JAX package's engine
-may stack one batch per mesh replica; the port's has one replica, ROADMAP
-A11); an engine built with ``latency_mode`` dispatches it through
-:meth:`~deepdfa_tpu_torch.serve.engine.ScoringEngine.submit` (upload and
+Packed batches go down in chunks of the engine's ``n_replicas``, one
+``engine.score_groups`` call a chunk: a mesh-replicated engine stacks one
+batch per replica in one dispatch, a single-replica engine scores each
+batch (an engine built with ``latency_mode`` through
+:meth:`~deepdfa_tpu_torch.serve.engine.ScoringEngine.submit`: upload and
 launch under the engine lock, read back on ``result()``). With ``metrics`` and ``tracer`` attached the
 batcher feeds the queue-depth gauge, the queue-wait and dispatch
 reservoirs, batch occupancy and padding, and the ``queue.wait``,
@@ -152,6 +153,9 @@ class MicroBatcher:
         by_bucket: dict["ServeBucket", list[_Pending]] = {}
         for item in window:
             by_bucket.setdefault(item.bucket, []).append(item)
+        # chunks of n_replicas packed batches: one dispatch each, a batch
+        # per replica on a mesh-replicated engine
+        chunk = max(1, self.engine.n_replicas)
         plans = [(bucket, self._pack(bucket, items))
                  for bucket, items in by_bucket.items()]
         if self.tracer is not None and window:
@@ -160,8 +164,8 @@ class MicroBatcher:
                                n_graphs=len(window),
                                n_buckets=len(by_bucket))
         for bucket, packed in plans:
-            for batch in packed:
-                self._dispatch(bucket, batch)
+            for i in range(0, len(packed), chunk):
+                self._dispatch(bucket, packed[i:i + chunk])
 
     def _pack(self, bucket: "ServeBucket", items: list[_Pending]):
         """Greedy-fill within the bucket's graph/node/edge budgets."""
@@ -183,45 +187,52 @@ class MicroBatcher:
         return out
 
     def _dispatch(self, bucket: "ServeBucket",
-                  batch: list[_Pending]) -> None:
+                  batches: list[list[_Pending]]) -> None:
         tracer, now = self.tracer, time.time()
-        first_ctx = next((i.ctx for i in batch if i.ctx is not None), None)
-        for item in batch:
-            if item.enqueued_s:
-                if self.metrics is not None:
-                    self.metrics.queue_wait.observe(
-                        (now - item.enqueued_s) * 1e3)
-                if tracer is not None:
-                    tracer.record("queue.wait", item.enqueued_s, now,
-                                  parent=item.ctx, bucket=bucket.capacity)
+        n_real = sum(len(b) for b in batches)
+        first_ctx = next((i.ctx for b in batches for i in b
+                          if i.ctx is not None), None)
+        for b in batches:
+            for item in b:
+                if item.enqueued_s:
+                    if self.metrics is not None:
+                        self.metrics.queue_wait.observe(
+                            (now - item.enqueued_s) * 1e3)
+                    if tracer is not None:
+                        tracer.record("queue.wait", item.enqueued_s, now,
+                                      parent=item.ctx, bucket=bucket.capacity)
         t0 = time.time()
         try:
-            probs = self.engine.score([i.graph for i in batch], bucket)
-        except Exception as exc:  # noqa: BLE001 — per-batch failure domain
+            results = self.engine.score_groups(
+                [[i.graph for i in b] for b in batches], bucket)
+        except Exception as exc:  # noqa: BLE001 — per-chunk failure domain
             if tracer is not None:
                 tracer.record("engine.dispatch", t0, parent=first_ctx,
-                              n_graphs=len(batch), error=type(exc).__name__)
-            for item in batch:
-                item.future.set_exception(exc)
+                              n_graphs=n_real, error=type(exc).__name__)
+            for b in batches:
+                for item in b:
+                    item.future.set_exception(exc)
             return
         t1 = time.time()
         if self.metrics is not None:
             self.metrics.dispatch.observe((t1 - t0) * 1e3)
-            self.metrics.observe_batch(len(batch), bucket.capacity)
-            self.metrics.observe_padding(
-                bucket.graph_nodes,
-                real={"nodes": sum(i.graph.n_nodes for i in batch),
-                      "edges": sum(i.graph.n_edges for i in batch),
-                      "graphs": len(batch)},
-                padded={"nodes": bucket.spec.max_nodes,
-                        "edges": bucket.spec.max_edges,
-                        "graphs": bucket.spec.max_graphs})
         if tracer is not None:
             tracer.record("engine.dispatch", t0, t1, parent=first_ctx,
-                          n_graphs=len(batch), n_batches=1,
+                          n_graphs=n_real, n_batches=len(batches),
                           bucket=bucket.capacity)
-        for item, p in zip(batch, probs):
-            item.future.set_result(float(p))
+        for b, probs in zip(batches, results):
+            if self.metrics is not None:
+                self.metrics.observe_batch(len(b), bucket.capacity)
+                self.metrics.observe_padding(
+                    bucket.graph_nodes,
+                    real={"nodes": sum(i.graph.n_nodes for i in b),
+                          "edges": sum(i.graph.n_edges for i in b),
+                          "graphs": len(b)},
+                    padded={"nodes": bucket.spec.max_nodes,
+                            "edges": bucket.spec.max_edges,
+                            "graphs": bucket.spec.max_graphs})
+            for item, p in zip(b, probs):
+                item.future.set_result(float(p))
         if tracer is not None:
             tracer.record("host.reduce", t1, parent=first_ctx,
-                          n_graphs=len(batch))
+                          n_graphs=n_real)

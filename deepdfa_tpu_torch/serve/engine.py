@@ -26,10 +26,18 @@ function scores on the host. With ``latency_mode`` every dispatch goes through
 :meth:`ScoringEngine.submit`: pad, upload and launch under the engine lock
 with no host sync, the scores read back by :meth:`PendingScore.result`.
 
-`score` and `submit` are where the ``serve.engine_raises`` fault point
-lives: an injected (or real) engine failure surfaces as a per-request error
-in the batcher, never as a dead server. Mesh replication is not ported
-yet (ROADMAP A11).
+``from_model(..., mesh=)`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.
+Mesh`, e.g. :func:`~deepdfa_tpu_torch.parallel.mesh.local_mesh`, or
+``serve.mesh_replicas > 1`` through :meth:`ScoringEngine.from_checkpoint`)
+replicates the engine, one replica per device of the mesh:
+:meth:`ScoringEngine.score_groups` stacks one padded batch per replica and
+launches every replica's forward before reading any back. On the card each
+device holds at most one replica; on the CPU the mesh may name the CPU
+more than once, and those replicas share one model.
+
+`score`, `score_groups` and `submit` are where the ``serve.engine_raises``
+fault point lives: an injected (or real) engine failure surfaces as a
+per-request error in the batcher, never as a dead server.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 from deepdfa_tpu_torch import resolve_device
 from deepdfa_tpu_torch.data.graphs import (BucketSpec, Graph, _round_up,
                                            batch_np, to_device)
+from deepdfa_tpu_torch.parallel.dp import stack_batches, take_slot
 from deepdfa_tpu_torch.resilience import faults
 
 __all__ = ["OversizeGraphError", "ServeBucket", "serve_buckets",
@@ -170,10 +179,12 @@ class ScoringEngine:
 
     ``device_fn`` (the live-model constructors set it) maps a padded numpy
     batch to ``(probs on the device, the uploaded batch tensors)`` without
-    a host sync; it backs :meth:`submit` and ``latency_mode``. The port's
-    engines have one replica (``n_replicas`` is 1: mesh replication is
-    ROADMAP A11). Every dispatch holds the engine lock, so concurrent
-    ``submit`` callers never share or interleave their uploaded batches.
+    a host sync; it backs :meth:`submit` and ``latency_mode``.
+    ``stacked_fn`` (mesh-replicated engines) maps a ``[n_replicas, ...]``
+    stacked numpy batch to ``[n_replicas, max_graphs]`` probabilities, one
+    replica a slot, one dispatch for the stack. Every dispatch holds the
+    engine lock, so concurrent ``submit`` callers never share or
+    interleave their uploaded batches.
     ``flight`` is the server's flight recorder, given every dispatch.
 
     ``export_fn`` (live single-replica engines) maps a bucket to ``(the
@@ -186,9 +197,15 @@ class ScoringEngine:
                  mega: ServeBucket | None = None, precision: str = "f32",
                  int8_score_delta: float | None = None, hier_factory=None,
                  device_fn=None, latency_mode: bool = False,
-                 export_fn=None, device=None):
+                 export_fn=None, device=None, stacked_fn=None,
+                 n_replicas: int = 1):
         if not buckets:
             raise ValueError("need at least one serving bucket")
+        if score_fn is None and stacked_fn is None:
+            raise ValueError("need a score_fn (or a stacked_fn for "
+                             "mesh-replicated engines)")
+        if n_replicas < 1:
+            raise ValueError("n_replicas must be >= 1")
         if latency_mode and device_fn is None:
             warnings.warn(
                 "latency_mode requires a device_fn (live-model engines "
@@ -197,9 +214,10 @@ class ScoringEngine:
         self._score_fn = score_fn
         self._device_fn = device_fn
         self._export_fn = export_fn
+        self._stacked_fn = stacked_fn
         self.device = device
         self.latency_mode = latency_mode
-        self.n_replicas = 1
+        self.n_replicas = int(n_replicas)
         self.buckets = tuple(sorted(
             buckets, key=lambda b: (b.graph_nodes, b.spec.max_graphs)))
         self.label_style = label_style
@@ -243,9 +261,18 @@ class ScoringEngine:
 
     # -- scoring ------------------------------------------------------------
 
-    def _padded_batch(self, graphs, bucket: ServeBucket):
-        return batch_np(graphs, bucket.spec.max_graphs,
-                        bucket.spec.max_nodes, bucket.spec.max_edges)
+    def _padded_batch(self, graphs, bucket: ServeBucket,
+                      feat_only: bool = False):
+        batch = batch_np(graphs, bucket.spec.max_graphs,
+                         bucket.spec.max_nodes, bucket.spec.max_edges)
+        if feat_only:
+            # an EMPTY group (a replica slot with no request this window)
+            # batches to no feature column: all-padding ones, so every
+            # replica's batch stacks
+            zeros = np.zeros(bucket.spec.max_nodes, np.int32)
+            batch = batch._replace(node_feats={
+                k: batch.node_feats.get(k, zeros) for k in self.feat_keys})
+        return batch
 
     def score(self, graphs, bucket: ServeBucket) -> np.ndarray:
         """Pad ``graphs`` (all pre-routed to ``bucket``) and dispatch one
@@ -253,6 +280,8 @@ class ScoringEngine:
         this is :meth:`submit` and its blocking read."""
         if self.latency_mode:
             return self.submit(graphs, bucket).result()
+        if self._stacked_fn is not None:
+            return self.score_groups([graphs], bucket)[0]
         faults.raise_if("serve.engine_raises")
         graphs = list(graphs)
         with self._lock:
@@ -262,6 +291,32 @@ class ScoringEngine:
             self.n_dispatches += 1
         self._record_dispatch("engine.dispatch", bucket, len(graphs))
         return probs[: len(graphs)]
+
+    def score_groups(self, groups, bucket: ServeBucket) -> list[np.ndarray]:
+        """Score up to ``n_replicas`` request groups in ONE dispatch: a
+        mesh-replicated engine stacks one padded batch per replica (a
+        missing group is an all-padding batch); a single-replica engine
+        makes one :meth:`score` per group. Returns one probability array
+        per group, in order."""
+        groups = [list(g) for g in groups]
+        if self._stacked_fn is None:
+            return [self.score(g, bucket) for g in groups]
+        if len(groups) > self.n_replicas:
+            raise ValueError(
+                f"{len(groups)} groups > {self.n_replicas} replicas — the "
+                "batcher must chunk windows to the replica count")
+        faults.raise_if("serve.engine_raises")
+        with self._lock:
+            padded = groups + [[] for _ in range(self.n_replicas
+                                                 - len(groups))]
+            stacked = stack_batches([
+                self._padded_batch(g, bucket, feat_only=True)
+                for g in padded])
+            probs = np.asarray(self._stacked_fn(stacked), np.float32)
+            self.n_dispatches += 1
+        self._record_dispatch("engine.dispatch_stacked", bucket,
+                              sum(len(g) for g in groups))
+        return [probs[i, : len(g)] for i, g in enumerate(groups)]
 
     def submit(self, graphs, bucket: ServeBucket) -> PendingScore:
         """Latency-mode dispatch: pad, upload, launch — no host sync. The
@@ -387,6 +442,13 @@ class ScoringEngine:
         not counted, and an armed ``serve.engine_raises`` is left for the
         first request."""
         with self._lock:
+            if self._stacked_fn is not None:
+                stacked = stack_batches([
+                    self._padded_batch([g] if i == 0 else [], bucket,
+                                       feat_only=True)
+                    for i in range(self.n_replicas)])
+                np.asarray(self._stacked_fn(stacked), np.float32)
+                return
             batch = self._padded_batch([g], bucket)
             np.asarray(self._score_fn(batch), np.float32)
 
@@ -517,7 +579,15 @@ class ScoringEngine:
 
         A megabatch-compatible model also gets the hierarchical path
         (:meth:`score_unit`), always over the float32 weights.
-        ``latency_mode`` sends every dispatch through :meth:`submit`."""
+        ``latency_mode`` sends every dispatch through :meth:`submit`.
+
+        ``mesh`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.Mesh`)
+        replicates the engine, one replica per mesh device (the model, or
+        the int8 model the gate chose, copied once per other device; the
+        first device is the model's), and dispatches through
+        :meth:`score_groups`. On the card a device named twice raises
+        ``ValueError``. A replicated engine has no ``submit``/
+        ``latency_mode`` and no warm-store export."""
         from deepdfa_tpu_torch.models.ggnn_hier import (HierScorer,
                                                         megabatch_compatible)
         from deepdfa_tpu_torch.predict import make_scorer
@@ -526,9 +596,10 @@ class ScoringEngine:
             raise ValueError(
                 f"precision must be 'f32' or 'int8', got {precision!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh replication is not ported yet (ROADMAP A11)")
-        dev = resolve_device(device)
+            _check_replica_devices(mesh.devices)
+            dev = mesh.devices[0]
+        else:
+            dev = resolve_device(device)
         if state is not None:
             model.load_state_dict(state)
         model = model.to(dev).eval()
@@ -577,9 +648,17 @@ class ScoringEngine:
                 cfg, model.input_dim, f32_state, model_rev=model_rev,
                 device=dev))
 
+        mega = mega_bucket(max_batch) if megabatch else None
+        if mesh is not None:
+            return cls(None, buckets, label_style=label_style, feat_keys=keys,
+                       vocab_hash=vocab_hash, model_rev=model_rev, mega=mega,
+                       precision=precision, int8_score_delta=int8_delta,
+                       hier_factory=hier_factory, latency_mode=latency_mode,
+                       device=dev, n_replicas=mesh.size,
+                       stacked_fn=_make_replicated_fn(
+                           chosen, label_style, keys, mesh.devices))
         return cls(score_fn, buckets, label_style=label_style, feat_keys=keys,
-                   vocab_hash=vocab_hash, model_rev=model_rev,
-                   mega=mega_bucket(max_batch) if megabatch else None,
+                   vocab_hash=vocab_hash, model_rev=model_rev, mega=mega,
                    precision=precision, int8_score_delta=int8_delta,
                    hier_factory=hier_factory, device_fn=device_fn,
                    latency_mode=latency_mode,
@@ -598,7 +677,9 @@ class ScoringEngine:
         one parameter set (the JAX package serves on its segment layout,
         which in the port runs no kernel). ``cfg.serve`` supplies the batch
         width, ``precision``, the int8 gate and ``latency_mode``;
-        ``mesh_replicas > 1`` cannot reach here (the config refuses it)."""
+        ``mesh_replicas > 1`` replicates the engine over that many local
+        devices (:func:`~deepdfa_tpu_torch.parallel.mesh.local_mesh`: on
+        the card more replicas than cards raise)."""
         from deepdfa_tpu_torch.models import make_model
         from deepdfa_tpu_torch.pipeline import vocab_content_hash
         from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
@@ -614,9 +695,14 @@ class ScoringEngine:
                  else ckpts.restore_latest(map_location="cpu"))
         mcfg = dataclasses.replace(cfg.model, layout="fused")
         model = make_model(mcfg, cfg.input_dim, device="cpu")
+        mesh = None
+        if cfg.serve.mesh_replicas > 1:
+            from deepdfa_tpu_torch.parallel.mesh import local_mesh
+
+            mesh = local_mesh(cfg.serve.mesh_replicas, device=dev)
         return cls.from_model(
             model, state, mcfg.label_style, feat_keys=tuple(vocabs),
-            max_batch=max_batch or cfg.serve.max_batch, device=dev,
+            max_batch=max_batch or cfg.serve.max_batch, device=dev, mesh=mesh,
             vocab_hash=vocab_content_hash(vocabs),
             precision=cfg.serve.precision,
             int8_max_score_delta=cfg.serve.int8_max_score_delta,
@@ -672,6 +758,53 @@ def _function_max(servable):
         return fn
 
     return score_fn
+
+
+def _device_key(d) -> tuple:
+    """``(type, index)`` of a device, a bare ``cuda`` resolved to the
+    current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (d.type, d.index)
+
+
+def _check_replica_devices(devices) -> None:
+    """On the card each device holds at most one replica."""
+    cards = [_device_key(d) for d in devices
+             if torch.device(d).type == "cuda"]
+    if len(set(cards)) != len(cards):
+        raise ValueError(
+            f"mesh devices {list(devices)} name a card more than once: one "
+            "replica per card")
+
+
+def _make_replicated_fn(model, label_style: str, feat_keys, devices):
+    """``stacked batch -> [n_replicas, max_graphs]`` probabilities: slot
+    ``i`` of the stack is scored by the replica on ``devices[i]``. The model
+    is copied once to each device other than its own; slots on one device
+    share its replica. Every replica's forward is launched before any is
+    read back."""
+    import copy
+
+    from deepdfa_tpu_torch.predict import make_scorer
+
+    home = _device_key(next(model.parameters()).device)
+    replicas: dict = {}
+    for d in devices:
+        key = _device_key(d)
+        if key not in replicas:
+            m = (model if key == home
+                 else copy.deepcopy(model).to(torch.device(d)).eval())
+            replicas[key] = (torch.device(d), make_scorer(m, label_style))
+    plan = [replicas[_device_key(d)] for d in devices]
+
+    def stacked_fn(stacked) -> np.ndarray:
+        probs = [scorer(to_device(take_slot(stacked, i), d, feat_keys))[0]
+                 for i, (d, scorer) in enumerate(plan)]
+        return np.stack([p.cpu().numpy() for p in probs])
+
+    return stacked_fn
 
 
 def _make_export_fn(model, feat_keys):

@@ -103,14 +103,16 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, metrics: dict[str, float] | None = None,
              epoch: int | None = None, aux: Any | None = None,
-             preempted: dict | None = None, force: bool = False) -> bool:
+             preempted: dict | None = None, force: bool = False,
+             mesh: dict | None = None) -> bool:
         """Save if any policy wants this step, then apply retention. Returns
         whether a checkpoint was written. ``state`` and ``aux`` are anything
         ``torch.save`` writes (tensors, numbers, containers); ``aux`` is
         restored by :meth:`restore_aux` only. ``preempted`` (``{"steps_done":
         n, "reason": ...}``) lands in ``meta.json`` for the mid-epoch
         resume; ``force`` commits whatever the policies say (the emergency
-        checkpoint)."""
+        checkpoint); ``mesh`` (a :func:`deepdfa_tpu_torch.parallel.elastic.
+        mesh_block`) records the topology for the elastic resume."""
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         reasons = []
         if force:
@@ -138,6 +140,8 @@ class CheckpointManager:
             torch.save(aux, tmp / "aux.pt")
         faults.crash_if("ckpt.crash_between_state_and_meta")
         meta = dict(step=int(step), epoch=epoch, metrics=metrics, reasons=reasons)
+        if mesh is not None:
+            meta["mesh"] = dict(mesh)
         if preempted is not None:
             meta["preempted"] = dict(preempted)
         (tmp / "meta.json").write_text(json.dumps(meta))
@@ -154,7 +158,8 @@ class CheckpointManager:
 
     def save_emergency(self, step: int, state: Any, *, epoch: int | None,
                        aux: Any | None = None, steps_done: int = 0,
-                       reason: str = "preempted") -> float:
+                       reason: str = "preempted",
+                       mesh: dict | None = None) -> float:
         """The preemption path's save: a forced commit through the ordinary
         atomic protocol whose ``meta.json`` records how far into the epoch
         the run got (the resume replays the epoch's deterministic stream and
@@ -167,7 +172,7 @@ class CheckpointManager:
             torch.cuda.synchronize()
         self.save(step, state, metrics={}, epoch=epoch, aux=aux,
                   preempted={"steps_done": int(steps_done), "reason": reason},
-                  force=True)
+                  force=True, mesh=mesh)
         return time.monotonic() - t0
 
     def _is_best(self, value: float) -> bool:

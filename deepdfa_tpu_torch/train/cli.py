@@ -148,12 +148,18 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
             all_probs.append(p_np[keep])
             all_labels.append(l_np[keep])
             if cfg.model.label_style == "node":
-                gidx = batch.node_gidx.cpu().numpy()
+                flat = hasattr(batch, "node_gidx")
+                if flat:
+                    gidx = batch.node_gidx.cpu().numpy()
                 for gi in range(n_real):
-                    sel = (gidx == gi) & keep
+                    if flat:  # segment layout: flat node rows
+                        sel = (gidx == gi) & keep
+                        p_g, l_g = p_np[sel], l_np[sel]
+                    else:  # dense layout: [G, n] rows, one per graph
+                        sel = keep[gi]
+                        p_g, l_g = p_np[gi][sel], l_np[gi][sel]
                     if sel.any():
-                        statement_items.append((p_np[sel],
-                                                l_np[sel].astype(int)))
+                        statement_items.append((p_g, l_g.astype(int)))
     finally:
         stream.close()
 

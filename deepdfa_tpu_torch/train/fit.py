@@ -30,12 +30,19 @@ Data: the materialised shards and ``splits.json`` under
 when ``data.split`` names one; without shards, a deterministic synthetic
 corpus (with a warning). Every ``label_style`` trains: graph labels, node
 labels and the dataflow solutions (shards built with the solver-label
-flag), in the segment and fused layouts. The elastic mesh block
-(``meta.json``'s ``mesh``; ``resharded`` stays 0) and the dense layout are
-not ported yet (ROADMAP A11, A10); a config that asks for one raises
-``NotImplementedError``. All three ported layouts (segment, fused,
-megabatch) train on the same segment batches and buckets; on the card the
-megabatch layout's kernel takes every bucket, with no segment twin.
+flag). The segment, fused and megabatch layouts train on the same segment
+batches and buckets (on the card the fused and megabatch kernels take
+every bucket, with no segment twin). The dense layout trains on
+:class:`~deepdfa_tpu_torch.data.dense.DenseBatcher` batches at
+corpus-derived per-graph budgets, capped at ``max_nodes / batch_graphs``;
+the graphs over the cap go through the overflow bucket as segment batches,
+which the trainer's segment twin (the same parameters) scores.
+
+Every checkpoint's ``meta.json`` and the journal carry the
+:func:`~deepdfa_tpu_torch.parallel.elastic.mesh_block` of the run; a
+resume across a changed topology goes through
+:func:`~deepdfa_tpu_torch.parallel.elastic.elastic_restore` and reports
+``resharded`` in ``final_metrics.json``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from deepdfa_tpu_torch.data.graphs import (BucketSpec, Graph, GraphBatcher,
 from deepdfa_tpu_torch.data.sampler import epoch_indices, positive_weight
 from deepdfa_tpu_torch.models import make_model
 from deepdfa_tpu_torch.models.ggnn import init_params
+from deepdfa_tpu_torch.parallel.elastic import elastic_restore, mesh_block
 from deepdfa_tpu_torch.resilience.journal import RunJournal, atomic_write_text
 from deepdfa_tpu_torch.resilience.preemption import (Preempted, PreemptedExit,
                                                      PreemptionHandler)
@@ -143,11 +151,34 @@ def load_corpus(cfg: ExperimentConfig) -> dict[str, list[Graph]]:
 
 
 def _batcher(cfg: ExperimentConfig, graphs: list[Graph] | None = None):
-    """Fixed-shape batcher for every ported layout (the fused and megabatch
-    layouts consume segment batches). With ``auto_buckets`` and a corpus to
-    measure, budgets come from corpus statistics capped by the configured
-    ceilings."""
+    """Fixed-shape batcher for the configured layout (the fused and
+    megabatch layouts consume segment batches). With ``auto_buckets`` and a
+    corpus to measure, budgets come from corpus statistics capped by the
+    configured ceilings."""
     b = cfg.data.batch
+    if cfg.model.layout == "dense":
+        from deepdfa_tpu_torch.data.dense import (DenseBatcher,
+                                                  derive_dense_sizes)
+
+        # the per-graph ceiling from the TOTAL node budget: a batch never
+        # holds more than max_nodes slots, whatever the corpus's tail
+        cap = max(b.max_nodes // max(b.batch_graphs, 1), 8)
+        if b.auto_buckets and graphs:
+            # as many shapes as full batches are expected (at most 6): the
+            # occupancy of the optimal split assumes batches fill
+            k = int(np.clip(round(len(graphs) / max(b.batch_graphs, 1)),
+                            1, 6))
+            sizes = sorted({min(s, cap)
+                            for s in derive_dense_sizes(graphs, k=k)})
+        else:
+            sizes = [cap]
+        # oversize graphs are collected for the overflow bucket (never
+        # dropped); drop_oversize=False keeps the strict raise
+        return _with_overflow_bucket(
+            DenseBatcher(max_graphs=b.batch_graphs, nodes_per_graph=sizes,
+                         drop_oversize=False,
+                         collect_oversize=b.drop_oversize),
+            graphs)
     if b.auto_buckets and graphs:
         buckets = [
             BucketSpec(
@@ -176,7 +207,7 @@ def _overflow_bucket_for(graphs: Sequence[Graph]) -> BucketSpec:
     return BucketSpec(max_graphs=2, max_nodes=mn, max_edges=me)
 
 
-def _with_overflow_bucket(batcher: GraphBatcher, graphs):
+def _with_overflow_bucket(batcher, graphs):
     """Pre-size the overflow bucket from the whole corpus, so its shape is
     fixed across epochs and splits."""
     if graphs:
@@ -186,12 +217,15 @@ def _with_overflow_bucket(batcher: GraphBatcher, graphs):
     return batcher
 
 
-def _oversize_upfront(batcher: GraphBatcher, graphs: list[Graph]) -> list[Graph]:
+def _oversize_upfront(batcher, graphs: list[Graph]) -> list[Graph]:
     """The graphs the batcher would route to its oversize list."""
-    return [g for g in graphs if not batcher.big.fits(1, g.n_nodes, g.n_edges)]
+    if hasattr(batcher, "big"):  # segment batches
+        return [g for g in graphs
+                if not batcher.big.fits(1, g.n_nodes, g.n_edges)]
+    return [g for g in graphs if g.n_nodes > batcher.nodes_per_graph]
 
 
-def _overflow_batches(batcher: GraphBatcher, leftover: list[Graph]):
+def _overflow_batches(batcher, leftover: list[Graph]):
     if not leftover:
         return
     bucket = batcher.overflow_bucket
@@ -203,7 +237,7 @@ def _overflow_batches(batcher: GraphBatcher, leftover: list[Graph]):
     yield from seg.batches(leftover)
 
 
-def _batch_stream(batcher: GraphBatcher, graphs: list[Graph],
+def _batch_stream(batcher, graphs: list[Graph],
                   shuffle_seed: int | None = None):
     """All batches for one pass: the bucket ladder's batches plus the
     oversize graphs through the overflow bucket, so every graph is seen.
@@ -240,7 +274,7 @@ def _batch_stream(batcher: GraphBatcher, graphs: list[Graph],
     batcher.oversize_graphs = list(over)
 
 
-def _oversize_stats(batcher: GraphBatcher, suffix: str = "") -> dict[str, int]:
+def _oversize_stats(batcher, suffix: str = "") -> dict[str, int]:
     """Routing counters of the last pass (``n_dropped`` stays 0 in trainer
     configurations)."""
     return {
@@ -355,10 +389,20 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
                                    lag=res.sentinel_lag)
                 if res.sentinel else None)
 
+    # the run's topology, in every meta.json and journal record
+    topology = mesh_block(device=dev)
+
     def restore(reason: str) -> tuple[TrainState, dict]:
         """The newest restorable checkpoint into the model, the optimizer
-        and the generator; walks past a corrupt newest step."""
-        step, meta, params, aux = ckpts.restore_resume(map_location=dev)
+        and the generator; walks past a corrupt newest step. A checkpoint
+        recorded under another topology is gathered to the host and placed
+        again (``meta["_resharded"]``): bitwise the saved values."""
+        step, meta, params, aux, resharded = elastic_restore(
+            ckpts, device=dev, map_location=dev)
+        if resharded:
+            logger.warning("%s: mesh changed since checkpoint (%s -> %s) — "
+                           "host-gathered and re-placed the state", reason,
+                           meta.get("mesh"), topology)
         model.load_state_dict(params)
         state.optimizer.load_state_dict(aux["optimizer"])
         # load_state_dict restores each group's saved lr: the current
@@ -370,11 +414,12 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
         state.step = int(aux["step"])
         logger.info("%s: restored checkpoint step=%d (epoch %s)", reason,
                     step, meta.get("epoch"))
-        return state, meta
+        return state, dict(meta, _resharded=resharded)
 
     start_epoch = 0
     n_rollbacks = 0
     pre_skip = 0  # mid-epoch resume: batches of start_epoch already run
+    resharded = False
     if resume:
         rec = journal.read()
         if rec is None or ckpts.latest_step() is None:
@@ -393,6 +438,7 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
             # the checkpoint's recorded epoch (its commit is atomic) decides
             # where training restarts
             state, meta = restore("resume")
+            resharded = bool(meta["_resharded"])
             ckpt_epoch = int(meta.get("epoch", -1))
             pre = meta.get("preempted")
             if pre:
@@ -411,7 +457,7 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
 
     def run_record() -> dict:
         return dict(seed=cfg.seed, lr_scale=trainer.lr_scale,
-                    rollbacks=n_rollbacks,
+                    rollbacks=n_rollbacks, mesh=topology,
                     **(sentinel.stats() if sentinel is not None else {}))
 
     tb = _tb_writer(run_dir)
@@ -459,7 +505,8 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
                 state = p.state
                 elapsed = ckpts.save_emergency(
                     state.step, state.model.state_dict(), epoch=epoch,
-                    aux=_aux(state), steps_done=p.steps_done, reason=p.reason)
+                    aux=_aux(state), steps_done=p.steps_done, reason=p.reason,
+                    mesh=topology)
                 within = elapsed <= res.preempt_deadline_s
                 logger.log(
                     logging.INFO if within else logging.ERROR,
@@ -540,7 +587,7 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
             ckpts.save(state.step, state.model.state_dict(),
                        metrics={"val_loss": val_loss,
                                 "val_F1Score": val_m["val_F1Score"]},
-                       epoch=epoch, aux=_aux(state))
+                       epoch=epoch, aux=_aux(state), mesh=topology)
             if telemetry is not None:
                 telemetry.tracer.record("ckpt.commit", t_ckpt,
                                         step=state.step, epoch=epoch)
@@ -551,7 +598,7 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
                 sampler={"seed": cfg.data.seed,
                          "undersample": cfg.data.undersample,
                          "oversample": cfg.data.oversample, "epoch": epoch},
-                best_metric=ckpts.best_metric(), resharded=False,
+                best_metric=ckpts.best_metric(), resharded=resharded,
                 timing=timing,
                 **({"telemetry": telemetry.epoch_stats()}
                    if telemetry is not None else {}),
@@ -603,11 +650,11 @@ def fit(cfg: ExperimentConfig, run_dir, resume: bool = False,
     last_val = dict(last_val) | route
     last_val["n_rollbacks"] = n_rollbacks
     last_val["lr_scale"] = trainer.lr_scale
-    last_val["resharded"] = 0  # no elastic mesh until ROADMAP A11
+    last_val["resharded"] = int(resharded)
     if sentinel is not None:
         last_val |= sentinel.stats()
     journal.write(epoch=cfg.optim.max_epochs - 1, global_step=state.step,
-                  best_metric=ckpts.best_metric(), resharded=False,
+                  best_metric=ckpts.best_metric(), resharded=resharded,
                   completed=True, timing=timing, **run_record())
     atomic_write_text(run_dir / "final_metrics.json",
                       json.dumps(last_val, indent=2))

@@ -1,8 +1,9 @@
 """Training and eval steps and the epoch loop for the GGNN classifier.
 
 The port of ``deepdfa_tpu/train/loop.py``: labels for every
-``label_style`` (graph labels are masked segment maxima, so an empty padded
-graph slot gets label 0 and weight 0; node and dataflow-solution labels are
+``label_style`` and both batch layouts (graph labels are masked segment
+maxima, or masked row maxima of a dense batch, so an empty padded graph
+slot gets label 0 and weight 0; node and dataflow-solution labels are
 per node, weighted by ``node_mask``, and ``dataflow_solution_in`` keeps
 only definition nodes, ``cut_nodef``), ``BCEWithLogitsLoss(pos_weight=...)``
 in log-sigmoid form, the node-level undersampling of the loss, metric
@@ -24,6 +25,12 @@ mid-epoch skip count, the step watchdog and the training telemetry, and
 fires the ``step.nan_grads``, ``preempt.sigterm`` and ``step.hang`` fault
 points.
 
+A dense-layout :class:`Trainer` scores the graphs over the dense budget
+(the batcher's segment-layout overflow batches) with
+:func:`segment_twin`: a segment-layout GGNN whose parameters are the dense
+model's own tensors, so its steps update the same parameters through the
+same optimizer.
+
 Node undersampling draws its keep mask from the step's
 ``torch.Generator``, so it is reproducible run to run but not bit for bit
 ``jax.random.bernoulli``'s: the two packages agree on the keep rate, not
@@ -43,6 +50,7 @@ import torch
 from torch import nn
 
 from deepdfa_tpu_torch.config import ExperimentConfig
+from deepdfa_tpu_torch.data.dense import DenseBatch
 from deepdfa_tpu_torch.data.graphs import BatchedGraphs
 from deepdfa_tpu_torch.data.prefetch import prefetch_to_device
 from deepdfa_tpu_torch.ops.segment import segment_max
@@ -61,6 +69,7 @@ __all__ = [
     "make_eval_step",
     "make_train_step",
     "node_undersample_weights",
+    "segment_twin",
 ]
 
 
@@ -76,11 +85,15 @@ class TrainState:
     step: int = 0
 
 
-def graph_labels(batch: BatchedGraphs) -> torch.Tensor:
+def graph_labels(batch: BatchedGraphs | DenseBatch) -> torch.Tensor:
     """Graph-level label = max of node ``_VULN`` per graph slot. An empty
     padded slot's max is ``-inf`` and is clamped to 0 (it carries weight 0,
-    but a finite label keeps the loss finite)."""
+    but a finite label keeps the loss finite). A dense batch takes the
+    masked maximum of each ``[n]`` row."""
     vuln = batch.node_feats["_VULN"].float()
+    if _is_dense(batch):
+        return torch.amax(torch.where(batch.node_mask, vuln,
+                                      torch.zeros_like(vuln)), dim=1)
     return torch.clamp(segment_max(vuln, batch.node_gidx, batch.max_graphs),
                        min=0.0)
 
@@ -144,8 +157,8 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
 def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
                     grad_clip: float | None = None,
                     sentinel_guard: bool = True,
-                    undersample_node_on_loss_factor: float | None = None
-                    ) -> Callable:
+                    undersample_node_on_loss_factor: float | None = None,
+                    model: nn.Module | None = None) -> Callable:
     """The train step ``(state, batch, metrics, loss_scale=1.0) -> (state,
     metrics, loss, weight_sum)``: forward, masked loss, backward, AdamW
     update, metric counts.
@@ -159,6 +172,10 @@ def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
     ``undersample_node_on_loss_factor`` (``label_style="node"`` only):
     reweights the loss by :func:`node_undersample_weights`, drawn from the
     step's generator.
+
+    ``model``: the module the step runs (default ``state.model``); the
+    dense layout's overflow steps run its :func:`segment_twin`, whose
+    parameters are ``state.model``'s.
     """
     undersample = (label_style == "node"
                    and undersample_node_on_loss_factor is not None)
@@ -168,10 +185,10 @@ def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
         # one draw per step, as the JAX package splits its key: the
         # undersampling's keep mask comes from a generator seeded with it
         sub = int(torch.randint(0, 2**62, (1,), generator=state.rng))
-        model = state.model
-        model.train()
+        net = state.model if model is None else model
+        net.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(batch)
+        logits = net(batch)
         labels, weights = extract_labels(batch, label_style)
         if undersample:
             weights = node_undersample_weights(
@@ -182,7 +199,7 @@ def make_train_step(label_style: str = "graph", pos_weight: float | None = None,
         loss = loss.detach()
         new_metrics = update_confusion(metrics, torch.sigmoid(logits.detach()),
                                        labels, weights > 0)
-        params = [p for p in model.parameters() if p.grad is not None]
+        params = [p for p in net.parameters() if p.grad is not None]
         good = True
         if sentinel_guard:
             finite = [torch.isfinite(loss)] + [torch.isfinite(p.grad).all()
@@ -220,6 +237,37 @@ def make_eval_step(label_style: str = "graph",
     return eval_step
 
 
+def segment_twin(model: nn.Module) -> nn.Module:
+    """A segment-layout :class:`~deepdfa_tpu_torch.models.ggnn.GGNN` whose
+    parameters ARE ``model``'s (the same tensors, not copies): it scores
+    and trains on :class:`BatchedGraphs` what a dense-layout model cannot
+    batch, and its gradients land where ``model``'s optimizer reads them.
+    Built on the meta device, so no generator is drawn."""
+    import dataclasses as dc
+
+    from deepdfa_tpu_torch.models.ggnn import GGNN
+
+    with torch.device("meta"):
+        twin = GGNN(dc.replace(model.cfg, layout="segment"), model.input_dim)
+    for name, _ in list(twin.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(twin.get_submodule(owner), leaf, model.get_parameter(name))
+    return twin
+
+
+def _is_dense(batch) -> bool:
+    """A dense-layout batch (:class:`DenseBatch`, or the JAX package's)."""
+    return hasattr(batch, "adj")
+
+
+def _shape_key(batch) -> tuple:
+    """The shape that identifies a batch's bucket (every leaf's shape
+    follows from it)."""
+    if _is_dense(batch):
+        return ("dense", batch.max_graphs, batch.nodes_per_graph)
+    return (batch.max_graphs, batch.max_nodes, batch.senders.shape[0])
+
+
 def _weighted_mean(losses: list, wsums: list) -> float:
     """Per-example mean over the epoch: per-batch means re-weighted by their
     real (masked-in) example counts. Non-finite batch losses (steps the
@@ -239,11 +287,12 @@ def _weighted_mean(losses: list, wsums: list) -> float:
 class Trainer:
     """Epoch loop over a segment-layout :class:`GGNN`, a fused-layout
     :class:`GGNNFused` or a megabatch-layout :class:`GGNNMegabatch` (all fed
-    :class:`BatchedGraphs`), on the device the model's parameters are on.
+    :class:`BatchedGraphs`), or a dense-layout :class:`GGNNDense` (fed
+    :class:`DenseBatch`, and its overflow's :class:`BatchedGraphs` through
+    :func:`segment_twin`), on the device the model's parameters are on.
 
-    There is no segment twin for oversized buckets: on the card the fused
-    and whole-model kernels take every bucket shape the batcher emits, or
-    raise. After each
+    The fused and megabatch layouts have no segment twin: on the card their
+    kernels take every bucket shape the batcher emits, or raise. After each
     epoch or evaluation (an epoch that raised included), ``step_ms`` holds
     the host milliseconds of each train step run (each ends at the guard's
     device sync), ``train_seconds`` the epoch's wall time and
@@ -264,11 +313,18 @@ class Trainer:
         o = self.cfg.optim
         pos_weight = self.pos_weight if o.use_weighted_loss else None
         label_style = self.cfg.model.label_style
-        self.train_step = make_train_step(
-            label_style, pos_weight=pos_weight, grad_clip=o.grad_clip,
+        step_kw = dict(
+            pos_weight=pos_weight, grad_clip=o.grad_clip,
             sentinel_guard=self.cfg.resilience.sentinel,
             undersample_node_on_loss_factor=o.undersample_node_on_loss_factor)
+        self.train_step = make_train_step(label_style, **step_kw)
         self.eval_step = make_eval_step(label_style, pos_weight=pos_weight)
+        # the dense layout's overflow (segment batches): the twin's steps
+        self._seg_twin = self.fallback_train_step = None
+        if self.cfg.model.layout == "dense":
+            self._seg_twin = segment_twin(self.model)
+            self.fallback_train_step = make_train_step(
+                label_style, model=self._seg_twin, **step_kw)
 
     @property
     def lr(self) -> float:
@@ -285,13 +341,25 @@ class Trainer:
         return self.lr_scale
 
     def steps_for(self, batch) -> tuple[Callable, Callable]:
-        """(train_step, eval_step) for this batch: every ported layout
-        takes segment-shaped :class:`BatchedGraphs`, every bucket on one
-        route."""
-        if not isinstance(batch, BatchedGraphs):
-            raise TypeError(f"expected BatchedGraphs, got {type(batch).__name__}"
-                            " (the dense layout is ROADMAP A10)")
-        return self.train_step, self.eval_step
+        """(train_step, eval_step) for this batch: the model's own steps
+        for its layout's batches, the segment twin's for a dense-layout
+        model's segment (overflow) batches."""
+        dense = self.cfg.model.layout == "dense"
+        if _is_dense(batch) and dense:
+            return self.train_step, self.eval_step
+        if hasattr(batch, "node_gidx"):  # a segment-layout batch
+            if not dense:
+                return self.train_step, self.eval_step
+            return self.fallback_train_step, self._fallback_eval
+        raise TypeError(f"layout={self.cfg.model.layout!r} does not take a "
+                        f"{type(batch).__name__}")
+
+    def _fallback_eval(self, model: nn.Module, batch: BatchedGraphs,
+                       metrics: ConfusionState):
+        """The eval step on ``model``'s segment twin."""
+        twin = (self._seg_twin if model is self.model
+                else segment_twin(model))
+        return self.eval_step(twin, batch, metrics)
 
     def init_state(self) -> TrainState:
         """A fresh optimizer over the model's parameters (which
@@ -411,12 +479,9 @@ class Trainer:
                     self.step_ms.append((time.perf_counter() - t0) * 1e3)
                     consumed += 1
                     if telemetry is not None:
-                        # the bucket's shape fixes every leaf's shape
-                        shape_key = (batch.max_graphs, batch.max_nodes,
-                                     batch.senders.shape[0])
                         telemetry.observe_step(wait_end - t_wait,
                                                disp_end - t_disp,
-                                               shape_key=shape_key)
+                                               shape_key=_shape_key(batch))
                         tracer.record("data.wait", t_wait, wait_end,
                                       parent=parent, step=consumed - 1)
                         tracer.record("step.dispatch", t_disp, disp_end,

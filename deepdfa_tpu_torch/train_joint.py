@@ -1,9 +1,8 @@
 """Joint LLM + GGNN training: the reference's ``train.py`` command surface.
 
-A copy of ``scripts/train_joint.py``: the same flags (less
-``--predict-source``) and the same JSON keys, run as ``python -m
-deepdfa_tpu_torch.train_joint`` on ``--device`` (``cuda`` unless another
-is named). Two weight sources:
+A copy of ``scripts/train_joint.py``: the same flags and the same JSON
+keys, run as ``python -m deepdfa_tpu_torch.train_joint`` on ``--device``
+(``cuda`` unless another is named). Two weight sources:
 
 - ``--hf-checkpoint DIR``: a local HF CodeLlama (or, with ``--encoder
   roberta``, CodeBERT) checkpoint, converted with no renaming and
@@ -23,12 +22,22 @@ freeze-transfer, ``main_cli.py:136-145``). Graphs come from the shards of
 ``python -m deepdfa_tpu_torch.preprocess`` for the same dataset, joined by
 function id.
 
+``--predict-source PATH`` (repeatable) scans raw C files or directories
+with the newest ``epoch_*`` checkpoint under ``--output_dir``: every
+function is parsed, encoded against the dataset's shard vocabularies and
+its own source span tokenized, and scored by the trained joint model; the
+per-function probabilities (and a row per file or function that could not
+be scored) go to ``predictions.json`` and stdout. The model flags must
+match the training run's, as for ``--do_test``.
+
 Usage:
   python -m deepdfa_tpu_torch.preprocess --dataset demo --n 200
   python -m deepdfa_tpu_torch.train_joint --dataset demo --do_train
       --do_test --epochs 2 [--device cpu]
   python -m deepdfa_tpu_torch.train_joint --preset linevul_fusion
       --freeze-graph RUN/checkpoints --do_train
+  python -m deepdfa_tpu_torch.train_joint --dataset demo --output_dir RUN
+      --predict-source tests/fixtures/realworld
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import dataclasses
 import json
 from pathlib import Path
 
-__all__ = ["hf_encoder", "main", "split_examples"]
+__all__ = ["hf_encoder", "main", "scan_sources", "split_examples"]
 
 
 def split_examples(examples, seed: int):
@@ -81,6 +90,64 @@ def hf_encoder(encoder_family: str, llm_cfg, hf: str, device):
     return model.cfg, model
 
 
+def scan_sources(paths, vocabs, use_gnn: bool):
+    """``(functions, ids, meta, graphs, errors)`` of the C files under
+    ``paths``: each function's source span, its id, ``{"file",
+    "function"}``, its graph (with ``use_gnn``) and an error row for each
+    file or function that cannot be scored."""
+    from deepdfa_tpu_torch.cpg.features import add_dependence_edges
+    from deepdfa_tpu_torch.cpg.frontend import FrontendError, parse_functions
+    from deepdfa_tpu_torch.pipeline import encode_cpg
+    from deepdfa_tpu_torch.predict import collect_sources
+
+    funcs, ids, meta, graphs, errors = [], [], [], [], []
+    for src_path in paths:
+        found = collect_sources([src_path])
+        if not found:
+            # a .c-less directory must not read as a clean scan of nothing
+            errors.append({"file": str(src_path),
+                           "error": "directory contains no .c files "
+                                    "(the frontend parses C11 only)"})
+            continue
+        for file_name, text in found:
+            # one pathological file must not abort the scan
+            try:
+                src_lines = text.splitlines()
+                for fname, cpg in parse_functions(text):
+                    cpg = add_dependence_edges(cpg)
+                    gid = len(funcs)
+                    g = None
+                    if use_gnn:
+                        g, _ = encode_cpg(cpg, gid, vocabs)
+                        if g is None:
+                            errors.append(
+                                {"file": file_name, "function": fname,
+                                 "error": "no CFG nodes survived selection"})
+                            continue
+                    # the LLM reads the function's own source span
+                    lines = [n.line for n in cpg.nodes.values() if n.line]
+                    lo, hi = ((min(lines), max(lines)) if lines
+                              else (1, len(src_lines)))
+                    funcs.append("\n".join(src_lines[max(lo - 1, 0):hi]))
+                    ids.append(gid)
+                    if use_gnn:
+                        graphs.append(g)
+                    meta.append({"file": file_name, "function": fname})
+            except (FrontendError, SyntaxError, ValueError) as e:
+                errors.append({"file": file_name,
+                               "error": f"{type(e).__name__}: {e}"})
+    return funcs, ids, meta, graphs, errors
+
+
+def _newest_epoch(run_dir, what: str) -> Path:
+    saved = sorted(Path(run_dir).glob("epoch_*"),
+                   key=lambda p: int(p.name.split("_")[1]))
+    if not saved:
+        raise SystemExit(f"{what} needs an epoch_* checkpoint under "
+                         f"{run_dir}")
+    return saved[-1]
+
+
 def _freeze_graph_cfg(ckpt_dir: str):
     """The fit run's GGNN config (``config.json`` beside ``checkpoints/``),
     else the golden one."""
@@ -120,9 +187,22 @@ def main(argv=None) -> dict:
     parser.add_argument("--freeze-graph", default=None, metavar="CKPT_DIR",
                         help="checkpoint dir of a fit run: load its GGNN "
                              "encoder into the fusion model and freeze it")
+    parser.add_argument("--predict-source", action="append", default=[],
+                        metavar="PATH",
+                        help="scan raw C files/dirs with the trained joint "
+                             "checkpoint under --output_dir: per-function "
+                             "vulnerability probability")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
+    if args.predict_source:
+        if args.do_train or args.do_test:
+            parser.error("--predict-source is a standalone scan over the "
+                         "given files (their labels are unknown) — run "
+                         "training/testing separately")
+        if not args.output_dir:
+            parser.error("--predict-source needs --output_dir pointing at "
+                         "the trained joint run (its epoch_* checkpoint)")
 
     from deepdfa_tpu_torch import resolve_device, utils
     from deepdfa_tpu_torch.config import FeatureConfig, GGNNConfig
@@ -175,7 +255,30 @@ def main(argv=None) -> dict:
                              "--no_flowgnn / use a use_gnn preset)")
         jcfg = dataclasses.replace(jcfg, freeze_gnn=True)
 
-    if args.dataset == "demo":
+    suffix = "_sample" if args.sample else ""
+    shard_dir = utils.processed_dir() / args.dataset / f"shards{suffix}"
+    scan_meta = scan_graphs = None
+    if args.predict_source:
+        vocabs = None
+        if jcfg.use_gnn:  # a --no_flowgnn checkpoint never needed shards
+            from deepdfa_tpu_torch.pipeline import load_vocabs
+
+            vocabs = load_vocabs(shard_dir)
+            voc_dim = next(iter(vocabs.values())).input_dim
+            if voc_dim != FeatureConfig().input_dim:
+                raise SystemExit(
+                    f"vocab input_dim {voc_dim} != config input_dim "
+                    f"{FeatureConfig().input_dim} — the checkpoint and the "
+                    "shard dir disagree")
+        funcs, ids, scan_meta, scan_graphs, scan_errors = scan_sources(
+            args.predict_source, vocabs, jcfg.use_gnn)
+        labels = [0] * len(funcs)  # unknown: what is being predicted
+        if not funcs:
+            out = {"results": scan_errors, "n_scored": 0,
+                   "n_errors": len(scan_errors)}
+            print(json.dumps(out))
+            return out
+    elif args.dataset == "demo":
         from deepdfa_tpu_torch.data.codegen import demo_corpus
 
         rows = demo_corpus(60 if args.sample else 200, seed=0)
@@ -183,9 +286,10 @@ def main(argv=None) -> dict:
         from deepdfa_tpu_torch.data import ingest
 
         rows = ingest.ds(args.dataset, sample=args.sample)
-    funcs = [r["before"] for r in rows]
-    labels = [int(r["vul"]) for r in rows]
-    ids = [int(r["id"]) for r in rows]
+    if not args.predict_source:
+        funcs = [r["before"] for r in rows]
+        labels = [int(r["vul"]) for r in rows]
+        ids = [int(r["id"]) for r in rows]
 
     if args.hf_checkpoint:
         from deepdfa_tpu_torch.finetune_llm import hf_tokenizer
@@ -199,12 +303,24 @@ def main(argv=None) -> dict:
         tokenizer = HashTokenizer(vocab_size=llm_cfg.vocab_size)
     examples = encode_functions(funcs, labels, tokenizer, jcfg.block_size,
                                 indices=ids)
-    train_ex, eval_ex, test_ex = split_examples(examples, jcfg.seed)
+    if scan_meta is not None:  # scan mode: every parsed function is scored
+        train_ex = eval_ex = test_ex = examples
+    else:
+        train_ex, eval_ex, test_ex = split_examples(examples, jcfg.seed)
 
     join = None
-    if jcfg.use_gnn:
-        suffix = "_sample" if args.sample else ""
-        shard_dir = utils.processed_dir() / args.dataset / f"shards{suffix}"
+    if jcfg.use_gnn and scan_graphs is not None:
+        from deepdfa_tpu_torch.data.graphs import _round_up
+
+        # budgets for the worst batch: eval_batch_size copies of the
+        # largest scanned function
+        mn = max(g.n_nodes for g in scan_graphs)
+        me = max(g.n_edges for g in scan_graphs)
+        join = GraphJoin(
+            graphs={int(g.gid): g for g in scan_graphs},
+            max_nodes=max(4096, _round_up(mn * jcfg.eval_batch_size + 2)),
+            max_edges=max(8192, _round_up(me * jcfg.eval_batch_size)))
+    elif jcfg.use_gnn:
         if not shard_dir.exists():
             raise SystemExit(
                 f"no shards at {shard_dir} — run python -m "
@@ -248,14 +364,27 @@ def main(argv=None) -> dict:
         if state is not None:
             params = state.params
         else:  # the newest epoch_* of the run (--load_checkpoint parity)
-            saved = sorted(Path(run_dir).glob("epoch_*"),
-                           key=lambda p: int(p.name.split("_")[1]))
-            if not saved:
-                raise SystemExit("--do_test without --do_train needs an "
-                                 f"epoch_* checkpoint under {run_dir}")
+            newest = _newest_epoch(run_dir, "--do_test without --do_train")
             params = trainer.trained_module()
-            params.load_state_dict(trainer.load(saved[-1].name))
+            params.load_state_dict(trainer.load(newest.name))
         out |= trainer.test(params, test_ex)
+    if args.predict_source:
+        newest = _newest_epoch(run_dir, "--predict-source")
+        params = trainer.trained_module()
+        params.load_state_dict(trainer.load(newest.name))
+        _loss, probs, _labels = trainer._run_eval(params, examples)
+        # _run_eval keeps the masked-in rows in batch order, and every
+        # scanned function owns its graph, so probs align with scan_meta
+        if len(probs) != len(scan_meta):
+            raise RuntimeError(
+                f"scan alignment broke: {len(probs)} probabilities for "
+                f"{len(scan_meta)} functions (missing graphs?)")
+        results = [{**meta, "vulnerable_probability": round(float(p), 6)}
+                   for meta, p in zip(scan_meta, probs[:, 1])] + scan_errors
+        out = {"results": results, "n_scored": len(scan_meta),
+               "n_errors": len(scan_errors), "checkpoint": newest.name,
+               "run_dir": str(run_dir)}
+        (run_dir / "predictions.json").write_text(json.dumps(out, indent=2))
     print(json.dumps(out, default=float))
     return out
 

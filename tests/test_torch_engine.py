@@ -177,10 +177,16 @@ def test_model_rev_names_framework_and_state(engines):
 @pytest.mark.parametrize("kw,exc,match", [
     # an unknown precision is refused, as the JAX engine refuses it
     (dict(precision="fp8"), ValueError, "'f32' or 'int8'"),
-    (dict(mesh=object()), NotImplementedError, "A11")])
+    # dp replication is ported; a mesh that shards the model (tp) is the
+    # LLM half of the item and raises when it is built
+    (dict(mesh={"tp": 2}), NotImplementedError, "A11")])
 def test_unported_engine_options_raise(kw, exc, match):
+    from deepdfa_tpu_torch.parallel.mesh import local_mesh
+
     cfg = GGNNConfig(**SMALL, layout="fused")
     with pytest.raises(exc, match=match):
+        if "mesh" in kw:
+            kw = dict(mesh=local_mesh(2, device="cpu", **kw["mesh"]))
         ScoringEngine.from_model(make_model(cfg, INPUT_DIM, device="cpu"),
                                  None, feat_keys=KEYS, device="cpu", **kw)
 

@@ -415,7 +415,7 @@ def test_the_port_declares_only_the_points_it_fires():
         "ckpt.crash_between_state_and_meta", "step.nan_grads",
         "prefetch.producer_raises", "joern.hang", "joern.die",
         "serve.drop_request", "serve.engine_raises", "preempt.sigterm",
-        "step.hang", "obs.trace_drop", "obs.flight_drop",
+        "mesh.device_lost", "step.hang", "obs.trace_drop", "obs.flight_drop",
         "autoscale.spawn_fail", "autoscale.replica_crash",
         "extract.worker_crash", "extract.cache_corrupt",
         "cascade.tier2_timeout", "cascade.escalation_drop",

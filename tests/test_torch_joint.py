@@ -120,8 +120,10 @@ def test_graph_join_matches_jax_and_masks_missing_graphs():
     for k in tb.graphs.node_feats:
         np.testing.assert_array_equal(tb.graphs.node_feats[k],
                                       jb.graphs.node_feats[k])
-    with pytest.raises(NotImplementedError, match="A10"):
-        tds.GraphJoin(graphs={}, layout="dense")
+    # the dense layout is ported (tests/test_torch_joint_dense.py); an
+    # unknown one is refused as the JAX GraphJoin refuses it
+    with pytest.raises(ValueError, match="unknown layout"):
+        tds.GraphJoin(graphs={}, layout="sparse")
     with pytest.raises(ValueError, match="empty graph store"):
         tds.GraphJoin(graphs={}).join(next(tds.text_batches(ex_t, 4)))
 

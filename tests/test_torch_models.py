@@ -139,8 +139,14 @@ def test_host_batching_equals_jax_package():
 
 
 def test_unported_layouts_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        GGNNConfig(layout="dense")
+    """Every layout of the JAX package is ported (dense last); a layout
+    name outside them is refused."""
+    from deepdfa_tpu_torch.config import LAYOUTS
+
+    assert LAYOUTS == ("segment", "fused", "megabatch", "dense")
+    assert GGNNConfig(layout="dense").layout == "dense"
+    with pytest.raises(ValueError, match="unknown layout"):
+        GGNNConfig(layout="sparse")
 
 
 def test_megabatch_layout_is_ported():

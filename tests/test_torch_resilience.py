@@ -204,8 +204,10 @@ def test_the_trainer_fault_points_are_declared_with_jax_docs():
     for point in TRAINER_POINTS:
         assert point in faults.KNOWN_POINTS
         assert faults.POINT_DOCS[point] == jfaults.POINT_DOCS[point]
-    assert len(faults.KNOWN_POINTS) == 29
-    assert "mesh.device_lost" not in faults.KNOWN_POINTS  # with A11
+    assert len(faults.KNOWN_POINTS) == 30
+    # the mesh's point, fired by parallel/mesh.py::build_mesh
+    assert faults.POINT_DOCS["mesh.device_lost"] == \
+        jfaults.POINT_DOCS["mesh.device_lost"]
     # the continual loop's three points, by name and doc against JAX's
     for point in ("continual.capture_drop", "continual.rollout_crash",
                   "continual.rollback_trigger"):
@@ -214,11 +216,10 @@ def test_the_trainer_fault_points_are_declared_with_jax_docs():
 
 
 def test_known_points_are_the_jax_registry_less_the_mesh_point():
-    """Every point of the JAX registry but ``mesh.device_lost`` (ROADMAP
-    A11), in its order, with its doc."""
-    want = tuple(p for p in jfaults.KNOWN_POINTS if p != "mesh.device_lost")
-    assert faults.KNOWN_POINTS == want
-    assert faults.POINT_DOCS == {p: jfaults.POINT_DOCS[p] for p in want}
+    """Every point of the JAX registry, ``mesh.device_lost`` included since
+    the mesh was ported (the name is kept), in its order, with its doc."""
+    assert faults.KNOWN_POINTS == tuple(jfaults.KNOWN_POINTS)
+    assert faults.POINT_DOCS == dict(jfaults.POINT_DOCS)
 
 
 @pytest.mark.parametrize("spec", [

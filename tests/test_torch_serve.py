@@ -578,7 +578,7 @@ def test_every_serve_key_of_the_jax_config_parses(tmp_path):
     ({"serve.frontend.mode": "fork"}, ValueError, "mode"),
     ({"serve.obs.drift_bins": 1}, ValueError, "drift_bins"),
     ({"serve.warm_store_dir": "/x"}, None, None),  # parses (the warm store)
-    ({"serve.mesh_replicas": 2}, NotImplementedError, "A11"),
+    ({"serve.mesh_replicas": 2}, None, None),  # parses (replication)
     ({"serve.admission.enabled": True}, None, None),  # parses (admission)
     ({"serve.continual.capture_path": "c.jsonl"}, None, None),  # capture
     ({"serve.continual.shadow_bins": 1}, ValueError, "shadow_bins"),

@@ -277,7 +277,7 @@ def test_steps_for_takes_every_segment_batch():
     trainer = loop.Trainer(make_model(cfg.model, INPUT_DIM, device="cpu"), cfg)
     for b in _batches(2):
         assert trainer.steps_for(b) == (trainer.train_step, trainer.eval_step)
-    with pytest.raises(TypeError, match="A10"):
+    with pytest.raises(TypeError, match="does not take a dict"):
         trainer.steps_for({"dense": True})
     assert trainer.rescale_lr(0.5) == 0.5
     trainer.init_state()
