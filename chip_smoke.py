@@ -51,7 +51,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    the card and the fused layout on the CPU (loss, gradients and new
    parameters within stated limits), and ``fit`` for 2 epochs plus
    ``fit(resume=True)`` to 3 in a spawned process against the
-   uninterrupted run, and a second uninterrupted run: both bitwise equal
+   uninterrupted run, and a second uninterrupted run beside that process:
+   both bitwise equal
    (the port's reductions on the card have a fixed order). One step runs
    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` as a
    diagnostic, in a spawned process beside the resume's: the ops that
@@ -271,7 +272,8 @@ Each phase prints one JSON line; any failure exits non-zero.
    of 6 steps, every child with ``--device cuda``. A clean ``fit`` through
    ``cli.main`` in this process, the counts reset just before: B1 =
    (steps + eval batches) × 11, B2 = steps × 17, all ``wgmma``; its final
-   parameters are the oracle. Four children side by side: a crash
+   parameters are the oracle. Beside it, watched from a thread, four
+   children side by side: a crash
    between the second checkpoint's payload and its ``meta.json`` (rc 137,
    a ``*.tmp`` left), a ``preempt.sigterm`` mid-epoch (rc 75, the
    emergency commit within ``preempt_deadline_s``, steps done > 0), a real
@@ -281,16 +283,25 @@ Each phase prints one JSON line; any failure exits non-zero.
    are scraped while it is wedged (non-zero exit within the deadline plus
    ``TRAINER_ABORT_MARGIN_S`` of the wedge being seen, ``watchdog_timeout``
    journaled, a flight dump). Then ``fit --resume`` of the crashed and the
-   preempted runs, each bitwise the clean run, beside an isolated tuning
-   trial (a ``fit`` child on the card). In this process: a fit with
+   preempted runs, each bitwise the clean run, an isolated tuning trial (a
+   ``fit`` child on the card) and ``analyze`` (a child, the 28 variants),
+   beside the rest in this process: a fit with
    ``step.nan_grads`` on three consecutive steps and patience 2 (it
    completes, ``n_rollbacks`` ≥ 1, ``lr_scale`` = backoff ** rollbacks, B1
    and B2 following every step run); ``test`` (B1 = batches × 11; its
    probabilities within ``PROB_LIMIT`` of the same checkpoint on the CPU;
-   ``pr.csv`` and ``pr_binned.csv`` with the JAX header), ``predict``
+   ``pr.csv`` and ``pr_binned.csv`` with the JAX header); the profile leg,
+   ``test --set profile=true time=true trace=true`` on the same checkpoint
+   (its FLOPs per batch, counted by ``FlopCounterMode`` with B1's formula
+   inside the first profiled call of each batch shape, equal to the count
+   of the same batches on the CPU with B1 run as its plain rounds
+   (``PlainB1``), so the formula is checked at the smoke's shapes; B1 =
+   batches × 11 in the counter and in
+   the ``torch.profiler`` trace; its ``test_*`` metrics bitwise the
+   unprofiled run's; the ``profile_*`` keys), ``predict``
    over the realworld fixtures (B1 = scorer calls × 11, within
-   ``ARTIFACT_LIMIT`` of ``predict_paths`` in this process), ``analyze``
-   (the 28 variants) and ``trace export`` (``train.epoch`` spans);
+   ``ARTIFACT_LIMIT`` of ``predict_paths`` in this process) and ``trace
+   export`` (``train.epoch`` spans);
    ``run_int8_train`` over two megabatch-packed corpus batches, 8 steps
    (B5 = (gate batches + steps) × 15, all ``wgmma``; the gate's deltas
    within ``INT8_TRAIN_LIMIT`` of the gate on the CPU); one epoch with
@@ -506,6 +517,22 @@ Each phase prints one JSON line; any failure exits non-zero.
    mesh=local_mesh(1))`` scoring through ``score_groups`` against the plain
    engine (``DP_LIMIT``, B1 = calls × 11, ``wgmma``) and ``local_mesh``
    refusing more replicas than cards.
+17k. shard — the sharded LLM at CodeLlama-7B width (hidden 4096, 32
+   heads, intermediate 11008, vocabulary 32016) cut to 2 decoder layers,
+   bf16, ``attn_impl="flash"``, a batch of 4 × 256 tokens, at weight seeds
+   0 and 1. Two ranks sharing the card over gloo (children started with
+   the linevul child and run beside the bigvul, dense and dp phases; the
+   collectives staged through host memory): ``tp=2`` and ``fsdp=2`` logits against the unsharded forward
+   on the card (``SHARD_TP_LIMIT``, ``SHARD_FSDP_LIMIT``; B6 on the local
+   heads, one launch a layer, ``wgmma``), the ``sp=2`` ring's hidden states
+   against the unsharded ``"full"`` forward (``SHARD_SP_LIMIT``), and a
+   ``JointEngine.from_run_dir(mesh=tp=2)`` score batch against the
+   unsharded engine (``SHARD_ENGINE_LIMIT``; its GGNN on B1, 11 a batch,
+   ``wgmma``), both ranks reading the same; in this process, the size-1
+   sharded path (a mesh of one, whose axes have no group, so it runs no
+   collective) against the unsharded logits (``SHARD_WORLD1_LIMIT``), and
+   ``parallel.comm``'s all-reduce and all-gather over an NCCL group of one
+   on a bf16 activation (exact). Each sharded forward's milliseconds.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 fleet phase's numbers again on one short line, the ``nvidia-smi`` name
@@ -537,6 +564,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from deepdfa_tpu_torch import preprocess
 from deepdfa_tpu_torch import utils as port_utils
@@ -1396,13 +1425,18 @@ def _resume_fit(cfg: ExperimentConfig, run_dir: str) -> None:
     fit(cfg, Path(run_dir), resume=True, device="cuda")
 
 
-def resume_in_fresh_process(cfg: ExperimentConfig, run_dir: Path) -> dict:
+def start_resume(cfg: ExperimentConfig, run_dir: Path):
     """``fit(cfg, run_dir, resume=True)`` in a spawned process, which shares
     nothing with this one but the run directory, as a restarted job would
-    run it; returns its final metrics."""
+    run it (:func:`finish_resume` waits for it)."""
     proc = multiprocessing.get_context("spawn").Process(
         target=_resume_fit, args=(cfg, str(run_dir)))
     proc.start()
+    return proc
+
+
+def finish_resume(proc, run_dir: Path) -> dict:
+    """Wait for :func:`start_resume`'s process; its final metrics."""
     proc.join(timeout=600)
     if proc.is_alive():
         proc.kill()
@@ -1486,9 +1520,10 @@ def drive_train(work: Path, layout: str) -> dict:
         two = dataclasses.replace(cfg, optim=dataclasses.replace(
             cfg.optim, max_epochs=2))
         fit(two, work / "resumed", device="cuda")
-        resumed = resume_in_fresh_process(cfg, work / "resumed")
-        # and a second uninterrupted run
+        resume = start_resume(cfg, work / "resumed")
+        # and a second uninterrupted run, beside the resume's process
         fit(cfg, work / "again", device="cuda")
+        resumed = finish_resume(resume, work / "resumed")
         nondeterministic = diagnostic.result(timeout=600)
     pa, pb = read_params(work / "straight"), read_params(work / "resumed")
     pc = read_params(work / "again")
@@ -5057,6 +5092,114 @@ def watch_children(procs: dict, runs: dict, hang_log: Path,
     return sig, wedge or {"error": "the wedged run was never scraped"}
 
 
+# B1's kernels by name (both variants), as a trace's kernel events read
+B1_KERNELS = ("tc_prep_kernel", "linear_tc_kernel", "gru_round_tc_kernel",
+              "csr_kernel", "linear_kernel", "gru_round_kernel")
+
+
+def trace_kernel_events(path: Path, names) -> dict:
+    """The device kernel events of a ``torch.profiler`` Chrome trace whose
+    function is one of ``names`` (demangled or mangled), counted by name,
+    and the device events in all."""
+    import re
+
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = dict.fromkeys(names, 0)
+    for e in kernels:
+        name = e.get("name", "")
+        m = re.search(r"(?:^|::|\s)([A-Za-z_]\w*)\(", name) or re.match(
+            r"_Z\d+([A-Za-z_]\w*?)P", name)
+        if m and m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return {"by_name": counts, "b1": sum(counts.values()),
+            "kernel_events": len(kernels)}
+
+
+class PlainB1(TorchDispatchMode):
+    """Runs B1's registered op (``deepdfa::fused_ggnn``) as its plain
+    version, so a ``FlopCounterMode`` beneath counts the plain rounds'
+    products and not the op's formula. A dispatch mode is its thread's
+    alone: the card's work on other threads goes on through the op."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.deepdfa.fused_ggnn.default:
+            h0, senders, receivers, *weights, n_steps = args
+            return fg.fused_ggnn_reference(h0, senders, receivers, *weights,
+                                           n_steps=n_steps)
+        return func(*args, **(kwargs or {}))
+
+
+def cpu_step_flops(cfg: ExperimentConfig, state: dict) -> list:
+    """FLOPs of ``test``'s eval step on each test batch, counted on the CPU
+    from the same checkpoint with B1 run as its plain version
+    (:class:`PlainB1`): the products ``FlopCounterMode`` sees, which B1's
+    formula must equal."""
+    from deepdfa_tpu_torch.train.fit import _batch_stream, _batcher
+
+    test = load_corpus(cfg)["test"]
+    model = make_model(cfg.model, cfg.input_dim, device="cpu")
+    model.load_state_dict(state)
+    trainer = Trainer(model, cfg)
+    out = []
+    for b in _batch_stream(_batcher(cfg, test), test):
+        tb = to_device(b, "cpu")
+        counter = FlopCounterMode(display=False)
+        with counter, PlainB1():
+            trainer.steps_for(tb)[1](model, tb, ConfusionState.zeros("cpu"))
+        out.append(float(counter.get_total_flops()) or None)
+    return out
+
+
+def profile_test(cfg: ExperimentConfig, cfg_file: Path, ckpt_dir: Path,
+                 out: Path, plain: dict, cpu_flops) -> dict:
+    """``test --set profile=true time=true trace=true`` on the card, the
+    B1 count reset just before: its FLOPs per batch beside the CPU's count
+    of the same batches (``cpu_flops()``, :func:`cpu_step_flops`), B1 in
+    its trace and in the counter, and whether its ``test_*`` metrics are
+    the unprofiled run's (``plain``)."""
+    fg.n_launches = 0
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    got = run_cli(["test", "--config", str(cfg_file), "--run-dir", str(out),
+                   "--ckpt-dir", str(ckpt_dir), "--device", "cuda",
+                   "--set", "profile=true", "--set", "time=true",
+                   "--set", "trace=true"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b1, by_variant = fg.n_launches, dict(fg.n_variant_launches)
+    rows = [json.loads(line) for line in
+            (out / "profiledata.jsonl").read_text().splitlines()]
+    card = [r["flops"] for r in rows]
+    cpu = cpu_flops()
+    trace = trace_kernel_events(out / "trace" / "trace.json", B1_KERNELS)
+    metrics = {k: v for k, v in got.items() if k.startswith("test_")}
+    return {"card": nvidia_smi(), "seconds": seconds,
+            "profile": {k: v for k, v in got.items()
+                        if k.startswith("profile_")},
+            "flops_per_batch": card, "cpu_flops_per_batch": cpu,
+            "flops_equal": card == cpu and len(card) > 0,
+            "b1_launches": b1, "b1_launches_by_variant": by_variant,
+            "trace": trace,
+            "metrics_equal": metrics == {k: v for k, v in plain.items()
+                                         if k.startswith("test_")}}
+
+
+def check_profile_test(row: dict, want_b1: int) -> None:
+    """The profile leg's gates: FLOPs per batch equal to the CPU's count
+    exactly, B1 = test batches × 11 in the counter and in the trace, the
+    ``test_*`` metrics bitwise the unprofiled run's, the four ``profile_*``
+    keys."""
+    if not row["flops_equal"] or row["b1_launches"] != want_b1 or \
+            row["trace"]["b1"] != want_b1 or not row["metrics_equal"] or \
+            sorted(row["profile"]) != [
+                "profile_examples_per_sec", "profile_gflops_per_example",
+                "profile_gmacs_per_example", "profile_ms_per_example"]:
+        fail(f"trainer: the profiled test {row}")
+    check_ggnn_wgmma("trainer_test_profiled", "B1",
+                     row["b1_launches_by_variant"], row["b1_launches"])
+
+
 def phase_trainer(work: Path) -> dict:
     """``python -m deepdfa_tpu_torch.train.cli`` on the card over the corpus
     phase's ``demo`` shards, the golden model in the fused layout: a clean
@@ -5089,14 +5232,9 @@ def phase_trainer(work: Path) -> dict:
                                     "--run-dir", str(run), "--device",
                                     "cuda", *extra]
 
-    # 1. the clean fit, in this process: the oracle of the resumed runs
-    clean = root / "clean"
-    final, b1, b2, var, clean_s = counted_cli(fit_argv(clean))
-    clean_row = fit_launches(clean, b1, b2, var) | {
-        "seconds": clean_s, "final_metrics": final}
-
     # 2-4, 6. the children: a crash, a preemption, a real SIGUSR1 and a
-    # wedged step, side by side
+    # wedged step, side by side, watched from a thread while the clean fit
+    # runs in this process
     runs = {name: root / name for name in ("crash", "preempt", "signal",
                                            "hang")}
     procs = {
@@ -5115,8 +5253,15 @@ def phase_trainer(work: Path) -> dict:
             f"resilience.step_deadline_s={TRAINER_STEP_DEADLINE_S}"),
             root / "hang.log", f"step.hang@{TRAINER_HANG_HIT}"),
     }
-    sig, wedge = watch_children(procs, runs, root / "hang.log",
-                                TRAINER_HANG_HIT)
+    with ThreadPoolExecutor(max_workers=1) as watcher:
+        watched = watcher.submit(watch_children, procs, runs,
+                                 root / "hang.log", TRAINER_HANG_HIT)
+        # 1. the clean fit, in this process: the oracle of the resumed runs
+        clean = root / "clean"
+        final, b1, b2, var, clean_s = counted_cli(fit_argv(clean))
+        clean_row = fit_launches(clean, b1, b2, var) | {
+            "seconds": clean_s, "final_metrics": final}
+        sig, wedge = watched.result()
     children = {name: finish_cli(p) for name, p in procs.items()}
     hang_exit = getattr(procs["hang"], "exit_at", None)
     abort_s = (hang_exit - wedge["wedge_seen_s"]
@@ -5132,16 +5277,38 @@ def phase_trainer(work: Path) -> dict:
     except FileNotFoundError:
         sig_step = None
 
-    # the resumes (children) and the isolated tuning trial
+    # the resumes and the isolated tuning trial: children, beside 5 and
+    # 7-10 in this process (the trial's wait on a thread)
     resumes = {name: start_cli(cli_command(cfg_file, runs[name], "--resume"),
                                root / f"{name}_resume.log")
                for name in ("crash", "preempt")}
-    iso = run_trials(iter([{"optim.max_epochs": 1}]), root / "tune_iso",
-                     configs=[str(cfg_file)], isolate=True, device="cuda")
-    resumed = {name: finish_cli(p) for name, p in resumes.items()}
-    iso_run = root / "tune_iso" / "trial_0"
-    iso_log = (iso_run / "run.log").read_text() if (
-        iso_run / "run.log").exists() else ""
+    iso_pool = ThreadPoolExecutor(max_workers=1)
+    iso_trial = iso_pool.submit(
+        run_trials, iter([{"optim.max_epochs": 1}]), root / "tune_iso",
+        configs=[str(cfg_file)], isolate=True, device="cuda")
+    # analyze (host work only) as a child beside them
+    analyze = start_cli([sys.executable, "-m", "deepdfa_tpu_torch.train.cli",
+                         "analyze", "--config", str(cfg_file), "--run-dir",
+                         str(root / "analyze")], root / "analyze.log")
+    # the CPU's side of 7 and 8 (the plain versions, off the main path) on
+    # a thread beside the card's work in this process
+    best = CheckpointManager(clean / "checkpoints").restore_best(
+        map_location="cpu")
+    corpus = load_corpus(cfg)
+    plan = make_model(dataclasses.replace(cfg.model, layout="megabatch"),
+                      cfg.input_dim, device="cpu").plan_for(0, 0, 0)
+    packed = mb.pack_megabatches(
+        corpus["train"], width=plan.width, n_steps=plan.n_steps,
+        table_rows=plan.table_rows, embed_width=plan.embed_width,
+        n_head_layers=plan.n_head_layers, uniform=True).batches[:2]
+    cpu_pool = ThreadPoolExecutor(max_workers=1)
+    cpu_flops = cpu_pool.submit(cpu_step_flops, cfg, best)
+    cpu_probs = cpu_pool.submit(eval_probs, cfg, best, "cpu")
+    # the int8 gate alone on the CPU: a threshold of 0 refuses after the
+    # deltas
+    cpu_int8 = cpu_pool.submit(run_int8_train, packed, cfg=cfg,
+                               steps=INT8_TRAIN_STEPS, device="cpu",
+                               max_score_delta=0.0)
 
     # 5. a divergence rolled back, in this process
     with faults.installed(f"step.nan_grads@{TRAINER_NAN_HITS}"):
@@ -5158,9 +5325,11 @@ def phase_trainer(work: Path) -> dict:
                       str(clean / "checkpoints"), "--device", "cuda"])
     torch.cuda.synchronize()
     test_b1, test_var = fg.n_launches, dict(fg.n_variant_launches)
-    test_graphs = load_corpus(cfg)["test"]
+    test_graphs = corpus["test"]
     test_batches = sum(1 for _ in _batch_stream(_batcher(cfg, test_graphs),
                                                 test_graphs))
+    profiled = profile_test(cfg, cfg_file, clean / "checkpoints",
+                            root / "test_profiled", tested, cpu_flops.result)
     fg.n_launches = 0
     reset_variant_counts()
     predicted = run_cli(["predict", "--config", str(cfg_file), "--run-dir",
@@ -5170,18 +5339,13 @@ def phase_trainer(work: Path) -> dict:
                          str(FIXTURES / "realworld"), "--device", "cuda"])
     torch.cuda.synchronize()
     pred_b1, pred_var = fg.n_launches, dict(fg.n_variant_launches)
-    analyzed = run_cli(["analyze", "--config", str(cfg_file), "--run-dir",
-                        str(root / "analyze")])
     traced = run_cli(["trace", "--run-dir", str(clean), "--out",
                       str(root / "trace_events.json")])
     trace_names = {e["name"] for e in json.loads(
         (root / "trace_events.json").read_text())["traceEvents"]}
     # off the main path: the same checkpoint on the CPU, and predict_paths
     # in this process over the same fixtures
-    best = CheckpointManager(clean / "checkpoints").restore_best(
-        map_location="cpu")
     p_card = eval_probs(cfg, best, "cuda")
-    p_cpu = eval_probs(cfg, best, "cpu")
     model = make_model(cfg.model, cfg.input_dim, device="cuda")
     model.load_state_dict(best)
     scorer = SizedScorer(model)
@@ -5192,13 +5356,6 @@ def phase_trainer(work: Path) -> dict:
           for name in ("pr.csv", "pr_binned.csv")}
 
     # 8. run_int8_train on B5 over megabatch-packed corpus batches
-    corpus = load_corpus(cfg)
-    plan = make_model(dataclasses.replace(cfg.model, layout="megabatch"),
-                      cfg.input_dim, device="cpu").plan_for(0, 0, 0)
-    packed = mb.pack_megabatches(
-        corpus["train"], width=plan.width, n_steps=plan.n_steps,
-        table_rows=plan.table_rows, embed_width=plan.embed_width,
-        n_head_layers=plan.n_head_layers, uniform=True).batches[:2]
     i8.n_launches = 0
     i8.n_variant_launches = dict.fromkeys(i8.VARIANTS, 0)
     t0 = time.perf_counter()
@@ -5207,9 +5364,9 @@ def phase_trainer(work: Path) -> dict:
     torch.cuda.synchronize()
     int8_s = time.perf_counter() - t0
     int8_b5, int8_var = i8.n_launches, dict(i8.n_variant_launches)
-    # the gate alone on the CPU: a threshold of 0 refuses after the deltas
-    int8_cpu = run_int8_train(packed, cfg=cfg, steps=INT8_TRAIN_STEPS,
-                              device="cpu", max_score_delta=0.0)
+    int8_cpu = cpu_int8.result(timeout=600)
+    p_cpu = cpu_probs.result(timeout=600)
+    cpu_pool.shutdown()
     int8_diff = max(abs(int8_run["per_bucket_delta"][k]
                         - int8_cpu["per_bucket_delta"][k])
                     for k in int8_cpu["per_bucket_delta"])
@@ -5238,6 +5395,18 @@ def phase_trainer(work: Path) -> dict:
     grid = run_trials(grid_space({"optim.lr": [1e-3, 5e-4]}),
                       root / "tune_grid", configs=[str(cfg_file)],
                       base_overrides={"optim.max_epochs": 1}, device="cuda")
+
+    iso = iso_trial.result(timeout=600)
+    iso_pool.shutdown()
+    resumed = {name: finish_cli(p) for name, p in resumes.items()}
+    analyzed_rc = finish_cli(analyze)
+    coverage_file = root / "analyze" / "coverage.json"
+    analyzed = (json.loads(coverage_file.read_text())
+                if coverage_file.exists() else
+                {"splits": {}, "variants": None, "child": analyzed_rc})
+    iso_run = root / "tune_iso" / "trial_0"
+    iso_log = (iso_run / "run.log").read_text() if (
+        iso_run / "run.log").exists() else ""
 
     def child_row(name):
         return {k: children[name][k] for k in ("rc", "seconds",
@@ -5278,7 +5447,8 @@ def phase_trainer(work: Path) -> dict:
                                                    .max()),
                  "limit": PROB_LIMIT,
                  "pr_headers": {k: v[0] for k, v in pr.items()},
-                 "pr_rows": {k: len(v) - 1 for k, v in pr.items()}},
+                 "pr_rows": {k: len(v) - 1 for k, v in pr.items()},
+                 "profiled": profiled},
         "predict": {"scored": predicted["n_scored"],
                     "b1_launches": pred_b1, "b1_launches_by_variant": pred_var,
                     "scorer_calls": scorer.n_calls, "vs_in_process": pred_cmp},
@@ -5357,6 +5527,7 @@ def phase_trainer(work: Path) -> dict:
             tested["n_graphs_scored"] != len(test_graphs):
         fail(f"trainer: test {t}")
     check_ggnn_wgmma("trainer_test", "B1", test_var, test_b1)
+    check_profile_test(profiled, test_batches * per1)
     if pred_b1 != scorer.n_calls * per1 or not pred_b1 or \
             not pred_cmp["rows_equal"] or \
             pred_cmp["max_abs_prob_diff"] > ARTIFACT_LIMIT or \
@@ -8014,12 +8185,17 @@ chip_smoke.dp_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
 """
 
 
-def free_port() -> int:
+def free_port(avoid=()) -> int:
+    """A free TCP port on localhost, none of ``avoid`` (ports handed out
+    before whose stores may not be listening yet)."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        if port not in avoid:
+            return port
 
 
 def dp_batches(layout: str) -> tuple[list, float]:
@@ -8148,7 +8324,7 @@ def dp_rank(rank: int, port: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def start_dp_ranks(work: Path) -> dict:
+def start_dp_ranks(work: Path, avoid=()) -> dict:
     """Start the two gloo ranks of the dp phase as children (they share
     nothing with the dense phase, which runs beside them): returns what
     :func:`phase_dp` reads."""
@@ -8156,7 +8332,7 @@ def start_dp_ranks(work: Path) -> dict:
     root.mkdir()
     fused_batches, pw = dp_batches("fused")
     (root / "batches.pkl").write_bytes(pickle.dumps((fused_batches, pw)))
-    port = free_port()
+    port = free_port(avoid)
     env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
     env.pop("DEEPDFA_FAULTS", None)
     logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
@@ -8199,9 +8375,7 @@ def phase_dp(work: Path, ranks: dict) -> dict:
 
     root = ranks["root"]
     fused_batches, pw = ranks["batches"], ranks["pw"]
-    nccl_port = free_port()
-    while nccl_port == ranks["port"]:
-        nccl_port = free_port()
+    nccl_port = free_port({ranks["port"]})
 
     # world size 1 under NCCL: the dp steps against the single-device ones
     initialize_multihost(f"tcp://localhost:{nccl_port}", 1, 0,
@@ -8390,6 +8564,338 @@ def phase_dp(work: Path, ranks: dict) -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 17k
+
+# the sharded LLM at CodeLlama-7B width (hidden 4096, 32 heads,
+# intermediate 11008, vocabulary 32016), depth cut to 2 decoder layers,
+# bf16, seeded weights, a batch of 4 × 256 tokens
+SHARD_LAYERS = 2
+SHARD_BATCH, SHARD_SEQ = 4, 256
+SHARD_SEEDS = (0, 1)
+SHARD_REPS = 3  # timed forwards of each sharded model, after one to warm
+# fsdp gathers ~1.3 GB of weights through host memory a forward (~3 s
+# beside the other phases): one timed forward
+SHARD_FSDP_REPS = 1
+# each bf16 limit is twice the larger of its readings on an H100 at weight
+# seeds 0 and 1 (PERF.md), over the unsharded forward's largest value (the
+# engine's: the largest probability difference). tp: each rank's half of
+# the row-parallel products (o, down) rounds to bf16 after the float32 sum
+# of both halves, where the unsharded product rounds its own sum, and the
+# bf16 residual stream carries that through the layers: 6.1e-3 and 6.9e-3
+SHARD_TP_LIMIT = 1.4e-2
+# fsdp: the gathered weights are the whole weights and every product the
+# unsharded one: 0.0 at both seeds, so bitwise
+SHARD_FSDP_LIMIT = 0.0
+# sp: the ring's float32 online softmax (P unrounded) against "full"'s
+# weights rounded to bf16 before P·V: 1.18e-2 and 1.46e-2
+SHARD_SP_LIMIT = 2.9e-2
+# the tp=2 engine's probabilities: tp's roundings through the fusion head:
+# 1.78e-3 and 1.91e-3
+SHARD_ENGINE_LIMIT = 3.8e-3
+# the sharded modules over a mesh of one (no collective: every axis has
+# one member) run the unsharded products: 0.0 at both seeds, so bitwise
+SHARD_WORLD1_LIMIT = 0.0
+# one rank of the two-rank leg
+SHARD_RANK_MAIN = """
+import sys
+import chip_smoke
+chip_smoke.shard_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+"""
+
+
+def shard_config(**kw):
+    return codellama_7b(num_hidden_layers=SHARD_LAYERS, attn_impl="flash",
+                        **kw)
+
+
+def shard_inputs() -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded token ids ``[4, 256]`` and an all-true mask on the card."""
+    rng = np.random.default_rng(17)
+    ids = rng.integers(0, shard_config().vocab_size,
+                       (SHARD_BATCH, SHARD_SEQ))
+    return (torch.from_numpy(ids).cuda(),
+            torch.ones(SHARD_BATCH, SHARD_SEQ, dtype=torch.bool,
+                       device="cuda"))
+
+
+def rel_to(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference over ``want``'s largest magnitude."""
+    want = want.to(torch.float32)
+    return float((got.to(torch.float32) - want).abs().max()
+                 / want.abs().max())
+
+
+def timed_forward(model, ids, mask,
+                  reps: int = SHARD_REPS) -> tuple[torch.Tensor, list, int]:
+    """One forward to warm, then ``reps`` timed ones (host clock around
+    synchronized calls), the B6 count reset just before: (output,
+    milliseconds, B6 launches by variant)."""
+    out = model(ids, mask)
+    reset_flash_counts()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(ids, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, dict(fa.n_variant_launches)
+
+
+def shard_readings(seed: int, mesh_of) -> dict:
+    """At weight ``seed``: the unsharded logits and hidden states on the
+    card (B6, and ``"full"`` for the ring), then the ``tp=2`` and
+    ``fsdp=2`` logits and the ``sp=2`` ring's hidden states, each against
+    them (``mesh_of(axes)`` builds the mesh), with their times and B6
+    launches."""
+    from deepdfa_tpu_torch.config import MeshConfig
+
+    ids, mask = shard_inputs()
+    cfg = shard_config()
+    out = {}
+    with torch.no_grad():
+        full = build_llama(cfg, "cuda", seed=seed,
+                           cls=llama_mod.LlamaForCausalLM)
+        want, ms, _ = timed_forward(full, ids, mask)
+        out["unsharded_ms"] = ms
+        del full
+        for name, axes, reps in (("tp", dict(tp=2), SHARD_REPS),
+                                 ("fsdp", dict(fsdp=2), SHARD_FSDP_REPS)):
+            model = build_llama(cfg, "cuda", seed=seed,
+                                cls=llama_mod.LlamaForCausalLM,
+                                mesh=mesh_of(MeshConfig(dp=1, **axes)))
+            got, ms, b6 = timed_forward(model, ids, mask, reps)
+            out[name] = {"rel_err": rel_to(got, want), "ms": ms,
+                         "b6_launches": b6, "shape": list(got.shape)}
+            del model, got
+        del want
+        plain = build_llama(dataclasses.replace(cfg, attn_impl="full"),
+                            "cuda", seed=seed)
+        want = plain(ids, mask)
+        del plain
+        ring = build_llama(dataclasses.replace(cfg, attn_impl="ring"),
+                           "cuda", seed=seed,
+                           mesh=mesh_of(MeshConfig(dp=1, sp=2)))
+        got, ms, _ = timed_forward(ring, ids, mask)
+        out["sp"] = {"rel_err": rel_to(got, want), "ms": ms,
+                     "shape": list(got.shape)}
+    return out
+
+
+def shard_engine(run_dir: Path, items: list, seed: int, mesh) -> dict:
+    """A ``JointEngine`` over the 2-layer 7B at weight ``seed``, unsharded
+    and over ``mesh`` (its GGNN on B1, the B1 count reset just before the
+    sharded one scores): the probabilities' largest difference."""
+    kw = dict(jcfg=JointConfig(block_size=SHARD_SEQ),
+              gnn_cfg=GGNNConfig(layout="fused"), input_dim=INPUT_DIM,
+              llm_cfg=shard_config(), seed=seed, max_batch=SHARD_BATCH,
+              max_nodes=4096, max_edges=8192)
+    plain = JointEngine.from_run_dir(run_dir, device="cuda", **kw)
+    want = plain.score(items)
+    del plain
+    engine = JointEngine.from_run_dir(run_dir, mesh=mesh, device="cuda:0",
+                                      **kw)
+    fg.n_launches = 0
+    reset_variant_counts()
+    reset_flash_counts()
+    got = engine.score(items)
+    torch.cuda.synchronize()
+    return {"max_abs_prob_diff": float(np.abs(got - want).max()),
+            "probs": got.tolist(), "batches": engine.n_batches,
+            "b1_launches": fg.n_launches,
+            "b1_launches_by_variant": dict(fg.n_variant_launches),
+            "b6_launches": dict(fa.n_variant_launches)}
+
+
+def shard_rank(rank: int, port: int, work: str) -> None:
+    """One rank of the two-rank leg: gloo over a TCP store, both ranks on
+    the card (the collectives staged through host memory). At each weight
+    seed the ``tp``, ``fsdp`` and ``sp`` readings and the ``tp=2`` engine;
+    each rank writes its readings."""
+    import torch.distributed as dist
+
+    from deepdfa_tpu_torch.config import MeshConfig
+    from deepdfa_tpu_torch.parallel.mesh import (build_mesh,
+                                                 initialize_multihost)
+
+    out = Path(work)
+    initialize_multihost(f"tcp://localhost:{port}", 2, rank,
+                         backend="gloo", timeout_s=300)
+    try:
+        mesh_of = lambda m: build_mesh(m, devices=["cuda:0", "cuda:0"])  # noqa: E731
+        items = pickle.loads((out / "items.pkl").read_bytes())
+        row = {"readings": {}, "engine": {}}
+        for seed in SHARD_SEEDS:
+            row["readings"][seed] = shard_readings(seed, mesh_of)
+            with torch.no_grad():
+                row["engine"][seed] = shard_engine(
+                    out / "fusion", items, seed,
+                    mesh_of(MeshConfig(dp=1, tp=2)))
+        (out / f"rank{rank}.json").write_text(json.dumps(row))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_shard_ranks(work: Path) -> dict:
+    """Write the engine's inputs (a seeded fusion head at the 7B width, 4
+    seeded functions and their graphs) and start the two gloo ranks as
+    children; returns what :func:`phase_shard` reads."""
+    from deepdfa_tpu_torch.llm.joint import save_fusion_epoch
+
+    root = work / "shard"
+    root.mkdir()
+    fusion = build_fusion(GGNNConfig(layout="fused"), INPUT_DIM,
+                          shard_config().hidden_size, dropout_rate=0.1,
+                          pool="last", device="cpu")
+    save_fusion_epoch(root / "fusion", 0, fusion.state_dict())
+    items = list(zip(c_functions(SHARD_BATCH, seed=23),
+                     random_dataset(SHARD_BATCH, seed=24,
+                                    input_dim=INPUT_DIM, mean_nodes=50)))
+    (root / "items.pkl").write_bytes(pickle.dumps(items))
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
+    env.pop("DEEPDFA_FAULTS", None)
+    logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK_MAIN, str(r), str(port), str(root)],
+        cwd=REPO_ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
+        for r, log in enumerate(logs)]
+    return {"root": root, "port": port, "procs": procs, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def same_readings(a: dict, b: dict) -> bool:
+    """Two ranks' readings and probabilities equal (each rank got the
+    whole output)."""
+    return all(a["readings"][s][k]["rel_err"] == b["readings"][s][k][
+        "rel_err"] for s in a["readings"] for k in ("tp", "fsdp", "sp")) \
+        and all(a["engine"][s]["probs"] == b["engine"][s]["probs"]
+                for s in a["engine"])
+
+
+def phase_shard(ranks: dict, ports: set) -> dict:
+    """The sharded LLM on the card: in this process, the sharded path over
+    a mesh of one against the unsharded logits and ``comm``'s collectives
+    over an NCCL group of one, and the two gloo ranks (started by :func:`start_shard_ranks`
+    beside the dense phase): ``tp=2`` and ``fsdp=2`` logits and the
+    ``sp=2`` ring's hidden states against the unsharded forward, a
+    ``JointEngine(mesh=tp=2)`` score batch against the unsharded engine,
+    at weight seeds 0 and 1."""
+    import torch.distributed as dist
+
+    from deepdfa_tpu_torch.config import MeshConfig
+    from deepdfa_tpu_torch.parallel.mesh import (build_mesh,
+                                                 initialize_multihost)
+
+    from deepdfa_tpu_torch.parallel import comm
+
+    initialize_multihost(f"tcp://localhost:{free_port(ports)}", 1, 0,
+                         backend="nccl")
+    world1 = {}
+    try:
+        mesh = build_mesh(MeshConfig())
+        ids, mask = shard_inputs()
+        # one NCCL all-reduce and all-gather of a bf16 activation: a group
+        # of one gives it back exactly
+        x = torch.randn(SHARD_BATCH, SHARD_SEQ, shard_config().hidden_size,
+                        generator=torch.Generator("cuda").manual_seed(3),
+                        device="cuda").to(torch.bfloat16)
+        world = dist.group.WORLD
+        nccl_exact = (dist.get_backend(world) == "nccl" and torch.equal(
+            comm.all_reduce(x.clone(), world), x) and torch.equal(
+            comm.all_gather(x, world, 1), x))
+        with torch.no_grad():
+            for seed in SHARD_SEEDS:
+                full = build_llama(shard_config(), "cuda", seed=seed,
+                                   cls=llama_mod.LlamaForCausalLM)
+                want = full(ids, mask)
+                del full
+                model = build_llama(shard_config(), "cuda", seed=seed,
+                                    cls=llama_mod.LlamaForCausalLM,
+                                    mesh=mesh)
+                got, ms, b6 = timed_forward(model, ids, mask)
+                world1[seed] = {"rel_err": rel_to(got, want), "ms": ms,
+                                "b6_launches": b6}
+                del model, got, want
+    finally:
+        dist.destroy_process_group()
+
+    rcs = []
+    for proc, log in zip(ranks["procs"], ranks["logs"]):
+        try:
+            rcs.append(proc.wait(timeout=600))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rcs.append(None)
+        log.close()
+    wall = time.perf_counter() - ranks["t0"]
+    root = ranks["root"]
+    if rcs != [0, 0]:
+        tails = [(root / f"rank{r}.log").read_text()[-2000:]
+                 for r in range(2)]
+        fail(f"shard: the gloo ranks exited {rcs}: {tails}")
+    rank_rows = [json.loads((root / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    readings, engine = rank_rows[0]["readings"], rank_rows[0]["engine"]
+    limits = {"tp": SHARD_TP_LIMIT, "fsdp": SHARD_FSDP_LIMIT,
+              "sp": SHARD_SP_LIMIT}
+    row = {"phase": "shard", "card": nvidia_smi(),
+           "model": "codellama_7b(num_hidden_layers=2, attn_impl='flash'), "
+                    "bf16, seeded", "batch": [SHARD_BATCH, SHARD_SEQ],
+           "world1": world1, "nccl_collectives_exact": nccl_exact,
+           "ranks_wall_s": wall,
+           "readings": readings, "engine": engine,
+           "ranks_agree": same_readings(*rank_rows),
+           "limits": {**limits, "engine": SHARD_ENGINE_LIMIT,
+                      "world1": SHARD_WORLD1_LIMIT},
+           "b1_launches": sum(r["engine"][str(s)]["b1_launches"]
+                              for r in rank_rows for s in SHARD_SEEDS),
+           "b1_launches_by_variant": {
+               v: sum(r["engine"][str(s)]["b1_launches_by_variant"][v]
+                      for r in rank_rows for s in SHARD_SEEDS)
+               for v in fg.VARIANTS},
+           "b6_launches_by_variant": {
+               v: sum(r["readings"][str(s)][k]["b6_launches"][v]
+                      for r in rank_rows for s in SHARD_SEEDS
+                      for k in ("tp", "fsdp"))
+               + sum(r["engine"][str(s)]["b6_launches"][v]
+                     for r in rank_rows for s in SHARD_SEEDS)
+               + sum(world1[s]["b6_launches"][v] for s in SHARD_SEEDS)
+               for v in fa.VARIANTS}}
+    row["b6_launches"] = sum(row["b6_launches_by_variant"].values())
+    emit(row)
+    per1 = fg.launches_per_call(STEPS)
+    for s in SHARD_SEEDS:
+        r, e = readings[str(s)], engine[str(s)]
+        for name, limit in limits.items():
+            if not r[name]["rel_err"] <= limit:
+                fail(f"shard: {name} at seed {s}: {r[name]} over {limit}")
+        want_shape = [SHARD_BATCH, SHARD_SEQ, shard_config().vocab_size]
+        if r["tp"]["shape"] != want_shape or r["fsdp"]["shape"] != want_shape:
+            fail(f"shard: logits of shape {r['tp']['shape']}")
+        # B6 on the local heads: one launch a layer a forward
+        for b6, reps in ((r["tp"]["b6_launches"], SHARD_REPS),
+                         (r["fsdp"]["b6_launches"], SHARD_FSDP_REPS),
+                         (world1[s]["b6_launches"], SHARD_REPS)):
+            if sum(b6.values()) != reps * SHARD_LAYERS:
+                fail(f"shard: {b6} B6 launches in {reps} forwards")
+        if not e["max_abs_prob_diff"] <= SHARD_ENGINE_LIMIT or \
+                e["b1_launches"] != e["batches"] * per1 or \
+                sum(e["b6_launches"].values()) != e["batches"] * SHARD_LAYERS:
+            fail(f"shard: the engine at seed {s}: {e}")
+        if not world1[s]["rel_err"] <= SHARD_WORLD1_LIMIT:
+            fail(f"shard: world size 1 at seed {s}: {world1[s]}")
+    check_ggnn_wgmma("shard_engine", "B1", row["b1_launches_by_variant"],
+                     row["b1_launches"])
+    check_wgmma("shard", row["b6_launches_by_variant"], row["b6_launches"])
+    if not row["ranks_agree"]:
+        fail("shard: the two ranks read differently")
+    if not nccl_exact:
+        fail("shard: comm's all-reduce or all-gather over NCCL")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8454,19 +8960,26 @@ def drive() -> int:
         dataflow = timed("dataflow", phase_dataflow, corpus_work)
         continual = timed("continual", phase_continual, corpus_work)
         fleet = timed("fleet", phase_fleet, ctx, corpus_work)
-        # the train_joint child on the corpus run, beside the bigvul phase
+        # the train_joint child on the corpus run, beside the bigvul phase;
+        # the shard phase's gloo ranks beside the bigvul, dense and dp
+        # phases, the dp phase's beside the dense phase
         linevul_child = start_linevul(corpus_work)
-        bigvul = timed("bigvul", phase_bigvul)
-        linevul = timed("linevul", finish_linevul, linevul_child)
-        seconds["linevul"] = linevul["wall_s"]  # beside bigvul
-        linevul_child = None
-        # the dp phase's two gloo ranks run beside the dense phase
-        dp_ranks = start_dp_ranks(corpus_work)
+        shard_ranks = start_shard_ranks(corpus_work)
         try:
-            dense = timed("dense", phase_dense, ctx, corpus_work)
-            dp = timed("dp", phase_dp, corpus_work, dp_ranks)
+            bigvul = timed("bigvul", phase_bigvul)
+            linevul = timed("linevul", finish_linevul, linevul_child)
+            seconds["linevul"] = linevul["wall_s"]  # beside bigvul
+            linevul_child = None
+            dp_ranks = start_dp_ranks(corpus_work, {shard_ranks["port"]})
+            try:
+                dense = timed("dense", phase_dense, ctx, corpus_work)
+                dp = timed("dp", phase_dp, corpus_work, dp_ranks)
+            finally:
+                stop_dp_ranks(dp_ranks)
+            shard = timed("shard", phase_shard, shard_ranks,
+                          {dp_ranks["port"], shard_ranks["port"]})
         finally:
-            stop_dp_ranks(dp_ranks)
+            stop_dp_ranks(shard_ranks)
     finally:
         if linevul_child is not None:
             linevul_child[0].kill()
@@ -8507,13 +9020,16 @@ def drive() -> int:
     # the trainer's command line: the clean and the rolled-back fits, test
     # and predict on B1 (B2 in the fits), run_int8_train on B5
     tr_fit, tr_sen = trainer["clean"], trainer["sentinel"]
+    tr_prof = trainer["test"]["profiled"]
     tr_b1 = {"trainer_fit": tr_fit["b1_launches"],
              "trainer_sentinel": tr_sen["b1_launches"],
              "trainer_test": trainer["test"]["b1_launches"],
+             "trainer_test_profiled": tr_prof["b1_launches"],
              "trainer_predict": trainer["predict"]["b1_launches"]}
     tr_b1_var = [tr_fit["launches_by_variant"]["fwd"],
                  tr_sen["launches_by_variant"]["fwd"],
                  trainer["test"]["b1_launches_by_variant"],
+                 tr_prof["b1_launches_by_variant"],
                  trainer["predict"]["b1_launches_by_variant"]]
     tr_b2 = {"trainer_fit": tr_fit["b2_launches"],
              "trainer_sentinel": tr_sen["b2_launches"]}
@@ -8556,12 +9072,14 @@ def drive() -> int:
                     dense["predict_source"]["b1_launches"],
                 "dp_world1": w1["b1_launches"],
                 "dp_gloo_ranks": sum(r["b1_launches"] for r in ranks),
-                "dp_replicated": dp["replicated"]["b1_launches"]}
+                "dp_replicated": dp["replicated"]["b1_launches"],
+                "shard_engine": shard["b1_launches"]}
     dense_b1_var = [dense["served"]["b1_launches_by_variant"],
                     dense["predict_source"]["b1_launches_by_variant"],
                     w1["b1_launches_by_variant"],
                     *[r["by_variant"]["fwd"] for r in ranks],
-                    dp["replicated"]["b1_launches_by_variant"]]
+                    dp["replicated"]["b1_launches_by_variant"],
+                    shard["b1_launches_by_variant"]]
     dp_b2 = {"dp_world1": w1["b2_launches"],
              "dp_gloo_ranks": sum(r["b2_launches"] for r in ranks)}
     dp_b2_var = [w1["b2_launches_by_variant"],
@@ -8783,7 +9301,8 @@ def drive() -> int:
                      + scan["b6_launches"] + serve_http["b6_launches"]
                      + fleet["overload"]["b6_launches"]
                      + tune["launches"]["b6"]
-                     + tune["bench"]["launches"]["b6"]),
+                     + tune["bench"]["launches"]["b6"]
+                     + shard["b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
@@ -8794,7 +9313,8 @@ def drive() -> int:
                                  fleet["overload"]["b6_launches"],
                              "llm_tune": tune["launches"]["b6"],
                              "llm_tune_bench":
-                                 tune["bench"]["launches"]["b6"]},
+                                 tune["bench"]["launches"]["b6"],
+                             "shard": shard["b6_launches"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
@@ -8804,6 +9324,7 @@ def drive() -> int:
             + fleet["overload"]["b6_launches_by_variant"][v]
             + tune["launches"]["b6_by_variant"][v]
             + tune["bench"]["launches"]["b6_by_variant"][v]
+            + shard["b6_launches_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),

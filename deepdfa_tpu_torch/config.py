@@ -4,10 +4,8 @@ A trimmed copy of the JAX package's ``deepdfa_tpu/config.py``: the fields
 the fused-layout scoring path, the trainer (``train.fit``) and the HTTP
 service (``serve.server``) read. Field names, defaults and derived
 properties are unchanged, so a config written for the JAX package builds
-the same model, run and server here. A config that asks for a part of the
-JAX package this port does not have yet (profiling; an ``fsdp``, ``tp``
-or ``sp`` mesh axis, when the mesh is built) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+the same model, run and server here; every field of the JAX package's
+``ExperimentConfig`` tree is accepted.
 """
 
 from __future__ import annotations
@@ -202,9 +200,11 @@ class OptimConfig:
 class MeshConfig:
     """Device mesh axes (:mod:`deepdfa_tpu_torch.parallel.mesh`).
     dp×fsdp×tp×sp must equal the device count; -1 on a single axis means
-    "all remaining devices". Only ``dp`` (data parallelism over a process
-    group) is ported: ``fsdp``/``tp``/``sp`` above 1 raise when a mesh is
-    built (ROADMAP A11b)."""
+    "all remaining devices". ``dp`` is data parallelism (the GGNN's steps
+    and replicated engine, the LLM's batch); ``fsdp``, ``tp`` and ``sp``
+    shard the LLM (:mod:`deepdfa_tpu_torch.llm.llama`: parameters over
+    ``fsdp``, heads, the MLP and the vocabulary over ``tp``, the sequence
+    over ``sp`` with ring attention)."""
 
     dp: int = -1
     fsdp: int = 1
@@ -711,6 +711,11 @@ class ExperimentConfig:
     serve: ServeConfig = field(default_factory=ServeConfig)
     seed: int = 0
     run_name: str | None = None
+    # test: FLOPs (profiledata.jsonl) and wall time (timedata.jsonl) per
+    # batch, and a torch.profiler trace of the test loop (train/cli.py)
+    profile: bool = False
+    time: bool = False
+    trace: bool = False
 
     def __post_init__(self):
         # data→model link for the static-analysis families, as in the JAX
@@ -745,14 +750,6 @@ _NESTED: dict[tuple[str, str], type] = {
     ("ServeConfig", "federation"): FederationConfig,
 }
 
-# Fields of the JAX package's config that name parts not ported yet.
-_NOT_PORTED: dict[tuple[str, str], str] = {
-    ("ExperimentConfig", "profile"): "ROADMAP A13 (profiling)",
-    ("ExperimentConfig", "time"): "ROADMAP A13 (profiling)",
-    ("ExperimentConfig", "trace"): "ROADMAP A13 (profiling)",
-}
-
-
 def _to_dict(cfg: Any) -> Any:
     if dataclasses.is_dataclass(cfg):
         return {f.name: _to_dict(getattr(cfg, f.name))
@@ -771,10 +768,6 @@ def _from_dict(cls: type, data: dict[str, Any]) -> Any:
     kwargs = {}
     fields = {f.name: f for f in dataclasses.fields(cls)}
     for key, value in data.items():
-        later = _NOT_PORTED.get((cls.__name__, key))
-        if later is not None:
-            raise NotImplementedError(
-                f"{cls.__name__}.{key} is not ported yet: {later}")
         if key not in fields:
             raise KeyError(f"{cls.__name__} has no field {key!r}")
         target = _NESTED.get((cls.__name__, key))

@@ -21,8 +21,11 @@ takes to the serving ring, and it is fail-closed end to end:
    ``continual.rollback_trigger``) rolls the fleet back to the prior rev
    the same replica-by-replica way.
 
-The brownout gate reads each target's ``/healthz`` ``brownout_level``; the
-port's server reports 0 until admission control is ported (ROADMAP A15).
+The brownout gate reads each target's ``/healthz`` ``brownout_level`` (a
+cell router aggregates the worst backend level, a single replica reports
+its own; an unreachable target reads as level 0: brownout is a pressure
+signal, and liveness is the roll's own probe's job). The controller never
+deploys into an overloaded target.
 
 Every decision is journaled as ``event="promotion_transition"`` and
 flight-mirrored, and neither sink may fail the roll. Progress also lands

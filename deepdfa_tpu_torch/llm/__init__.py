@@ -11,6 +11,7 @@ and B6b backward — and int8-resident projections on kernel B5),
 ``presets.py`` (the CodeLlama and LineVul presets), ``generate.py`` (batch
 generation on the KV cache), ``selfinstruct.py`` (the multitask
 self-instruct data) and ``roberta.py`` (the CodeBERT encoder of LineVul).
-``dataset.GraphJoin`` joins segment or dense graph batches. Not ported
-yet: the ring attention and the sharded engine (ROADMAP A11b).
+``dataset.GraphJoin`` joins segment or dense graph batches. Over a mesh
+the decoder runs sharded (``fsdp``, ``tp``, ``sp`` with ring attention)
+and ``JointEngine.from_run_dir(mesh=)`` scores on it.
 """

@@ -22,7 +22,12 @@ checkpoint of a run directory (:func:`~deepdfa_tpu_torch.llm.joint.
 save_fusion_epoch`'s format) over either the hermetic LLM (``tiny_llama`` +
 :class:`~deepdfa_tpu_torch.llm.dataset.HashTokenizer`, with weights drawn
 from ``seed`` — not the JAX package's draw — or given as ``llm_state``) or
-an HF checkpoint directory (``hf_checkpoint=``, read locally).
+an HF checkpoint directory (``hf_checkpoint=``, read locally). With
+``mesh=`` the LLM is sharded over it (:mod:`deepdfa_tpu_torch.llm.llama`:
+each rank holds its shard, the forward runs with explicit collectives and
+every rank gets the whole hidden states), while the fusion head and the
+GGNN stay whole on every rank (B1 on the card): every rank scores the same
+probabilities.
 """
 
 from __future__ import annotations
@@ -112,21 +117,23 @@ class JointEngine:
         example the JAX package's, through ``bridge.llama_flax_to_torch``),
         else drawn from ``seed``. ``hf_checkpoint`` switches to an HF
         CodeLlama directory (config, weights and tokenizer read locally).
+        ``mesh`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.Mesh` over a
+        process group) shards the LLM, which every rank of it must build
+        alike; ``device`` then defaults to the mesh's device for this rank.
         An orbax directory raises ``ValueError`` (see
         :func:`~deepdfa_tpu_torch.llm.joint.load_fusion_epoch`)."""
         from deepdfa_tpu_torch.llm.fusion import build_fusion
-        from deepdfa_tpu_torch.llm.llama import build_llama, tiny_llama
+        from deepdfa_tpu_torch.llm.llama import (build_llama, shard_state,
+                                                 tiny_llama)
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded LLM (mesh=) is not ported yet (ROADMAP A11b)")
         jcfg = jcfg or JointConfig()
         newest = newest_epoch_dir(run_dir)
         if newest is None:
             raise FileNotFoundError(
                 f"no epoch_* fusion checkpoint under {run_dir}")
         fusion_state = load_fusion_epoch(newest)
-        dev = resolve_device(device)
+        dev = resolve_device(mesh.device if device is None and
+                             mesh is not None else device)
         if hf_checkpoint is not None:
             from transformers import AutoTokenizer
 
@@ -140,9 +147,11 @@ class JointEngine:
         else:
             llm_cfg = llm_cfg or tiny_llama(vocab_size=vocab_size)
             tokenizer = HashTokenizer(vocab_size=llm_cfg.vocab_size)
-        llm = build_llama(llm_cfg, dev, seed=None if llm_state else seed)
+        llm = build_llama(llm_cfg, dev, seed=None if llm_state else seed,
+                          mesh=mesh)
         if llm_state is not None:
-            llm.load_state_dict(llm_state)
+            llm.load_state_dict(llm_state if mesh is None
+                                else shard_state(llm_state, mesh))
         fusion = build_fusion(
             gnn_cfg or GGNNConfig(),
             input_dim if input_dim is not None else FeatureConfig().input_dim,

@@ -40,8 +40,33 @@ zeros, so the tokens are the same, and each step reads only that many
 slots. Decode attention is plain torch, as it is plain jnp in the JAX
 package.
 
-Not ported yet: ``attn_impl="ring"`` (multi-GPU, ROADMAP A11b), which raises
-``NotImplementedError``, and ``mesh_shardings``.
+``mesh=`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.Mesh` over a process
+group, one device per rank) shards the model by the JAX package's
+:data:`LOGICAL_RULES`: each rank holds the shard of every parameter that
+:func:`mesh_shardings` names (:func:`shard_state` cuts it from a full state
+dict; :func:`init_llama_params` draws the full tensors and keeps the
+shard, so a sharded model holds the unsharded one's values), and the
+forward runs on the shards with explicit collectives
+(:mod:`deepdfa_tpu_torch.parallel.comm`):
+
+- ``fsdp``: the ``embed`` dimension of each weight is split; a layer's
+  weights are gathered just before use;
+- ``tp``: q/k/v and gate/up column-parallel (each rank its heads and its
+  slice of the MLP), o and down row-parallel (the partial products summed
+  over ``tp`` in float32, one all-reduce each), the embedding and
+  ``lm_head`` vocabulary-parallel (logits gathered over ``tp``);
+- ``sp``: each rank runs its block of the sequence; ``attn_impl="ring"``
+  attends through :func:`~deepdfa_tpu_torch.ops.ring_attention.
+  ring_attention`, ``"full"`` over the keys gathered from the ``sp`` group
+  (plain torch), and ``"flash"`` raises (kernel B6 attends within one
+  block);
+- ``dp``: each rank runs its block of the batch.
+
+Inputs are whole on every rank and every rank gets the whole output. The
+sharded path is a forward for scoring: ``decode`` raises, and so does a
+call that would build a backward (LoRA over a sharded base and the ring's
+backward are ROADMAP A11c). ``int8_runtime`` refuses a mesh, as in the JAX
+package, and ``attn_impl="ring"`` needs one.
 """
 
 from __future__ import annotations
@@ -57,14 +82,41 @@ from deepdfa_tpu_torch import resolve_device
 from deepdfa_tpu_torch.llm.lora import LoRAAdapter
 from deepdfa_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from deepdfa_tpu_torch.ops.int8_matmul import int8_matmul
-from deepdfa_tpu_torch.ops.ring_attention import full_attention
+from deepdfa_tpu_torch.ops.ring_attention import (full_attention,
+                                                  ring_attention)
+from deepdfa_tpu_torch.parallel import comm
 
-__all__ = ["Attention", "DecoderLayer", "Int8Dense", "KVCache", "LlamaConfig",
-           "LlamaForCausalLM", "LlamaModel", "MLP", "RMSNorm", "apply_rope",
-           "build_llama", "codellama_13b", "codellama_7b", "init_llama_params",
-           "rope_cos_sin", "tiny_llama"]
+__all__ = ["Attention", "DecoderLayer", "Int8Dense", "KVCache",
+           "LOGICAL_RULES", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "MLP", "RMSNorm", "ShardedEmbedding", "ShardedLinear",
+           "ShardedLoRA", "apply_rope", "build_llama", "codellama_13b",
+           "codellama_7b", "init_llama_params", "logical_axes",
+           "mesh_shardings", "rope_cos_sin", "shard_state", "tiny_llama"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# logical param/activation axis -> mesh axis. None = replicated.
+LOGICAL_RULES = (
+    ("batch", "dp"),
+    ("seq", "sp"),
+    ("embed", "fsdp"),
+    ("heads", "tp"),
+    ("kv_heads", "tp"),
+    ("mlp", "tp"),
+    ("vocab", "tp"),
+    ("norm", None),
+)
+
+# the logical axes of each weight in torch's layout ([out, in] for a
+# projection: the JAX kernel's [in, out] reversed)
+_WEIGHT_AXES = {
+    "q_proj": ("heads", "embed"), "k_proj": ("kv_heads", "embed"),
+    "v_proj": ("kv_heads", "embed"), "o_proj": ("embed", "heads"),
+    "gate_proj": ("mlp", "embed"), "up_proj": ("mlp", "embed"),
+    "down_proj": ("embed", "mlp"), "lm_head": ("vocab", "embed"),
+    "embed_tokens": ("vocab", "embed"),
+}
+_LEAF_AXES = {"lora_a": ("embed", "norm"), "lora_b": ("norm", "heads")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,15 +180,23 @@ def tiny_llama(**kw) -> LlamaConfig:
     return LlamaConfig(**defaults)
 
 
-def _check_config(cfg: LlamaConfig) -> None:
+def _check_config(cfg: LlamaConfig, mesh=None) -> None:
     cfg.torch_dtype  # noqa: B018 — validates the name
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence-sharded ring attention) is not "
-            "ported yet: it needs several GPUs (ROADMAP A11b)")
-    if cfg.attn_impl not in ("full", "flash"):
+    if cfg.attn_impl == "ring" and mesh is None:
+        raise ValueError("attn_impl='ring' requires a mesh")
+    if cfg.int8_runtime and mesh is not None:
+        raise ValueError(
+            "int8_runtime is the single-chip inference path — the pallas "
+            "dequant-matmul is not GSPMD-partitionable; use bf16 + mesh "
+            "sharding for multi-chip")
+    if cfg.attn_impl not in ("full", "flash", "ring"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} (full | "
                          f"flash | ring)")
+    if (cfg.attn_impl == "flash" and mesh is not None
+            and mesh.shape["sp"] > 1):
+        raise ValueError("attn_impl='flash' does not take a sequence split "
+                         "over sp (kernel B6 attends within one block); use "
+                         "attn_impl='ring' (or 'full')")
     if cfg.attn_impl == "flash" and cfg.head_dim not in HEAD_DIMS:
         raise ValueError(f"attn_impl='flash' takes head widths {HEAD_DIMS}, "
                          f"not {cfg.head_dim}")
@@ -163,11 +223,181 @@ class Int8Dense(nn.Module):
         return int8_matmul(x, self.q, self.scale, out_dtype=self.dtype)
 
 
+def logical_axes(name: str) -> tuple:
+    """The logical axes of the llama parameter ``name`` (torch layout)."""
+    *path, leaf = name.split(".")
+    if leaf in _LEAF_AXES:
+        return _LEAF_AXES[leaf]
+    if leaf == "weight" and path and path[-1] in _WEIGHT_AXES:
+        return _WEIGHT_AXES[path[-1]]
+    if leaf == "weight" and path and path[-1].endswith("norm"):
+        return ("norm",)
+    raise KeyError(f"no logical axes for {name!r} (int8 weights take no "
+                   f"mesh)")
+
+
+def mesh_shardings(model, rules=LOGICAL_RULES) -> dict:
+    """Parameter name → the mesh axis (or None, replicated) of each of its
+    dimensions, from the logical axes by ``rules``: the port of the JAX
+    package's ``mesh_shardings`` (its ``PartitionSpec``s, for the torch
+    layout; an axis is named whatever its size). ``model`` is a llama
+    module or its state dict."""
+    rule = dict(rules)
+    names = model.keys() if isinstance(model, dict) else [
+        n for n, _ in model.named_parameters()]
+    return {n: tuple(rule[a] for a in logical_axes(n)) for n in names}
+
+
+def _shard(t: torch.Tensor, spec: tuple, mesh, name: str) -> torch.Tensor:
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.axes[axis] > 1:
+            block = mesh.block(t.shape[dim], axis, name)
+            t = t.narrow(dim, block.start, block.stop - block.start)
+    return t
+
+
+def shard_state(state: dict, mesh, rules=LOGICAL_RULES) -> dict:
+    """This rank's shard of every tensor of a full llama state dict (the
+    shards a sharded model of the same names loads)."""
+    specs = mesh_shardings(state, rules)
+    return {n: _shard(t, specs[n], mesh, n).clone() for n, t in state.items()}
+
+
+class _Shards:
+    """What the sharded modules read of a mesh: each axis's size, this
+    rank's place on it and the group of its line."""
+
+    def __init__(self, mesh):
+        missing = [a for a, n in mesh.axes.items()
+                   if n > 1 and a not in mesh.groups]
+        if missing:
+            raise ValueError(f"mesh axes {missing} need one process per "
+                             f"device (a mesh over a process group)")
+        self.mesh = mesh
+        self.size = dict(mesh.axes)
+        self.coord = mesh.coords
+        self.groups = dict(mesh.groups)
+
+    def split(self, length: int, axis: str, what: str) -> int:
+        """This rank's share of ``length`` split over ``axis``."""
+        block = self.mesh.block(length, axis, what)
+        return block.stop - block.start
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        return comm.all_gather(x, self.groups.get(axis), dim)
+
+    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return comm.all_reduce(x, self.groups.get(axis))
+
+    def gather_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """``[b_loc, s_loc, ...]`` blocks back to ``[b, s, ...]``."""
+        return self.gather(self.gather(x, "sp", 1), "dp", 0)
+
+
+def _f32_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ wᵀ`` summed and returned in float32 (bf16 operands: their
+    exact products, float32 sums)."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.linear(x, w)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return torch.nn.functional.linear(x.to(torch.float32),
+                                      w.to(torch.float32))
+
+
+class ShardedLinear(nn.Module):
+    """A bias-free projection whose ``weight`` ``[out, in]`` is this rank's
+    shard. Column-parallel (``row=False``, spec ``(tp, fsdp)``): the output
+    keeps its ``tp`` split. Row-parallel (``row=True``, spec ``(fsdp,
+    tp)``): the input comes split over ``tp`` and the partial products are
+    summed over ``tp`` in float32, then rounded to the input's type once.
+    The ``fsdp`` split is gathered before each use."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype,
+                 shards: _Shards, row: bool = False):
+        super().__init__()
+        self.shards, self.row = shards, row
+        if row:
+            shape = (shards.split(features, "fsdp", "out features"),
+                     shards.split(in_features, "tp", "in features"))
+        else:
+            shape = (shards.split(features, "tp", "out features"),
+                     shards.split(in_features, "fsdp", "in features"))
+        self.weight = nn.Parameter(torch.empty(shape, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.row:
+            w = self.shards.gather(self.weight, "fsdp", 0)
+            return self.shards.reduce(_f32_linear(x, w), "tp").to(x.dtype)
+        w = self.shards.gather(self.weight, "fsdp", 1)
+        return torch.nn.functional.linear(x, w)
+
+
+class ShardedEmbedding(nn.Module):
+    """The token table ``[vocab, hidden]``, this rank's rows (``tp``) and
+    columns (``fsdp``): a token outside this rank's rows looks up zeros,
+    and the sum over ``tp`` (one nonzero row each, exact) is the lookup."""
+
+    def __init__(self, vocab: int, hidden: int, dtype: torch.dtype,
+                 shards: _Shards):
+        super().__init__()
+        self.shards = shards
+        self.weight = nn.Parameter(torch.empty(
+            shards.split(vocab, "tp", "the vocabulary"),
+            shards.split(hidden, "fsdp", "the hidden width"), dtype=dtype))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        w = self.shards.gather(self.weight, "fsdp", 1)
+        rows = w.shape[0]
+        local = ids - self.shards.coord["tp"] * rows
+        inside = (local >= 0) & (local < rows)
+        x = torch.nn.functional.embedding(local.clamp(0, rows - 1), w)
+        x = torch.where(inside[..., None], x, torch.zeros_like(x))
+        if self.shards.size["tp"] == 1:
+            return x
+        return self.shards.reduce(x.to(torch.float32), "tp").to(w.dtype)
+
+
+class ShardedLoRA(nn.Module):
+    """A LoRA adapter over a sharded projection: ``lora_a`` ``[in, rank]``
+    split over ``fsdp`` (gathered at use), ``lora_b`` ``[rank, features]``
+    over ``tp`` (this rank's output columns, as its projection's)."""
+
+    def __init__(self, in_features: int, features: int, rank: int,
+                 alpha: float, dtype: torch.dtype, shards: _Shards):
+        super().__init__()
+        self.shards, self.rank, self.alpha, self.dtype = (shards, rank,
+                                                          alpha, dtype)
+        self.lora_a = nn.Parameter(torch.empty(
+            shards.split(in_features, "fsdp", "in features"), rank))
+        self.lora_b = nn.Parameter(torch.zeros(
+            rank, shards.split(features, "tp", "features")))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.shards.gather(self.lora_a, "fsdp", 0)
+        y = (x.to(self.dtype) @ a.to(self.dtype)) @ self.lora_b.to(self.dtype)
+        return y * (self.alpha / self.rank)
+
+
 def _dense(in_features: int, features: int, dtype: torch.dtype,
-           int8: bool) -> nn.Module:
+           int8: bool, shards: _Shards | None = None,
+           row: bool = False) -> nn.Module:
     if int8:
         return Int8Dense(in_features, features, dtype)
+    if shards is not None:
+        return ShardedLinear(in_features, features, dtype, shards, row)
     return nn.Linear(in_features, features, bias=False, dtype=dtype)
+
+
+def _lora(in_features: int, features: int, cfg: LlamaConfig,
+          shards: _Shards | None) -> nn.Module:
+    if shards is not None:
+        return ShardedLoRA(in_features, features, cfg.lora_rank,
+                           cfg.lora_alpha, cfg.torch_dtype, shards)
+    return LoRAAdapter(in_features, features, cfg.lora_rank, cfg.lora_alpha,
+                       dtype=cfg.torch_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -275,27 +505,30 @@ def _decode_attend(q, k, v, step_valid, cache: KVCache, layer: int):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, shards: _Shards | None = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.shards = cfg, shards
         h, h_kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                       cfg.head_dim)
+        # this rank's heads: each tp rank holds whole query heads and their
+        # key/value heads
+        self.heads = (h, h_kv) if shards is None else (
+            shards.split(h, "tp", "the attention heads"),
+            shards.split(h_kv, "tp", "the key/value heads"))
         dt, i8 = cfg.torch_dtype, cfg.int8_runtime
-        self.q_proj = _dense(cfg.hidden_size, h * d, dt, i8)
-        self.k_proj = _dense(cfg.hidden_size, h_kv * d, dt, i8)
-        self.v_proj = _dense(cfg.hidden_size, h_kv * d, dt, i8)
-        self.o_proj = _dense(h * d, cfg.hidden_size, dt, i8)
+        self.q_proj = _dense(cfg.hidden_size, h * d, dt, i8, shards)
+        self.k_proj = _dense(cfg.hidden_size, h_kv * d, dt, i8, shards)
+        self.v_proj = _dense(cfg.hidden_size, h_kv * d, dt, i8, shards)
+        self.o_proj = _dense(h * d, cfg.hidden_size, dt, i8, shards,
+                             row=True)
         if cfg.lora_rank > 0:
-            self.lora_q = LoRAAdapter(cfg.hidden_size, h * d, cfg.lora_rank,
-                                      cfg.lora_alpha, dtype=dt)
-            self.lora_v = LoRAAdapter(cfg.hidden_size, h_kv * d,
-                                      cfg.lora_rank, cfg.lora_alpha, dtype=dt)
+            self.lora_q = _lora(cfg.hidden_size, h * d, cfg, shards)
+            self.lora_v = _lora(cfg.hidden_size, h_kv * d, cfg, shards)
 
     def forward(self, x, attn_mask, cos, sin, cache: KVCache | None = None,
                 layer: int = 0) -> torch.Tensor:
-        cfg = self.cfg
-        h, h_kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
+        cfg, sh = self.cfg, self.shards
+        (h, h_kv), d = self.heads, cfg.head_dim
         b, s, _ = x.shape
         q = self.q_proj(x)
         k = self.k_proj(x)
@@ -308,6 +541,11 @@ class Attention(nn.Module):
         v = v.reshape(b, s, h_kv, d)
         if cache is not None:
             out = _decode_attend(q, k, v, attn_mask, cache, layer)
+        elif cfg.attn_impl == "ring":
+            out = ring_attention(q, k, v, group=sh.groups.get("sp"),
+                                 causal=True, kv_mask=attn_mask)
+        elif sh is not None and sh.size["sp"] > 1:
+            out = _gathered_attention(q, k, v, attn_mask, sh)
         elif cfg.attn_impl == "flash" and s % 128 == 0:
             out = flash_attention(q, k, v, attn_mask, causal=True)
         else:  # "full", and "flash" off the kernel's block multiple
@@ -315,13 +553,27 @@ class Attention(nn.Module):
         return self.o_proj(out.reshape(b, s, h * d))
 
 
+def _gathered_attention(q, k, v, attn_mask, sh: _Shards) -> torch.Tensor:
+    """``"full"`` over a sequence split over ``sp``: this
+    rank's queries against the keys and values gathered from the group,
+    causal by global position."""
+    k, v = sh.gather(k, "sp", 1), sh.gather(v, "sp", 1)
+    if attn_mask is not None:
+        attn_mask = sh.gather(attn_mask.to(torch.uint8), "sp", 1).bool()
+    s_loc = q.shape[1]
+    q_pos = sh.coord["sp"] * s_loc + torch.arange(s_loc, device=q.device)
+    return full_attention(q, k, v, causal=True, kv_mask=attn_mask,
+                          q_positions=q_pos)
+
+
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, shards: _Shards | None = None):
         super().__init__()
         dt, i8 = cfg.torch_dtype, cfg.int8_runtime
-        self.gate_proj = _dense(cfg.hidden_size, cfg.intermediate_size, dt, i8)
-        self.up_proj = _dense(cfg.hidden_size, cfg.intermediate_size, dt, i8)
-        self.down_proj = _dense(cfg.intermediate_size, cfg.hidden_size, dt, i8)
+        hid, mid = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _dense(hid, mid, dt, i8, shards)
+        self.up_proj = _dense(hid, mid, dt, i8, shards)
+        self.down_proj = _dense(mid, hid, dt, i8, shards, row=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.gate_proj(x)
@@ -331,14 +583,14 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, shards: _Shards | None = None):
         super().__init__()
         dt = cfg.torch_dtype
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dt)
-        self.self_attn = Attention(cfg)
+        self.self_attn = Attention(cfg, shards)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, dt)
-        self.mlp = MLP(cfg)
+        self.mlp = MLP(cfg, shards)
 
     def forward(self, x, attn_mask, cos, sin, cache: KVCache | None = None,
                 layer: int = 0) -> torch.Tensor:
@@ -350,18 +602,49 @@ class DecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Decoder stack -> final-norm hidden states [b, s, hidden] in
     ``cfg.dtype`` (what the fusion head reads); with ``decode=True``,
-    ``(hidden states, cache)``."""
+    ``(hidden states, cache)``. ``mesh``: run sharded over it (module
+    docstring)."""
 
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, mesh=None):
         super().__init__()
-        _check_config(cfg)
-        self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         dtype=cfg.torch_dtype)
-        self.layers = nn.ModuleList(DecoderLayer(cfg)
+        _check_config(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
+        self.shards = sh = None if mesh is None else _Shards(mesh)
+        if sh is None:
+            self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                             dtype=cfg.torch_dtype)
+        else:
+            self.embed_tokens = ShardedEmbedding(
+                cfg.vocab_size, cfg.hidden_size, cfg.torch_dtype, sh)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, sh)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                             cfg.torch_dtype)
+
+    def sharded_hidden(self, input_ids: torch.Tensor,
+                       attn_mask: torch.Tensor | None = None,
+                       positions: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+        """This rank's block ``[b/dp, s/sp, hidden]`` of the final hidden
+        states of a sharded model (whole inputs in)."""
+        sh = self.shards
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the sharded LLM is a forward for scoring: run it under "
+                "torch.no_grad() (its backward, LoRA over a sharded base and "
+                "the ring's, is ROADMAP A11c)")
+        b, s = input_ids.shape
+        rows = sh.mesh.block(b, "dp", "the batch")
+        cols = sh.mesh.block(s, "sp", "the sequence")
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+        cos, sin = rope_cos_sin(positions[rows, cols], self.cfg.head_dim,
+                                self.cfg.rope_theta)
+        mask = None if attn_mask is None else attn_mask[rows, cols]
+        x = self.embed_tokens(input_ids[rows, cols])
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mask, cos, sin, None, i)
+        return self.norm(x)
 
     def forward(self, input_ids: torch.Tensor,
                 attn_mask: torch.Tensor | None = None,
@@ -372,6 +655,12 @@ class LlamaModel(nn.Module):
         ``attn_mask`` ``[b, s]`` their validity, and ``cache`` is written
         at its ``pos`` (positions default to ``pos ..``); returns
         ``(hidden states, cache)``."""
+        if self.shards is not None:
+            if decode:
+                raise ValueError("decode runs on one device: a sharded "
+                                 "model scores whole sequences")
+            return self.shards.gather_tokens(
+                self.sharded_hidden(input_ids, attn_mask, positions))
         if decode and cache is None:
             raise ValueError("decode=True takes the cache to read and write "
                              "(KVCache.empty(cfg, batch, max_len))")
@@ -404,15 +693,23 @@ class LlamaForCausalLM(nn.Module):
     """The LM head on top, logits in float32 (with ``decode=True``,
     ``(logits, cache)``)."""
 
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, mesh=None):
         super().__init__()
-        self.cfg = cfg
-        self.model = LlamaModel(cfg)
+        self.cfg, self.mesh = cfg, mesh
+        self.model = LlamaModel(cfg, mesh)
         self.lm_head = _dense(cfg.hidden_size, cfg.vocab_size,
-                              cfg.torch_dtype, cfg.int8_runtime)
+                              cfg.torch_dtype, cfg.int8_runtime,
+                              self.model.shards)
 
     def forward(self, input_ids, attn_mask=None, positions=None,
                 decode=False, cache: KVCache | None = None):
+        sh = self.model.shards
+        if sh is not None and not decode:
+            # vocabulary-parallel logits of this rank's tokens, gathered
+            logits = self.lm_head(self.model.sharded_hidden(
+                input_ids, attn_mask, positions))
+            return sh.gather_tokens(sh.gather(logits, "tp", -1)).to(
+                torch.float32)
         if decode:
             hidden, cache = self.model(input_ids, attn_mask, positions, True,
                                        cache)
@@ -429,26 +726,40 @@ def init_llama_params(model: nn.Module, seed: int = 0) -> nn.Module:
     variance 1/fan_in truncated at two deviations), the embedding
     N(0, 0.02²), norms at one, LoRA ``A`` N(0, 1/rank) and ``B`` zero,
     int8 weights zero with scales at one. Draws are float32, then cast to
-    the parameter's type. Returns the model."""
+    the parameter's type. A sharded model draws each whole tensor, one at a
+    time, and keeps its shard: the unsharded model's values. Returns the
+    model."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    mesh = getattr(model, "mesh", None)
+    specs = {} if mesh is None else mesh_shardings(model)
+
+    def drawn(name, t, draw):
+        spec = specs.get(name, ())
+        shape = tuple(n * (mesh.axes[a] if a is not None else 1)
+                      for n, a in zip(t.shape, spec)) or tuple(t.shape)
+        w = draw(torch.empty(shape, device=dev))
+        return w if not spec else _shard(w, spec, mesh, name)
+
     for name, t in list(model.named_parameters()) + list(
             model.named_buffers()):
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("norm.weight"):
             t.fill_(1.0)
         elif name.endswith("embed_tokens.weight"):
-            t.copy_(torch.empty(t.shape, device=dev).normal_(
-                0.0, 0.02, generator=gen))
-        elif leaf == "weight":  # an nn.Linear [out, in]
-            std = math.sqrt(1.0 / t.shape[1]) / 0.87962566103423978
-            w = torch.empty(t.shape, device=dev)
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                  generator=gen)
-            t.copy_(w)
+            t.copy_(drawn(name, t, lambda w: w.normal_(0.0, 0.02,
+                                                        generator=gen)))
+        elif leaf == "weight":  # a projection [out, in]
+
+            def lecun(w):
+                std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+                return nn.init.trunc_normal_(w, std=std, a=-2 * std,
+                                             b=2 * std, generator=gen)
+
+            t.copy_(drawn(name, t, lecun))
         elif leaf == "lora_a":
-            t.copy_(torch.empty(t.shape, device=dev).normal_(
-                0.0, t.shape[1] ** -0.5, generator=gen))
+            t.copy_(drawn(name, t, lambda w: w.normal_(
+                0.0, w.shape[1] ** -0.5, generator=gen)))
         elif leaf in ("lora_b", "q"):
             t.zero_()
         elif leaf == "scale":
@@ -459,14 +770,16 @@ def init_llama_params(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def build_llama(cfg: LlamaConfig, device=None, seed: int | None = 0,
-                cls: type = LlamaModel) -> nn.Module:
+                cls: type = LlamaModel, mesh=None) -> nn.Module:
     """``cls(cfg)`` allocated straight on ``device`` (``cuda`` unless the
     caller names another; no host copy of the weights is made) and, unless
     ``seed`` is None, initialised there by :func:`init_llama_params`. With
-    ``seed=None`` the weights are left unset, for a state dict to load."""
+    ``seed=None`` the weights are left unset, for a state dict to load
+    (through :func:`shard_state` for a sharded one). ``mesh``: this rank's
+    shards of ``cls(cfg, mesh=mesh)``."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = cls(cfg)
+        model = cls(cfg) if mesh is None else cls(cfg, mesh=mesh)
     model = model.to_empty(device=dev)
     if seed is not None:
         init_llama_params(model, seed)

@@ -6,14 +6,16 @@ BASELINE config #3 (``linevul``: CodeBERT alone; ``linevul_fusion``:
 CodeBERT fine-tuned with the frozen pretrained GGNN, CLS ⊕ pooled graph),
 whose ``llm`` is a :class:`~deepdfa_tpu_torch.llm.roberta.RobertaConfig`
 and ``encoder_family`` ``"roberta"``. ``finetuned`` marks presets that
-start from a LoRA-finetuned model. The JAX package's mesh suggestions are
-not carried (the sharded LLM is ROADMAP A11b).
+start from a LoRA-finetuned model; ``mesh`` is the JAX package's mesh for
+the preset (:class:`~deepdfa_tpu_torch.config.MeshConfig`, for
+:func:`~deepdfa_tpu_torch.parallel.mesh.build_mesh` and the sharded LLM).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from deepdfa_tpu_torch.config import MeshConfig
 from deepdfa_tpu_torch.llm.joint import JointConfig
 from deepdfa_tpu_torch.llm.llama import LlamaConfig, codellama_7b, codellama_13b
 from deepdfa_tpu_torch.llm.roberta import RobertaConfig, codebert_base
@@ -27,6 +29,7 @@ class JointPreset:
     llm: LlamaConfig | RobertaConfig  # RobertaConfig for "roberta"
     joint: JointConfig
     finetuned: bool  # load LoRA-finetuned weights first (--finetuned_path)
+    mesh: MeshConfig
     dataset: str  # reference data family the preset targets
     # the stack under the fusion head: "llama" (causal, MSIVD) or "roberta"
     # (bidirectional CodeBERT, the LineVul configs)
@@ -40,14 +43,16 @@ PRESETS: dict[str, JointPreset] = {p.name: p for p in [
         joint=JointConfig(block_size=256, epochs=5, train_batch_size=4,
                           eval_batch_size=4, learning_rate=1e-4,
                           dataset_style="bigvul"),
-        finetuned=True, dataset="bigvul"),
+        finetuned=True,
+        mesh=MeshConfig(dp=-1, fsdp=1, tp=1, sp=1), dataset="bigvul"),
     # pretrained_bigvul.sh — 13B pretrained, Big-Vul
     JointPreset(
         name="pretrained_bigvul", llm=codellama_13b(),
         joint=JointConfig(block_size=350, epochs=1, train_batch_size=8,
                           eval_batch_size=8, learning_rate=1e-4,
                           dataset_style="bigvul"),
-        finetuned=False, dataset="bigvul"),
+        finetuned=False,
+        mesh=MeshConfig(dp=-1, fsdp=2, tp=1, sp=1), dataset="bigvul"),
     # pb_ft_pb.sh — 13B + LoRA, PreciseBugs, long blocks (ring attention
     # on the TPU: its LLM config asks for attn_impl="ring")
     JointPreset(
@@ -55,21 +60,24 @@ PRESETS: dict[str, JointPreset] = {p.name: p for p in [
         joint=JointConfig(block_size=2048, epochs=1, train_batch_size=4,
                           eval_batch_size=4, learning_rate=1e-6,
                           dataset_style="precisebugs"),
-        finetuned=True, dataset="precisebugs"),
+        finetuned=True,
+        mesh=MeshConfig(dp=1, fsdp=2, tp=1, sp=-1), dataset="precisebugs"),
     # pb_ft_pb_noexpl.sh — 13B-Instruct, no GNN
     JointPreset(
         name="pb_ft_pb_noexpl", llm=codellama_13b(),
         joint=JointConfig(block_size=1024, epochs=3, train_batch_size=6,
                           eval_batch_size=6, learning_rate=1e-6,
                           dataset_style="precisebugs", use_gnn=False),
-        finetuned=True, dataset="precisebugs"),
+        finetuned=True,
+        mesh=MeshConfig(dp=-1, fsdp=2, tp=1, sp=1), dataset="precisebugs"),
     # pretrained_pb.sh — 13B pretrained, no GNN
     JointPreset(
         name="pretrained_pb", llm=codellama_13b(),
         joint=JointConfig(block_size=1024, epochs=5, train_batch_size=4,
                           eval_batch_size=4, learning_rate=1e-5,
                           dataset_style="precisebugs", use_gnn=False),
-        finetuned=False, dataset="precisebugs"),
+        finetuned=False,
+        mesh=MeshConfig(dp=-1, fsdp=2, tp=1, sp=1), dataset="precisebugs"),
     # BASELINE config #3a — LineVul alone: fine-tuned CodeBERT classifier
     # (msr_train_linevul.sh: block 512, batch 16, lr 2e-5, 10 epochs)
     JointPreset(
@@ -78,7 +86,8 @@ PRESETS: dict[str, JointPreset] = {p.name: p for p in [
                           eval_batch_size=16, learning_rate=2e-5,
                           dataset_style="bigvul", use_gnn=False,
                           train_llm=True),
-        finetuned=False, dataset="bigvul", encoder_family="roberta"),
+        finetuned=False,
+        mesh=MeshConfig(dp=-1, fsdp=1, tp=1, sp=1), dataset="bigvul", encoder_family="roberta"),
     # BASELINE config #3b — DeepDFA + LineVul (msr_train_combined.sh):
     # CodeBERT fine-tuned end to end, the pretrained GGNN frozen
     # (main_cli.py:136-145), CLS ⊕ pooled-graph head
@@ -88,5 +97,6 @@ PRESETS: dict[str, JointPreset] = {p.name: p for p in [
                           eval_batch_size=16, learning_rate=2e-5,
                           dataset_style="bigvul", use_gnn=True,
                           train_llm=True, freeze_gnn=True),
-        finetuned=False, dataset="bigvul", encoder_family="roberta"),
+        finetuned=False,
+        mesh=MeshConfig(dp=-1, fsdp=1, tp=1, sp=1), dataset="bigvul", encoder_family="roberta"),
 ]}

@@ -18,6 +18,10 @@ and a fake implementation that gives only the output's shape and type.
   :func:`~deepdfa_tpu_torch.ops.int8_matmul.int8_matmul` (CPU: the plain
   product; CUDA: the kernel of ``csrc/int8_matmul.cu``).
 
+Each op carries its kernel's FLOP formula (:mod:`.flops`) for
+``FlopCounterMode``, the same on either device (the segment sum's is 0:
+no product).
+
 The launch counters are bumped inside the CUDA implementations, so an
 exported program's calls count like live ones, and a failed build or
 launch raises out of the op. The autograd paths of the three wrappers do
@@ -26,7 +30,9 @@ not go through these ops: training is unchanged. Import this module before
 """
 
 import torch
+from torch.utils import flop_counter
 
+from deepdfa_tpu_torch.ops import flops as _flops
 from deepdfa_tpu_torch.ops import fused_ggnn as _fg
 from deepdfa_tpu_torch.ops import int8_matmul as _i8
 from deepdfa_tpu_torch.ops import segment as _seg
@@ -62,6 +68,12 @@ def _(h0, senders, receivers, ew, eb, xw, xb, hw, hb, n_steps):
     return h0.new_empty(h0.shape, dtype=torch.float32)
 
 
+@flop_counter.register_flop_formula(torch.ops.deepdfa.fused_ggnn)
+def _(h0, senders, receivers, ew, eb, xw, xb, hw, hb, n_steps,
+      **kwargs) -> int:
+    return _flops.fused_ggnn_flops(h0[0], h0[1], n_steps)
+
+
 @torch.library.custom_op("deepdfa::segment_sum", mutates_args=(),
                          device_types="cpu")
 def segment_sum(data: Tensor, segment_ids: Tensor,
@@ -80,6 +92,11 @@ def _(data, segment_ids, num_segments):
     return data.new_empty((num_segments,) + tuple(data.shape[1:]))
 
 
+@flop_counter.register_flop_formula(torch.ops.deepdfa.segment_sum)
+def _(*args, **kwargs) -> int:
+    return 0
+
+
 @torch.library.custom_op("deepdfa::int8_matmul", mutates_args=(),
                          device_types="cpu")
 def int8_matmul(x: Tensor, q: Tensor, scale: Tensor,
@@ -95,3 +112,11 @@ def _int8_matmul_cuda(x, q, scale, out_dtype):
 @int8_matmul.register_fake
 def _(x, q, scale, out_dtype):
     return x.new_empty(tuple(x.shape[:-1]) + (q.shape[1],), dtype=out_dtype)
+
+
+@flop_counter.register_flop_formula(torch.ops.deepdfa.int8_matmul)
+def _(x, q, scale, out_dtype, **kwargs) -> int:
+    m = 1
+    for size in x[:-1]:
+        m *= size
+    return _flops.int8_matmul_flops(m, q[0], q[1])

@@ -42,7 +42,8 @@ products), ``"mma"`` (other bf16: ``mma.sync`` tensor-core instructions)
 and ``"ffma"`` (float32). A failed launch raises; no variant falls back to
 another. ``n_launches`` counts B6's launches (one per call),
 ``n_bwd_launches`` B6b's (two per backward), ``n_variant_launches`` and
-``n_bwd_variant_launches`` each by variant.
+``n_bwd_variant_launches`` each by variant. Each CUDA call reports its
+FLOPs to an active ``FlopCounterMode`` (:mod:`.flops`).
 :func:`flash_attention_backward_reference` is B6b's plain version.
 """
 
@@ -52,7 +53,7 @@ import ctypes
 
 import torch
 
-from deepdfa_tpu_torch.ops import _build
+from deepdfa_tpu_torch.ops import _build, flops
 
 __all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention",
            "flash_attention_backward", "flash_attention_backward_reference",
@@ -295,6 +296,7 @@ def _launch_forward(q, k, v, seg, causal: bool, with_lse: bool,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    flops.count(flops.flash_attention_flops(b, s, h, d), q)
     if out.numel():
         lib = _kernels()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -329,6 +331,7 @@ def _launch_backward(q, k, v, o, do, lse, seg, causal: bool,
     q, k, v, do, lse = (_aligned(x) for x in (q, k, v, do, lse))
     di = _row_dot(o, do).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    flops.count(flops.flash_attention_backward_flops(b, s, h, d), q)
     if not dq.numel():
         return dq, dk, dv
     lib = _bwd_kernels()

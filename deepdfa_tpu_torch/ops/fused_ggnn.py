@@ -33,6 +33,9 @@ cores, the edge sum with runs of one sender in closed form) and ``"ffma"``
 (any other width: float32 FFMA products, the serial edge sum). Both sum
 every edge segment in edge-list order, bit for bit the serial float32 sum.
 
+Each CUDA call reports its FLOPs to an active ``FlopCounterMode``
+(:mod:`.flops`).
+
 ``n_launches`` counts the forward's CUDA kernel launches
 (:func:`launches_per_call` per call) and ``n_bwd_launches`` the backward's
 (:func:`bwd_launches_per_call` per call), one per launch;
@@ -45,7 +48,7 @@ import ctypes
 
 import torch
 
-from deepdfa_tpu_torch.ops import _build, custom_ops
+from deepdfa_tpu_torch.ops import _build, custom_ops, flops
 
 __all__ = ["BWD_KERNELS", "TC_WIDTH", "VARIANTS", "bwd_launches_per_call",
            "forward_cuda", "fused_ggnn", "fused_ggnn_backward_reference",
@@ -494,6 +497,7 @@ class _FusedGGNN(torch.autograd.Function):
                                   hw, hb)
             return fused_ggnn_reference(h0, senders, receivers, ew, eb, xw,
                                         xb, hw, hb, n_steps=n_steps)
+        flops.count(flops.fused_ggnn_flops(*h0.shape, n_steps), h0)
         ctx.empty = n_steps == 0 or h0.shape[0] == 0 or h0.shape[1] == 0
         if ctx.empty:
             ctx.shapes = tuple(t.shape for t in (ew, eb, xw, xb, hw, hb))
@@ -508,6 +512,9 @@ class _FusedGGNN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if g.device.type == "cuda":
+            flops.count(flops.fused_ggnn_backward_flops(*g.shape,
+                                                        ctx.n_steps), g)
         if g.device.type == "cpu":
             grads = fused_ggnn_backward_reference(*ctx.saved_tensors, g,
                                                   n_steps=ctx.n_steps)

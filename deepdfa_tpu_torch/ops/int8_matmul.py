@@ -18,7 +18,9 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
   into three bf16 terms) wherever TMA can describe the operands, and
   ``"ffma"`` (the int8 tile dequantized in registers, FFMA over K) for the
   strides and addresses it cannot. ``n_launches`` counts the kernel's launches,
-  ``n_variant_launches`` each variant's.
+  ``n_variant_launches`` each variant's. A call under autograd reports its
+  FLOPs to an active ``FlopCounterMode`` (:mod:`.flops`; the op carries
+  its own formula).
 - Differentiable with respect to ``x`` only, as the JAX ``custom_vjp``:
   ``dx = (g · scale) @ qᵀ`` with both factors in bf16, summed in float32
   (:func:`vjp_product`; no float32 copy of the weight). The weight and
@@ -38,7 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.ops import _build, custom_ops
+from deepdfa_tpu_torch.ops import _build, custom_ops, flops
 
 __all__ = ["VARIANTS", "calibrate_int8", "forward_cuda", "int8_matmul",
            "int8_matmul_reference", "n_launches", "n_variant_launches",
@@ -259,6 +261,9 @@ class _Int8Matmul(torch.autograd.Function):
     def forward(ctx, x, q, scale, out_dtype):
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
+        if x.device.type == "cuda":
+            flops.count(flops.int8_matmul_flops(x.numel() // q.shape[0],
+                                                *q.shape), x)
         return _forward(x, q, scale, out_dtype)
 
     @staticmethod

@@ -17,7 +17,8 @@ The port of ``deepdfa_tpu/ops/megabatch.py``:
   or raises; on CPU tensors it runs :func:`megabatch_reference`, the same
   math in plain torch. ``n_launches`` counts the CUDA launches
   (:func:`launches_per_call` per call), ``n_variant_launches`` them by
-  the variant of the call's rounds.
+  the variant of the call's rounds. A CUDA call reports its FLOPs to an
+  active ``FlopCounterMode`` (:mod:`.flops`).
 - :func:`fused_ggnn_encoder` is the same model stopped at the pooled
   embedding (kernel B4, the hierarchical scorer's level 1): on CUDA tensors
   B3's launches with a head of 0 layers, whose pooling launch then writes
@@ -43,7 +44,7 @@ import torch
 
 from deepdfa_tpu_torch.data.graphs import (BatchedGraphs, Graph, _round_up,
                                            batch_np, padding_efficiency)
-from deepdfa_tpu_torch.ops import _build
+from deepdfa_tpu_torch.ops import _build, flops
 from deepdfa_tpu_torch.ops.fused_ggnn import (VARIANTS, fused_ggnn,
                                               fused_ggnn_reference,
                                               heads_words, variant)
@@ -415,6 +416,8 @@ def _launch(p: _Prepared, kind: str | None = None) -> torch.Tensor:
     buffer's rows of the last layer's width in general). The rounds take
     B1's variant for the width (``fused_ggnn.variant``) unless ``kind``
     names the other; ``"wgmma"`` takes width 128 only."""
+    flops.count(flops.megabatch_flops(p.n, p.d, p.n_steps, p.g, p.dims),
+                p.table)
     lib = _kernels()
     buf, n, d = p.buf, p.n, p.d
     kind = kind or variant(d)

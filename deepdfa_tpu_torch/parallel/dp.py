@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from deepdfa_tpu_torch.data.graphs import to_device
+from deepdfa_tpu_torch.parallel import comm
 from deepdfa_tpu_torch.train.loop import (TrainState, bce_sums,
                                           extract_labels,
                                           node_undersample_weights)
@@ -80,6 +81,10 @@ def _fold_in(seed: int, index: int) -> int:
 
 
 def _local_device(model: nn.Module, mesh) -> torch.device:
+    if mesh.shards_llm:
+        raise ValueError(f"the GGNN's data parallelism runs over dp alone; "
+                         f"mesh {mesh.shape} also has axes that shard the "
+                         f"LLM (fsdp, tp, sp)")
     dev = next(model.parameters()).device
     for j in mesh.local_slots:
         slot = mesh.devices[j]
@@ -88,22 +93,6 @@ def _local_device(model: nn.Module, mesh) -> torch.device:
                 f"slot {j} is on {slot} but the model is on {dev}: a process "
                 "trains on one device (one rank per card)")
     return dev
-
-
-def _all_reduce(buf: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum ``buf`` over the mesh's group (in place; gloo reduces a host
-    copy of a card tensor). A mesh without a group holds every slot."""
-    if mesh.group is None:
-        return buf
-    import torch.distributed as dist
-
-    if buf.is_cuda and dist.get_backend(mesh.group) == "gloo":
-        host = buf.cpu()
-        dist.all_reduce(host, group=mesh.group)
-        buf.copy_(host)
-    else:
-        dist.all_reduce(buf, group=mesh.group)
-    return buf
 
 
 def dp_init_state(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -175,7 +164,7 @@ def make_dp_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         buf = torch.cat([g.reshape(-1) for g in grads]
                         + [lsum.reshape(1), wsum.reshape(1)]
                         + [c.reshape(1) for c in local])
-        buf = _all_reduce(buf, mesh)
+        buf = comm.all_reduce(buf, mesh.group)
         n = sum(g.numel() for g in grads)
         g_lsum, g_wsum = buf[n], buf[n + 1]
         denom = torch.clamp(g_wsum, min=1.0)
@@ -215,7 +204,8 @@ def make_dp_eval_step(model: nn.Module, mesh, label_style: str = "graph",
             lsum, wsum = lsum + ls, wsum + ws
             local = update_confusion(local, torch.sigmoid(logits), labels,
                                      weights > 0)
-        buf = _all_reduce(torch.stack([lsum, wsum, *local]), mesh)
+        buf = comm.all_reduce(torch.stack([lsum, wsum, *local]),
+                              mesh.group)
         metrics = ConfusionState(*(m + d for m, d in zip(metrics, buf[2:])))
         return metrics, buf[0] / torch.clamp(buf[1], min=1.0), buf[1]
 

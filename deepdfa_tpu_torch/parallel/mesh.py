@@ -1,14 +1,23 @@
 """Device meshes over ``torch.distributed``.
 
 The port of ``deepdfa_tpu/parallel/mesh.py``. Axes keep the JAX package's
-names (``dp``, ``fsdp``, ``tp``, ``sp``); only ``dp`` is ported: a
-:class:`Mesh` lists one device per ``dp`` slot and maps the axis onto a
-process group (NCCL on CUDA, gloo on the CPU), each process holding the
-slots of its own rank. A mesh without a group (:func:`local_mesh`) keeps
-every slot in this process: the engine's replicas, or several ``dp`` slots
-of the CPU in one process (the CPU may be named more than once, as the JAX
-package's tests name its host devices). ``fsdp``, ``tp`` and ``sp`` above
-1 raise ``NotImplementedError``: they shard the LLM (ROADMAP A11b).
+names and order (``dp``, ``fsdp``, ``tp``, ``sp``), and devices fill the
+mesh in the JAX package's order: device ``i`` of the list sits at the
+row-major index ``i`` of the ``(dp, fsdp, tp, sp)`` shape, so the
+fastest-varying axes (``tp``, ``sp``) hold neighbouring devices. A
+:class:`Mesh` maps itself onto a process group (NCCL on CUDA, gloo on the
+CPU and for ranks that share one card), each process holding the slots of
+its own rank.
+
+- ``dp`` alone: the GGNN's data parallelism (:mod:`.dp`) and replicated
+  engine. A mesh without a group (:func:`local_mesh`) keeps every slot in
+  this process: the engine's replicas, or several ``dp`` slots of the CPU
+  in one process (the CPU may be named more than once, as the JAX
+  package's tests name its host devices).
+- ``fsdp``, ``tp``, ``sp`` shard the LLM (:mod:`deepdfa_tpu_torch.llm.
+  llama`), one device per rank: the mesh then holds a process group per
+  axis line through this rank (``groups``), made over the ranks of the
+  mesh's group.
 
 Nothing tells a process of a cluster: :func:`initialize_multihost` takes
 the world size, the rank and a store or an address explicitly.
@@ -20,6 +29,7 @@ import dataclasses
 import logging
 from datetime import timedelta
 
+import numpy as np
 import torch
 
 from deepdfa_tpu_torch import resolve_device
@@ -43,16 +53,21 @@ class DeviceLost(RuntimeError):
 
 @dataclasses.dataclass
 class Mesh:
-    """``devices[j]`` runs ``dp`` slot ``j``. ``group`` is the process group
-    the slots are spread over (None: this process holds every slot);
-    ``rank`` and ``world`` are this process's place in it. Rank ``r`` holds
-    the slots ``local_slots``, an equal consecutive share."""
+    """``devices`` fill the ``(dp, fsdp, tp, sp)`` shape in row-major order
+    (with ``dp`` alone, ``devices[j]`` runs ``dp`` slot ``j``). ``group`` is
+    the process group the slots are spread over (None: this process holds
+    every slot); ``rank`` and ``world`` are this process's place in it.
+    Rank ``r`` holds the slots ``local_slots``, an equal consecutive share.
+    ``groups`` maps each axis longer than 1 to the process group of this
+    rank's line along it (a mesh that shards the LLM, one device per
+    rank)."""
 
     devices: tuple
     axes: dict
     group: object = None
     rank: int = 0
     world: int = 1
+    groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -71,6 +86,38 @@ class Mesh:
     def device(self) -> torch.device:
         """The device of this process's first slot."""
         return self.devices[self.local_slots.start]
+
+    @property
+    def coords(self) -> dict[str, int]:
+        """This process's first slot's place on each axis."""
+        shape = tuple(self.axes[a] for a in AXES)
+        return dict(zip(AXES, (int(i) for i in np.unravel_index(
+            self.local_slots.start, shape))))
+
+    @property
+    def shards_llm(self) -> bool:
+        """Whether an axis that shards the LLM (``fsdp``, ``tp``, ``sp``)
+        is longer than 1."""
+        return any(self.axes[a] > 1 for a in AXES[1:])
+
+    def block(self, length: int, axis: str, what: str = "a dimension"
+              ) -> slice:
+        """This process's contiguous block of ``length`` split over
+        ``axis``; ``ValueError`` when it does not split evenly."""
+        n = self.axes[axis]
+        if length % n:
+            raise ValueError(f"{what} of {length} does not split over "
+                             f"{axis}={n}")
+        per = length // n
+        i = self.coords[axis]
+        return slice(i * per, (i + 1) * per)
+
+    @property
+    def replica_devices(self) -> tuple:
+        """The first device of each ``dp`` slot: where a replicated model
+        (the GGNN engine) runs, as the JAX package's shard-map over ``dp``
+        places it."""
+        return self.devices[:: len(self.devices) // self.axes["dp"]]
 
 
 def _initialized() -> bool:
@@ -102,7 +149,10 @@ def build_mesh(cfg: MeshConfig, devices=None, group=_WORLD) -> Mesh:
     absorbs the shrink) over a new group of the ranks that hold it, which
     every rank creates; a rank left outside raises :class:`DeviceLost`.
     The elastic resume (:mod:`deepdfa_tpu_torch.parallel.elastic`) carries
-    a run across."""
+    a run across. A mesh whose ``fsdp``, ``tp`` or ``sp`` is longer than 1
+    takes one device per rank of the whole world, and every rank makes the
+    process groups of its axis lines (``Mesh.groups``), so every rank
+    builds it."""
     import torch.distributed as dist
 
     if group is _WORLD:
@@ -138,14 +188,46 @@ def build_mesh(cfg: MeshConfig, devices=None, group=_WORLD) -> Mesh:
                 raise ValueError(f"{survivors} surviving devices do not "
                                  f"divide over {world} ranks")
     sizes = cfg.axis_sizes(len(devices))
-    later = {a: sizes[a] for a in ("fsdp", "tp", "sp") if sizes[a] > 1}
-    if later:
-        raise NotImplementedError(
-            f"mesh axes {later} shard the LLM and are not ported yet: ROADMAP "
-            "A11b (the sharded JointEngine, ring attention over sp)")
     rank = dist.get_rank(group) if group is not None else 0
+    groups = {}
+    if group is not None and any(sizes[a] > 1 for a in AXES[1:]):
+        if len(devices) != world:
+            raise ValueError(f"a mesh that shards the LLM ({sizes}) takes "
+                             f"one device per rank, not {len(devices)} "
+                             f"devices over {world} ranks")
+        if world != dist.get_world_size():
+            raise ValueError("a mesh that shards the LLM is built over "
+                             "every rank of the world (its axis groups are "
+                             "made by all of them)")
+        groups = _axis_groups(sizes, group, rank)
+    elif group is not None and len(devices) == world and sizes["dp"] > 1:
+        groups = {"dp": group}
     return Mesh(devices=tuple(devices), axes=sizes, group=group, rank=rank,
-                world=world)
+                world=world, groups=groups)
+
+
+def _axis_groups(sizes: dict, group, rank: int) -> dict:
+    """The process group of this rank's line along each axis longer than
+    1. Every rank of ``group`` makes every line, in one order (a line's
+    ranks ascend with its axis coordinate, so its group rank is that
+    coordinate); a line of every rank is ``group`` itself."""
+    import torch.distributed as dist
+
+    shape = tuple(sizes[a] for a in AXES)
+    index = np.arange(int(np.prod(shape))).reshape(shape)
+    out = {}
+    for ax, name in enumerate(AXES):
+        if shape[ax] == 1:
+            continue
+        lines = np.moveaxis(index, ax, -1).reshape(-1, shape[ax])
+        for line in lines:
+            members = tuple(dist.get_global_rank(group, int(r))
+                            for r in line)
+            grp = (group if len(members) == dist.get_world_size(group)
+                   else dist.new_group(list(members)))
+            if rank in line:
+                out[name] = grp
+    return out
 
 
 def local_mesh(n_devices: int | None = None, device=None,

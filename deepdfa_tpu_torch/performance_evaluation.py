@@ -9,8 +9,12 @@ on ``--device`` (``cuda`` unless another is named). It writes
   ``test`` repetitions of the GGNN (sample corpus, 3 epochs unless
   ``--set`` says otherwise), their test F1, the mean, and the committed
   quality band of ``configs/golden_quality.json`` when the protocol
-  matches it. The profiled throughput keys are ``None``: the trainer's
-  profiler is ROADMAP A13.
+  matches it. ``fit`` and ``test`` run with ``profile=true time=true``, as
+  in the JAX script, and each run carries ``test``'s
+  ``profile_examples_per_sec`` and ``profile_gflops_per_example``
+  (:mod:`deepdfa_tpu_torch.train.profiling`: matrix-product FLOPs from
+  ``FlopCounterMode``, not the JAX package's XLA cost analysis, so the two
+  packages share these keys' names but not their values).
 - ``--protocol full``: the reference's three stages
   (``performance_evaluation.sh``) on the demo sample corpus, timed:
   DeepDFA (``fit``/``test``), LineVul (``train_joint --encoder roberta
@@ -159,7 +163,7 @@ def main(argv=None) -> dict:
     out_dir = Path(args.out) if args.out else utils.storage_dir() / "perf_eval"
     out_dir.mkdir(parents=True, exist_ok=True)
     base_overrides = ["data.sample=true", "optim.max_epochs=3",
-                      *args.overrides]
+                      "profile=true", "time=true", *args.overrides]
     common = ([x for c in args.config for x in ("--config", c)]
               + [x for o in base_overrides for x in ("--set", o)])
     runs = []
@@ -174,8 +178,10 @@ def main(argv=None) -> dict:
         runs.append({"run": i, "fit_seconds": round(fit_s, 2),
                      "test_seconds": round(time.monotonic() - t1, 2),
                      "test_F1Score": results.get("test_F1Score"),
-                     "profile_examples_per_sec": None,
-                     "profile_gflops_per_example": None})
+                     "profile_examples_per_sec":
+                         results.get("profile_examples_per_sec"),
+                     "profile_gflops_per_example":
+                         results.get("profile_gflops_per_example")})
         print(json.dumps(runs[-1]), file=sys.stderr, flush=True)
 
     f1s = [r["test_F1Score"] for r in runs if r["test_F1Score"] is not None]

@@ -29,7 +29,7 @@ with no host sync, the scores read back by :meth:`PendingScore.result`.
 ``from_model(..., mesh=)`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.
 Mesh`, e.g. :func:`~deepdfa_tpu_torch.parallel.mesh.local_mesh`, or
 ``serve.mesh_replicas > 1`` through :meth:`ScoringEngine.from_checkpoint`)
-replicates the engine, one replica per device of the mesh:
+replicates the engine, one replica per ``dp`` slot of the mesh:
 :meth:`ScoringEngine.score_groups` stacks one padded batch per replica and
 launches every replica's forward before reading any back. On the card each
 device holds at most one replica; on the CPU the mesh may name the CPU
@@ -582,9 +582,11 @@ class ScoringEngine:
         ``latency_mode`` sends every dispatch through :meth:`submit`.
 
         ``mesh`` (a :class:`~deepdfa_tpu_torch.parallel.mesh.Mesh`)
-        replicates the engine, one replica per mesh device (the model, or
-        the int8 model the gate chose, copied once per other device; the
-        first device is the model's), and dispatches through
+        replicates the engine, one replica per ``dp`` slot on the slot's
+        first device (the model, or the int8 model the gate chose, copied
+        once per other device; the first device is the model's; axes that
+        shard the LLM leave the GGNN whole, as the JAX package's shard-map
+        over ``dp`` does), and dispatches through
         :meth:`score_groups`. On the card a device named twice raises
         ``ValueError``. A replicated engine has no ``submit``/
         ``latency_mode`` and no warm-store export."""
@@ -596,8 +598,8 @@ class ScoringEngine:
             raise ValueError(
                 f"precision must be 'f32' or 'int8', got {precision!r}")
         if mesh is not None:
-            _check_replica_devices(mesh.devices)
-            dev = mesh.devices[0]
+            _check_replica_devices(mesh.replica_devices)
+            dev = mesh.replica_devices[0]
         else:
             dev = resolve_device(device)
         if state is not None:
@@ -654,9 +656,9 @@ class ScoringEngine:
                        vocab_hash=vocab_hash, model_rev=model_rev, mega=mega,
                        precision=precision, int8_score_delta=int8_delta,
                        hier_factory=hier_factory, latency_mode=latency_mode,
-                       device=dev, n_replicas=mesh.size,
+                       device=dev, n_replicas=len(mesh.replica_devices),
                        stacked_fn=_make_replicated_fn(
-                           chosen, label_style, keys, mesh.devices))
+                           chosen, label_style, keys, mesh.replica_devices))
         return cls(score_fn, buckets, label_style=label_style, feat_keys=keys,
                    vocab_hash=vocab_hash, model_rev=model_rev, mega=mega,
                    precision=precision, int8_score_delta=int8_delta,

@@ -10,6 +10,12 @@ The port of ``deepdfa_tpu/train/cli.py``. Commands:
   classification report, for node-label models the statement ranking's
   ``statement_hit@1..10``, ``pr.csv`` and ``pr_binned.csv`` (pandas'
   ``to_csv`` bytes), the confusion matrix logged, ``test_metrics.json``.
+  With ``profile=true`` / ``time=true``, ``profiledata.jsonl`` (FLOPs of
+  each batch's step, counted once per step and batch shapes) and
+  ``timedata.jsonl`` (its synchronized wall time) and the ``profile_*``
+  keys of their aggregate (:mod:`deepdfa_tpu_torch.train.profiling`);
+  with ``trace=true``, a ``torch.profiler`` Chrome trace of the test loop
+  (host and card) in ``<run-dir>/trace/trace.json``.
 - ``analyze``: per-split feature and dataflow-solution coverage, the label
   balance and, from ``hashes.csv.gz``, the feature-variant grid;
   ``coverage.json``.
@@ -28,7 +34,8 @@ The port of ``deepdfa_tpu/train/cli.py``. Commands:
 - ``bench [ledger] [--check] [--trend] [--ledger-dir PATH ...]``: the
   perf-regression ledger's verdicts over bench artifacts
   (:func:`deepdfa_tpu_torch.obs.ledger.main`; ``--check`` exits 1 on a
-  regression). The ``bench.py``-shaped torch stages are ROADMAP A13.
+  regression). The port's own bench stages are not written yet (ROADMAP:
+  its first benchmark).
 
 Every command runs on ``--device`` (``cuda`` unless another is named).
 Config: layered JSON/YAML files (``--config``, later wins) and dotted
@@ -103,7 +110,9 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     (default ``<run-dir>/checkpoints``; none evaluates the fresh init, with
     a warning) on the test split, on ``device``. Writes
     ``test_metrics.json``, ``pr.csv`` and ``pr_binned.csv`` into
-    ``run_dir`` and returns the metrics."""
+    ``run_dir`` and returns the metrics; ``cfg.profile``, ``cfg.time`` and
+    ``cfg.trace`` add the profiling files, ``profile_*`` keys and the trace
+    (module docstring). The ``test_*`` metrics do not depend on them."""
     from deepdfa_tpu_torch.data.prefetch import prefetch_to_device
     from deepdfa_tpu_torch.models import make_model
     from deepdfa_tpu_torch.train import metrics as M
@@ -130,6 +139,16 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     statement_items = []  # node labels: (probs, labels) per function
     losses, wsums = [], []
     n_graphs_scored = 0  # must equal len(test_graphs): no silent truncation
+    profiler = None
+    # FLOPs are a property of (step, batch shapes): the dense primary step,
+    # each dense size and the segment fallback all differ — cached per key,
+    # never one step's FLOPs attributed to another's batches
+    flops_cache: dict[tuple, float | None] = {}
+    if cfg.profile or cfg.time:
+        from deepdfa_tpu_torch.train.profiling import StepProfiler
+
+        profiler = StepProfiler(run_dir)
+    tracer = _start_trace(dev) if cfg.trace else None
     stream = prefetch_to_device(_batch_stream(batcher, test_graphs), dev,
                                 size=cfg.data.prefetch)
     try:
@@ -137,8 +156,20 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
             _, eval_step = trainer.steps_for(batch)
             n_real = int(batch.graph_mask.sum())
             n_graphs_scored += n_real
-            overall, loss, probs, labels, weights = eval_step(model, batch,
-                                                              overall)
+            if profiler is None:
+                overall, loss, probs, labels, weights = eval_step(
+                    model, batch, overall)
+            else:
+                # the first batch of each key is counted as it runs (the
+                # counter changes no value, so test_* are the unprofiled
+                # run's)
+                key = (id(eval_step), _shapes(batch))
+                count = cfg.profile and key not in flops_cache
+                overall, loss, probs, labels, weights = profiler.step(
+                    eval_step, model, batch, overall, batch_size=n_real,
+                    flops=flops_cache.get(key), count=count)
+                if count:
+                    flops_cache[key] = profiler.last_flops
             pos, neg = M.update_confusion_by_class(pos, neg, probs, labels,
                                                    weights > 0)
             losses.append(float(loss))
@@ -162,6 +193,8 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
                         statement_items.append((p_g, l_g.astype(int)))
     finally:
         stream.close()
+        if tracer is not None:
+            _stop_trace(tracer, run_dir / "trace")
 
     probs = np.concatenate(all_probs)
     labels = np.concatenate(all_labels)
@@ -188,9 +221,61 @@ def test(cfg: ExperimentConfig, run_dir: Path, ckpt_dir: Path | None = None,
     logger.info("confusion matrix:\n%s", M.confusion_matrix(probs, labels))
     logger.info("test metrics: %s", {k: round(v, 4) for k, v in
                                      results.items() if k.startswith("test_")})
+    if profiler is not None:
+        from deepdfa_tpu_torch.train.profiling import report
+
+        profiler.flush()
+        prof = report(run_dir)
+        results |= {f"profile_{k}": v for k, v in prof.items()}
+        logger.info("profiling: %s", prof)
     atomic_write_text(run_dir / "test_metrics.json",
                       json.dumps(results, indent=2))
     return results
+
+
+def _shapes(batch) -> tuple:
+    """The shape and type of every tensor of a batch, in a fixed order."""
+    from torch.utils import _pytree
+
+    return tuple((tuple(t.shape), str(t.dtype))
+                 for t in _pytree.tree_leaves(batch))
+
+
+# tiny kernels run at the start of a trace on the card: in a process some
+# minutes old a session can lose its first few dozen kernel records (the
+# first records after the start, whatever the pause before them; seen with
+# torch 2.11 on an H100), so these take that loss, not the test loop's
+TRACE_LEAD_KERNELS = 256
+
+
+def _start_trace(dev):
+    """A ``torch.profiler`` session recording host activity and, on the
+    card, the device's (the JAX package's ``jax.profiler.start_trace``),
+    led by :data:`TRACE_LEAD_KERNELS` tiny kernels on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    if dev.type == "cuda":
+        lead = torch.zeros(1, device=dev)
+        for _ in range(TRACE_LEAD_KERNELS):
+            lead.add_(1)
+        torch.cuda.synchronize(dev)
+    return prof
+
+
+def _stop_trace(prof, out_dir: Path) -> Path:
+    """End the session and write its Chrome trace under ``out_dir``."""
+    prof.__exit__(None, None, None)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    logger.info("device trace written to %s", path)
+    return path
 
 
 # ---------------------------------------------------------------------------

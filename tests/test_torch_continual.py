@@ -412,7 +412,10 @@ def test_read_promotion_veto_firing_alert_vetoes(tmp_path):
     path = slo.write_alerts_artifact(
         tmp_path / "alerts.json", [],
         extra_alerts=[{"slo": "latency_p99", "alert": True}])
-    veto = _veto_both(path, clock=lambda: time.time())
+    # one clock reading for both readers: two live readings can round
+    # their age differently (0.299 against 0.3 s)
+    now = time.time()
+    veto = _veto_both(path, clock=lambda: now)
     assert veto["allow"] is False and veto["reason"] == "vetoed"
     assert veto["vetoed"] is True and veto["firing"] == ["latency_p99"]
 

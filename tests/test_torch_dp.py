@@ -3,7 +3,9 @@ replicated engine against the JAX package on the CPU.
 
 - ``MeshConfig.axis_sizes`` and ``build_mesh`` under ``mesh.device_lost``
   against the JAX mesh (the CPU named once per slot, as the JAX tests name
-  their host devices); ``fsdp``/``tp``/``sp`` raise naming A11b;
+  their host devices); a mesh with ``fsdp``/``tp``/``sp`` builds (the
+  sharded LLM, ``tests/test_torch_shard.py``) and the GGNN's dp steps
+  refuse it;
 - the dp train and eval steps, segment and dense batches, against
   ``make_dp_train_step`` / ``make_dp_eval_step`` on the JAX
   ``local_mesh(2)``, on the parameters ``bridge.flax_to_torch`` carries
@@ -232,9 +234,16 @@ def test_probed_devices_run_under_the_watchdog(monkeypatch):
 
 
 def test_the_llm_axes_raise_naming_their_item():
+    """The axes that shard the LLM build as the JAX mesh's (dp absorbing
+    the rest, replicas one per dp slot); the GGNN's dp steps refuse them."""
     for axes in (dict(tp=2), dict(fsdp=2), dict(sp=2)):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            local_mesh(4, device="cpu", **axes)
+        mesh = local_mesh(4, device="cpu", **axes)
+        jmesh = jlocal_mesh(4, **axes)
+        assert mesh.shape == dict(jmesh.shape) and mesh.shards_llm
+        assert len(mesh.replica_devices) == jmesh.shape["dp"] == 2
+        model = make_model(GGNNConfig(**CFG), INPUT_DIM, device="cpu")
+        with pytest.raises(ValueError, match="shard the LLM"):
+            dp.make_dp_eval_step(model, mesh)
 
 
 # ----------------------------------------------------------------- stacks

@@ -177,16 +177,22 @@ def test_model_rev_names_framework_and_state(engines):
 @pytest.mark.parametrize("kw,exc,match", [
     # an unknown precision is refused, as the JAX engine refuses it
     (dict(precision="fp8"), ValueError, "'f32' or 'int8'"),
-    # dp replication is ported; a mesh that shards the model (tp) is the
-    # LLM half of the item and raises when it is built
-    (dict(mesh={"tp": 2}), NotImplementedError, "A11")])
+    # a mesh whose tp axis shards the LLM: the GGNN engine replicates over
+    # dp alone (one replica here), as the JAX shard-map over dp does
+    (dict(mesh={"tp": 2}), None, None)])
 def test_unported_engine_options_raise(kw, exc, match):
     from deepdfa_tpu_torch.parallel.mesh import local_mesh
 
     cfg = GGNNConfig(**SMALL, layout="fused")
+    if "mesh" in kw:
+        kw = dict(mesh=local_mesh(2, device="cpu", **kw["mesh"]))
+    if exc is None:
+        engine = ScoringEngine.from_model(
+            make_model(cfg, INPUT_DIM, device="cpu"), None, feat_keys=KEYS,
+            device="cpu", **kw)
+        assert engine.n_replicas == 1
+        return
     with pytest.raises(exc, match=match):
-        if "mesh" in kw:
-            kw = dict(mesh=local_mesh(2, device="cpu", **kw["mesh"]))
         ScoringEngine.from_model(make_model(cfg, INPUT_DIM, device="cpu"),
                                  None, feat_keys=KEYS, device="cpu", **kw)
 

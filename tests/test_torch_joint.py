@@ -350,8 +350,12 @@ def test_from_run_dir_refuses_orbax_and_empty_directories(tmp_path):
     (orbax / "manifest.ocdbt").write_bytes(b"\0")
     with pytest.raises(ValueError, match="fusion_flax_to_torch"):
         JointEngine.from_run_dir(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        JointEngine.from_run_dir(tmp_path, mesh=object(), device="cpu")
+    # a mesh is accepted (tests/test_torch_shard.py) and refuses the same
+    from deepdfa_tpu_torch.parallel.mesh import local_mesh
+
+    with pytest.raises(ValueError, match="fusion_flax_to_torch"):
+        JointEngine.from_run_dir(tmp_path, mesh=local_mesh(1, device="cpu"),
+                                 device="cpu")
 
 
 def test_fusion_bridge_round_trip_is_bitwise(joint):

@@ -358,7 +358,8 @@ def test_rope_tables_are_the_float64_functions_rounded_once(head_dim, theta):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(attn_impl="ring"), NotImplementedError, "A11"),
+    # the ring is ported; without a mesh it raises, as in the JAX package
+    (dict(attn_impl="ring"), ValueError, "requires a mesh"),
     (dict(attn_impl="paged"), ValueError, "attn_impl"),
     # head width 20 (hidden 80 over 4 heads) is not one B6 is built for
     (dict(attn_impl="flash", hidden_size=80), ValueError, "head widths"),
@@ -449,6 +450,7 @@ def test_llama_presets_are_the_jax_presets():
         assert dataclasses.asdict(p.joint) == dataclasses.asdict(j.joint)
         assert (p.finetuned, p.dataset, p.encoder_family) == (
             j.finetuned, j.dataset, j.encoder_family)
+        assert dataclasses.asdict(p.mesh) == dataclasses.asdict(j.mesh)
     assert set(presets.PRESETS) == set(jpresets.PRESETS)
     assert presets.PRESETS["bigvul_ft_bigvul"].llm == tl.codellama_7b()
     for name in ("linevul", "linevul_fusion"):
