@@ -533,6 +533,25 @@ Each phase prints one JSON line; any failure exits non-zero.
    collective) against the unsharded logits (``SHARD_WORLD1_LIMIT``), and
    ``parallel.comm``'s all-reduce and all-gather over an NCCL group of one
    on a bf16 activation (exact). Each sharded forward's milliseconds.
+   Then, on the ranks, training over the shards at both seeds: two LoRA
+   steps (rank 16 on q/v, B drawn nonzero, the first step at lr 0) at
+   ``tp=2`` and ``fsdp=2`` against the unsharded ``"flash"`` steps and at
+   ``sp=2`` (the ring) against the unsharded ``"full"`` steps: the first
+   step's loss, the adapters' gradients summed over dp/sp and gathered,
+   and the adapters after the last step (``SHARD_TUNE_*_LIMIT``); B6 2
+   and B6b 4 a rank and step at ``tp``/``fsdp``, all ``wgmma``; the
+   adapters a ``tp=2`` run saves, loaded into the unsharded model, give
+   the logits of the gathered ones (``SHARD_SAVE_LIMIT``); a
+   ``JointTrainer`` epoch of two steps over ``tp=2`` against the unsharded
+   one (``SHARD_JOINT_LIMIT``; B6 a layer a step or eval batch, no B6b);
+   each step's milliseconds; how long this phase waits to join the
+   ranks, and how long it would have had they stopped after their forward
+   legs.
+17l. cross_project — ``python -m deepdfa_tpu_torch.run_cross_project
+   --folds 1`` as a child beside the continual phase, over the corpus
+   phase's demo corpus in a storage root of its own with the fold's split
+   files: its aggregate has the JAX script's keys and the holdout test
+   scores exactly the holdout rows in the fold's shards.
 
 Then each phase's wall seconds, the kernel table as one JSON line, the
 fleet phase's numbers again on one short line, the ``nvidia-smi`` name
@@ -586,7 +605,8 @@ from deepdfa_tpu_torch.data.codegen import (demo_corpus, generate_function,
                                             generate_hard_function)
 from deepdfa_tpu_torch.data.extract_cache import ExtractCache
 from deepdfa_tpu_torch.data.graphs import (GraphBatcher, batch_np,
-                                           derive_buckets, to_device)
+                                           derive_buckets, load_shards,
+                                           to_device)
 from deepdfa_tpu_torch.data.materialize import corpus_hashes, corpus_vocabs
 from deepdfa_tpu_torch.data.sampler import positive_weight
 from deepdfa_tpu_torch.data.synthetic import random_dataset, random_graph
@@ -6394,6 +6414,102 @@ def replica_counts(root: Path, idents: list[str]) -> dict:
             "b1_launches_by_variant": total}
 
 
+# the cross-project protocol's one fold over the corpus phase's demo
+# corpus: "project A" the first XP_CUT ids (train/valid/test), "project B"
+# the rest (the holdout)
+XP_CUT = 1500
+# the JAX script's (scripts/run_cross_project.py) aggregate and fold keys
+XP_KEYS = {"protocol", "dataset", "folds", "holdout_f1_mean"}
+XP_FOLD_KEYS = {"mixed_test_f1", "holdout_test_f1"}
+
+
+def start_cross_project(work: Path) -> dict:
+    """Start ``python -m deepdfa_tpu_torch.run_cross_project --folds 1`` as
+    a child on the card over the corpus phase's demo corpus, in a storage
+    root of its own (its preprocess rebuilds the shards with
+    ``--overwrite``; the corpus phase's extraction cache is copied in):
+    the fold's split files written here in the reference's csv shape.
+    Returns what :func:`finish_cross_project` reads."""
+    root = work / "cross_project"
+    storage = root / "storage"
+    splits = storage / "external" / "splits"
+    splits.mkdir(parents=True)
+    rows_ds, rows_ho = [",example_index,split"], [",example_index,split"]
+    for i in range(XP_CUT):
+        part = "valid" if i % 10 == 8 else "test" if i % 10 == 9 else "train"
+        rows_ds.append(f"{i},{i},{part}")
+        rows_ho.append(f"{i},{i},train")
+    for i in range(XP_CUT, CORPUS_FUNCTIONS):
+        rows_ho.append(f"{i},{i},holdout")
+    (splits / "cross_project_fold_0_dataset.csv").write_text(
+        "\n".join(rows_ds))
+    (splits / "cross_project_fold_0_holdout.csv").write_text(
+        "\n".join(rows_ho))
+    cache = port_utils.cache_dir() / "cpg_cache" / "demo"
+    if cache.is_dir():
+        shutil.copytree(cache, storage / "cache" / "cpg_cache" / "demo")
+    cmd = [sys.executable, "-m", "deepdfa_tpu_torch.run_cross_project",
+           "--dataset", "demo", "--folds", "1", "--n", str(CORPUS_FUNCTIONS),
+           "--out", str(root / "xp"), "--set", "optim.max_epochs=1"]
+    env = {**os.environ, "PYTHONPATH": REPLICA_ENV["PYTHONPATH"],
+           "DEEPDFA_STORAGE": str(storage)}
+    env.pop("DEEPDFA_FAULTS", None)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(root))
+    return {"proc": proc, "root": root, "storage": storage,
+            "t0": time.perf_counter()}
+
+
+def finish_cross_project(child: dict) -> dict:
+    """Wait for the cross-project child and check it: its aggregate has
+    the JAX script's keys, its F1s are numbers, and the holdout test
+    scored exactly the holdout rows that have graphs in the fold's
+    shards."""
+    proc = child["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("cross_project: the child did not finish in 600 s")
+    wall = time.perf_counter() - child["t0"]
+    if proc.returncode != 0:
+        fail(f"cross_project: exited {proc.returncode}: {stderr[-2000:]}")
+    agg = json.loads(stdout.strip().splitlines()[-1])
+    fold = child["root"] / "xp" / "fold_0"
+    scored = {name: json.loads((d / "test_metrics.json").read_text())[
+        "n_graphs_scored"] for name, d in (("mixed", fold),
+                                           ("holdout", fold / "holdout"))}
+    shards = child["storage"] / "processed" / "demo" / "shards"
+    gids = [int(g.gid) for g in load_shards(shards)]
+    splits = json.loads((shards / "splits.json").read_text())
+    holdout = sum(gid >= XP_CUT for gid in gids)
+    row = {"phase": "cross_project", "wall_to_harvest_s": wall,
+           "aggregate": agg,
+           "scored": scored, "holdout_graphs": holdout,
+           "graphs": len(gids),
+           "split_test": len(splits["test"]),
+           "partitioned": sum(len(splits[k]) for k in ("train", "val",
+                                                       "test"))}
+    emit(row)
+    if set(agg) != XP_KEYS or set(agg["folds"]) != {"fold_0"} \
+            or set(agg["folds"]["fold_0"]) != XP_FOLD_KEYS:
+        fail(f"cross_project: the aggregate's keys {agg}")
+    f0 = agg["folds"]["fold_0"]
+    if not all(isinstance(v, float) for v in f0.values()) \
+            or agg["holdout_f1_mean"] != round(f0["holdout_test_f1"], 4):
+        fail(f"cross_project: the fold's F1s {agg}")
+    if not (scored["holdout"] == holdout > 0
+            and scored["mixed"] == len(splits["test"])
+            and all(int(i) < XP_CUT for k in ("train", "val", "test")
+                    for i in splits[k])):
+        fail(f"cross_project: the tests scored {scored}, the shards hold "
+             f"{holdout} holdout graphs and {len(splits['test'])} in the "
+             f"fold's test partition")
+    return row
+
+
 def phase_continual(work: Path) -> dict:
     """The continual loop on the card, on the corpus phase's ``demo`` shards
     and test sources: rev A (a 4-epoch fused fit) served by a spawned
@@ -8603,6 +8719,45 @@ chip_smoke.shard_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
 """
 
 
+# training over the sharded 7B: LoRA rank 16 on q/v (the fine-tuned
+# preset's), the adapters' B drawn nonzero so that every adapter has a
+# gradient at the first step, SHARD_TUNE_STEPS steps of lora_optimizer on
+# one batch (the first at lr 0, optax's schedule), each against the
+# unsharded step on the card ("flash" for tp and fsdp, "full" for the sp
+# ring). Each limit is twice the larger of its readings on an H100 at
+# weight seeds 0 and 1 (PERF.md), each reading over its reference's
+# largest entry: the first step's loss, the adapters' gradients (summed
+# over dp/sp and gathered whole), the adapters after the last step
+SHARD_TUNE_LR = 1e-3
+SHARD_TUNE_STEPS = 2
+# tp: the row-parallel sums round once after the float32 all-reduce (as
+# the forward's, PR 21), and AdamW moves an adapter element by ~lr
+# whatever its gradient, so an element whose bf16 gradient flips sign
+# differs by ~2·lr over B's largest entry: loss 1.63e-5 and 8.37e-6,
+# gradients 1.44e-2 and 1.39e-2, adapters 2.38e-2 and 2.31e-2
+SHARD_TUNE_TP_LIMIT = {"loss": 3.3e-5, "grads": 2.9e-2, "adapters": 4.8e-2}
+# fsdp: the gathered weights are the whole weights, so the loss and the
+# gradients are bitwise (0.0 at both seeds); the adapters 8.4e-8 and 0.0:
+# the clip's norm sums lora_a's squares shard by shard
+SHARD_TUNE_FSDP_LIMIT = {"loss": 0.0, "grads": 0.0, "adapters": 1.7e-7}
+# sp: the ring's float32 online softmax against "full"'s weights rounded
+# to bf16 before P·V (as the forward's, PR 21): loss 1.33e-5 and 3.50e-5,
+# gradients 2.47e-2 and 2.23e-2, adapters 2.38e-2 and 2.31e-2
+SHARD_TUNE_SP_LIMIT = {"loss": 7.0e-5, "grads": 4.9e-2, "adapters": 4.8e-2}
+# JointTrainer (MSIVD: the sharded LLM under no_grad) one epoch of two
+# steps and its eval points over tp=2 against the unsharded trainer: the
+# train losses (relative), the eval probabilities and the fusion
+# parameters (absolute: AdamW moves an element by about lr whatever its
+# gradient, so a tensor that starts at 0 has no scale of its own): loss
+# 5.77e-4 and 3.51e-4, probabilities 1.64e-3 and 6.89e-4, parameters
+# 9.77e-5 and 9.29e-5 (lr 5e-5: one update at lr, the first at 0)
+SHARD_JOINT_LIMIT = {"loss": 1.2e-3, "probs": 3.3e-3, "params": 2.0e-4}
+SHARD_JOINT_TRAIN, SHARD_JOINT_EVAL = 8, 4
+# adapters a tp=2 run saves, loaded into the unsharded model, against the
+# same adapters gathered in memory: the same values, so the same logits
+SHARD_SAVE_LIMIT = 0.0
+
+
 def shard_config(**kw):
     return codellama_7b(num_hidden_layers=SHARD_LAYERS, attn_impl="flash",
                         **kw)
@@ -8707,11 +8862,195 @@ def shard_engine(run_dir: Path, items: list, seed: int, mesh) -> dict:
             "b6_launches": dict(fa.n_variant_launches)}
 
 
+def tune_config(**kw):
+    return dataclasses.replace(shard_config(lora_rank=LORA_RANK,
+                                            lora_alpha=16.0), **kw)
+
+
+def tune_model(seed: int) -> tuple:
+    """The unsharded LoRA 7B (``"flash"``) at weight ``seed``, its
+    adapters' B drawn N(0, 0.02²) on the card, and its state (the adapters
+    cloned: the steps update them in place)."""
+    model = build_llama(tune_config(), "cuda", seed=seed,
+                        cls=llama_mod.LlamaForCausalLM)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 101)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.02)
+    state = {k: v.clone() if is_lora_name(k) else v
+             for k, v in model.state_dict().items()}
+    return model, state
+
+
+def tuned_from(state: dict, mesh=None, **kw):
+    """A LoRA 7B of ``tune_config(**kw)`` holding ``state`` (this rank's
+    shards over ``mesh``)."""
+    model = build_llama(tune_config(**kw), "cuda", seed=None,
+                        cls=llama_mod.LlamaForCausalLM, mesh=mesh)
+    model.load_state_dict(state if mesh is None
+                          else llama_mod.shard_state(state, mesh))
+    return model
+
+
+def lora_steps(model, ids, mask) -> dict:
+    """``SHARD_TUNE_STEPS`` steps of the LoRA optimizer over ``model``
+    (sharded or not) on one batch, B6/B6b counts reset just before: the
+    first step's loss and adapter gradients (a sharded model's summed over
+    dp/sp and gathered whole), the adapters after the last step (gathered),
+    each step's milliseconds (host clock around synchronized steps) and the
+    launches by variant."""
+    from deepdfa_tpu_torch.llm.finetune import (lora_optimizer,
+                                                make_lm_steps,
+                                                sharded_lm_loss)
+    from deepdfa_tpu_torch.parallel import comm
+
+    mesh = model.model.mesh
+    tx = lora_optimizer(FinetuneConfig(learning_rate=SHARD_TUNE_LR), model,
+                        total_steps=SHARD_TUNE_STEPS)
+    train_step, _ = make_lm_steps(model, tx)
+    reset_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = (lm_loss(model(ids, mask), ids, mask) if mesh is None
+            else sharded_lm_loss(model, ids, mask))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    tx.step()
+    torch.cuda.synchronize()
+    ms = [(time.perf_counter() - t0) * 1e3]
+    for _ in range(SHARD_TUNE_STEPS - 1):
+        t0 = time.perf_counter()
+        train_step(None, ids, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    b6, b6b = dict(fa.n_variant_launches), dict(fa.n_bwd_variant_launches)
+    adapters = {n: p.detach().clone() for n, p in model.named_parameters()
+                if p.requires_grad}
+    if mesh is not None:
+        for g in grads.values():
+            for axis in ("dp", "sp"):
+                comm.all_reduce_(g, mesh.groups.get(axis))
+        grads = llama_mod.gather_state(grads, mesh)
+        adapters = llama_mod.gather_state(adapters, mesh)
+    return {"loss": float(loss.detach()), "grads": grads,
+            "adapters": adapters, "ms": ms, "b6": b6, "b6b": b6b}
+
+
+def tune_errors(got: dict, want: dict) -> dict:
+    """The loss's relative difference, and the gradients' and updated
+    adapters' largest difference over each reference tensor's largest
+    entry (the largest over the adapters)."""
+    return {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            **{key: max(rel_to(got[key][n], t) for n, t in want[key].items())
+               for key in ("grads", "adapters")}}
+
+
+def shard_tune(seed: int, mesh_of, root: Path) -> dict:
+    """LoRA steps over the sharded 7B at weight ``seed``: ``tp=2`` and
+    ``fsdp=2`` against the unsharded ``"flash"`` steps (B6/B6b on the local
+    heads), the ``sp=2`` ring against the unsharded ``"full"`` steps, and
+    the adapters a ``tp=2`` run saves loaded into the unsharded model."""
+    from deepdfa_tpu_torch.config import MeshConfig
+
+    ids, mask = shard_inputs()
+    full, state = tune_model(seed)
+    want = lora_steps(full, ids, mask)
+    out = {"unsharded_ms": want["ms"]}
+    for name, axes in (("tp", dict(tp=2)), ("fsdp", dict(fsdp=2))):
+        model = tuned_from(state, mesh_of(MeshConfig(dp=1, **axes)))
+        got = lora_steps(model, ids, mask)
+        out[name] = {**tune_errors(got, want), "ms": got["ms"],
+                     "b6": got["b6"], "b6b": got["b6b"]}
+        if name == "tp":
+            tuner = LoraFinetuner(model, FinetuneConfig(),
+                                  run_dir=root / f"tune_{seed}")
+            tuner.save_adapters(model, "adapters")
+            with torch.no_grad():
+                tuner.load_adapters(full, "adapters")
+                saved = full(ids, mask)
+                full.load_state_dict(got["adapters"], strict=False)
+                gathered = full(ids, mask)
+            out["save"] = {"max_abs_diff": float(
+                (saved - gathered).abs().max())}
+            del saved, gathered
+        del model, got
+    del full, want
+    torch.cuda.empty_cache()
+    plain = tuned_from(state, attn_impl="full")
+    want = lora_steps(plain, ids, mask)
+    del plain
+    ring = tuned_from(state, mesh_of(MeshConfig(dp=1, sp=2)),
+                      attn_impl="ring")
+    got = lora_steps(ring, ids, mask)
+    out["sp"] = {**tune_errors(got, want), "ms": got["ms"],
+                 "unsharded_ms": want["ms"]}
+    del ring, got, want, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_joint(seed: int, mesh, items: list) -> dict:
+    """``JointTrainer`` (MSIVD) one epoch of two steps and its eval points
+    at weight ``seed``, over the unsharded 7B and over ``mesh``
+    (``tp=2``), fusion models from one seed (the GGNN encoder fused, on
+    B1/B2): the ``tp`` run's train losses, eval probabilities and fusion
+    parameters (the largest absolute difference) against the unsharded
+    run's, each run's milliseconds and the ``tp`` run's launches."""
+    cfg = shard_config()
+    texts, graphs = [t for t, _ in items], [g for _, g in items]
+    labels = [i % 2 for i in range(len(items))]
+    n = SHARD_JOINT_TRAIN
+    tok = HashTokenizer(cfg.vocab_size)
+    train = encode_functions(texts[:n], labels[:n], tok, SHARD_SEQ)
+    evals = encode_functions(texts[n:], labels[n:], tok, SHARD_SEQ,
+                             indices=range(n, len(items)))
+    join = GraphJoin(graphs=dict(enumerate(graphs)), max_nodes=4096,
+                     max_edges=8192)
+    jcfg = JointConfig(block_size=SHARD_SEQ, epochs=1, seed=seed)
+    runs = {}
+    for name, m in (("unsharded", None), ("tp", mesh)):
+        llm = build_llama(cfg, "cuda", seed=seed, mesh=m)
+        fusion = build_fusion(GGNNConfig(layout="fused"), INPUT_DIM,
+                              cfg.hidden_size, dropout_rate=0.1,
+                              device="cuda", seed=seed + 31)
+        trainer = JointTrainer(llm, fusion, jcfg, join)
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.train(train, evals)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        b6, b6b = dict(fa.n_variant_launches), fa.n_bwd_launches
+        _, probs, _ = trainer._run_eval(state.params, evals)
+        runs[name] = {
+            "loss": [h["train_loss"] for h in trainer.history
+                     if "train_loss" in h],
+            "evals": sum("eval_loss" in h for h in trainer.history),
+            "probs": probs[:, 1], "steps": state.step, "ms": ms, "b6": b6,
+            "b6b": b6b, "params": {k: v.detach().clone() for k, v in
+                                   state.params.named_parameters()}}
+        del llm, fusion, trainer, state
+        torch.cuda.empty_cache()
+    u, t = runs["unsharded"], runs["tp"]
+    return {"loss": max(abs(a - b) / abs(b) for a, b in zip(t["loss"],
+                                                           u["loss"])),
+            "probs": float(np.abs(t["probs"] - u["probs"]).max()),
+            "params": max(float((t["params"][k] - v).abs().max())
+                          for k, v in u["params"].items()),
+            "train_loss": t["loss"], "steps": t["steps"],
+            "evals": t["evals"], "ms": t["ms"], "unsharded_ms": u["ms"],
+            "b6": t["b6"], "b6b": t["b6b"]}
+
+
 def shard_rank(rank: int, port: int, work: str) -> None:
     """One rank of the two-rank leg: gloo over a TCP store, both ranks on
     the card (the collectives staged through host memory). At each weight
-    seed the ``tp``, ``fsdp`` and ``sp`` readings and the ``tp=2`` engine;
-    each rank writes its readings."""
+    seed the ``tp``, ``fsdp`` and ``sp`` readings, the ``tp=2`` engine, the
+    LoRA steps (:func:`shard_tune`) and the joint steps
+    (:func:`shard_joint`); each rank writes its readings."""
     import torch.distributed as dist
 
     from deepdfa_tpu_torch.config import MeshConfig
@@ -8724,13 +9063,23 @@ def shard_rank(rank: int, port: int, work: str) -> None:
     try:
         mesh_of = lambda m: build_mesh(m, devices=["cuda:0", "cuda:0"])  # noqa: E731
         items = pickle.loads((out / "items.pkl").read_bytes())
-        row = {"readings": {}, "engine": {}}
+        joint_items = pickle.loads((out / "joint_items.pkl").read_bytes())
+        row = {"readings": {}, "engine": {}, "tune": {}, "joint": {}}
+        t0 = time.perf_counter()
         for seed in SHARD_SEEDS:
             row["readings"][seed] = shard_readings(seed, mesh_of)
             with torch.no_grad():
                 row["engine"][seed] = shard_engine(
                     out / "fusion", items, seed,
                     mesh_of(MeshConfig(dp=1, tp=2)))
+        # the forward legs end here: what the ranks took before the
+        # training legs were added
+        row["forward_legs_s"] = time.perf_counter() - t0
+        for seed in SHARD_SEEDS:
+            row["tune"][seed] = shard_tune(seed, mesh_of, out)
+            row["joint"][seed] = shard_joint(
+                seed, mesh_of(MeshConfig(dp=1, tp=2)), joint_items)
+        row["legs_s"] = time.perf_counter() - t0
         (out / f"rank{rank}.json").write_text(json.dumps(row))
     finally:
         dist.destroy_process_group()
@@ -8752,6 +9101,10 @@ def start_shard_ranks(work: Path) -> dict:
                      random_dataset(SHARD_BATCH, seed=24,
                                     input_dim=INPUT_DIM, mean_nodes=50)))
     (root / "items.pkl").write_bytes(pickle.dumps(items))
+    n = SHARD_JOINT_TRAIN + SHARD_JOINT_EVAL
+    (root / "joint_items.pkl").write_bytes(pickle.dumps(list(zip(
+        c_functions(n, seed=25),
+        random_dataset(n, seed=26, input_dim=INPUT_DIM, mean_nodes=50)))))
     port = free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
     env.pop("DEEPDFA_FAULTS", None)
@@ -8766,11 +9119,19 @@ def start_shard_ranks(work: Path) -> dict:
 
 def same_readings(a: dict, b: dict) -> bool:
     """Two ranks' readings and probabilities equal (each rank got the
-    whole output)."""
+    whole output, the whole loss and the gathered adapters)."""
+    errs = ("loss", "grads", "adapters")
     return all(a["readings"][s][k]["rel_err"] == b["readings"][s][k][
         "rel_err"] for s in a["readings"] for k in ("tp", "fsdp", "sp")) \
         and all(a["engine"][s]["probs"] == b["engine"][s]["probs"]
-                for s in a["engine"])
+                for s in a["engine"]) \
+        and all(a["tune"][s][k][e] == b["tune"][s][k][e]
+                for s in a["tune"] for k in ("tp", "fsdp", "sp")
+                for e in errs) \
+        and all(a["tune"][s]["save"] == b["tune"][s]["save"]
+                for s in a["tune"]) \
+        and all(a["joint"][s][e] == b["joint"][s][e] for s in a["joint"]
+                for e in ("loss", "probs", "params", "train_loss"))
 
 
 def phase_shard(ranks: dict, ports: set) -> dict:
@@ -8821,6 +9182,7 @@ def phase_shard(ranks: dict, ports: set) -> dict:
         dist.destroy_process_group()
 
     rcs = []
+    join_t0 = time.perf_counter()
     for proc, log in zip(ranks["procs"], ranks["logs"]):
         try:
             rcs.append(proc.wait(timeout=600))
@@ -8829,6 +9191,8 @@ def phase_shard(ranks: dict, ports: set) -> dict:
             proc.wait()
             rcs.append(None)
         log.close()
+    # how long this phase waits for the ranks once its own legs are done
+    join_wait = time.perf_counter() - join_t0
     wall = time.perf_counter() - ranks["t0"]
     root = ranks["root"]
     if rcs != [0, 0]:
@@ -8838,17 +9202,45 @@ def phase_shard(ranks: dict, ports: set) -> dict:
     rank_rows = [json.loads((root / f"rank{r}.json").read_text())
                  for r in range(2)]
     readings, engine = rank_rows[0]["readings"], rank_rows[0]["engine"]
+    tune, joint = rank_rows[0]["tune"], rank_rows[0]["joint"]
     limits = {"tp": SHARD_TP_LIMIT, "fsdp": SHARD_FSDP_LIMIT,
               "sp": SHARD_SP_LIMIT}
+    tune_limits = {"tp": SHARD_TUNE_TP_LIMIT, "fsdp": SHARD_TUNE_FSDP_LIMIT,
+                   "sp": SHARD_TUNE_SP_LIMIT}
+    # the LoRA steps' launches on the local heads (tp and fsdp) and the
+    # joint steps' (B6 only: the frozen LLM builds no backward), every
+    # rank and seed
+    tune_b6, tune_b6b = ({v: sum(r["tune"][str(s)][k][kind][v]
+                                 for r in rank_rows for s in SHARD_SEEDS
+                                 for k in ("tp", "fsdp"))
+                          for v in fa.VARIANTS} for kind in ("b6", "b6b"))
+    joint_b6 = {v: sum(r["joint"][str(s)]["b6"][v] for r in rank_rows
+                       for s in SHARD_SEEDS) for v in fa.VARIANTS}
     row = {"phase": "shard", "card": nvidia_smi(),
            "model": "codellama_7b(num_hidden_layers=2, attn_impl='flash'), "
                     "bf16, seeded", "batch": [SHARD_BATCH, SHARD_SEQ],
            "world1": world1, "nccl_collectives_exact": nccl_exact,
-           "ranks_wall_s": wall,
-           "readings": readings, "engine": engine,
+           "ranks_wall_s": wall, "join_wait_s": join_wait,
+           # the wait had the ranks ended after their forward legs (the
+           # legs before the training ones were added), from this run
+           "join_wait_forward_legs_s": max(0.0, max(
+               r["forward_legs_s"] - r["legs_s"] for r in rank_rows)
+               + join_wait),
+           "rank_legs_s": [[r["forward_legs_s"], r["legs_s"]]
+                           for r in rank_rows],
+           "readings": readings, "engine": engine, "tune": tune,
+           "joint": joint,
            "ranks_agree": same_readings(*rank_rows),
            "limits": {**limits, "engine": SHARD_ENGINE_LIMIT,
-                      "world1": SHARD_WORLD1_LIMIT},
+                      "world1": SHARD_WORLD1_LIMIT,
+                      "tune": tune_limits, "joint": SHARD_JOINT_LIMIT,
+                      "save": SHARD_SAVE_LIMIT},
+           "tune_b6_launches_by_variant": tune_b6,
+           "tune_b6b_launches_by_variant": tune_b6b,
+           "joint_b6_launches_by_variant": joint_b6,
+           "tune_b6_launches": sum(tune_b6.values()),
+           "tune_b6b_launches": sum(tune_b6b.values()),
+           "joint_b6_launches": sum(joint_b6.values()),
            "b1_launches": sum(r["engine"][str(s)]["b1_launches"]
                               for r in rank_rows for s in SHARD_SEEDS),
            "b1_launches_by_variant": {
@@ -8886,9 +9278,49 @@ def phase_shard(ranks: dict, ports: set) -> dict:
             fail(f"shard: the engine at seed {s}: {e}")
         if not world1[s]["rel_err"] <= SHARD_WORLD1_LIMIT:
             fail(f"shard: world size 1 at seed {s}: {world1[s]}")
+        # training: the LoRA steps and the joint steps
+        for name, limit in tune_limits.items():
+            t = tune[str(s)][name]
+            for key, lim in limit.items():
+                if not t[key] <= lim:
+                    fail(f"shard: the LoRA steps at {name}, seed {s}: {key} "
+                         f"{t[key]} over {lim}")
+        if not tune[str(s)]["save"]["max_abs_diff"] <= SHARD_SAVE_LIMIT:
+            fail(f"shard: adapters saved by the tp=2 run give other logits "
+                 f"than the gathered ones: {tune[str(s)]['save']}")
+        j = joint[str(s)]
+        for key, lim in SHARD_JOINT_LIMIT.items():
+            if not j[key] <= lim:
+                fail(f"shard: the joint steps over tp=2 at seed {s}: {key} "
+                     f"{j[key]} over {lim}")
+        if j["steps"] != SHARD_JOINT_TRAIN // JointConfig().train_batch_size \
+                or not all(np.isfinite(j["train_loss"])):
+            fail(f"shard: the joint steps over tp=2 at seed {s}: {j}")
+    # B6 and B6b on the local heads: per rank and step one B6 launch a
+    # layer and two B6b (dq, dk/dv); the joint steps B6 alone, one a layer
+    # a train step or eval batch
+    for r in rank_rows:
+        for s in SHARD_SEEDS:
+            for k in ("tp", "fsdp"):
+                t = r["tune"][str(s)][k]
+                if (sum(t["b6"].values()), sum(t["b6b"].values())) != (
+                        SHARD_TUNE_STEPS * SHARD_LAYERS,
+                        SHARD_TUNE_STEPS * 2 * SHARD_LAYERS):
+                    fail(f"shard: the {k} LoRA steps at seed {s} launched "
+                         f"B6 {t['b6']} and B6b {t['b6b']}")
+            j = r["joint"][str(s)]
+            batches = j["steps"] + j["evals"] * -(
+                -SHARD_JOINT_EVAL // JointConfig().eval_batch_size)
+            if sum(j["b6"].values()) != batches * SHARD_LAYERS \
+                    or j["b6b"] != 0:
+                fail(f"shard: the joint steps at seed {s} launched B6 "
+                     f"{j['b6']} and {j['b6b']} B6b ({batches} batches)")
     check_ggnn_wgmma("shard_engine", "B1", row["b1_launches_by_variant"],
                      row["b1_launches"])
     check_wgmma("shard", row["b6_launches_by_variant"], row["b6_launches"])
+    check_wgmma("shard_tune", tune_b6, row["tune_b6_launches"])
+    check_wgmma("shard_tune (B6b)", tune_b6b, row["tune_b6b_launches"])
+    check_wgmma("shard_joint", joint_b6, row["joint_b6_launches"])
     if not row["ranks_agree"]:
         fail("shard: the two ranks read differently")
     if not nccl_exact:
@@ -8958,7 +9390,16 @@ def drive() -> int:
         artifact = timed("artifact", phase_artifact, corpus_work)
         trainer = timed("trainer", phase_trainer, corpus_work)
         dataflow = timed("dataflow", phase_dataflow, corpus_work)
-        continual = timed("continual", phase_continual, corpus_work)
+        # the cross-project fold's child beside the continual phase's
+        # replica starts
+        xp_child = start_cross_project(corpus_work)
+        try:
+            continual = timed("continual", phase_continual, corpus_work)
+        except BaseException:
+            xp_child["proc"].kill()
+            xp_child["proc"].wait()
+            raise
+        timed("cross_project", finish_cross_project, xp_child)
         fleet = timed("fleet", phase_fleet, ctx, corpus_work)
         # the train_joint child on the corpus run, beside the bigvul phase;
         # the shard phase's gloo ranks beside the bigvul, dense and dp
@@ -9302,7 +9743,8 @@ def drive() -> int:
                      + fleet["overload"]["b6_launches"]
                      + tune["launches"]["b6"]
                      + tune["bench"]["launches"]["b6"]
-                     + shard["b6_launches"]),
+                     + shard["b6_launches"] + shard["tune_b6_launches"]
+                     + shard["joint_b6_launches"]),
         "launches_by_path": {"joint": joint["b6_launches"],
                              "joint_int8": joint8["b6_launches"],
                              "finetune": finetune["b6_launches"],
@@ -9314,7 +9756,9 @@ def drive() -> int:
                              "llm_tune": tune["launches"]["b6"],
                              "llm_tune_bench":
                                  tune["bench"]["launches"]["b6"],
-                             "shard": shard["b6_launches"]},
+                             "shard": shard["b6_launches"],
+                             "shard_tune": shard["tune_b6_launches"],
+                             "shard_joint": shard["joint_b6_launches"]},
         "variant": b6["variant"],
         "launches_by_variant": {
             v: sum(r["b6_variant_launches"][v]
@@ -9325,6 +9769,8 @@ def drive() -> int:
             + tune["launches"]["b6_by_variant"][v]
             + tune["bench"]["launches"]["b6_by_variant"][v]
             + shard["b6_launches_by_variant"][v]
+            + shard["tune_b6_launches_by_variant"][v]
+            + shard["joint_b6_launches_by_variant"][v]
             for v in fa.VARIANTS},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_rel_err": max(r["max_rel_err"] for r in flash_rows),
@@ -9348,17 +9794,20 @@ def drive() -> int:
                         "body :1146; reached by jax.grad through "
                         "deepdfa_tpu/llm/llama.py:222",
         "launches": (finetune["b6b_launches"] + tune["launches"]["b6b"]
-                     + tune["bench"]["launches"]["b6b"]),
+                     + tune["bench"]["launches"]["b6b"]
+                     + shard["tune_b6b_launches"]),
         "launches_by_path": {"finetune": finetune["b6b_launches"],
                              "joint_train": joint_train["b6b_launches"],
                              "llm_tune": tune["launches"]["b6b"],
                              "llm_tune_bench":
-                                 tune["bench"]["launches"]["b6b"]},
+                                 tune["bench"]["launches"]["b6b"],
+                             "shard_tune": shard["tune_b6b_launches"]},
         "variant": b6b["variant"],
         "launches_by_variant": {
             v: (finetune["b6b_variant_launches"][v]
                 + tune["launches"]["b6b_by_variant"][v]
-                + tune["bench"]["launches"]["b6b_by_variant"][v])
+                + tune["bench"]["launches"]["b6b_by_variant"][v]
+                + shard["tune_b6b_launches_by_variant"][v])
             for v in fa.VARIANTS},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_rows),
         "max_row_rel_err": max(max(r["max_row_rel_err"].values())

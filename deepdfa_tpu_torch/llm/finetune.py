@@ -21,6 +21,26 @@ With ``attn_impl="flash"`` and a sequence a multiple of 128, attention on
 the card runs kernel B6 forward and kernel B6b backward
 (:mod:`deepdfa_tpu_torch.ops.flash_attention`). LoRA parameters stay float32
 and are cast to the model's type at use.
+
+Over a sharded model (``LlamaForCausalLM(cfg, mesh=...)``, every rank of
+the mesh running the same finetuner on the same batches), the step is the
+unsharded step, as GSPMD makes it in the JAX package:
+
+- each rank scores its ``dp``/``sp`` block of the batch
+  (:func:`sharded_lm_loss`): the sum of its tokens' cross-entropy over the
+  **global** count of loss tokens (the counts summed over ``dp`` and
+  ``sp``), and the blocks' parts summed over ``dp`` and ``sp``, so every
+  rank holds the whole loss;
+- each adapter's gradient is summed over ``dp`` and ``sp`` (the ranks
+  along them ran other tokens with a replica of it); ``lora_a``'s is
+  summed over ``tp`` in the backward (``ShardedLoRA``), ``lora_b`` is
+  split over ``tp``;
+- the clip's global norm counts each distinct element once: a shard's
+  squares are summed over the axes that split it (``fsdp`` for
+  ``lora_a``, ``tp`` for ``lora_b``);
+- :meth:`LoraFinetuner.save_adapters` gathers the shards (mesh rank 0
+  writes the unsharded run's names, shapes and values) and
+  :meth:`LoraFinetuner.load_adapters` takes this rank's shard.
 """
 
 from __future__ import annotations
@@ -39,9 +59,10 @@ from deepdfa_tpu_torch.llm.dataset import TextExamples, text_batches
 from deepdfa_tpu_torch.llm.joint import (ClippedAdamW, commit_state_dir,
                                          cosine_warmup_schedule)
 from deepdfa_tpu_torch.llm.lora import freeze_base, split_lora
+from deepdfa_tpu_torch.parallel import comm
 
 __all__ = ["FinetuneConfig", "FinetuneState", "LoraFinetuner", "lm_loss",
-           "lora_optimizer", "make_lm_steps"]
+           "lora_optimizer", "make_lm_steps", "sharded_lm_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +89,27 @@ def lora_optimizer(cfg: FinetuneConfig, model: nn.Module,
     adapters = [(n, p) for n, p in model.named_parameters()
                 if p.requires_grad]
     warmup = max(int(total_steps * cfg.warmup_frac), 1)
+    sums, splits = (), None
+    mesh = _mesh(model)
+    if mesh is not None:
+        from deepdfa_tpu_torch.llm.llama import mesh_shardings
+
+        specs = mesh_shardings(dict(adapters))
+        sums = [mesh.groups.get("dp"), mesh.groups.get("sp")]
+        splits = {n: tuple(mesh.groups[a] for a in specs[n]
+                           if a is not None and mesh.axes[a] > 1)
+                  for n, _ in adapters}
     return ClippedAdamW(
         adapters, cosine_warmup_schedule(cfg.learning_rate, warmup,
                                          total_steps),
-        max_grad_norm=cfg.max_grad_norm, weight_decay=cfg.weight_decay)
+        max_grad_norm=cfg.max_grad_norm, weight_decay=cfg.weight_decay,
+        sum_groups=sums, split_groups=splits)
+
+
+def _mesh(model: nn.Module):
+    """The mesh a sharded model runs over, else None."""
+    inner = getattr(model, "model", model)
+    return None if getattr(inner, "shards", None) is None else inner.mesh
 
 
 def lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
@@ -89,14 +127,47 @@ def lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
     return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+def sharded_lm_loss(model: nn.Module, input_ids: torch.Tensor,
+                    pad_mask: torch.Tensor,
+                    loss_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`lm_loss` of a sharded ``LlamaForCausalLM`` (whole inputs on
+    every rank): this rank's block of float32 logits against the tokens
+    that follow them (the last position has none), its cross-entropy sum
+    over the global count of loss tokens, summed over ``dp`` and ``sp``
+    (``comm.all_reduce``, whose backward is the identity). Every rank
+    returns the whole loss."""
+    mesh = _mesh(model)
+    b, s = input_ids.shape
+    rows = mesh.block(b, "dp", "the batch")
+    cols = mesh.block(s, "sp", "the sequence")
+    logits = model.sharded_logits(input_ids, pad_mask)
+    targets = torch.roll(input_ids, -1, dims=1)[rows, cols].reshape(-1).long()
+    w = pad_mask if loss_mask is None else loss_mask
+    w = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
+    w = w[rows, cols].reshape(-1).to(torch.float32)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets,
+                         reduction="none")
+    groups = (mesh.groups.get("dp"), mesh.groups.get("sp"))
+    count = torch.sum(w)
+    for group in groups:
+        count = comm.all_reduce(count, group)
+    part = torch.sum(ce * w) / torch.clamp(count, min=1.0)
+    for group in groups:
+        part = comm.all_reduce(part, group)
+    return part
+
+
 def make_lm_steps(model: nn.Module, tx: ClippedAdamW | None
                   ) -> tuple[Callable, Callable]:
     """``(train_step, eval_step)``: ``train_step(state, ids, mask,
     loss_mask=None) -> (state, loss)`` takes one optimizer step;
     ``eval_step(ids, mask, loss_mask=None) -> loss`` under
-    ``inference_mode``. Attention always sees the full ``pad_mask``."""
+    ``inference_mode``. Attention always sees the full ``pad_mask``. A
+    sharded model takes :func:`sharded_lm_loss`."""
 
     def loss_fn(ids, mask, loss_mask=None):
+        if _mesh(model) is not None:
+            return sharded_lm_loss(model, ids, mask, loss_mask)
         return lm_loss(model(ids, mask), ids, mask, loss_mask)
 
     def train_step(state: FinetuneState, ids, mask, loss_mask=None):
@@ -138,7 +209,8 @@ def _lm_batches(examples, batch_size: int, seed: int = 0
 class LoraFinetuner:
     """Fine-tunes the adapters of ``model`` (a ``LlamaForCausalLM`` with
     ``lora_rank > 0``, holding its weights) in place, on the model's
-    device."""
+    device. A sharded model: every rank of its mesh runs the finetuner
+    (module docstring)."""
 
     model: nn.Module
     cfg: FinetuneConfig
@@ -179,29 +251,51 @@ class LoraFinetuner:
 
     def save_adapters(self, model: nn.Module, name: str) -> Path:
         """The adapters alone as ``{run_dir}/{name}/`` (``state.pt``, then
-        ``meta.json``; the base model is never written)."""
+        ``meta.json``; the base model is never written). A sharded model's
+        adapters are gathered whole (every rank calls this) and mesh rank
+        0 writes them, the names, shapes and values of the unsharded
+        model's; the ranks meet after the write."""
+        from deepdfa_tpu_torch.llm.llama import gather_state
+
         adapters, _ = split_lora(model.state_dict())
-        return commit_state_dir(Path(self.run_dir) / name, adapters,
-                                {"adapters": sorted(adapters)})
+        path = Path(self.run_dir) / name
+        mesh = _mesh(model)
+        if mesh is None:
+            return commit_state_dir(path, adapters,
+                                    {"adapters": sorted(adapters)})
+        import torch.distributed as dist
+
+        adapters = gather_state(adapters, mesh)
+        if mesh.rank == 0:
+            commit_state_dir(path, adapters, {"adapters": sorted(adapters)})
+        dist.barrier(group=mesh.group)
+        return path
 
     def load_adapters(self, model: nn.Module, name: str) -> nn.Module:
         """Load the adapters saved as ``name`` onto ``model`` (a fresh or
-        base model of the same configuration) in place; every adapter of
-        the model must be in the checkpoint. An orbax directory of the JAX
-        package raises ``ValueError``."""
+        base model of the same configuration; a sharded one takes this
+        rank's shard of each) in place; every adapter of the model must be
+        in the checkpoint. An orbax directory of the JAX package raises
+        ``ValueError``."""
+        from deepdfa_tpu_torch.llm.llama import shard_state
+
         path = Path(self.run_dir) / name
         if not ((path / "meta.json").is_file()
                 and (path / "state.pt").is_file()):
             raise ValueError(
                 f"{path} is not an adapter checkpoint of this package (no "
-                "meta.json and state.pt): an orbax directory of the JAX "
-                "package is converted by restoring its tree with the JAX "
-                "package and carrying it across with "
-                "deepdfa_tpu_torch.bridge.llama_flax_to_torch")
+                "meta.json and state.pt): convert an orbax directory of the "
+                "JAX package with convert_jax_checkpoint.py at the "
+                "repository's root, where JAX is installed (python "
+                "convert_jax_checkpoint.py lora SRC DST; it carries the tree "
+                "across with deepdfa_tpu_torch.bridge.llama_flax_to_torch)")
         adapters = torch.load(path / "state.pt", map_location="cpu",
                               weights_only=True)
         want = {k: v.shape for k, v in split_lora(model.state_dict())[0]
                 .items()}
+        mesh = _mesh(model)
+        if mesh is not None and adapters.keys() == want.keys():
+            adapters = shard_state(adapters, mesh)
         if {k: v.shape for k, v in adapters.items()} != want:
             raise ValueError(
                 f"{path}: the saved adapters' names or shapes do not match "

@@ -50,6 +50,7 @@ from deepdfa_tpu_torch.data.graphs import to_device
 from deepdfa_tpu_torch.llm.dataset import (GraphJoin, JoinedBatch,
                                            TextExamples, text_batches)
 from deepdfa_tpu_torch.llm.fusion import fusion_loss
+from deepdfa_tpu_torch.parallel import comm
 from deepdfa_tpu_torch.resilience.journal import fsync_dir
 from deepdfa_tpu_torch.train.metrics import classification_report
 
@@ -226,12 +227,21 @@ class ClippedAdamW:
       mean; every k-th applies the update to that mean and starts over
       (``MultiSteps``' default: the mean of k micro-gradients).
     - Parameters not given get no update and no state (optax's
-      ``set_to_zero`` in ``multi_transform``)."""
+      ``set_to_zero`` in ``multi_transform``).
+    - Over a sharded model (``parallel.comm``'s convention): each step
+      first sums the gradients over the process groups ``sum_groups`` (the
+      ``dp`` and ``sp`` lines, along which the ranks ran other tokens), and
+      ``split_groups`` maps a parameter's name to the groups that split it
+      (its shard's squares are summed over them), so each distinct element
+      counts once in the norm; a group that replicates a parameter is never
+      summed over."""
 
     def __init__(self, named_params: Iterable[tuple[str, nn.Parameter]],
                  schedule: Callable[[int], float], *, max_grad_norm: float,
                  weight_decay: float = 0.0, eps: float = 1e-8,
-                 decay: dict[str, bool] | None = None, accumulate: int = 1):
+                 decay: dict[str, bool] | None = None, accumulate: int = 1,
+                 sum_groups: Iterable = (),
+                 split_groups: dict[str, tuple] | None = None):
         named = list(named_params)
         if not named:
             raise ValueError("ClippedAdamW: no parameters to train")
@@ -239,6 +249,9 @@ class ClippedAdamW:
         self.schedule = schedule
         self.max_grad_norm = float(max_grad_norm)
         self.accumulate = int(accumulate)
+        self.sum_groups = [g for g in sum_groups if g is not None]
+        self.split = [tuple(g for g in (split_groups or {}).get(n, ())
+                            if g is not None) for n, _ in named]
         self.count = 0  # updates applied
         self.mini_step = 0
         self._acc: list[torch.Tensor] | None = None
@@ -256,9 +269,26 @@ class ClippedAdamW:
         for p in self.params:
             p.grad = None
 
+    def _sum(self, grads: list[torch.Tensor]) -> None:
+        """Sum the gradients over ``sum_groups`` in place, through one flat
+        buffer."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for group in self.sum_groups:
+            comm.all_reduce_(flat, group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
     def _clip(self, grads: list[torch.Tensor]) -> None:
-        norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                              for g in grads))
+        squares: dict[tuple, torch.Tensor] = {}
+        for g, split in zip(grads, self.split):
+            sq = torch.sum(g.to(torch.float32) ** 2)
+            squares[split] = squares[split] + sq if split in squares else sq
+        total = 0
+        for split, sq in squares.items():
+            for group in split:
+                comm.all_reduce_(sq, group)
+            total = total + sq
+        norm = torch.sqrt(total)
         scale = torch.where(norm < self.max_grad_norm,
                             torch.ones_like(norm), self.max_grad_norm / norm)
         for g in grads:
@@ -270,6 +300,8 @@ class ClippedAdamW:
         when an update was applied."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
+        if self.sum_groups:
+            self._sum(grads)
         if self.accumulate > 1:
             n = self.mini_step
             if self._acc is None:

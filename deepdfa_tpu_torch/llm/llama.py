@@ -44,17 +44,18 @@ package.
 group, one device per rank) shards the model by the JAX package's
 :data:`LOGICAL_RULES`: each rank holds the shard of every parameter that
 :func:`mesh_shardings` names (:func:`shard_state` cuts it from a full state
-dict; :func:`init_llama_params` draws the full tensors and keeps the
-shard, so a sharded model holds the unsharded one's values), and the
-forward runs on the shards with explicit collectives
-(:mod:`deepdfa_tpu_torch.parallel.comm`):
+dict and :func:`gather_state` joins the shards back; :func:`init_llama_params`
+draws the full tensors and keeps the shard, so a sharded model holds the
+unsharded one's values), and the model runs on the shards with explicit
+collectives (:mod:`deepdfa_tpu_torch.parallel.comm`):
 
 - ``fsdp``: the ``embed`` dimension of each weight is split; a layer's
   weights are gathered just before use;
 - ``tp``: q/k/v and gate/up column-parallel (each rank its heads and its
-  slice of the MLP), o and down row-parallel (the partial products summed
-  over ``tp`` in float32, one all-reduce each), the embedding and
-  ``lm_head`` vocabulary-parallel (logits gathered over ``tp``);
+  slice of the MLP, behind one ``comm.copy`` of the block's input), o and
+  down row-parallel (the partial products summed over ``tp`` in float32,
+  one all-reduce each), the embedding and ``lm_head`` vocabulary-parallel
+  (logits gathered over ``tp``);
 - ``sp``: each rank runs its block of the sequence; ``attn_impl="ring"``
   attends through :func:`~deepdfa_tpu_torch.ops.ring_attention.
   ring_attention`, ``"full"`` over the keys gathered from the ``sp`` group
@@ -62,11 +63,14 @@ forward runs on the shards with explicit collectives
   block);
 - ``dp``: each rank runs its block of the batch.
 
-Inputs are whole on every rank and every rank gets the whole output. The
-sharded path is a forward for scoring: ``decode`` raises, and so does a
-call that would build a backward (LoRA over a sharded base and the ring's
-backward are ROADMAP A11c). ``int8_runtime`` refuses a mesh, as in the JAX
-package, and ``attn_impl="ring"`` needs one.
+Inputs are whole on every rank. ``forward`` gives every rank the whole
+output; :meth:`LlamaModel.sharded_hidden` and
+:meth:`LlamaForCausalLM.sharded_logits` give this rank's block, which is
+what training reads. The backward runs through every collective (the
+gradient convention is in :mod:`~deepdfa_tpu_torch.parallel.comm`), the
+ring's included, and ``remat`` recomputes a sharded layer with its
+collectives. ``decode`` refuses a mesh, ``int8_runtime`` refuses one as in
+the JAX package, and ``attn_impl="ring"`` needs one.
 """
 
 from __future__ import annotations
@@ -90,8 +94,9 @@ __all__ = ["Attention", "DecoderLayer", "Int8Dense", "KVCache",
            "LOGICAL_RULES", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "MLP", "RMSNorm", "ShardedEmbedding", "ShardedLinear",
            "ShardedLoRA", "apply_rope", "build_llama", "codellama_13b",
-           "codellama_7b", "init_llama_params", "logical_axes",
-           "mesh_shardings", "rope_cos_sin", "shard_state", "tiny_llama"]
+           "codellama_7b", "gather_state", "init_llama_params",
+           "logical_axes", "mesh_shardings", "rope_cos_sin", "shard_state",
+           "tiny_llama"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -263,6 +268,22 @@ def shard_state(state: dict, mesh, rules=LOGICAL_RULES) -> dict:
     return {n: _shard(t, specs[n], mesh, n).clone() for n, t in state.items()}
 
 
+@torch.no_grad()
+def gather_state(state: dict, mesh, rules=LOGICAL_RULES) -> dict:
+    """The whole tensors of a sharded llama state dict: each entry
+    gathered over the axes that split it (every rank of the mesh calls
+    this, in one order, and every rank gets the whole state). The inverse
+    of :func:`shard_state`."""
+    specs = mesh_shardings(state, rules)
+    out = {}
+    for name, t in state.items():
+        for dim, axis in enumerate(specs[name]):
+            if axis is not None and mesh.axes[axis] > 1:
+                t = comm.all_gather(t, mesh.groups[axis], dim)
+        out[name] = t
+    return out
+
+
 class _Shards:
     """What the sharded modules read of a mesh: each axis's size, this
     rank's place on it and the group of its line."""
@@ -283,15 +304,45 @@ class _Shards:
         block = self.mesh.block(length, axis, what)
         return block.stop - block.start
 
-    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        return comm.all_gather(x, self.groups.get(axis), dim)
+    def gather(self, x: torch.Tensor, axis: str, dim: int,
+               grad: str = "slice") -> torch.Tensor:
+        return comm.all_gather(x, self.groups.get(axis), dim, grad)
 
     def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return comm.all_reduce(x, self.groups.get(axis))
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel block: its gradient is summed
+        over ``tp``."""
+        return comm.copy(x, self.groups.get("tp"))
+
     def gather_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """``[b_loc, s_loc, ...]`` blocks back to ``[b, s, ...]``."""
         return self.gather(self.gather(x, "sp", 1), "dp", 0)
+
+
+class _F32MM(torch.autograd.Function):
+    """``x @ wᵀ`` of bf16 operands on the card, summed and returned in
+    float32; the backward's products take the operands' type, as the
+    unsharded bf16 projection's do."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g2, w).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(g2.t(), x.reshape(-1, x.shape[-1]))
+        return dx, dw
 
 
 def _f32_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -300,9 +351,7 @@ def _f32_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return torch.nn.functional.linear(x, w)
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[0])
+        return _F32MM.apply(x, w)
     return torch.nn.functional.linear(x.to(torch.float32),
                                       w.to(torch.float32))
 
@@ -363,7 +412,9 @@ class ShardedEmbedding(nn.Module):
 class ShardedLoRA(nn.Module):
     """A LoRA adapter over a sharded projection: ``lora_a`` ``[in, rank]``
     split over ``fsdp`` (gathered at use), ``lora_b`` ``[rank, features]``
-    over ``tp`` (this rank's output columns, as its projection's)."""
+    over ``tp`` (this rank's output columns, as its projection's). Each
+    ``tp`` rank uses the whole ``lora_a`` for its own columns, so its
+    gradient is summed over ``tp`` (``comm.copy``)."""
 
     def __init__(self, in_features: int, features: int, rank: int,
                  alpha: float, dtype: torch.dtype, shards: _Shards):
@@ -376,7 +427,7 @@ class ShardedLoRA(nn.Module):
             rank, shards.split(features, "tp", "features")))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.shards.gather(self.lora_a, "fsdp", 0)
+        a = self.shards.copy(self.shards.gather(self.lora_a, "fsdp", 0))
         y = (x.to(self.dtype) @ a.to(self.dtype)) @ self.lora_b.to(self.dtype)
         return y * (self.alpha / self.rank)
 
@@ -530,6 +581,8 @@ class Attention(nn.Module):
         cfg, sh = self.cfg, self.shards
         (h, h_kv), d = self.heads, cfg.head_dim
         b, s, _ = x.shape
+        if sh is not None:
+            x = sh.copy(x)
         q = self.q_proj(x)
         k = self.k_proj(x)
         v = self.v_proj(x)
@@ -556,8 +609,9 @@ class Attention(nn.Module):
 def _gathered_attention(q, k, v, attn_mask, sh: _Shards) -> torch.Tensor:
     """``"full"`` over a sequence split over ``sp``: this
     rank's queries against the keys and values gathered from the group,
-    causal by global position."""
-    k, v = sh.gather(k, "sp", 1), sh.gather(v, "sp", 1)
+    causal by global position. Each rank attends with its own queries, so
+    the keys' and values' gradients are summed over ``sp``."""
+    k, v = sh.gather(k, "sp", 1, "sum"), sh.gather(v, "sp", 1, "sum")
     if attn_mask is not None:
         attn_mask = sh.gather(attn_mask.to(torch.uint8), "sp", 1).bool()
     s_loc = q.shape[1]
@@ -574,8 +628,11 @@ class MLP(nn.Module):
         self.gate_proj = _dense(hid, mid, dt, i8, shards)
         self.up_proj = _dense(hid, mid, dt, i8, shards)
         self.down_proj = _dense(mid, hid, dt, i8, shards, row=True)
+        self.shards = shards
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shards is not None:
+            x = self.shards.copy(x)
         g = self.gate_proj(x)
         # silu as the JAX package computes it, x * sigmoid(x): in bf16 each
         # op rounds, where F.silu would round once
@@ -597,6 +654,13 @@ class DecoderLayer(nn.Module):
         x = x + self.self_attn(self.input_layernorm(x), attn_mask, cos, sin,
                                cache, layer)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+def _remat(layer, x, attn_mask, cos, sin) -> torch.Tensor:
+    """``layer`` recomputed whole in the backward: torch's early stop left
+    out other projections on the card than on the CPU."""
+    with set_checkpoint_early_stop(False):
+        return checkpoint(layer, x, attn_mask, cos, sin, use_reentrant=False)
 
 
 class LlamaModel(nn.Module):
@@ -626,13 +690,10 @@ class LlamaModel(nn.Module):
                        positions: torch.Tensor | None = None
                        ) -> torch.Tensor:
         """This rank's block ``[b/dp, s/sp, hidden]`` of the final hidden
-        states of a sharded model (whole inputs in)."""
+        states of a sharded model (whole inputs in). Under grad, the
+        backward runs through the collectives; ``remat`` recomputes each
+        layer, its collectives included."""
         sh = self.shards
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the sharded LLM is a forward for scoring: run it under "
-                "torch.no_grad() (its backward, LoRA over a sharded base and "
-                "the ring's, is ROADMAP A11c)")
         b, s = input_ids.shape
         rows = sh.mesh.block(b, "dp", "the batch")
         cols = sh.mesh.block(s, "sp", "the sequence")
@@ -642,8 +703,10 @@ class LlamaModel(nn.Module):
                                 self.cfg.rope_theta)
         mask = None if attn_mask is None else attn_mask[rows, cols]
         x = self.embed_tokens(input_ids[rows, cols])
-        for i, layer in enumerate(self.layers):
-            x = layer(x, mask, cos, sin, None, i)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            x = _remat(layer, x, mask, cos, sin) if remat else layer(
+                x, mask, cos, sin)
         return self.norm(x)
 
     def forward(self, input_ids: torch.Tensor,
@@ -675,11 +738,7 @@ class LlamaModel(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled() and not decode
         for i, layer in enumerate(self.layers):
             if remat:
-                # the whole layer is recomputed: torch's early stop left
-                # out other projections on the card than on the CPU
-                with set_checkpoint_early_stop(False):
-                    x = checkpoint(layer, x, attn_mask, cos, sin,
-                                   use_reentrant=False)
+                x = _remat(layer, x, attn_mask, cos, sin)
             else:
                 x = layer(x, attn_mask, cos, sin, cache if decode else None,
                           i)
@@ -701,15 +760,22 @@ class LlamaForCausalLM(nn.Module):
                               cfg.torch_dtype, cfg.int8_runtime,
                               self.model.shards)
 
+    def sharded_logits(self, input_ids, attn_mask=None,
+                       positions=None) -> torch.Tensor:
+        """This rank's block ``[b/dp, s/sp, vocab]`` of a sharded model's
+        float32 logits: the vocabulary-parallel logits of its tokens,
+        gathered over ``tp``."""
+        sh = self.model.shards
+        hidden = self.model.sharded_hidden(input_ids, attn_mask, positions)
+        logits = self.lm_head(sh.copy(hidden))
+        return sh.gather(logits, "tp", -1).to(torch.float32)
+
     def forward(self, input_ids, attn_mask=None, positions=None,
                 decode=False, cache: KVCache | None = None):
         sh = self.model.shards
         if sh is not None and not decode:
-            # vocabulary-parallel logits of this rank's tokens, gathered
-            logits = self.lm_head(self.model.sharded_hidden(
-                input_ids, attn_mask, positions))
-            return sh.gather_tokens(sh.gather(logits, "tp", -1)).to(
-                torch.float32)
+            return sh.gather_tokens(self.sharded_logits(input_ids, attn_mask,
+                                                        positions))
         if decode:
             hidden, cache = self.model(input_ids, attn_mask, positions, True,
                                        cache)

@@ -16,8 +16,14 @@ The port of ``deepdfa_tpu/ops/ring_attention.py``:
 
 Scores are float32, masked entries take ``_NEG_INF`` (a large negative
 number, not ``-inf``, so no NaN arises), GQA repeats the key/value heads
-(:func:`_repeat_kv`), and a query row with no unmasked key returns zeros.
-The ring is plain torch, as it is plain jnp in the JAX package.
+(:func:`_repeat_kv`), and a query row with no unmasked key returns zeros
+(and zero gradients).
+The ring is plain torch, as it is plain jnp in the JAX package. Its
+backward is autograd through the ring: ``ring_pass`` hands each key/value
+block's gradient back to the rank it came from, as ``jax.grad`` of the JAX
+ring's ``lax.ppermute`` does. Autograd keeps each step's scores
+(``[b, h, s_loc, s_loc]`` float32 a step) for the backward; a blockwise
+backward that recomputes them is ROADMAP speed work.
 """
 
 from __future__ import annotations
@@ -145,7 +151,8 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor,
     parallel.mesh.Mesh` with one device per rank): this rank takes its block
     of the batch over ``batch_axis`` and of the sequence over ``seq_axis``,
     runs :func:`ring_attention` over the ``seq_axis`` group, and every rank
-    gets the whole output back."""
+    gets the whole output back (whose backward hands each rank its own
+    block's gradient: ``comm``'s convention)."""
     for axis in (batch_axis, seq_axis):
         if mesh.axes[axis] > 1 and axis not in mesh.groups:
             raise ValueError(f"{axis}={mesh.axes[axis]} needs one process "

@@ -22,7 +22,9 @@ side runs in this process on conftest's host devices.
   built unsharded on the same carried-across weights: within 1e-5 (the
   JAX sharded route cannot place its weights, ROADMAP queue C);
 - every rank gets the same output; ``int8_runtime`` with a mesh and
-  ``"ring"`` without one are refused as in the JAX package.
+  ``"ring"`` without one are refused as in the JAX package; the sharded
+  path under grad builds a backward (held against JAX's gradients in
+  ``tests/test_torch_shard_train.py``).
 """
 
 import os
@@ -468,8 +470,11 @@ def test_a_world_of_one_runs_the_sharded_path_bitwise(params):
         with pytest.raises(ValueError, match="decode"):
             sharded(torch.from_numpy(ids), decode=True)
     np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        sharded(torch.from_numpy(ids))
+    # with grad on, the sharded path builds its backward (training over
+    # shards: tests/test_torch_shard_train.py) and gives the same logits
+    c = sharded(torch.from_numpy(ids), torch.from_numpy(mask))
+    assert c.grad_fn is not None
+    np.testing.assert_allclose(c.detach().numpy(), b.numpy(), atol=0, rtol=0)
     # drawn from a seed, a sharded model holds the unsharded one's values
     seeded = tl.build_llama(tl.tiny_llama(lora_rank=LORA), "cpu", seed=4,
                             cls=tl.LlamaForCausalLM, mesh=mesh)
