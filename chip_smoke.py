@@ -110,9 +110,20 @@ Each phase prints one JSON line; any failure exits non-zero.
    variant ``wgmma``), CUDA-event and CUDA-graph times of the kernel, the
    plain version and ``torch.matmul`` on the weight dequantized in advance
    in the activations' type (TF32 off), the host's microseconds to enqueue
-   a call (a bf16 call encodes two TMA descriptors), TFLOP/s and the bound.
-   Then the FFMA variant, off the main paths, at a shape TMA cannot
-   describe (37 × 100 × 130), float32 and bf16.
+   a call (a bf16 ``wgmma`` call encodes two TMA descriptors, a ``gemv``
+   call none), TFLOP/s and the bound.
+   Then B5 at decode (bf16, M 1, 4, 8 and 16, lm_head's 4096 × 32016
+   among the shapes): every one must take the ``gemv`` variant, and its
+   kernel, plain and library times are cold (each call on its own copy of
+   the weight, more than twice L2's 50 MB cycled; the L2-hot replays kept
+   beside them); the host's microseconds a decode call costs on each
+   variant, its entry point alone and the whole call. Then the crossover
+   that sets ``GEMV_MAX_M``: ``gemv`` against ``wgmma``, each chosen
+   through ``GEMV_MAX_M`` and timed cold, at M 1 to 64 on 4096 × 4096
+   and 4096 × 11008 (the run fails if ``GEMV_MAX_M`` sends an M to gemv
+   past the largest at which gemv won at both). Then the FFMA variant,
+   off the main paths, at a shape TMA cannot describe (37 × 100 × 130),
+   float32 and bf16.
 12. serve_int8 — ``ScoringEngine.from_model(golden, precision="int8")``:
    the calibration gate must accept; the serve phase's 256 requests
    through ``MicroBatcher`` with the B5 count reset just before: B5
@@ -467,10 +478,11 @@ Each phase prints one JSON line; any failure exits non-zero.
 23. generate — greedy decoding from the tuned int8 7B: 4 left-padded
    prompts of 128 tokens, 64 new tokens, a KV cache of 192 slots (0.40 GB
    where a 16,384-slot cache would be 34.4 GB), the B5 count reset just
-   before: B5 launches = 191 steps × 225, all ``wgmma``; ms per step and
+   before: B5 launches = 191 steps × 225, all ``gemv``; ms per step and
    per new token; the logits against every projection on B5's plain
    version fed the same sequence (``GEN_LOGIT_LIMIT``), each token the
-   plain path's argmax or a near-tie within twice the limit.
+   plain path's argmax or a near-tie within twice the limit; B5's device
+   ms a step and its launches by grid from a profiled run of 2 steps.
 17h. linevul — ``python -m deepdfa_tpu_torch.train_joint --preset
    linevul_fusion`` as a child on the card, beside the bigvul phase:
    CodeBERT-base width (seeded), block 512, batch 16, trained end to end
@@ -479,9 +491,9 @@ Each phase prints one JSON line; any failure exits non-zero.
    functions and ``--do_test``: the train loss falls, B1 = (steps + eval
    and test batches) × 11 and B2 = steps × 17 in the child, all
    ``wgmma``.
-   (The int8_kernel phase also holds B5 at decode shapes, M 1, 4 and 8,
-   lm_head's 4096 × 32016 among them, and times the int8 VJP's product at
-   the tuning shape, M 1,024.)
+   (The int8_kernel phase also holds B5 at decode shapes, M 1, 4, 8 and
+   16, lm_head's 4096 × 32016 among them, on ``gemv``, and times the int8
+   VJP's product at the tuning shape, M 1,024.)
 17i. dense — after linevul, on the bigvul phase's shards through a named
    split that spreads their dataflow-hard tail over train, valid and test
    (``DENSE_SPLIT``), every fit through ``train.cli``'s ``main`` in this
@@ -1080,7 +1092,9 @@ def profile_call(fn, match: str | None = None) -> dict:
     """Device time by kernel over one call of ``fn`` (made after the main
     path's counts were read), and the device's busy share of the host's
     wall time for that call; with ``match``, the device time of the kernels
-    whose name holds it and their share of the device time."""
+    whose name holds it, their share of the device time, their launches,
+    and their launches by grid (``"x,y,z"`` as the profiler records it, or
+    ``"?"`` where it records none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1089,7 +1103,7 @@ def profile_call(fn, match: str | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = {}
+    dev, calls = {}, {}
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): an aten op's own device
         # time is that of the kernels it launched, which are listed too
@@ -1098,6 +1112,7 @@ def profile_call(fn, match: str | None = None) -> dict:
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0:
             dev[ev.key] = dev.get(ev.key, 0.0) + us
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_us": wall_us, "device_us": total,
@@ -1107,6 +1122,19 @@ def profile_call(fn, match: str | None = None) -> dict:
         us = sum(v for k, v in dev.items() if match in k)
         out[f"{match}_us"] = us
         out[f"{match}_share"] = us / total if total else None
+        out[f"{match}_kernels"] = sum(v for k, v in calls.items()
+                                      if match in k)
+        # the launch grids are in the trace's kernel records only
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as fh:
+                events = json.load(fh)["traceEvents"]
+        grids: dict = {}
+        for ev in events:
+            if ev.get("cat") == "kernel" and match in ev.get("name", ""):
+                key = ",".join(map(str, ev.get("args", {}).get("grid", "?")))
+                grids[key] = grids.get(key, 0) + 1
+        out[f"{match}_grids"] = grids
     return out
 
 
@@ -2064,13 +2092,53 @@ def int8_bound(m: int, k: int, n: int,
                                        else "bytes")
 
 
+def host_us_per_call(fn, reps: int) -> float:
+    """The host's microseconds to enqueue one call of ``fn``: the median of
+    five runs of ``reps`` calls, the card synchronized before each."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+# weight bytes a cold timing cycles through: over twice the 50 MB L2
+COLD_BYTES = 128 << 20
+
+
+def cold_copies(nbytes: int) -> int:
+    """Copies of a weight of ``nbytes`` that a cold timing cycles through."""
+    return max(2, -(-COLD_BYTES // nbytes))
+
+
+def cold_graph_ms(fns, reps: int) -> float:
+    """Device milliseconds per call of the calls ``fns``, each on a weight
+    of its own, captured one after another in one CUDA graph and replayed
+    ``reps`` times (:func:`graph_ms`): together the weights exceed the L2
+    cache, so each call reads its weight from HBM, as a decode step reads
+    each of its 225 weights once."""
+    def cycle():
+        for fn in fns:
+            fn()
+    return graph_ms(cycle, reps) / len(fns)
+
+
 def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
-              main: bool, **tags) -> dict:
+              main: bool, expect: str = "wgmma", decode: bool = False,
+              **tags) -> dict:
     """One B5 shape against its plain version: the error over the largest
-    output, two calls bitwise equal, the variant both calls took, CUDA-event
-    and CUDA-graph times of the kernel, the plain version and the library
-    (``torch.matmul`` on the weight dequantized in advance, in x's type),
-    the host's microseconds to enqueue a call, and the bound."""
+    output, two calls bitwise equal, the variant both calls took (a
+    main-path shape must take ``expect``), CUDA-event and CUDA-graph times
+    of the kernel, the plain version and the library (``torch.matmul`` on
+    the weight dequantized in advance, in x's type), the host's
+    microseconds to enqueue a call, and the bound. A ``decode`` shape's
+    graph times are cold (:func:`cold_graph_ms`: every call on its own copy
+    of the weight), their L2-hot replays kept as ``l2_hot_graph_ms``,
+    ``plain_l2_hot_graph_ms`` and ``library_l2_hot_graph_ms``."""
     (m, k), n = x.shape, q.shape[1]
     dequant = (q.float() * scale).to(x.dtype)
 
@@ -2093,16 +2161,30 @@ def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
     err = abs_err / float(want.float().abs().max())
     bitwise = torch.equal(got, again)
     ms = cuda_ms(kernel, reps)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        kernel()
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
+    host_us = host_us_per_call(kernel, reps)
     plain_ms = cuda_ms(plain, reps)
     library_ms = cuda_ms(library, reps)
     ms_again = cuda_ms(kernel, reps)
     fns = (("", kernel), ("plain_", plain), ("library_", library))
     dev = {f"{key}graph_ms": graph_ms(f, reps) for key, f in fns}
+    if decode:
+        for key, _ in fns:
+            dev[f"{key}l2_hot_graph_ms"] = dev[f"{key}graph_ms"]
+        qs = [q] + [q.clone() for _ in range(cold_copies(q.numel()) - 1)]
+        dev["graph_ms"] = cold_graph_ms(
+            [lambda w=w: i8.int8_matmul(x, w, scale, out_dtype=out_dtype)
+             for w in qs], reps)
+        dev["plain_graph_ms"] = cold_graph_ms(
+            [lambda w=w: i8.int8_matmul_reference(x, w, scale, out_dtype)
+             for w in qs], reps)
+        del qs
+        ds = [dequant] + [dequant.clone() for _ in range(
+            cold_copies(dequant.numel() * dequant.element_size()) - 1)]
+        dev["library_graph_ms"] = cold_graph_ms(
+            [lambda d=d: torch.matmul(x, d) for d in ds], reps)
+        dev["cold_copies"] = {"kernel": cold_copies(q.numel()),
+                              "library": len(ds)}
+        del ds
     bf16 = x.dtype == torch.bfloat16
     bound_ms, bound_by = int8_bound(m, k, n, bf16=bf16)
     row = {"phase": "int8_kernel", "m": m, "k": k, "n": n,
@@ -2116,15 +2198,126 @@ def int8_case(x, q, scale, out_dtype, reps: int, limit: float,
            "library": f"torch.matmul(x, (q·scale) dequantized in advance to "
                       f"{'bf16' if bf16 else 'float32'}), TF32 off",
            **dev, "bound_ms": bound_ms, "bound_by": bound_by,
-           "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9), **tags}
+           "tflops": 2 * m * k * n / (dev["graph_ms"] * 1e9),
+           "decode": decode, **tags}
     emit(row)
     if sum(took.values()) != 2 or not (bitwise and err <= limit):
         fail(f"B5 at m={m} k={k} n={n}: launches={took} bitwise={bitwise} "
              f"err={err}")
-    if main and variant != "wgmma":
+    if main and variant != expect:
         fail(f"B5 at m={m} k={k} n={n}: a main-path shape took the "
-             f"{variant} variant")
+             f"{variant} variant, not {expect}")
     return row
+
+
+def int8_host_cost(gen, m: int = 4, k: int = 4096, n: int = 4096,
+                   calls: int = 200) -> dict:
+    """The host's microseconds a decode call of B5 costs, per variant, the
+    medians of five turns of ``calls`` calls each (few enough that the
+    launch queue never fills behind wgmma's 46 us kernels, which would
+    make the host wait on the card): the ctypes entry point
+    alone (``entry_us``: the launch, and for wgmma its two TMA
+    descriptors) and the whole ``int8_matmul`` call (``call_us``: the
+    registered op's dispatch and the wrapper too), routed by GEMV_MAX_M."""
+    q, scale = i8.calibrate_int8(
+        torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+    x = torch.randn(m, 1, k, generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    lib = i8._kernels()
+    args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, 1, torch.cuda.current_stream().cuda_stream)
+    entries = {"gemv": lib.i8_matmul_gemv_bf16, "wgmma": lib.i8_matmul_tc_bf16}
+
+    def per_call(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    entry = {v: [] for v in entries}
+    call = {v: [] for v in entries}
+    saved = i8.GEMV_MAX_M
+    try:
+        for _ in range(5):
+            for v, fn in entries.items():
+                entry[v].append(per_call(lambda: fn(*args)))
+                i8.GEMV_MAX_M = saved if v == "gemv" else 0
+                call[v].append(per_call(
+                    lambda: i8.int8_matmul(x, q, scale, torch.bfloat16)))
+                i8.GEMV_MAX_M = saved
+    finally:
+        i8.GEMV_MAX_M = saved
+    row = {"phase": "int8_kernel", "host_cost": True, "m": m, "k": k,
+           "n": n, "calls": calls,
+           "entry_us": {v: float(np.median(t)) for v, t in entry.items()},
+           "call_us": {v: float(np.median(t)) for v, t in call.items()}}
+    emit(row)
+    return row
+
+
+# B5's crossover between its gemv and wgmma variants: bf16 activations of
+# these many tokens at the 7B's q/k/v/o and gate/up shapes, each variant
+# chosen through GEMV_MAX_M (the largest M here sends every row to gemv, 0
+# every row to wgmma) and timed cold; GEMV_MAX_M must send no M to gemv
+# above the largest at which gemv won at every shape
+CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
+CROSSOVER_SHAPES = ((4096, 4096), (4096, 11008))
+
+
+def int8_crossover(gen) -> list[dict]:
+    rows = []
+    saved = i8.GEMV_MAX_M
+    for k, n in CROSSOVER_SHAPES:
+        q, scale = i8.calibrate_int8(
+            torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+        qs = [q] + [q.clone() for _ in range(cold_copies(q.numel()) - 1)]
+        for m in CROSSOVER_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            want = i8.int8_matmul_reference(x, q, scale, torch.bfloat16)
+            top = float(want.float().abs().max())
+            row = {"phase": "int8_kernel", "crossover": True, "m": m,
+                   "k": k, "n": n, "rule": i8.variant(x, q)}
+            for kind, max_m in (("gemv", max(CROSSOVER_M)), ("wgmma", 0)):
+                i8.GEMV_MAX_M = max_m
+                try:
+                    before = i8.n_variant_launches[kind]
+                    out = i8.int8_matmul(x, q, scale, torch.bfloat16)
+                    again = i8.int8_matmul(x, q, scale, torch.bfloat16)
+                    torch.cuda.synchronize()
+                    took = i8.n_variant_launches[kind] - before
+                    row[f"{kind}_ms"] = cold_graph_ms(
+                        [lambda w=w: i8.int8_matmul(x, w, scale,
+                                                    torch.bfloat16)
+                         for w in qs], 20)
+                finally:
+                    i8.GEMV_MAX_M = saved
+                row[f"{kind}_max_rel_err"] = float(
+                    (out.float() - want.float()).abs().max()) / top
+                row[f"{kind}_bitwise_repeat"] = torch.equal(out, again)
+                if not (took == 2 and row[f"{kind}_bitwise_repeat"] and
+                        row[f"{kind}_max_rel_err"] <= INT8_BF16_LIMIT):
+                    fail(f"B5 {kind} at m={m} k={k} n={n}: {took} "
+                         f"launches, {row}")
+            row["winner"] = min(("gemv", "wgmma"),
+                                key=lambda v: row[f"{v}_ms"])
+            row["bound_ms"] = int8_bound(m, k, n, bf16=True)[0]
+            emit(row)
+            rows.append(row)
+        del qs, q, scale
+    wins = [m for m in CROSSOVER_M
+            if all(r["winner"] == "gemv" for r in rows if r["m"] == m)]
+    largest = max((m for m in wins if all(w in wins for w in CROSSOVER_M
+                                          if w <= m)), default=0)
+    emit({"phase": "int8_kernel", "crossover_summary": True,
+          "gemv_max_m": i8.GEMV_MAX_M, "gemv_wins_up_to_m": largest})
+    if i8.GEMV_MAX_M > largest:
+        fail(f"B5: GEMV_MAX_M {i8.GEMV_MAX_M} sends M to gemv past the "
+             f"largest at which it beat wgmma at every shape ({largest})")
+    return rows
 
 
 def vjp_case(gen, m: int, k: int, n: int) -> dict:
@@ -2178,16 +2371,23 @@ def phase_int8_kernel() -> list[dict]:
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         rows.append(int8_case(x, q, scale, torch.bfloat16, 10,
                               INT8_BF16_LIMIT, main=True))
-    # decode: one token a row, M = batch 4 (and 1 and 8 for the box's
-    # ragged edge at q_proj's shape), N = 32016 for lm_head
+    # decode: one token a row, M = batch 4 (and 1, 8 and 16 at q_proj's
+    # shape), N = 32016 for lm_head; the gemv variant, timed cold
     for m, k, n in ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
-                    (4, 4096, 32016), (1, 4096, 4096), (8, 4096, 4096)):
+                    (4, 4096, 32016), (1, 4096, 4096), (8, 4096, 4096),
+                    (16, 4096, 4096)):
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         q, scale = i8.calibrate_int8(w)
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        rows.append(int8_case(x, q, scale, torch.bfloat16, 50,
-                              INT8_BF16_LIMIT, main=True, decode=True))
+        rows.append(int8_case(
+            x, q, scale, torch.bfloat16, 50, INT8_BF16_LIMIT, main=True,
+            expect="gemv" if m <= i8.GEMV_MAX_M else "wgmma", decode=True))
         del w, q, scale
+    # the host's cost of a decode call (B5 at 4 x 4096 x 4096): the entry
+    # point alone and the whole call, per variant, in turns
+    rows.append(int8_host_cost(gen))
+    # the crossover that sets GEMV_MAX_M
+    rows.extend(int8_crossover(gen))
     # the activation gradient's product at the tuning shape (b 4, s 256)
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32016)):
         rows.append(vjp_case(gen, 4 * 256, k, n))
@@ -2971,6 +3171,14 @@ def phase_generate(ctx: dict, seed: int = 0) -> dict:
                             torch.stack(scores[:n_cmp]).float(), plain,
                             gcfg.eos_token_id)
     del scores, plain
+    # off the main path: B5's device time a step, from a profiled run of
+    # 2 steps (its mean kernel time x 225: robust to records the profiler
+    # drops), every weight read once a step as in the main path
+    prof = profile_call(lambda: generate(
+        model, ids[:, -2:], mask[:, -2:],
+        GenerateConfig(max_new_tokens=1, do_sample=False)),
+        match="int8_matmul")
+    b5_us = prof["int8_matmul_us"] / max(prof["int8_matmul_kernels"], 1)
     cfg = model.cfg
     cache_gb = (cfg.num_hidden_layers * 2 * GEN_BATCH * (GEN_PROMPT + GEN_NEW)
                 * cfg.num_key_value_heads * cfg.head_dim * 2) / 1e9
@@ -2983,6 +3191,8 @@ def phase_generate(ctx: dict, seed: int = 0) -> dict:
            "plain_b5_wall_s": plain_wall, "b5_launches": launches,
            "b5_launches_expected": steps * B5_PER_FORWARD,
            "b5_variant_launches": variants,
+           "b5_device_ms_per_step": b5_us * B5_PER_FORWARD / 1e3,
+           "profile_steps": 2, "profile": prof,
            "cache_gb": cache_gb, "full_length_cache_gb": full_gb,
            "prompt_real_tokens": mask.sum(axis=1).tolist(), **agree,
            "logit_limit": GEN_LOGIT_LIMIT, "tokens": out[:, :16].tolist()}
@@ -2990,9 +3200,9 @@ def phase_generate(ctx: dict, seed: int = 0) -> dict:
     if out.shape != (GEN_BATCH, GEN_NEW) or not np.all(
             (out >= 0) & (out < cfg.vocab_size)):
         fail(f"generate: tokens of shape {out.shape} out of the vocabulary")
-    if launches != steps * B5_PER_FORWARD or variants["wgmma"] != launches:
+    if launches != steps * B5_PER_FORWARD or variants["gemv"] != launches:
         fail(f"generate: {launches} B5 launches by variant {variants} for "
-             f"{steps} steps (expected {B5_PER_FORWARD} each, all wgmma)")
+             f"{steps} steps (expected {B5_PER_FORWARD} each, all gemv)")
     if not agree["logit_rel_diff"] <= GEN_LOGIT_LIMIT:
         fail(f"generate: logits {agree['logit_rel_diff']} from B5's plain "
              f"version (limit {GEN_LOGIT_LIMIT})")
@@ -9375,8 +9585,11 @@ def drive() -> int:
     hier_rows = timed("hier_kernel", phase_hier_kernel)
     hier = timed("hier", phase_hier)
     int8_all = timed("int8_kernel", phase_int8_kernel)
-    int8_rows = [r for r in int8_all if not r.get("vjp")]
+    int8_rows = [r for r in int8_all if not (
+        r.get("vjp") or r.get("crossover") or r.get("host_cost"))]
     vjp_rows = [r for r in int8_all if r.get("vjp")]
+    cross_rows = [r for r in int8_all if r.get("crossover")]
+    host_row = next(r for r in int8_all if r.get("host_cost"))
     serve8 = timed("serve_int8", phase_serve_int8)
     flash_rows = timed("flash_kernel", phase_flash_kernel)
     bwd_rows = timed("flash_bwd_kernel", phase_flash_bwd_kernel)
@@ -9720,13 +9933,26 @@ def drive() -> int:
             "bound_ms": b5_llm["bound_ms"], "bound_by": b5_llm["bound_by"],
             "library_ms": b5_llm["library_graph_ms"],
             "library": b5_llm["library"]},
-        "decode": [{  # one token a row: bound by the weight's bytes
+        "decode": [{  # one token a row: bound by the weight's bytes; ms,
+            # plain_ms and library_ms cold (each call on its own copy of
+            # the weight), their L2-hot replays beside them
             "shape": f"m={r['m']} k={r['k']} n={r['n']} bf16",
             "variant": r["variant"], "max_rel_err": r["max_rel_err"],
             "ms": r["graph_ms"], "plain_ms": r["plain_graph_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_graph_ms"]}
+            "library_ms": r["library_graph_ms"],
+            "l2_hot_ms": r["l2_hot_graph_ms"],
+            "plain_l2_hot_ms": r["plain_l2_hot_graph_ms"],
+            "library_l2_hot_ms": r["library_l2_hot_graph_ms"],
+            "host_us_per_call": r["host_us_per_call"]}
             for r in int8_rows if r.get("decode")],
+        "crossover": [{  # gemv against wgmma, both cold
+            "shape": f"m={r['m']} k={r['k']} n={r['n']} bf16",
+            "gemv_ms": r["gemv_ms"], "wgmma_ms": r["wgmma_ms"],
+            "winner": r["winner"], "rule": r["rule"]}
+            for r in cross_rows],
+        "decode_host_us": {"entry": host_row["entry_us"],
+                           "call": host_row["call_us"]},
         "vjp": [{  # the activation gradient's product (no B5 launch)
             "shape": f"m={r['m']} k={r['k']} n={r['n']} bf16",
             "max_rel_err": r["max_rel_err"], "ms": r["graph_ms"],

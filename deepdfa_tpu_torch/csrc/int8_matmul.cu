@@ -24,6 +24,10 @@
 // tensor-core operations (0.093 ms at 1024 x 4096 x 11008). The GGNN's conv
 // products (K = 128, N = 128 or 384, M = the padded node count, float32)
 // move 4*M*(K + N) bytes for 3 * 2*M*K*N tensor-core FLOPs: bound by bytes.
+// Decode (M = the batch, a few tokens; the 7B's 225 projections a step) does
+// 2*M FLOPs per weight byte, far below the ridge: bound by the int8 weight's
+// bytes, 5.0 us at 4096 x 4096 and 39 us at lm_head's 4096 x 32016. Each
+// weight is read once a step, so it comes from HBM, not from L2.
 //
 // What the design does about that.
 // - `int8_matmul_wgmma_bf16` (bf16 activations) computes y^T = q^T x^T:
@@ -61,16 +65,50 @@
 //   threads owns a 64 x 128 tile, dequantizes q in registers on its way into
 //   shared memory and sums with FFMA. The wrapper chooses by a rule in
 //   Python (deepdfa_tpu_torch/ops/int8_matmul.py `variant`).
-// Every sum runs in a fixed order and nothing is split over K, so two calls
-// on the same inputs are bitwise equal; there are no atomics. Ragged edges
-// are masked in the kernels or zero-filled by TMA; nothing is padded in
-// memory.
+// - `int8_matmul_gemv` (the third variant, bf16 activations at decode, M up
+//   to GEMV_MAX_M of the wrapper): the `wgmma` kernel gave these shapes one
+//   block per 128 weight columns (32 of 132 SMs at N 4096), ~32 KB of
+//   weight in flight per busy SM, a 256-row x box that carries 4 real rows,
+//   and two tensor maps encoded on the host per call. The gemv kernel
+//   splits K as well as N: a block of 8 warps owns 128 weight columns and
+//   a K range, and the K splits of a column tile form one cluster, as many
+//   as keep every cluster resident, so the grid is one wave (7 at 4096 x
+//   4096: 224 blocks, 1.7 an SM; 2 at 4096 x 11008: 172 blocks, 1.3 an
+//   SM). That is fewer than the 2 blocks an SM aimed for: more splits
+//   than fit at once make a second wave, and 8 splits forced ran slower
+//   (below). Each lane loads its weights straight from device memory in
+//   16-byte loads that allocate no L1 line, two k16 steps (128 bytes)
+//   issued before either is used, converts them in registers
+//   as the `wgmma` kernel does (with the masks in registers, four
+//   instructions a pair: from immediates the compiler split each mask-or
+//   into two), and runs `mma.sync.m16n8k16` with the weight as A and the
+//   tokens as B (n = 8; two or four tiles past 8 tokens, groups of 32 past
+//   32); x comes in plain 8-byte loads, so nothing is encoded on the host.
+//   The K splits are summed in split order through distributed shared
+//   memory, each block of the cluster finishing a share of the outputs: no
+//   workspace in device memory, no counter and no atomic, so a captured
+//   call replays as it ran. On the card the kernel ran in about the time
+//   of the same grid doing its loads alone, and slower before the masks
+//   went to registers; what is left is how fast these 16-byte loads stream
+//   (TMA copies into a ring are the next design to try). Tried and
+//   dropped, each slower on the card: a ring of `cp.async` stages in
+//   shared memory (no register holding bytes in flight), four and three
+//   k16 steps a pass instead of two, double-buffered passes, an L2
+//   prefetch hint of 128 or 256 bytes on the loads, and 8 splits forced
+//   where fewer clusters are resident (a second wave).
+// Every sum runs in a fixed order (the gemv variant's split-K too: warp by
+// warp, then split by split), so two calls on the same inputs are bitwise
+// equal; there are no atomics. Ragged edges are masked in the kernels or
+// zero-filled by TMA; nothing is padded in memory.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -499,6 +537,215 @@ int8_matmul_wgmma_f32(const float* __restrict__ x,
   store_tile<16>(acc, scale, y, row0, col0, m, n);
 }
 
+// ------------------------------------------------ bf16 at decode: gemv
+
+constexpr int kGvWarps = 8;  // warps a block, each on its own k16 steps
+constexpr int kGvThreads = 32 * kGvWarps;
+constexpr int kGvBN = 128;   // weight columns a block: 8 m16 tiles
+constexpr int kGvMaxSplits = 8;  // blocks a cluster: the portable limit
+
+// 16 int8 weights of one K row, read once: no L1 line is kept for them
+__device__ __forceinline__ uint4 ld_weights(const int8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// i8_pair_to_bf16x2 in four instructions: with both masks and the 0x43
+// bytes in registers, each (t & mask) | 0x4300.. is one LOP3 (from
+// immediates the compiler splits it into two)
+__device__ __forceinline__ uint32_t pair_bf16x2(uint32_t a, uint32_t b,
+                                                uint32_t sel, uint32_t low7,
+                                                uint32_t sign, uint32_t mag) {
+  uint32_t r;
+  asm("{\n.reg .b32 t, hi, lo;\n"
+      "prmt.b32 t, %1, %2, %3;\n"
+      "lop3.b32 hi, t, %4, %6, 0xEA;\n"
+      "lop3.b32 lo, t, %5, %6, 0xEA;\n"
+      "sub.rn.bf16x2 %0, hi, lo;\n}\n"
+      : "=r"(r)
+      : "r"(a), "r"(b), "r"(sel), "r"(low7), "r"(sign), "r"(mag));
+  return r;
+}
+
+// d[0..3] += A (16 x 16, row) * B (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// shared memory: each warp's sums, [warp][token][column], then the block's
+template <int NT>
+__host__ __device__ constexpr int gemv_smem_bytes() {
+  return (kGvWarps + 1) * 8 * NT * kGvBN * 4;
+}
+
+// y[tok0 .. tok0 + 8 NT) = x @ q * scale over the block's 128 weight
+// columns, the K range of one split: blockIdx.x the column tile, blockIdx.y
+// the split (the block's rank in its cluster), blockIdx.z the group of 8 NT
+// tokens. Warp w of the block takes k16 steps w, w + 8, ... of its split, U
+// a pass: it issues every load of a pass, then converts and multiplies.
+//
+// mma.m16n8k16 with the weight as A (16 weight columns by 16 of K) and x as
+// B (16 of K by 8 tokens). Both permutations are free, so each register
+// comes from a wide load: lane (g, t) reads K rows 16s + 4t .. + 3 of
+// columns 16g .. 16g + 15 (four 16-byte loads), and tile j's A row g is
+// column 16g + 2j, row g + 8 column 16g + 2j + 1; A's K columns 2t, 2t + 1,
+// 2t + 8, 2t + 9 are K rows 4t .. 4t + 3, the same for B, whose two
+// registers are then one 8-byte load of token g's x at 16s + 4t.
+template <int NT, int U, typename TY>
+__global__ void __launch_bounds__(kGvThreads, NT <= 2 ? 2 : 1)
+int8_matmul_gemv(const __nv_bfloat16* __restrict__ x,
+                 const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, TY* __restrict__ y, int m,
+                 int k, int n, int per_split) {
+  constexpr int kPart = 8 * NT * kGvBN;  // floats of a warp's sums
+  extern __shared__ float4 gv_smem[];
+  float* part = reinterpret_cast<float*>(gv_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kGvBN;
+  const int tok0 = (int)blockIdx.z * 8 * NT;
+  const int col = n0 + 16 * g;
+  const bool col_ok = col < n;  // n % 16 == 0: all 16 columns or none
+  const int nsteps = (k + 15) >> 4;
+  const int split = (int)blockIdx.y;
+  const int s_lo = split * per_split;
+  const int s_hi = min(nsteps, s_lo + per_split);
+
+  const __nv_bfloat16* xrow[NT];
+  bool x_ok[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int r = tok0 + 8 * i + g;
+    x_ok[i] = r < m;
+    xrow[i] = x + (size_t)(x_ok[i] ? r : 0) * k;
+  }
+  const int8_t* qcol = q + (col_ok ? col : 0);
+
+  float acc[NT][8][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  uint32_t low7 = 0x007F007Fu, sign = 0x00800080u, mag = 0x43004300u;
+  asm volatile("" : "+r"(low7), "+r"(sign), "+r"(mag));
+
+  for (int s0 = s_lo + warp; s0 < s_hi; s0 += U * kGvWarps) {
+    uint4 w[U][4];
+    uint2 b[U][NT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kr = 16 * (s0 + u * kGvWarps) + 4 * t;
+      // k % 8 == 0: rows kr .. kr + 3 lie wholly inside or outside
+      const bool ok = s0 + u * kGvWarps < s_hi && kr < k;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[u][i] = ok && col_ok ? ld_weights(qcol + (size_t)(kr + i) * n)
+                               : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        b[u][i] = ok && x_ok[i]
+            ? __ldg(reinterpret_cast<const uint2*>(xrow[i] + kr))
+            : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u * kGvWarps >= s_hi) break;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int wi = j >> 1, lo = 2 * (j & 1);
+        const uint32_t sel_g = lo | ((4 + lo) << 8);         // column 2j
+        const uint32_t sel_g8 = (lo + 1) | ((5 + lo) << 8);  // column 2j + 1
+        const uint32_t k01a = word(w[u][0], wi), k01b = word(w[u][1], wi);
+        const uint32_t k23a = word(w[u][2], wi), k23b = word(w[u][3], wi);
+        const uint32_t a[4] = {
+            pair_bf16x2(k01a, k01b, sel_g, low7, sign, mag),
+            pair_bf16x2(k01a, k01b, sel_g8, low7, sign, mag),
+            pair_bf16x2(k23a, k23b, sel_g, low7, sign, mag),
+            pair_bf16x2(k23a, k23b, sel_g8, low7, sign, mag)};
+#pragma unroll
+        for (int i = 0; i < NT; ++i) mma_bf16(acc[i][j], a, b[u][i]);
+      }
+    }
+  }
+
+  // sum d[2h + e] of tile j, token tile i is token 8i + 2t + e, column 16g
+  // + 2j + h: the lane holds 16 whole columns of two tokens, stored as four
+  // 16-byte chunks a token; chunk c of row r sits at c ^ ((r >> 1) & 3), so
+  // the 8 lanes of a store phase fill 8 distinct bank groups
+  float* mine = part + warp * kPart;
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * i + 2 * t + e;
+      float4* row = reinterpret_cast<float4*>(mine + r * kGvBN);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        row[(4 * g + p) ^ t] = make_float4(
+            acc[i][2 * p][e], acc[i][2 * p][2 + e], acc[i][2 * p + 1][e],
+            acc[i][2 * p + 1][2 + e]);
+    }
+  __syncthreads();
+
+  // the block's sums, warp by warp in order: [token][32 chunks]
+  const int rows = min(8 * NT, m - tok0);
+  float4* red = reinterpret_cast<float4*>(part + kGvWarps * kPart);
+  for (int it = threadIdx.x; it < rows * (kGvBN / 4); it += kGvThreads) {
+    const int r = it / (kGvBN / 4), c = it % (kGvBN / 4);
+    const float4* src = reinterpret_cast<const float4*>(part + r * kGvBN)
+                        + (c ^ ((r >> 1) & 3));
+    float4 sum = src[0];
+#pragma unroll
+    for (int wp = 1; wp < kGvWarps; ++wp) {
+      const float4 v = src[wp * (kPart / 4)];
+      sum = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+    }
+    red[it] = sum;
+  }
+
+  // the cluster's splits, summed in split order through distributed shared
+  // memory (one remote load of each split in flight at once); the blocks
+  // of the cluster take the outputs in turn
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  for (int it = threadIdx.x * splits + rank; it < rows * (kGvBN / 4);
+       it += kGvThreads * splits) {
+    const int r = it / (kGvBN / 4), c = n0 + 4 * (it % (kGvBN / 4));
+    if (c >= n) continue;  // n % 16 == 0: all 4 columns or none
+    float4 v[kGvMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kGvMaxSplits; ++sp)
+      if (sp < splits) v[sp] = cluster.map_shared_rank(red, sp)[it];
+    float4 sum = v[0];
+#pragma unroll
+    for (int sp = 1; sp < kGvMaxSplits; ++sp)
+      if (sp < splits)
+        sum = make_float4(sum.x + v[sp].x, sum.y + v[sp].y, sum.z + v[sp].z,
+                          sum.w + v[sp].w);
+    TY* out = y + (size_t)(tok0 + r) * n + c;
+    store2(out, sum.x * scale[c], sum.y * scale[c + 1]);
+    store2(out + 2, sum.z * scale[c + 2], sum.w * scale[c + 3]);
+  }
+  cluster.sync();  // no block leaves while another reads its sums
+}
+
 // ------------------------------------------------ host side
 
 template <typename TY>
@@ -527,6 +774,75 @@ int launch_wgmma_bf16(const void* x, const int8_t* q, const float* scale,
       <<<grid, kTcThreads, kTcSmem, (cudaStream_t)stream>>>(tx, tq, scale, y,
                                                              m, k, n);
   return (int)cudaGetLastError();
+}
+
+// The gemv variant's grid at 8 NT tokens a block: ceil(n / 128) column
+// tiles by `splits` K splits by token groups, the splits of a column tile
+// one cluster. It takes the most splits (at most 8) at which every cluster
+// is resident at once, so the grid is one wave that fills the card.
+template <int NT, int U, typename TY>
+int launch_gemv_nt(const __nv_bfloat16* x, const int8_t* q,
+                   const float* scale, TY* y, int m, int k, int n,
+                   void* stream) {
+  const auto kernel = int8_matmul_gemv<NT, U, TY>;
+  const int smem = gemv_smem_bytes<NT>();
+  // clusters of s blocks the card holds at once (-1: none), found once
+  static int fits[kGvMaxSplits + 1] = {};
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kGvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  const int tiles = (n + kGvBN - 1) / kGvBN;
+  const int groups = (m + 8 * NT - 1) / (8 * NT);
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  const int nsteps = (k + 15) / 16;
+  int splits = std::max(1, std::min(kGvMaxSplits, nsteps / kGvWarps));
+  for (; splits > 1; --splits) {
+    if (fits[splits] == 0) {
+      attr[0].val.clusterDim.y = splits;
+      cfg.gridDim = dim3(1, splits, 1);
+      int got = 0;
+      const cudaError_t err =
+          cudaOccupancyMaxActiveClusters(&got, kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      fits[splits] = got > 0 ? got : -1;
+    }
+    if ((long)tiles * groups <= fits[splits]) break;
+  }
+  const int per_split = (nsteps + splits - 1) / splits;
+  splits = (nsteps + per_split - 1) / per_split;
+  attr[0].val.clusterDim.y = splits;
+  cfg.gridDim = dim3(tiles, splits, groups);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, q, scale, y, m,
+                                             k, n, per_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// up to 8 tokens on one m16n8 B tile, 16 on two; more in groups of 32
+template <typename TY>
+int launch_gemv(const void* x, const int8_t* q, const float* scale, TY* y,
+                int m, int k, int n, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || k % 8 || n % 16) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (m <= 8) return launch_gemv_nt<1, 2>(xb, q, scale, y, m, k, n, stream);
+  if (m <= 16) return launch_gemv_nt<2, 2>(xb, q, scale, y, m, k, n, stream);
+  return launch_gemv_nt<4, 2>(xb, q, scale, y, m, k, n, stream);
 }
 
 int launch_wgmma_f32(const float* x, const int8_t* q, const float* scale,
@@ -582,6 +898,17 @@ int i8_matmul_tc_bf16(const void* x, const int8_t* q, const float* scale,
                              k, n, stream);
   return launch_wgmma_bf16(x, q, scale, static_cast<float*>(y), m, k, n,
                            stream);
+}
+
+// The gemv variant, bf16 activations at decode (a few tokens: k a multiple
+// of 8, n of 16, x and q 16-byte aligned); `y` as for i8_matmul_bf16.
+int i8_matmul_gemv_bf16(const void* x, const int8_t* q, const float* scale,
+                        void* y, int m, int k, int n, int out_bf16,
+                        void* stream) {
+  if (out_bf16)
+    return launch_gemv(x, q, scale, static_cast<__nv_bfloat16*>(y), m, k, n,
+                       stream);
+  return launch_gemv(x, q, scale, static_cast<float*>(y), m, k, n, stream);
 }
 
 const char* i8_error_string(int code) { return hopper_error_string(code); }

@@ -12,12 +12,15 @@ The port of ``deepdfa_tpu/ops/int8_matmul.py``:
   :func:`int8_matmul_reference`. Activations are float32 (the GGNN's conv)
   or bf16 (the LLM's projections); the output is float32 unless
   ``out_dtype`` asks for bf16, rounded once from the scaled float32 sum.
-  B5 has two variants, chosen by :func:`variant`: ``"wgmma"`` on the
+  B5 has three variants, chosen by :func:`variant`: ``"wgmma"`` on the
   tensor cores (bf16 activations fed by TMA, the int8 weight converted to
   bf16 in registers as the A operand; float32 activations split exactly
-  into three bf16 terms) wherever TMA can describe the operands, and
-  ``"ffma"`` (the int8 tile dequantized in registers, FFMA over K) for the
-  strides and addresses it cannot. ``n_launches`` counts the kernel's launches,
+  into three bf16 terms) wherever TMA can describe the operands;
+  ``"gemv"`` for bf16 activations of at most :data:`GEMV_MAX_M` tokens
+  (decode: the weight's bytes set the pace, so K is split over the card
+  as well as N, and nothing is encoded on the host); and ``"ffma"`` (the
+  int8 tile dequantized in registers, FFMA over K) for the strides and
+  addresses neither can take. ``n_launches`` counts the kernel's launches,
   ``n_variant_launches`` each variant's. A call under autograd reports its
   FLOPs to an active ``FlopCounterMode`` (:mod:`.flops`; the op carries
   its own formula).
@@ -42,11 +45,19 @@ import torch
 
 from deepdfa_tpu_torch.ops import _build, custom_ops, flops
 
-__all__ = ["VARIANTS", "calibrate_int8", "forward_cuda", "int8_matmul",
-           "int8_matmul_reference", "n_launches", "n_variant_launches",
-           "n_vjp_products", "variant", "vjp_product"]
+__all__ = ["GEMV_MAX_M", "VARIANTS", "calibrate_int8", "forward_cuda",
+           "int8_matmul", "int8_matmul_reference", "n_launches",
+           "n_variant_launches", "n_vjp_products", "variant", "vjp_product"]
 
-VARIANTS = ("wgmma", "ffma")
+VARIANTS = ("wgmma", "ffma", "gemv")
+# The most tokens (rows of x) a bf16 product sends to the gemv variant. Timed
+# cold against the wgmma variant at M 1, 2, 4, 8, 16, 32, 64 on 4096 x 4096
+# and 4096 x 11008 (chip_smoke.py's int8_kernel crossover rows, H100 80GB
+# HBM3 at 700 W), gemv took at most half wgmma's time up to M 32 at both
+# shapes. At M 64 the two tied at 4096 x 11008 (61.6-61.7 us against
+# 61.7-64.5 in two runs), and M 33 to 63 take the same launch as M 64 (two
+# groups of 32 tokens): the boundary is 32, where the win is clear.
+GEMV_MAX_M = 32
 # CUDA kernel launches made by int8_matmul (B5) since the last reset, in
 # all and by variant
 n_launches = 0
@@ -71,6 +82,9 @@ def _kernels() -> ctypes.CDLL:
         lib.i8_matmul_tc.restype = _I
         lib.i8_matmul_tc_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.i8_matmul_tc_bf16.restype = _I
+        lib.i8_matmul_gemv_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                            _P]
+        lib.i8_matmul_gemv_bf16.restype = _I
         lib.i8_error_string.argtypes = [_I]
         lib.i8_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -164,19 +178,35 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def variant(x: torch.Tensor, q: torch.Tensor) -> str:
     """The variant of B5 that takes ``x [M, K] @ q [K, N]`` on the card.
 
-    ``"wgmma"`` when every global stride is a multiple of 16 bytes (K a
+    The operands must have every global stride a multiple of 16 bytes (K a
     multiple of 8, which also covers a float32 row; N a multiple of 16),
-    both base addresses are 16-byte aligned (a view with a storage offset
-    may not be) and K > 0: what TMA needs to describe the bf16 path's
-    operands, and more than the float32 path's vector loads need.
-    ``"ffma"`` otherwise. Every shape of the GGNN's conv and the LLM's
-    projections takes ``"wgmma"``."""
+    both base addresses 16-byte aligned (a view with a storage offset may
+    not be) and K > 0: what TMA needs to describe the bf16 path's operands,
+    and more than the other kernels' vector loads need. Such operands take
+    ``"gemv"`` when x is bf16 with at most :data:`GEMV_MAX_M` rows (decode),
+    else ``"wgmma"``; any others take ``"ffma"``. Every shape of the GGNN's
+    conv and the LLM's projections at 1,024 tokens takes ``"wgmma"``, and
+    every decode step of the LLM ``"gemv"``."""
     k, n = q.shape
     if k == 0 or k % 8 or n % 16:
         return "ffma"
     if x.data_ptr() % 16 or q.data_ptr() % 16:
         return "ffma"
+    if x.dtype == torch.bfloat16 and x.numel() // k <= GEMV_MAX_M:
+        return "gemv"
     return "wgmma"
+
+
+def _stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``. The public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a ``Stream``
+    object on every call, and a decode step makes 225 calls."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# the entry point of each variant with bf16 activations
+_BF16_ENTRIES = {"wgmma": "i8_matmul_tc_bf16", "gemv": "i8_matmul_gemv_bf16",
+                 "ffma": "i8_matmul_bf16"}
 
 
 def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -188,13 +218,13 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     (m, k), n = x2.shape, q.shape[1]
     kind = variant(x2, q)
     lib = _kernels()
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    stream = _stream(x2.device)
     ptrs = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr())
     if x2.dtype == torch.float32:
         fn = lib.i8_matmul_tc if kind == "wgmma" else lib.i8_matmul
         code = fn(*ptrs, m, k, n, stream)
     else:
-        fn = lib.i8_matmul_tc_bf16 if kind == "wgmma" else lib.i8_matmul_bf16
+        fn = getattr(lib, _BF16_ENTRIES[kind])
         code = fn(*ptrs, m, k, n, int(out.dtype == torch.bfloat16), stream)
     if code != 0:
         msg = lib.i8_error_string(code).decode()

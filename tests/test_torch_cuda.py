@@ -537,6 +537,7 @@ class _FailingInt8Lib:
         return 700  # cudaErrorIllegalAddress
 
     i8_matmul_bf16 = i8_matmul_tc = i8_matmul_tc_bf16 = i8_matmul
+    i8_matmul_gemv_bf16 = i8_matmul
 
     @staticmethod
     def i8_error_string(code):
@@ -993,24 +994,65 @@ def test_registered_op_on_the_card_matches_its_cpu_implementation(cuda, op):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 4096, 11008),
-                                   (8, 11008, 4096), (4, 4096, 32016)])
+                                   (8, 11008, 4096), (4, 4096, 32016),
+                                   (16, 4096, 4096),
+                                   (32, 4096, 4096),     # GEMV_MAX_M tokens
+                                   (4, 5120, 5120),      # the 13B q, k, v, o
+                                   (8, 5120, 13824),     # the 13B gate, up
+                                   (16, 13824, 5120),    # the 13B down
+                                   (4, 5120, 32016),     # the 13B lm_head
+                                   # K % 16 == 8 (the last k16 step half
+                                   # masked) and M filling part of a group
+                                   # of two (9-16) or four (17-32) tiles
+                                   (8, 520, 144), (12, 1032, 400),
+                                   (20, 4104, 256)])
 def test_int8_kernel_at_decode_shapes_matches_plain_version(cuda, m, k, n):
-    """B5 at one token a row (M far below the 256-row TMA box): the
-    ``wgmma`` variant, rows past M neither read nor written."""
+    """B5 at one token a row: the ``gemv`` variant (K split over the card,
+    the splits summed in order through a cluster's shared memory), rows
+    past M and lm_head's ragged column tile neither read nor written, two
+    calls bitwise equal."""
     from deepdfa_tpu_torch.ops import int8_matmul as tmm
 
     gen = torch.Generator().manual_seed(m + n)
     q, scale = tmm.calibrate_int8((torch.randn(k, n, generator=gen)
                                    * k ** -0.5).cuda())
     x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
-    before = tmm.n_variant_launches["wgmma"]
+    before = tmm.n_variant_launches["gemv"]
     got = tmm.int8_matmul(x, q, scale, out_dtype=torch.bfloat16)
+    again = tmm.int8_matmul(x, q, scale, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert tmm.n_variant_launches["wgmma"] - before == 1
+    assert tmm.n_variant_launches["gemv"] - before == 2
+    assert torch.equal(got, again)
     want = tmm.int8_matmul_reference(x, q, scale, torch.bfloat16)
     top = float(want.float().abs().max())
     # float32 sums in another order; a bf16 output may round one ulp apart
     assert float((got.float() - want.float()).abs().max()) <= 1e-2 * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 4096), (4, 4096, 32016)])
+def test_int8_gemv_replays_from_a_cuda_graph_bitwise(cuda, m, k, n):
+    """A gemv call captured in a CUDA graph and replayed three times gives
+    the eager call's output bitwise: the split-K sum keeps no state between
+    calls (no workspace, no counter)."""
+    from deepdfa_tpu_torch.ops import int8_matmul as tmm
+
+    gen = torch.Generator().manual_seed(n)
+    q, scale = tmm.calibrate_int8((torch.randn(k, n, generator=gen)
+                                   * k ** -0.5).cuda())
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+    eager = tmm.int8_matmul(x, q, scale, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = tmm.n_variant_launches["gemv"]
+    with torch.cuda.graph(graph):
+        out = tmm.int8_matmul(x, q, scale, out_dtype=torch.bfloat16)
+    assert tmm.n_variant_launches["gemv"] - before == 1
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu

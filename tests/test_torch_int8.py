@@ -12,6 +12,8 @@ Tolerances:
 - ``calibrate_int8``, ``quantize_conv_params`` and the calibration graphs:
   bit for bit (the same float32 division and round-half-to-even);
 - the product: 1e-6 of the largest output (float32 sums in another order);
+  with bf16 activations and output, one bf16 ulp of the largest output
+  (each rounds its float32 sum to bf16 once);
 - its gradient: 1e-6 of the largest entry (both round the same factors to
   bf16 and sum in float32);
 - ``GGNNInt8`` logits: atol = rtol = 1e-5 (the megabatch tests' bar);
@@ -129,29 +131,40 @@ def test_calibrate_int8_refuses_non_finite_and_non_2d(poison):
 # ----------------------------------------------------------- B5 product
 
 
-@pytest.mark.parametrize("m,k,n", [
-    (8, 128, 128),     # one tile
-    (300, 128, 384),   # the GRU products' shape
-    (3, 100, 130),     # nothing aligned
-    (1, 256, 127),     # one row, odd N
+@pytest.mark.parametrize("m,k,n,bf16", [
+    pytest.param(8, 128, 128, False, id="8-128-128"),      # one tile
+    pytest.param(300, 128, 384, False, id="300-128-384"),  # the GRU's
+    pytest.param(3, 100, 130, False, id="3-100-130"),      # nothing aligned
+    pytest.param(1, 256, 127, False, id="1-256-127"),      # one row, odd N
+    # bf16 activations and output at decode (the gemv variant's shapes):
+    # one token a row, a batch of 4 and 8, ragged K and N tiles
+    pytest.param(1, 384, 256, True, id="bf16-1-384-256"),
+    pytest.param(4, 256, 400, True, id="bf16-4-256-400"),
+    pytest.param(8, 520, 144, True, id="bf16-8-520-144"),
 ])
-def test_int8_matmul_reference_matches_the_jax_kernel(m, k, n):
+def test_int8_matmul_reference_matches_the_jax_kernel(m, k, n, bf16):
     rng = np.random.default_rng(m + k + n)
     x = rng.normal(size=(m, k)).astype(np.float32)
     q, scale = tmm.calibrate_int8(rng.normal(size=(k, n)).astype(np.float32))
-    got = tmm.int8_matmul(torch.from_numpy(x), torch.from_numpy(q),
-                          torch.from_numpy(scale))
-    want = np.asarray(jint8_matmul(jnp.asarray(x), jnp.asarray(q),
-                                   jnp.asarray(scale), block_m=128,
-                                   block_n=128, block_k=128,
-                                   out_dtype=jnp.float32, interpret=True))
-    assert got.dtype == torch.float32 and got.shape == (m, n)
+    out = torch.bfloat16 if bf16 else torch.float32
+    xt = torch.from_numpy(x).to(out)
+    got = tmm.int8_matmul(xt, torch.from_numpy(q), torch.from_numpy(scale),
+                          out_dtype=out)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    want = np.asarray(jint8_matmul(jnp.asarray(x).astype(jdt),
+                                   jnp.asarray(q), jnp.asarray(scale),
+                                   block_m=128, block_n=128, block_k=128,
+                                   out_dtype=jdt, interpret=True)
+                      ).astype(np.float32)
+    assert got.dtype == out and got.shape == (m, n)
     top = float(np.abs(want).max())
-    assert float(np.abs(got.numpy() - want).max()) <= 1e-6 * top
+    # float32: the sums in another order; bf16: both round the float32 sum
+    # once, so they may differ by one bf16 ulp of the largest output
+    limit = 2.0 ** (np.floor(np.log2(top)) - 7) if bf16 else 1e-6 * top
+    assert float(np.abs(got.float().numpy() - want).max()) <= limit
     torch.testing.assert_close(
-        got, tmm.int8_matmul_reference(torch.from_numpy(x),
-                                       torch.from_numpy(q),
-                                       torch.from_numpy(scale)),
+        got, tmm.int8_matmul_reference(xt, torch.from_numpy(q),
+                                       torch.from_numpy(scale), out),
         atol=0, rtol=0)
 
 

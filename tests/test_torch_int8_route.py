@@ -5,9 +5,11 @@ CPU (the kernels themselves run only on the card: tests/test_torch_cuda.py).
   with its M, K, N and output type, and read the arguments through their
   addresses as dense arrays, as the kernels do. Every shape of the main
   paths (the LLM's projections at CodeLlama-7B and 13B widths, the GGNN's
-  conv at its M buckets) reaches the tensor-core entry; strides TMA cannot
-  describe and a misaligned address reach the FFMA variant; a failed launch
-  raises.
+  conv at its M buckets) reaches the tensor-core entry; decode (bf16, at
+  most ``GEMV_MAX_M`` tokens, the projections and lm_heads of both) the
+  gemv entry, and one token more the tensor-core one again; float32
+  activations never take gemv; strides TMA cannot describe and a
+  misaligned address reach the FFMA variant; a failed launch raises.
 - Arithmetic: a float32 activation is exactly the sum of three bf16 terms,
   and the three bf16 products against the int8 weight sum to the plain
   version's product within float32 rounding.
@@ -19,7 +21,6 @@ order).
 """
 
 import ctypes
-import types
 
 import numpy as np
 import pytest
@@ -39,6 +40,10 @@ GGNN_SHAPES = [(m, 128, n) for m in (2048, 4096, 5120, 16768)
 LLM_SHAPES = [(1024, k, n) for k, n in (
     (4096, 4096), (4096, 11008), (11008, 4096),
     (5120, 5120), (5120, 13824), (13824, 5120))]
+# The same projections at decode, one token a row, and both lm_heads
+DECODE_KN = [(k, n) for _, k, n in LLM_SHAPES] + [(4096, 32016),
+                                                   (5120, 32016)]
+DECODE_M = (1, 4, 8, tmm.GEMV_MAX_M)
 
 
 def _dense(ptr, shape, dtype):
@@ -83,6 +88,10 @@ class _RecordingLib:
     def i8_matmul_tc_bf16(self, x, q, scale, y, m, k, n, out_bf16, stream):
         return self._run("wgmma", x, q, scale, y, m, k, n, True, out_bf16)
 
+    def i8_matmul_gemv_bf16(self, x, q, scale, y, m, k, n, out_bf16,
+                            stream):
+        return self._run("gemv", x, q, scale, y, m, k, n, True, out_bf16)
+
     @staticmethod
     def i8_error_string(code):
         return b"an illegal memory access was encountered"
@@ -95,9 +104,7 @@ def lib(monkeypatch):
         monkeypatch.setattr(tmm, "_lib", stand_in)
         return stand_in
 
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: types.SimpleNamespace(
-                            cuda_stream=0))
+    monkeypatch.setattr(tmm, "_stream", lambda device: 0)
     monkeypatch.setattr(tmm, "n_variant_launches",
                         dict.fromkeys(tmm.VARIANTS, 0))
     return install
@@ -118,7 +125,7 @@ def test_llm_projections_reach_the_tensor_core_entry(lib, m, k, n):
     out = torch.empty(m, n, dtype=torch.bfloat16)
     tmm._launch(x, q, torch.ones(n), out)
     assert stand_in.calls == [("wgmma", m, k, n, True)]
-    assert tmm.n_variant_launches == {"wgmma": 1, "ffma": 0}
+    assert tmm.n_variant_launches == {"wgmma": 1, "ffma": 0, "gemv": 0}
 
 
 @pytest.mark.parametrize("m,k,n", GGNN_SHAPES)
@@ -128,7 +135,58 @@ def test_ggnn_conv_products_reach_the_tensor_core_entry(lib, m, k, n):
     q = torch.empty(k, n, dtype=torch.int8)
     tmm._launch(x, q, torch.ones(n), torch.empty(m, n))
     assert stand_in.calls == [("wgmma", m, k, n, False)]
-    assert tmm.n_variant_launches == {"wgmma": 1, "ffma": 0}
+    assert tmm.n_variant_launches == {"wgmma": 1, "ffma": 0, "gemv": 0}
+
+
+@pytest.mark.parametrize("k,n", DECODE_KN)
+@pytest.mark.parametrize("m", DECODE_M)
+def test_decode_shapes_reach_the_gemv_entry(lib, m, k, n):
+    stand_in = lib(compute=False)
+    x = torch.empty(m, k, dtype=torch.bfloat16)
+    q = torch.empty(k, n, dtype=torch.int8)
+    tmm._launch(x, q, torch.ones(n), torch.empty(m, n, dtype=torch.bfloat16))
+    assert stand_in.calls == [("gemv", m, k, n, True)]
+    assert tmm.n_variant_launches == {"wgmma": 0, "ffma": 0, "gemv": 1}
+
+
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_one_token_past_gemv_max_m_reaches_the_tensor_core_entry(lib, k, n):
+    stand_in = lib(compute=False)
+    m = tmm.GEMV_MAX_M + 1
+    x = torch.empty(m, k, dtype=torch.bfloat16)
+    q = torch.empty(k, n, dtype=torch.int8)
+    tmm._launch(x, q, torch.ones(n), torch.empty(m, n, dtype=torch.bfloat16))
+    assert stand_in.calls == [("wgmma", m, k, n, True)]
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+def test_float32_activations_never_take_gemv(lib, m):
+    stand_in = lib()
+    x, q, scale = _operands(m, 128, 384, torch.float32)
+    out = torch.empty(m, 384)
+    tmm._launch(x, q, scale, out)
+    assert stand_in.calls == [("wgmma", m, 128, 384, False)]
+    assert torch.equal(out, tmm.int8_matmul_reference(x, q, scale))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_a_decode_step_reaches_gemv_with_dense_operands(lib, b, out_dtype):
+    """A decode step's ``[b, 1, K]`` activations, here a strided view (every
+    other element of a buffer twice as wide), reach the gemv entry dense
+    through the registered op's CUDA implementation, bitwise the plain
+    version."""
+    stand_in = lib()
+    _, q, scale = _operands(b, 256, 384, torch.bfloat16, seed=b)
+    buf = torch.randn(b, 1, 512, generator=torch.Generator().manual_seed(b))
+    x = buf.to(torch.bfloat16)[..., ::2]
+    assert not x.is_contiguous()
+    got = tmm.forward_cuda(x, q, scale, out_dtype)
+    assert stand_in.calls == [("gemv", b, 256, 384,
+                               out_dtype == torch.bfloat16)]
+    assert got.shape == (b, 1, 384)
+    assert torch.equal(got, tmm.int8_matmul_reference(x, q, scale,
+                                                      out_dtype))
 
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [
@@ -155,6 +213,20 @@ def test_launch_passes_dense_operands_to_its_variant(lib, x_dtype, out_dtype,
     assert torch.equal(out, tmm.int8_matmul_reference(x, q, scale, out_dtype))
 
 
+@pytest.mark.parametrize("m", [4, 64])
+def test_a_misaligned_decode_view_still_takes_ffma(lib, m):
+    stand_in = lib()
+    _, q, scale = _operands(m, 128, 256, torch.bfloat16)
+    flat = torch.randn(1 + m * 128).to(torch.bfloat16)
+    x = flat[1:].view(m, 128)  # contiguous, 2 bytes off alignment
+    assert x.is_contiguous() and x.data_ptr() % 16
+    out = torch.empty(m, 256, dtype=torch.bfloat16)
+    tmm._launch(x, q, scale, out)
+    assert [c[0] for c in stand_in.calls] == ["ffma"]
+    assert torch.equal(out, tmm.int8_matmul_reference(x, q, scale,
+                                                      torch.bfloat16))
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_a_misaligned_address_reaches_the_ffma_variant(lib, x_dtype):
     stand_in = lib()
@@ -175,14 +247,17 @@ def test_a_misaligned_address_reaches_the_ffma_variant(lib, x_dtype):
 
 @pytest.mark.parametrize("x_dtype,entry", [(torch.float32, "wgmma"),
                                            (torch.bfloat16, "wgmma"),
-                                           (torch.float32, "ffma")])
+                                           (torch.float32, "ffma"),
+                                           (torch.bfloat16, "gemv")])
 def test_a_failed_launch_raises(lib, x_dtype, entry):
     stand_in = lib(code=700)
-    k, n = (128, 256) if entry == "wgmma" else (100, 130)
-    x, q, scale = _operands(8, k, n, x_dtype)
+    k, n = (100, 130) if entry == "ffma" else (128, 256)
+    # bf16 past GEMV_MAX_M tokens takes wgmma, at most it gemv
+    m = tmm.GEMV_MAX_M + 1 if entry == "wgmma" else 8
+    x, q, scale = _operands(m, k, n, x_dtype)
     before = tmm.n_launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        tmm._launch(x, q, scale, torch.empty(8, n, dtype=x_dtype))
+        tmm._launch(x, q, scale, torch.empty(m, n, dtype=x_dtype))
     assert stand_in.calls[0][0] == entry
     assert tmm.n_launches == before
 
