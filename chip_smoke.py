@@ -339,10 +339,14 @@ Each phase prints one JSON line; any failure exits non-zero.
    fused layout: width 224 (``dataflow_families``, solver labels) and 288
    (both flags, the same functions rebuilt with the interprocedural
    columns, graph labels): B1 = (steps + eval batches) × 11 and B2 = steps
-   × 32, all ``ffma``; B1 and B2 at each width against their plain
-   versions (``KERNEL_LIMIT``, ``GRAD_LIMIT`` against float64), bitwise
-   repeats, graph times and bounds; the kernels' shared-memory width
-   limits read on the card. The node model exported on the card (its
+   × 17, all ``wgmma``; B1 and B2 at each width, and at 192 on the 224
+   fit's bucket, against their plain versions (``KERNEL_LIMIT``,
+   ``GRAD_LIMIT`` against float64), bitwise repeats, the padding sink's
+   row bitwise the ``ffma`` variant's, graph times beside the ``ffma``
+   variant's forced and the plain version's, bounds, and each tensor-core
+   kernel's launches, grid, shared memory and rows a block (32) from a
+   profiler trace; the ``ffma`` kernels' shared-memory width limits read
+   on the card. The node model exported on the card (its
    program calls ``deepdfa.fused_ggnn``), loaded by ``from_artifact`` and
    served over HTTP through ``build_server`` to 64 test sources (B1 =
    dispatches × 11, all ``wgmma``; every score within ``ARTIFACT_LIMIT``
@@ -663,7 +667,7 @@ from deepdfa_tpu_torch.serve.warmstore import WarmStore
 from deepdfa_tpu_torch.serving import (export_ggnn, exported_ops,
                                        load_exported, load_program)
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
-from deepdfa_tpu_torch.train.cli import export_model
+from deepdfa_tpu_torch.train.cli import TRACE_LEAD_KERNELS, export_model
 from deepdfa_tpu_torch.train.cli import main as cli_main
 from deepdfa_tpu_torch.train.fit import fit, load_corpus
 from deepdfa_tpu_torch.train.loop import Trainer
@@ -922,12 +926,12 @@ def aggregates_bitwise(p) -> bool:
             flags = torch.zeros(n, dtype=torch.int32, device="cuda")
             codes = [lib.ggnn_tc_prep(p.rcv.data_ptr(), p.snd.data_ptr(), e,
                                       n, row_ptr.data_ptr(), heads.data_ptr(),
-                                      stream),
+                                      d, stream),
                      lib.ggnn_tc_round(p.h.data_ptr(), msg.data_ptr(),
                                        row_ptr.data_ptr(), p.snd.data_ptr(),
                                        heads.data_ptr(), flags.data_ptr(),
                                        *weights, out.data_ptr(),
-                                       agg.data_ptr(), n, stream)]
+                                       agg.data_ptr(), n, d, stream)]
         else:
             codes = [lib.ggnn_csr(p.rcv.data_ptr(), e, n, row_ptr.data_ptr(),
                                   stream),
@@ -1287,10 +1291,12 @@ def bucket_kernel_row(b, d: int, weights, w) -> dict:
     versions: the no-grad forward's largest difference, each gradient's
     against float64 over its largest magnitude (the chosen variant's, the
     FFMA variant's forced, the plain float32 version's), two calls bitwise
-    equal, launches by variant of one call each, times (CUDA events and
-    graph replays) and the 3xTF32 and FFMA bounds of both. ``weights``
-    from :func:`ggnn_weights`; ``h0`` and the cotangent drawn by ``w``.
-    Direct launches, off the main path's counts."""
+    equal, the padding sink's row of the no-grad forward bitwise the FFMA
+    variant's, launches by variant of one call each, times (CUDA events
+    and graph replays, the FFMA variant's forced beside the chosen one's)
+    and the 3xTF32 and FFMA bounds of both. ``weights`` from
+    :func:`ggnn_weights`; ``h0`` and the cotangent drawn by ``w``. Direct
+    launches, off the main path's counts."""
     n, e = b.max_nodes, len(b.senders)
     h0 = w(n, d, std=0.2)
     # the loss's cotangent is zero on padding nodes, which the pooling
@@ -1329,6 +1335,14 @@ def bucket_kernel_row(b, d: int, weights, w) -> dict:
     finite = bool(torch.isfinite(out).all()) and all(
         bool(torch.isfinite(a).all()) for a in got)
     p = fg._Prepared(h0, args[1], args[2], weights, fg._max_width)
+    with torch.no_grad():
+        ffma_out = fg._forward_cuda(p, STEPS, bank=False, kind="ffma")[0]
+    # batch_np's padding sink, where the batch has one: the last row, whose
+    # segment is all self-loops (None where it is a real node)
+    loops = b.receivers == n - 1
+    sink_bitwise = (bool(torch.equal(out[n - 1], ffma_out[n - 1, :d]))
+                    if loops.sum() >= 32 and (b.senders[loops] == n - 1).all()
+                    else None)
     fwd = lambda kind=None: fg._forward_cuda(p, STEPS, bank=True,  # noqa: E731
                                              kind=kind)
     _, states, aggs = fwd()
@@ -1350,7 +1364,10 @@ def bucket_kernel_row(b, d: int, weights, w) -> dict:
         fwd_graph = graph_ms(lambda: fg.fused_ggnn(*args, n_steps=STEPS), 10)
         plain_fwd_graph = graph_ms(lambda: fg.fused_ggnn_reference(
             *args, n_steps=STEPS), 10)
+        ffma_fwd_graph = graph_ms(lambda: fg._forward_cuda(
+            p, STEPS, bank=False, kind="ffma"), 10)
     dev = {"fwd_graph_ms": fwd_graph, "plain_fwd_graph_ms": plain_fwd_graph,
+           "ffma_fwd_graph_ms": ffma_fwd_graph,
            "fwd_banked_graph_ms": graph_ms(fwd, 10),
            "ffma_fwd_banked_graph_ms": graph_ms(lambda: fwd("ffma"), 10),
            "bwd_graph_ms": graph_ms(bwd, 10),
@@ -1372,6 +1389,7 @@ def bucket_kernel_row(b, d: int, weights, w) -> dict:
             "max_abs_err": errs, "rel_err": rel, "limit": GRAD_LIMIT,
             "plain_f32_rel_err": plain_rel, "ffma_rel_err": ffma_rel,
             "bitwise_repeat": bitwise, "finite": finite,
+            "sink_row_bitwise_vs_ffma": sink_bitwise,
             "fwd_banked_ms": fwd_ms, "bwd_ms": bwd_ms,
             "bwd_ms_repeat": bwd_again, "plain_bwd_ms": plain_ms, **dev,
             # B2's bounds as bound_ms / ffma_bound_ms, B1's with fwd_
@@ -1381,6 +1399,56 @@ def bucket_kernel_row(b, d: int, weights, w) -> dict:
             "bwd_launches_per_call": fg.bwd_launches_per_call(STEPS),
             "fwd_launches_by_variant": fwd_launches,
             "bwd_launches_by_variant": launches}
+
+
+def tc_launch_shapes(b, d: int, weights, w) -> dict:
+    """B1's and B2's tensor-core launches of one banked forward and its
+    backward at width ``d`` on the bucket batch ``b``, as a profiler trace
+    records them: per kernel (``name<D>``) its launches, their device
+    microseconds in all, and the first launch's grid, block, shared memory
+    and registers, and for the kernels tiled over the nodes the rows a
+    block takes (N over the grid)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    n = b.max_nodes
+    args = (w(n, d, std=0.2), torch.from_numpy(b.senders).cuda(),
+            torch.from_numpy(b.receivers).cuda()) + weights
+    g = w(n, d, std=1e-3) * torch.from_numpy(b.node_mask).cuda()[:, None]
+    kernel_grads(args, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a session in a process some minutes old loses its first kernel
+        # records: tiny kernels lead it, as train.cli's trace is led
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_LEAD_KERNELS):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        kernel_grads(args, g)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        events = json.loads(Path(f"{tmp}/trace.json").read_text())[
+            "traceEvents"]
+    shapes: dict = {}
+    for ev in events:
+        m = re.search(r"(\w+_tc_kernel)<(\d+)>", ev.get("name", ""))
+        if ev.get("cat") != "kernel" or m is None:
+            continue
+        key = f"{m.group(1)}<{m.group(2)}>"
+        if key in shapes:
+            shapes[key]["launches"] += 1
+            shapes[key]["device_us"] += ev.get("dur", 0.0)
+            continue
+        a = ev.get("args", {})
+        grid = a.get("grid")
+        shapes[key] = {"launches": 1, "device_us": ev.get("dur", 0.0),
+                       "grid": grid, "block": a.get("block"),
+                       "shared_memory": a.get("shared memory"),
+                       "registers": a.get("registers per thread")}
+        if grid and m.group(1) != "wgrad_tc_kernel":
+            shapes[key]["rows_per_block"] = -(-n // grid[0])
+    return shapes
 
 
 def phase_train_kernel() -> list[dict]:
@@ -5329,8 +5397,8 @@ B1_KERNELS = ("tc_prep_kernel", "linear_tc_kernel", "gru_round_tc_kernel",
 
 def trace_kernel_events(path: Path, names) -> dict:
     """The device kernel events of a ``torch.profiler`` Chrome trace whose
-    function is one of ``names`` (demangled or mangled), counted by name,
-    and the device events in all."""
+    function is one of ``names`` (demangled, template arguments and all,
+    or mangled), counted by name, and the device events in all."""
     import re
 
     events = json.loads(path.read_text())["traceEvents"]
@@ -5338,7 +5406,8 @@ def trace_kernel_events(path: Path, names) -> dict:
     counts = dict.fromkeys(names, 0)
     for e in kernels:
         name = e.get("name", "")
-        m = re.search(r"(?:^|::|\s)([A-Za-z_]\w*)\(", name) or re.match(
+        m = re.search(r"(?:^|::|\s)([A-Za-z_]\w*)(?:<[^()]*>)?\(",
+                      name) or re.match(
             r"_Z\d+([A-Za-z_]\w*?)P", name)
         if m and m.group(1) in counts:
             counts[m.group(1)] += 1
@@ -6016,7 +6085,8 @@ def phase_dataflow(work: Path) -> dict:
     segment layout with sum and ``union_relu`` aggregation; a node-label
     fit in the fused layout on B1/B2 (``wgmma``) with ``test``,
     ``predict``, a crash and its resume; one epoch each with the analysis
-    families at widths 224 and 288 on B1/B2's ``ffma`` variant; the node
+    families at widths 224 and 288 on B1/B2's ``wgmma`` variant (kernel
+    rows at 224 and 288, and at 192 on the 224 leg's bucket); the node
     model exported, loaded and served over HTTP; ``train.cli scan`` with
     the node checkpoint."""
     from deepdfa_tpu_torch.config import active_dfa_families, to_json
@@ -6187,7 +6257,7 @@ def phase_dataflow(work: Path) -> dict:
     # 4. the analysis families in the fused layout: 224 wide with the
     # dataflow families on the demo_hard shards (solver labels), 288 with
     # both flags on the same functions rebuilt with the interprocedural
-    # columns (extraction-cache hits; graph labels)
+    # columns (extraction-cache hits; graph labels); B1 and B2 on wgmma
     fg._kernels()
     fg._bwd_kernels()
     row["ffma_limits"] = {"fwd_max_width": fg._max_width,
@@ -6227,15 +6297,22 @@ def phase_dataflow(work: Path) -> dict:
             "fit", "--config", str(cfg_file), "--run-dir", str(root / name),
             "--device", "cuda"])
         run = fit_launches(root / name, b1, b2, var)
-        run["expected"]["bwd"] = run["train_steps"] * \
-            fg.bwd_launches_per_call(STEPS, "ffma")
         train = load_corpus(cfg)["train"]
-        kernel = bucket_kernel_row(
-            pack(train, derive_buckets(train, TRAIN_GRAPHS)[-1]), width,
-            ggnn_weights(w, width), w)
+        bucket = pack(train, derive_buckets(train, TRAIN_GRAPHS)[-1])
+        weights = ggnn_weights(w, width)
+        kernel = bucket_kernel_row(bucket, width, weights, w)
+        kernel["launch_shapes"] = tc_launch_shapes(bucket, width, weights, w)
         families[name] = {"width": width, "dsname": dsname,
                           "label_style": style, "fit_seconds": fit_s,
                           "final_metrics": final, **run, "kernel": kernel}
+        if name == "w224":
+            # the interprocedural families' width, on the same bucket: a
+            # kernel row only
+            weights = ggnn_weights(w, 192)
+            k192 = bucket_kernel_row(bucket, 192, weights, w)
+            k192["launch_shapes"] = tc_launch_shapes(bucket, 192, weights, w)
+            row["width_192"] = {"width": 192, "dsname": dsname,
+                                "kernel": k192}
     row["families"] = families
     row["ip_build_seconds"] = ip_build_s
 
@@ -6349,26 +6426,35 @@ def phase_dataflow(work: Path) -> dict:
         fail(f"dataflow: node crash → resume {c}")
     limits = row["ffma_limits"]
     for name, f in families.items():
-        k = f["kernel"]
         got = {"fwd": f["b1_launches"], "bwd": f["b2_launches"]}
         if got != f["expected"] or not f["train_steps"] or \
-                f["launches_by_variant"]["fwd"]["ffma"] != got["fwd"] or \
-                f["launches_by_variant"]["bwd"]["ffma"] != got["bwd"]:
+                f["launches_by_variant"]["fwd"]["wgmma"] != got["fwd"] or \
+                f["launches_by_variant"]["bwd"]["wgmma"] != got["bwd"]:
             fail(f"dataflow: {name} fit launches {got} by variant "
                  f"{f['launches_by_variant']}, expected {f['expected']} "
-                 "on ffma")
-        if k["variant"] != "ffma" or not k["finite"] or \
+                 "on wgmma")
+        if f["width"] > min(limits.values()):
+            fail(f"dataflow: width {f['width']} over the limits {limits}")
+    for name, k in [(n_, f["kernel"]) for n_, f in families.items()] + [
+            ("w192", row["width_192"]["kernel"])]:
+        if k["variant"] != "wgmma" or not k["finite"] or \
                 not k["fwd_max_abs_err"] <= KERNEL_LIMIT or \
                 not max(k["rel_err"].values()) <= GRAD_LIMIT or \
                 not max(k["ffma_rel_err"].values()) <= GRAD_LIMIT or \
                 not k["bitwise_repeat"] or \
-                k["fwd_launches_by_variant"] != {"wgmma": 0, "ffma": per1} or \
+                k["sink_row_bitwise_vs_ffma"] is False or \
+                k["fwd_launches_by_variant"] != {"wgmma": per1, "ffma": 0} or \
                 k["bwd_launches_by_variant"] != {
-                    "wgmma": 0,
-                    "ffma": fg.bwd_launches_per_call(STEPS, "ffma")}:
+                    "wgmma": fg.bwd_launches_per_call(STEPS), "ffma": 0}:
             fail(f"dataflow: {name} kernels {k}")
-        if f["width"] > min(limits.values()):
-            fail(f"dataflow: width {f['width']} over the limits {limits}")
+        # the instances at the width took the launches, 32 rows a block
+        shapes = k["launch_shapes"]
+        want = {f"{kern}<{k['d']}>" for kern in (
+            "linear_tc_kernel", "gru_round_tc_kernel", "gate_bwd_tc_kernel",
+            "tsum_tc_kernel", "wgrad_tc_kernel")}
+        if set(shapes) != want or any(
+                v.get("rows_per_block", 32) != 32 for v in shapes.values()):
+            fail(f"dataflow: {name} launch shapes {shapes}")
     a = row["artifact"]
     if not a["ops"]["fused_ggnn"] or a["ops"]["index_add"] or \
             a["label_style"] != "node" or a["answers"] != a["functions"] or \
@@ -9689,7 +9775,7 @@ def drive() -> int:
              "trainer_sentinel": tr_sen["b2_launches"]}
     tr_b5 = trainer["int8_train"]["b5_launches"]
     # the node-level and dataflow-lattice GGNN: the node fit, test, predict
-    # and artifact on wgmma, the families' fits on ffma
+    # and artifact, and the families' fits, on wgmma
     df_node, df_fams = dataflow["node"], list(dataflow["families"].values())
     df_b1 = {"dataflow_node_fit": df_node["fit"]["b1_launches"],
              "dataflow_node_test": df_node["test"]["b1_launches"],
@@ -9738,19 +9824,29 @@ def drive() -> int:
              "dp_gloo_ranks": sum(r["b2_launches"] for r in ranks)}
     dp_b2_var = [w1["b2_launches_by_variant"],
                  *[r["by_variant"]["bwd"] for r in ranks]]
-    # B1 and B2 at the families' widths, on ffma: graph ms, the 3xTF32
-    # bound as at width 128 and the FFMA one beside it
-    df_widths = {str(f["width"]): {
-        "n": k["n"], "e": k["e"], "fwd_max_abs_err": k["fwd_max_abs_err"],
+    # B1 and B2 at the families' widths (192 on the 224 leg's bucket), on
+    # wgmma: graph ms beside the FFMA variant's forced and the plain
+    # version's, the 3xTF32 bound as at width 128 and the FFMA one, the
+    # rows a block takes and the round kernel's grid from the trace
+    df_widths = {str(k["d"]): {
+        "n": k["n"], "e": k["e"], "variant": k["variant"],
+        "fwd_max_abs_err": k["fwd_max_abs_err"],
         "bwd_max_rel_err": max(k["rel_err"].values()),
-        "graph_ms": k["fwd_graph_ms"], "plain_graph_ms": k["plain_fwd_graph_ms"],
+        "graph_ms": k["fwd_graph_ms"], "ffma_graph_ms": k["ffma_fwd_graph_ms"],
+        "plain_graph_ms": k["plain_fwd_graph_ms"],
         "bound_ms": k["fwd_bound_ms"], "bound_by": k["fwd_bound_by"],
         "ffma_bound_ms": k["fwd_ffma_bound_ms"],
         "bwd_graph_ms": k["bwd_graph_ms"],
+        "ffma_bwd_graph_ms": k["ffma_bwd_graph_ms"],
         "plain_bwd_graph_ms": k["plain_bwd_graph_ms"],
         "bwd_bound_ms": k["bound_ms"], "bwd_bound_by": k["bound_by"],
-        "bwd_ffma_bound_ms": k["ffma_bound_ms"]}
-        for f in df_fams for k in [f["kernel"]]}
+        "bwd_ffma_bound_ms": k["ffma_bound_ms"],
+        "rows_per_block": k["launch_shapes"][
+            f"gru_round_tc_kernel<{k['d']}>"].get("rows_per_block"),
+        "round_grid": k["launch_shapes"][
+            f"gru_round_tc_kernel<{k['d']}>"].get("grid")}
+        for k in [f["kernel"] for f in df_fams]
+        + [dataflow["width_192"]["kernel"]]}
     emit({"kernels": [{
         "name": "fused_ggnn", "route": "cuda",
         "source": "deepdfa_tpu_torch/csrc/fused_ggnn.cu",
@@ -9803,7 +9899,7 @@ def drive() -> int:
         "ffma_bound_ms": mega["ffma_bound_ms"],
         "call_ms": mega["ms"], "plain_call_ms": mega["plain_ms"],
         "ffma_call_ms": mega["ffma_ms"],
-        "ffma_widths": df_widths, "ffma_limits": dataflow["ffma_limits"],
+        "widths": df_widths, "ffma_limits": dataflow["ffma_limits"],
         "shape": f"mega n={mega['n']} e={mega['e']} d={mega['d']} "
                  f"n_steps={mega['n_steps']}"}, {
         "name": "fused_ggnn_backward", "route": "cuda",
@@ -9839,7 +9935,7 @@ def drive() -> int:
         "ffma_ms": full["ffma_bwd_graph_ms"],
         "ffma_bound_ms": full["ffma_bound_ms"],
         "call_ms": full["bwd_ms"], "plain_call_ms": full["plain_bwd_ms"],
-        "ffma_widths": df_widths,
+        "widths": df_widths,
         "shape": f"train n={full['n']} e={full['e']} d={full['d']} "
                  f"n_steps={STEPS}"}, {
         "name": "megabatch_model", "route": "cuda",

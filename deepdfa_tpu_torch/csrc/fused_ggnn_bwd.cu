@@ -29,29 +29,41 @@
 // equal gradients. Two variants, chosen in Python (ops/fused_ggnn.py
 // `variant`).
 //
-// `wgmma` (width 128). What bounds it: a reverse round is 40 N D^2 product
-// FLOPs (both 3-gate products again, dagg and dhp @ hw^T, dmsg @ ew^T, the
-// three weight gradients), three tensor-core passes each in 3xTF32, ~0.07
-// ms a round at N = 16,768 at the TF32 peak, against ~10 N D floats of
-// banked state and the dxp [N, 384] round trip through memory. Each
-// kernel holds one block an SM (registers) and runs its phases in turn,
-// so what sets the pace is how much of each product's latency the next
-// loads hide. Per reverse round, three launches on the caller's stream
-// (ggnn_tc.cuh's tiles and products, every product transposed: the
-// weights as wgmma's A in registers, the node rows as its split B tiles):
-//   1. gate_bwd_tc_kernel: both 3-gate products for 64 nodes recomputed
-//      from the banked agg_t and h_t (the round's code, the gate weights
-//      through its TMA ring), the chain above, then dagg = dxp @ xw^T and
+// `wgmma` (widths 128, 192, 224 and 288). What bounds it: a reverse round
+// is 40 N D^2 product FLOPs (both 3-gate products again, dagg and dhp @
+// hw^T, dmsg @ ew^T, the three weight gradients), three tensor-core passes
+// each in 3xTF32, ~0.07 ms a round at N = 16,768 and width 128 at the
+// TF32 peak, against ~10 N D floats of banked state and the dxp [N, 3D]
+// round trip through memory. Each kernel holds one block an SM
+// (registers) and runs its phases in turn, so what sets the pace is how
+// much of each product's latency the next loads hide; at the family
+// widths (32 nodes a block, ggnn_tc.cuh) the gate kernel's m64n32k8 steps
+// most. Per reverse round, three launches on the caller's stream
+// (ggnn_tc.cuh's tiles and products, one instance a width, every product
+// transposed: the weights as wgmma's A in registers, the node rows as its
+// split B tiles):
+//   1. the gate kernel (gate_bwd_tc128_kernel at 128, one pass;
+//      gate_bwd_tc_kernel<D> at the family widths): both 3-gate products
+//      for R nodes recomputed from the banked agg_t and h_t (the round's
+//      code and its passes), the chain above, then dagg = dxp @ xw^T and
 //      dh' = g z + dhp @ hw^T with dxp's columns split into the tiles that
-//      held agg and h (dhp shares its first 256 columns with dxp); dxp and
-//      dhn = dpre_n r go to memory for the weight gradients;
+//      held agg and h (dhp shares its first 2D columns with dxp); dxp and
+//      dhn = dpre_n r go to memory for the weight gradients. At 128 the
+//      chain's values go to the tiles from registers; at the family widths
+//      the tiles still hold agg and h while later passes run, so they are
+//      read back from dxp and dhn, which the block has just written. One
+//      template for all four widths was tried and dropped at 128: its gate
+//      kernel ran well behind the one-pass kernel (255 registers, and
+//      arrives that ptxas injects around the wgmmas);
 //   2. tsum_tc_kernel: dmsg by the forward's edge sum over the
 //      sender-sorted (CSC) index (in edge-list order, runs in closed
 //      form), then dh' += dmsg @ ew^T;
-//   3. wgrad_tc_kernel: the three weight gradients, contracted over the
-//      chunk's nodes in slices of 32 (both operands are node-major, so b's
-//      slice is transposed on its way into the swizzled tile) and the
-//      bias column sums.
+//   3. wgrad_tc_kernel: the three weight gradients in tiles of 128 x 128,
+//      contracted over the chunk's nodes in slices of 32 (both operands
+//      are node-major, so b's slice is transposed on its way into the
+//      swizzled tile) and the bias column sums; at the family widths a
+//      gate ends in a part tile (192: 128 + 64 columns; 224: 128 + 96;
+//      288: 128 + 128 + 32).
 // Once per call: tc_prep_kernel builds the CSC row pointer and the change
 // bitmask of the CSC receivers.
 //
@@ -270,33 +282,52 @@ void partial_layout(int d, int db[3], int w_off[3], int b_off[3], int* ld) {
 
 // ------------------------------------------------ the tensor-core variant
 
-constexpr int kTsumSmem = 2 * kTileBytes + 1024;
+template <int D>
+constexpr int tsum_tc_smem() { return 2 * Tc<D>::TileBytes + 1024; }
+// agg and h tiles, and at 128 the weight ring and its barriers
+template <int D>
+constexpr int gate_tc_smem() {
+  return 4 * Tc<D>::TileBytes + (D == 128 ? 2 * kWStage + 16 : 0) + 1024;
+}
+
+// The weight gradients' tiles: 128 rows i (the two warpgroups' 64-row
+// tiles) by 128 columns j of one gate (wgmma's n); at width D, B blocks of
+// 128 along each (the family widths end in a part block, its rows and
+// columns past D zero and not stored), B x 7 B tiles a chunk (3 + 3 + 1
+// gates).
+template <int D>
+constexpr int kWgradBlocks = (D + 127) / 128;
 constexpr int kWgradStage = 2 * 128 * 128;  // big + small: 128 rows x 128 B
 constexpr int kWgradSmem = 2 * kWgradStage + 1024;
-constexpr int kGateSmem = 4 * kTileBytes + 2 * kWStage + 16 + 1024;
 
-// Stores one float of a B operand tile, split, at (row r, column k) of a
-// tile of K-major 32-float slices (xt_off's layout).
+static_assert(gate_tc_smem<288>() <= 227 * 1024, "gate at 288");
+static_assert(gate_tc_smem<128>() <= 227 * 1024, "gate at 128");
+
+// Stores one float of a B operand tile of 64 rows, split, at (row r,
+// column k) of a tile of K-major 32-float slices (xt_off's layout).
 __device__ __forceinline__ void put1(uint8_t* big, uint8_t* small, int r,
                                      int k, float v) {
   uint32_t b, sm;
   split_tf32(v, b, sm);
-  const int off = xt_off(r, k & ~3) + 4 * (k & 3);
+  const int off = xt_off<64>(r, k & ~3) + 4 * (k & 3);
   *reinterpret_cast<uint32_t*>(big + off) = b;
   *reinterpret_cast<uint32_t*>(small + off) = sm;
 }
+
+// ---- width 128: the one-pass kernel, its chain's values kept in
+// registers
 
 // dagg (+)= X @ wx^T and dh (+)= Y @ wy^T over K columns k0 .. k0 + 8 steps
 // of the [128, 384] gate weights, X and Y the split tiles of the block's
 // 64 nodes (K-major, column k - k0): the warpgroup's 64 output columns i,
 // the weights read K-major as stored, their fragments one step ahead.
 template <int kSteps>
-__device__ __forceinline__ void transposed_gate_products(
+__device__ __forceinline__ void transposed_gate_products_128(
     const uint8_t* x_big, const uint8_t* x_small, const uint8_t* y_big,
     const uint8_t* y_small, const float* __restrict__ wx,
     const float* __restrict__ wy, int k0, float (&acc_a)[32],
     float (&acc_h)[32]) {
-  constexpr int d3 = 3 * kTcD;
+  constexpr int d3 = 3 * 128;
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int m = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3)
                 + (lane >> 2);
@@ -309,8 +340,10 @@ __device__ __forceinline__ void transposed_gate_products(
     split_a(rx, fxb, fxs);
     split_a(rh, fhb, fhs);
     wgmma_fence();
-    mma3(acc_a, fxb, fxs, step_desc(x_big, ks), step_desc(x_small, ks));
-    mma3(acc_h, fhb, fhs, step_desc(y_big, ks), step_desc(y_small, ks));
+    mma3(acc_a, fxb, fxs, step_desc<64>(x_big, ks),
+         step_desc<64>(x_small, ks));
+    mma3(acc_h, fhb, fhs, step_desc<64>(y_big, ks),
+         step_desc<64>(y_small, ks));
     wgmma_commit();
     if (ks + 1 < kSteps) {
       load_a<true>(rx, wx, d3, m, k0 + 8 * (ks + 1) + t);
@@ -339,50 +372,52 @@ __device__ __forceinline__ void transposed_gate_products(
 //   3. then dpre_n and dhn (kept in registers) into the tiles for the last
 //      128 columns; dagg to memory, dh_out added to.
 __global__ void __launch_bounds__(kTcThreads, 1)
-gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
-                   const float* __restrict__ g, const float* __restrict__ xw,
-                   const float* __restrict__ xb, const float* __restrict__ hw,
-                   const float* __restrict__ hb, float* __restrict__ dxp,
-                   float* __restrict__ dhn, float* __restrict__ dagg,
-                   float* __restrict__ dh_out, int n) {
+gate_bwd_tc128_kernel(const float* __restrict__ h,
+                      const float* __restrict__ agg,
+                      const float* __restrict__ g, const float* __restrict__ xw,
+                      const float* __restrict__ xb,
+                      const float* __restrict__ hw,
+                      const float* __restrict__ hb, float* __restrict__ dxp,
+                      float* __restrict__ dhn, float* __restrict__ dagg,
+                      float* __restrict__ dh_out, int n) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* agg_big = align1024(smem_raw);
-  uint8_t* agg_small = agg_big + kTileBytes;
-  uint8_t* h_big = agg_small + kTileBytes;
-  uint8_t* h_small = h_big + kTileBytes;
-  uint8_t* ring = h_small + kTileBytes;
+  uint8_t* agg_small = agg_big + Tc<128>::TileBytes;
+  uint8_t* h_big = agg_small + Tc<128>::TileBytes;
+  uint8_t* h_small = h_big + Tc<128>::TileBytes;
+  uint8_t* ring = h_small + Tc<128>::TileBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * kWStage);
-  const int row0 = blockIdx.x * kTcRows;
+  const int row0 = blockIdx.x * 64;
   if (threadIdx.x == 0) ring_start(ring, full, xw, hw);
-  load_split_rows(h, row0, n, h_big, h_small);
-  load_split_rows(agg, row0, n, agg_big, agg_small);
+  load_split<64, 128>(h, 128, 0, row0, n, h_big, h_small);
+  load_split<64, 128>(agg, 128, 0, row0, n, agg_big, agg_small);
   fence_proxy_async();
   __syncthreads();
 
-  GateSums s;
-  gate_products_tc(agg_big, agg_small, h_big, h_small, ring, full, xw, hw, s);
+  GateSums<32> s;
+  gate_products_ring(agg_big, agg_small, h_big, h_small, ring, full, xw, hw, s);
   __syncthreads();  // both warpgroups are done with the agg and h tiles
 
   // the first 256 columns of dxp (= of dhp): 8 slices, big then small
   uint8_t* rz_big = agg_big;
-  uint8_t* rz_small = agg_big + 2 * kTileBytes;
-  constexpr int d3 = 3 * kTcD;
+  uint8_t* rz_small = agg_big + 2 * Tc<128>::TileBytes;
+  constexpr int d3 = 3 * 128;
   float pn[2][16], pnr[2][16];  // dpre_n and dhn of this thread's elements
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int col = tile_col(hh);
+    const int col = 64 * (threadIdx.x >> 7) + tile_m() + 8 * hh;
     float hv[16], gv[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = row0 + tile_row(j, e);
-        const size_t o = (size_t)row * kTcD + col;
+        const size_t o = (size_t)row * 128 + col;
         hv[2 * j + e] = row < n ? __ldg(h + o) : 0.f;
         gv[2 * j + e] = row < n ? __ldg(g + o) : 0.f;
       }
-    const float br = xb[col] + hb[col], bz = xb[kTcD + col] + hb[kTcD + col];
-    const float bxn = xb[2 * kTcD + col], chn = hb[2 * kTcD + col];
+    const float br = xb[col] + hb[col], bz = xb[128 + col] + hb[128 + col];
+    const float bxn = xb[2 * 128 + col], chn = hb[2 * 128 + col];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -403,15 +438,15 @@ gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
           dpre_z = dz * zg * (1.f - zg);
           const size_t o3 = (size_t)row * d3 + col;
           dxp[o3] = dpre_r;
-          dxp[o3 + kTcD] = dpre_z;
-          dxp[o3 + 2 * kTcD] = dpre_n;
-          dhn[(size_t)row * kTcD + col] = dpre_n * rg;
-          dh_out[(size_t)row * kTcD + col] = gv[u] * zg;
+          dxp[o3 + 128] = dpre_z;
+          dxp[o3 + 2 * 128] = dpre_n;
+          dhn[(size_t)row * 128 + col] = dpre_n * rg;
+          dh_out[(size_t)row * 128 + col] = gv[u] * zg;
         }
         pn[hh][u] = dpre_n;
         pnr[hh][u] = dpre_n * rg;
         put1(rz_big, rz_small, r, col, dpre_r);
-        put1(rz_big, rz_small, r, kTcD + col, dpre_z);
+        put1(rz_big, rz_small, r, 128 + col, dpre_z);
       }
   }
   fence_proxy_async();
@@ -420,17 +455,17 @@ gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
   float acc_a[32], acc_h[32];
   zero(acc_a);
   zero(acc_h);
-  transposed_gate_products<2 * kTcD / 8>(rz_big, rz_small, rz_big, rz_small,
+  transposed_gate_products_128<2 * 128 / 8>(rz_big, rz_small, rz_big, rz_small,
                                          xw, hw, 0, acc_a, acc_h);
   __syncthreads();  // both warpgroups are done with the first 256 columns
 
   uint8_t* x_big = agg_big;
-  uint8_t* x_small = x_big + kTileBytes;
-  uint8_t* y_big = x_small + kTileBytes;
-  uint8_t* y_small = y_big + kTileBytes;
+  uint8_t* x_small = x_big + Tc<128>::TileBytes;
+  uint8_t* y_big = x_small + Tc<128>::TileBytes;
+  uint8_t* y_small = y_big + Tc<128>::TileBytes;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int col = tile_col(hh);
+    const int col = 64 * (threadIdx.x >> 7) + tile_m() + 8 * hh;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -442,12 +477,12 @@ gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
   }
   fence_proxy_async();
   __syncthreads();
-  transposed_gate_products<kTcD / 8>(x_big, x_small, y_big, y_small, xw,
-                                     hw, 2 * kTcD, acc_a, acc_h);
+  transposed_gate_products_128<128 / 8>(x_big, x_small, y_big, y_small, xw,
+                                     hw, 2 * 128, acc_a, acc_h);
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int col = tile_col(hh);
+    const int col = 64 * (threadIdx.x >> 7) + tile_m() + 8 * hh;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -455,103 +490,327 @@ gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
         const int row = row0 + tile_row(j, e);
         if (row >= n) continue;
         const int i = 4 * j + 2 * hh + e;
-        const size_t o = (size_t)row * kTcD + col;
+        const size_t o = (size_t)row * 128 + col;
         dagg[o] = acc_a[i];
         dh_out[o] += acc_h[i];
       }
   }
 }
 
+// ---- the family widths
+
+// dagg (+)= X @ wx^T and dh (+)= Y @ wy^T over K columns k0 .. k0 + 8 steps
+// of the [D, 3D] gate weights, X and Y the split tiles of the block's R
+// nodes (K-major, column k - k0), for every 64-row output tile o of the
+// warpgroup (tile 2 o + wg, its accumulators acc_*[o]; rows past D read
+// zero weights): the weights read K-major as stored, their fragments one
+// step ahead.
+template <int D>
+__device__ __forceinline__ void load_transposed_frags(
+    float (&rx)[Tc<D>::P][4], float (&rh)[Tc<D>::P][4],
+    const float* __restrict__ wx, const float* __restrict__ wy, int k) {
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int o = 0; o < Tc<D>::P; ++o) {
+    const int m = 64 * (2 * o + wg) + tile_m();
+    if (2 * o + wg < Tc<D>::T && m < D) {
+      load_a<true>(rx[o], wx, 3 * D, m, k);
+      load_a<true>(rh[o], wy, 3 * D, m, k);
+    } else {
+      zero(rx[o]);
+      zero(rh[o]);
+    }
+  }
+}
+
+template <int D, int kSteps>
+__device__ __forceinline__ void transposed_gate_products(
+    const uint8_t* x_big, const uint8_t* x_small, const uint8_t* y_big,
+    const uint8_t* y_small, const float* __restrict__ wx,
+    const float* __restrict__ wy, int k0,
+    float (&acc_a)[Tc<D>::P][Tc<D>::R / 2],
+    float (&acc_h)[Tc<D>::P][Tc<D>::R / 2]) {
+  using S = Tc<D>;
+  constexpr int P = S::P, R = S::R;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 3;
+  float rx[P][4], rh[P][4];
+  load_transposed_frags<D>(rx, rh, wx, wy, k0 + t);
+#pragma unroll 1
+  for (int ks = 0; ks < kSteps; ++ks) {
+    uint32_t fxb[P][4], fxs[P][4], fhb[P][4], fhs[P][4];
+#pragma unroll
+    for (int o = 0; o < P; ++o) {
+      split_a(rx[o], fxb[o], fxs[o]);
+      split_a(rh[o], fhb[o], fhs[o]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int o = 0; o < P; ++o) {
+      if (2 * o + wg >= S::T) continue;  // the warpgroup's: uniform
+      mma3(acc_a[o], fxb[o], fxs[o], step_desc<R>(x_big, ks),
+           step_desc<R>(x_small, ks));
+      mma3(acc_h[o], fhb[o], fhs[o], step_desc<R>(y_big, ks),
+           step_desc<R>(y_small, ks));
+    }
+    wgmma_commit();
+    if (ks + 1 < kSteps)
+      load_transposed_frags<D>(rx, rh, wx, wy, k0 + 8 * (ks + 1) + t);
+    wgmma_wait_all();
+#pragma unroll
+    for (int o = 0; o < P; ++o) {
+      fence_regs(acc_a[o]);
+      fence_regs(acc_h[o]);
+      fence_regs(fxb[o]);
+      fence_regs(fxs[o]);
+      fence_regs(fhb[o]);
+      fence_regs(fhs[o]);
+    }
+  }
+}
+
+// Reverse of one GRU round for R nodes, and the two products with the
+// transposed gate weights that follow it:
+//   1. both 3-gate products recomputed from the banked agg_t and h_t (as
+//      the forward's round computes them, pass by pass, the gate weights'
+//      fragments from L2), then the chain: dxp [n, 3D] and dhn =
+//      dpre_n r [n, D] to memory for the weight gradients (dhp = [dpre_r |
+//      dpre_z | dhn] is dxp but for its last block), g z into dh_out;
+//   2. dpre_r and dpre_z, split into the tiles that held agg and h, are
+//      the first 2D columns of both dxp and dhp: dagg = dxp @ xw^T and
+//      dh_out += dhp @ hw^T over them;
+//   3. then dpre_n and dhn into the tiles for the last D columns; dagg to
+//      memory, dh_out added to.
+// The tiles still hold agg and h for later passes while a pass's chain
+// runs, so the chain's values are read back from dxp and dhn, which this
+// block has just written (through L2).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gate_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ agg,
+                   const float* __restrict__ g, const float* __restrict__ xw,
+                   const float* __restrict__ xb, const float* __restrict__ hw,
+                   const float* __restrict__ hb, float* __restrict__ dxp,
+                   float* __restrict__ dhn, float* __restrict__ dagg,
+                   float* __restrict__ dh_out, int n) {
+  using S = Tc<D>;
+  static_assert(S::P > 1, "width 128 runs gate_bwd_tc128_kernel");
+  constexpr int R = S::R, P = S::P, d3 = 3 * D;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* agg_big = align1024(smem_raw);
+  uint8_t* agg_small = agg_big + S::TileBytes;
+  uint8_t* h_big = agg_small + S::TileBytes;
+  uint8_t* h_small = h_big + S::TileBytes;
+  const int row0 = blockIdx.x * R;
+  const int wg = threadIdx.x >> 7;
+  load_split<R, D>(h, D, 0, row0, n, h_big, h_small);
+  load_split<R, D>(agg, D, 0, row0, n, agg_big, agg_small);
+  fence_proxy_async();
+  __syncthreads();
+
+  // the first 2D columns of dxp (= of dhp): 2D / 32 slices, big then small
+  uint8_t* rz_big = agg_big;
+  uint8_t* rz_small = agg_big + 2 * S::TileBytes;
+#pragma unroll 1
+  for (int p = 0; p < P; ++p) {
+    GateSums<R / 2> s;
+    gate_pass_l2<D>(agg_big, agg_small, h_big, h_small, xw, hw, p, s);
+    const int mt = 2 * p + wg;
+    const int m = 64 * mt + tile_m();
+    if (mt >= S::T || m >= D) continue;  // uniform per warp
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = m + 8 * hh;
+      float hv[R / 4], gv[R / 4];
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + tile_row(j, e);
+          const size_t o = (size_t)row * D + col;
+          hv[2 * j + e] = row < n ? __ldg(h + o) : 0.f;
+          gv[2 * j + e] = row < n ? __ldg(g + o) : 0.f;
+        }
+      const float br = xb[col] + hb[col], bz = xb[D + col] + hb[D + col];
+      const float bxn = xb[2 * D + col], chn = hb[2 * D + col];
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = tile_row(j, e), row = row0 + r;
+          const int i = 4 * j + 2 * hh + e, u = 2 * j + e;
+          float dpre_r = 0.f, dpre_z = 0.f, dpre_n = 0.f, rg = 0.f;
+          if (row < n) {
+            rg = sigmoid_fast(s.r[i] + br);
+            const float zg = sigmoid_fast(s.z[i] + bz);
+            const float hn = s.hn[i] + chn;
+            const float ng = tanh_fast(s.xn[i] + bxn + rg * hn);
+            const float dz = gv[u] * (hv[u] - ng);
+            const float dn = gv[u] * (1.f - zg);
+            dpre_n = dn * (1.f - ng * ng);
+            const float dr = dpre_n * hn;
+            dpre_r = dr * rg * (1.f - rg);
+            dpre_z = dz * zg * (1.f - zg);
+            const size_t o3 = (size_t)row * d3 + col;
+            dxp[o3] = dpre_r;
+            dxp[o3 + D] = dpre_z;
+            dxp[o3 + 2 * D] = dpre_n;
+            dhn[(size_t)row * D + col] = dpre_n * rg;
+            dh_out[(size_t)row * D + col] = gv[u] * zg;
+          }
+        }
+    }
+  }
+  // every pass's rows of dxp are in memory, and both warpgroups are done
+  // with the agg and h tiles
+  __syncthreads();
+  load_split<R, 2 * D, true>(dxp, d3, 0, row0, n, rz_big, rz_small);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc_a[P][R / 2], acc_h[P][R / 2];
+#pragma unroll
+  for (int o = 0; o < P; ++o) {
+    zero(acc_a[o]);
+    zero(acc_h[o]);
+  }
+  transposed_gate_products<D, 2 * D / 8>(rz_big, rz_small, rz_big, rz_small,
+                                         xw, hw, 0, acc_a, acc_h);
+  __syncthreads();  // both warpgroups are done with the first 2D columns
+
+  uint8_t* x_big = agg_big;
+  uint8_t* x_small = x_big + S::TileBytes;
+  uint8_t* y_big = x_small + S::TileBytes;
+  uint8_t* y_small = y_big + S::TileBytes;
+  load_split<R, D, true>(dxp, d3, 2 * D, row0, n, x_big, x_small);
+  load_split<R, D, true>(dhn, D, 0, row0, n, y_big, y_small);
+  fence_proxy_async();
+  __syncthreads();
+  transposed_gate_products<D, D / 8>(x_big, x_small, y_big, y_small, xw, hw,
+                                     2 * D, acc_a, acc_h);
+
+#pragma unroll
+  for (int o = 0; o < P; ++o) {
+    const int m = 64 * (2 * o + wg) + tile_m();
+    if (2 * o + wg >= S::T || m >= D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = m + 8 * hh;
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + tile_row(j, e);
+          if (row >= n) continue;
+          const int i = 4 * j + 2 * hh + e;
+          const size_t off = (size_t)row * D + col;
+          dagg[off] = acc_a[o][i];
+          dh_out[off] += acc_h[o][i];
+        }
+    }
+  }
+}
+
 // dmsg[s] = sum of dagg[receiver] over the edges leaving s, in edge-list
 // order (the forward's edge sum over the CSC index, runs in closed form),
-// for 64 senders; then dh += dmsg @ ew^T on `wgmma`.
+// for R senders; then dh += dmsg @ ew^T on `wgmma`, tile by tile.
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 tsum_tc_kernel(const float* __restrict__ dagg, const int* __restrict__ csc_ptr,
                const int* __restrict__ csc_rcv,
                const uint32_t* __restrict__ heads, const float* __restrict__ ew,
                float* __restrict__ dmsg, float* __restrict__ dh, int n) {
+  using S = Tc<D>;
+  constexpr int R = S::R, NV = S::NV, Q = D / 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* big = align1024(smem_raw);
-  uint8_t* small = big + kTileBytes;
-  const int row0 = blockIdx.x * kTcRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  uint8_t* small = big + S::TileBytes;
+  const int row0 = blockIdx.x * R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bnd = bounds(csc_ptr, row0, n, warp, lane);
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < R / 8; ++i) {
     const int rr = warp + 8 * i, row = row0 + rr;
     const int beg = __shfl_sync(0xffffffffu, bnd, i);
     const int end = __shfl_sync(0xffffffffu, bnd, 8 + i);
-    const float4 v = segment_sum(dagg, csc_rcv, heads, beg, end, lane);
-    put4(big, small, xt_off(rr, 4 * lane), v);
-    if (row < n)
-      *reinterpret_cast<float4*>(dmsg + (size_t)row * kTcD + 4 * lane) = v;
+    float4 v[NV];
+    segment_sum<D>(dagg, csc_rcv, heads, beg, end, lane, v);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int q = lane + 32 * c;
+      if (q >= Q) continue;
+      put4(big, small, xt_off<R>(rr, 4 * q), v[c]);
+      if (row < n)
+        *reinterpret_cast<float4*>(dmsg + (size_t)row * D + 4 * q) = v[c];
+    }
   }
   fence_proxy_async();
   __syncthreads();
 
-  const int m = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3)
-                + (lane >> 2);
-  float acc[32];
-  zero(acc);
-  float raw[4];
-  load_a<true>(raw, ew, kTcD, m, t);
+  const int wg = threadIdx.x >> 7;
 #pragma unroll 1
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    uint32_t fb[4], fs[4];
-    split_a(raw, fb, fs);
-    wgmma_fence();
-    mma3(acc, fb, fs, step_desc(big, ks), step_desc(small, ks));
-    wgmma_commit();
-    if (ks + 1 < kKSteps) load_a<true>(raw, ew, kTcD, m, 8 * (ks + 1) + t);
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(fb);
-    fence_regs(fs);
-  }
+  for (int p = 0; p < S::P; ++p) {
+    const int mt = 2 * p + wg;
+    if (mt >= S::T) continue;  // the warpgroup's: uniform
+    const int m = 64 * mt + tile_m();
+    const bool live = m < D;
+    float acc[R / 2];
+    zero(acc);
+    product_l2<true, R>(acc, ew, D, m, 0, live, big, small, 0, S::KS);
+    if (!live) continue;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int col = tile_col(hh);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = m + 8 * hh;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < R / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int row = row0 + tile_row(j, e);
-        if (row < n) dh[(size_t)row * kTcD + col] += acc[4 * j + 2 * hh + e];
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + tile_row(j, e);
+          if (row < n) dh[(size_t)row * D + col] += acc[4 * j + 2 * hh + e];
+        }
+    }
   }
 }
 
 // Block (chunk, tile): the chunk's kWRows nodes' contribution to one
-// 128 x 128 tile (all 128 rows i, 128 columns from j0) of one product
-// C_k = a_k^T b_k, contracted over the nodes in slices of 32 on `wgmma`,
-// and the column sums of b_k over the chunk; added to (or, in the first
-// reverse round, written into) the chunk's slot of the partial buffer, as
-// the FFMA variant's wgrad_kernel does. The contraction runs over the node
-// axis, along which both operands are rows, so b's slice is transposed on
-// its way into the swizzled tile (thread (warp w, lane l) holds nodes
-// 4w .. 4w + 3 by columns 4l .. 4l + 3 and stores each column's four nodes
-// as one 16-byte chunk, in a rotated column order that keeps the eight
-// lanes of a store phase on eight distinct chunks); a's fragments load
-// transposed into registers. Tiles 0-2: agg^T dxp, 3-5: h^T dhp, 6: h^T dmsg;
-// dhp's first 256 columns are dxp's, so tiles 3-4 read dxp and tile 5 reads
-// dhn = dpre_n r ([n, 128], p.b[1]).
+// tile of 128 rows i (from 128 ib) by 128 columns j (from c0 in one gate)
+// of one product C_k = a_k^T b_k, contracted over the nodes in slices of
+// 32 on `wgmma`, and the column sums of b_k over the chunk; added to (or,
+// in the first reverse round, written into) the chunk's slot of the
+// partial buffer, as the FFMA variant's wgrad_kernel does. The contraction
+// runs over the node axis, along which both operands are rows, so b's
+// slice is transposed on its way into the swizzled tile (thread (warp w,
+// lane l) holds nodes 4w .. 4w + 3 by columns 4l .. 4l + 3 and stores each
+// column's four nodes as one 16-byte chunk, in a rotated column order that
+// keeps the eight lanes of a store phase on eight distinct chunks); a's
+// fragments load transposed into registers. Per row block, gates 0-2 of
+// agg^T dxp, 3-5 of h^T dhp, 6 of h^T dmsg, JB column blocks each; dhp's
+// first 2D columns are dxp's, so gates 3-4 read dxp and gate 5 reads dhn
+// = dpre_n r ([n, D], p.b[1]). Rows and columns past D are zero and not
+// stored; the bias sums are written by the first row block's tiles.
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 wgrad_tc_kernel(WgradProducts p, float* __restrict__ part, int ld, int n,
                 int accumulate) {
+  constexpr int JB = kWgradBlocks<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   __shared__ float cs[8][128];
-  const int tile = blockIdx.y;
-  const int k = tile < 3 ? 0 : (tile < 6 ? 1 : 2);
-  const int j0 = 128 * (tile - (k == 0 ? 0 : (k == 1 ? 3 : 6)));
+  const int ib = blockIdx.y / (7 * JB), u = blockIdx.y - ib * 7 * JB;
+  const int k = u < 3 * JB ? 0 : (u < 6 * JB ? 1 : 2);
+  const int blk = u - (k == 0 ? 0 : (k == 1 ? 3 * JB : 6 * JB));
+  const int gate = blk / JB, c0 = 128 * (blk - gate * JB);
+  const int j0 = gate * D + c0;  // the tile's first column of C_k
   const float* __restrict__ a = p.a[k];
   const int db = p.db[k];  // the product's width
   // where b's columns j0 .. j0 + 127 lie: a row stride and a first column
-  const bool from_dxp = k == 1 && j0 < 2 * kTcD;
-  const float* __restrict__ b = from_dxp ? p.b[0] : p.b[k];
-  const int ldb = k == 2 ? kTcD : (k == 1 && !from_dxp ? kTcD : 3 * kTcD);
-  const int bcol = k == 1 && !from_dxp ? j0 - 2 * kTcD : j0;
+  const bool narrow = k == 2 || (k == 1 && gate == 2);  // dmsg, or dhn
+  const float* __restrict__ b = k == 2 ? p.b[2] : (narrow ? p.b[1] : p.b[0]);
+  const int ldb = narrow ? D : 3 * D;
+  const int bcol = narrow ? c0 : j0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = lane & 3;
-  const int m = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const int wg = tid >> 7;
+  const int m = 128 * ib + 64 * wg + tile_m();  // the row i of C_k
+  const bool tile = 128 * ib + 64 * wg < D;     // the warpgroup's: uniform
+  const bool live = m < D;
+  const bool cols = c0 + 4 * lane < D;
   const int r_beg = blockIdx.x * kWRows;
   const int r_end = min(n, r_beg + kWRows);
   const int nk = (r_end - r_beg + 31) >> 5;
@@ -562,18 +821,20 @@ wgrad_tc_kernel(WgradProducts p, float* __restrict__ part, int ld, int n,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int row = r_beg + 32 * kc + 4 * warp + q;
-      dst[q] = row < r_end ? ld4(b + (size_t)row * ldb + bcol + 4 * lane)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[q] = cols && row < r_end
+                   ? ld4(b + (size_t)row * ldb + bcol + 4 * lane)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
   // A[i][node] = a[node][i]: rows m, m + 8, nodes node0 + t, node0 + t + 4;
   // a whole slice's (4 k8 steps) loaded a slice ahead
   auto load_a_nodes = [&](int node0, float (&raw)[4]) {
     const int n0 = node0 + t, n1 = node0 + t + 4;
-    raw[0] = n0 < r_end ? __ldg(a + (size_t)n0 * kTcD + m) : 0.f;
-    raw[1] = n0 < r_end ? __ldg(a + (size_t)n0 * kTcD + m + 8) : 0.f;
-    raw[2] = n1 < r_end ? __ldg(a + (size_t)n1 * kTcD + m) : 0.f;
-    raw[3] = n1 < r_end ? __ldg(a + (size_t)n1 * kTcD + m + 8) : 0.f;
+    const bool l0 = live && n0 < r_end, l1 = live && n1 < r_end;
+    raw[0] = l0 ? __ldg(a + (size_t)n0 * D + m) : 0.f;
+    raw[1] = l0 ? __ldg(a + (size_t)n0 * D + m + 8) : 0.f;
+    raw[2] = l1 ? __ldg(a + (size_t)n1 * D + m) : 0.f;
+    raw[3] = l1 ? __ldg(a + (size_t)n1 * D + m + 8) : 0.f;
   };
   float ra[4][4], na[4][4];
   float acc[64];
@@ -612,21 +873,24 @@ wgrad_tc_kernel(WgradProducts p, float* __restrict__ part, int ld, int n,
       for (int s = 0; s < 4; ++s)
         load_a_nodes(r_beg + 32 * (kc + 1) + 8 * s, na[s]);
     }
-    const uint64_t bbd = sw128_desc(big), bsd = sw128_desc(small);
-    // the slice's four k8 steps: 12 wgmmas between waits
-    uint32_t fb[4][4], fs[4][4];
+    if (tile) {
+      const uint64_t bbd = sw128_desc(big), bsd = sw128_desc(small);
+      // the slice's four k8 steps: 12 wgmmas between waits
+      uint32_t fb[4][4], fs[4][4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) split_a(ra[s], fb[s], fs[s]);
-    wgmma_fence();
+      for (int s = 0; s < 4; ++s) split_a(ra[s], fb[s], fs[s]);
+      wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 4; ++s) mma3(acc, fb[s], fs[s], bbd + 2 * s, bsd + 2 * s);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
+      for (int s = 0; s < 4; ++s)
+        mma3(acc, fb[s], fs[s], bbd + 2 * s, bsd + 2 * s);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      fence_regs(fb[s]);
-      fence_regs(fs[s]);
+      for (int s = 0; s < 4; ++s) {
+        fence_regs(fb[s]);
+        fence_regs(fs[s]);
+      }
     }
 #pragma unroll
     for (int s = 0; s < 4; ++s)
@@ -634,26 +898,28 @@ wgrad_tc_kernel(WgradProducts p, float* __restrict__ part, int ld, int n,
       for (int i = 0; i < 4; ++i) ra[s][i] = na[s][i];
   }
   float* out = part + (size_t)blockIdx.x * ld;
-  const int gl = lane >> 2;
+  if (live) {
 #pragma unroll
-  for (int jj = 0; jj < 16; ++jj)
+    for (int jj = 0; jj < 16; ++jj)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int i = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + gl + 8 * hh;
-      const int j = j0 + 8 * jj + 2 * t;
-      const size_t o = (size_t)p.w_off[k] + (size_t)i * db + j;
-      float2 v = make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
-      if (accumulate) {
-        const float2 w = *reinterpret_cast<const float2*>(out + o);
-        v.x += w.x;
-        v.y += w.y;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = m + 8 * hh;
+        const int jl = 8 * jj + 2 * t;
+        if (c0 + jl >= D) continue;
+        const size_t o = (size_t)p.w_off[k] + (size_t)i * db + j0 + jl;
+        float2 v = make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+        if (accumulate) {
+          const float2 w = *reinterpret_cast<const float2*>(out + o);
+          v.x += w.x;
+          v.y += w.y;
+        }
+        *reinterpret_cast<float2*>(out + o) = v;
       }
-      *reinterpret_cast<float2*>(out + o) = v;
-    }
+  }
 #pragma unroll
   for (int c = 0; c < 4; ++c) cs[warp][4 * lane + c] = colsum[c];
   __syncthreads();
-  if (tid < 128) {
+  if (ib == 0 && tid < 128 && c0 + tid < D) {
     float sum = 0.f;
     for (int w = 0; w < 8; ++w) sum += cs[w][tid];
     const size_t o = (size_t)p.b_off[k] + j0 + tid;
@@ -761,7 +1027,7 @@ int ggnn_bwd_max_width(void) {
   return lin < gate ? lin : gate;
 }
 
-// ---- the tensor-core variant (width 128)
+// ---- the tensor-core variant (widths 128, 192, 224, 288: with_width)
 
 // The CSC row pointer from the sender-sorted senders and the change
 // bitmask of the receivers in that order (ceil(n_edges / 1024) words, at
@@ -773,60 +1039,75 @@ int ggnn_bwd_tc_prep(const int* sorted_senders, const int* csc_rcv,
                         heads, (cudaStream_t)stream);
 }
 
-// The reverse round's gate kernel: dxp [n, 384], dhn = dpre_n r [n, 128],
-// dagg = dxp @ xw^T, and dh_out = g z + dhp @ hw^T.
+// The reverse round's gate kernel at width d: dxp [n, 3d], dhn = dpre_n r
+// [n, d], dagg = dxp @ xw^T, and dh_out = g z + dhp @ hw^T.
 int ggnn_bwd_tc_gate(const float* h, const float* agg, const float* g,
                      const float* xw, const float* xb, const float* hw,
                      const float* hb, float* dxp, float* dhn, float* dagg,
-                     float* dh_out, int n, void* stream) {
-  static bool sized = false;
-  const cudaError_t err = allow_smem_once(gate_bwd_tc_kernel, kGateSmem,
-                                          sized);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  gate_bwd_tc_kernel<<<(n + kTcRows - 1) / kTcRows, kTcThreads, kGateSmem,
-                       (cudaStream_t)stream>>>(h, agg, g, xw, xb, hw, hb, dxp,
-                                               dhn, dagg, dh_out, n);
-  return (int)cudaGetLastError();
+                     float* dh_out, int n, int d, void* stream) {
+  return with_width(d, [&](auto width) {
+    constexpr int D = decltype(width)::value, smem = gate_tc_smem<D>();
+    const auto kernel = [] {
+      if constexpr (D == 128) return gate_bwd_tc128_kernel;
+      else return gate_bwd_tc_kernel<D>;
+    }();
+    static bool sized = false;
+    const cudaError_t err = allow_smem_once(kernel, smem, sized);
+    if (err != cudaSuccess) return (int)err;
+    if (n == 0) return 0;
+    kernel<<<(n + Tc<D>::R - 1) / Tc<D>::R, kTcThreads, smem,
+             (cudaStream_t)stream>>>(h, agg, g, xw, xb, hw, hb, dxp, dhn,
+                                     dagg, dh_out, n);
+    return (int)cudaGetLastError();
+  });
 }
 
-// dmsg = the transposed edge sum of dagg, dh += dmsg @ ew^T
+// dmsg = the transposed edge sum of dagg, dh += dmsg @ ew^T, at width d
 int ggnn_bwd_tc_tsum(const float* dagg, const int* csc_ptr,
                      const int* csc_rcv, const unsigned int* heads,
-                     const float* ew, float* dmsg, float* dh, int n,
+                     const float* ew, float* dmsg, float* dh, int n, int d,
                      void* stream) {
-  static bool sized = false;
-  const cudaError_t err = allow_smem_once(tsum_tc_kernel, kTsumSmem, sized);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  tsum_tc_kernel<<<(n + kTcRows - 1) / kTcRows, kTcThreads, kTsumSmem,
-                   (cudaStream_t)stream>>>(dagg, csc_ptr, csc_rcv, heads, ew,
-                                           dmsg, dh, n);
-  return (int)cudaGetLastError();
+  return with_width(d, [&](auto width) {
+    constexpr int D = decltype(width)::value, smem = tsum_tc_smem<D>();
+    static bool sized = false;
+    const cudaError_t err = allow_smem_once(tsum_tc_kernel<D>, smem, sized);
+    if (err != cudaSuccess) return (int)err;
+    if (n == 0) return 0;
+    tsum_tc_kernel<D><<<(n + Tc<D>::R - 1) / Tc<D>::R, kTcThreads, smem,
+                        (cudaStream_t)stream>>>(dagg, csc_ptr, csc_rcv, heads,
+                                                ew, dmsg, dh, n);
+    return (int)cudaGetLastError();
+  });
 }
 
-// The weight and bias gradients of one reverse round into the partial
-// buffer, as ggnn_bwd_wgrad lays it out (dhp's last 128 columns as dhn).
+// The weight and bias gradients of one reverse round at width d into the
+// partial buffer, as ggnn_bwd_wgrad lays it out (dhp's last d columns as
+// dhn).
 int ggnn_bwd_tc_wgrad(const float* agg, const float* dxp, const float* h,
                       const float* dhn, const float* dmsg, float* part, int n,
-                      int accumulate, void* stream) {
-  static bool sized = false;
-  const cudaError_t err = allow_smem_once(wgrad_tc_kernel, kWgradSmem, sized);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  WgradProducts p;
-  int ld;
-  partial_layout(kTcD, p.db, p.w_off, p.b_off, &ld);
-  p.a[0] = agg;
-  p.b[0] = dxp;
-  p.a[1] = h;
-  p.b[1] = dhn;
-  p.a[2] = h;
-  p.b[2] = dmsg;
-  dim3 grid(ggnn_bwd_chunks(n), 7);
-  wgrad_tc_kernel<<<grid, kTcThreads, kWgradSmem, (cudaStream_t)stream>>>(
-      p, part, ld, n, accumulate);
-  return (int)cudaGetLastError();
+                      int d, int accumulate, void* stream) {
+  return with_width(d, [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    static bool sized = false;
+    const cudaError_t err = allow_smem_once(wgrad_tc_kernel<D>, kWgradSmem,
+                                            sized);
+    if (err != cudaSuccess) return (int)err;
+    if (n == 0) return 0;
+    WgradProducts p;
+    int ld;
+    partial_layout(D, p.db, p.w_off, p.b_off, &ld);
+    p.a[0] = agg;
+    p.b[0] = dxp;
+    p.a[1] = h;
+    p.b[1] = dhn;
+    p.a[2] = h;
+    p.b[2] = dmsg;
+    constexpr int B = kWgradBlocks<D>;
+    dim3 grid(ggnn_bwd_chunks(n), B * 7 * B);
+    wgrad_tc_kernel<D><<<grid, kTcThreads, kWgradSmem,
+                         (cudaStream_t)stream>>>(p, part, ld, n, accumulate);
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* ggnn_error_string(int code) {

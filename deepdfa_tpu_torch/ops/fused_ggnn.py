@@ -27,11 +27,12 @@ implementations are the two above, so ``torch.export`` records B1 as one
 node.
 
 Both directions have two variants, chosen by :func:`variant` from the
-width: ``"wgmma"`` (width 128 after padding to a multiple of 4, the golden
-width and every bucket of the main paths: 3xTF32 products on the tensor
-cores, the edge sum with runs of one sender in closed form) and ``"ffma"``
-(any other width: float32 FFMA products, the serial edge sum). Both sum
-every edge segment in edge-list order, bit for bit the serial float32 sum.
+width: ``"wgmma"`` (a width that, padded to a multiple of 4, is one of
+:data:`TC_WIDTHS`: the golden width 128 and the analysis families' 192,
+224 and 288; 3xTF32 products on the tensor cores, the edge sum with runs
+of one sender in closed form) and ``"ffma"`` (any other width: float32
+FFMA products, the serial edge sum). Both sum every edge segment in
+edge-list order, bit for bit the serial float32 sum.
 
 Each CUDA call reports its FLOPs to an active ``FlopCounterMode``
 (:mod:`.flops`).
@@ -50,7 +51,7 @@ import torch
 
 from deepdfa_tpu_torch.ops import _build, custom_ops, flops
 
-__all__ = ["BWD_KERNELS", "TC_WIDTH", "VARIANTS", "bwd_launches_per_call",
+__all__ = ["BWD_KERNELS", "TC_WIDTHS", "VARIANTS", "bwd_launches_per_call",
            "forward_cuda", "fused_ggnn", "fused_ggnn_backward_reference",
            "fused_ggnn_reference", "heads_words", "launches_per_call",
            "n_bwd_launches", "n_bwd_variant_launches", "n_launches",
@@ -63,8 +64,10 @@ n_launches = 0
 n_bwd_launches = 0
 n_variant_launches = dict.fromkeys(VARIANTS, 0)
 n_bwd_variant_launches = dict.fromkeys(VARIANTS, 0)
-# the one width the tensor-core variant takes (csrc/ggnn_tc.cuh kTcD)
-TC_WIDTH = 128
+# the widths the tensor-core variant has instances for (csrc/ggnn_tc.cuh
+# with_width): the golden model's, and the subkeys with the two
+# interprocedural, the three dataflow, or all five analysis families
+TC_WIDTHS = (128, 192, 224, 288)
 
 # Values of the ``bwd_kernel`` option (the JAX package's backward tiers).
 # On the card "auto" and "pallas" select the backward kernel and "xla"
@@ -86,9 +89,9 @@ def _kernels() -> ctypes.CDLL:
         lib.ggnn_csr.argtypes = [_P, _I, _I, _P, _P]
         lib.ggnn_linear.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.ggnn_gru_round.argtypes = [_P] * 10 + [_I, _I, _P]
-        lib.ggnn_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
-        lib.ggnn_tc_linear.argtypes = [_P] * 8 + [_I, _P]
-        lib.ggnn_tc_round.argtypes = [_P] * 12 + [_I, _P]
+        lib.ggnn_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P]
+        lib.ggnn_tc_linear.argtypes = [_P] * 8 + [_I, _I, _P]
+        lib.ggnn_tc_round.argtypes = [_P] * 12 + [_I, _I, _P]
         for fn in (lib.ggnn_csr, lib.ggnn_linear, lib.ggnn_gru_round,
                    lib.ggnn_tc_prep, lib.ggnn_tc_linear, lib.ggnn_tc_round):
             fn.restype = _I
@@ -112,9 +115,9 @@ def _bwd_kernels() -> ctypes.CDLL:
         lib.ggnn_bwd_wgrad.argtypes = [_P] * 6 + [_I, _I, _I, _P]
         lib.ggnn_bwd_reduce.argtypes = [_P, _I, _I, _P, _P]
         lib.ggnn_bwd_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
-        lib.ggnn_bwd_tc_gate.argtypes = [_P] * 11 + [_I, _P]
-        lib.ggnn_bwd_tc_tsum.argtypes = [_P] * 7 + [_I, _P]
-        lib.ggnn_bwd_tc_wgrad.argtypes = [_P] * 6 + [_I, _I, _P]
+        lib.ggnn_bwd_tc_gate.argtypes = [_P] * 11 + [_I, _I, _P]
+        lib.ggnn_bwd_tc_tsum.argtypes = [_P] * 7 + [_I, _I, _P]
+        lib.ggnn_bwd_tc_wgrad.argtypes = [_P] * 6 + [_I, _I, _I, _P]
         for fn in (lib.ggnn_bwd_csc, lib.ggnn_bwd_gate, lib.ggnn_bwd_linear,
                    lib.ggnn_bwd_transpose_sum, lib.ggnn_bwd_wgrad,
                    lib.ggnn_bwd_reduce, lib.ggnn_bwd_tc_prep,
@@ -135,10 +138,10 @@ def _bwd_kernels() -> ctypes.CDLL:
 
 def variant(width: int) -> str:
     """The variant of B1 and B2 that takes a call of node width ``width``:
-    ``"wgmma"`` when the width padded to a multiple of 4 is
-    :data:`TC_WIDTH` (the tensor-core kernels are written for it), else
-    ``"ffma"``."""
-    return "wgmma" if -(-width // 4) * 4 == TC_WIDTH else "ffma"
+    ``"wgmma"`` when the width padded to a multiple of 4 is one of
+    :data:`TC_WIDTHS` (the tensor-core kernels have an instance for it),
+    else ``"ffma"``."""
+    return "wgmma" if -(-width // 4) * 4 in TC_WIDTHS else "ffma"
 
 
 def launches_per_call(n_steps: int) -> int:
@@ -340,9 +343,9 @@ def _check_kind(p: _Prepared, kind: str | None) -> str:
     kind = kind or p.variant
     if kind not in VARIANTS:
         raise ValueError(f"unknown variant {kind!r}")
-    if kind == "wgmma" and p.dp != TC_WIDTH:
-        raise ValueError(f"fused_ggnn: the wgmma variant takes width "
-                         f"{TC_WIDTH}, not {p.dp}")
+    if kind == "wgmma" and p.dp not in TC_WIDTHS:
+        raise ValueError(f"fused_ggnn: the wgmma variant takes widths "
+                         f"{TC_WIDTHS}, not {p.dp}")
     return kind
 
 
@@ -379,7 +382,7 @@ def _forward_cuda(p: _Prepared, n_steps: int, bank: bool,
         # the padding sink's row, found by each round's edge linear
         flags = torch.empty(n, dtype=torch.int32, device=dev)
         run("tc_prep", lib.ggnn_tc_prep, p.rcv.data_ptr(), p.snd.data_ptr(),
-            p.e, n, row_ptr.data_ptr(), heads.data_ptr())
+            p.e, n, row_ptr.data_ptr(), heads.data_ptr(), dp)
     else:
         run("csr", lib.ggnn_csr, p.rcv.data_ptr(), p.e, n, row_ptr.data_ptr())
     cur = p.h
@@ -389,10 +392,10 @@ def _forward_cuda(p: _Prepared, n_steps: int, bank: bool,
         if kind == "wgmma":
             run("tc_linear", lib.ggnn_tc_linear, cur.data_ptr(), w[0], w[1],
                 row_ptr.data_ptr(), p.snd.data_ptr(), heads.data_ptr(),
-                flags.data_ptr(), msg.data_ptr(), n)
+                flags.data_ptr(), msg.data_ptr(), n, dp)
             run("tc_round", lib.ggnn_tc_round, cur.data_ptr(), msg.data_ptr(),
                 row_ptr.data_ptr(), p.snd.data_ptr(), heads.data_ptr(),
-                flags.data_ptr(), *w[2:], nxt.data_ptr(), agg, n)
+                flags.data_ptr(), *w[2:], nxt.data_ptr(), agg, n, dp)
         else:
             run("linear", lib.ggnn_linear, cur.data_ptr(), w[0], w[1],
                 msg.data_ptr(), n, dp, dp)
@@ -453,11 +456,11 @@ def _backward_cuda(p: _Prepared, states, aggs, g: torch.Tensor,
                  part.data_ptr(), n)
         if kind == "wgmma":
             run("tc_gate", lib.ggnn_bwd_tc_gate, *gate, dagg.data_ptr(),
-                dh_next.data_ptr(), n)
+                dh_next.data_ptr(), n, dp)
             run("tc_tsum", lib.ggnn_bwd_tc_tsum, dagg.data_ptr(),
                 csc_ptr.data_ptr(), csc_rcv.data_ptr(), heads.data_ptr(), ew,
-                dmsg.data_ptr(), dh_next.data_ptr(), n)
-            run("tc_wgrad", lib.ggnn_bwd_tc_wgrad, *wgrad, int(i > 0))
+                dmsg.data_ptr(), dh_next.data_ptr(), n, dp)
+            run("tc_wgrad", lib.ggnn_bwd_tc_wgrad, *wgrad, dp, int(i > 0))
         else:
             run("gate_bwd", lib.ggnn_bwd_gate, *gate, dh_next.data_ptr(), n,
                 dp)

@@ -13,7 +13,8 @@ The port of ``deepdfa_tpu/ops/megabatch.py``:
   launches the hand-written kernels of ``csrc/megabatch.cu`` (kernel B3,
   built for ``sm_90a`` at first use: an embedding gather, two row-pointer
   builds, B1's two launches per round on B1's variant for the width (the
-  tensor-core ``"wgmma"`` one at width 128) and one pooling + head launch)
+  tensor-core ``"wgmma"`` one at ``fused_ggnn.TC_WIDTHS``) and one
+  pooling + head launch)
   or raises; on CPU tensors it runs :func:`megabatch_reference`, the same
   math in plain torch. ``n_launches`` counts the CUDA launches
   (:func:`launches_per_call` per call), ``n_variant_launches`` them by
@@ -84,9 +85,9 @@ def _kernels() -> ctypes.CDLL:
         lib.mb_linear.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.mb_gru_round.argtypes = [_P] * 9 + [_I, _I, _P]
         lib.mb_pool_head.argtypes = [_P] * 7 + [_I, _P, _P, _P, _I, _I, _P]
-        lib.mb_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _P]
-        lib.mb_tc_linear.argtypes = [_P] * 8 + [_I, _P]
-        lib.mb_tc_round.argtypes = [_P] * 11 + [_I, _P]
+        lib.mb_tc_prep.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P]
+        lib.mb_tc_linear.argtypes = [_P] * 8 + [_I, _I, _P]
+        lib.mb_tc_round.argtypes = [_P] * 11 + [_I, _I, _P]
         for fn in (lib.mb_embed, lib.mb_csr, lib.mb_linear, lib.mb_gru_round,
                    lib.mb_pool_head, lib.mb_tc_prep, lib.mb_tc_linear,
                    lib.mb_tc_round):
@@ -415,7 +416,7 @@ def _launch(p: _Prepared, kind: str | None = None) -> torch.Tensor:
     """B3's launches for a prepared call: ``[n_graphs]`` logits (the
     buffer's rows of the last layer's width in general). The rounds take
     B1's variant for the width (``fused_ggnn.variant``) unless ``kind``
-    names the other; ``"wgmma"`` takes width 128 only."""
+    names the other; ``"wgmma"`` takes ``fused_ggnn.TC_WIDTHS`` only."""
     flops.count(flops.megabatch_flops(p.n, p.d, p.n_steps, p.g, p.dims),
                 p.table)
     lib = _kernels()
@@ -440,7 +441,7 @@ def _launch(p: _Prepared, kind: str | None = None) -> torch.Tensor:
     flags = buf["flags"].data_ptr()
     if kind == "wgmma":
         run("tc_prep", lib.mb_tc_prep, buf["receivers"].data_ptr(), senders,
-            p.e, n, row_ptr.data_ptr(), heads)
+            p.e, n, row_ptr.data_ptr(), heads, d)
     else:
         run("csr", lib.mb_csr, buf["receivers"].data_ptr(), p.e, n,
             row_ptr.data_ptr())
@@ -452,10 +453,10 @@ def _launch(p: _Prepared, kind: str | None = None) -> torch.Tensor:
         nxt = spare[t % 2]
         if kind == "wgmma":
             run("tc_linear", lib.mb_tc_linear, cur.data_ptr(), ew, eb,
-                row_ptr.data_ptr(), senders, heads, flags, msg, n)
+                row_ptr.data_ptr(), senders, heads, flags, msg, n, d)
             run("tc_round", lib.mb_tc_round, cur.data_ptr(), msg,
                 row_ptr.data_ptr(), senders, heads, flags, xw, xb, hw, hb,
-                nxt.data_ptr(), n)
+                nxt.data_ptr(), n, d)
         else:
             run("linear", lib.mb_linear, cur.data_ptr(), ew, eb, msg, n, d, d)
             run("gru_round", lib.mb_gru_round, cur.data_ptr(), msg,

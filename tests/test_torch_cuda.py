@@ -7,9 +7,9 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
 Tolerance: atol=rtol=1e-4 — the kernels' float32 sums (3xTF32 on the
-tensor cores at width 128, FFMA elsewhere) against cuBLAS, and float
-atomics in the plain version's ``index_add_``; the attention and bf16 int8
-tests state their own.
+tensor cores at widths 128, 192, 224 and 288, FFMA elsewhere) against
+cuBLAS, and float atomics in the plain version's ``index_add_``; the
+attention and bf16 int8 tests state their own.
 """
 
 import numpy as np
@@ -194,17 +194,13 @@ def test_tensor_core_kernel_matches_plain_version(cuda, n, e, sink):
     assert torch.equal(got[n - 1], ffma[n - 1])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,e,sink", TC_SHAPES[:1] + TC_SHAPES[2:3])
-def test_tensor_core_edge_sum_is_the_serial_sum(cuda, n, e, sink):
-    """Both round kernels bank the aggregates of one round's messages: the
-    tensor-core variant's (runs in closed form, the sink's segment summed
-    by the whole block) equal the FFMA variant's serial sums bitwise."""
-    args = _padded_problem(np.random.default_rng(n + 1), n, e, sink)
-    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 1024)
+def _edge_sum_banks(p):
+    """Both round kernels bank the aggregates of one round's messages of
+    the prepared call ``p`` (direct launches at its width): returns the
+    tensor-core edge linear's padding-sink flags, the tensor-core bank and
+    the FFMA bank."""
+    n, d = p.n, p.dp
     msg = p.h @ p.ew + p.eb
-    want = torch.zeros_like(msg).index_add_(0, p.rcv.long(),
-                                            msg[p.snd.long()])
     lib = tfg._kernels()
     stream = torch.cuda.current_stream().cuda_stream
     banks = []
@@ -218,19 +214,18 @@ def test_tensor_core_edge_sum_is_the_serial_sum(cuda, n, e, sink):
             flags = torch.empty(n, dtype=torch.int32, device="cuda")
             assert lib.ggnn_tc_prep(p.rcv.data_ptr(), p.snd.data_ptr(), p.e,
                                     n, row_ptr.data_ptr(), heads.data_ptr(),
-                                    stream) == 0
-            # the edge linear flags the padding sink's row, and only it
+                                    d, stream) == 0
             assert lib.ggnn_tc_linear(p.h.data_ptr(), p.ew.data_ptr(),
                                       p.eb.data_ptr(), row_ptr.data_ptr(),
                                       p.snd.data_ptr(), heads.data_ptr(),
-                                      flags.data_ptr(), out.data_ptr(), n,
+                                      flags.data_ptr(), out.data_ptr(), n, d,
                                       stream) == 0
             torch.cuda.synchronize()
-            assert torch.nonzero(flags).flatten().tolist() == [n - 1]
+            sink_flags = flags.clone()
             assert lib.ggnn_tc_round(p.h.data_ptr(), msg.data_ptr(),
                                      row_ptr.data_ptr(), p.snd.data_ptr(),
                                      heads.data_ptr(), flags.data_ptr(), *w,
-                                     out.data_ptr(), agg.data_ptr(), n,
+                                     out.data_ptr(), agg.data_ptr(), n, d,
                                      stream) == 0
         else:
             assert lib.ggnn_csr(p.rcv.data_ptr(), p.e, n,
@@ -238,12 +233,29 @@ def test_tensor_core_edge_sum_is_the_serial_sum(cuda, n, e, sink):
             assert lib.ggnn_gru_round(p.h.data_ptr(), msg.data_ptr(),
                                       row_ptr.data_ptr(), p.snd.data_ptr(),
                                       *w, out.data_ptr(), agg.data_ptr(), n,
-                                      128, stream) == 0
+                                      d, stream) == 0
         banks.append(agg)
     torch.cuda.synchronize()
-    assert torch.equal(banks[0], banks[1])
+    return sink_flags, banks[0], banks[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,sink", TC_SHAPES[:1] + TC_SHAPES[2:3])
+def test_tensor_core_edge_sum_is_the_serial_sum(cuda, n, e, sink):
+    """Both round kernels bank the aggregates of one round's messages: the
+    tensor-core variant's (runs in closed form, the sink's segment summed
+    by the whole block) equal the FFMA variant's serial sums bitwise."""
+    args = _padded_problem(np.random.default_rng(n + 1), n, e, sink)
+    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 1024)
+    msg = p.h @ p.ew + p.eb
+    want = torch.zeros_like(msg).index_add_(0, p.rcv.long(),
+                                            msg[p.snd.long()])
+    flags, tc, ffma = _edge_sum_banks(p)
+    # the edge linear flags the padding sink's row, and only it
+    assert torch.nonzero(flags).flatten().tolist() == [n - 1]
+    assert torch.equal(tc, ffma)
     # and the serial sum is the plain version's up to index_add_'s atomics
-    np.testing.assert_allclose(banks[0].cpu().numpy(), want.cpu().numpy(),
+    np.testing.assert_allclose(tc.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-3, rtol=1e-5)
 
 
@@ -281,6 +293,163 @@ def test_tensor_core_backward_matches_float64(cuda, n, e, sink):
                                "dhb"), grads, exact):
             rel = float((a.double() - r).abs().max()) / float(r.abs().max())
             assert rel <= 1e-4, (name, rel)
+
+
+# the analysis families' widths (the subkeys with the interprocedural, the
+# dataflow, or both kinds of family): N 5,760 (the families' largest
+# training bucket, 180 node tiles of 32) and a ragged N that no node tile
+# divides, each with its padding sink's run of self-loops
+FAMILY_SHAPES = [(d, n, e, sink) for d in (192, 224, 288)
+                 for n, e, sink in ((5760, 11904, 3000), (1000, 1800, 300))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n,e,sink", FAMILY_SHAPES)
+def test_family_width_kernel_matches_plain_version(cuda, d, n, e, sink):
+    """B1 at a family width runs on the tensor-core variant, matches the
+    plain version on every real row, repeats bitwise, and computes the
+    padding sink's row bit for bit as the FFMA variant does. The sink's
+    row is held to the FFMA variant's, not to the plain version's: it sums
+    hundreds of self-loops into saturated gates, where the plain
+    version's atomics (another order of the same adds) move it past
+    float32-level agreement with either variant, and the smoke's bucket
+    rows leave it out for that reason."""
+    args = _padded_problem(np.random.default_rng(d + n), n, e, sink, d=d)
+    before = dict(tfg.n_variant_launches)
+    with torch.inference_mode():
+        got = tfg.fused_ggnn(*args, n_steps=5)
+        again = tfg.fused_ggnn(*args, n_steps=5)
+        want = tfg.fused_ggnn_reference(*args, n_steps=5)
+        p = tfg._Prepared(args[0], args[1], args[2], args[3:], 4096)
+        ffma = tfg._forward_cuda(p, 5, bank=False, kind="ffma")[0]
+    torch.cuda.synchronize()
+    assert {k: tfg.n_variant_launches[k] - before[k]
+            for k in tfg.VARIANTS} == {"wgmma": 2 * tfg.launches_per_call(5),
+                                       "ffma": tfg.launches_per_call(5)}
+    assert torch.equal(got, again)
+    for out in (got, ffma):
+        np.testing.assert_allclose(out[:-1].cpu().numpy(),
+                                   want[:-1].cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert torch.equal(got[n - 1], ffma[n - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n,e,sink", [c for c in FAMILY_SHAPES
+                                        if c[0] in (224, 288)])
+def test_family_width_backward_matches_float64(cuda, d, n, e, sink):
+    """B2 at 224 and 288 on the tensor-core variant against the plain
+    backward in float64 (each gradient over its largest magnitude, the
+    smoke's GRAD_LIMIT), bitwise on repeat."""
+    rng = np.random.default_rng(d + n + 2)
+    args = _padded_problem(rng, n, e, sink, d=d)
+    g = rng.standard_normal((n, d)).astype(np.float32) * 1e-3
+    g[n - 1] = 0.0
+    g = torch.from_numpy(g).cuda()
+    exact = tfg.fused_ggnn_backward_reference(
+        *(a.double() if a.is_floating_point() else a for a in args),
+        g.double(), n_steps=5)
+    before = dict(tfg.n_bwd_variant_launches)
+    got = _grads(args, g, 5)
+    again = _grads(args, g, 5)
+    torch.cuda.synchronize()
+    assert {k: tfg.n_bwd_variant_launches[k] - before[k]
+            for k in tfg.VARIANTS} == {
+        "wgmma": 2 * tfg.bwd_launches_per_call(5), "ffma": 0}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, a, r in zip(("dh0", "dew", "deb", "dxw", "dxb", "dhw", "dhb"),
+                          got, exact):
+        rel = float((a.double() - r).abs().max()) / float(r.abs().max())
+        assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.gpu
+def test_family_width_edge_sum_is_the_serial_sum(cuda):
+    """At 224 the tensor-core round's aggregates (D / 4 float4 a row over
+    two per lane, the sink's segment summed by the whole block) equal the
+    FFMA variant's serial sums bitwise."""
+    n, e, sink, d = 5760, 11904, 3000, 224
+    args = _padded_problem(np.random.default_rng(7), n, e, sink, d=d)
+    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 4096)
+    flags, tc, ffma = _edge_sum_banks(p)
+    assert torch.nonzero(flags).flatten().tolist() == [n - 1]
+    assert torch.equal(tc, ffma)
+
+
+@pytest.mark.gpu
+def test_family_width_call_replays_from_a_cuda_graph_bitwise(cuda):
+    """At 288 one banked forward and its backward, captured in a CUDA
+    graph, replay into the same bits as the eager calls."""
+    n, e, sink, d = 5760, 11904, 3000, 288
+    rng = np.random.default_rng(11)
+    args = _padded_problem(rng, n, e, sink, d=d)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)
+                         * 1e-3).cuda()
+    p = tfg._Prepared(args[0], args[1], args[2], args[3:], 4096)
+
+    def call():
+        out, states, aggs = tfg._forward_cuda(p, 5, bank=True)
+        return (out,) + tfg._backward_cuda(p, states, aggs, g)
+
+    eager = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+@pytest.mark.gpu
+def test_family_width_megabatch_matches_plain_version(cuda):
+    """B3 at 224 (four 56-wide sub-tables) runs B1's tensor-core rounds and
+    matches the segment layout's plain forward."""
+    from deepdfa_tpu_torch.models.ggnn import GGNN
+    from deepdfa_tpu_torch.ops import megabatch as tmb
+
+    model, batch = _mega_problem(3, hidden=56)
+    before = dict(tmb.n_variant_launches)
+    with torch.inference_mode():
+        got = model(batch)
+        again = model(batch)
+        seg = GGNN.forward(model, batch)
+    torch.cuda.synchronize()
+    assert {k: tmb.n_variant_launches[k] - before[k]
+            for k in tfg.VARIANTS} == {"wgmma": 2 * tmb.launches_per_call(3),
+                                       "ffma": 0}
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), seg.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+class _FailingGgnnLib:
+    """Stands in for B1's built library: every launch reports an error."""
+
+    @staticmethod
+    def ggnn_tc_prep(*args):
+        return 700  # cudaErrorIllegalAddress
+
+    ggnn_tc_linear = ggnn_tc_round = ggnn_csr = ggnn_tc_prep
+    ggnn_linear = ggnn_gru_round = ggnn_tc_prep
+
+    @staticmethod
+    def ggnn_error_string(code):
+        return b"an illegal memory access was encountered"
+
+
+@pytest.mark.gpu
+def test_family_width_failed_launch_raises(cuda, monkeypatch):
+    """A refused tensor-core launch at 224 raises out of the public op;
+    nothing falls back to the FFMA variant or the plain version."""
+    args = _padded_problem(np.random.default_rng(5), 256, 512, 30, d=224)
+    tfg._kernels()  # built, and its width limit read
+    monkeypatch.setattr(tfg, "_fwd", _FailingGgnnLib())
+    before = dict(tfg.n_variant_launches)
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="tc_prep launch failed"):
+            tfg.fused_ggnn(*args, n_steps=2)
+    assert tfg.n_variant_launches == before
 
 
 @pytest.mark.gpu

@@ -153,11 +153,13 @@ def test_bridge_round_trips_with_families_bit_for_bit(label_style):
     (dict(interproc_families=True), 192),
 ])
 def test_family_widths_take_the_ffma_kernels(flags, width):
+    # the name is the test's since the families ran on B1/B2's FFMA
+    # kernels; the tensor-core variant has instances at their widths now
     cfg = GGNNConfig(hidden_dim=32, **flags)
     model = make_model(cfg, 1002, device="cpu")
     assert model.ggnn.out_feats == width
     assert cfg.out_dim == 2 * width
-    assert tfg.variant(width) == "ffma" and tfg.variant(128) == "wgmma"
+    assert tfg.variant(width) == "wgmma" and tfg.variant(128) == "wgmma"
     jcfg = JCfg(hidden_dim=32, **flags)
     assert jcfg.out_dim == cfg.out_dim
 

@@ -47,6 +47,8 @@ def _torch(args):
     (37, 96, 90, 4),    # unpadded odd sizes
     (64, 128, 256, 2),  # the serving width
     (130, 200, 1, 2),   # a single edge, width past one column tile
+    (64, 224, 256, 2),  # the dataflow families' width
+    (48, 288, 200, 2),  # both kinds of analysis family
 ])
 def test_matches_jax_interpret_kernel_and_reference(n, d, e, steps):
     args = _problem(np.random.default_rng(n * 1000 + d + e), n, d, e)

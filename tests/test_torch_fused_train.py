@@ -75,6 +75,7 @@ def _autograd_of_reference(args, g, n_steps):
     (8, 8, 16),       # below every tile minimum
     (37, 24, 90),     # unaligned shapes
     (64, 128, 256),   # the golden conv width
+    (64, 224, 256),   # the dataflow families' width
 ])
 def test_grads_match_jax_pallas_training_kernel(n, d, e):
     rng = np.random.default_rng(n * 77 + d + e)

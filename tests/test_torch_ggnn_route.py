@@ -8,9 +8,11 @@ tests/test_torch_cuda.py).
   of the main paths (the serving ladder's N 2,048 and 4,096, the megabatch
   shape's 5,120, the training buckets up to 16,768, all at width 128)
   reaches the tensor-core entry points, forward and backward, in B1, B2
-  and B3; a width the tensor-core kernels are not written for reaches the
-  FFMA ones; a failed launch raises; the counters equal
-  ``launches_per_call`` and ``bwd_launches_per_call``.
+  and B3, and so do the analysis families' widths 192, 224 and 288 (and a
+  width that pads to one of them), with the width passed to every entry
+  and the weights padded per gate; a width the tensor-core kernels are
+  not written for reaches the FFMA ones; a failed launch raises; the
+  counters equal ``launches_per_call`` and ``bwd_launches_per_call``.
 - Arithmetic of the 3xTF32 split: numpy's emulation of ``cvt.rna.tf32``
   gives ``big + small`` within 2^-22 of ``|x|`` (the split's bound: each
   part keeps 11 significant bits), and the three products within 1e-6 of
@@ -166,9 +168,13 @@ class _StandIn:
         self.d, self.compute, self.code = d, compute, code
         self.fail_at = fail_at
         self.calls = []
+        self.widths = []  # (entry, width) of every tensor-core entry
+        self.weights = {}  # the last weights a tensor-core entry was given
 
-    def _call(self, name, n):
+    def _call(self, name, n, d=None):
         self.calls.append((name, n))
+        if d is not None:
+            self.widths.append((name, d))
         if self.code and (self.fail_at is None or name == self.fail_at):
             return self.code
         return 0
@@ -186,8 +192,8 @@ class _StandIn:
             words = _heads(_read(idx, (e,), I32).numpy())
             _dense(heads, (len(words),), I32)[:] = torch.from_numpy(words)
 
-    def ggnn_tc_prep(self, rcv, snd, e, n, row_ptr, heads, stream):
-        code = self._call("tc_prep", n)
+    def ggnn_tc_prep(self, rcv, snd, e, n, row_ptr, heads, d, stream):
+        code = self._call("tc_prep", n, d)
         if self.compute and not code:
             self._prep(rcv, snd, e, n, row_ptr, heads)
         return code
@@ -204,11 +210,12 @@ class _StandIn:
         o = _dense(out, (n, dout), F32)
         o[:] = o + y if acc else y
 
-    def ggnn_tc_linear(self, a, w, b, row_ptr, snd, heads, flags, out, n,
+    def ggnn_tc_linear(self, a, w, b, row_ptr, snd, heads, flags, out, n, d,
                        stream):
-        code = self._call("tc_linear", n)
+        code = self._call("tc_linear", n, d)
+        self.weights["ew"] = _read(w, (d, d), F32)
         if self.compute and not code:
-            self._linear(a, w, b, out, n, self.d, self.d)
+            self._linear(a, w, b, out, n, d, d)
         return code
 
     def ggnn_linear(self, a, w, b, out, n, din, dout, stream):
@@ -229,11 +236,13 @@ class _StandIn:
             _dense(agg_bank, (n, d), F32)[:] = agg
 
     def ggnn_tc_round(self, h, msg, row_ptr, snd, heads, flags, xw, xb, hw,
-                      hb, h_out, agg_bank, n, stream):
-        code = self._call("tc_round", n)
+                      hb, h_out, agg_bank, n, d, stream):
+        code = self._call("tc_round", n, d)
+        self.weights.update(zip(("xw", "xb", "hw", "hb"),
+                                self._w(xw, xb, hw, hb, d)))
         if self.compute and not code:
             self._round(h, msg, row_ptr, snd, xw, xb, hw, hb, h_out,
-                        agg_bank, n, self.d)
+                        agg_bank, n, d)
         return code
 
     def ggnn_gru_round(self, h, msg, row_ptr, snd, xw, xb, hw, hb, h_out,
@@ -262,10 +271,9 @@ class _StandIn:
                        self._w(xw, xb, hw, hb, d))
 
     def ggnn_bwd_tc_gate(self, h, agg, g, xw, xb, hw, hb, dxp, dhn, dagg,
-                         dh_out, n, stream):
-        code = self._call("bwd_tc_gate", n)
+                         dh_out, n, d, stream):
+        code = self._call("bwd_tc_gate", n, d)
         if self.compute and not code:
-            d = self.d
             x, hp, gz = self._gate(h, agg, g, xw, xb, hw, hb, n, d)
             _dense(dxp, (n, 3 * d), F32)[:] = x
             _dense(dhn, (n, d), F32)[:] = hp[:, 2 * d:]
@@ -300,10 +308,9 @@ class _StandIn:
             torch.zeros(0, dtype=torch.int32), cp, n)
 
     def ggnn_bwd_tc_tsum(self, dagg, csc_ptr, csc_rcv, heads, ew, dmsg, dh,
-                         n, stream):
-        code = self._call("bwd_tc_tsum", n)
+                         n, d, stream):
+        code = self._call("bwd_tc_tsum", n, d)
         if self.compute and not code:
-            d = self.d
             self._tsum(dagg, csc_ptr, csc_rcv, dmsg, n, d)
             o = _dense(dh, (n, d), F32)
             o[:] = o + _mm(_read(dmsg, (n, d), F32),
@@ -335,10 +342,11 @@ class _StandIn:
         out = _dense(part, (_chunks(n), self.ggnn_bwd_partial_width(d)), F32)
         out[:] = out + rows if acc else rows
 
-    def ggnn_bwd_tc_wgrad(self, agg, dxp, h, dhn, dmsg, part, n, acc, stream):
-        code = self._call("bwd_tc_wgrad", n)
+    def ggnn_bwd_tc_wgrad(self, agg, dxp, h, dhn, dmsg, part, n, d, acc,
+                          stream):
+        code = self._call("bwd_tc_wgrad", n, d)
         if self.compute and not code:
-            self._wgrad(agg, dxp, h, dhn, dmsg, part, n, self.d, acc, self.d)
+            self._wgrad(agg, dxp, h, dhn, dmsg, part, n, d, acc, d)
         return code
 
     def ggnn_bwd_wgrad(self, agg, dxp, h, dhp, dmsg, part, n, d, acc,
@@ -535,9 +543,56 @@ def test_main_path_buckets_reach_the_tensor_core_entries(lib, n):
 
 @pytest.mark.parametrize("d,kind", [(128, "wgmma"), (125, "wgmma"),
                                     (124, "ffma"), (132, "ffma"),
-                                    (32, "ffma"), (6, "ffma")])
+                                    (32, "ffma"), (6, "ffma"),
+                                    (192, "wgmma"), (221, "wgmma"),
+                                    (224, "wgmma"), (288, "wgmma"),
+                                    (160, "ffma"), (256, "ffma"),
+                                    (292, "ffma")])
 def test_variant_follows_the_padded_width(d, kind):
     assert fg.variant(d) == kind
+
+
+@pytest.mark.parametrize("d,dp", [(192, 192), (221, 224), (224, 224),
+                                  (288, 288)])
+def test_family_widths_reach_the_tensor_core_entries(lib, d, dp):
+    """The analysis families' widths (and 221, padded to 224) take every
+    tensor-core entry, forward and backward, each given the padded width,
+    and the weights the kernels read are the call's padded per gate: each
+    r|z|n block of xw and hw holds the call's block in its first d rows
+    and columns and zeros elsewhere."""
+    stand_in = lib(d=dp, compute=False)
+    n = 5760
+    h0, snd, rcv, weights = _graph(n, 2 * n, d, sink_loops=300)
+    p = fg._Prepared(h0, snd, rcv, weights, 1024)
+    assert (p.variant, p.dp) == ("wgmma", dp)
+    _, states, aggs = fg._forward_cuda(p, 5, bank=True)
+    fg._backward_cuda(p, states, aggs, torch.zeros(n, d))
+    assert _names(stand_in) == (
+        ["tc_prep"] + ["tc_linear", "tc_round"] * 5 + ["bwd_tc_prep"]
+        + ["bwd_tc_gate", "bwd_tc_tsum", "bwd_tc_wgrad"] * 5
+        + ["bwd_reduce"])
+    assert {w for _, w in stand_in.widths} == {dp}
+    assert [name for name, _ in stand_in.widths] == [
+        name for name in _names(stand_in)
+        if name not in ("bwd_tc_prep", "bwd_reduce")]
+    ew, eb, xw, xb, hw, hb = weights
+    seen = stand_in.weights
+    pad = torch.zeros(dp, dp)
+    pad[:d, :d] = ew
+    assert torch.equal(seen["ew"], pad)
+    for name, w in (("xw", xw), ("hw", hw)):
+        got = seen[name].reshape(dp, 3, dp)
+        want = torch.zeros(dp, 3, dp)
+        want[:d, :, :d] = w.reshape(d, 3, d)
+        assert torch.equal(got, want), name
+    for name, b in (("xb", xb), ("hb", hb)):
+        want = torch.zeros(3, dp)
+        want[:, :d] = b.reshape(3, d)
+        assert torch.equal(seen[name].reshape(3, dp), want), name
+    assert fg.n_variant_launches == {"wgmma": fg.launches_per_call(5),
+                                     "ffma": 0}
+    assert fg.n_bwd_variant_launches == {
+        "wgmma": fg.bwd_launches_per_call(5), "ffma": 0}
 
 
 @pytest.mark.parametrize("d", [32, 132])
@@ -561,33 +616,37 @@ def test_the_wgmma_variant_refuses_another_width(lib):
     lib(d=32, compute=False)
     h0, snd, rcv, weights = _graph(64, 100, 32)
     p = fg._Prepared(h0, snd, rcv, weights, 1024)
-    with pytest.raises(ValueError, match="takes width 128"):
+    with pytest.raises(ValueError, match="takes widths"):
         fg._forward_cuda(p, 2, bank=False, kind="wgmma")
 
 
-@pytest.mark.parametrize("entry", ["tc_prep", "tc_linear", "tc_round"])
-def test_a_failed_forward_launch_raises(lib, entry):
-    lib(compute=False, code=700, fail_at=entry)
-    h0, snd, rcv, weights = _graph(256, 512, 128)
+@pytest.mark.parametrize("entry,d", [
+    pytest.param(e, d, id=e if d == 128 else f"{e}-{d}")
+    for d in (128, 224) for e in ("tc_prep", "tc_linear", "tc_round")])
+def test_a_failed_forward_launch_raises(lib, entry, d):
+    lib(d=d, compute=False, code=700, fail_at=entry)
+    h0, snd, rcv, weights = _graph(256, 512, d)
     p = fg._Prepared(h0, snd, rcv, weights, 1024)
     with pytest.raises(RuntimeError, match=f"{entry} launch failed"):
         fg._forward_cuda(p, 2, bank=False)
 
 
-@pytest.mark.parametrize("entry", ["bwd_tc_prep", "bwd_tc_gate",
-                                   "bwd_tc_tsum", "bwd_tc_wgrad",
-                                   "bwd_reduce"])
-def test_a_failed_backward_launch_raises(lib, entry):
-    stand_in = lib(compute=False)
-    h0, snd, rcv, weights = _graph(256, 512, 128)
+@pytest.mark.parametrize("entry,d", [
+    pytest.param(e, d, id=e if d == 128 else f"{e}-{d}")
+    for d in (128, 224) for e in ("bwd_tc_prep", "bwd_tc_gate",
+                                  "bwd_tc_tsum", "bwd_tc_wgrad",
+                                  "bwd_reduce")])
+def test_a_failed_backward_launch_raises(lib, entry, d):
+    stand_in = lib(d=d, compute=False)
+    h0, snd, rcv, weights = _graph(256, 512, d)
     p = fg._Prepared(h0, snd, rcv, weights, 1024)
     _, states, aggs = fg._forward_cuda(p, 2, bank=True)
     stand_in.code, stand_in.fail_at = 700, entry
     with pytest.raises(RuntimeError, match="launch failed"):
-        fg._backward_cuda(p, states, aggs, torch.zeros(256, 128))
+        fg._backward_cuda(p, states, aggs, torch.zeros(256, d))
 
 
-@pytest.mark.parametrize("d", [128, 32])
+@pytest.mark.parametrize("d", [128, 32, 224, 288])
 def test_the_wrapper_computes_the_plain_version(lib, d):
     """Buffers, banks, ping-pong and argument order: the stand-ins write
     what each kernel computes, and the wrapper's forward and backward
@@ -634,7 +693,8 @@ def test_the_wrapper_computes_the_plain_version(lib, d):
 
 class _MegaStandIn(_StandIn):
     """B3's entry points on the same stand-in: only the calls are
-    recorded."""
+    recorded, and the width each tensor-core entry is given (its argument
+    before the stream)."""
 
     def __getattr__(self, name):
         if not name.startswith("mb_"):
@@ -642,12 +702,15 @@ class _MegaStandIn(_StandIn):
 
         def entry(*args):
             self.calls.append((name, None))
+            if name.startswith("mb_tc_"):
+                self.widths.append((name, args[-2]))
             return 0
         return entry
 
 
 @pytest.mark.parametrize("d,rounds", [(128, ["mb_tc_linear", "mb_tc_round"]),
-                                      (32, ["mb_linear", "mb_gru_round"])])
+                                      (32, ["mb_linear", "mb_gru_round"]),
+                                      (224, ["mb_tc_linear", "mb_tc_round"])])
 def test_megabatch_rounds_take_the_width_s_variant(monkeypatch, d, rounds):
     stand_in = _MegaStandIn(d, compute=False)
     monkeypatch.setattr(mb, "n_variant_launches", dict.fromkeys(fg.VARIANTS,
@@ -664,11 +727,13 @@ def test_megabatch_rounds_take_the_width_s_variant(monkeypatch, d, rounds):
         weights=[torch.zeros(1)] * 9)
     monkeypatch.setattr(mb, "_lib", stand_in)
     mb._launch(p)
-    prep = "mb_tc_prep" if d == 128 else "mb_csr"
+    prep = "mb_tc_prep" if fg.variant(d) == "wgmma" else "mb_csr"
     assert _names(stand_in) == (["mb_embed", prep, "mb_csr"] + rounds * 5
                                 + ["mb_pool_head"])
     kind = fg.variant(d)
     assert mb.n_variant_launches[kind] == mb.launches_per_call(5)
+    tc = [name for name in _names(stand_in) if name.startswith("mb_tc_")]
+    assert stand_in.widths == [(name, d) for name in tc]
 
 
 # ------------------------------------------------------------ 3xTF32 split
